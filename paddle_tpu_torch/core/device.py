@@ -1,0 +1,46 @@
+"""Device resolution for the port's entry points.
+
+Counterpart of the JAX package's implicit default backend. Entry points
+(`LlamaForCausalLM`, the serving engine, `generate`) run on the card unless
+the caller names another device: with ``device=None`` and no CUDA device
+present they raise instead of quietly falling back to the CPU.
+
+float32 matmuls and convolutions run in full float32, never TF32: the port
+is held to the float32 reference, and TF32 keeps about three decimal digits.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and
+    raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: pass device='cpu' explicitly "
+                "to run the port on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def dtype_of(name: Union[str, torch.dtype]) -> torch.dtype:
+    """Torch dtype from the JAX package's dtype names ('float32',
+    'bfloat16', ...)."""
+    if isinstance(name, torch.dtype):
+        return name
+    table = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16, "int8": torch.int8,
+             "int32": torch.int32}
+    if name not in table:
+        raise ValueError(f"unsupported dtype name {name!r}")
+    return table[name]

@@ -1,0 +1,41 @@
+"""Shared symmetric-absmax quantization helpers (torch functions).
+
+Counterpart of ``paddle_tpu/ops/kernels/pallas/quant_common.py``. Used by
+the int8 paged KV pool (``serving.paged_cache_write_q``, per-token-slot
+scales riding the block table) and by the plain versions of the attention
+kernels. Symmetric scheme throughout:
+
+    scale = absmax(x, axis) / bound        # bound: 127 for int8
+    q     = clip(round(x / scale), -bound, bound)
+    x~    = q * scale
+
+`EPS` guards all-zero groups (scale 0 -> divide keeps q at 0). ``round``
+is half-to-even, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INT8_BOUND = 127.0
+EPS = 1e-10
+
+
+def absmax_scale(x: torch.Tensor, axis: int,
+                 bound: float = INT8_BOUND) -> torch.Tensor:
+    """float32 scale(s) along `axis` (the axis is reduced away)."""
+    return (x.float().abs().amax(dim=axis) / bound).float()
+
+
+def quantize_symmetric(x: torch.Tensor, scales: torch.Tensor,
+                       bound: float = INT8_BOUND) -> torch.Tensor:
+    """Round-to-nearest symmetric quantization; `scales` must broadcast
+    against `x`. Returns int8 codes."""
+    q = torch.round(x.float() / torch.clamp(scales, min=EPS))
+    return torch.clamp(q, -bound, bound).to(torch.int8)
+
+
+def dequantize_symmetric(q: torch.Tensor, scales: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Codes * scales (broadcast) -> `dtype`."""
+    return (q.float() * scales.float()).to(dtype)
