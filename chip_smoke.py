@@ -1,41 +1,67 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card (H100): build its CUDA
-kernels, hold each against its plain PyTorch version, then serve
-Llama-3-8B (full width and depth, random weights from a seed) through the
-ragged continuous-batching engine and ``generate(cache_type="paged")``.
+kernels, hold each against its plain PyTorch version, serve Llama-3-8B
+(full width and depth, random weights from a seed) through the ragged
+continuous-batching engine and ``generate(cache_type="paged")``, then
+train Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
 Phases (any failure raises and the script exits non-zero):
 
 1. card and build: the card's name and power limit (nvidia-smi), then
-   every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, timed;
-2. kernel checks at the serving path's head geometry (H=32, KV=8, D=128,
-   BS=64, a 512-token step over 16 rows mixing decode rows, prefill chunks
-   at several offsets, empty rows and padding tokens): each kernel against
-   its plain version (bf16 and int8 pools, and float32), timed with CUDA
-   events beside its bound and one PyTorch library call
-   (``scaled_dot_product_attention`` over the gathered dense KV, timed here
-   only: the port never calls it);
-3. the main path: 16 requests through ``ContinuousBatchingEngine`` with a
-   bf16 pool, again with an int8 pool, again with speculative decoding,
-   then one paged ``generate()`` call; every kernel's launch count must
-   rise, every request must finish with in-vocabulary tokens, and the
-   model's last-position logits through the kernels must agree with the
-   plain path's. Last, two more runs (bf16 and int8 pools) each profile
-   one prefill step and three decode steps with torch.profiler (device
-   time by kernel); their launches are not counted.
+   every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, one process per
+   source, all started together, timed;
+2. serving kernel checks at the serving path's head geometry (H=32, KV=8,
+   D=128, BS=64, a 512-token step over 16 rows mixing decode rows, prefill
+   chunks at several offsets, empty rows and padding tokens): each kernel
+   against its plain version (bf16 and int8 pools, and float32), timed
+   with CUDA events beside its bound and one PyTorch library call
+   (``scaled_dot_product_attention`` over the gathered dense KV, timed
+   here only: the port never calls it);
+3. training kernel checks at the training shapes (b 2, s 2048, 32/8 heads,
+   d 128, causal; bf16 and float32): flash forward (out, lse), dq and
+   dk/dv against the plain versions, with two planted faults that the
+   limits must reject; the fused AdamW kernel over one decoder layer plus
+   the embedding (743M bf16 params, float32 masters) bit for bit against
+   its plain version over three steps (plain; unscale and clip; found=1,
+   which must keep every input); each timed beside its bound and a
+   library yardstick (SDPA forward and backward, ``torch._fused_adamw_``);
+4. serving, the first main path: 16 requests through
+   ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
+   again with speculative decoding, then one paged ``generate()`` call;
+   both serving kernels' launch counts must rise, every request must
+   finish with in-vocabulary tokens, the bf16 run's peak memory must stay
+   at slice 1's, and the model's last-position logits through the kernels
+   must agree with the plain path's. Last, two more runs (bf16 and int8
+   pools) each profile one prefill step and three decode steps with
+   torch.profiler (device time by kernel); their launches are not
+   counted;
+5. training, the second main path, after the serving model is freed:
+   ``LlamaForCausalLM`` at Llama-3-8B width with 8 layers (2.80 B params,
+   bf16, float32 masters), ``LlamaPretrainingCriterion``,
+   ``AdamW(lr 1e-4, weight_decay 0.01, ClipGradByGlobalNorm(1.0))``
+   through ``TrainStep`` on an LCG-scrambled batch of 2 x 2048 tokens: the
+   loss and layer-0 grads through the kernels vs the plain versions, then
+   2 warm-up and 10 timed steps (tokens/s, step p50/p99, MFU as bench.py
+   defines it, peak memory, every loss, which must be finite and fall),
+   the four training kernels' launch counts (reset just before), one
+   profiled step (device time by kernel and by part of the step), and a
+   GradScaler step with a poisoned grad, which must be skipped with the
+   params bitwise unchanged.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line, then as
-the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
-no result, when no CUDA device is present or the package is missing.
-A longer report goes to ``--report`` (default
+Output: findings on earlier lines, then the ``kernels`` JSON line (six
+kernels), then as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, printing no result, when no CUDA device is present or the
+package is missing. A longer report goes to ``--report`` (default
 ``chiprun_out/chip_smoke_report.json``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -64,6 +90,10 @@ TOL = {"bfloat16": dict(atol=2e-3, rtol=1e-2),
 # 0.23, cosine 0.9992, logit std 1.28); 0.5 is ~40% of the logits'
 # spread, and the two vectors must point the same way
 LOGITS_ATOL, LOGITS_MIN_COS = 0.5, 0.995
+SERVE_PEAK_GIB = 23.12   # the bf16 serving run's peak before this slice
+SERVING_KERNELS = ("ragged_paged_attention", "paged_attention")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                    "flash_attention_dkv", "fused_optimizer")
 
 
 def log(msg: str) -> None:
@@ -373,12 +403,13 @@ def device_activity(prof):
     return out
 
 
-def profile_steps(torch, eng, n, outs):
-    """Run ``n`` engine steps under torch.profiler: device time by kernel
-    (top 8), device busy time (the union of the device's activity
-    intervals), wall time and the busy share. If the profiler itself fails
-    to start, stop or parse, the window is recorded as not measured; a
-    failure of the engine's steps raises as anywhere else."""
+def profile_call(torch, fn, n: int):
+    """Run ``fn()`` under torch.profiler: device time by kernel (top 8,
+    plus ``all_kernels``, every kernel's ms), device busy time (the union
+    of the device's activity intervals), wall time and the busy share,
+    each per ``n`` units of work (engine or train steps). If the profiler
+    itself fails to start, stop or parse, the window is recorded as not
+    measured; a failure of ``fn`` raises as anywhere else."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -386,9 +417,7 @@ def profile_steps(torch, eng, n, outs):
     except Exception as e:   # profiler set-up only
         prof, why = None, f"{type(e).__name__}: {e}"
     t0 = time.perf_counter()
-    for _ in range(n):
-        for req in eng.step():
-            outs[req.rid] = list(req.out_tokens)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if prof is None:
@@ -418,7 +447,19 @@ def profile_steps(torch, eng, n, outs):
             "device_span_ms": span, "busy_share_of_span": busy / span,
             "busy_share_of_wall": busy / (1e3 * wall),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
-                    for k, (ms, c) in top]}
+                    for k, (ms, c) in top],
+            "all_kernels": {k[:90]: ms for k, (ms, _) in by_name.items()}}
+
+
+def profile_steps(torch, eng, n, outs):
+    """``n`` engine steps under the profiler (see :func:`profile_call`)."""
+    def run():
+        for _ in range(n):
+            for req in eng.step():
+                outs[req.rid] = list(req.out_tokens)
+    prof = profile_call(torch, run, n)
+    prof.pop("all_kernels", None)
+    return prof
 
 
 def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
@@ -573,6 +614,11 @@ def phase_main(torch, seed, report):
 
     kernels.reset_launch_counts()
     outs_bf16, main["bf16"] = counted_serve()
+    # trainable params must not make serving build an autograd graph: the
+    # bf16 run's peak stays at slice 1's (23.12 GiB on an H100, PERF.md)
+    if main["bf16"]["peak_mem_gib"] > SERVE_PEAK_GIB * 1.05:
+        raise AssertionError(f"serving peak {main['bf16']['peak_mem_gib']} "
+                             f"GiB is over slice 1's {SERVE_PEAK_GIB} GiB")
     if main["bf16"]["stats"]["prefix_hit_blocks"] <= 0:
         raise AssertionError("the shared-prefix request did not hit the "
                              "prefix cache")
@@ -591,10 +637,10 @@ def phase_main(torch, seed, report):
             or int(out.min()) < 0:
         raise AssertionError(f"generate() returned {tuple(out.shape)} or "
                              f"tokens out of vocabulary")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+                                 f"serving path")
 
     def agree(a, b, first=False):
         pairs = [(x, y) for r in a for x, y in zip(a[r][:1 if first else None],
@@ -639,6 +685,443 @@ def phase_main(torch, seed, report):
     return main
 
 
+# -- phase 4: training-path kernels -------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_LAYERS = 8       # Llama-3-8B width; 32 layers of params, grads, masters
+#                        and moments (16 B/param) would need ~128 GB
+# flash kernel vs plain: both accumulate in float32 and round once, so a
+# bf16 output or grad differs by at most one bf16 ulp (0.39% of its own
+# magnitude, so at most 0.39% of the tensor's max): grads are judged by
+# max error relative to the tensor's max, 1e-2 in bf16, 1e-4 in float32
+# (summation order only); lse is float32 in both, atol 1e-4 + rtol 1e-5.
+# planted_flash_faults() shows every run that these limits reject a
+# forward that skips one causal tile and a backward that drops one kv tile.
+GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+# the 8-layer bf16 model's loss and layer-0 grads through the kernels vs
+# through the plain versions, same weights and batch: per-layer one-ulp
+# differences of the attention output compound through 8 random layers
+LOSS_ATOL, GRAD_MIN_COS = 2e-2, 0.99
+
+
+def rel_err(torch, got, want) -> float:
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def flash_work(b, h, kv, sq, sk, d, item, causal=True):
+    """(forward flops, forward bytes, dq bytes, dk/dv bytes): the minimum
+    work, each input read once and each output written once; causal counts
+    only the (query, key) pairs the right-aligned mask keeps."""
+    coff = sk - sq
+    pairs = sum(min(sk, i + coff + 1) for i in range(sq)) if causal \
+        else sq * sk
+    flops = 4 * b * h * pairs * d
+    qb, kb = b * sq * h * d * item, b * sk * kv * d * item
+    lse = b * h * sq * 4
+    return (flops,
+            2 * qb + 2 * kb + lse,       # q k v -> out, lse
+            3 * qb + 2 * kb + 2 * lse,   # q k v dO lse delta -> dq
+            2 * qb + 4 * kb + 2 * lse)   # q k v dO lse delta -> dk dv
+
+
+def planted_flash_faults(torch, fa, q, k, v, scale, want, grads):
+    """Two faults a kernel could make, produced with the plain version:
+    a forward that skips the diagonal 64-key tile of the last q tile (its
+    rows then attend keys [0, S-64) only), and a dk/dv that drops the
+    middle 64-key tile (zeros). Each must fail the limits above."""
+    S = q.shape[1]
+    bad = want.clone()
+    bad[:, S - 64:] = fa.flash_fwd_plain(q[:, S - 64:], k[:, :S - 64],
+                                         v[:, :S - 64], False, scale)[0]
+    errs = {}
+    try:
+        check_close(torch, "flash_fwd", bad, want, "bfloat16")
+        raise AssertionError("flash_fwd: the tolerance passes a planted "
+                             "fault (skipped causal tile)")
+    except AssertionError as e:
+        if "planted" in str(e):
+            raise
+        errs["skip_causal_tile"] = float((bad.float() - want.float())
+                                         .abs().max())
+    mid = S // 2
+    for name, g in zip(("dk", "dv"), grads[1:]):
+        bad = g.clone()
+        bad[:, mid:mid + 64] = 0
+        err = rel_err(torch, bad, g)
+        if err <= GRAD_REL_TOL["bfloat16"]:
+            raise AssertionError(f"flash {name}: the tolerance passes a "
+                                 f"planted fault (dropped kv tile)")
+        errs[f"drop_kv_tile_{name}"] = err
+    return errs
+
+
+def phase_flash(torch, seed, report, flush):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    out = {}
+    B, S = TRAIN_B, TRAIN_S
+    scale = D ** -0.5
+    for label, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        mk = lambda n: torch.randn((B, S, n, D), generator=g,  # noqa: E731
+                                   device="cuda").to(dt)
+        q, k, v, dout = mk(H), mk(KV), mk(KV), mk(H)
+        o, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+        torch.cuda.synchronize()
+        wo, wl = fa.flash_fwd_plain(q, k, v, True, scale)
+        e_out = check_close(torch, f"flash_fwd[{label}]", o, wo, label)
+        e_out_rel = rel_err(torch, o, wo)
+        e_lse = float((lse - wl).abs().max())
+        if bool(((lse - wl).abs() > LSE_TOL["atol"]
+                 + LSE_TOL["rtol"] * wl.abs()).any()):
+            raise AssertionError(f"flash_fwd[{label}]: lse differs by "
+                                 f"{e_lse}")
+        delta = (dout.float() * wo.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = fa.flash_dq_kernel(q, k, v, dout, wl, delta, True, scale)
+        dk, dv = fa.flash_dkv_kernel(q, k, v, dout, wl, delta, True, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_plain(q, k, v, dout, wl, delta, True, scale)
+        errs, abs_errs = {}, {}
+        for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            errs[name] = rel_err(torch, a, b)
+            abs_errs[name] = float((a.float() - b.float()).abs().max())
+            if errs[name] > GRAD_REL_TOL[label]:
+                raise AssertionError(
+                    f"flash {name}[{label}]: kernel differs from plain "
+                    f"version: max err {errs[name]} of the tensor's max "
+                    f"(limit {GRAD_REL_TOL[label]})")
+        faults = planted_flash_faults(torch, fa, q, k, v, scale, wo, ref) \
+            if label == "bfloat16" else None
+        del o, lse, dq, dk, dv, ref
+        ms = {
+            "fwd": time_ms(torch, lambda: fa.flash_fwd_kernel(
+                q, k, v, True, scale), flush=flush),
+            "dq": time_ms(torch, lambda: fa.flash_dq_kernel(
+                q, k, v, dout, wl, delta, True, scale), flush=flush),
+            "dkv": time_ms(torch, lambda: fa.flash_dkv_kernel(
+                q, k, v, dout, wl, delta, True, scale), flush=flush)}
+        plain = {
+            "fwd": time_ms(torch, lambda: fa.flash_fwd_plain(
+                q, k, v, True, scale), iters=3, flush=flush),
+            "bwd": time_ms(torch, lambda: fa.flash_bwd_plain(
+                q, k, v, dout, wl, delta, True, scale), iters=3,
+                flush=flush)}
+        # yardsticks, timed here only: SDPA forward, and its backward
+        # alone (one autograd call over a kept graph: dq, dk, dv together)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush)
+        lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dout_t = dout.transpose(1, 2)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dout_t, retain_graph=True), flush=flush)
+        del lo, qt, kt, vt
+        flops, b_fwd, b_dq, b_dkv = flash_work(B, H, KV, S, S, D,
+                                               q.element_size())
+        rate = BF16_FLOPS_PER_S if label == "bfloat16" else F32_FLOPS_PER_S
+        # minimum backward = five products (2.5x the forward's flops): dq
+        # owns the dq product, dk/dv owns the recomputed s, dp, dk, dv
+        bounds = {"fwd": bound(b_fwd, flops, rate),
+                  "dq": bound(b_dq, flops // 2, rate),
+                  "dkv": bound(b_dkv, 2 * flops, rate)}
+        abs_errs["fwd"], errs["fwd"] = e_out, e_out_rel
+        abs_errs["dkv"] = max(abs_errs["dk"], abs_errs["dv"])
+        errs["dkv"] = max(errs["dk"], errs["dv"])
+        res = {}
+        for kern in ("fwd", "dq", "dkv"):
+            res[kern] = dict(
+                max_abs_err=abs_errs[kern], max_rel_err=errs[kern],
+                ms=ms[kern], plain_ms=plain["fwd" if kern == "fwd"
+                                            else "bwd"],
+                bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
+                library_ms=lib_fwd if kern == "fwd" else lib_bwd)
+        res["fwd"]["lse_max_abs_err"] = e_lse
+        res["fwd"]["flops"] = flops
+        res["grad_errs"] = errs
+        if faults:
+            res["planted_fault_errs"] = faults
+        out[label] = res
+        log(f"flash[{label}] b{B} s{S} h{H}/{KV} d{D} causal: out max_abs_err "
+            f"{e_out:.3e} lse {e_lse:.2e} rel errs {errs}; ms fwd "
+            f"{ms['fwd']:.3f} dq {ms['dq']:.3f} dkv {ms['dkv']:.3f}; plain "
+            f"fwd {plain['fwd']:.2f} bwd {plain['bwd']:.2f}; library fwd "
+            f"{lib_fwd:.3f} bwd {lib_bwd:.3f}; bound fwd "
+            f"{bounds['fwd'][0]:.4f} dq {bounds['dq'][0]:.4f} dkv "
+            f"{bounds['dkv'][0]:.4f} ({bounds['fwd'][1]})"
+            + (f"; planted faults rejected: {faults}" if faults else ""))
+        del q, k, v, dout, wo, wl, delta
+    report["kernels"]["flash_attention"] = out
+    return out
+
+
+def fused_bucket_tensors(torch, g, dev="cuda"):
+    """One decoder layer's and the embedding's parameters at Llama-3-8B
+    width: bf16 params, float32 masters and zero moments, bf16 grads."""
+    from paddle_tpu_torch.models import LlamaConfig
+    c = LlamaConfig.llama3_8b()
+    hid, inter, vocab = c.hidden_size, c.intermediate_size, c.vocab_size
+    kvd = c.num_key_value_heads * hid // c.num_attention_heads
+    shapes = [(vocab, hid), (hid, hid), (hid, kvd), (hid, kvd), (hid, hid),
+              (hid, inter), (hid, inter), (inter, hid), (hid,), (hid,)]
+    lows = [(torch.randn(s, generator=g, device=dev) * 0.02).bfloat16()
+            for s in shapes]
+    masters = [p.float() for p in lows]
+    states = [{"m": torch.zeros(s, device=dev), "v": torch.zeros(s,
+                                                                 device=dev)}
+              for s in shapes]
+    grads = [(torch.randn(s, generator=g, device=dev) * 1e-3).bfloat16()
+             for s in shapes]
+    return masters, grads, states, lows
+
+
+def phase_fused_optimizer(torch, seed, report, flush):
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    cfg = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "decoupled": True}
+    A = fused_bucket_tensors(torch, g)
+    Bt = ([t.clone() for t in A[0]], A[1],
+          [{k: t.clone() for k, t in s.items()} for s in A[2]],
+          [t.clone() for t in A[3]])
+    n = sum(t.numel() for t in A[0])
+    one = torch.ones((), device="cuda")
+
+    def svec(step, inv=1.0, coeff=1.0, found=0.0):
+        st = one * step
+        bc1, bc2 = fo.bias_inv(cfg["b1"], cfg["b2"], st)
+        return fo.pack_scalars(lr=one * 1e-4, step=st, inv=one * inv,
+                               coeff=one * coeff, found=one * found,
+                               wd=one * 0.01, inv_bc1=bc1, inv_bc2=bc2)
+
+    def flat(side):
+        return side[0] + side[3] + [t for s in side[2] for t in s.values()]
+
+    def same(tag):
+        for a, b in zip(flat(A), flat(Bt)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"fused_optimizer ({tag}): kernel and plain version "
+                    f"differ: {int((a != b).sum())} elements of a "
+                    f"{tuple(a.shape)} tensor")
+
+    steps = [("plain step", svec(1)),
+             ("inv 1/64, coeff 0.5", svec(2, inv=1 / 64, coeff=0.5))]
+    for tag, sv in steps:
+        fo.fused_bucket_kernel("adam", cfg, *A, sv)
+        torch.cuda.synchronize()
+        fo.fused_bucket_plain("adam", cfg, *Bt, sv)
+        same(tag)
+    # found = 1: the kernel must leave every input as it was (Bt holds
+    # them), and then the plain version too
+    sv = svec(3, found=1.0)
+    fo.fused_bucket_kernel("adam", cfg, *A, sv)
+    torch.cuda.synchronize()
+    same("found=1, kernel outputs vs inputs")
+    fo.fused_bucket_plain("adam", cfg, *Bt, sv)
+    same("found=1, plain")
+    del Bt
+    sv = svec(2, inv=1 / 64, coeff=0.5)
+    ms = time_ms(torch, lambda: fo.fused_bucket_kernel("adam", cfg, *A, sv),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: fo.fused_bucket_plain(
+        "adam", cfg, *A, sv), iters=3, flush=flush)
+    # yardstick, timed here only: torch's fused AdamW over the float32
+    # masters, float32 copies of the grads and the moments; a near-equal
+    # function (no bf16 write-back, no unscale/clip/sentinel channels)
+    g32 = [x.float() for x in A[1]]
+    steps_t = [one * 2 for _ in A[0]]
+    lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+        A[0], g32, [s["m"] for s in A[2]], [s["v"] for s in A[2]], [],
+        steps_t, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
+        eps=1e-8, amsgrad=False, maximize=False), flush=flush)
+    del g32, A
+    nbytes = 28 * n
+    b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS_PER_S)
+    res = dict(max_abs_err=0.0, bitwise_equal=True, params=n, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, bytes=nbytes,
+               checked_steps=[t for t, _ in steps] + ["found=1"])
+    log(f"fused_optimizer[adamw, {n / 1e6:.0f}M bf16 params, f32 masters]: "
+        f"bitwise equal to plain over {res['checked_steps']}; ms {ms:.3f} "
+        f"plain_ms {plain_ms:.2f} library_ms {lib_ms:.3f} "
+        f"(torch._fused_adamw_, f32 grads, no write-back) bound_ms "
+        f"{b_ms:.3f} ({b_by})")
+    report["kernels"]["fused_optimizer"] = {"bfloat16": res}
+    return res
+
+
+# -- phase 5: training --------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_flash(fa):
+    """Route the flash path to its plain versions on the card."""
+    saved = fa.flash_fwd, fa.flash_bwd
+    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd = saved
+
+
+def lcg_ids(torch, b, s, vocab):
+    """LCG-scrambled token ids, as bench.py makes them (uint32 wrap)."""
+    i = torch.arange(b * s, dtype=torch.int64, device="cuda")
+    return (((i * 1103515245 + 12345) & 0xFFFFFFFF) % vocab).reshape(b, s)
+
+
+def kernel_vs_plain_training(torch, model, crit, ids):
+    """Loss and layer-0 grads through the kernels and through the plain
+    versions, same weights and batch."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    layer = model.llama.layers[0]
+    res = []
+    for plain in (False, True):
+        with plain_flash(fa) if plain else contextlib.nullcontext():
+            loss = crit(model(ids), ids)
+            loss.backward()
+        res.append((float(loss.detach()),
+                    {n: p.grad.float().clone()
+                     for n, p in layer.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+        del loss
+    (lk, gk), (lp, gp) = res
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        gk[n].flatten(), gp[n].flatten(), dim=0)) for n in gk}
+    out = dict(loss_kernels=lk, loss_plain=lp, loss_abs_diff=abs(lk - lp),
+               grad_cosine_min=min(cos.values()), grad_cosine=cos)
+    if not (abs(lk - lp) <= LOSS_ATOL and min(cos.values()) >= GRAD_MIN_COS):
+        raise AssertionError(f"training kernels vs plain: {out}")
+    return out
+
+
+def categorize(all_kernels):
+    """Device ms of one step by part of the step."""
+    cats = {"flash_fwd": 0.0, "flash_bwd": 0.0, "fused_optimizer": 0.0,
+            "matmul": 0.0, "other": 0.0}
+    for name, ms in all_kernels.items():
+        low = name.lower()
+        if "fwd_kernel" in low:
+            cats["flash_fwd"] += ms
+        elif "dq_kernel" in low or "dkv_kernel" in low:
+            cats["flash_bwd"] += ms
+        elif "fused_kernel" in low:
+            cats["fused_optimizer"] += ms
+        elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                    "sm90_")):
+            cats["matmul"] += ms
+        else:
+            cats["other"] += ms
+    return cats
+
+
+def phase_train(torch, seed, report):
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    crit = LlamaPretrainingCriterion(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
+    log(f"train model: Llama-3-8B width, {cfg.num_hidden_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters (bf16, seed {seed}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    res = {"layers": cfg.num_hidden_layers, "params": n_params,
+           "batch": TRAIN_B, "seq": TRAIN_S}
+    res["kernel_vs_plain"] = kernel_vs_plain_training(torch, model, crit,
+                                                      ids)
+    log(f"train kernels vs plain (loss, layer-0 grads): "
+        f"{json.dumps(res['kernel_vs_plain'])}")
+
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    train = TrainStep(model, crit, opt)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(12):            # 2 warm-up steps, then 10 timed
+        ts = time.perf_counter()
+        loss = train((ids,), (ids,))
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    res["launches"] = counts
+    for name in TRAINING_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"training path")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    tok_s = TRAIN_B * TRAIN_S / float(np.mean(step_s))
+    flops_tok = 6 * n_matmul + 6 * TRAIN_S * cfg.hidden_size \
+        * cfg.num_hidden_layers
+    res.update(losses=losses, tokens_per_s=tok_s,
+               step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+               step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               step_ms=[1e3 * x for x in step_s],
+               mfu=tok_s * flops_tok / BF16_FLOPS_PER_S,
+               flops_per_token=flops_tok,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               optimizer_bytes_per_param=16)
+    log(f"train: losses {[round(x, 4) for x in losses]}")
+    log(f"train: {tok_s:.1f} tokens/s, step p50 {res['step_ms_p50']:.1f} ms "
+        f"p99 {res['step_ms_p99']:.1f} ms, mfu {res['mfu']:.4f}, peak "
+        f"{res['peak_mem_gib']:.2f} GiB, launches {counts}")
+    prof = profile_call(torch, lambda: train((ids,), (ids,)), 1)
+    if "all_kernels" in prof:
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"))
+    res["profile"] = prof
+    log(f"train profile (one step): {json.dumps(prof)}")
+
+    # GradScaler: a step with a poisoned grad is skipped, params bitwise
+    # unchanged (a short batch: the skip does not depend on its size)
+    sc = GradScaler(init_loss_scaling=2.0 ** 10)
+    small = ids[:, :256]
+    snap = [p.detach().clone() for p in model.parameters()]
+    step_before = opt._step_count
+    sc.scale(crit(model(small), small)).backward()
+    next(p for p in model.parameters() if p.grad is not None) \
+        .grad.view(-1)[0] = float("nan")
+    sc.step(opt)
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, p.detach())
+                    for a, p in zip(snap, model.parameters()))
+    if not (sc._found_last and unchanged and opt._step_count == step_before):
+        raise AssertionError("GradScaler did not skip the poisoned step "
+                             "bitwise")
+    res["grad_scaler_poisoned_step"] = "skipped, params bitwise unchanged"
+    log("train: GradScaler skipped the poisoned step, params bitwise "
+        "unchanged")
+    del snap, model, opt, train
+    torch.cuda.empty_cache()
+    report["train"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -664,39 +1147,70 @@ def main(argv=None) -> int:
     log(f"card: {report['card']} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda})")
     report["build_s"] = _build.build_all()
-    log(f"build: {report['build_s']:.1f} s (nvcc, sm_90a)")
-    for stem in ("ragged_paged_attention", "paged_attention"):
+    log(f"build: {report['build_s']:.1f} s (nvcc, sm_90a, one process per "
+        f"source)")
+    for stem in ("ragged_paged_attention", "paged_attention",
+                 "flash_attention", "fused_optimizer"):
         txt = _build.ptxas_report(stem) or ""
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{stem}]: {line.strip()}")
 
     kern = phase_kernels(torch, args.seed, report)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
+    flash = phase_flash(torch, args.seed, report, flush)
+    fused = phase_fused_optimizer(torch, args.seed, report, flush)
+    del scratch
+    torch.cuda.empty_cache()
     main_res = phase_main(torch, args.seed, report)
+    torch.cuda.empty_cache()          # the serving model is gone
+    train = phase_train(torch, args.seed, report)
 
-    from paddle_tpu_torch.ops.kernels import KERNEL_MODULES
     entries = []
-    sources = {"ragged_paged_attention": (
-        "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-        "paddle_tpu/ops/kernels/pallas/ragged_paged_attention.py:115"),
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    sources = {
+        "ragged_paged_attention": (
+            "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "paddle_tpu/ops/kernels/pallas/ragged_paged_attention.py:115"),
         "paged_attention": (
-        "paddle_tpu_torch/csrc/paged_attention.cu",
-        "paddle_tpu/ops/kernels/pallas/paged_attention.py:76")}
-    for name in KERNEL_MODULES:
-        per = kern[name]
+            "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/ops/kernels/pallas/paged_attention.py:76"),
+        "flash_attention_fwd": (
+            "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_attention.py:126"),
+        "flash_attention_dq": (
+            "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_attention.py:264"),
+        "flash_attention_dkv": (
+            "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_attention.py:283"),
+        "fused_optimizer": (
+            "paddle_tpu_torch/csrc/fused_optimizer.cu",
+            "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:279")}
+    per_kernel = {
+        "ragged_paged_attention": kern["ragged_paged_attention"],
+        "paged_attention": kern["paged_attention"],
+        "flash_attention_fwd": {k: v["fwd"] for k, v in flash.items()},
+        "flash_attention_dq": {k: v["dq"] for k, v in flash.items()},
+        "flash_attention_dkv": {k: v["dkv"] for k, v in flash.items()},
+        "fused_optimizer": {"bfloat16": fused}}
+    # each path's launches: the serving kernels from the serving run,
+    # the training kernels from the training run (counts reset before each)
+    launched = {name: main_res["launches"][name] for name in SERVING_KERNELS}
+    launched.update({name: train["launches"][name]
+                     for name in TRAINING_KERNELS})
+    for name, per in per_kernel.items():
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],
-             "replaces": sources[name][1],
-             "launches": main_res["launches"][name],
-             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-             "planted_fault_max_abs_err": head["planted_fault_max_abs_err"]}
+             "replaces": sources[name][1], "launches": launched[name]}
+        e.update({k: head[k] for k in keys})
+        if "planted_fault_max_abs_err" in head:
+            e["planted_fault_max_abs_err"] = head["planted_fault_max_abs_err"]
         for label, v in per.items():
-            if label != "bfloat16":
-                e[label] = {k: v[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                              "bound_ms", "bound_by",
-                                              "library_ms")}
+            if label != "bfloat16" and isinstance(v, dict) and "ms" in v:
+                e[label] = {k: v[k] for k in keys}
         entries.append(e)
     report["total_s"] = time.perf_counter() - t_start
     try:

@@ -1,5 +1,6 @@
 // Shared device code of the two paged-attention kernels
-// (ragged_paged_attention.cu, paged_attention.cu).
+// (ragged_paged_attention.cu, paged_attention.cu); flash_attention.cu
+// takes the tile shape, conversions and warp reductions from here too.
 //
 // One thread block owns one q tile of one kv head: up to kRows query rows
 // (tokens x the kv head's GQA group), all of them attending the same

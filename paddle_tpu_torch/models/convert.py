@@ -6,11 +6,17 @@
 the same name, checking shapes and dtypes. Linear weights keep the
 ``[in, out]`` layout in both packages, so nothing is transposed. The
 rotary ``cos_cached``/``sin_cached`` buffers are copied too.
+
+The other way, for holding training to the reference name for name:
+``named_grads(model)`` and ``named_optimizer_state(model, optimizer)``
+give the port's grads, and its optimizer's float32 masters and moments,
+as numpy arrays keyed by the same ``state_dict`` names the JAX model's
+``named_parameters()`` gives.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -45,3 +51,39 @@ def from_jax_state_dict(model: torch.nn.Module,
                    else torch.from_numpy(np.array(arr, copy=True)))
             target.copy_(src.to(target.device))
     return model
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy (bf16 widened exactly)."""
+    return t.detach().float().cpu().numpy()
+
+
+def param_names(model: torch.nn.Module, params) -> List[str]:
+    """The ``state_dict`` name of each tensor in ``params``."""
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    return [by_id[id(p)] for p in params]
+
+
+def named_grads(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter's grad, by name (parameters without one are left
+    out)."""
+    return {n: to_numpy(p.grad) for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def named_optimizer_state(model: torch.nn.Module, optimizer
+                          ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The optimizer's per-parameter state by parameter name:
+    ``{name: {"master": ..., "m": ..., "v": ...}}`` (the state keys of its
+    rule; "master" only where a float32 master exists)."""
+    out = {}
+    names = param_names(model, optimizer._parameter_list)
+    for name, st, master in zip(names, optimizer._states,
+                                optimizer._masters):
+        if st is None:
+            continue
+        d = {k: to_numpy(v) for k, v in st.items()}
+        if master is not None:
+            d["master"] = to_numpy(master)
+        out[name] = d
+    return out

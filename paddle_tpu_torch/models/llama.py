@@ -1,22 +1,33 @@
-"""Llama model family, the serving path.
+"""Llama model family: the serving and the training forward.
 
 Counterpart of ``paddle_tpu/models/llama.py``: the same modules, names and
 parameter layouts, so a JAX ``state_dict()`` maps onto this one name for
 name (``models/convert.py``). Linear weights stay ``[in, out]`` (Paddle's
-layout: ``x @ W``).
+layout: ``x @ W``). Parameters are trainable, as in the reference.
 
-Only the unsharded KV-cache path is ported: each layer writes its K/V into
-the cache and attends through it (the paged kernels). The no-cache forward
-needs the flash-attention kernel, which belongs to a later slice.
+Two forwards, both unsharded:
+
+- with a cache (serving): each layer writes its K/V into the cache and
+  attends through it (the paged kernels). It runs under ``no_grad``, so
+  it never builds an autograd graph;
+- without one (training, :189-201, :280-303): rope at ``position_ids`` (or
+  ``arange(s)``), then causal attention through the ``flash_attention``
+  routing (the flash kernels on the card), or the composite when
+  ``use_flash_attention=False``. ``recompute=True`` re-runs each layer in
+  the backward (``torch.utils.checkpoint``, non-reentrant).
+
+``LlamaPretrainingCriterion`` (:327-339) is the shifted next-token cross
+entropy through ``fused_softmax_ce``, averaged over all positions.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, dtype_of, resolve_device
 from ..ops.kernels import nn as K
@@ -35,6 +46,9 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
+    recompute: Union[bool, str] = False
+    use_scan_layers: bool = False
     dtype: str = "float32"
 
     @staticmethod
@@ -65,12 +79,11 @@ class _Init:
     def normal(self, *shape) -> nn.Parameter:
         w = torch.empty(*shape, device=self.device, dtype=self.dtype)
         w.normal_(0.0, self.std, generator=self.generator)
-        return nn.Parameter(w, requires_grad=False)
+        return nn.Parameter(w)
 
     def ones(self, *shape) -> nn.Parameter:
         return nn.Parameter(torch.ones(*shape, device=self.device,
-                                       dtype=self.dtype),
-                            requires_grad=False)
+                                       dtype=self.dtype))
 
 
 class Linear(nn.Module):
@@ -138,8 +151,9 @@ def _position_ids(start_pos, b: int, s: int, device) -> torch.Tensor:
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention over the KV cache: rope at absolute positions, write
-    into the cache, attend against everything written so far."""
+    """GQA attention. With a cache: rope at absolute positions, write into
+    the cache, attend against everything written so far. Without: rope at
+    ``position_ids`` and causal attention over the sequence."""
 
     def __init__(self, config: LlamaConfig, rotary: LlamaRotaryEmbedding,
                  init: _Init):
@@ -155,22 +169,25 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(self.num_heads * self.head_dim, h, init)
         self.rotary = rotary
 
-    def forward(self, x, cache=None, start_pos=None, layer_idx: int = 0):
-        if cache is None:
-            raise NotImplementedError(
-                "the no-cache forward needs the flash-attention kernel "
-                "(ROADMAP.md, B1 flash_attention.py), which is not ported "
-                "yet; serve through a cache (the engine or "
-                "generate(cache_type='paged'))")
+    def forward(self, x, attn_mask=None, position_ids=None, cache=None,
+                start_pos=None, layer_idx: int = 0):
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         cos, sin = self.rotary()
-        q, k = K.rope(q, k, cos, sin,
-                      _position_ids(start_pos, b, s, x.device))
-        cache.update(layer_idx, k, v, start_pos)
-        out = cache.attend(layer_idx, q, start_pos)
+        if cache is not None:
+            q, k = K.rope(q, k, cos, sin,
+                          _position_ids(start_pos, b, s, x.device))
+            cache.update(layer_idx, k, v, start_pos)
+            out = cache.attend(layer_idx, q, start_pos)
+        else:
+            if position_ids is None:
+                position_ids = _position_ids(0, b, s, x.device)
+            q, k = K.rope(q, k, cos, sin, position_ids)
+            attend = K.flash_attention if self.config.use_flash_attention \
+                else K.scaled_dot_product_attention
+            out = attend(q, k, v, attn_mask=attn_mask, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -199,8 +216,10 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(
             config.hidden_size, config.rms_norm_eps, init)
 
-    def forward(self, x, cache=None, start_pos=None, layer_idx: int = 0):
-        x = x + self.self_attn(self.input_layernorm(x), cache=cache,
+    def forward(self, x, attn_mask=None, position_ids=None, cache=None,
+                start_pos=None, layer_idx: int = 0):
+        x = x + self.self_attn(self.input_layernorm(x), attn_mask,
+                               position_ids, cache=cache,
                                start_pos=start_pos, layer_idx=layer_idx)
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -208,6 +227,14 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, init: _Init):
         super().__init__()
+        if config.use_scan_layers:
+            raise NotImplementedError(
+                "use_scan_layers (the stacked-layer scan) is not ported yet "
+                "(ROADMAP A4)")
+        if config.recompute not in (False, True):
+            raise NotImplementedError(
+                f"recompute={config.recompute!r}: only full-layer "
+                f"recompute is ported; selective recompute is ROADMAP A4")
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       init)
@@ -220,10 +247,20 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  init)
 
-    def forward(self, input_ids, cache=None, start_pos=None):
+    def forward(self, input_ids, attn_mask=None, position_ids=None,
+                cache=None, start_pos=None):
         x = self.embed_tokens(input_ids)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, cache=cache, start_pos=start_pos, layer_idx=i)
+        if cache is not None:
+            for i, layer in enumerate(self.layers):
+                x = layer(x, attn_mask, cache=cache, start_pos=start_pos,
+                          layer_idx=i)
+            return self.norm(x)
+        for layer in self.layers:
+            if self.config.recompute and self.training:
+                x = checkpoint(layer, x, attn_mask, position_ids,
+                               use_reentrant=False)
+            else:
+                x = layer(x, attn_mask, position_ids)
         return self.norm(x)
 
 
@@ -247,15 +284,32 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if not config.tie_word_embeddings:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   init)
-        self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.llama.embed_tokens.weight.device
 
-    @torch.no_grad()
-    def forward(self, input_ids, cache=None, start_pos=None):
-        hidden = self.llama(input_ids, cache=cache, start_pos=start_pos)
+    def forward(self, input_ids, attn_mask=None, position_ids=None,
+                cache=None, start_pos=None):
+        if cache is not None:   # serving: never an autograd graph
+            with torch.no_grad():
+                return self._logits(self.llama(
+                    input_ids, attn_mask, cache=cache, start_pos=start_pos))
+        return self._logits(self.llama(input_ids, attn_mask, position_ids))
+
+    def _logits(self, hidden):
         if self.lm_head is None:  # tied: logits = h @ E^T
             return torch.matmul(hidden, self.llama.embed_tokens.weight.T)
         return self.lm_head(hidden)
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross entropy: ``fused_softmax_ce(logits[:, :-1],
+    labels[:, 1:]).mean()``, the mean over all positions (label -100
+    counts as 0), as the reference takes it."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels):
+        return K.fused_softmax_ce(logits[:, :-1, :], labels[:, 1:]).mean()

@@ -206,7 +206,22 @@ def test_entry_points_need_a_device_without_gpu():
                      head_dim=16, max_blocks_per_seq=1)
 
 
-def test_no_cache_forward_waits_for_flash_attention(models):
+def test_no_cache_forward_waits_for_flash_attention(models, monkeypatch):
+    # the no-cache forward no longer waits: it attends through the flash
+    # path (one call per layer) and its logits equal a cache prefill's
+    from paddle_tpu_torch.ops.kernels import nn as tnn
     _, tm = models
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tm(torch.zeros((1, 4), dtype=torch.int32))
+    calls = []
+    real = tnn._fa.flash_attention
+    monkeypatch.setattr(tnn._fa, "flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    ids = torch.from_numpy(np.asarray(_prompts(3, [12]), np.int32))
+    with torch.no_grad():
+        got = tm(ids)
+    assert len(calls) == CFG["num_hidden_layers"]
+    cache = PagedKVCache(CFG["num_hidden_layers"], 1, num_blocks=4,
+                         block_size=16, num_kv_heads=2, head_dim=16,
+                         max_blocks_per_seq=4, dtype="float32",
+                         device="cpu")
+    want = tm(ids, cache=cache, start_pos=0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)

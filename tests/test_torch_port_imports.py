@@ -41,12 +41,14 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"serving.py", "llama.py", "ragged_paged_attention.py",
-            "paged_attention.py", "chip_smoke.py"} <= names
+            "paged_attention.py", "flash_attention.py", "fused_optimizer.py",
+            "optimizer.py", "clip.py", "api.py", "chip_smoke.py"} <= names
 
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, paddle_tpu_torch.models, "
-            "paddle_tpu_torch.ops.kernels.serving; "
+            "paddle_tpu_torch.ops.kernels.serving, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
