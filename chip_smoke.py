@@ -448,7 +448,7 @@ def profile_call(torch, fn, n: int):
             "busy_share_of_wall": busy / (1e3 * wall),
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                     for k, (ms, c) in top],
-            "all_kernels": {k[:90]: ms for k, (ms, _) in by_name.items()}}
+            "all_kernels": {k: ms for k, (ms, _) in by_name.items()}}
 
 
 def profile_steps(torch, eng, n, outs):
@@ -702,7 +702,9 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # the 8-layer bf16 model's loss and layer-0 grads through the kernels vs
 # through the plain versions, same weights and batch: per-layer one-ulp
 # differences of the attention output compound through 8 random layers
-LOSS_ATOL, GRAD_MIN_COS = 2e-2, 0.99
+# (measured on the H100: 1.1e-4 and 0.99972; the limits are ~10x and ~4x
+# those gaps)
+LOSS_ATOL, GRAD_MIN_COS = 1e-3, 0.999
 
 
 def rel_err(torch, got, want) -> float:
@@ -930,8 +932,13 @@ def phase_fused_optimizer(torch, seed, report, flush):
     same("found=1, plain")
     del Bt
     sv = svec(2, inv=1 / 64, coeff=0.5)
-    ms = time_ms(torch, lambda: fo.fused_bucket_kernel("adam", cfg, *A, sv),
-                 flush=flush)
+    # a bucket caches the chunk table (built by the warm-up call), so the
+    # timed window holds the launch only, as on the training path
+    bucket = fo.plan_buckets("adam", cfg, [
+        (tuple(t.shape), "float32", "bfloat16", "bfloat16", 0.01)
+        for t in A[0]]).buckets[0]
+    ms = time_ms(torch, lambda: fo.fused_bucket_kernel(
+        "adam", cfg, *A, sv, bucket), flush=flush)
     plain_ms = time_ms(torch, lambda: fo.fused_bucket_plain(
         "adam", cfg, *A, sv), iters=3, flush=flush)
     # yardstick, timed here only: torch's fused AdamW over the float32
@@ -1003,8 +1010,10 @@ def kernel_vs_plain_training(torch, model, crit, ids):
     return out
 
 
-def categorize(all_kernels):
-    """Device ms of one step by part of the step."""
+def categorize(all_kernels, busy_ms):
+    """Device ms of one step by part of the step, from every activity's
+    full name; ``unaccounted`` is the busy time the parts leave out (0
+    when no two activities overlap)."""
     cats = {"flash_fwd": 0.0, "flash_bwd": 0.0, "fused_optimizer": 0.0,
             "matmul": 0.0, "other": 0.0}
     for name, ms in all_kernels.items():
@@ -1020,6 +1029,7 @@ def categorize(all_kernels):
             cats["matmul"] += ms
         else:
             cats["other"] += ms
+    cats["unaccounted"] = busy_ms - sum(cats.values())
     return cats
 
 
@@ -1092,7 +1102,8 @@ def phase_train(torch, seed, report):
         f"{res['peak_mem_gib']:.2f} GiB, launches {counts}")
     prof = profile_call(torch, lambda: train((ids,), (ids,)), 1)
     if "all_kernels" in prof:
-        prof["by_part_ms"] = categorize(prof.pop("all_kernels"))
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                        prof["device_busy_ms"])
     res["profile"] = prof
     log(f"train profile (one step): {json.dumps(prof)}")
 

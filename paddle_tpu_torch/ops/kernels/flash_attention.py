@@ -52,18 +52,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 _NEG = -1e30
 
 
-def supported(q_shape, k_shape, causal: bool, device=None, dtype=None,
-              ) -> bool:
-    """Whether the flash path takes this case (else the composite): GQA
-    heads must divide, causal needs ``sq <= sk``, and on the card the
-    kernel needs head_dim 64 or 128 in float32 or bfloat16."""
-    _, sq, hq, d = q_shape
+def supported(q_shape, k_shape, causal: bool) -> bool:
+    """Whether the flash path takes this case (else the composite), by
+    shape only, as the reference routes: GQA heads must divide and causal
+    needs ``sq <= sk``. A CUDA head_dim or dtype the kernels lack reaches
+    the kernel wrapper and raises there."""
+    _, sq, hq, _ = q_shape
     sk, hk = k_shape[1], k_shape[2]
-    if hq % hk or (causal and sq > sk):
-        return False
-    if device is not None and torch.device(device).type == "cuda":
-        return d in HEAD_DIMS and dtype in DTYPES
-    return True
+    return not (hq % hk or (causal and sq > sk))
 
 
 # -- plain version ------------------------------------------------------------

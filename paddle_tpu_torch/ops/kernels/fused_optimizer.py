@@ -155,12 +155,15 @@ def rule(kind: str, cfg: Dict, p, g, state, lr, wd, inv_bc1=None,
     return p - lr * upd, {"m": m, "v": v}
 
 
-def condition_grad(g, inv, coeff, dtype):
-    """Unscale and clip in the grad's dtype, then cast to the compute
-    dtype (GradScaler.unscale_ -> global-norm clip -> the rule's cast)."""
-    g = g * inv.to(g.dtype)
-    g = g * coeff.to(g.dtype)
-    return g.to(dtype)
+def condition_grad(g, inv=None, coeff=None):
+    """The grad times ``inv`` (GradScaler unscale), then times ``coeff``
+    (global-norm clip), each in the grad's dtype; None skips a multiply.
+    The rule's cast to the compute dtype comes after."""
+    if inv is not None:
+        g = g * inv.to(g.dtype)
+    if coeff is not None:
+        g = g * coeff.to(g.dtype)
+    return g
 
 
 # -- scalars ------------------------------------------------------------------
@@ -185,7 +188,7 @@ def fused_bucket_plain(kind: str, cfg: Dict, targets, grads, states, lows,
     sv = dict(zip(SLOTS, svec.unbind()))
     found = sv["found"] > 0
     for p, g, s, low in zip(targets, grads, states, lows):
-        gc = condition_grad(g, sv["inv"], sv["coeff"], p.dtype)
+        gc = condition_grad(g, sv["inv"], sv["coeff"]).to(p.dtype)
         new_p, new_s = rule(kind, cfg, p, gc, s, sv["lr"], sv["wd"],
                             sv["inv_bc1"], sv["inv_bc2"])
         for key, val in new_s.items():

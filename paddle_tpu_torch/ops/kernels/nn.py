@@ -109,12 +109,13 @@ def flash_attention(query, key, value, attn_mask=None, dropout_p: float = 0.0,
                     is_causal: bool = False, scale: Optional[float] = None,
                     generator: Optional[torch.Generator] = None):
     """Attention routing, as the reference's ``flash_attention`` op: with
-    no mask and no dropout, a case the flash path takes (``supported``)
+    no mask and no dropout, a shape the flash path takes (``supported``)
     goes to ``flash_attention.flash_attention`` (the kernels for a CUDA
-    tensor, the plain version for a CPU one); everything else, causal
-    ``sq > sk`` included, goes to the composite."""
+    tensor, which raise on a head_dim or dtype they lack; the plain
+    version for a CPU one); everything else, causal ``sq > sk``
+    included, goes to the composite."""
     if attn_mask is None and dropout_p == 0.0 and _fa.supported(
-            query.shape, key.shape, is_causal, query.device, query.dtype):
+            query.shape, key.shape, is_causal):
         return _fa.flash_attention(query, key, value, causal=is_causal,
                                    scale=scale)
     return scaled_dot_product_attention(query, key, value, attn_mask,

@@ -41,7 +41,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 from .. import flags as _flags
-from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm, global_norm_coeff
+from ..nn.clip import (ClipGradBase, ClipGradByGlobalNorm, global_norm_coeff,
+                       sum_of_squares)
 from ..ops.kernels import fused_optimizer as fok
 
 # Frozen fallback-reason taxonomy of the fused route: every reason that
@@ -85,26 +86,24 @@ def inv_scale(scale: torch.Tensor) -> torch.Tensor:
 
 
 def conditioned(grads: Iterable[torch.Tensor], inv=None, coeff=None):
-    """The grads as the per-param route sees them, one at a time: times
-    ``inv`` (unscale), then times ``coeff`` (clip), each in the grad's
-    dtype. A generator, so reductions over it hold one temporary."""
-    for g in grads:
-        if inv is not None:
-            g = g * inv.to(g.dtype)
-        if coeff is not None:
-            g = g * coeff.to(g.dtype)
-        yield g
+    """The grads as the per-param route sees them, one at a time
+    (:func:`ops.kernels.fused_optimizer.condition_grad`). A generator, so
+    reductions over it hold one temporary."""
+    return (fok.condition_grad(g, inv, coeff) for g in grads)
 
 
 def sentinel_reduce(grads: Iterable[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(found, global_norm)`` as float32 device scalars: found is 1 when
-    any grad element is not finite. Never a host sync."""
-    sq, finite = None, []
-    for g in grads:
-        s = torch.sum(torch.square(g.float()))
-        sq = s if sq is None else sq + s
-        finite.append(torch.isfinite(g).all())
+    any grad element is not finite (a flag of its own, exact where the
+    float32 square sum would overflow). Never a host sync."""
+    finite = []
+
+    def tap(gs):
+        for g in gs:
+            finite.append(torch.isfinite(g).all())
+            yield g
+    sq = sum_of_squares(tap(grads))
     found = torch.logical_not(torch.stack(finite).all()).float()
     return found, torch.sqrt(sq)
 
@@ -166,8 +165,7 @@ class Optimizer:
         return t
 
     # -- the rule (override) --------------------------------------------------
-    def _init_state(self, target: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {}
+    _STATE_KEYS: Tuple[str, ...] = ()   # the rule's state slots
 
     def _step_scalars(self, step: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Per-step device scalars the rule reads besides lr and wd."""
@@ -187,8 +185,7 @@ class Optimizer:
         if not todo:
             return
         params = self._parameter_list
-        kind, _ = _fused_kind_cfg(self)
-        keys = fok.STATE_KEYS.get(kind)
+        keys = self._STATE_KEYS
         groups: Dict[Tuple, List[int]] = {}
         for i in todo:
             p = params[i]
@@ -215,12 +212,6 @@ class Optimizer:
                                                masters)):
                     v.copy_(params[i].detach())
                     self._masters[i] = v
-            if keys is None:
-                for i in ids:
-                    target = self._masters[i] if self._masters[i] is not None \
-                        else params[i].detach()
-                    self._states[i] = self._init_state(target)
-                continue
             per_key = {k: views(flat(ids, cdt, dev), ids) for k in keys}
             for j, i in enumerate(ids):
                 self._states[i] = {k: per_key[k][j] for k in keys}
@@ -415,6 +406,8 @@ class SGD(Optimizer):
 
 
 class Momentum(Optimizer):
+    _STATE_KEYS = fok.STATE_KEYS["momentum"]
+
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
                  multi_precision=True, name=None):
@@ -423,9 +416,6 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._nesterov = use_nesterov
 
-    def _init_state(self, target):
-        return {"velocity": torch.zeros_like(target)}
-
     def _update(self, p, g, state, lr, wd, sc):
         return fok.rule("momentum", {"momentum": float(self._momentum),
                                      "nesterov": bool(self._nesterov)},
@@ -433,6 +423,8 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    _STATE_KEYS = fok.STATE_KEYS["adam"]
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=True, name=None):
@@ -442,9 +434,6 @@ class Adam(Optimizer):
 
     def _decoupled(self) -> bool:
         return False
-
-    def _init_state(self, target):
-        return {"m": torch.zeros_like(target), "v": torch.zeros_like(target)}
 
     def _step_scalars(self, step):
         bc1, bc2 = fok.bias_inv(self._beta1, self._beta2, step)

@@ -224,6 +224,18 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
     assert fa.launches_fwd.count == before
 
 
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16),
+                                     (64, torch.float16)])
+def test_routing_sends_cuda_cases_the_kernels_lack_to_them_to_raise(
+        dev, d, dtype):
+    """The routing decides by shape only: a head_dim or dtype the kernels
+    lack raises on the card instead of falling back to the composite."""
+    from paddle_tpu_torch.ops.kernels import nn as knn
+    q = torch.randn((1, 64, 4, d), device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="head_dim|dtype"):
+        knn.flash_attention(q, q, q, is_causal=True)
+
+
 # -- fused optimizer ---------------------------------------------------------
 
 FUSED_RULES = {

@@ -180,6 +180,17 @@ class TestRouting:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
                                    equal_nan=True)
 
+    @pytest.mark.parametrize("q_shape,k_shape,causal,want", [
+        ((2, 16, 4, 96), (2, 16, 2, 96), True, True),    # any head_dim
+        ((2, 16, 4, 8), (2, 32, 2, 8), True, True),      # causal sq < sk
+        ((2, 16, 4, 8), (2, 8, 2, 8), False, True),      # non-causal sq > sk
+        ((2, 16, 4, 8), (2, 8, 2, 8), True, False),      # causal sq > sk
+        ((2, 16, 4, 8), (2, 16, 3, 8), False, False),    # heads do not divide
+    ])
+    def test_supported_decides_by_shape_only(self, q_shape, k_shape, causal,
+                                             want):
+        assert tfa.supported(q_shape, k_shape, causal) is want
+
     def test_dropout_with_generator_drops(self):
         q, k, v = map(torch.from_numpy, self._qkv())
         full = tnn.scaled_dot_product_attention(q, k, v, is_causal=True)
