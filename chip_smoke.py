@@ -2,8 +2,10 @@
 """Drive the PyTorch port on one NVIDIA card (H100): build its CUDA
 kernels, hold each against its plain PyTorch version, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
-continuous-batching engine and ``generate(cache_type="paged")``, then
-train Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW.
+continuous-batching engine and ``generate(cache_type="paged")``, train
+Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW, then train
+DeepSeek-MoE-16B's width (5 layers) the same way through the grouped-GEMM
+kernel.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -27,6 +29,13 @@ Phases (any failure raises and the script exits non-zero):
    its plain version over three steps (plain; unscale and clip; found=1,
    which must keep every input); each timed beside its bound and a
    library yardstick (SDPA forward and backward, ``torch._fused_adamw_``);
+   the grouped GEMM at the MoE path's shapes (64 groups of capacity 480,
+   K x N 2048 x 1408 and 1408 x 2048, counts with empty, partial and full
+   groups; bf16 and float32; groups per expert 1 and 2; dx through the
+   transposed view of w) against its plain version, with two planted
+   faults (a zeroed live C tile, group g reading expert g mod E instead of
+   g // 2), timed at the path's four launch shapes beside its bound and
+   ``torch.bmm`` over the count-masked buffer;
 4. serving, the first main path: 16 requests through
    ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
    again with speculative decoding, then one paged ``generate()`` call;
@@ -48,9 +57,20 @@ Phases (any failure raises and the script exits non-zero):
    the four training kernels' launch counts (reset just before), one
    profiled step (device time by kernel and by part of the step), and a
    GradScaler step with a poisoned grad, which must be skipped with the
-   params bitwise unchanged.
+   params bitwise unchanged;
+6. MoE training, the third main path, after the Llama model is freed:
+   ``MoEForCausalLM`` at DeepSeek-MoE-16B width (hidden 2048, 16 heads,
+   64 routed experts of width 1408, 6 per token, 2 shared, the first layer
+   dense) with 5 layers (2.855 B params, bf16), ``MoEPretrainingCriterion``
+   and the same optimizer, step and batch: the loss and the first MoE
+   layer's expert and router grads through the grouped-GEMM kernel vs its
+   plain version (that layer's routing must be equal), then 2 warm-up and
+   10 timed steps (tokens/s, step p50/p99, MFU over the active params,
+   peak memory, every loss), exactly 24 grouped-GEMM launches per step,
+   the choices dropped by capacity and each MoE layer's min/max counts,
+   and one profiled step with the grouped GEMM as its own part.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line (six
+Output: findings on earlier lines, then the ``kernels`` JSON line (seven
 kernels), then as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -966,6 +986,183 @@ def phase_fused_optimizer(torch, seed, report, flush):
     return res
 
 
+# -- phase 4b: the grouped GEMM ------------------------------------------------
+
+# the MoE training path's shapes (DeepSeek-MoE-16B width, b 2 x s 2048 =
+# 4096 tokens, 6 of 64 experts): G = E = 64 groups of capacity C =
+# int(1.25 * 4096 * 6 / 64) = 480; (K, N) of the forward products, whose
+# dx runs the transposed pairs through a strided view of w
+MOE_E, MOE_C = 64, 480
+GMM_SHAPES = {"gate_up": (2048, 1408), "down": (1408, 2048)}
+GMM_TILE = 128    # the bf16 kernel's C tile (csrc/grouped_gemm.cu)
+
+
+def moe_counts(rng, G, C):
+    """Live rows per group as the path's routing gives them (mean t*k/E =
+    384, clipped at C), with one empty group, one full group, one of a
+    single row, and groups ending one row past and exactly at a C tile."""
+    c = np.clip(np.rint(rng.normal(384, 64, G)), 0, C).astype(np.int32)
+    c[:5] = [0, C, 1, GMM_TILE + 1, GMM_TILE]
+    return c
+
+
+def gmm_work(counts, G, C, K, N, E, item):
+    """(flops, bytes) of one grouped product: the routed rows' products;
+    every expert weight, the live x rows and the whole y, each once."""
+    live = int(counts.sum())
+    return (2 * live * K * N,
+            E * K * N * item + live * K * item + G * C * N * item + 4 * G)
+
+
+def planted_gmm_faults(torch, gg, x, w, counts_t, want):
+    """Two faults a kernel could make, produced with the plain version at
+    groups per expert 2: one live C tile of a full group zeroed, and every
+    group g reading expert g mod E instead of g // 2. Each must fail
+    ``check_close``."""
+    bad_tile = want.clone()
+    bad_tile[1, GMM_TILE:2 * GMM_TILE] = 0
+    bad_expert = gg.gmm_plain(x, w.repeat(2, 1, 1), counts_t, 1)
+    errs = {}
+    for fault, bad in (("zeroed_live_tile", bad_tile),
+                       ("expert_g_not_g_div_gpe", bad_expert)):
+        try:
+            check_close(torch, "grouped_gemm", bad, want, "bfloat16")
+        except AssertionError:
+            errs[fault] = float((bad.float() - want.float()).abs().max())
+            continue
+        raise AssertionError(f"grouped_gemm: the tolerance passes a planted "
+                             f"fault ({fault})")
+    return errs
+
+
+def phase_grouped_gemm(torch, seed, report, flush):
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    rng = np.random.RandomState(seed + 4)
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    G, C = MOE_E, MOE_C
+    counts = moe_counts(rng, G, C)
+    counts_t = torch.from_numpy(counts).cuda()
+    dead = (torch.arange(C, device="cuda")[None, :]
+            >= counts_t[:, None])
+    out, faults = {}, None
+    for label, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        errs = {}
+        for shape, (K, N) in GMM_SHAPES.items():
+            x = torch.randn((G, C, K), generator=g, device="cuda").to(dt)
+            dy = torch.randn((G, C, N), generator=g, device="cuda").to(dt)
+            for gpe in (1, 2):
+                w = (torch.randn((G // gpe, K, N), generator=g,
+                                 device="cuda") * 0.02).to(dt)
+                cases = [(f"{shape}/gpe{gpe}", x, w)]
+                if gpe == 1:      # dx: dy @ w^T through a strided view
+                    cases.append((f"{shape}/dx_transposed_w", dy,
+                                  w.transpose(1, 2)))
+                for name, a, b in cases:
+                    got = gg.gmm_kernel(a, b, counts_t, gpe)
+                    torch.cuda.synchronize()
+                    want = gg.gmm_plain(a, b, counts_t, gpe)
+                    errs[name] = check_close(torch, f"grouped_gemm[{label}/"
+                                             f"{name}]", got, want, label)
+                    if bool((got[dead] != 0).any()):
+                        raise AssertionError(f"grouped_gemm[{label}/{name}]: "
+                                             f"rows past counts not zero")
+                    if label == "bfloat16" and shape == "gate_up" \
+                            and gpe == 2:
+                        faults = planted_gmm_faults(torch, gg, a, b,
+                                                    counts_t, want)
+                    del got, want
+                del w
+            del x, dy
+        out[label] = {"max_abs_err_by_case": errs,
+                      "max_abs_err": max(errs.values())}
+    out["bfloat16"]["planted_fault_max_abs_err"] = faults
+
+    # times at the path's four launch shapes (bf16, gpe 1): the forward
+    # products and their dx through the transposed view; float32 at the
+    # gate/up forward. Yardstick: torch.bmm over the count-masked buffer
+    # (what gmm_reference computes: a near-equal function that spends
+    # products on the dead rows), timed here only
+    rows = ~dead[..., None]
+    times = {}
+    for label, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for shape, (K, N) in GMM_SHAPES.items():
+            for launch in ("fwd", "dx"):
+                if label == "float32" and (shape, launch) != ("gate_up",
+                                                              "fwd"):
+                    continue
+                w = (torch.randn((G, K, N), generator=g, device="cuda")
+                     * 0.02).to(dt)
+                if launch == "fwd":
+                    a, b = torch.randn((G, C, K), generator=g,
+                                       device="cuda").to(dt), w
+                else:
+                    a, b = torch.randn((G, C, N), generator=g,
+                                       device="cuda").to(dt), \
+                        w.transpose(1, 2)
+                am = torch.where(rows, a, 0)
+                kk, nn_ = a.shape[2], b.shape[2]
+                flops, nbytes = gmm_work(counts, G, C, kk, nn_, G,
+                                         a.element_size())
+                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                                   if label == "bfloat16"
+                                   else F32_FLOPS_PER_S)
+                times[f"{label}/{shape}/{launch}"] = dict(
+                    K=kk, N=nn_,
+                    ms=time_ms(torch, lambda: gg.gmm_kernel(
+                        a, b, counts_t), flush=flush),
+                    plain_ms=time_ms(torch, lambda: gg.gmm_plain(
+                        a, b, counts_t), iters=3, flush=flush),
+                    library_ms=time_ms(torch, lambda: torch.bmm(am, b),
+                                       flush=flush),
+                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                del w, a, b, am
+    for label in out:
+        head = times[f"{label}/gate_up/fwd"]
+        out[label].update({k: head[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    out["times"] = times
+
+    # dw, outside the kernel as in the reference: the route the backward
+    # takes for bf16 (bf16 products, float32 output) against the float32
+    # product of the same values, at the gate/up shape
+    K, N = GMM_SHAPES["gate_up"]
+    x = torch.randn((G, C, K), generator=g, device="cuda").bfloat16()
+    dy = torch.randn((G, C, N), generator=g, device="cuda").bfloat16()
+    dw = gg.grad_w(x, dy, counts_t, 1, torch.bfloat16)
+    dw32 = gg.grad_w(x.float(), dy.float(), counts_t, 1, torch.float32)
+    err = check_close(torch, "grad_w[bf16 vs float32]", dw, dw32,
+                      "bfloat16")
+    out["grad_w"] = dict(
+        max_abs_err_vs_float32=err, flops=2 * G * C * K * N,
+        ms=time_ms(torch, lambda: gg.grad_w(x, dy, counts_t, 1,
+                                            torch.bfloat16), flush=flush),
+        float32_ms=time_ms(torch, lambda: gg.grad_w(
+            x.float(), dy.float(), counts_t, 1, torch.float32),
+            flush=flush))
+    del x, dy, dw, dw32
+    log(f"grouped_gemm dw [E{G}, K{K}, N{N}] over C{C}: bf16 route "
+        f"{out['grad_w']['ms']:.4f} ms, float32 route "
+        f"{out['grad_w']['float32_ms']:.4f} ms, max abs err "
+        f"{err:.3e} between them")
+    out["counts"] = dict(sum=int(counts.sum()), min=int(counts.min()),
+                         max=int(counts.max()), G=G, C=C)
+    for label in ("bfloat16", "float32"):
+        log(f"grouped_gemm[{label}] G{G} C{C}: max_abs_err "
+            f"{out[label]['max_abs_err']:.3e} over "
+            f"{sorted(out[label]['max_abs_err_by_case'])}")
+    log(f"grouped_gemm: planted faults rejected: {faults}")
+    for key, t in times.items():
+        log(f"grouped_gemm[{key}] K{t['K']} N{t['N']} (counts sum "
+            f"{int(counts.sum())}): ms {t['ms']:.4f} plain_ms "
+            f"{t['plain_ms']:.3f} library_ms {t['library_ms']:.4f} (bmm, "
+            f"masked buffer) bound_ms {t['bound_ms']:.4f} ({t['bound_by']})")
+    report["kernels"]["grouped_gemm"] = out
+    return out
+
+
 # -- phase 5: training --------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1014,11 +1211,13 @@ def categorize(all_kernels, busy_ms):
     """Device ms of one step by part of the step, from every activity's
     full name; ``unaccounted`` is the busy time the parts leave out (0
     when no two activities overlap)."""
-    cats = {"flash_fwd": 0.0, "flash_bwd": 0.0, "fused_optimizer": 0.0,
-            "matmul": 0.0, "other": 0.0}
+    cats = {"grouped_gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
+            "fused_optimizer": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in all_kernels.items():
         low = name.lower()
-        if "fwd_kernel" in low:
+        if "grouped_gemm_" in low:
+            cats["grouped_gemm"] += ms
+        elif "fwd_kernel" in low:
             cats["flash_fwd"] += ms
         elif "dq_kernel" in low or "dkv_kernel" in low:
             cats["flash_bwd"] += ms
@@ -1133,6 +1332,228 @@ def phase_train(torch, seed, report):
     return res
 
 
+# -- phase 6: MoE training ------------------------------------------------------
+
+MOE_LAYERS = 5    # the dense layer and 4 MoE layers, each with all 64
+#                   experts; the published 28 layers (16.4 B params) would
+#                   need 262 GB at 16 B/param
+# the 5-layer bf16 model's loss and layer-1 expert and router grads through
+# the grouped-GEMM kernel vs through its plain version, same weights and
+# batch: layer 1's routing is equal in both runs (its input does not pass
+# a grouped product); each product's bf16 output may differ by one ulp,
+# which compounds through the 4 MoE layers and moves some tokens of the
+# later layers to other experts (measured on the H100: loss 1.1e-4 apart,
+# grads cosine >= 0.99995, layers 2-4 routed differently; the limits are
+# ~10x and ~20x those gaps)
+MOE_LOSS_ATOL, MOE_GRAD_MIN_COS = 1e-3, 0.999
+
+
+def moe_config():
+    """DeepSeek-MoE-16B at published width (huggingface.co/deepseek-ai/
+    deepseek-moe-16b-base config.json), depth cut to MOE_LAYERS; routing
+    keeps the JAX package's semantics (GShard capacity 1.25 with drops,
+    Switch aux loss, no top-k renormalisation)."""
+    from paddle_tpu_torch.models import MoEConfig
+    return MoEConfig(vocab_size=102400, hidden_size=2048,
+                     intermediate_size=10944, num_hidden_layers=MOE_LAYERS,
+                     num_attention_heads=16, num_key_value_heads=16,
+                     max_position_embeddings=4096, rms_norm_eps=1e-6,
+                     rope_theta=10000.0, num_experts=64,
+                     num_experts_per_tok=6, moe_intermediate_size=1408,
+                     num_shared_experts=2, first_k_dense_replace=1,
+                     capacity_factor=1.25, aux_loss_alpha=0.001,
+                     dtype="bfloat16")
+
+
+def active_matmul_params(cfg) -> int:
+    """The matmul params one token passes through (bench.py:230's N for a
+    sparse model): every layer's attention, the dense layers' MLP, in each
+    MoE layer the router, the shared experts and top_k of the routed
+    experts, and the LM head; the embedding lookup is no matmul."""
+    h, hd = cfg.hidden_size, cfg.hidden_size // cfg.num_attention_heads
+    attn = h * hd * (2 * cfg.num_attention_heads
+                     + 2 * cfg.num_key_value_heads)
+    m = cfg.moe_intermediate_size
+    moe = (3 * h * m * (cfg.num_experts_per_tok + cfg.num_shared_experts)
+           + h * cfg.num_experts)
+    n_dense = cfg.first_k_dense_replace
+    return (cfg.num_hidden_layers * attn
+            + n_dense * 3 * h * cfg.intermediate_size
+            + (cfg.num_hidden_layers - n_dense) * moe + h * cfg.vocab_size)
+
+
+@contextlib.contextmanager
+def plain_gmm(gg):
+    """Route the grouped products (forward and dx) to the plain version
+    on the card."""
+    saved = gg.gmm
+    gg.gmm = gg.gmm_plain
+    try:
+        yield
+    finally:
+        gg.gmm = saved
+
+
+@contextlib.contextmanager
+def record_routing(mo, routes):
+    """Append each MoE layer's (idx, counts) to ``routes`` as it routes."""
+    saved = mo.route_topk
+
+    def rec(*args):
+        out = saved(*args)
+        routes.append((out[0].detach(), out[2].detach()))
+        return out
+    mo.route_topk = rec
+    try:
+        yield
+    finally:
+        mo.route_topk = saved
+
+
+def routing_stats(routes, tokens, top_k):
+    """Per MoE layer: choices dropped by capacity, min and max counts."""
+    return [dict(dropped=tokens * top_k - int(c.sum()), min=int(c.min()),
+                 max=int(c.max())) for _, c in routes]
+
+
+def kernel_vs_plain_moe(torch, model, crit, ids):
+    """Loss and the first MoE layer's expert and router grads through the
+    grouped-GEMM kernel and through its plain version; the first MoE
+    layer's routing must be equal."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    from paddle_tpu_torch.ops.kernels import moe as mo
+    layer = model.model.layers[1].mlp.moe
+    res = []
+    for plain in (False, True):
+        routes = []
+        with plain_gmm(gg) if plain else contextlib.nullcontext(), \
+                record_routing(mo, routes):
+            loss = crit(model(ids), ids)
+            loss.backward()
+        res.append((float(loss.detach()),
+                    {n: p.grad.float().clone()
+                     for n, p in layer.named_parameters()}, routes))
+        model.zero_grad(set_to_none=True)
+        del loss
+    (lk, gk, rk), (lp, gp, rp) = res
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        gk[n].flatten(), gp[n].flatten(), dim=0)) for n in gk}
+    same = [bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+            for a, b in zip(rk, rp)]
+    out = dict(loss_kernels=lk, loss_plain=lp, loss_abs_diff=abs(lk - lp),
+               grad_cosine_min=min(cos.values()), grad_cosine=cos,
+               routing_equal_by_layer=same,
+               routing=routing_stats(rk, ids.numel(),
+                                     model.config.num_experts_per_tok))
+    if not same[0]:
+        raise AssertionError("the first MoE layer routes differently through "
+                             "the kernel and the plain version")
+    if not (abs(lk - lp) <= MOE_LOSS_ATOL
+            and min(cos.values()) >= MOE_GRAD_MIN_COS):
+        raise AssertionError(f"MoE kernel vs plain: {out}")
+    return out
+
+
+def phase_moe_train(torch, seed, report):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (MoEForCausalLM,
+                                         MoEPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import moe as mo
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = MoEForCausalLM(cfg, device="cuda", generator=gen)
+    crit = MoEPretrainingCriterion(cfg, model)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = active_matmul_params(cfg)
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    log(f"moe model: DeepSeek-MoE-16B width, {cfg.num_hidden_layers} layers "
+        f"({n_moe} MoE x {cfg.num_experts} experts, top {cfg.num_experts_per_tok}"
+        f", {cfg.num_shared_experts} shared), {n_params / 1e9:.3f} B params, "
+        f"{n_active / 1e9:.3f} B active matmul params (bf16, seed {seed}) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    res = {"layers": cfg.num_hidden_layers, "params": n_params,
+           "active_matmul_params": n_active, "batch": TRAIN_B,
+           "seq": TRAIN_S, "capacity": mo.moe_capacity(
+               TRAIN_B * TRAIN_S, cfg.num_experts_per_tok, cfg.num_experts,
+               cfg.capacity_factor)}
+    res["kernel_vs_plain"] = kernel_vs_plain_moe(torch, model, crit, ids)
+    log(f"moe kernels vs plain (loss, layer-1 expert and router grads, "
+        f"routing): {json.dumps(res['kernel_vs_plain'])}")
+
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    train = TrainStep(model, crit, opt)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(12):            # 2 warm-up steps, then 10 timed
+        ts = time.perf_counter()
+        loss = train((ids,), (ids,))
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    res["launches"] = counts
+    per_step = 6 * n_moe          # 3 forward products and their 3 dx
+    if counts["grouped_gemm"] != per_step * 12:
+        raise AssertionError(f"grouped_gemm launched {counts['grouped_gemm']}"
+                             f" times in 12 steps, want {per_step * 12}")
+    for name in TRAINING_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"MoE training path")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training losses not finite and falling: "
+                             f"{losses}")
+    tok_s = TRAIN_B * TRAIN_S / float(np.mean(step_s))
+    # bench.py:230's MFU with N the active matmul params:
+    # 6 * N_active + 6 * seq * hidden * layers flops per token
+    flops_tok = 6 * n_active + 6 * TRAIN_S * cfg.hidden_size \
+        * cfg.num_hidden_layers
+    res.update(losses=losses, tokens_per_s=tok_s,
+               step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+               step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               step_ms=[1e3 * x for x in step_s],
+               mfu=tok_s * flops_tok / BF16_FLOPS_PER_S,
+               flops_per_token=flops_tok,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               grouped_gemm_launches_per_step=counts["grouped_gemm"] / 12)
+    log(f"moe train: losses {[round(x, 4) for x in losses]}")
+    log(f"moe train: {tok_s:.1f} tokens/s, step p50 {res['step_ms_p50']:.1f} "
+        f"ms p99 {res['step_ms_p99']:.1f} ms, mfu (active params) "
+        f"{res['mfu']:.4f}, peak {res['peak_mem_gib']:.2f} GiB, launches "
+        f"{counts} ({res['grouped_gemm_launches_per_step']:.0f} grouped_gemm "
+        f"per step)")
+    routes = []
+    with torch.no_grad(), record_routing(mo, routes):
+        model(ids)
+    res["routing_after_training"] = routing_stats(
+        routes, ids.numel(), cfg.num_experts_per_tok)
+    log(f"moe routing per MoE layer at step 0: "
+        f"{res['kernel_vs_plain']['routing']}; after 12 steps: "
+        f"{res['routing_after_training']} (dropped = choices past capacity "
+        f"{res['capacity']} of {ids.numel() * cfg.num_experts_per_tok})")
+    prof = profile_call(torch, lambda: train((ids,), (ids,)), 1)
+    if "all_kernels" in prof:
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                        prof["device_busy_ms"])
+    res["profile"] = prof
+    log(f"moe train profile (one step): {json.dumps(prof)}")
+    del model, opt, train, crit
+    torch.cuda.empty_cache()
+    report["moe_train"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1161,7 +1582,7 @@ def main(argv=None) -> int:
     log(f"build: {report['build_s']:.1f} s (nvcc, sm_90a, one process per "
         f"source)")
     for stem in ("ragged_paged_attention", "paged_attention",
-                 "flash_attention", "fused_optimizer"):
+                 "flash_attention", "fused_optimizer", "grouped_gemm"):
         txt = _build.ptxas_report(stem) or ""
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
@@ -1172,11 +1593,14 @@ def main(argv=None) -> int:
     flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
     flash = phase_flash(torch, args.seed, report, flush)
     fused = phase_fused_optimizer(torch, args.seed, report, flush)
+    gmm = phase_grouped_gemm(torch, args.seed, report, flush)
     del scratch
     torch.cuda.empty_cache()
     main_res = phase_main(torch, args.seed, report)
     torch.cuda.empty_cache()          # the serving model is gone
     train = phase_train(torch, args.seed, report)
+    torch.cuda.empty_cache()          # the Llama training model is gone
+    moe = phase_moe_train(torch, args.seed, report)
 
     entries = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1199,19 +1623,25 @@ def main(argv=None) -> int:
             "paddle_tpu/ops/kernels/pallas/flash_attention.py:283"),
         "fused_optimizer": (
             "paddle_tpu_torch/csrc/fused_optimizer.cu",
-            "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:279")}
+            "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:279"),
+        "grouped_gemm": (
+            "paddle_tpu_torch/csrc/grouped_gemm.cu",
+            "paddle_tpu/ops/kernels/pallas/grouped_gemm.py:109")}
     per_kernel = {
         "ragged_paged_attention": kern["ragged_paged_attention"],
         "paged_attention": kern["paged_attention"],
         "flash_attention_fwd": {k: v["fwd"] for k, v in flash.items()},
         "flash_attention_dq": {k: v["dq"] for k, v in flash.items()},
         "flash_attention_dkv": {k: v["dkv"] for k, v in flash.items()},
-        "fused_optimizer": {"bfloat16": fused}}
-    # each path's launches: the serving kernels from the serving run,
-    # the training kernels from the training run (counts reset before each)
+        "fused_optimizer": {"bfloat16": fused},
+        "grouped_gemm": {k: gmm[k] for k in ("bfloat16", "float32")}}
+    # each path's launches: the serving kernels from the serving run, the
+    # Llama training kernels from the Llama training run, the grouped GEMM
+    # from the MoE training run (counts reset before each)
     launched = {name: main_res["launches"][name] for name in SERVING_KERNELS}
     launched.update({name: train["launches"][name]
                      for name in TRAINING_KERNELS})
+    launched["grouped_gemm"] = moe["launches"]["grouped_gemm"]
     for name, per in per_kernel.items():
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],

@@ -29,7 +29,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..core.device import DeviceLike, dtype_of, resolve_device
+from ..core.device import DeviceLike
+from ..nn.initializer import ParamInit
 from ..ops.kernels import nn as K
 from .generation import GenerationMixin
 
@@ -67,29 +68,10 @@ class LlamaConfig:
                            max_position_embeddings=128)
 
 
-class _Init:
-    """Where and how parameters are made: device, dtype, and the explicit
-    generator their normal(0, std) draws come from."""
-
-    def __init__(self, device: torch.device, dtype: torch.dtype,
-                 generator: torch.Generator, std: float = 0.02):
-        self.device, self.dtype = device, dtype
-        self.generator, self.std = generator, std
-
-    def normal(self, *shape) -> nn.Parameter:
-        w = torch.empty(*shape, device=self.device, dtype=self.dtype)
-        w.normal_(0.0, self.std, generator=self.generator)
-        return nn.Parameter(w)
-
-    def ones(self, *shape) -> nn.Parameter:
-        return nn.Parameter(torch.ones(*shape, device=self.device,
-                                       dtype=self.dtype))
-
-
 class Linear(nn.Module):
     """``x @ W`` with ``W [in, out]`` (the JAX package's ``nn.Linear``)."""
 
-    def __init__(self, in_features: int, out_features: int, init: _Init):
+    def __init__(self, in_features: int, out_features: int, init: ParamInit):
         super().__init__()
         self.weight = init.normal(in_features, out_features)
 
@@ -98,7 +80,7 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, dim: int, init: _Init):
+    def __init__(self, num_embeddings: int, dim: int, init: ParamInit):
         super().__init__()
         self.weight = init.normal(num_embeddings, dim)
 
@@ -107,7 +89,7 @@ class Embedding(nn.Module):
 
 
 class LlamaRMSNorm(nn.Module):
-    def __init__(self, hidden_size: int, eps: float, init: _Init):
+    def __init__(self, hidden_size: int, eps: float, init: ParamInit):
         super().__init__()
         self.weight = init.ones(hidden_size)
         self.eps = eps
@@ -156,7 +138,7 @@ class LlamaAttention(nn.Module):
     ``position_ids`` and causal attention over the sequence."""
 
     def __init__(self, config: LlamaConfig, rotary: LlamaRotaryEmbedding,
-                 init: _Init):
+                 init: ParamInit):
         super().__init__()
         self.config = config
         self.num_heads = config.num_attention_heads
@@ -194,7 +176,7 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU MLP."""
 
-    def __init__(self, config: LlamaConfig, init: _Init):
+    def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         self.gate_proj = Linear(h, m, init)
@@ -207,7 +189,7 @@ class LlamaMLP(nn.Module):
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, rotary: LlamaRotaryEmbedding,
-                 init: _Init):
+                 init: ParamInit):
         super().__init__()
         self.self_attn = LlamaAttention(config, rotary, init)
         self.mlp = LlamaMLP(config, init)
@@ -225,7 +207,7 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, init: _Init):
+    def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         if config.use_scan_layers:
             raise NotImplementedError(
@@ -274,10 +256,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        init = _Init(device, dtype_of(config.dtype), generator)
+        init = ParamInit.make(device, config.dtype, generator)
         self.config = config
         self.llama = LlamaModel(config, init)
         self.lm_head = None
