@@ -1008,10 +1008,13 @@ def moe_counts(rng, G, C):
 
 def gmm_work(counts, G, C, K, N, E, item):
     """(flops, bytes) of one grouped product: the routed rows' products;
-    every expert weight, the live x rows and the whole y, each once."""
+    the weights of every expert with a live row (the kernel reads none of
+    an expert whose groups are empty), the live x rows and the whole y,
+    each once."""
     live = int(counts.sum())
-    return (2 * live * K * N,
-            E * K * N * item + live * K * item + G * C * N * item + 4 * G)
+    experts = int((counts.reshape(E, -1).sum(1) > 0).sum())
+    return (2 * live * K * N, experts * K * N * item + live * K * item
+            + G * C * N * item + 4 * G)
 
 
 def planted_gmm_faults(torch, gg, x, w, counts_t, want):
@@ -1386,12 +1389,12 @@ def active_matmul_params(cfg) -> int:
 def plain_gmm(gg):
     """Route the grouped products (forward and dx) to the plain version
     on the card."""
-    saved = gg.gmm
-    gg.gmm = gg.gmm_plain
+    saved = gg.gmm_kernel
+    gg.gmm_kernel = gg.gmm_plain
     try:
         yield
     finally:
-        gg.gmm = saved
+        gg.gmm_kernel = saved
 
 
 @contextlib.contextmanager

@@ -21,8 +21,8 @@
 //
 // What bounds it on the H100: bytes. At the MoE training shapes (G = E =
 // 64, C = 480, K x N = 2048 x 1408, ~24.6k routed rows) one launch moves
-// ~556 MB (every expert weight once, the live x rows, the whole y: 0.166 ms
-// at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s bf16). This first
+// ~556 MB (each routed-to expert's weight once, the live x rows, the whole
+// y: 0.166 ms at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s bf16). This first
 // version is the simple one:
 //   bf16: 128 x 128 output tiles, 8 warps, each a 32 x 64 patch of WMMA
 //         16x16x16 bf16 products with float32 accumulators; 32-deep K steps

@@ -40,7 +40,7 @@ class MoEConfig(LlamaConfig):
     first_k_dense_replace: int = 1      # dense MLP in the first k layers
     capacity_factor: float = 1.25
     aux_loss_alpha: float = 0.01
-    expert_axis: str = "dp"
+    expert_axis: str = "dp"             # unused: EP is not ported
 
     @staticmethod
     def tiny_moe(**kw) -> "MoEConfig":
@@ -64,7 +64,7 @@ class MoEMLP(nn.Module):
         self.moe = MoELayer(config.hidden_size, m, config.num_experts,
                             top_k=config.num_experts_per_tok,
                             capacity_factor=config.capacity_factor,
-                            expert_axis=config.expert_axis, init=init)
+                            init=init)
         self.shared = None
         if config.num_shared_experts > 0:
             self.shared = LlamaMLP(LlamaConfig(

@@ -102,7 +102,7 @@ class MoELayer(nn.Module):
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  num_experts: int, top_k: int = 2,
-                 capacity_factor: float = 1.25, expert_axis: str = "dp",
+                 capacity_factor: float = 1.25,
                  init: Optional[ParamInit] = None):
         super().__init__()
         init = init or ParamInit.make()
@@ -110,7 +110,6 @@ class MoELayer(nn.Module):
                              capacity_factor, init)
         self.experts = ExpertFFN(num_experts, hidden_size, intermediate_size,
                                  init)
-        self.expert_axis = expert_axis
         self.aux_loss = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +117,6 @@ class MoELayer(nn.Module):
         out, aux = M.moe_ffn(
             x.reshape(b * s, h), self.gate.weight, self.experts.gate_weight,
             self.experts.up_weight, self.experts.down_weight,
-            top_k=self.gate.top_k, capacity_factor=self.gate.capacity_factor,
-            expert_axis=self.expert_axis)
+            top_k=self.gate.top_k, capacity_factor=self.gate.capacity_factor)
         self.aux_loss = aux
         return out.to(x.dtype).reshape(b, s, h)

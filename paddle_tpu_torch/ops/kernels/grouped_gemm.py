@@ -9,9 +9,9 @@ public ``grouped_matmul`` (:222).
     x [G, C, K]; w [E, K, N], group g reads expert g // gpe (G = E * gpe);
     counts [G] int32, rows c >= counts[g] of y are zero; y [G, C, N].
 
-What bounds it on the H100: bytes (every expert weight, the live x rows
-and the whole y, each once: ~0.17 ms per launch at the MoE training
-shapes, against ~0.14 ms of bf16 products). The kernel
+What bounds it on the H100: bytes (the weight of every expert with a
+live row, the live x rows and the whole y, each once: ~0.17 ms per launch
+at the MoE training shapes, against ~0.14 ms of bf16 products). The kernel
 (``csrc/grouped_gemm.cu``): a block reads ``counts[g]`` from device memory
 and skips a C tile past it, so nothing syncs with the host and the
 products scale with the routed rows. Sums are float32 and round once to
@@ -94,6 +94,8 @@ def _check(x, w, counts, gpe) -> None:
     if counts.dtype != torch.int32 or tuple(counts.shape) != (G,):
         raise ValueError(f"counts must be int32 [{G}], got {counts.dtype} "
                          f"{tuple(counts.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_gemm: no kernel for {x.device}")
     for name, t in (("w", w), ("counts", counts)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -125,16 +127,6 @@ def gmm_kernel(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
     return y
 
 
-def gmm(x, w, counts, groups_per_expert: int = 1) -> torch.Tensor:
-    """The grouped product the autograd function runs: the plain version
-    for a CPU tensor, the kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return gmm_plain(x, w, counts, groups_per_expert)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_gemm: no kernel for {x.device}")
-    return gmm_kernel(x, w, counts, groups_per_expert)
-
-
 # -- autograd -----------------------------------------------------------------
 
 def grad_w(x: torch.Tensor, dy: torch.Tensor, counts: torch.Tensor,
@@ -154,20 +146,24 @@ def grad_w(x: torch.Tensor, dy: torch.Tensor, counts: torch.Tensor,
 
 
 class _GroupedMatmul(torch.autograd.Function):
-    """y = x @ w[g // gpe] per group; saves (x, w, counts)."""
+    """y = x @ w[g // gpe] per group; saves (x, w, counts). The kernel runs
+    the forward and dx unless the caller asked for the plain version or x
+    lies on the CPU."""
 
     @staticmethod
     def forward(ctx, x, w, counts, gpe, use_kernel):
         ctx.save_for_backward(x, w, counts)
-        ctx.gpe, ctx.use_kernel = gpe, use_kernel
-        return (gmm if use_kernel else gmm_plain)(x, w, counts, gpe)
+        ctx.gpe = gpe
+        ctx.use_kernel = use_kernel and x.device.type != "cpu"
+        return (gmm_kernel if ctx.use_kernel else gmm_plain)(x, w, counts,
+                                                              gpe)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, counts = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = (gmm if ctx.use_kernel else gmm_plain)(
+            dx = (gmm_kernel if ctx.use_kernel else gmm_plain)(
                 dy, w.transpose(1, 2), counts, ctx.gpe)
         if ctx.needs_input_grad[1]:
             dw = grad_w(x, dy, counts, ctx.gpe, w.dtype)

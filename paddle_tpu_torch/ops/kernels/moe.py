@@ -19,7 +19,7 @@ atomics: their order, and so the last bits of the sums, change from run
 to run.
 
 Single shard only: expert parallelism over a mesh axis (the reference's
-``_moe_ep_body``, :128) is not ported yet, so ``moe_ffn`` accepts
+``_moe_ep_body``, :128) is not ported yet, so ``moe_ffn`` takes no
 ``expert_axis`` and runs every expert locally.
 """
 
@@ -152,13 +152,13 @@ def _moe_local(x, gate_w, gate_proj, up_proj, down_proj, top_k: int,
 
 
 def moe_ffn(x, gate_weight, gate_proj, up_proj, down_proj, top_k: int = 2,
-            capacity_factor: float = 1.25, expert_axis: str = "dp",
+            capacity_factor: float = 1.25,
             use_pallas: Optional[bool] = None):
     """Routed top-k expert FFN: x [t, h]; gate_weight [h, E]; gate/up_proj
     [E, h, m]; down_proj [E, m, h]. Returns (out [t, h], aux scalar).
     ``use_pallas=False`` takes the plain grouped product; otherwise the
-    kernel runs for CUDA tensors. ``expert_axis`` names the reference's
-    expert-parallel mesh axis; here every expert runs locally."""
+    kernel runs for CUDA tensors. Every expert runs locally: the
+    reference's ``expert_axis`` (expert parallelism) is not ported."""
     return _moe_local(x, gate_weight, gate_proj, up_proj, down_proj,
                       int(top_k), float(capacity_factor), use_pallas)
 
