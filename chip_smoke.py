@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA card (H100): build its CUDA
 kernels, hold each against its plain PyTorch version, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
-continuous-batching engine and ``generate(cache_type="paged")``, train
+continuous-batching engine and ``generate(cache_type="paged")``, serve it
+again quantized to int4 weights through the int4 GEMM kernel, train
 Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW, then train
 DeepSeek-MoE-16B's width (5 layers) the same way through the grouped-GEMM
 kernel.
@@ -35,7 +36,13 @@ Phases (any failure raises and the script exits non-zero):
    transposed view of w) against its plain version, with two planted
    faults (a zeroed live C tile, group g reading expert g mod E instead of
    g // 2), timed at the path's four launch shapes beside its bound and
-   ``torch.bmm`` over the count-masked buffer;
+   ``torch.bmm`` over the count-masked buffer; the int4 weight-only GEMM
+   at Llama-3-8B's four (k, n) pairs and m 1, 4, 37 and 512, plus two
+   shapes with tails in m, n and k, in bf16 and float32 x, against its
+   plain version, with two planted faults (the nibbles swapped, no sign
+   extension), timed at gate/up and down at m 512 and 4 beside its bound,
+   ``torch.mm`` over the codes unpacked to bf16 and ``torch.matmul`` over
+   the bf16 weight;
 4. serving, the first main path: 16 requests through
    ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
    again with speculative decoding, then one paged ``generate()`` call;
@@ -44,8 +51,17 @@ Phases (any failure raises and the script exits non-zero):
    at slice 1's, and the model's last-position logits through the kernels
    must agree with the plain path's. Last, two more runs (bf16 and int8
    pools) each profile one prefill step and three decode steps with
-   torch.profiler (device time by kernel); their launches are not
-   counted;
+   torch.profiler (device time by kernel and by part); their launches
+   are not counted;
+4b. int4 serving, after the serving model is freed: the same model from
+   the same seed, its bf16 logits of one prompt, then
+   ``quantize_for_inference(model, "weight_only_int4")`` on the card
+   (timed; model bytes before and after); the int4 logits through the
+   kernel against the plain route (``FLAGS_use_pallas_kernels`` off) and,
+   without a limit, against bf16; the same 16 requests with a bf16 pool,
+   with exactly 224 int4 GEMM launches per engine step (counts reset just
+   before), greedy agreement with the bf16 run's tokens; a paged
+   ``generate()``; a profiled run with the int4 GEMM as its own part;
 5. training, the second main path, after the serving model is freed:
    ``LlamaForCausalLM`` at Llama-3-8B width with 8 layers (2.80 B params,
    bf16, float32 masters), ``LlamaPretrainingCriterion``,
@@ -70,7 +86,7 @@ Phases (any failure raises and the script exits non-zero):
    the choices dropped by capacity and each MoE layer's min/max counts,
    and one profiled step with the grouped GEMM as its own part.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line (seven
+Output: findings on earlier lines, then the ``kernels`` JSON line (eight
 kernels), then as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -82,6 +98,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -478,7 +495,9 @@ def profile_steps(torch, eng, n, outs):
             for req in eng.step():
                 outs[req.rid] = list(req.out_tokens)
     prof = profile_call(torch, run, n)
-    prof.pop("all_kernels", None)
+    if "all_kernels" in prof:
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                        prof["device_busy_ms"])
     return prof
 
 
@@ -556,6 +575,25 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
     return outs, m
 
 
+def prompt_logits(torch, model, prompt, kv="bf16", cache_cls=None):
+    """Last-position float32 logits of one prompt, prefilled through a
+    fresh paged cache (``cache_cls``, default ``PagedKVCache``)."""
+    from paddle_tpu_torch.models.generation import PagedKVCache
+    cfg = model.config
+    mb = -(-len(prompt) // 64)
+    cache = (cache_cls or PagedKVCache)(
+        cfg.num_hidden_layers, 1, num_blocks=mb, block_size=64,
+        num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.hidden_size // cfg.num_attention_heads,
+        max_blocks_per_seq=mb, dtype=cfg.dtype, kv_dtype=kv, device="cuda")
+    ids = torch.from_numpy(prompt[None]).cuda()
+    return model(ids, cache=cache, start_pos=0)[0, -1].float()
+
+
+def cosine(torch, a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
 def logits_check(torch, model, prompt):
     """Last-position logits of one prompt through the kernels and through
     the plain attention, both on the card, with a bf16 and with an int8
@@ -571,26 +609,13 @@ def logits_check(torch, model, prompt):
                 q.reshape(b * s, h, d), self.k[layer], self.v[layer], tables,
                 lens, cu, **self.scale_kwargs(layer)).reshape(b, s, h, d)
 
-    cfg = model.config
-    ids = torch.from_numpy(prompt[None]).cuda()
-    mb = -(-len(prompt) // 64)
-    cos_of = lambda a, b: float(  # noqa: E731
-        torch.nn.functional.cosine_similarity(a, b, dim=0))
     out, logits = {}, {}
     for kv in ("bf16", "int8"):
-        res = []
-        for cls in (PagedKVCache, PlainCache):
-            cache = cls(cfg.num_hidden_layers, 1, num_blocks=mb,
-                        block_size=64, num_kv_heads=cfg.num_key_value_heads,
-                        head_dim=cfg.hidden_size // cfg.num_attention_heads,
-                        max_blocks_per_seq=mb, dtype=cfg.dtype, kv_dtype=kv,
-                        device="cuda")
-            res.append(model(ids, cache=cache, start_pos=0)[0, -1].float())
-            del cache
-        a, b = res
+        a, b = (prompt_logits(torch, model, prompt, kv, cls)
+                for cls in (PagedKVCache, PlainCache))
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"kernel-path logits ({kv}) are not finite")
-        err, cos = float((a - b).abs().max()), cos_of(a, b)
+        err, cos = float((a - b).abs().max()), cosine(torch, a, b)
         if err > LOGITS_ATOL or cos < LOGITS_MIN_COS:
             raise AssertionError(
                 f"logits ({kv} pool): kernel vs plain path max abs err {err} "
@@ -600,9 +625,17 @@ def logits_check(torch, model, prompt):
         logits[kv] = a
     a, b = logits["int8"], logits["bf16"]
     out["int8_vs_bf16"] = dict(max_abs_err=float((a - b).abs().max()),
-                               cosine=cos_of(a, b),
+                               cosine=cosine(torch, a, b),
                                argmax_equal=bool(a.argmax() == b.argmax()))
     return out
+
+
+def agree(a, b, first=False):
+    """Share of greedy tokens of run ``a`` equal to run ``b``'s, over all
+    positions or over the first token of each request."""
+    pairs = [(x, y) for r in a for x, y in zip(a[r][:1 if first else None],
+                                               b[r])]
+    return sum(x == y for x, y in pairs) / len(pairs)
 
 
 def phase_main(torch, seed, report):
@@ -662,11 +695,6 @@ def phase_main(torch, seed, report):
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
 
-    def agree(a, b, first=False):
-        pairs = [(x, y) for r in a for x, y in zip(a[r][:1 if first else None],
-                                                   b[r])]
-        return sum(x == y for x, y in pairs) / len(pairs)
-
     # greedy tokens against the bf16 run: all positions, and the first
     # token of each request (before one early flip changes the rest)
     main["greedy_token_agreement"] = dict(
@@ -702,7 +730,141 @@ def phase_main(torch, seed, report):
         for window, prof in m["profile"].items():
             log(f"profile[{kv}/{window}]: {json.dumps(prof)}")
     report["main"] = main
-    return main
+    return main, outs_bf16
+
+
+# -- phase 3b: int4 weight-only serving ------------------------------------------
+
+INT4_LINEARS = 7        # q, k, v, o, gate, up, down per decoder layer
+# last-position logits of the int4 model, GEMM kernel route vs plain route
+# (FLAGS_use_pallas_kernels off), both on the card and through the same
+# attention kernels: each linear's bf16 output may differ by one ulp
+# (float32 sums in another order), which compounds through 32 random layers
+# as the attention kernels' ulps do in phase_main's check (measured on an
+# H100: max abs err 0.26, cosine 0.9990, logit std 1.28); the same limits:
+# 0.5 is ~40% of the logits' spread, and 1 - cosine may grow 5x. A wrong
+# unpack moves them far more (int4 vs bf16 on these weights: cosine 0.15)
+INT4_LOGITS_ATOL, INT4_LOGITS_MIN_COS = LOGITS_ATOL, LOGITS_MIN_COS
+
+
+def model_bytes(model) -> int:
+    """Bytes of the model's parameters and buffers (each tensor once)."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def phase_int4_serve(torch, seed, report, outs_bf16):
+    """Llama-3-8B from phase_main's seed, quantized to per-channel int4 on
+    the card, served through the engine and generate()."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                           quantize_for_inference)
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = LlamaConfig.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    prompts = make_requests(cfg, seed)
+    probe = prompts[1][:300]
+    logits_bf16 = prompt_logits(torch, model, probe)
+    res = {"bytes_before": model_bytes(model)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_for_inference(model, "weight_only_int4")
+    torch.cuda.synchronize()
+    res.update(quantize_s=time.perf_counter() - t0,
+               quantize_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               bytes_after=model_bytes(model))
+    torch.cuda.empty_cache()
+    n_q = sum(isinstance(m, WeightOnlyLinear) for m in model.modules())
+    if n_q != INT4_LINEARS * cfg.num_hidden_layers:
+        raise AssertionError(f"{n_q} WeightOnlyLinear layers, want "
+                             f"{INT4_LINEARS * cfg.num_hidden_layers}")
+    log(f"int4: quantize_for_inference(weight_only_int4) of {n_q} linears "
+        f"in {res['quantize_s']:.2f} s (peak {res['quantize_peak_gib']:.2f} "
+        f"GiB); model {res['bytes_before'] / 1e9:.3f} GB -> "
+        f"{res['bytes_after'] / 1e9:.3f} GB (parameters and buffers)")
+
+    # logits: the kernel route against the plain route, and against bf16
+    a = prompt_logits(torch, model, probe)
+    flags.set_flags({"use_pallas_kernels": False})
+    try:
+        b = prompt_logits(torch, model, probe)
+    finally:
+        flags.set_flags({"use_pallas_kernels": True})
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("int4 kernel-route logits are not finite")
+    err, cos = float((a - b).abs().max()), cosine(torch, a, b)
+    res["logits_kernel_vs_plain"] = dict(
+        max_abs_err=err, cosine=cos, std=float(b.std()),
+        argmax_equal=bool(a.argmax() == b.argmax()))
+    if err > INT4_LOGITS_ATOL or cos < INT4_LOGITS_MIN_COS:
+        raise AssertionError(
+            f"int4 logits: kernel vs plain route max abs err {err} (atol "
+            f"{INT4_LOGITS_ATOL}), cosine {cos}")
+    res["logits_int4_vs_bf16"] = dict(
+        max_abs_err=float((a - logits_bf16).abs().max()),
+        cosine=cosine(torch, a, logits_bf16),
+        argmax_equal=bool(a.argmax() == logits_bf16.argmax()))
+    log(f"int4 logits kernel vs plain: {res['logits_kernel_vs_plain']}; "
+        f"int4 vs bf16 (no limit: random weights): "
+        f"{res['logits_int4_vs_bf16']}")
+    del a, b, logits_bf16
+
+    # serving: the path's counts read just before and just after
+    kernels.reset_launch_counts()
+    outs, m = serve(torch, model, prompts, 64)
+    counts = kernels.launch_counts()
+    m["launches"] = counts
+    m["launches_per_step"] = {k: n / m["steps"] for k, n in counts.items()}
+    want = INT4_LINEARS * cfg.num_hidden_layers * m["steps"]
+    if counts["weight_only_int4_gemm"] != want:
+        raise AssertionError(
+            f"weight_only_int4_gemm launched {counts['weight_only_int4_gemm']}"
+            f" times in {m['steps']} engine steps, want {want}")
+    if counts["ragged_paged_attention"] <= 0:
+        raise AssertionError("the ragged kernel was not launched")
+    m["greedy_token_agreement_vs_bf16"] = dict(
+        all=agree(outs, outs_bf16), first=agree(outs, outs_bf16, first=True))
+    res["serve"] = m
+    log(f"serve[int4]: {m['requests']} requests, {m['prompt_tokens']} prompt "
+        f"+ {m['generated_tokens']} generated tokens in {m['wall_s']:.2f} s: "
+        f"{m['tokens_per_s']:.1f} tok/s, step p50 {m['step_ms_p50']:.1f} ms "
+        f"p99 {m['step_ms_p99']:.1f} ms, TTFT p50 {m['ttft_ms_p50']:.0f} ms "
+        f"p99 {m['ttft_ms_p99']:.0f} ms, TPOT p50 {m['tpot_ms_p50']:.1f} ms "
+        f"p99 {m['tpot_ms_p99']:.1f} ms, peak {m['peak_mem_gib']:.2f} GiB, "
+        f"{m['num_blocks']} blocks, {m['steps']} steps, launches {counts} "
+        f"({m['launches_per_step']['weight_only_int4_gemm']:.0f} int4 GEMM "
+        f"per step); greedy agreement with the bf16 run "
+        f"{m['greedy_token_agreement_vs_bf16']}")
+
+    ids = torch.from_numpy(np.stack([p[:128] for p in prompts[:4]])).cuda()
+    before = kernels.launch_counts()["weight_only_int4_gemm"]
+    tg = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=16, temperature=0.0,
+                         cache_type="paged", block_size=64)
+    torch.cuda.synchronize()
+    res["generate"] = dict(
+        batch=4, prompt=128, new_tokens=16, wall_s=time.perf_counter() - tg,
+        int4_gemm_launches=kernels.launch_counts()["weight_only_int4_gemm"]
+        - before)
+    if tuple(out.shape) != (4, 144) or int(out.max()) >= cfg.vocab_size \
+            or int(out.min()) < 0 or res["generate"]["int4_gemm_launches"] \
+            <= 0:
+        raise AssertionError(f"int4 generate(): {tuple(out.shape)}, "
+                             f"{res['generate']}")
+    log(f"generate(paged, int4): {res['generate']}")
+    # last: a profiled run of its own (the profiler slows what follows)
+    _, mp = serve(torch, model, prompts, 64, profile=True)
+    res["profile"] = mp["profile"]
+    for window, prof in mp["profile"].items():
+        log(f"profile[int4/{window}]: {json.dumps(prof)}")
+    del model
+    torch.cuda.empty_cache()
+    report["int4_serve"] = res
+    return res
 
 
 # -- phase 4: training-path kernels -------------------------------------------
@@ -1166,6 +1328,134 @@ def phase_grouped_gemm(torch, seed, report, flush):
     return out
 
 
+# -- phase 4c: the int4 weight-only GEMM ----------------------------------------
+
+# Llama-3-8B's linears as (k, n): q and o, k and v, gate and up, down; m:
+# one row, generate()'s decode batch of 4, a ragged count, and the
+# engine's 512-token step; two shapes with tails in m, n and k (the second
+# with n and k % 8 != 0, so element loads)
+INT4_KN = {"qo": (4096, 4096), "kv": (4096, 1024), "gate_up": (4096, 14336),
+           "down": (14336, 4096)}
+INT4_MS = (1, 4, 37, 512)
+INT4_TAILS = ((77, 4100, 1000), (3, 330, 1001))
+
+
+def int4_from_planes(torch, x, lo, hi, s):
+    """The plain formulation over given nibble planes: a planted fault of
+    the unpack is a change of the planes."""
+    xb = x.to(torch.bfloat16)
+    acc = xb[:, 0::2].float() @ lo.float() + xb[:, 1::2].float() @ hi.float()
+    return (acc * s.reshape(1, -1)).to(x.dtype)
+
+
+def planted_int4_faults(torch, wog, x, q, s, want):
+    """Two faults an unpack could make, produced with the plain
+    formulation: the nibbles swapped (row 2i read from the high nibble)
+    and no sign extension (nibbles read as 0..15). Each must fail
+    ``check_close``."""
+    lo, hi = wog._nibbles(q)
+    w32 = q.to(torch.int32)
+    errs = {}
+    for fault, planes in (("nibbles_swapped", (hi, lo)),
+                          ("no_sign_extension", (w32 & 0xF,
+                                                 (w32 >> 4) & 0xF))):
+        bad = int4_from_planes(torch, x, *planes, s)
+        try:
+            check_close(torch, "weight_only_int4_gemm", bad, want, "bfloat16")
+        except AssertionError:
+            errs[fault] = float((bad.float() - want.float()).abs().max())
+            continue
+        raise AssertionError(f"weight_only_int4_gemm: the tolerance passes "
+                             f"a planted fault ({fault})")
+    return errs
+
+
+def int4_work(m, k, n, x_item):
+    """(flops, bytes) of one product: the packed weight, x, the scales and
+    y (in x's dtype), each once."""
+    return 2 * m * k * n, k // 2 * n + m * k * x_item + 4 * n + m * n * x_item
+
+
+def phase_int4_gemm(torch, seed, report, flush):
+    from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+    errs = {label: {} for label, _ in dtypes}
+    faults, times = None, {}
+    # (name, k, n, the m of each case): one weight per entry
+    weights = [(name, k, n, INT4_MS) for name, (k, n) in INT4_KN.items()] \
+        + [(f"tail_{m}x{k}x{n}", k, n, (m,)) for m, k, n in INT4_TAILS]
+    for name, k, n, ms in weights:
+        w = torch.randn((k, n), generator=g, device="cuda") * 0.02
+        w16, (q, s) = w.bfloat16(), wog.quantize(w, "int4")
+        del w
+        for m, (label, dt) in itertools.product(ms, dtypes):
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            got = wog.int4_matmul_kernel(x, q, s)
+            torch.cuda.synchronize()
+            want = wog.int4_matmul_plain(x, q, s)
+            case = f"{name}/m{m}" if name in INT4_KN else name
+            errs[label][case] = check_close(
+                torch, f"weight_only_int4_gemm[{label}/{case}]", got, want,
+                label)
+            if label == "bfloat16" and name == "gate_up" and m == 512:
+                faults = planted_int4_faults(torch, wog, x, q, s, want)
+            del got, want
+            # times: gate/up and down at m 512 and 4 in bf16, and the
+            # gate/up step in float32; yardsticks, timed here only: one
+            # torch.mm of bf16(x) and the codes unpacked to bf16 (unpacked
+            # outside the window) with a float32 output, then the scale
+            # (the same function up to summation order, reading 4x the
+            # weight bytes); and torch.matmul over the bf16 weight before
+            # quantization
+            if name in ("gate_up", "down") and m in (4, 512) and (
+                    label == "bfloat16" or (name, m) == ("gate_up", 512)):
+                wq = wog._unpack_int4(q, n).bfloat16()
+                xm = x if label == "bfloat16" else x.bfloat16()
+                flops, nbytes = int4_work(m, k, n, x.element_size())
+                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+                times[f"{label}/{name}/m{m}"] = dict(
+                    m=m, k=k, n=n,
+                    ms=time_ms(torch, lambda: wog.int4_matmul_kernel(
+                        x, q, s), flush=flush),
+                    plain_ms=time_ms(torch, lambda: wog.int4_matmul_plain(
+                        x, q, s), iters=3, flush=flush),
+                    library_ms=time_ms(torch, lambda: (torch.mm(
+                        x.bfloat16(), wq, out_dtype=torch.float32)
+                        * s).to(x.dtype), flush=flush),
+                    library_bf16_weight_ms=time_ms(
+                        torch, lambda: torch.matmul(xm, w16), flush=flush),
+                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                del wq, xm
+            del x
+        del w16, q, s
+    out = {}
+    for label, _ in dtypes:
+        head = times[f"{label}/gate_up/m512"]
+        out[label] = dict(max_abs_err_by_case=errs[label],
+                          max_abs_err=max(errs[label].values()),
+                          **{k: head[k] for k in (
+                              "ms", "plain_ms", "library_ms",
+                              "library_bf16_weight_ms", "bound_ms",
+                              "bound_by")})
+        log(f"weight_only_int4_gemm[{label}]: max_abs_err "
+            f"{out[label]['max_abs_err']:.3e} over {len(errs[label])} "
+            f"shapes ({sorted(errs[label])})")
+    out["bfloat16"]["planted_fault_max_abs_err"] = faults
+    out["times"] = times
+    log(f"weight_only_int4_gemm: planted faults rejected: {faults}")
+    for key, t in times.items():
+        log(f"weight_only_int4_gemm[{key}] k{t['k']} n{t['n']}: ms "
+            f"{t['ms']:.4f} plain_ms {t['plain_ms']:.3f} library_ms "
+            f"{t['library_ms']:.4f} (mm over the unpacked codes) "
+            f"bf16-weight matmul {t['library_bf16_weight_ms']:.4f} bound_ms "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}), "
+            f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+    report["kernels"]["weight_only_int4_gemm"] = out
+    return out
+
+
 # -- phase 5: training --------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1214,12 +1504,17 @@ def categorize(all_kernels, busy_ms):
     """Device ms of one step by part of the step, from every activity's
     full name; ``unaccounted`` is the busy time the parts leave out (0
     when no two activities overlap)."""
-    cats = {"grouped_gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
-            "fused_optimizer": 0.0, "matmul": 0.0, "other": 0.0}
+    cats = {"grouped_gemm": 0.0, "int4_gemm": 0.0, "paged_attention": 0.0,
+            "flash_fwd": 0.0, "flash_bwd": 0.0, "fused_optimizer": 0.0,
+            "matmul": 0.0, "other": 0.0}
     for name, ms in all_kernels.items():
         low = name.lower()
         if "grouped_gemm_" in low:
             cats["grouped_gemm"] += ms
+        elif "int4_gemm_" in low:
+            cats["int4_gemm"] += ms
+        elif "paged_attention_kernel" in low:   # ragged and gang decode
+            cats["paged_attention"] += ms
         elif "fwd_kernel" in low:
             cats["flash_fwd"] += ms
         elif "dq_kernel" in low or "dkv_kernel" in low:
@@ -1585,7 +1880,8 @@ def main(argv=None) -> int:
     log(f"build: {report['build_s']:.1f} s (nvcc, sm_90a, one process per "
         f"source)")
     for stem in ("ragged_paged_attention", "paged_attention",
-                 "flash_attention", "fused_optimizer", "grouped_gemm"):
+                 "flash_attention", "fused_optimizer", "grouped_gemm",
+                 "weight_only_gemm"):
         txt = _build.ptxas_report(stem) or ""
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
@@ -1597,10 +1893,12 @@ def main(argv=None) -> int:
     flash = phase_flash(torch, args.seed, report, flush)
     fused = phase_fused_optimizer(torch, args.seed, report, flush)
     gmm = phase_grouped_gemm(torch, args.seed, report, flush)
+    int4_gemm = phase_int4_gemm(torch, args.seed, report, flush)
     del scratch
     torch.cuda.empty_cache()
-    main_res = phase_main(torch, args.seed, report)
+    main_res, outs_bf16 = phase_main(torch, args.seed, report)
     torch.cuda.empty_cache()          # the serving model is gone
+    int4 = phase_int4_serve(torch, args.seed, report, outs_bf16)
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
     moe = phase_moe_train(torch, args.seed, report)
@@ -1629,7 +1927,10 @@ def main(argv=None) -> int:
             "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:279"),
         "grouped_gemm": (
             "paddle_tpu_torch/csrc/grouped_gemm.cu",
-            "paddle_tpu/ops/kernels/pallas/grouped_gemm.py:109")}
+            "paddle_tpu/ops/kernels/pallas/grouped_gemm.py:109"),
+        "weight_only_int4_gemm": (
+            "paddle_tpu_torch/csrc/weight_only_gemm.cu",
+            "paddle_tpu/ops/kernels/pallas/weight_only_gemm.py:105")}
     per_kernel = {
         "ragged_paged_attention": kern["ragged_paged_attention"],
         "paged_attention": kern["paged_attention"],
@@ -1637,21 +1938,27 @@ def main(argv=None) -> int:
         "flash_attention_dq": {k: v["dq"] for k, v in flash.items()},
         "flash_attention_dkv": {k: v["dkv"] for k, v in flash.items()},
         "fused_optimizer": {"bfloat16": fused},
-        "grouped_gemm": {k: gmm[k] for k in ("bfloat16", "float32")}}
+        "grouped_gemm": {k: gmm[k] for k in ("bfloat16", "float32")},
+        "weight_only_int4_gemm": {k: int4_gemm[k]
+                                  for k in ("bfloat16", "float32")}}
     # each path's launches: the serving kernels from the serving run, the
     # Llama training kernels from the Llama training run, the grouped GEMM
-    # from the MoE training run (counts reset before each)
+    # from the MoE training run, the int4 GEMM from the int4 serving run
+    # (counts reset before each)
     launched = {name: main_res["launches"][name] for name in SERVING_KERNELS}
     launched.update({name: train["launches"][name]
                      for name in TRAINING_KERNELS})
     launched["grouped_gemm"] = moe["launches"]["grouped_gemm"]
+    launched["weight_only_int4_gemm"] = \
+        int4["serve"]["launches"]["weight_only_int4_gemm"]
     for name, per in per_kernel.items():
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": launched[name]}
         e.update({k: head[k] for k in keys})
-        if "planted_fault_max_abs_err" in head:
-            e["planted_fault_max_abs_err"] = head["planted_fault_max_abs_err"]
+        for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err"):
+            if extra in head:
+                e[extra] = head[extra]
         for label, v in per.items():
             if label != "bfloat16" and isinstance(v, dict) and "ms" in v:
                 e[label] = {k: v[k] for k in keys}

@@ -53,11 +53,15 @@ def _bool(value: Any) -> bool:
 #   update with a select, so a non-finite step is an exact bitwise no-op;
 #   the step pays one deferred host sync to keep the step count at
 #   applied updates.
+# use_pallas_kernels: the hand-written kernels where the reference gates
+#   its Pallas kernels on this flag (the per-channel int4 weight-only
+#   GEMM): off, a CUDA tensor takes the plain version.
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
     "fused_optimizer": (True, _bool),
     "anomaly_sentinel": (False, _bool),
+    "use_pallas_kernels": (True, _bool),
 }
 
 _VALUES: Dict[str, Any] = {

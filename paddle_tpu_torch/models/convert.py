@@ -5,7 +5,10 @@
 ``Layer.state_dict`` names) and copies every entry into the port module of
 the same name, checking shapes and dtypes. Linear weights keep the
 ``[in, out]`` layout in both packages, so nothing is transposed. The
-rotary ``cos_cached``/``sin_cached`` buffers are copied too.
+rotary ``cos_cached``/``sin_cached`` buffers are copied too, and so are a
+weight-only quantized model's int8 ``qweight`` and float32
+``weight_scale`` buffers (quantize the port skeleton first with
+``nn.quant.quantize_for_inference``).
 
 The other way, for holding training to the reference name for name:
 ``named_grads(model)`` and ``named_optimizer_state(model, optimizer)``
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 _NP_DTYPES = {torch.float32: ("float32",), torch.bfloat16: ("bfloat16",),
-              torch.float16: ("float16",)}
+              torch.float16: ("float16",), torch.int8: ("int8",)}
 
 
 def from_jax_state_dict(model: torch.nn.Module,

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike
 from ..nn.initializer import ParamInit
+from ..nn.layers_common import Embedding, Linear  # noqa: F401 (re-exported)
 from ..ops.kernels import nn as K
 from .generation import GenerationMixin
 
@@ -66,26 +67,6 @@ class LlamaConfig:
                            intermediate_size=128, num_hidden_layers=2,
                            num_attention_heads=4, num_key_value_heads=2,
                            max_position_embeddings=128)
-
-
-class Linear(nn.Module):
-    """``x @ W`` with ``W [in, out]`` (the JAX package's ``nn.Linear``)."""
-
-    def __init__(self, in_features: int, out_features: int, init: ParamInit):
-        super().__init__()
-        self.weight = init.normal(in_features, out_features)
-
-    def forward(self, x):
-        return K.linear(x, self.weight)
-
-
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, dim: int, init: ParamInit):
-        super().__init__()
-        self.weight = init.normal(num_embeddings, dim)
-
-    def forward(self, ids):
-        return K.embedding(ids, self.weight)
 
 
 class LlamaRMSNorm(nn.Module):

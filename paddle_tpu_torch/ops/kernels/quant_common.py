@@ -2,10 +2,11 @@
 
 Counterpart of ``paddle_tpu/ops/kernels/pallas/quant_common.py``. Used by
 the int8 paged KV pool (``serving.paged_cache_write_q``, per-token-slot
-scales riding the block table) and by the plain versions of the attention
-kernels. Symmetric scheme throughout:
+scales riding the block table), by the plain versions of the attention
+kernels and by the weight-only GEMMs (``weight_only_gemm.py``, per-channel
+or per-group weight scales). Symmetric scheme throughout:
 
-    scale = absmax(x, axis) / bound        # bound: 127 for int8
+    scale = absmax(x, axis) / bound        # bound: 127 int8, 7 int4
     q     = clip(round(x / scale), -bound, bound)
     x~    = q * scale
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 INT8_BOUND = 127.0
+INT4_BOUND = 7.0
 EPS = 1e-10
 
 
@@ -30,7 +32,7 @@ def absmax_scale(x: torch.Tensor, axis: int,
 def quantize_symmetric(x: torch.Tensor, scales: torch.Tensor,
                        bound: float = INT8_BOUND) -> torch.Tensor:
     """Round-to-nearest symmetric quantization; `scales` must broadcast
-    against `x`. Returns int8 codes."""
+    against `x`. Returns int8 codes (int4 callers pack nibbles themselves)."""
     q = torch.round(x.float() / torch.clamp(scales, min=EPS))
     return torch.clamp(q, -bound, bound).to(torch.int8)
 

@@ -27,6 +27,11 @@ groups per expert 1 and 2, whole and tail C/K/N tiles, rows that are not
 16-byte aligned, w contiguous, as a transposed view (dx's) and with
 neither axis contiguous, and counts with empty, partial and full groups
 (one pattern all empty); its autograd on the card matches the CPU's.
+The int4 weight-only GEMM matches its plain version over m 1, 4, 16, 37
+and 512, whole and tail k steps and n tiles, k and n that are not
+multiples of 8 (element loads), float32 and bfloat16 x, with a bias and a
+3-D x through ``weight_only_linear``, and with ``FLAGS_use_pallas_kernels``
+off (the plain version, launching nothing).
 """
 
 import numpy as np
@@ -398,3 +403,78 @@ def test_grouped_gemm_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="dtype"):
         gg.grouped_matmul(x.half(), w.half(), counts)
     assert gg.launches.count == before
+
+
+# -- int4 weight-only GEMM ------------------------------------------------------
+
+WOG_KN = {  # (k, n)
+    "tiles": (256, 384),     # whole 32-deep k steps and 128-wide n tiles
+    "tails": (200, 1000),    # tail k step and n tile, vector loads
+    "odd": (66, 37),         # k % 8 and n % 8 != 0: element loads
+    "kv_proj": (4096, 1024),  # Llama-3-8B's k/v projection
+}
+
+
+def _wog_inputs(dev, m, k, n, dtype, seed=0):
+    from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device=dev) * 0.02
+    q, s = wog.quantize(w, "int4")
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    return x, q, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kn", sorted(WOG_KN))
+@pytest.mark.parametrize("m", [1, 4, 16, 37, 512])
+def test_int4_gemm_kernel_matches_plain(dev, m, kn, dtype):
+    from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
+    k, n = WOG_KN[kn]
+    x, q, s = _wog_inputs(dev, m, k, n, dtype, seed=m + k)
+    before = wog.launches.count
+    got = wog.weight_only_matmul(x, q, s, "int4")
+    torch.cuda.synchronize()
+    assert wog.launches.count == before + 1
+    want = wog.int4_matmul_plain(x, q, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_linear_with_bias_and_the_flag_on_the_card(dev, dtype):
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops.kernels import quant, weight_only_gemm as wog
+    x, q, s = _wog_inputs(dev, 2 * 45, 200, 1000, dtype, seed=3)
+    x = x.reshape(2, 45, 200)
+    bias = torch.randn(1000, device=dev) * 0.1
+    before = wog.launches.count
+    got = quant.weight_only_linear(x, q, bias, s, weight_dtype="int4")
+    assert wog.launches.count == before + 1
+    flags.set_flags({"use_pallas_kernels": False})
+    try:
+        plain = quant.weight_only_linear(x, q, bias, s, weight_dtype="int4")
+    finally:
+        flags.set_flags({"use_pallas_kernels": True})
+    assert wog.launches.count == before + 1     # the flag's plain route
+    want = wog.int4_matmul_plain(x.reshape(90, 200), q, s).reshape(
+        2, 45, 1000) + bias.to(dtype)
+    assert got.dtype == dtype and got.shape == (2, 45, 1000)
+    torch.testing.assert_close(plain, want, rtol=0, atol=0)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_int4_gemm_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
+    x, q, s = _wog_inputs(dev, 4, 66, 37, torch.float32)
+    before = wog.launches.count
+    with pytest.raises(ValueError, match="dtype"):
+        wog.int4_matmul_kernel(x.half(), q, s)
+    with pytest.raises(ValueError, match="int8"):
+        wog.int4_matmul_kernel(x, q.int(), s)
+    with pytest.raises(ValueError, match="twice"):
+        wog.int4_matmul_kernel(x[:, :64], q, s)
+    with pytest.raises(ValueError, match="n=37"):
+        wog.int4_matmul_kernel(x, q, s[:36])
+    with pytest.raises(ValueError, match="is on"):
+        wog.int4_matmul_kernel(x, q.cpu(), s)
+    assert wog.launches.count == before
