@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card (H100): build its CUDA
-kernels, hold each against its plain PyTorch version, serve Llama-3-8B
+kernels, hold each against its plain PyTorch version, run packed (varlen)
+attention forward and backward through the op registry, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
 continuous-batching engine and ``generate(cache_type="paged")``, serve it
 again quantized to int4 weights through the int4 GEMM kernel, train
@@ -43,6 +44,20 @@ Phases (any failure raises and the script exits non-zero):
    extension), timed at gate/up and down at m 512 and 4 beside its bound,
    ``torch.mm`` over the codes unpacked to bf16 and ``torch.matmul`` over
    the bf16 weight;
+3b. packed (varlen) attention, a main path of its own, at Llama-3-8B's
+   attention width (32/8 heads, d 128) over 16384 tokens of documents
+   whose lengths are drawn log-uniform over 32-4096 from the seed (the
+   last cut to fill), causal: bf16 and float32 self packing and a bf16
+   cross packing (k documents in reverse order), each forward and backward
+   through ``call_op("flash_attn_unpadded")`` and ``loss.backward()`` with
+   exactly one launch of each of the three varlen kernels per call (counts
+   reset before); then each kernel against its plain version (out, lse,
+   dq, dk, dv), planted faults made with the plain formulation (segment
+   mask dropped, lse one token off, causal bottom-right under cross
+   packing), and times beside the bound from the live pairs, the plain
+   version, one library call (``varlen_attn`` where the installed torch
+   has it, else masked SDPA) and the padded flash kernels over the same
+   documents padded to batch x longest;
 4. serving, the first main path: 16 requests through
    ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
    again with speculative decoding, then one paged ``generate()`` call;
@@ -86,7 +101,7 @@ Phases (any failure raises and the script exits non-zero):
    the choices dropped by capacity and each MoE layer's min/max counts,
    and one profiled step with the grouped GEMM as its own part.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line (eight
+Output: findings on earlier lines, then the ``kernels`` JSON line (eleven
 kernels), then as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -903,9 +918,16 @@ def flash_work(b, h, kv, sq, sk, d, item, causal=True):
     coff = sk - sq
     pairs = sum(min(sk, i + coff + 1) for i in range(sq)) if causal \
         else sq * sk
-    flops = 4 * b * h * pairs * d
-    qb, kb = b * sq * h * d * item, b * sk * kv * d * item
-    lse = b * h * sq * 4
+    return attn_work(b * pairs, b * sq, b * sk, h, kv, d, item)
+
+
+def attn_work(pairs, nq, nk, h, kv, d, item):
+    """(forward flops, forward bytes, dq bytes, dk/dv bytes) of attention
+    over ``pairs`` live (query, key) pairs per head, ``nq`` query and
+    ``nk`` key rows: each input read once, each output written once."""
+    flops = 4 * h * pairs * d
+    qb, kb = nq * h * d * item, nk * kv * d * item
+    lse = h * nq * 4
     return (flops,
             2 * qb + 2 * kb + lse,       # q k v -> out, lse
             3 * qb + 2 * kb + 2 * lse,   # q k v dO lse delta -> dq
@@ -1044,6 +1066,298 @@ def phase_flash(torch, seed, report, flush):
             + (f"; planted faults rejected: {faults}" if faults else ""))
         del q, k, v, dout, wo, wl, delta
     report["kernels"]["flash_attention"] = out
+    return out
+
+
+# -- phase 3b: packed (varlen) attention through the op registry -------------
+
+VARLEN_T = 16384                 # packed tokens: a batch of 8 x 2048
+VARLEN_LEN = (32, 4096)          # document lengths, log-uniform, last one cut
+VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_dq", "flash_varlen_dkv")
+VARLEN_LABELS = ("bfloat16", "float32", "cross_bfloat16")
+
+
+def varlen_lengths(rng, total=VARLEN_T, lo=VARLEN_LEN[0], hi=VARLEN_LEN[1]):
+    """Document lengths drawn log-uniform in [lo, hi] until they fill
+    ``total`` tokens; the last document is cut to fill exactly."""
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def varlen_pairs(lq, lk) -> int:
+    """Live (query, key) pairs of causal attention packed by segments, the
+    mask top-left in each: sum over segments and query positions p of
+    min(p + 1, len_k)."""
+    return sum(sum(min(p + 1, b) for p in range(a)) for a, b in zip(lq, lk))
+
+
+def varlen_library(torch, q, k, v, cu, max_len):
+    """One PyTorch call for the same function, timed here only: the
+    installed torch's ``torch.nn.attention.varlen.varlen_attn`` for bf16
+    (flash attention takes no float32), else ``scaled_dot_product_attention``
+    over [1, h, T, d] with a block-diagonal causal bool mask on the
+    memory-efficient backend (kv heads repeated outside the call). Returns
+    (name, differentiable inputs, call)."""
+    import inspect
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+        params = inspect.signature(varlen_attn).parameters
+    except ImportError:
+        params = {}
+    if q.dtype == torch.bfloat16 and ("window_size" in params
+                                      or "is_causal" in params):
+        kw = dict(window_size=(-1, 0)) if "window_size" in params \
+            else dict(is_causal=True)
+        if "enable_gqa" in params:
+            kw["enable_gqa"] = True
+        else:
+            k, v = (x.repeat_interleave(G, dim=1) for x in (k, v))
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        return ("torch.nn.attention.varlen.varlen_attn", ins,
+                lambda: varlen_attn(*ins, cu, cu, max_len, max_len, **kw))
+    seg = torch.searchsorted(cu, torch.arange(q.shape[0], device=q.device,
+                                              dtype=cu.dtype), right=True)
+    pos = torch.arange(q.shape[0], device=q.device)
+    mask = (seg[:, None] == seg[None, :]) & (pos[None, :] <= pos[:, None])
+    ins = [x.transpose(0, 1)[None].detach().requires_grad_()
+           for x in (q, k.repeat_interleave(G, dim=1),
+                     v.repeat_interleave(G, dim=1))]
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*ins, attn_mask=mask)
+    return ("scaled_dot_product_attention (efficient, block-diagonal causal "
+            "mask, kv heads repeated)", ins, call)
+
+
+def planted_varlen_faults(torch, fv, fa, q, k, v, cuq, cuk, lq, lk, scale,
+                          want, want_lse, lse, dtype_name):
+    """Faults a varlen kernel could make, produced with the plain
+    formulation, each of which must fail the limits: the segment mask
+    dropped (one causal segment over all tokens: documents leak into each
+    other), causal aligned bottom-right in each segment instead of
+    top-left (only cross packing tells the two apart), and lse read one
+    token off. Returns each fault's max abs err."""
+    errs = {}
+
+    def must_fail(fault, bad, ref, check):
+        try:
+            check(bad)
+        except AssertionError:
+            errs[fault] = float((bad.float() - ref.float()).abs().max())
+            return
+        raise AssertionError(f"flash_varlen: the tolerance passes a planted "
+                             f"fault ({fault})")
+
+    out_ok = lambda bad: check_close(  # noqa: E731
+        torch, "flash_varlen_fwd", bad, want, dtype_name)
+    if lq == lk:
+        whole = torch.tensor([0, q.shape[0]], dtype=torch.int32,
+                             device=q.device)
+        must_fail("segment_mask_dropped",
+                  fv.flash_varlen_fwd_plain(q, k, v, whole, whole, True,
+                                            scale)[0], want, out_ok)
+        shifted = lse.clone()
+        shifted[:, 1:] = lse[:, :-1]
+
+        def lse_ok(bad):
+            if bool(((bad - want_lse).abs() > LSE_TOL["atol"]
+                     + LSE_TOL["rtol"] * want_lse.abs()).any()):
+                raise AssertionError("lse differs")
+        must_fail("lse_one_token_off", shifted, want_lse, lse_ok)
+    else:
+        bad = torch.zeros_like(want)
+        cq, ck = cuq.tolist(), cuk.tolist()
+        for i in range(len(lq)):
+            if lq[i] and lk[i]:
+                bad[cq[i]:cq[i + 1]] = fa.flash_fwd_plain(
+                    q[None, cq[i]:cq[i + 1]], k[None, ck[i]:ck[i + 1]],
+                    v[None, ck[i]:ck[i + 1]], True, scale)[0][0]
+        must_fail("causal_bottom_right", bad, want, out_ok)
+    return errs
+
+
+def phase_flash_varlen(torch, seed, report, flush):
+    """Packed attention at Llama-3-8B's attention width (32/8 heads, d 128)
+    over 16384 tokens of documents from ``varlen_lengths``: forward and
+    backward through ``call_op("flash_attn_unpadded")`` with the launches
+    counted (1 forward, 1 dq, 1 dk/dv per call), each kernel against its
+    plain version, planted faults, and times beside the bound, the plain
+    version, one library call and the padded flash kernels."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    rng = np.random.RandomState(seed + 5)
+    lens = varlen_lengths(rng)
+    cases = zip(VARLEN_LABELS, (torch.bfloat16, torch.float32,
+                                torch.bfloat16), (lens, lens, lens[::-1]))
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    scale = D ** -0.5
+    out, launched = {"lengths": lens}, {n: 0 for n in VARLEN_KERNELS}
+    for label, dt, lk in cases:
+        dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+        mk = lambda n: torch.randn((VARLEN_T, n, D), generator=g,  # noqa: E731
+                                   device="cuda").to(dt)
+        q, k, v, dout = mk(H), mk(KV), mk(KV), mk(H)
+        cuq = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32,
+                           device="cuda")
+        cuk = cuq if lk is lens else torch.tensor(
+            np.cumsum([0] + lk), dtype=torch.int32, device="cuda")
+        max_len = max(max(lens), max(lk))
+
+        # the main path: the op, then loss.backward(), counts reset before
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        o_main = call_op("flash_attn_unpadded", *ins, cuq, cuk, max_len,
+                         max_len, 0.0, True)
+        loss = (o_main.float() * dout.float()).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want_counts = {n: int(n in VARLEN_KERNELS) for n in counts}
+        if counts != want_counts:
+            raise AssertionError(f"flash_attn_unpadded[{label}]: launches "
+                                 f"{counts}, want one of each varlen kernel")
+        for n in VARLEN_KERNELS:
+            launched[n] += counts[n]
+        grads_main = [x.grad for x in ins]
+        del ins, loss
+
+        # each kernel against its plain version (comparison launches)
+        tok = lk is lens
+        lay = fv.varlen_layout(cuq, cuk, VARLEN_T, VARLEN_T, tok)
+        o, lse = fv.flash_varlen_fwd(q, k, v, lay, True, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_main.detach()):
+            raise AssertionError(f"flash_varlen[{label}]: the op's output "
+                                 f"differs from the forward kernel's")
+        wo, wl = fv.flash_varlen_fwd_plain(q, k, v, cuq, cuk, True, scale)
+        e_out = check_close(torch, f"flash_varlen_fwd[{label}]", o, wo, dname)
+        e_out_rel = rel_err(torch, o, wo)
+        e_lse = float((lse - wl).abs().max())
+        if bool(((lse - wl).abs() > LSE_TOL["atol"]
+                 + LSE_TOL["rtol"] * wl.abs()).any()):
+            raise AssertionError(f"flash_varlen_fwd[{label}]: lse differs "
+                                 f"by {e_lse}")
+        delta = (dout.float() * wo.float()).sum(-1).transpose(0, 1) \
+            .contiguous()
+        dq = fv.flash_varlen_dq(q, k, v, dout, wl, delta, lay, True, scale)
+        dk, dv = fv.flash_varlen_dkv(q, k, v, dout, wl, delta, lay, True,
+                                     scale)
+        torch.cuda.synchronize()
+        ref = fv.flash_varlen_bwd_plain(q, k, v, dout, wl, delta, cuq, cuk,
+                                        True, scale)
+        errs, abs_errs = {}, {}
+        for name, a, b, m in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                 grads_main):
+            errs[name] = rel_err(torch, a, b)
+            abs_errs[name] = float((a.float() - b.float()).abs().max())
+            errs[f"{name}_main"] = rel_err(torch, m, b)
+            if max(errs[name], errs[f"{name}_main"]) > GRAD_REL_TOL[dname]:
+                raise AssertionError(
+                    f"flash_varlen {name}[{label}]: kernel differs from "
+                    f"plain version: max err {errs[name]} (the op's "
+                    f"{errs[name + '_main']}) of the tensor's max (limit "
+                    f"{GRAD_REL_TOL[dname]})")
+        faults = planted_varlen_faults(torch, fv, fa, q, k, v, cuq, cuk,
+                                       lens, lk, scale, wo, wl, lse, dname) \
+            if dt == torch.bfloat16 else None
+        del o_main, grads_main, o, dq, dk, dv, ref
+
+        pairs = varlen_pairs(lens, lk)
+        flops, b_fwd, b_dq, b_dkv = attn_work(pairs, VARLEN_T, VARLEN_T, H,
+                                              KV, D, q.element_size())
+        rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+        bounds = {"fwd": bound(b_fwd, flops, rate),
+                  "dq": bound(b_dq, flops // 2, rate),
+                  "dkv": bound(b_dkv, 2 * flops, rate)}
+        run = lambda f, *a: time_ms(torch, lambda: f(*a), flush=flush)  # noqa
+        ms = {"fwd": run(fv.flash_varlen_fwd, q, k, v, lay, True, scale),
+              "dq": run(fv.flash_varlen_dq, q, k, v, dout, wl, delta, lay,
+                        True, scale),
+              "dkv": run(fv.flash_varlen_dkv, q, k, v, dout, wl, delta, lay,
+                         True, scale)}
+        plain = {"fwd": run(fv.flash_varlen_fwd_plain, q, k, v, cuq, cuk,
+                            True, scale),
+                 "bwd": run(fv.flash_varlen_bwd_plain, q, k, v, dout, wl,
+                            delta, cuq, cuk, True, scale)}
+        lib_name, lib_in, lib_call = varlen_library(torch, q, k, v, cuq,
+                                                    max_len) \
+            if tok else (None, None, None)
+        lib = {}
+        if lib_call is not None:
+            lib["fwd"] = time_ms(torch, lib_call, flush=flush)
+            lo = lib_call()
+            ct = dout if lo.dim() == 3 else dout.transpose(0, 1)[None]
+            lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                lo, lib_in, ct, retain_graph=True), flush=flush)
+            del lo, lib_in, lib_call
+        # the padded flash kernels over the same documents, b x max_len
+        padded = {}
+        if tok:
+            B, S = len(lens), max(lens)
+            pad = lambda x: torch.zeros(  # noqa: E731
+                (B, S) + x.shape[1:], dtype=x.dtype, device=x.device)
+            pq, pk, pv, pdo = pad(q), pad(k), pad(v), pad(dout)
+            c = cuq.tolist()
+            for i in range(B):
+                for src, dst in ((q, pq), (k, pk), (v, pv), (dout, pdo)):
+                    dst[i, :lens[i]] = src[c[i]:c[i + 1]]
+            po, pl = fa.flash_fwd_kernel(pq, pk, pv, True, scale)
+            pdel = (pdo.float() * po.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            padded = {
+                "shape": [B, S],
+                "fwd": run(fa.flash_fwd_kernel, pq, pk, pv, True, scale),
+                "dq": run(fa.flash_dq_kernel, pq, pk, pv, pdo, pl, pdel,
+                          True, scale),
+                "dkv": run(fa.flash_dkv_kernel, pq, pk, pv, pdo, pl, pdel,
+                           True, scale)}
+            del pq, pk, pv, pdo, po, pl, pdel
+        abs_errs["fwd"], errs["fwd"] = e_out, e_out_rel
+        abs_errs["dkv"] = max(abs_errs["dk"], abs_errs["dv"])
+        errs["dkv"] = max(errs["dk"], errs["dv"])
+        res = {}
+        for kern in ("fwd", "dq", "dkv"):
+            lib_ms = lib.get("fwd" if kern == "fwd" else "bwd")
+            res[kern] = dict(
+                max_abs_err=abs_errs[kern], max_rel_err=errs[kern],
+                ms=ms[kern], plain_ms=plain["fwd" if kern == "fwd"
+                                            else "bwd"],
+                bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
+                library_ms=lib_ms, padded_flash_ms=padded.get(kern))
+        res.update(lse_max_abs_err=e_lse, pairs=pairs, flops=flops,
+                   library=lib_name, padded_shape=padded.get("shape"),
+                   grad_errs=errs, planted_fault_errs=faults)
+        out[label] = res
+        log(f"flash_varlen[{label}] T {VARLEN_T} ({len(lens)} docs, max "
+            f"{max(lens)}) h{H}/{KV} d{D} causal: out max_abs_err "
+            f"{e_out:.3e} lse {e_lse:.2e} rel errs "
+            f"{ {n: round(e, 6) for n, e in errs.items()} }; launches per "
+            f"call 1/1/1; ms fwd {ms['fwd']:.3f} dq {ms['dq']:.3f} dkv "
+            f"{ms['dkv']:.3f}; plain fwd {plain['fwd']:.2f} bwd "
+            f"{plain['bwd']:.2f}; bound fwd {bounds['fwd'][0]:.4f} dq "
+            f"{bounds['dq'][0]:.4f} dkv {bounds['dkv'][0]:.4f} "
+            f"({bounds['fwd'][1]}; {pairs} pairs)"
+            + (f"; library {lib_name}: fwd {lib['fwd']:.3f} bwd "
+               f"{lib['bwd']:.3f}" if lib else "")
+            + (f"; padded flash {padded['shape']}: fwd {padded['fwd']:.3f} "
+               f"dq {padded['dq']:.3f} dkv {padded['dkv']:.3f}"
+               if padded else "")
+            + (f"; planted faults rejected: {faults}" if faults else ""))
+        del q, k, v, dout, wo, wl, lse, delta, lay
+        torch.cuda.empty_cache()
+    out["launches"] = launched
+    report["kernels"]["flash_varlen"] = out
     return out
 
 
@@ -1880,8 +2194,8 @@ def main(argv=None) -> int:
     log(f"build: {report['build_s']:.1f} s (nvcc, sm_90a, one process per "
         f"source)")
     for stem in ("ragged_paged_attention", "paged_attention",
-                 "flash_attention", "fused_optimizer", "grouped_gemm",
-                 "weight_only_gemm"):
+                 "flash_attention", "flash_varlen", "fused_optimizer",
+                 "grouped_gemm", "weight_only_gemm"):
         txt = _build.ptxas_report(stem) or ""
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
@@ -1891,6 +2205,7 @@ def main(argv=None) -> int:
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
     flash = phase_flash(torch, args.seed, report, flush)
+    varlen = phase_flash_varlen(torch, args.seed, report, flush)
     fused = phase_fused_optimizer(torch, args.seed, report, flush)
     gmm = phase_grouped_gemm(torch, args.seed, report, flush)
     int4_gemm = phase_int4_gemm(torch, args.seed, report, flush)
@@ -1922,6 +2237,15 @@ def main(argv=None) -> int:
         "flash_attention_dkv": (
             "paddle_tpu_torch/csrc/flash_attention.cu",
             "paddle_tpu/ops/kernels/pallas/flash_attention.py:283"),
+        "flash_varlen_fwd": (
+            "paddle_tpu_torch/csrc/flash_varlen.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_varlen.py:266"),
+        "flash_varlen_dq": (
+            "paddle_tpu_torch/csrc/flash_varlen.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_varlen.py:304"),
+        "flash_varlen_dkv": (
+            "paddle_tpu_torch/csrc/flash_varlen.cu",
+            "paddle_tpu/ops/kernels/pallas/flash_varlen.py:331"),
         "fused_optimizer": (
             "paddle_tpu_torch/csrc/fused_optimizer.cu",
             "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:279"),
@@ -1937,6 +2261,9 @@ def main(argv=None) -> int:
         "flash_attention_fwd": {k: v["fwd"] for k, v in flash.items()},
         "flash_attention_dq": {k: v["dq"] for k, v in flash.items()},
         "flash_attention_dkv": {k: v["dkv"] for k, v in flash.items()},
+        "flash_varlen_fwd": {k: varlen[k]["fwd"] for k in VARLEN_LABELS},
+        "flash_varlen_dq": {k: varlen[k]["dq"] for k in VARLEN_LABELS},
+        "flash_varlen_dkv": {k: varlen[k]["dkv"] for k in VARLEN_LABELS},
         "fused_optimizer": {"bfloat16": fused},
         "grouped_gemm": {k: gmm[k] for k in ("bfloat16", "float32")},
         "weight_only_int4_gemm": {k: int4_gemm[k]
@@ -1949,6 +2276,7 @@ def main(argv=None) -> int:
     launched.update({name: train["launches"][name]
                      for name in TRAINING_KERNELS})
     launched["grouped_gemm"] = moe["launches"]["grouped_gemm"]
+    launched.update(varlen["launches"])
     launched["weight_only_int4_gemm"] = \
         int4["serve"]["launches"]["weight_only_int4_gemm"]
     for name, per in per_kernel.items():
@@ -1956,7 +2284,8 @@ def main(argv=None) -> int:
         e = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": launched[name]}
         e.update({k: head[k] for k in keys})
-        for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err"):
+        for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
+                      "padded_flash_ms"):
             if extra in head:
                 e[extra] = head[extra]
         for label, v in per.items():

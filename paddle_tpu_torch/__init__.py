@@ -1,17 +1,26 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu, for NVIDIA
 Hopper (H100).
 
-This slice serves Llama through the ragged continuous-batching engine:
-``models.LlamaForCausalLM``, ``models.ContinuousBatchingEngine`` and
-``generate(cache_type="paged")``, with the two paged-attention kernels
-written in CUDA C++ (``csrc/``). Entry points run on the CUDA card unless
-the caller passes ``device=``; they never fall back to the CPU quietly.
+It serves Llama through the ragged continuous-batching engine
+(``models.ContinuousBatchingEngine``) and ``generate(cache_type="paged")``,
+also with int4 weight-only linears (``nn.quant.quantize_for_inference``);
+trains Llama and the DeepSeekMoE family (``models.LlamaForCausalLM``,
+``models.MoEForCausalLM``) through ``jit.TrainStep`` with the fused AdamW
+optimizer; and exports the op registry's ops at the top level
+(``flash_attn_unpadded``, ``flash_attention``, ``grouped_gemm``, ...;
+``ops.dispatcher.call_op(name, ...)`` reaches the same). The TPU kernels of
+those paths are CUDA C++ kernels for Hopper (``csrc/``), built at first
+use. Entry points run on the CUDA card unless the caller passes
+``device=`` or CPU tensors; they never fall back to the CPU quietly.
 
 The package imports torch, never jax, and nothing of paddle_tpu.
 """
 
 from . import flags
 from .core.device import resolve_device
+from .ops import dispatcher as _dispatcher
 
-__all__ = ["flags", "resolve_device"]
+globals().update(_dispatcher.build_ops())
+
+__all__ = ["flags", "resolve_device", *_dispatcher.SCHEMA]
 __version__ = "0.1.0"

@@ -1,0 +1,123 @@
+"""The op registry: ``call_op(name, *args, **kwargs)`` and ``get_op(name)``.
+
+Counterpart of ``paddle_tpu/ops/dispatcher.py`` (``register_kernel`` :64,
+``call_op`` :668, ``get_op`` :690, ``build_ops`` :704), lean: the schema
+is a table the port owns (argument names and defaults copied from
+``paddle_tpu/ops/ops.yaml``, which the port does not read), an op binds
+its arguments to that schema, drops a stray ``name=`` keyword as the
+reference's op functions do (here through ``call_op`` too, whose op name
+is positional-only), and calls its kernel with every argument by name.
+The ops take and return ``torch.Tensor``s: no Tensor class, no jit
+cache, no legacy-name table (``op_compat``), no metrics.
+
+The table holds each op whose reference arguments a port function takes
+as they are. Left out until their functions take the reference's
+arguments: ``swiglu`` (``y=None``), ``rms_norm`` (``bias``,
+``begin_norm_axis``), ``linear`` (``bias``), ``embedding``
+(``padding_idx``, ``sparse``), ``rope`` (``rotate_half_style``) and
+``moe_ffn`` (``expert_axis``).
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Any, Callable, Dict, Tuple
+
+REQUIRED = inspect.Parameter.empty
+
+_ATTN = (("query", REQUIRED), ("key", REQUIRED), ("value", REQUIRED),
+         ("attn_mask", None), ("dropout_p", 0.0), ("is_causal", False),
+         ("scale", None))
+_POOL = (("q", REQUIRED), ("k_pool", REQUIRED), ("v_pool", REQUIRED),
+         ("block_tables", REQUIRED), ("context_lens", REQUIRED))
+
+# op name -> (argument name, default) in the reference schema's order
+SCHEMA: Dict[str, Tuple[Tuple[str, Any], ...]] = {
+    "flash_attn_unpadded": (
+        ("q", REQUIRED), ("k", REQUIRED), ("v", REQUIRED),
+        ("cu_seqlens_q", REQUIRED), ("cu_seqlens_k", REQUIRED),
+        ("max_seqlen_q", 0), ("max_seqlen_k", 0), ("scale", 0.0),
+        ("causal", False)),
+    "flash_attention": _ATTN,
+    "scaled_dot_product_attention": _ATTN,
+    "fused_softmax_ce": (("logits", REQUIRED), ("labels", REQUIRED)),
+    "grouped_gemm": (
+        ("x", REQUIRED), ("w", REQUIRED), ("counts", None),
+        ("groups_per_expert", 1), ("use_pallas", None)),
+    "weight_quantize": (
+        ("x", REQUIRED), ("algo", "weight_only_int8"), ("arch", 80),
+        ("group_size", -1)),
+    "weight_dequantize": (
+        ("x", REQUIRED), ("scale", REQUIRED), ("algo", "weight_only_int8"),
+        ("out_dtype", "float32"), ("group_size", -1)),
+    "weight_only_linear": (
+        ("x", REQUIRED), ("weight", REQUIRED), ("bias", None),
+        ("weight_scale", None), ("weight_dtype", "int8"), ("arch", 80),
+        ("group_size", -1)),
+    "paged_attention": _POOL + (
+        ("scale", None), ("k_scale", None), ("v_scale", None)),
+    "ragged_paged_attention": _POOL + (
+        ("cu_q_lens", REQUIRED), ("scale", None), ("k_scale", None),
+        ("v_scale", None)),
+}
+
+KERNELS: Dict[str, Callable] = {}
+_OP_FNS: Dict[str, Callable] = {}
+
+
+def register_kernel(name: str):
+    def deco(fn):
+        KERNELS[name] = fn
+        return fn
+    return deco
+
+
+def signature(name: str) -> inspect.Signature:
+    """The op's Python signature: the schema's arguments, then the
+    keyword-only ``name=None`` that Paddle's API accepts and ignores."""
+    P = inspect.Parameter
+    params = [P(n, P.POSITIONAL_OR_KEYWORD, default=d)
+              for n, d in SCHEMA[name]]
+    params.append(P("name", P.KEYWORD_ONLY, default=None))
+    return inspect.Signature(params)
+
+
+def _make_op(name: str) -> Callable:
+    sig, kernel = signature(name), KERNELS[name]
+
+    def op_fn(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        bound.arguments.pop("name", None)
+        return kernel(**bound.arguments)
+
+    op_fn.__name__ = op_fn.__qualname__ = name
+    op_fn.__signature__ = sig
+    op_fn.__doc__ = kernel.__doc__
+    return op_fn
+
+
+def build_ops() -> Dict[str, Callable]:
+    """Every op of the table, built once over its registered kernel."""
+    if not _OP_FNS:
+        from .kernels import moe, nn, quant, serving  # noqa: F401  (register)
+        for name in SCHEMA:
+            if name not in KERNELS:
+                raise RuntimeError(f"op '{name}': no kernel registered")
+            _OP_FNS[name] = _make_op(name)
+    return dict(_OP_FNS)
+
+
+def get_op(name: str, /) -> Callable:
+    if not _OP_FNS:
+        build_ops()
+    fn = _OP_FNS.get(name)
+    if fn is None:
+        raise KeyError(f"unknown op '{name}'")
+    return fn
+
+
+def call_op(name: str, /, *args, **kwargs):
+    """The op ``name`` on the arguments; the op name is positional-only,
+    so a ``name=`` keyword reaches the op (which drops it)."""
+    return get_op(name)(*args, **kwargs)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dispatcher import register_kernel
 from .grouped_gemm import grouped_matmul
 
 
@@ -163,6 +164,7 @@ def moe_ffn(x, gate_weight, gate_proj, up_proj, down_proj, top_k: int = 2,
                       int(top_k), float(capacity_factor), use_pallas)
 
 
+@register_kernel("grouped_gemm")
 def grouped_gemm(x, w, counts=None, groups_per_expert: int = 1,
                  use_pallas: Optional[bool] = None) -> torch.Tensor:
     """Ragged grouped matmul ``y[g] = x[g] @ w[g // groups_per_expert]``,

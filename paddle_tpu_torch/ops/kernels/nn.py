@@ -3,9 +3,11 @@
 Counterparts in ``paddle_tpu/ops/kernels/nn.py``: ``swiglu`` (:58),
 ``linear`` (:91), ``embedding`` (:99), ``rms_norm`` (:124), ``rope``
 (:679), ``scaled_dot_product_attention`` (:624), the ``flash_attention``
-routing (:723) and ``fused_softmax_ce`` (:839). They keep the reference's
-order of casts, so a bf16 model rounds at the same places in both
-packages.
+routing (:723), the ``flash_attn_unpadded`` routing (:761) and
+``fused_softmax_ce`` (:839). They keep the reference's order of casts, so
+a bf16 model rounds at the same places in both packages. The op registry
+(``ops/dispatcher.py``) holds those whose arguments are the reference
+op's.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dispatcher import register_kernel
 from . import flash_attention as _fa
+from . import flash_varlen as _fv
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -67,6 +71,7 @@ def rope(q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor,
     return out_q, k * c + _rotate_half(k) * s
 
 
+@register_kernel("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -105,6 +110,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return torch.matmul(probs, v).transpose(1, 2)
 
 
+@register_kernel("flash_attention")
 def flash_attention(query, key, value, attn_mask=None, dropout_p: float = 0.0,
                     is_causal: bool = False, scale: Optional[float] = None,
                     generator: Optional[torch.Generator] = None):
@@ -121,6 +127,21 @@ def flash_attention(query, key, value, attn_mask=None, dropout_p: float = 0.0,
     return scaled_dot_product_attention(query, key, value, attn_mask,
                                         dropout_p, is_causal, scale,
                                         generator)
+
+
+@register_kernel("flash_attn_unpadded")
+def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=0, max_seqlen_k=0, scale=0.0,
+                        causal=False):
+    """Packed varlen attention, as the reference's ``flash_attn_unpadded``
+    op: ``scale`` 0.0 or None means ``head_dim ** -0.5``, ``max_seqlen_*``
+    are accepted and unused, ``cu_seqlens_*`` are cast to int32; then
+    ``flash_varlen.flash_attn_unpadded`` (the kernels for a CUDA tensor,
+    the plain version for a CPU one). The reference's tensor-parallel
+    branch (heads sharded over an ambient mesh) is not ported."""
+    scale = None if scale in (0.0, None) else scale
+    return _fv.flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                                   scale=scale, causal=causal)
 
 
 CE_IGNORE = -100    # the standard LM padding label
@@ -180,6 +201,7 @@ class _FusedSoftmaxCE(torch.autograd.Function):
         return grad.reshape(logits.shape), None
 
 
+@register_kernel("fused_softmax_ce")
 def fused_softmax_ce(logits: torch.Tensor, labels: torch.Tensor
                      ) -> torch.Tensor:
     """Per-position cross entropy ``lse - logits[label]`` in float32 over

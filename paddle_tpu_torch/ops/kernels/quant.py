@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.device import dtype_of
+from ..dispatcher import register_kernel
 from . import weight_only_gemm as wog
 
 
@@ -22,6 +23,7 @@ def weight_dtype_of(algo: str) -> str:
     return "int4" if algo == "weight_only_int4" else "int8"
 
 
+@register_kernel("weight_quantize")
 def weight_quantize(x: torch.Tensor, algo: str = "weight_only_int8",
                     arch=80, group_size: int = -1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,6 +32,7 @@ def weight_quantize(x: torch.Tensor, algo: str = "weight_only_int8",
     return wog.quantize(x, weight_dtype_of(algo), int(group_size))
 
 
+@register_kernel("weight_dequantize")
 def weight_dequantize(x: torch.Tensor, scale: torch.Tensor,
                       algo: str = "weight_only_int8",
                       out_dtype="float32", group_size: int = -1
@@ -38,6 +41,7 @@ def weight_dequantize(x: torch.Tensor, scale: torch.Tensor,
     return w.to(dtype_of(out_dtype or "float32"))
 
 
+@register_kernel("weight_only_linear")
 def weight_only_linear(x: torch.Tensor, weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
                        weight_scale: Optional[torch.Tensor] = None,

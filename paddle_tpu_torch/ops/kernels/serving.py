@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..dispatcher import register_kernel
 from . import paged_attention as _pa
 from . import ragged_paged_attention as _rpa
 from .quant_common import INT8_BOUND, absmax_scale, quantize_symmetric
@@ -56,6 +57,7 @@ def paged_cache_write_q(pool: torch.Tensor, scale_pool: torch.Tensor,
     return pool, scale_pool
 
 
+@register_kernel("ragged_paged_attention")
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            cu_q_lens, k_scale=None, v_scale=None,
                            scale=None):
@@ -67,6 +69,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         k_scale=k_scale, v_scale=v_scale)
 
 
+@register_kernel("paged_attention")
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                     k_scale=None, v_scale=None, scale=None):
     """Decode attention over the paged pool, q ``[B, 1, H, D]``.

@@ -19,7 +19,14 @@ causal on and off, lengths that are not multiples of the 64-row tile (the
 tail is masked) and ``sq < sk``, float32 and bfloat16, and the folded
 ``flash_block`` layout with an lse cotangent. Gradients are judged by max
 error relative to the tensor's max: 1e-4 in float32, 1e-2 in bfloat16
-(one bf16 ulp of the largest entries). The fused optimizer kernel equals
+(one bf16 ulp of the largest entries). Packed (varlen) flash attention
+(forward, dq, dk/dv) over the same head_dims, GQA groups 1, 4 and 8,
+causal on and off, self packing with tails, a length-1 and an empty
+document, and cross packing (equal and unequal totals), float32 and
+bfloat16, with the same limits; the causal token skip on and off equal
+bit for bit; rows with no live key; the op through ``call_op`` on the
+card against the CPU; and the refusals (head_dim 96, float16, cu_seqlens
+off the card). The fused optimizer kernel equals
 its plain version bit for bit (``torch.equal``) over the four rules, with
 found 0 and 1, float32 params and bf16 params with float32 masters.
 The grouped GEMM matches its plain version over float32 and bfloat16,
@@ -39,6 +46,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import flash_varlen as fv
 from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
@@ -244,6 +252,144 @@ def test_routing_sends_cuda_cases_the_kernels_lack_to_them_to_raise(
     q = torch.randn((1, 64, 4, d), device=dev, dtype=dtype)
     with pytest.raises(ValueError, match="head_dim|dtype"):
         knn.flash_attention(q, q, q, is_causal=True)
+
+
+# -- packed (varlen) flash attention -----------------------------------------
+
+# (q lengths, k lengths or None for self packing): tails, a length-1 and an
+# empty document; cross packing with equal and with unequal totals
+VARLEN_PACKS = {"docs": ([100, 1, 0, 37, 230, 64], None),
+                "cross": ([1, 199, 80], [199, 1, 80]),
+                "cross_tq_ne_tk": ([30, 100, 5, 0], [64, 20, 77, 9])}
+
+
+def _varlen_inputs(dev, pack, h, kv, d, dtype, seed=0):
+    lq, lk = VARLEN_PACKS[pack] if isinstance(pack, str) else pack
+    cuq = torch.tensor(np.cumsum([0] + lq), dtype=torch.int32, device=dev)
+    cuk = cuq if lk is None else torch.tensor(np.cumsum([0] + lk),
+                                              dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + h + d)
+    mk = lambda t, n: torch.randn((t, n, d), generator=g,  # noqa: E731
+                                  device=dev).to(dtype)
+    tq, tk = int(cuq[-1]), int(cuk[-1])
+    return mk(tq, h), mk(tk, kv), mk(tk, kv), mk(tq, h), cuq, cuk
+
+
+def _varlen_counts():
+    return (fv.launches_fwd.count, fv.launches_dq.count,
+            fv.launches_dkv.count)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pack", sorted(VARLEN_PACKS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv", [(4, 4), (16, 4), (32, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_varlen_kernels_match_plain(dev, d, h, kv, causal, pack, dtype):
+    q, k, v, dout, cuq, cuk = _varlen_inputs(dev, pack, h, kv, d, dtype)
+    scale = d ** -0.5
+    lay = fv.varlen_layout(cuq, cuk, q.shape[0], k.shape[0],
+                           causal and fv.same_cu_layout(cuq, cuk))
+    before = _varlen_counts()
+    out, lse = fv.flash_varlen_fwd(q, k, v, lay, causal, scale)
+    torch.cuda.synchronize()
+    want, want_lse = fv.flash_varlen_fwd_plain(q, k, v, cuq, cuk, causal,
+                                               scale)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    delta = (dout.float() * want.float()).sum(-1).transpose(0, 1)
+    delta = delta.contiguous()
+    got = (fv.flash_varlen_dq(q, k, v, dout, want_lse, delta, lay, causal,
+                              scale),) + fv.flash_varlen_dkv(
+        q, k, v, dout, want_lse, delta, lay, causal, scale)
+    torch.cuda.synchronize()
+    ref = fv.flash_varlen_bwd_plain(q, k, v, dout, want_lse, delta, cuq, cuk,
+                                    causal, scale)
+    lim = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel_err(a, b) < lim, (name, _rel_err(a, b))
+    assert _varlen_counts() == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_varlen_token_skip_on_and_off_give_equal_results(dev, dtype):
+    """The skip only leaves out blocks whose pairs are all masked, which
+    add exact zeros: the results are equal bit for bit."""
+    q, k, v, dout, cu, _ = _varlen_inputs(dev, "docs", 16, 4, 128, dtype)
+    lse = delta = None
+    res = []
+    for skip in (True, False):
+        lay = fv.varlen_layout(cu, cu, q.shape[0], k.shape[0], skip)
+        out, lse_k = fv.flash_varlen_fwd(q, k, v, lay, True, 0.1)
+        if lse is None:
+            lse = lse_k
+            delta = (dout.float() * out.float()).sum(-1).transpose(0, 1)
+            delta = delta.contiguous()
+        res.append([out, lse_k,
+                    fv.flash_varlen_dq(q, k, v, dout, lse, delta, lay, True,
+                                       0.1),
+                    *fv.flash_varlen_dkv(q, k, v, dout, lse, delta, lay, True,
+                                         0.1)])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+def test_varlen_rows_without_live_keys_on_the_card(dev):
+    q, k, v, dout, cuq, cuk = _varlen_inputs(
+        dev, ([40, 30, 20], [40, 0, 20]), 8, 2, 64, torch.float32)
+    args = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fv.flash_attn_unpadded(*args, cuq, cuk, causal=True)
+    (out * dout).sum().backward()
+    assert not out[40:70].any()
+    assert all(bool(torch.isfinite(a.grad).all()) for a in args)
+    assert not args[0].grad[40:70].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_varlen_op_on_the_card_matches_the_cpu(dev, dtype):
+    """``call_op("flash_attn_unpadded")`` forward and backward on the card
+    launch each kernel once and agree with the same op on the CPU."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    q, k, v, dout, cu, _ = _varlen_inputs(dev, "docs", 32, 8, 128, dtype)
+    res = []
+    for t in ("cuda", "cpu"):
+        args = [x.detach().to(t).requires_grad_() for x in (q, k, v)]
+        c = cu.to(t).long()
+        before = _varlen_counts()
+        out = call_op("flash_attn_unpadded", *args, c, c, 300, 300, 0.0,
+                      True)
+        (out.float() * dout.to(t).float()).sum().backward()
+        launched = tuple(a - b for a, b in zip(_varlen_counts(), before))
+        assert launched == ((1, 1, 1) if t == "cuda" else (0, 0, 0))
+        res.append([out.detach()] + [a.grad for a in args])
+    lim = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(*res):
+        assert _rel_err(a.cpu(), b) < lim
+
+
+def test_varlen_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, k, v, _, cu, _ = _varlen_inputs(dev, "docs", 4, 4, 64, torch.float32)
+    lay = fv.varlen_layout(cu, cu, q.shape[0], k.shape[0], True)
+    before = _varlen_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        fv.flash_varlen_fwd(q[..., :32], k[..., :32], v[..., :32], lay, True,
+                            1.0)
+    with pytest.raises(ValueError, match="GQA"):
+        fv.flash_varlen_fwd(q, k[:, :3], v[:, :3], lay, True, 1.0)
+    with pytest.raises(ValueError, match="int32"):
+        fv.flash_attn_unpadded(q, k, v, cu.cpu(), cu.cpu(), causal=True)
+    assert _varlen_counts() == before
+
+
+@pytest.mark.parametrize("d,dtype", [(96, torch.bfloat16),
+                                     (64, torch.float16)])
+def test_varlen_op_raises_for_cuda_cases_the_kernels_lack(dev, d, dtype):
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    q = torch.randn((100, 4, d), device=dev, dtype=dtype)
+    cu = torch.tensor([0, 60, 100], device=dev)
+    with pytest.raises(ValueError, match="head_dim|dtype"):
+        call_op("flash_attn_unpadded", q, q, q, cu, cu, causal=True)
 
 
 # -- fused optimizer ---------------------------------------------------------

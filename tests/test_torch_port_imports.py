@@ -42,13 +42,16 @@ def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"serving.py", "llama.py", "ragged_paged_attention.py",
             "paged_attention.py", "flash_attention.py", "fused_optimizer.py",
-            "optimizer.py", "clip.py", "api.py", "chip_smoke.py"} <= names
+            "optimizer.py", "clip.py", "api.py", "flash_varlen.py",
+            "dispatcher.py", "chip_smoke.py"} <= names
 
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, paddle_tpu_torch.models, "
             "paddle_tpu_torch.ops.kernels.serving, paddle_tpu_torch.amp, "
-            "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer; "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.ops.dispatcher; "
+            "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
