@@ -4,10 +4,11 @@ kernels, hold each against its plain PyTorch version, run packed (varlen)
 attention forward and backward through the op registry, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
 continuous-batching engine and ``generate(cache_type="paged")``, serve it
-again quantized to int4 weights through the int4 GEMM kernel, train
-Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW, then train
-DeepSeek-MoE-16B's width (5 layers) the same way through the grouped-GEMM
-kernel.
+again quantized to int4 weights through the int4 GEMM kernel, multiply
+block-pruned Llama-3-8B MLP weights through ``sparse.bcsr_matmul``, train
+Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW and then
+with Lamb, then train DeepSeek-MoE-16B's width (5 layers) the same way as
+the first through the grouped-GEMM kernel.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -19,18 +20,23 @@ Phases (any failure raises and the script exits non-zero):
 2. serving kernel checks at the serving path's head geometry (H=32, KV=8,
    D=128, BS=64, a 512-token step over 16 rows mixing decode rows, prefill
    chunks at several offsets, empty rows and padding tokens): each kernel
-   against its plain version (bf16 and int8 pools, and float32), timed
-   with CUDA events beside its bound and one PyTorch library call
-   (``scaled_dot_product_attention`` over the gathered dense KV, timed
-   here only: the port never calls it);
+   against its plain version (the ragged kernel over bf16 and int8 pools,
+   and float32; the gang-decode kernel over bf16 and int8 pools), with
+   planted faults, timed with CUDA events beside its bound and one
+   PyTorch library call (``scaled_dot_product_attention`` over the
+   gathered, dequantized dense KV, timed here only: the port never calls
+   it);
 3. training kernel checks at the training shapes (b 2, s 2048, 32/8 heads,
    d 128, causal; bf16 and float32): flash forward (out, lse), dq and
    dk/dv against the plain versions, with two planted faults that the
    limits must reject; the fused AdamW kernel over one decoder layer plus
    the embedding (743M bf16 params, float32 masters) bit for bit against
    its plain version over three steps (plain; unscale and clip; found=1,
-   which must keep every input); each timed beside its bound and a
-   library yardstick (SDPA forward and backward, ``torch._fused_adamw_``);
+   which must keep every input); Lamb's two kernel passes with the trust
+   ratios between them over the same bucket, bit for bit against the plain
+   version over the same three steps, each part timed; each timed beside
+   its bound and a library yardstick (SDPA forward and backward,
+   ``torch._fused_adamw_``, also beside Lamb's first pass);
    the grouped GEMM at the MoE path's shapes (64 groups of capacity 480,
    K x N 2048 x 1408 and 1408 x 2048, counts with empty, partial and full
    groups; bf16 and float32; groups per expert 1 and 2; dx through the
@@ -43,7 +49,16 @@ Phases (any failure raises and the script exits non-zero):
    plain version, with two planted faults (the nibbles swapped, no sign
    extension), timed at gate/up and down at m 512 and 4 beside its bound,
    ``torch.mm`` over the codes unpacked to bf16 and ``torch.matmul`` over
-   the bf16 weight;
+   the bf16 weight; block-CSR SpMM through ``sparse.bcsr_from_dense`` and
+   ``sparse.bcsr_matmul``, a path of its own, over Llama-3-8B's
+   ``gate_proj`` and ``down_proj`` weights block-pruned in 128 x 128 blocks
+   (about half kept by a mask from the seed, two block rows empty) times
+   the transposed activations of 4096 tokens, bf16 and float32, and 16 x
+   128 blocks at a smaller size: exactly one launch per call, the kernel
+   against its plain version, three planted faults (a column id off by
+   one, a run cut by one block, an empty row left unwritten), times beside
+   the bound, ``torch.matmul`` over the zero-filled weight and torch's BSR
+   product;
 3b. packed (varlen) attention, a main path of its own, at Llama-3-8B's
    attention width (32/8 heads, d 128) over 16384 tokens of documents
    whose lengths are drawn log-uniform over 32-4096 from the seed (the
@@ -61,7 +76,10 @@ Phases (any failure raises and the script exits non-zero):
 4. serving, the first main path: 16 requests through
    ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
    again with speculative decoding, then one paged ``generate()`` call;
-   both serving kernels' launch counts must rise, every request must
+   then one over an int8 pool (each ``generate()`` exactly one gang-decode
+   launch per layer and decode step), all with the serving kernels' plain
+   versions made to raise on a CUDA tensor; both serving kernels' launch
+   counts must rise, every request must
    finish with in-vocabulary tokens, the bf16 run's peak memory must stay
    at slice 1's, and the model's last-position logits through the kernels
    must agree with the plain path's. Last, two more runs (bf16 and int8
@@ -88,7 +106,11 @@ Phases (any failure raises and the script exits non-zero):
    the four training kernels' launch counts (reset just before), one
    profiled step (device time by kernel and by part of the step), and a
    GradScaler step with a poisoned grad, which must be skipped with the
-   params bitwise unchanged;
+   params bitwise unchanged; then, with the AdamW optimizer gone, the
+   same model trained on with ``Lamb(lr 1e-4, lamb_weight_decay 0.01,
+   ClipGradByGlobalNorm(1.0), 1-D params excluded from decay)``: 2
+   warm-up and 10 timed steps with the same metrics, exactly two Lamb
+   launches per bucket per step and no AdamW launch, one profiled step;
 6. MoE training, the third main path, after the Llama model is freed:
    ``MoEForCausalLM`` at DeepSeek-MoE-16B width (hidden 2048, 16 heads,
    64 routed experts of width 1408, 6 per token, 2 shared, the first layer
@@ -101,8 +123,9 @@ Phases (any failure raises and the script exits non-zero):
    the choices dropped by capacity and each MoE layer's min/max counts,
    and one profiled step with the grouped GEMM as its own part.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line (eleven
-kernels), then as the last line ``{"ok": true, "device": {...}}``. Exits
+Output: findings on earlier lines, then the ``kernels`` JSON line
+(fourteen kernels), then as the last line ``{"ok": true, "device":
+{...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
 ``chiprun_out/chip_smoke_report.json``).
@@ -417,6 +440,44 @@ def phase_kernels(torch, seed, report):
     log(f"paged_attention[bfloat16]: max_abs_err {err:.3e} ms {ms:.4f} "
         f"plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} "
         f"bound_ms {b_ms:.4f} ({b_by}), planted faults rejected: {faults}")
+
+    # gang-decode kernel over an int8 pool: the same rows and blocks, the
+    # pool quantized per token slot as the serving cache writes it
+    ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
+    args = (qd, quantize_symmetric(kp, ks[..., None]),
+            quantize_symmetric(vp, vs[..., None]), tbl_d, lens)
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(*args, **kw)
+    err = check_close(torch, "paged_attention[int8]", got, want, "bfloat16")
+    if bool((got[-1] != 0).any()):
+        raise AssertionError("paged_attention[int8]: context_len 0 row not "
+                             "zero")
+    faults = planted_faults(torch, "paged_attention[int8]",
+                            pa.paged_attention_plain, args, kw, want, 4,
+                            lens > 0)
+    ms = time_ms(torch, lambda: pa.paged_attention(*args, **kw), flush=flush)
+    plain_ms = time_ms(torch, lambda: pa.paged_attention_plain(*args, **kw),
+                       iters=3, flush=flush)
+    # yardstick, timed here only: SDPA over the dequantized pool
+    sq, sk, sv, mask = dense_sdpa_inputs(torch, qd[:, 0], args[1], args[2],
+                                         tbl_d, lens, cu1, ks, vs)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask), flush=flush)
+    del sq, sk, sv, mask
+    nbytes = (2 * qd.numel() * 2
+              + rpa.kv_bytes_read(lens, cu1, SMOKE_BS, KV, D, 1, True)
+              + 4 * (tbl_d.numel() + B))
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    out["paged_attention"]["int8"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, bytes=nbytes, flops=flops,
+        planted_fault_max_abs_err=faults)
+    log(f"paged_attention[int8]: max_abs_err {err:.3e} ms {ms:.4f} "
+        f"plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (SDPA over the "
+        f"dequantized pool) bound_ms {b_ms:.4f} ({b_by}), planted faults "
+        f"rejected: {faults}")
     del scratch
     report["kernels"] = out
     return out
@@ -653,7 +714,35 @@ def agree(a, b, first=False):
     return sum(x == y for x, y in pairs) / len(pairs)
 
 
+@contextlib.contextmanager
+def no_plain_on_card():
+    """The serving kernels' plain versions raise when a CUDA tensor reaches
+    them: on the card the serving path launches the kernels."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    slots = [(pa, "paged_attention_plain"),
+             (pa, "ragged_paged_attention_plain"),
+             (rpa, "ragged_paged_attention_plain")]
+    saved = [getattr(m, name) for m, name in slots]
+
+    def guard(name, fn):
+        def call(q, *args, **kw):
+            if q.is_cuda:
+                raise AssertionError(f"{name}, the plain version, ran on the "
+                                     f"card on the serving path")
+            return fn(q, *args, **kw)
+        return call
+    for (m, name), fn in zip(slots, saved):
+        setattr(m, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for (m, name), fn in zip(slots, saved):
+            setattr(m, name, fn)
+
+
 def phase_main(torch, seed, report):
+    from paddle_tpu_torch import flags
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernels
 
@@ -681,30 +770,47 @@ def phase_main(torch, seed, report):
         return outs, m
 
     kernels.reset_launch_counts()
-    outs_bf16, main["bf16"] = counted_serve()
-    # trainable params must not make serving build an autograd graph: the
-    # bf16 run's peak stays at slice 1's (23.12 GiB on an H100, PERF.md)
-    if main["bf16"]["peak_mem_gib"] > SERVE_PEAK_GIB * 1.05:
-        raise AssertionError(f"serving peak {main['bf16']['peak_mem_gib']} "
-                             f"GiB is over slice 1's {SERVE_PEAK_GIB} GiB")
-    if main["bf16"]["stats"]["prefix_hit_blocks"] <= 0:
-        raise AssertionError("the shared-prefix request did not hit the "
-                             "prefix cache")
-    outs_int8, main["int8"] = counted_serve(kv_dtype="int8")
-    outs_spec, main["spec_k4"] = counted_serve(speculative_k=4)
-    ids = torch.from_numpy(np.stack([p[:128] for p in prompts[:4]])).cuda()
-    tg = time.perf_counter()
-    out = model.generate(ids, max_new_tokens=16, temperature=0.0,
-                         cache_type="paged", block_size=64)
-    torch.cuda.synchronize()
-    main["generate"] = dict(batch=4, prompt=128, new_tokens=16,
-                            wall_s=time.perf_counter() - tg)
+    with no_plain_on_card():
+        outs_bf16, main["bf16"] = counted_serve()
+        # trainable params must not make serving build an autograd graph:
+        # the bf16 run's peak stays at slice 1's (23.12 GiB on an H100)
+        if main["bf16"]["peak_mem_gib"] > SERVE_PEAK_GIB * 1.05:
+            raise AssertionError(f"serving peak "
+                                 f"{main['bf16']['peak_mem_gib']} GiB is "
+                                 f"over slice 1's {SERVE_PEAK_GIB} GiB")
+        if main["bf16"]["stats"]["prefix_hit_blocks"] <= 0:
+            raise AssertionError("the shared-prefix request did not hit the "
+                                 "prefix cache")
+        outs_int8, main["int8"] = counted_serve(kv_dtype="int8")
+        outs_spec, main["spec_k4"] = counted_serve(speculative_k=4)
+        ids = torch.from_numpy(np.stack([p[:128] for p in prompts[:4]])) \
+            .cuda()
+        for kv in ("bf16", "int8"):   # generate() over each pool dtype
+            before = kernels.launch_counts()["paged_attention"]
+            flags.set_flags({"kv_cache_dtype": kv})
+            tg = time.perf_counter()
+            try:
+                out = model.generate(ids, max_new_tokens=16, temperature=0.0,
+                                     cache_type="paged", block_size=64)
+                torch.cuda.synchronize()
+            finally:
+                flags.set_flags({"kv_cache_dtype": "auto"})
+            gang = kernels.launch_counts()["paged_attention"] - before
+            main["generate" if kv == "bf16" else "generate_int8"] = dict(
+                batch=4, prompt=128, new_tokens=16, kv_dtype=kv,
+                wall_s=time.perf_counter() - tg, paged_attention_launches=gang)
+            if tuple(out.shape) != (4, 144) or int(out.max()) >= \
+                    cfg.vocab_size or int(out.min()) < 0:
+                raise AssertionError(f"generate({kv}) returned "
+                                     f"{tuple(out.shape)} or tokens out of "
+                                     f"vocabulary")
+            # one gang-decode launch per layer and decode step
+            if gang != cfg.num_hidden_layers * 15:
+                raise AssertionError(f"generate({kv}): {gang} paged_attention "
+                                     f"launches, want "
+                                     f"{cfg.num_hidden_layers * 15}")
     counts = kernels.launch_counts()
     main["launches"] = counts
-    if tuple(out.shape) != (4, 144) or int(out.max()) >= cfg.vocab_size \
-            or int(out.min()) < 0:
-        raise AssertionError(f"generate() returned {tuple(out.shape)} or "
-                             f"tokens out of vocabulary")
     for name in SERVING_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -728,7 +834,8 @@ def phase_main(torch, seed, report):
             f"ms, peak {m['peak_mem_gib']:.2f} GiB, {m['num_blocks']} "
             f"blocks, launches {m['launches']} ({m['launches_per_step']} "
             f"per step), stats {m['stats']}")
-    log(f"generate(paged): {main['generate']}")
+    log(f"generate(paged): {main['generate']}; int8 pool: "
+        f"{main['generate_int8']}")
     log(f"launches on the main path: {counts}")
     log(f"greedy agreement with the bf16 run: "
         f"{main['greedy_token_agreement']}")
@@ -1462,6 +1569,126 @@ def phase_fused_optimizer(torch, seed, report, flush):
     return res
 
 
+LAMB_CFG = {"b1": 0.9, "b2": 0.999, "eps": 1e-6}
+
+
+def phase_lamb_optimizer(torch, seed, report, flush):
+    """Lamb's two kernel passes over the same 743M-param bucket as the
+    AdamW check: pass 1, the trust ratios in torch, pass 2, bit for bit
+    against the plain version over three steps (plain; unscale and clip;
+    found = 1, which must keep every input), then each part timed."""
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    A = fused_bucket_tensors(torch, g)
+    Bt = ([t.clone() for t in A[0]], A[1],
+          [{k: t.clone() for k, t in s.items()} for s in A[2]],
+          [t.clone() for t in A[3]])
+    n = sum(t.numel() for t in A[0])
+    one = torch.ones((), device="cuda")
+
+    def svec(step, inv=1.0, coeff=1.0, found=0.0):
+        st = one * step
+        bc1, bc2 = fo.bias_inv(LAMB_CFG["b1"], LAMB_CFG["b2"], st)
+        return fo.pack_scalars(lr=one * 1e-4, step=st, inv=one * inv,
+                               coeff=one * coeff, found=one * found,
+                               wd=one * 0.01, inv_bc1=bc1, inv_bc2=bc2)
+
+    def flat(side):
+        return side[0] + side[3] + [t for s in side[2] for t in s.values()]
+
+    def same(tag):
+        for a, b in zip(flat(A), flat(Bt)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"lamb ({tag}): kernel and plain version differ: "
+                    f"{int((a != b).sum())} elements of a {tuple(a.shape)} "
+                    f"tensor")
+
+    bucket = fo.plan_buckets("lamb", LAMB_CFG, [
+        (tuple(t.shape), "float32", "bfloat16", "bfloat16", 0.01)
+        for t in A[0]]).buckets[0]
+    steps = [("plain step", svec(1)),
+             ("inv 1/64, coeff 0.5", svec(2, inv=1 / 64, coeff=0.5))]
+    for tag, sv in steps:
+        fo.fused_bucket_kernel("lamb", LAMB_CFG, *A, sv, bucket)
+        torch.cuda.synchronize()
+        fo.fused_bucket_plain("lamb", LAMB_CFG, *Bt, sv)
+        same(tag)
+    sv = svec(3, found=1.0)
+    fo.fused_bucket_kernel("lamb", LAMB_CFG, *A, sv, bucket)
+    torch.cuda.synchronize()
+    same("found=1, kernel outputs vs inputs")
+    fo.fused_bucket_plain("lamb", LAMB_CFG, *Bt, sv)
+    same("found=1, plain")
+    del Bt
+    torch.cuda.empty_cache()
+
+    # times of each part (the bucket holds the chunk table and the
+    # scratch, as on the training path)
+    sv = svec(2, inv=1 / 64, coeff=0.5)
+    scratch = fo.lamb_scratch(A[0], bucket)
+    ms = {
+        "moments": time_ms(torch, lambda: fo.launch_pass(
+            "lamb_moments", "lamb", LAMB_CFG, *A, sv, bucket, scratch),
+            flush=flush),
+        "ratios": time_ms(torch, lambda: fo.lamb_trust_ratios(
+            A[0], scratch[0], out=scratch[1]), flush=flush),
+        "apply": time_ms(torch, lambda: fo.launch_pass(
+            "lamb_apply", "lamb", LAMB_CFG, *A, sv, bucket, scratch),
+            flush=flush),
+        "step": time_ms(torch, lambda: fo.fused_bucket_kernel(
+            "lamb", LAMB_CFG, *A, sv, bucket), flush=flush)}
+    trs = fo.lamb_moments_plain(LAMB_CFG, A[0], A[1], A[2], sv)
+    plain = {
+        "moments": time_ms(torch, lambda: fo.lamb_moments_plain(
+            LAMB_CFG, A[0], A[1], A[2], sv), iters=3, flush=flush),
+        "apply": time_ms(torch, lambda: fo.lamb_apply_plain(
+            A[0], trs, scratch[1], A[3], sv), iters=3, flush=flush)}
+    del trs
+    # yardstick, timed here only: no PyTorch call computes Lamb; the
+    # nearest elementwise call is torch's fused AdamW over the same
+    # masters, float32 copies of the grads and the moments (it stands
+    # beside the first pass, which runs Adam's chain)
+    g32 = [x.float() for x in A[1]]
+    steps_t = [one * 2 for _ in A[0]]
+    lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+        A[0], g32, [s["m"] for s in A[2]], [s["v"] for s in A[2]], [],
+        steps_t, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
+        eps=1e-6, amsgrad=False, maximize=False), flush=flush)
+    del g32, A, scratch
+    torch.cuda.empty_cache()
+    # bytes per parameter, each input read once and each output written
+    # once: pass 1 reads master 4, grad 2, m 4, v 4 and writes m 4, v 4,
+    # tr_div 4; pass 2 reads master 4, tr_div 4 and writes master 4,
+    # param 2; the whole step's inputs and outputs are 28 (row #5's rule)
+    bounds = {"moments": bound(26 * n, 20 * n, F32_FLOPS_PER_S),
+              "apply": bound(14 * n, 3 * n, F32_FLOPS_PER_S),
+              "ratios": bound(8 * n, 4 * n, F32_FLOPS_PER_S),
+              "step": bound(28 * n, 27 * n, F32_FLOPS_PER_S)}
+    res = {}
+    for kern, lib in (("moments", lib_ms), ("apply", None)):
+        res[kern] = dict(max_abs_err=0.0, bitwise_equal=True, ms=ms[kern],
+                         plain_ms=plain[kern], bound_ms=bounds[kern][0],
+                         bound_by=bounds[kern][1], library_ms=lib)
+    res.update(params=n, ratios_ms=ms["ratios"],
+               ratios_bound_ms=bounds["ratios"][0], step_ms=ms["step"],
+               step_bound_ms=bounds["step"][0],
+               library="torch._fused_adamw_ (float32 grads, no write-back): "
+                       "the nearest elementwise call, beside pass 1",
+               checked_steps=[t for t, _ in steps] + ["found=1"])
+    log(f"lamb[{n / 1e6:.0f}M bf16 params, f32 masters]: bitwise equal to "
+        f"plain over {res['checked_steps']}; ms moments {ms['moments']:.3f} "
+        f"ratios {ms['ratios']:.3f} apply {ms['apply']:.3f} (whole step "
+        f"{ms['step']:.3f}); plain moments {plain['moments']:.2f} apply "
+        f"{plain['apply']:.2f}; bound moments {bounds['moments'][0]:.3f} "
+        f"ratios {bounds['ratios'][0]:.3f} apply {bounds['apply'][0]:.3f} "
+        f"step {bounds['step'][0]:.3f} (bytes); library_ms {lib_ms:.3f} "
+        f"(torch._fused_adamw_, the nearest elementwise call)")
+    report["kernels"]["fused_optimizer_lamb"] = res
+    return res
+
+
 # -- phase 4b: the grouped GEMM ------------------------------------------------
 
 # the MoE training path's shapes (DeepSeek-MoE-16B width, b 2 x s 2048 =
@@ -1770,6 +1997,175 @@ def phase_int4_gemm(torch, seed, report, flush):
     return out
 
 
+# -- phase 4d: block-CSR SpMM through sparse.bcsr_matmul ------------------------
+
+# Llama-3-8B's MLP weights (out x in) block-pruned in 128 x 128 blocks, about
+# half kept, times the activations of a 2 x 2048 training batch transposed
+# (yT = W xT); the reference test's 16 x 128 blocks at a smaller size
+BCSR_TOKENS = 4096
+BCSR_SHAPES = {"gate_proj": (14336, 4096, 128, 128),
+               "down_proj": (4096, 14336, 128, 128),
+               "blocks_16x128": (2048, 1024, 16, 128)}
+BCSR_EMPTY_ROWS = (3, 17)        # block rows pruned whole
+BCSR_TOL = {"bfloat16": 1e-2, "float32": 1e-4}   # of the output's max
+
+
+def pruned_weight(torch, g, rng, M, K, bm, bk, dtype):
+    """A normal(0, 0.02) [M, K] weight with about half of its bm x bk
+    blocks zeroed by a mask from ``rng``, and BCSR_EMPTY_ROWS zeroed."""
+    mask = rng.rand(M // bm, K // bk) < 0.5
+    mask[list(BCSR_EMPTY_ROWS)] = False
+    m = torch.from_numpy(mask).cuda()
+    w = torch.randn((M, K), generator=g, device="cuda") * 0.02
+    w = (w.view(M // bm, bm, K // bk, bk) * m[:, None, :, None]).view(M, K)
+    return w.to(dtype)
+
+
+def spmm_work(nb, bm, bk, mb, k, n, item):
+    """(flops, bytes) of one call: 2·bm·bk·N per kept block; the kept
+    blocks, x and y once each, and the int32 structure."""
+    return (2 * nb * bm * bk * n,
+            (nb * bm * bk + k * n + mb * bm * n) * item + 4 * (mb + 1 + nb))
+
+
+def bcsr_check(torch, name, got, want, dtype_name, bm):
+    """The kernel's output within BCSR_TOL of the plain one's max, the
+    empty block rows exactly zero; returns the max abs err."""
+    err = float((got.float() - want.float()).abs().max())
+    lim = BCSR_TOL[dtype_name] * float(want.float().abs().max())
+    if not bool(torch.isfinite(got).all()) or err > lim:
+        raise AssertionError(f"{name}: kernel differs from plain version: "
+                             f"max abs err {err} (limit {lim})")
+    for r in BCSR_EMPTY_ROWS:
+        if bool((got[r * bm:(r + 1) * bm] != 0).any()):
+            raise AssertionError(f"{name}: empty block row {r} not zero")
+    return err
+
+
+def planted_bcsr_faults(torch, bs, crows, cols, vals, x, want, dtype_name):
+    """Three faults a kernel could make, produced with the plain version,
+    each of which must fail ``bcsr_check``: one block read at a column id
+    off by one, a block row's run cut by its last block, and an empty
+    block row left unwritten (holding another row's values)."""
+    bm, Kb = vals.shape[1], x.shape[0] // vals.shape[2]
+    row = int(np.argmax(np.diff(crows)))          # the longest run
+    p = int(crows[row + 1]) - 1                   # its last block
+    bad_cols = cols.copy()
+    bad_cols[p] = (bad_cols[p] + 1) % Kb
+    cut = vals.clone()
+    cut[p] = 0
+    unwritten = want.clone()
+    r = BCSR_EMPTY_ROWS[0]
+    unwritten[r * bm:(r + 1) * bm] = want[row * bm:(row + 1) * bm]
+    errs = {}
+    for fault, bad in (
+            ("column_off_by_one",
+             bs.bcsr_spmm_plain(crows, bad_cols, vals, x)),
+            ("run_cut_by_one_block", bs.bcsr_spmm_plain(crows, cols, cut, x)),
+            ("empty_row_not_zeroed", unwritten)):
+        try:
+            bcsr_check(torch, "bcsr_spmm", bad, want, dtype_name, bm)
+        except AssertionError:
+            errs[fault] = float((bad.float() - want.float()).abs().max())
+            continue
+        raise AssertionError(f"bcsr_spmm: the check passes a planted fault "
+                             f"({fault})")
+    return errs
+
+
+def phase_bcsr(torch, seed, report, flush):
+    """``sparse.bcsr_from_dense`` over block-pruned Llama-3-8B MLP weights
+    and ``sparse.bcsr_matmul`` against transposed activations, the path a
+    user of block-pruned weights calls: exactly one kernel launch per
+    call; the kernel against its plain version (bf16 and float32); three
+    planted faults; times beside the bound, the plain version, the dense
+    product over the zero-filled weight and torch's own BSR product."""
+    from paddle_tpu_torch import sparse
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+
+    rng = np.random.RandomState(seed + 7)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    out, faults, launched = {}, None, 0
+    cases = [("gate_proj", "bfloat16"), ("down_proj", "bfloat16"),
+             ("gate_proj", "float32"), ("blocks_16x128", "bfloat16"),
+             ("blocks_16x128", "float32")]
+    for shape, dname in cases:
+        M, K, bm, bk = BCSR_SHAPES[shape]
+        dt = getattr(torch, dname)
+        N = BCSR_TOKENS if shape != "blocks_16x128" else 512
+        w = pruned_weight(torch, g, rng, M, K, bm, bk, dt)
+        x = torch.randn((N, K), generator=g, device="cuda").to(dt).t() \
+            .contiguous()                               # [K, N]: x^T
+        crows, cols, vals = sparse.bcsr_from_dense(w, bm, bk)
+        # the main path: one call, counts reset just before
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = sparse.bcsr_matmul(crows, cols, vals, x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        if counts != {k: int(k == "bcsr_spmm") for k in counts}:
+            raise AssertionError(f"bcsr_matmul[{shape}/{dname}]: launches "
+                                 f"{counts}, want one bcsr_spmm")
+        launched += counts["bcsr_spmm"]
+        want = bs.bcsr_spmm_plain(crows, cols, vals, x)
+        label = f"{shape}/{dname}"
+        err = bcsr_check(torch, f"bcsr_spmm[{label}]", got, want, dname, bm)
+        if (shape, dname) == ("gate_proj", "bfloat16"):
+            faults = planted_bcsr_faults(torch, bs, crows, cols, vals, x,
+                                         want, dname)
+        del got, want
+        nb = len(cols)
+        flops, nbytes = spmm_work(nb, bm, bk, M // bm, K, N,
+                                  x.element_size())
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                           if dname == "bfloat16" else F32_FLOPS_PER_S)
+        crows_d, cols_d = bs.device_structure(crows, cols, nb, K // bk,
+                                              x.device)
+        ms = time_ms(torch, lambda: bs.bcsr_spmm_kernel(
+            crows_d, cols_d, vals, x), flush=flush)
+        plain_ms = time_ms(torch, lambda: bs.bcsr_spmm_plain(
+            crows, cols, vals, x), iters=3, flush=flush)
+        # yardsticks, timed here only: the dense product over the
+        # zero-filled weight, and torch's block-sparse (BSR) product
+        dense_ms = time_ms(torch, lambda: torch.matmul(w, x), flush=flush)
+        try:
+            wb = w.to_sparse_bsr((bm, bk))
+            bsr_ms, bsr_err = time_ms(torch, lambda: wb @ x,
+                                      flush=flush), None
+            del wb
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            bsr_ms, bsr_err = None, f"{type(e).__name__}: {str(e)[:160]}"
+        out[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=dense_ms, library_bsr_ms=bsr_ms,
+            library_bsr_error=bsr_err, blocks_kept=nb,
+            blocks=(M // bm) * (K // bk), M=M, K=K, N=N, bm=bm, bk=bk,
+            flops=flops, bytes=nbytes,
+            tflops_per_s=flops / ms / 1e9)
+        log(f"bcsr_spmm[{label}] [{M}, {K}] in {bm}x{bk} blocks, {nb} of "
+            f"{out[label]['blocks']} kept, x^T [{K}, {N}]: max_abs_err "
+            f"{err:.3e}; ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+            f"plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}); dense "
+            f"matmul {dense_ms:.4f} ms; torch BSR "
+            + (f"{bsr_ms:.4f} ms" if bsr_ms is not None else
+               f"refused ({bsr_err})"))
+        del w, x, vals, crows_d, cols_d
+        torch.cuda.empty_cache()
+    log(f"bcsr_spmm: planted faults rejected: {faults}")
+    res = {"cases": out, "launches": launched,
+           "planted_fault_max_abs_err": faults}
+    head = out["gate_proj/bfloat16"]
+    for dname in ("bfloat16", "float32"):
+        res[dname] = {k: out[f"gate_proj/{dname}"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_bsr_ms")}
+    res["bfloat16"].update(planted_fault_max_abs_err=faults,
+                           library_bsr_error=head["library_bsr_error"])
+    report["kernels"]["bcsr_spmm"] = res
+    return res
+
+
 # -- phase 5: training --------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1938,9 +2334,82 @@ def phase_train(torch, seed, report):
     res["grad_scaler_poisoned_step"] = "skipped, params bitwise unchanged"
     log("train: GradScaler skipped the poisoned step, params bitwise "
         "unchanged")
-    del snap, model, opt, train
+    del snap, opt, train
+    torch.cuda.empty_cache()
+    res["lamb"] = train_lamb(torch, model, crit, ids, flops_tok)
+    del model
     torch.cuda.empty_cache()
     report["train"] = res
+    return res
+
+
+LAMB_KERNELS = ("fused_optimizer_lamb_moments", "fused_optimizer_lamb_apply")
+
+
+def train_lamb(torch, model, crit, ids, flops_tok):
+    """The same model, after the AdamW run and with its optimizer gone,
+    trained on by ``Lamb`` through ``TrainStep``: 2 warm-up and 10 timed
+    steps, exactly two Lamb launches per bucket per step and no AdamW
+    launch, then one profiled step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import Lamb
+
+    opt = Lamb(learning_rate=1e-4, lamb_weight_decay=0.01,
+               parameters=model.parameters(),
+               grad_clip=ClipGradByGlobalNorm(1.0),
+               exclude_from_weight_decay_fn=lambda p: p.ndim == 1)
+    train = TrainStep(model, crit, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(12):            # 2 warm-up steps, then 10 timed
+        ts = time.perf_counter()
+        loss = train((ids,), (ids,))
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    plan = next(iter(opt._fused_plans.values()))
+    want = len(plan.buckets) * 12
+    if counts["fused_optimizer"] != 0 or any(counts[k] != want
+                                             for k in LAMB_KERNELS):
+        raise AssertionError(f"Lamb launches {counts}: want {want} of each "
+                             f"Lamb pass ({len(plan.buckets)} buckets x 12 "
+                             f"steps) and no AdamW launch")
+    for name in TRAINING_KERNELS[:3]:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"Lamb training path")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Lamb training losses not finite and falling: "
+                             f"{losses}")
+    tok_s = TRAIN_B * TRAIN_S / float(np.mean(step_s))
+    res = dict(losses=losses, tokens_per_s=tok_s,
+               step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+               step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               step_ms=[1e3 * x for x in step_s],
+               mfu=tok_s * flops_tok / BF16_FLOPS_PER_S,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts, buckets=len(plan.buckets),
+               bucket_params=[b.total for b in plan.buckets],
+               optimizer_bytes_per_param=20)
+    log(f"train[lamb]: losses {[round(x, 5) for x in losses]}")
+    log(f"train[lamb]: {tok_s:.1f} tokens/s, step p50 "
+        f"{res['step_ms_p50']:.1f} ms p99 {res['step_ms_p99']:.1f} ms, mfu "
+        f"{res['mfu']:.4f}, peak {res['peak_mem_gib']:.2f} GiB, "
+        f"{len(plan.buckets)} buckets {res['bucket_params']}, launches "
+        f"{counts}")
+    prof = profile_call(torch, lambda: train((ids,), (ids,)), 1)
+    if "all_kernels" in prof:
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                        prof["device_busy_ms"])
+    res["profile"] = prof
+    log(f"train[lamb] profile (one step): {json.dumps(prof)}")
+    del opt, train
     return res
 
 
@@ -2195,7 +2664,7 @@ def main(argv=None) -> int:
         f"source)")
     for stem in ("ragged_paged_attention", "paged_attention",
                  "flash_attention", "flash_varlen", "fused_optimizer",
-                 "grouped_gemm", "weight_only_gemm"):
+                 "grouped_gemm", "weight_only_gemm", "bcsr_spmm"):
         txt = _build.ptxas_report(stem) or ""
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
@@ -2207,8 +2676,10 @@ def main(argv=None) -> int:
     flash = phase_flash(torch, args.seed, report, flush)
     varlen = phase_flash_varlen(torch, args.seed, report, flush)
     fused = phase_fused_optimizer(torch, args.seed, report, flush)
+    lamb = phase_lamb_optimizer(torch, args.seed, report, flush)
     gmm = phase_grouped_gemm(torch, args.seed, report, flush)
     int4_gemm = phase_int4_gemm(torch, args.seed, report, flush)
+    bcsr = phase_bcsr(torch, args.seed, report, flush)
     del scratch
     torch.cuda.empty_cache()
     main_res, outs_bf16 = phase_main(torch, args.seed, report)
@@ -2254,7 +2725,16 @@ def main(argv=None) -> int:
             "paddle_tpu/ops/kernels/pallas/grouped_gemm.py:109"),
         "weight_only_int4_gemm": (
             "paddle_tpu_torch/csrc/weight_only_gemm.cu",
-            "paddle_tpu/ops/kernels/pallas/weight_only_gemm.py:105")}
+            "paddle_tpu/ops/kernels/pallas/weight_only_gemm.py:105"),
+        "fused_optimizer_lamb_moments": (
+            "paddle_tpu_torch/csrc/fused_optimizer.cu",
+            "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:343"),
+        "fused_optimizer_lamb_apply": (
+            "paddle_tpu_torch/csrc/fused_optimizer.cu",
+            "paddle_tpu/ops/kernels/pallas/fused_optimizer.py:357"),
+        "bcsr_spmm": (
+            "paddle_tpu_torch/csrc/bcsr_spmm.cu",
+            "paddle_tpu/ops/kernels/pallas/bcsr_spmm.py:93")}
     per_kernel = {
         "ragged_paged_attention": kern["ragged_paged_attention"],
         "paged_attention": kern["paged_attention"],
@@ -2267,7 +2747,10 @@ def main(argv=None) -> int:
         "fused_optimizer": {"bfloat16": fused},
         "grouped_gemm": {k: gmm[k] for k in ("bfloat16", "float32")},
         "weight_only_int4_gemm": {k: int4_gemm[k]
-                                  for k in ("bfloat16", "float32")}}
+                                  for k in ("bfloat16", "float32")},
+        "fused_optimizer_lamb_moments": {"bfloat16": lamb["moments"]},
+        "fused_optimizer_lamb_apply": {"bfloat16": lamb["apply"]},
+        "bcsr_spmm": {k: bcsr[k] for k in ("bfloat16", "float32")}}
     # each path's launches: the serving kernels from the serving run, the
     # Llama training kernels from the Llama training run, the grouped GEMM
     # from the MoE training run, the int4 GEMM from the int4 serving run
@@ -2279,13 +2762,17 @@ def main(argv=None) -> int:
     launched.update(varlen["launches"])
     launched["weight_only_int4_gemm"] = \
         int4["serve"]["launches"]["weight_only_int4_gemm"]
+    launched.update({name: train["lamb"]["launches"][name]
+                     for name in LAMB_KERNELS})
+    launched["bcsr_spmm"] = bcsr["launches"]
     for name, per in per_kernel.items():
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": launched[name]}
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
-                      "padded_flash_ms"):
+                      "padded_flash_ms", "library_bsr_ms",
+                      "library_bsr_error"):
             if extra in head:
                 e[extra] = head[extra]
         for label, v in per.items():

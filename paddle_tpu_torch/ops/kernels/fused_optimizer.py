@@ -1,31 +1,50 @@
-"""Fused optimizer update: one kernel launch per parameter bucket.
+"""Fused optimizer update: one kernel launch per parameter bucket (two
+for Lamb).
 
 Replaces ``paddle_tpu/ops/kernels/pallas/fused_optimizer.py``:
-``plan_buckets`` (:116, host metadata only), ``fused_apply`` (:453) and
-the elementwise bucket kernel (``_pallas_elementwise_bucket`` :295 via
+``plan_buckets`` (:116, host metadata only), ``fused_apply`` (:453), the
+elementwise bucket kernel (``_pallas_elementwise_bucket`` :295 via
 ``_bucket_kernel_call`` :279) for the rules ``sgd``, ``momentum`` and
-``adam`` (``decoupled`` for AdamW). Each launch fuses the GradScaler
-unscale (``inv``), the global-norm clip coefficient (``coeff``), the
-rule, the anomaly-sentinel select (``found``: every output keeps its old
-value bitwise) and the bf16 write-back from the float32 master. Lamb's
-two bucket passes (``_pallas_lamb_bucket``) wait for the Lamb optimizer.
+``adam`` (``decoupled`` for AdamW), and Lamb's two bucket passes
+(``_pallas_lamb_bucket`` :329) around its per-parameter norms
+(``_lamb_ratios`` :365). Each launch fuses the GradScaler unscale
+(``inv``), the global-norm clip coefficient (``coeff``), the rule, the
+anomaly-sentinel select (``found``: every output keeps its old value
+bitwise) and the bf16 write-back from the float32 master.
+
+Lamb is three steps: the ``lamb_moments`` kernel writes the guarded new
+moments and the raw ``tr_div`` into a scratch buffer; ``lamb_trust_ratios``
+reduces each parameter's ``‖p‖`` and ``‖tr_div‖`` in torch; the
+``lamb_apply`` kernel reads each parameter's ratio through a pointer and
+applies ``p - (lr·r)·tr_div``. The norms stay in torch so that the fused
+route and the per-parameter route reduce the same tensors with the same
+torch reduction (a reduction of the kernel's own would round otherwise).
 
 What bounds it on the H100: bytes. AdamW over a bf16 parameter with a
 float32 master moves 28 bytes per element (grad 2 + master 4 + m 4 + v 4
-read, master 4 + m 4 + v 4 + param 2 written) for ~20 flops. The kernel
+read, master 4 + m 4 + v 4 + param 2 written) for ~20 flops. Lamb moves
+26 bytes in its first pass (``tr_div`` 4 written), 8 in the norms and 14
+in its second pass (master 4 + ``tr_div`` 4 read, master 4 + param 2
+written): 48 against the 28 its inputs and outputs need. The kernel
 (``csrc/fused_optimizer.cu``) reads each once and writes each once, in
 place: where the reference gathers every parameter, grad and state of a
 bucket into new flat ``(rows, 128)`` buffers each step (a TPU tiling
 need), the kernel walks a device table of (pointer, count) chunks over
-the optimizer's own tensors, so no second copy of anything exists.
+the optimizer's own tensors, so no second copy of anything exists. Lamb's
+one addition is its scratch: one buffer per bucket in the compute dtype,
+kept with the plan (4 B per parameter over float32 masters), and one
+float32 ratio per parameter.
 
 Bitwise contract: the kernel rounds each operation separately, in the
-order of :func:`rule`, so at float32 it equals the plain version (the
-same rule in torch ops) bit for bit on masters, moments and bf16 params.
+order of :func:`rule` (:func:`lamb_moments`, :func:`lamb_apply`), so at
+float32 it equals the plain version (the same rule in torch ops) bit for
+bit on masters, moments and bf16 params.
 
 Beside the kernel: ``fused_bucket_plain``, the plain version (the
 per-parameter rule chain in torch ops), used for CPU tensors, by the tests
-and by ``chip_smoke.py``; and ``launches``, the count of kernel launches.
+and by ``chip_smoke.py``; and the launch counters ``fused_optimizer``
+(the elementwise rules), ``fused_optimizer_lamb_moments`` and
+``fused_optimizer_lamb_apply``.
 """
 
 from __future__ import annotations
@@ -39,19 +58,31 @@ import torch
 from . import _build
 
 launches = _build.LaunchCounter("fused_optimizer")
+launches_lamb_moments = _build.LaunchCounter("fused_optimizer_lamb_moments")
+launches_lamb_apply = _build.LaunchCounter("fused_optimizer_lamb_apply")
 
-# Optimizer rules with a fused route, and their state slots. Lamb's
-# layout is planned like the reference's, but its bucket passes are not
-# ported: the port has no Lamb optimizer yet.
+# Optimizer rules with a fused route, and their state slots.
 STATE_KEYS: Dict[str, Tuple[str, ...]] = {
     "sgd": (),
     "momentum": ("velocity",),
     "adam": ("m", "v"),
     "lamb": ("m", "v"),
 }
-KINDS = {"sgd": 0, "momentum": 1, "adam": 2}   # kernel codes
+# each rule's kernel passes, in launch order
+KINDS: Dict[str, Tuple[str, ...]] = {
+    "sgd": ("sgd",), "momentum": ("momentum",), "adam": ("adam",),
+    "lamb": ("lamb_moments", "lamb_apply")}
+PASSES = {"sgd": (0, launches), "momentum": (1, launches),       # kernel
+          "adam": (2, launches),                                # codes
+          "lamb_moments": (3, launches_lamb_moments),
+          "lamb_apply": (4, launches_lamb_apply)}
 DTYPES = ("float32", "bfloat16")               # compute and grad dtypes
 CHUNK = 1 << 16                                # elements per table row
+ROW = 8                                        # int64 words per table row
+# Lamb's tr_div segments start on 512-byte boundaries, as a new tensor
+# does: torch's reductions pick their vector loads by alignment, so the
+# norm of a segment then equals the per-param route's norm bit for bit
+SCRATCH_ALIGN = 512
 
 
 class Bucket:
@@ -59,7 +90,7 @@ class Bucket:
     dtype, weight decay), with their offsets in the bucket's flat state."""
 
     __slots__ = ("ids", "offsets", "sizes", "shapes", "total", "cdtype",
-                 "gdtype", "low", "wd", "table")
+                 "gdtype", "low", "wd", "table", "scratch")
 
     def __init__(self, ids, offsets, sizes, shapes, cdtype, gdtype, low, wd):
         self.ids = tuple(ids)
@@ -72,6 +103,7 @@ class Bucket:
         self.low = low
         self.wd = float(wd)
         self.table = None   # (pointer key, device chunk table, rows)
+        self.scratch = None  # Lamb: (tr_div views, ratios), see lamb_scratch
 
 
 class BucketPlan:
@@ -124,13 +156,30 @@ def bias_inv(b1: float, b2: float, step: torch.Tensor
     return 1.0 / (1.0 - b1 ** step), 1.0 / (1.0 - b2 ** step)
 
 
+def adam_step(cfg: Dict, p, g, state, wd, inv_bc1, inv_bc2,
+              decoupled: bool):
+    """Adam's new moments and update direction, ``(m, v, upd)``; the
+    weight decay goes into the grad, or (``decoupled``) into ``upd``."""
+    b1, b2, eps = cfg["b1"], cfg["b2"], cfg["eps"]
+    if not decoupled:
+        g = g + wd * p
+    m = b1 * state["m"] + (1 - b1) * g
+    v = b2 * state["v"] + (1 - b2) * (g * g)
+    upd = (m * inv_bc1.to(p.dtype)) / (
+        torch.sqrt(v * inv_bc2.to(p.dtype)) + eps)
+    if decoupled:
+        upd = upd + wd * p
+    return m, v, upd
+
+
 def rule(kind: str, cfg: Dict, p, g, state, lr, wd, inv_bc1=None,
          inv_bc2=None):
     """One parameter's update in its compute dtype: ``(new_p,
     new_state)``. ``g`` is already conditioned and cast to ``p.dtype``;
     ``lr``/``wd``/``inv_bc*`` are float32 device scalars, cast to the
     compute dtype first. One torch op per rounding, in the kernel's
-    order (the reference's ``_rule_core``)."""
+    order (the reference's ``_rule_core``). Lamb is
+    :func:`lamb_moments`, :func:`lamb_trust_ratio`, :func:`lamb_apply`."""
     lr = lr.to(p.dtype)
     wd = wd.to(p.dtype)
     if kind == "sgd":
@@ -143,16 +192,44 @@ def rule(kind: str, cfg: Dict, p, g, state, lr, wd, inv_bc1=None,
         return p - lr * upd, {"velocity": v}
     if kind != "adam":
         raise ValueError(f"no fused rule for {kind!r}")
-    b1, b2, eps = cfg["b1"], cfg["b2"], cfg["eps"]
-    if not cfg["decoupled"]:
-        g = g + wd * p
-    m = b1 * state["m"] + (1 - b1) * g
-    v = b2 * state["v"] + (1 - b2) * (g * g)
-    upd = (m * inv_bc1.to(p.dtype)) / (
-        torch.sqrt(v * inv_bc2.to(p.dtype)) + eps)
-    if cfg["decoupled"]:
-        upd = upd + wd * p
+    m, v, upd = adam_step(cfg, p, g, state, wd, inv_bc1, inv_bc2,
+                          cfg["decoupled"])
     return p - lr * upd, {"m": m, "v": v}
+
+
+def lamb_moments(cfg: Dict, p, g, state, wd, inv_bc1, inv_bc2):
+    """Lamb's first step (the reference's ``_lamb_moments``): ``(m, v,
+    tr_div)`` with the raw ``tr_div = (m·bc1)/(sqrt(v·bc2)+eps) + wd·p``,
+    Adam's chain with the weight decay always in the direction."""
+    return adam_step(cfg, p, g, state, wd.to(p.dtype), inv_bc1, inv_bc2,
+                     True)
+
+
+def lamb_trust_ratios(ps, trs, out: Optional[torch.Tensor] = None):
+    """Each parameter's trust ratio ``‖p‖/‖tr_div‖``, or 1 when either
+    norm is 0 (the reference's ``_lamb_ratios``), in the params' dtype:
+    one torch reduction of each param-shaped tensor, the norms stacked,
+    then the ratio elementwise, so a parameter's ratio is the same bits
+    alone or in its bucket. Written into ``out`` (the kernel's float32
+    ratio buffer) when given."""
+    pn = torch.stack([torch.linalg.vector_norm(p) for p in ps])
+    tn = torch.stack([torch.linalg.vector_norm(t) for t in trs])
+    one = torch.ones_like(tn)
+    r = torch.where((pn > 0) & (tn > 0), pn / torch.where(tn > 0, tn, one),
+                    one)
+    return r if out is None else out.copy_(r)
+
+
+def lamb_trust_ratio(p, tr_div):
+    """One parameter's :func:`lamb_trust_ratios`, a 0-d tensor: the
+    per-param route's call of the same helper."""
+    return lamb_trust_ratios([p], [tr_div])[0]
+
+
+def lamb_apply(p, tr_div, r, lr):
+    """Lamb's last step (the reference's ``_lamb_apply``):
+    ``p - (lr·r)·tr_div`` in p's dtype."""
+    return p - (lr.to(p.dtype) * r.to(p.dtype)) * tr_div
 
 
 def condition_grad(g, inv=None, coeff=None):
@@ -178,24 +255,62 @@ def pack_scalars(**sv) -> torch.Tensor:
     return torch.stack([sv[k].float().reshape(()) for k in SLOTS])
 
 
+def _write_back(p, new_p, low, found) -> None:
+    """The sentinel select into ``p`` and the low-precision write-back."""
+    p.copy_(torch.where(found, p, new_p))
+    if low is not None:
+        low.copy_(p.to(low.dtype))
+
+
+def _conditioned(g, p, sv):
+    return condition_grad(g, sv["inv"], sv["coeff"]).to(p.dtype)
+
+
+def lamb_moments_plain(cfg: Dict, targets, grads, states, svec
+                       ) -> List[torch.Tensor]:
+    """Plain version of the ``lamb_moments`` pass, in place on the
+    states: the guarded new moments; returns each parameter's raw
+    ``tr_div``."""
+    sv = dict(zip(SLOTS, svec.unbind()))
+    found = sv["found"] > 0
+    trs = []
+    for p, g, s in zip(targets, grads, states):
+        m, v, trd = lamb_moments(cfg, p, _conditioned(g, p, sv), s, sv["wd"],
+                                 sv["inv_bc1"], sv["inv_bc2"])
+        s["m"].copy_(torch.where(found, s["m"], m))
+        s["v"].copy_(torch.where(found, s["v"], v))
+        trs.append(trd)
+    return trs
+
+
+def lamb_apply_plain(targets, trs, ratios, lows, svec) -> None:
+    """Plain version of the ``lamb_apply`` pass, in place."""
+    sv = dict(zip(SLOTS, svec.unbind()))
+    for p, trd, r, low in zip(targets, trs, ratios, lows):
+        _write_back(p, lamb_apply(p, trd, r, sv["lr"]), low, sv["found"] > 0)
+
+
 def fused_bucket_plain(kind: str, cfg: Dict, targets, grads, states, lows,
                        svec: torch.Tensor) -> None:
-    """Plain version of one bucket launch, in place: per parameter the
-    conditioned grad, :func:`rule`, the sentinel select and the
-    low-precision write-back. ``targets[k]`` is the float32 master (or
-    the parameter itself), ``states[k]`` its state dict, ``lows[k]`` the
-    bf16 parameter to write back, or None."""
+    """Plain version of one bucket's launches, in place: per parameter the
+    conditioned grad, :func:`rule` (for Lamb: :func:`lamb_moments_plain`,
+    :func:`lamb_trust_ratios`, :func:`lamb_apply_plain`), the sentinel
+    select and the low-precision write-back. ``targets[k]`` is the float32
+    master (or the parameter itself), ``states[k]`` its state dict,
+    ``lows[k]`` the bf16 parameter to write back, or None."""
+    if kind == "lamb":
+        trs = lamb_moments_plain(cfg, targets, grads, states, svec)
+        lamb_apply_plain(targets, trs, lamb_trust_ratios(targets, trs), lows,
+                         svec)
+        return
     sv = dict(zip(SLOTS, svec.unbind()))
     found = sv["found"] > 0
     for p, g, s, low in zip(targets, grads, states, lows):
-        gc = condition_grad(g, sv["inv"], sv["coeff"]).to(p.dtype)
-        new_p, new_s = rule(kind, cfg, p, gc, s, sv["lr"], sv["wd"],
-                            sv["inv_bc1"], sv["inv_bc2"])
+        new_p, new_s = rule(kind, cfg, p, _conditioned(g, p, sv), s,
+                            sv["lr"], sv["wd"], sv["inv_bc1"], sv["inv_bc2"])
         for key, val in new_s.items():
             s[key].copy_(torch.where(found, s[key], val))
-        p.copy_(torch.where(found, p, new_p))
-        if low is not None:
-            low.copy_(p.to(low.dtype))
+        _write_back(p, new_p, low, found)
 
 
 # -- the kernel ---------------------------------------------------------------
@@ -238,38 +353,69 @@ def _check(kind, targets, grads, states, lows, svec) -> None:
                     f"{tuple(t.shape)} on {t.device}")
 
 
-def chunk_rows(kind, targets, grads, states, lows) -> np.ndarray:
-    """The kernel's chunk table on the host, int64 ``[n, 6]``: per run of
+def lamb_scratch(targets, bucket: Optional[Bucket] = None):
+    """A Lamb bucket's scratch, ``(tr_div views, ratios)``: one flat buffer
+    in the compute dtype, viewed per parameter in its shape, each segment
+    starting on a ``SCRATCH_ALIGN``-byte boundary, and one float32 trust
+    ratio per parameter. Kept on ``bucket`` (made at its first step) when
+    given."""
+    if bucket is not None and bucket.scratch is not None:
+        return bucket.scratch
+    step = SCRATCH_ALIGN // targets[0].element_size()
+    offsets, total = [], 0
+    for t in targets:
+        offsets.append(total)
+        total += -(-t.numel() // step) * step
+    dev = targets[0].device
+    flat = torch.empty(total, dtype=targets[0].dtype, device=dev)
+    scratch = ([flat[o:o + t.numel()].view(t.shape)
+                for o, t in zip(offsets, targets)],
+               torch.empty(len(targets), dtype=torch.float32, device=dev))
+    if bucket is not None:
+        bucket.scratch = scratch
+    return scratch
+
+
+def chunk_rows(kind, targets, grads, states, lows, scratch=None
+               ) -> np.ndarray:
+    """The kernel's chunk table on the host, int64 ``[n, ROW]``: per run of
     at most ``CHUNK`` elements of one parameter, the addresses of its
-    param (or master), grad, bf16 write-back (0 if none) and two state
-    slots (0 if unused), and its element count."""
+    param (or master), grad, bf16 write-back (0 if none), two state slots
+    (0 if unused), Lamb's ``tr_div`` and the parameter's trust ratio (0
+    without ``scratch``), and its element count."""
     keys = STATE_KEYS[kind]
+    trs, ratios = scratch if scratch is not None \
+        else ([None] * len(targets), None)
     rows = []
-    for p, g, s, low in zip(targets, grads, states, lows):
+    for k, (p, g, s, low, tr) in enumerate(zip(targets, grads, states, lows,
+                                               trs)):
         start = np.arange(0, p.numel(), CHUNK, dtype=np.int64)
 
         def at(t):   # the chunks' addresses in t; a missing tensor is 0
             return np.zeros_like(start) if t is None \
                 else t.data_ptr() + start * t.element_size()
 
-        slots = [s[k] for k in keys] + [None] * (2 - len(keys))
+        slots = [s[key] for key in keys] + [None] * (2 - len(keys))
+        ratio = np.full_like(start, 0 if ratios is None
+                             else ratios.data_ptr() + 4 * k)
         rows.append(np.stack([at(p), at(g), at(low), at(slots[0]),
-                              at(slots[1]),
+                              at(slots[1]), at(tr), ratio,
                               np.minimum(CHUNK, p.numel() - start)], axis=1))
-    return np.concatenate(rows) if rows else np.zeros((0, 6), np.int64)
+    return np.concatenate(rows) if rows else np.zeros((0, ROW), np.int64)
 
 
 def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
-                 lows) -> Tuple[torch.Tensor, int]:
+                 lows, scratch=None) -> Tuple[torch.Tensor, int]:
     """:func:`chunk_rows` on the device, rebuilt only when a pointer moved
     (grads are new tensors after every ``clear_grad``)."""
-    key = tuple(t.data_ptr() for ts in (targets, grads, lows)
+    extra = [] if scratch is None else scratch[0] + [scratch[1]]
+    key = tuple(t.data_ptr() for ts in (targets, grads, lows, extra)
                 for t in ts if t is not None) + tuple(
         t.data_ptr() for s in states for t in s.values())
     if bucket is not None and bucket.table is not None \
             and bucket.table[0] == key:
         return bucket.table[1], bucket.table[2]
-    host = chunk_rows(kind, targets, grads, states, lows)
+    host = chunk_rows(kind, targets, grads, states, lows, scratch)
     table = torch.from_numpy(host).pin_memory().to(targets[0].device,
                                                    non_blocking=True)
     if bucket is not None:
@@ -277,22 +423,25 @@ def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
     return table, len(host)
 
 
-def fused_bucket_kernel(kind: str, cfg: Dict, targets, grads, states, lows,
-                        svec: torch.Tensor, bucket: Optional[Bucket] = None
-                        ) -> None:
-    """One kernel launch over the bucket, in place; same result as
-    :func:`fused_bucket_plain`. ``bucket`` caches the chunk table."""
-    _check(kind, targets, grads, states, lows, svec)
-    table, nchunks = _chunk_table(bucket, kind, targets, grads, states, lows)
+def launch_pass(name: str, kind: str, cfg: Dict, targets, grads, states,
+                lows, svec: torch.Tensor, bucket: Optional[Bucket] = None,
+                scratch=None) -> None:
+    """One launch of the kernel pass ``name`` (a key of ``PASSES``) of the
+    rule ``kind`` over the bucket, in place, counted on the pass's
+    counter. Lamb's passes take :func:`lamb_scratch`'s ``scratch``. The
+    tensors are as :func:`fused_bucket_kernel` checks them."""
+    table, nchunks = _chunk_table(bucket, kind, targets, grads, states, lows,
+                                  scratch)
     if nchunks == 0:
         return
+    code, counter = PASSES[name]
     lib = _build.load("fused_optimizer", _bind)
     dev = targets[0].device
-    f = lambda name: float(cfg.get(name, 0.0))  # noqa: E731
+    f = lambda key: float(cfg.get(key, 0.0))  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ptt_fused_optimizer(
-            table.data_ptr(), nchunks, svec.data_ptr(), KINDS[kind],
+            table.data_ptr(), nchunks, svec.data_ptr(), code,
             _build.DTYPE_CODES[_dtype_name(targets[0])],
             _build.DTYPE_CODES[_dtype_name(grads[0])],
             int(bool(cfg.get("decoupled", False))),
@@ -300,9 +449,25 @@ def fused_bucket_kernel(kind: str, cfg: Dict, targets, grads, states, lows,
             f("b1"), 1.0 - f("b1"), f("b2"), 1.0 - f("b2"), f("eps"),
             f("momentum"), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_optimizer kernel launch failed: "
+        raise RuntimeError(f"fused_optimizer kernel ({name}) launch failed: "
                            f"cudaError {rc}")
-    launches.add()
+    counter.add()
+
+
+def fused_bucket_kernel(kind: str, cfg: Dict, targets, grads, states, lows,
+                        svec: torch.Tensor, bucket: Optional[Bucket] = None
+                        ) -> None:
+    """The rule's kernel launches over the bucket, in place: one, or for
+    Lamb two with the trust ratios reduced between them; same result as
+    :func:`fused_bucket_plain`. ``bucket`` caches the chunk table and
+    Lamb's scratch."""
+    _check(kind, targets, grads, states, lows, svec)
+    scratch = lamb_scratch(targets, bucket) if kind == "lamb" else None
+    for name in KINDS[kind]:
+        if name == "lamb_apply":
+            lamb_trust_ratios(targets, scratch[0], out=scratch[1])
+        launch_pass(name, kind, cfg, targets, grads, states, lows, svec,
+                    bucket, scratch)
 
 
 def fused_bucket(kind: str, cfg: Dict, targets, grads, states, lows,
@@ -328,7 +493,7 @@ def fused_apply(plan: BucketPlan, targets, grads, states, lows, lr, step,
     ``wd_list`` one float32 device scalar per bucket."""
     if plan.kind not in KINDS:
         raise ValueError(f"no fused kernel for rule {plan.kind!r}")
-    if plan.kind == "adam":
+    if plan.kind in ("adam", "lamb"):
         bc1, bc2 = bias_inv(plan.cfg["b1"], plan.cfg["b2"], step)
     else:
         bc1 = bc2 = torch.ones((), dtype=torch.float32, device=step.device)

@@ -12,11 +12,11 @@ kernel (``csrc/paged_attention.cu``) gives each (batch row, kv head) one
 block, which reads each of the row's pool blocks once and serves all G
 query heads of the group from shared memory. It shares its tile code with
 the ragged kernel; like it, this first version computes in float32 on the
-CUDA cores with synchronous loads.
-
-No int8 path, as in the reference (which records ``kv_int8_gang_pallas``):
-``ops/kernels/serving.paged_attention`` routes a quantized pool to the
-plain dequant version.
+CUDA cores with synchronous loads. An int8 pool comes with float32 scale
+pools ``[NB, BS, KV]`` and is dequantized in shared memory after the
+int8 bytes arrive, as in the ragged kernel. (The reference sends an int8
+gang decode to an XLA composite, recording ``kv_int8_gang_pallas``; here a
+CUDA tensor launches the kernel for every pool dtype.)
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ragged_paged_attention import (HEAD_DIMS, ROWS_PER_TILE,
+from .ragged_paged_attention import (ROWS_PER_TILE, _dtype_name,
+                                     check_pools, check_tensors,
                                      ragged_paged_attention_plain)
 
 launches = _build.LaunchCounter("paged_attention")
@@ -47,37 +48,24 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
 
 def _bind(lib) -> None:
     fn = lib.ptt_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
-def _check(q, k_pool, v_pool, block_tables, context_lens) -> None:
-    dev = q.device
-    for name, t in dict(q=q, k_pool=k_pool, v_pool=v_pool,
-                        block_tables=block_tables,
-                        context_lens=context_lens).items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if q.dim() != 4 or q.shape[1] != 1 or k_pool.dim() != 4:
-        raise ValueError(f"q must be [B,1,H,D] and pools [NB,BS,KV,D], got "
-                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
-    B, _, H, D = q.shape
-    NB, BS, KV, PD = k_pool.shape
-    if v_pool.shape != k_pool.shape:
-        raise ValueError("k_pool and v_pool differ in shape")
-    if PD != D or D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} (pool {PD}): the kernel takes "
-                         f"{HEAD_DIMS}")
+def _check(q, k_pool, v_pool, block_tables, context_lens, k_scale,
+           v_scale) -> None:
+    check_tensors(q, k_scale, v_scale, k_pool=k_pool, v_pool=v_pool,
+                  block_tables=block_tables, context_lens=context_lens)
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B,1,H,D], got {tuple(q.shape)}")
+    check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    B, _, H, _ = q.shape
+    KV = k_pool.shape[2]
     if H % KV or H // KV > ROWS_PER_TILE:
         raise ValueError(f"H={H}, KV={KV}: the GQA group must divide H and "
                          f"be at most {ROWS_PER_TILE}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"q {q.dtype}, pools {k_pool.dtype}: float32 or "
-                         f"bfloat16, all alike (no int8 path)")
     if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
             or block_tables.shape[0] != B:
         raise ValueError("block_tables must be int32 [B, MB]")
@@ -88,19 +76,22 @@ def _check(q, k_pool, v_pool, block_tables, context_lens) -> None:
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     context_lens: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q ``[B, 1, H, D]``; pools ``[NB, BS, KV, D]`` in q's dtype;
-    block_tables ``[B, MB]`` int32; context_lens ``[B]`` int32. Returns
+                    scale: Optional[float] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q ``[B, 1, H, D]``; pools ``[NB, BS, KV, D]`` (q's dtype, or int8
+    with float32 ``k_scale``/``v_scale`` ``[NB, BS, KV]``); block_tables
+    ``[B, MB]`` int32; context_lens ``[B]`` int32. Returns
     ``[B, 1, H, D]``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                     context_lens, scale)
+                                     context_lens, scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
-    _check(q, k_pool, v_pool, block_tables, context_lens)
+    _check(q, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale)
     B, _, H, D = q.shape
     NB, BS, KV, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -112,9 +103,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ptt_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
             B, H, KV, D, NB, BS, MB, float(scale),
-            _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")], stream)
+            _build.DTYPE_CODES[_dtype_name(q)],
+            _build.DTYPE_CODES[_dtype_name(k_pool)], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -6,7 +6,7 @@ scales riding the block table), by the plain versions of the attention
 kernels and by the weight-only GEMMs (``weight_only_gemm.py``, per-channel
 or per-group weight scales). Symmetric scheme throughout:
 
-    scale = absmax(x, axis) / bound        # bound: 127 int8, 7 int4
+    scale = absmax(x, axis) * float32(1 / bound)   # bound: 127 int8, 7 int4
     q     = clip(round(x / scale), -bound, bound)
     x~    = q * scale
 
@@ -25,8 +25,15 @@ EPS = 1e-10
 
 def absmax_scale(x: torch.Tensor, axis: int,
                  bound: float = INT8_BOUND) -> torch.Tensor:
-    """float32 scale(s) along `axis` (the axis is reduced away)."""
-    return (x.float().abs().amax(dim=axis) / bound).float()
+    """float32 scale(s) along `axis` (the axis is reduced away), as the
+    reference's ops compute them: they run jitted, and XLA turns the
+    division by the constant bound into a product with the bound's
+    float32 reciprocal (the JAX function run eagerly divides; the two
+    differ by an ulp on about 4% of scales). The reciprocal stays a
+    Python float, which torch rounds to float32 for a float32 tensor: the
+    same product, with no copy to the device (and so no host sync) per
+    call."""
+    return x.float().abs().amax(dim=axis) * (1.0 / bound)
 
 
 def quantize_symmetric(x: torch.Tensor, scales: torch.Tensor,

@@ -114,35 +114,36 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def _check(q, k_pool, v_pool, block_tables, context_lens, cu_q_lens,
-           k_scale, v_scale) -> None:
-    dev = q.device
-    named = dict(q=q, k_pool=k_pool, v_pool=v_pool,
-                 block_tables=block_tables, context_lens=context_lens,
-                 cu_q_lens=cu_q_lens)
+def check_tensors(q, k_scale, v_scale, **named) -> None:
+    """Every tensor on q's device, contiguous and 16-byte aligned, and
+    k_scale and v_scale given together (both paged kernels' rule)."""
+    named = dict(q=q, **named)
     if k_scale is not None or v_scale is not None:
         named.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in named.items():
         if t is None:
             raise ValueError(f"{name} is None: k_scale and v_scale go "
                              f"together")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError(f"q must be [T,H,D] and pools [NB,BS,KV,D], got "
-                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
-    T, H, D = q.shape
+
+
+def check_pools(q, k_pool, v_pool, k_scale, v_scale) -> None:
+    """Both paged kernels' pool rule: pools ``[NB, BS, KV, D]`` alike with
+    q's head_dim in ``HEAD_DIMS``; q float32 or bfloat16; the pools in q's
+    dtype, or int8 with float32 scales ``[NB, BS, KV]``."""
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"pools must be [NB,BS,KV,D] and alike, got "
+                         f"{tuple(k_pool.shape)} {k_pool.dtype} and "
+                         f"{tuple(v_pool.shape)} {v_pool.dtype}")
     NB, BS, KV, PD = k_pool.shape
-    if v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype:
-        raise ValueError("k_pool and v_pool differ in shape or dtype")
+    D = q.shape[-1]
     if PD != D or D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} (pool {PD}): the kernel takes "
                          f"{HEAD_DIMS}")
-    if H % KV or ROWS_PER_TILE % (H // KV):
-        raise ValueError(f"H={H}, KV={KV}: the GQA group must divide "
-                         f"{ROWS_PER_TILE}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q.dtype}: float32 or bfloat16")
     if k_pool.dtype == torch.int8:
@@ -155,6 +156,21 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, cu_q_lens,
     elif k_pool.dtype != q.dtype or k_scale is not None:
         raise ValueError(f"pool dtype {k_pool.dtype} with q {q.dtype}: the "
                          f"pool has q's dtype, or int8 with scales")
+
+
+def _check(q, k_pool, v_pool, block_tables, context_lens, cu_q_lens,
+           k_scale, v_scale) -> None:
+    check_tensors(q, k_scale, v_scale, k_pool=k_pool, v_pool=v_pool,
+                  block_tables=block_tables, context_lens=context_lens,
+                  cu_q_lens=cu_q_lens)
+    if q.dim() != 3:
+        raise ValueError(f"q must be [T,H,D], got {tuple(q.shape)}")
+    check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    T, H, _ = q.shape
+    KV = k_pool.shape[2]
+    if H % KV or ROWS_PER_TILE % (H // KV):
+        raise ValueError(f"H={H}, KV={KV}: the GQA group must divide "
+                         f"{ROWS_PER_TILE}")
     R = block_tables.shape[0]
     for name, t, shape in (("block_tables", block_tables, None),
                            ("context_lens", context_lens, (R,)),
@@ -251,4 +267,4 @@ def attention_flops(context_lens, cu_q_lens, num_heads: int,
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "launches", "tile_tokens", "num_tiles", "kv_bytes_read",
-           "attention_flops"]
+           "attention_flops", "check_tensors", "check_pools"]

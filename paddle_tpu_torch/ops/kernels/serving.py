@@ -72,17 +72,12 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 @register_kernel("paged_attention")
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                     k_scale=None, v_scale=None, scale=None):
-    """Decode attention over the paged pool, q ``[B, 1, H, D]``.
-
-    The gang-decode kernel has no int8 dequant path, as in the reference:
-    a quantized pool takes the plain dequant version, on the CPU and on
-    the card alike."""
-    if k_scale is not None:
-        return _pa.paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                         context_lens, scale, k_scale,
-                                         v_scale)
+    """Decode attention over the paged pool, q ``[B, 1, H, D]``, over a
+    pool in q's dtype or an int8 pool with its scales. The kernel module's
+    wrapper routes by device."""
     return _pa.paged_attention(q, k_pool, v_pool, block_tables,
-                               context_lens, scale)
+                               context_lens, scale, k_scale=k_scale,
+                               v_scale=v_scale)
 
 
 def _filter_logits(logits: torch.Tensor, temperature: float, top_k: int,

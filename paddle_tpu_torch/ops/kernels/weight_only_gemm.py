@@ -48,8 +48,8 @@ import torch
 
 from ... import flags
 from . import _build
-from .quant_common import (INT4_BOUND, INT8_BOUND, dequantize_symmetric,
-                           quantize_symmetric)
+from .quant_common import (INT4_BOUND, INT8_BOUND, absmax_scale,
+                           dequantize_symmetric, quantize_symmetric)
 
 launches = _build.LaunchCounter("weight_only_int4_gemm")
 
@@ -87,15 +87,6 @@ def dequantize(qweight: torch.Tensor, scales: torch.Tensor, int4: bool,
         w.reshape(groups, k // groups, n), sc[:, None, :]).reshape(k, n)
 
 
-def _absmax_scale(w: torch.Tensor, axis: int, bound: float) -> torch.Tensor:
-    """``absmax(w, axis) / bound`` as the reference's op computes it: its
-    ops run jitted, and XLA turns the division by the constant bound into
-    a product with the bound's float32 reciprocal (the JAX function run
-    eagerly divides; the two differ by an ulp at times)."""
-    inv = torch.tensor(1.0 / bound, dtype=torch.float32, device=w.device)
-    return w.abs().amax(dim=axis) * inv
-
-
 def quantize(w: torch.Tensor, weight_dtype: str = "int8",
              group_size: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32/bf16 weight ``[k, n]`` -> (qweight, scales) in the layout
@@ -112,10 +103,10 @@ def quantize(w: torch.Tensor, weight_dtype: str = "int8",
     if group_size > 0:
         groups = k // group_size
         wg = wf.reshape(groups, group_size, n)
-        scales = _absmax_scale(wg, 1, bound)                  # [groups, n]
+        scales = absmax_scale(wg, 1, bound)                  # [groups, n]
         q = quantize_symmetric(wg, scales[:, None, :], bound).reshape(k, n)
     else:
-        scales = _absmax_scale(wf, 0, bound)                  # [n]
+        scales = absmax_scale(wf, 0, bound)                  # [n]
         q = quantize_symmetric(wf, scales[None, :], bound)
     if int4:
         # the byte (hi << 4) | lo as 0..255 in int32, reinterpreted as

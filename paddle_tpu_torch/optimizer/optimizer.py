@@ -1,10 +1,10 @@
-"""Optimizers: SGD, Momentum, Adam and AdamW.
+"""Optimizers: SGD, Momentum, Adam, AdamW and Lamb.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer``
 (:161) with ``step``, ``clear_grad``, ``get_lr``/``set_lr`` (a float
 learning rate; schedulers are not ported yet) and ``multi_precision``
 float32 masters for bf16 params (:419-429); ``SGD``, ``Momentum``,
-``Adam`` and ``AdamW`` (:865-947); the fused route's frozen
+``Adam``, ``AdamW`` and ``Lamb`` (:865-995); the fused route's frozen
 ``FUSED_OPT_FALLBACK_REASONS`` (:69), ``fused_counters`` and
 ``_fused_kind_cfg`` (:91, exact type match); and the anomaly sentinel
 (``FLAGS_anomaly_sentinel``, :450-471).
@@ -12,7 +12,8 @@ float32 masters for bf16 params (:419-429); ``SGD``, ``Momentum``,
 Two routes, chosen per step and counted:
 
 - **fused** (``FLAGS_fused_optimizer``, the default): one launch of the
-  fused kernel per bucket (``ops/kernels/fused_optimizer.py``). A
+  fused kernel per bucket (``ops/kernels/fused_optimizer.py``; for Lamb
+  two, with each parameter's two norms reduced in torch between them). A
   deferred GradScaler unscale, a global-norm clip and the sentinel's
   ``found`` fold into the kernel as scalars, so the grads are never
   rewritten.
@@ -21,7 +22,8 @@ Two routes, chosen per step and counted:
   frozen reason disqualifies the step; never as an escape from a failed
   kernel (a kernel failure raises).
 
-Both apply :func:`ops.kernels.fused_optimizer.rule`, the one
+Both apply :func:`ops.kernels.fused_optimizer.rule` (Lamb:
+``lamb_moments``, ``lamb_trust_ratio``, ``lamb_apply``), the one
 implementation of the rule math, so at float32 the routes agree bit for
 bit. Every scalar (lr, step, weight decay, bias corrections, clip
 coefficient, sentinel flag) is a device tensor: a step syncs with the
@@ -31,7 +33,10 @@ Memory: the masters and the moments of the parameters that share a
 compute dtype live in one flat buffer each, allocated at the first step,
 with per-parameter views into them; both routes update those views in
 place. Nothing else is copied: an AdamW step over bf16 params holds
-param 2 + grad 2 + master 4 + m 4 + v 4 = 16 bytes per parameter.
+param 2 + grad 2 + master 4 + m 4 + v 4 = 16 bytes per parameter. Lamb
+holds its ``tr_div`` as well: on the fused route one scratch buffer per
+bucket kept with the plan, 4 more bytes per parameter over float32
+masters.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ def _fused_kind_cfg(opt):
         return "adam", {"b1": float(opt._beta1), "b2": float(opt._beta2),
                         "eps": float(opt._eps),
                         "decoupled": bool(opt._decoupled())}
+    if t is Lamb:
+        return "lamb", opt._cfg()
     return None, None
 
 
@@ -117,7 +124,7 @@ class Optimizer:
                              "tensors)")
         if not isinstance(learning_rate, (int, float)):
             raise TypeError("only a float learning rate is ported; LR "
-                            "schedulers (optimizer/lr.py) are ROADMAP A5")
+                            "schedulers (optimizer/lr.py) are ROADMAP A2")
         self._parameter_list = list(parameters)
         self._lr = float(learning_rate)
         self._weight_decay = 0.0 if weight_decay is None else float(
@@ -455,10 +462,51 @@ class AdamW(Adam):
                  apply_decay_param_fun=None, lr_ratio=None, name=None):
         if lr_ratio is not None:
             raise NotImplementedError("AdamW lr_ratio is not ported yet "
-                                      "(ROADMAP A5)")
+                                      "(ROADMAP A2)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, multi_precision, name=name)
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _decoupled(self) -> bool:
         return True
+
+
+class Lamb(Optimizer):
+    """Layer-wise adaptive moments (the reference's ``Lamb``, :950):
+    Adam's bias-corrected moments give ``tr_div = m̂/(sqrt(v̂)+eps) +
+    wd·p``, and each parameter moves by ``lr·r·tr_div`` with its trust
+    ratio ``r = ‖p‖/‖tr_div‖`` (1 when either norm is 0). A parameter for
+    which ``exclude_from_weight_decay_fn(param)`` (given the parameter, as
+    the reference does) is true takes no weight decay, and so lands in a
+    fused bucket of its own."""
+
+    _STATE_KEYS = fok.STATE_KEYS["lamb"]
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, multi_precision, name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _cfg(self) -> Dict[str, float]:
+        return {"b1": float(self._beta1), "b2": float(self._beta2),
+                "eps": float(self._eps)}
+
+    def _param_weight_decay(self, i: int) -> float:
+        if self._exclude_fn is not None and \
+                self._exclude_fn(self._parameter_list[i]):
+            return 0.0
+        return self._weight_decay
+
+    def _step_scalars(self, step):
+        bc1, bc2 = fok.bias_inv(self._beta1, self._beta2, step)
+        return {"inv_bc1": bc1, "inv_bc2": bc2}
+
+    def _update(self, p, g, state, lr, wd, sc):
+        m, v, tr_div = fok.lamb_moments(self._cfg(), p, g, state, wd,
+                                        sc["inv_bc1"], sc["inv_bc2"])
+        r = fok.lamb_trust_ratio(p, tr_div)
+        return fok.lamb_apply(p, tr_div, r, lr), {"m": m, "v": v}

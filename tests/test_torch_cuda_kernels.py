@@ -28,7 +28,15 @@ bit for bit; rows with no live key; the op through ``call_op`` on the
 card against the CPU; and the refusals (head_dim 96, float16, cu_seqlens
 off the card). The fused optimizer kernel equals
 its plain version bit for bit (``torch.equal``) over the four rules, with
-found 0 and 1, float32 params and bf16 params with float32 masters.
+found 0 and 1, float32 params and bf16 params with float32 masters; so do
+Lamb's two passes with the trust ratios between them, over float32 and
+bf16 compute and grad dtypes and found 0 and 1, and ``optimizer.Lamb``'s
+fused route equals its per-param route on the card. The gang-decode
+kernel over an int8 pool matches its plain version (bf16 and float32 q,
+head_dim 64 and 128). The block-CSR SpMM matches its plain version over
+float32 and bf16, blocks 16 x 128, 128 x 128, 32 x 16 (float32) and
+48 x 32, N tails, empty block rows and an empty matrix, with one launch
+per call, and refuses bf16 blocks that are not multiples of 16.
 The grouped GEMM matches its plain version over float32 and bfloat16,
 groups per expert 1 and 2, whole and tail C/K/N tiles, rows that are not
 16-byte aligned, w contiguous, as a transposed view (dx's) and with
@@ -145,6 +153,24 @@ def test_gang_decode_kernel_matches_plain(dev, dtype, h, kv, d):
     assert bool((got[0] == 0).all()), "context_len 0 must give zeros"
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kv", [(8, 8), (32, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gang_decode_int8_pool_kernel_matches_plain(dev, dtype, h, kv, d):
+    ctxs = [0, 1, 17, 64, 127, 40]
+    (q, kp, vp, tbl, lens, _), kw = _layout(
+        dev, [1] * len(ctxs), ctxs, len(ctxs), h, kv, d, dtype, torch.int8)
+    q = q[:, None].contiguous()
+    before = pa.launches.count
+    got = pa.paged_attention(q, kp, vp, tbl, lens, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches.count == before + 1
+    want = pa.paged_attention_plain(q, kp, vp, tbl, lens, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert bool((got[0] == 0).all()), "context_len 0 must give zeros"
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     (q, kp, vp, tbl, lens, cu), _ = _layout(
         dev, [1, 3], [9, 3], 4, 8, 2, 64, torch.bfloat16, torch.bfloat16)
@@ -164,7 +190,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rpa.ragged_paged_attention(q[..., :32].contiguous(),
                                    kp[..., :32].contiguous(),
                                    vp[..., :32].contiguous(), tbl, lens, cu)
-    with pytest.raises(ValueError, match="no int8 path"):
+    with pytest.raises(ValueError, match="k_scale"):
         pa.paged_attention(q[:2, None].contiguous(), kp.to(torch.int8),
                            vp.to(torch.int8), tbl, lens)
     assert (rpa.launches.count, pa.launches.count) == before
@@ -463,6 +489,158 @@ def test_fused_optimizer_found_keeps_inputs_bitwise(dev):
     torch.cuda.synchronize()
     for x, y in zip((master, low, st["m"], st["v"]), keep):
         assert torch.equal(x, y)
+
+
+LAMB_CFG = {"b1": 0.9, "b2": 0.999, "eps": 1e-6}
+
+
+def _lamb_bucket(dev, g, cdt, gdt, master):
+    shapes = [(300, 70), (fo.CHUNK + 5,), (3,), (5,)]
+    ts, gs, ss, lows = [], [], [], []
+    for shp in shapes:
+        w = torch.randn(shp, generator=g, device=dev) * 0.1
+        low = w.bfloat16() if master else None
+        ts.append(low.float() if master else w.to(cdt))
+        gs.append((torch.randn(shp, generator=g, device=dev) * 64).to(gdt))
+        ss.append({key: (torch.rand(shp, generator=g, device=dev)
+                         * 0.1).to(cdt) for key in ("m", "v")})
+        lows.append(low)
+    ts[3].zero_()                    # a zero parameter: trust ratio 1
+    return ts, gs, ss, lows
+
+
+@pytest.mark.parametrize("found", [0.0, 1.0])
+@pytest.mark.parametrize("layout", ["f32", "f32_bf16grad", "bf16",
+                                    "bf16_master"])
+def test_lamb_passes_bitwise(dev, layout, found):
+    cdt = torch.bfloat16 if layout == "bf16" else torch.float32
+    gdt = torch.bfloat16 if layout in ("bf16", "bf16_master",
+                                       "f32_bf16grad") else torch.float32
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = _lamb_bucket(dev, g, cdt, gdt, layout == "bf16_master")
+    b = [[t.clone() for t in a[0]], [t.clone() for t in a[1]],
+         [{k: t.clone() for k, t in s.items()} for s in a[2]],
+         [None if t is None else t.clone() for t in a[3]]]
+    orig = [t.clone() for t in a[0]]
+    one = torch.ones((), device=dev)
+    bc1, bc2 = fo.bias_inv(0.9, 0.999, one * 3)
+    svec = fo.pack_scalars(lr=one * 1e-3, step=one * 3, inv=one / 64,
+                           coeff=one * 0.5, found=one * found,
+                           wd=one * 0.01, inv_bc1=bc1, inv_bc2=bc2)
+    before = (fo.launches.count, fo.launches_lamb_moments.count,
+              fo.launches_lamb_apply.count)
+    fo.fused_bucket_kernel("lamb", LAMB_CFG, *a, svec)
+    torch.cuda.synchronize()
+    assert (fo.launches.count, fo.launches_lamb_moments.count,
+            fo.launches_lamb_apply.count) == (before[0], before[1] + 1,
+                                              before[2] + 1)
+    fo.fused_bucket_plain("lamb", LAMB_CFG, *b, svec)
+    for x, y in zip(a[0] + a[3], b[0] + b[3]):
+        if x is not None:
+            assert torch.equal(x, y)
+    for sx, sy in zip(a[2], b[2]):
+        for key in sx:
+            assert torch.equal(sx[key], sy[key])
+    # found = 1 keeps every param bitwise; a plain step moves some (a bf16
+    # param moves only where the step crosses half a bf16 ulp)
+    moved = [not torch.equal(x, y) for x, y in zip(a[0], orig)]
+    assert not any(moved) if found else any(moved)
+
+
+def test_lamb_fused_equals_per_param_on_the_card(dev):
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    g = torch.Generator(device=dev).manual_seed(5)
+    init = [torch.randn(s, generator=g, device=dev) * 0.1
+            for s in [(256, 96), (fo.CHUNK + 7,), (96,)]]
+    grads = [[torch.randn(p.shape, generator=g, device=dev) for p in init]
+             for _ in range(3)]
+    runs = []
+    try:
+        for fused in (True, False):
+            flags.set_flags({"fused_optimizer": fused})
+            ps = [torch.nn.Parameter(p.clone().bfloat16()) for p in init]
+            opt = Lamb(learning_rate=1e-3, lamb_weight_decay=0.01,
+                       parameters=ps, grad_clip=ClipGradByGlobalNorm(1.0),
+                       exclude_from_weight_decay_fn=lambda p: p.ndim == 1)
+            for gs in grads:
+                for p, gr in zip(ps, gs):
+                    p.grad = gr.bfloat16()
+                opt.step()
+                opt.clear_grad()
+            runs.append((ps, opt))
+    finally:
+        flags.set_flags({"fused_optimizer": True})
+    (pf, of), (pp, op) = runs
+    assert of._fused_last_reason is None
+    for a, b in zip(pf, pp):
+        assert torch.equal(a, b)
+    for ma, mb in zip(of._masters, op._masters):
+        assert torch.equal(ma, mb)
+    for sa, sb in zip(of._states, op._states):
+        assert torch.equal(sa["m"], sb["m"]) and torch.equal(sa["v"], sb["v"])
+
+
+# -- block-CSR SpMM ----------------------------------------------------------
+
+# (M, K, N, bm, bk): whole and tail N tiles, blocks of one and of several
+# M tiles, bk that is not a multiple of the 32-deep step
+BCSR_DIMS = {"ref_blocks": (64, 256, 192, 16, 128),
+             "big_blocks": (384, 512, 300, 128, 128),
+             "tall_blocks": (288, 96, 130, 144, 32),
+             "odd_blocks": (96, 144, 70, 48, 48)}
+
+
+def _bcsr_case(dev, dims, dtype, empty=True, keep=0.5, seed=0):
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+    M, K, N, bm, bk = BCSR_DIMS[dims]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.randn((M, K), generator=g, device=dev)
+    mask = torch.rand((M // bm, K // bk), generator=g, device=dev) < keep
+    if empty:
+        mask[-1] = False
+    d = (d.view(M // bm, bm, K // bk, bk) * mask[:, None, :, None]) \
+        .view(M, K).to(dtype)
+    x = torch.randn((K, N), generator=g, device=dev).to(dtype)
+    return bs.bcsr_from_dense(d, bm, bk) + (x,)
+
+
+@pytest.mark.parametrize("keep", [0.5, 0.0])
+@pytest.mark.parametrize("dims", sorted(BCSR_DIMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bcsr_spmm_kernel_matches_plain(dev, dtype, dims, keep):
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+    crows, cols, vals, x = _bcsr_case(dev, dims, dtype, keep=keep)
+    before = bs.launches.count
+    got = bs.bcsr_spmm(crows, cols, vals, x)
+    torch.cuda.synchronize()
+    assert bs.launches.count == before + 1
+    want = bs.bcsr_spmm_plain(crows, cols, vals, x)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    lim = (1e-4 if dtype == torch.float32 else 1e-2) * max(
+        float(want.float().abs().max()), 1.0)
+    assert err <= lim, (err, lim)
+    bm = vals.shape[1]
+    assert bool((got[-bm:] == 0).all()), "an empty block row must be zeros"
+    if keep == 0.0:
+        assert cols.size == 0 and bool((got == 0).all())
+
+
+def test_bcsr_spmm_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+    crows, cols, vals, x = _bcsr_case(dev, "odd_blocks", torch.float32)
+    before = bs.launches.count
+    with pytest.raises(ValueError, match="multiples of 16"):
+        c, k, v = bs.bcsr_from_dense(torch.zeros((16, 24), device=dev)
+                                     .bfloat16(), 8, 8)
+        bs.bcsr_spmm(c, k, v, torch.zeros((24, 4), device=dev).bfloat16())
+    with pytest.raises(ValueError, match="dtype|float"):
+        bs.bcsr_spmm(crows, cols, vals, x.half())
+    with pytest.raises(ValueError, match="cols"):
+        bs.bcsr_spmm(crows, cols + 100, vals, x)
+    assert bs.launches.count == before
 
 
 # -- grouped GEMM ------------------------------------------------------------

@@ -339,15 +339,17 @@ def test_chunk_table_covers_every_element_once():
     # the kernel's table (built on the host, so testable here): runs of
     # at most CHUNK elements, addresses advancing by the element size,
     # null where a parameter has no write-back or a rule no second slot
+    # (and no Lamb scratch: tr_div and ratio words null), count last
     ts = [torch.zeros(tfok.CHUNK * 2 + 5), torch.zeros(3)]
     gs = [torch.zeros(t.shape, dtype=torch.bfloat16) for t in ts]
     lows = [torch.zeros(ts[0].shape, dtype=torch.bfloat16), None]
     states = [{"velocity": torch.zeros(t.shape)} for t in ts]
     rows = tfok.chunk_rows("momentum", ts, gs, states, lows)
-    assert rows.shape == (4, 6)
-    assert rows[:, 5].tolist() == [tfok.CHUNK, tfok.CHUNK, 5, 3]
+    assert rows.shape == (4, tfok.ROW)
+    assert rows[:, -1].tolist() == [tfok.CHUNK, tfok.CHUNK, 5, 3]
     assert rows[1, 0] - rows[0, 0] == 4 * tfok.CHUNK
     assert rows[1, 1] - rows[0, 1] == 2 * tfok.CHUNK
     assert rows[2, 2] - rows[0, 2] == 2 * 2 * tfok.CHUNK
     assert rows[3, 2] == 0 and (rows[:, 4] == 0).all()
+    assert (rows[:, 5:7] == 0).all()
     assert rows[3, 3] == states[1]["velocity"].data_ptr()
