@@ -29,7 +29,9 @@ Phases (any failure raises and the script exits non-zero):
 3. training kernel checks at the training shapes (b 2, s 2048, 32/8 heads,
    d 128, causal; bf16 and float32): flash forward (out, lse), dq and
    dk/dv against the plain versions, with two planted faults that the
-   limits must reject; the fused AdamW kernel over one decoder layer plus
+   limits must reject, each bf16 kernel launched twice for the same bytes,
+   its TFLOP/s and share of the bound, and SDPA's own error against the
+   plain version under the same limits; the fused AdamW kernel over one decoder layer plus
    the embedding (743M bf16 params, float32 masters) bit for bit against
    its plain version over three steps (plain; unscale and clip; found=1,
    which must keep every input); Lamb's two kernel passes with the trust
@@ -69,10 +71,13 @@ Phases (any failure raises and the script exits non-zero):
    reset before); then each kernel against its plain version (out, lse,
    dq, dk, dv), planted faults made with the plain formulation (segment
    mask dropped, lse one token off, causal bottom-right under cross
-   packing), and times beside the bound from the live pairs, the plain
+   packing), two launches of each bf16 kernel for the same bytes, the
+   tiles walked and the share the mask skips, and times (with TFLOP/s and
+   the share of the bound) beside the bound from the live pairs, the plain
    version, one library call (``varlen_attn`` where the installed torch
-   has it, else masked SDPA) and the padded flash kernels over the same
-   documents padded to batch x longest;
+   has it, else masked SDPA; its own error against the plain version
+   too) and the padded flash kernels over the same documents padded to
+   batch x longest;
 4. serving, the first main path: 16 requests through
    ``ContinuousBatchingEngine`` with a bf16 pool, again with an int8 pool,
    again with speculative decoding, then one paged ``generate()`` call;
@@ -139,6 +144,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -991,6 +997,84 @@ def phase_int4_serve(torch, seed, report, outs_bf16):
 
 # -- phase 4: training-path kernels -------------------------------------------
 
+# dynamic shared memory of the bf16 attention kernels, as flash_wgmma.cuh
+# sizes it: 64-row bf16 tiles (forward: Q and two stages of K and V; dq and
+# dk/dv: two own tiles and two stages of two), per-stage column words and
+# 1024 B of alignment slack
+TC_TILES = {"fwd": (5, 2), "dq": (6, 2), "dkv": (6, 4)}
+
+
+def tc_smem_bytes(kind: str, d: int) -> int:
+    tiles, words = TC_TILES[kind]
+    return tiles * 64 * d * 2 + 2 * words * 64 * 4 + 1024
+
+
+def ptxas_tc_kernels(txt: str):
+    """Registers and spills of each bf16 attention kernel in nvcc's
+    ``-Xptxas -v`` report, with its dynamic shared memory."""
+    rows, name = [], None
+    for line in txt.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((?:flash|varlen)_tc_"
+                      r"(fwd|dq|dkv))ILi(\d+)E", line)
+        if m:
+            name = dict(kernel=f"{m.group(1)}<{m.group(3)}>",
+                        smem_bytes=tc_smem_bytes(m.group(2),
+                                                 int(m.group(3))))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            name.update(spill_stores=int(m.group(1)),
+                        spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name["registers"] = int(m.group(1))
+            rows.append(name)
+            name = None
+    return rows
+
+
+def bitwise_twice(torch, name, fn):
+    """Two launches of a kernel give the same bytes (no atomics, a fixed
+    order of sums)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (a if isinstance(a, tuple) else (a,)), \
+        (b if isinstance(b, tuple) else (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two launches give different bytes")
+    return True
+
+
+def library_errors(torch, dtype_name, out, grads, want_out, want_grads):
+    """The library call's own error against the plain version, under the
+    kernels' limits: reported, not enforced (the library is a yardstick).
+    It shows what a tensor-core kernel with a single bf16 P gets."""
+    tol = TOL[dtype_name]
+    w = want_out.float()
+    err = (out.float() - w).abs()
+    res = dict(out_max_abs_err=float(err.max()),
+               out_over_limit=int((err > tol["atol"] + tol["rtol"] * w.abs())
+                                  .sum()))
+    for n, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+        res[f"{n}_rel_err"] = rel_err(torch, a, b)
+    res["within_limits"] = res["out_over_limit"] == 0 and all(
+        res[f"{n}_rel_err"] <= GRAD_REL_TOL[dtype_name]
+        for n in ("dq", "dk", "dv"))
+    return res
+
+
+def achieved(ms, flops, bound_ms):
+    """TFLOP/s of the products each kernel needs (forward 2, dq 3, dk/dv 4
+    of the forward's flops / 2) and the share of the bound reached."""
+    need = {"fwd": flops, "dq": 3 * flops // 2, "dkv": 2 * flops}
+    return {kern: dict(tflops=need[kern] / (ms[kern] * 1e-3) / 1e12,
+                       bound_share=bound_ms[kern] / ms[kern])
+            for kern in ms}
+
+
 TRAIN_B, TRAIN_S = 2, 2048
 TRAIN_LAYERS = 8       # Llama-3-8B width; 32 layers of params, grads, masters
 #                        and moments (16 B/param) would need ~128 GB
@@ -1112,7 +1196,14 @@ def phase_flash(torch, seed, report, flush):
                     f"(limit {GRAD_REL_TOL[label]})")
         faults = planted_flash_faults(torch, fa, q, k, v, scale, wo, ref) \
             if label == "bfloat16" else None
-        del o, lse, dq, dk, dv, ref
+        bitwise = label == "bfloat16" and all((
+            bitwise_twice(torch, "flash_fwd", lambda: fa.flash_fwd_kernel(
+                q, k, v, True, scale)),
+            bitwise_twice(torch, "flash_dq", lambda: fa.flash_dq_kernel(
+                q, k, v, dout, wl, delta, True, scale)),
+            bitwise_twice(torch, "flash_dkv", lambda: fa.flash_dkv_kernel(
+                q, k, v, dout, wl, delta, True, scale))))
+        del o, lse, dq, dk, dv
         ms = {
             "fwd": time_ms(torch, lambda: fa.flash_fwd_kernel(
                 q, k, v, True, scale), flush=flush),
@@ -1137,7 +1228,11 @@ def phase_flash(torch, seed, report, flush):
         dout_t = dout.transpose(1, 2)
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lo, (qt, kt, vt), dout_t, retain_graph=True), flush=flush)
-        del lo, qt, kt, vt
+        lib_err = library_errors(
+            torch, label, lo.detach().transpose(1, 2),
+            [x.transpose(1, 2) for x in torch.autograd.grad(
+                lo, (qt, kt, vt), dout_t)], wo, ref)
+        del lo, qt, kt, vt, ref
         flops, b_fwd, b_dq, b_dkv = flash_work(B, H, KV, S, S, D,
                                                q.element_size())
         rate = BF16_FLOPS_PER_S if label == "bfloat16" else F32_FLOPS_PER_S
@@ -1149,6 +1244,7 @@ def phase_flash(torch, seed, report, flush):
         abs_errs["fwd"], errs["fwd"] = e_out, e_out_rel
         abs_errs["dkv"] = max(abs_errs["dk"], abs_errs["dv"])
         errs["dkv"] = max(errs["dk"], errs["dv"])
+        rates = achieved(ms, flops, {n: b[0] for n, b in bounds.items()})
         res = {}
         for kern in ("fwd", "dq", "dkv"):
             res[kern] = dict(
@@ -1156,20 +1252,29 @@ def phase_flash(torch, seed, report, flush):
                 ms=ms[kern], plain_ms=plain["fwd" if kern == "fwd"
                                             else "bwd"],
                 bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
-                library_ms=lib_fwd if kern == "fwd" else lib_bwd)
+                library_ms=lib_fwd if kern == "fwd" else lib_bwd,
+                **rates[kern])
         res["fwd"]["lse_max_abs_err"] = e_lse
         res["fwd"]["flops"] = flops
         res["grad_errs"] = errs
+        res["library_errs"] = lib_err
+        res["bitwise_run_to_run"] = bitwise
         if faults:
             res["planted_fault_errs"] = faults
         out[label] = res
         log(f"flash[{label}] b{B} s{S} h{H}/{KV} d{D} causal: out max_abs_err "
             f"{e_out:.3e} lse {e_lse:.2e} rel errs {errs}; ms fwd "
-            f"{ms['fwd']:.3f} dq {ms['dq']:.3f} dkv {ms['dkv']:.3f}; plain "
-            f"fwd {plain['fwd']:.2f} bwd {plain['bwd']:.2f}; library fwd "
-            f"{lib_fwd:.3f} bwd {lib_bwd:.3f}; bound fwd "
-            f"{bounds['fwd'][0]:.4f} dq {bounds['dq'][0]:.4f} dkv "
-            f"{bounds['dkv'][0]:.4f} ({bounds['fwd'][1]})"
+            f"{ms['fwd']:.3f} dq {ms['dq']:.3f} dkv {ms['dkv']:.3f}; "
+            f"TFLOP/s (share of bound) "
+            + ", ".join(f"{n} {r['tflops']:.1f} ({r['bound_share']:.3f})"
+                        for n, r in rates.items())
+            + f"; plain fwd {plain['fwd']:.2f} bwd {plain['bwd']:.2f}; "
+            f"library fwd {lib_fwd:.3f} bwd {lib_bwd:.3f}, its own errors "
+            f"vs plain {lib_err}; bound fwd {bounds['fwd'][0]:.4f} dq "
+            f"{bounds['dq'][0]:.4f} dkv {bounds['dkv'][0]:.4f} "
+            f"({bounds['fwd'][1]})"
+            + ("; two launches of each kernel give the same bytes"
+               if bitwise else "")
             + (f"; planted faults rejected: {faults}" if faults else ""))
         del q, k, v, dout, wo, wl, delta
     report["kernels"]["flash_attention"] = out
@@ -1241,6 +1346,23 @@ def varlen_library(torch, q, k, v, cu, max_len):
             return F.scaled_dot_product_attention(*ins, attn_mask=mask)
     return ("scaled_dot_product_attention (efficient, block-diagonal causal "
             "mask, kv heads repeated)", ins, call)
+
+
+def varlen_tiles(torch, lay):
+    """(64 x 64 tiles the q blocks walk, the share of them that the bf16
+    kernels' causal segment mask calls interior: one segment on both
+    sides, every key at or before every query)."""
+    qb = lay.q_bounds.long()
+    runs = (qb[1] - qb[0] + 1).clamp_min(0)
+    i = torch.repeat_interleave(torch.arange(len(runs), device=qb.device),
+                                runs)
+    first = torch.cumsum(runs, 0) - runs
+    j = qb[0][i] + torch.arange(len(i), device=qb.device) - first[i]
+    sq, pq = lay.segq.view(-1, 64), lay.posq.view(-1, 64)
+    sk, pk = lay.segk.view(-1, 64), lay.posk.view(-1, 64)
+    inner = (sq[i, 0] == sq[i, 63]) & (sk[j, 0] == sk[j, 63]) \
+        & (sq[i, 0] == sk[j, 0]) & (pk[j, 63] <= pq[i, 0])
+    return int(len(i)), float(inner.float().mean()) if len(i) else 0.0
 
 
 def planted_varlen_faults(torch, fv, fa, q, k, v, cuq, cuk, lq, lk, scale,
@@ -1378,7 +1500,17 @@ def phase_flash_varlen(torch, seed, report, flush):
         faults = planted_varlen_faults(torch, fv, fa, q, k, v, cuq, cuk,
                                        lens, lk, scale, wo, wl, lse, dname) \
             if dt == torch.bfloat16 else None
-        del o_main, grads_main, o, dq, dk, dv, ref
+        bitwise = dt == torch.bfloat16 and all((
+            bitwise_twice(torch, "flash_varlen_fwd",
+                          lambda: fv.flash_varlen_fwd(q, k, v, lay, True,
+                                                      scale)),
+            bitwise_twice(torch, "flash_varlen_dq",
+                          lambda: fv.flash_varlen_dq(
+                              q, k, v, dout, wl, delta, lay, True, scale)),
+            bitwise_twice(torch, "flash_varlen_dkv",
+                          lambda: fv.flash_varlen_dkv(
+                              q, k, v, dout, wl, delta, lay, True, scale))))
+        del o_main, grads_main, o, dq, dk, dv
 
         pairs = varlen_pairs(lens, lk)
         flops, b_fwd, b_dq, b_dkv = attn_work(pairs, VARLEN_T, VARLEN_T, H,
@@ -1400,14 +1532,24 @@ def phase_flash_varlen(torch, seed, report, flush):
         lib_name, lib_in, lib_call = varlen_library(torch, q, k, v, cuq,
                                                     max_len) \
             if tok else (None, None, None)
-        lib = {}
+        lib, lib_err = {}, None
         if lib_call is not None:
             lib["fwd"] = time_ms(torch, lib_call, flush=flush)
             lo = lib_call()
             ct = dout if lo.dim() == 3 else dout.transpose(0, 1)[None]
             lib["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
                 lo, lib_in, ct, retain_graph=True), flush=flush)
-            del lo, lib_in, lib_call
+            # back to [T, heads, d]; kv heads repeated outside the call
+            # sum their group's grads
+            packed = lambda x, n: (x[0].transpose(0, 1) if x.dim() == 4  # noqa
+                                   else x).unflatten(1, (n, -1)).sum(2)
+            lgrads = torch.autograd.grad(lo, lib_in, ct)
+            lib_err = library_errors(
+                torch, dname, packed(lo.detach(), H),
+                [packed(g_, n) for g_, n in zip(lgrads, (H, KV, KV))], wo,
+                ref)
+            del lo, lib_in, lib_call, lgrads
+        del ref
         # the padded flash kernels over the same documents, b x max_len
         padded = {}
         if tok:
@@ -1433,6 +1575,7 @@ def phase_flash_varlen(torch, seed, report, flush):
         abs_errs["fwd"], errs["fwd"] = e_out, e_out_rel
         abs_errs["dkv"] = max(abs_errs["dk"], abs_errs["dv"])
         errs["dkv"] = max(errs["dk"], errs["dv"])
+        rates = achieved(ms, flops, {n: b[0] for n, b in bounds.items()})
         res = {}
         for kern in ("fwd", "dq", "dkv"):
             lib_ms = lib.get("fwd" if kern == "fwd" else "bwd")
@@ -1441,22 +1584,33 @@ def phase_flash_varlen(torch, seed, report, flush):
                 ms=ms[kern], plain_ms=plain["fwd" if kern == "fwd"
                                             else "bwd"],
                 bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
-                library_ms=lib_ms, padded_flash_ms=padded.get(kern))
+                library_ms=lib_ms, padded_flash_ms=padded.get(kern),
+                **rates[kern])
+        tiles, interior = varlen_tiles(torch, lay)
         res.update(lse_max_abs_err=e_lse, pairs=pairs, flops=flops,
+                   tiles=tiles, interior_tile_share=interior,
                    library=lib_name, padded_shape=padded.get("shape"),
-                   grad_errs=errs, planted_fault_errs=faults)
+                   grad_errs=errs, planted_fault_errs=faults,
+                   library_errs=lib_err, bitwise_run_to_run=bitwise)
         out[label] = res
         log(f"flash_varlen[{label}] T {VARLEN_T} ({len(lens)} docs, max "
             f"{max(lens)}) h{H}/{KV} d{D} causal: out max_abs_err "
             f"{e_out:.3e} lse {e_lse:.2e} rel errs "
             f"{ {n: round(e, 6) for n, e in errs.items()} }; launches per "
             f"call 1/1/1; ms fwd {ms['fwd']:.3f} dq {ms['dq']:.3f} dkv "
-            f"{ms['dkv']:.3f}; plain fwd {plain['fwd']:.2f} bwd "
+            f"{ms['dkv']:.3f}; TFLOP/s (share of bound) "
+            + ", ".join(f"{n} {r['tflops']:.1f} ({r['bound_share']:.3f})"
+                        for n, r in rates.items())
+            + f"; plain fwd {plain['fwd']:.2f} bwd "
             f"{plain['bwd']:.2f}; bound fwd {bounds['fwd'][0]:.4f} dq "
             f"{bounds['dq'][0]:.4f} dkv {bounds['dkv'][0]:.4f} "
-            f"({bounds['fwd'][1]}; {pairs} pairs)"
+            f"({bounds['fwd'][1]}; {pairs} pairs, {tiles} tiles per head, "
+            f"{interior:.3f} of them interior)"
             + (f"; library {lib_name}: fwd {lib['fwd']:.3f} bwd "
-               f"{lib['bwd']:.3f}" if lib else "")
+               f"{lib['bwd']:.3f}, its own errors vs plain {lib_err}"
+               if lib else "")
+            + ("; two launches of each kernel give the same bytes"
+               if bitwise else "")
             + (f"; padded flash {padded['shape']}: fwd {padded['fwd']:.3f} "
                f"dq {padded['dq']:.3f} dkv {padded['dkv']:.3f}"
                if padded else "")
@@ -2210,6 +2364,15 @@ def kernel_vs_plain_training(torch, model, crit, ids):
     return out
 
 
+# the port's attention kernels by the exact stems of their symbols, checked
+# before any other pattern: a templated or renamed kernel must not land in
+# "matmul" or "other" (bf16: the tensor-core kernels; float32: the CUDA-core
+# kernels of flash_attention.cu and flash_varlen.cu)
+FLASH_FWD_STEMS = ("flash_tc_fwd<", "varlen_tc_fwd<", "::fwd_kernel<")
+FLASH_BWD_STEMS = ("flash_tc_dq<", "flash_tc_dkv<", "varlen_tc_dq<",
+                   "varlen_tc_dkv<", "::dq_kernel<", "::dkv_kernel<")
+
+
 def categorize(all_kernels, busy_ms):
     """Device ms of one step by part of the step, from every activity's
     full name; ``unaccounted`` is the busy time the parts leave out (0
@@ -2219,16 +2382,16 @@ def categorize(all_kernels, busy_ms):
             "matmul": 0.0, "other": 0.0}
     for name, ms in all_kernels.items():
         low = name.lower()
-        if "grouped_gemm_" in low:
+        if any(t in name for t in FLASH_FWD_STEMS):
+            cats["flash_fwd"] += ms
+        elif any(t in name for t in FLASH_BWD_STEMS):
+            cats["flash_bwd"] += ms
+        elif "grouped_gemm_" in low:
             cats["grouped_gemm"] += ms
         elif "int4_gemm_" in low:
             cats["int4_gemm"] += ms
         elif "paged_attention_kernel" in low:   # ragged and gang decode
             cats["paged_attention"] += ms
-        elif "fwd_kernel" in low:
-            cats["flash_fwd"] += ms
-        elif "dq_kernel" in low or "dkv_kernel" in low:
-            cats["flash_bwd"] += ms
         elif "fused_kernel" in low:
             cats["fused_optimizer"] += ms
         elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
@@ -2669,6 +2832,14 @@ def main(argv=None) -> int:
         for line in txt.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{stem}]: {line.strip()}")
+    report["ptxas_tc"] = [
+        row for stem in ("flash_attention", "flash_varlen")
+        for row in ptxas_tc_kernels(_build.ptxas_report(stem) or "")]
+    for row in report["ptxas_tc"]:
+        log(f"ptxas[{row['kernel']}]: {row['registers']} registers, "
+            f"{row.get('spill_stores')} B spill stores, "
+            f"{row.get('spill_loads')} B spill loads, "
+            f"{row['smem_bytes']} B dynamic shared memory")
 
     kern = phase_kernels(torch, args.seed, report)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")

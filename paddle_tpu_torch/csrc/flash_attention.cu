@@ -7,26 +7,38 @@
 // layout and the folded [b*h, s, d] layout of `flash_block` both reach the
 // kernels without a copy. lse and delta are float32 [batch, heads, sq].
 //
-// Every block owns 64 rows and loops over the other side in chunks of 64
+// Every block owns 64 rows and loops over the other side in tiles of 64
 // positions; nothing carries between blocks, so the grid needs no order
 // and no atomics (results are the same run to run):
-//   forward  block (b*h, q tile):   loops kv chunks up to the causal
+//   forward  block (b*h, q tile):   loops kv tiles up to the causal
 //            horizon with the online softmax (m, l, acc in registers);
-//   dq       block (b*h, q tile):   loops kv chunks, p = exp(s - lse),
+//   dq       block (b*h, q tile):   loops kv tiles, p = exp(s - lse),
 //            ds = p * (dO.V^T - delta), dq += ds.K;
 //   dk/dv    block (b*kvh, k tile): loops the G query heads of its GQA
-//            group and their q chunks from the causal horizon on,
+//            group and their q tiles from the causal horizon on,
 //            dv += p^T.dO, dk += ds^T.Q.
 // Causal masking is right-aligned (query i sees key j iff j <= i + sk - sq),
-// chunks wholly past the horizon are skipped, and a tail chunk past sq or
+// tiles wholly past the horizon are skipped, and a tail tile past sq or
 // sk is loaded as zeros and masked, so any length works.
 //
-// Tiles are converted to float32 in shared memory; all arithmetic is
-// float32 on the CUDA cores (warp w owns rows [8w, 8w+8); lane l holds the
-// columns l and l+32 of a chunk and the head_dim columns l, l+32, ...).
-// Outputs round once, to the input's dtype.
+// What bounds them: operations (at b 2, s 2048, 32/8 heads, d 128, causal:
+// forward 68.7 GFLOP, 0.069 ms at 989 TFLOP/s bf16; dk/dv 137 GFLOP,
+// 0.139 ms; dq's own product, 34 GFLOP, and its bytes both ~0.035 ms).
+//
+// bfloat16 (flash_tc_fwd, flash_tc_dq, flash_tc_dkv) runs on the tensor
+// cores through the engine of flash_wgmma.cuh: bf16 tiles streamed by
+// cp.async through two stages, every product a wgmma, softmax in float32,
+// the causal mask a policy that runs on boundary tiles only. Forward and
+// dq grids put the last q tiles (the longest causal rows) first, and
+// dk/dv's the first k tiles, so the grid's tail is short.
+//
+// float32 keeps the CUDA-core kernels (fwd_kernel, dq_kernel, dkv_kernel):
+// tiles converted to float32 in shared memory, float32 FMA (warp w owns
+// rows [8w, 8w+8); lane l holds the columns l and l+32 of a chunk and the
+// head_dim columns l, l+32, ...). Outputs round once, to the input's dtype.
 
 #include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -311,6 +323,105 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16: the tensor-core engine (flash_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+using ptt::tc::bf16;
+
+// right-aligned causal mask and sequence tails; KeyRows: the block's rows
+// are keys (dk/dv), else queries
+template <bool KeyRows>
+struct CausalMask {
+  int nc, coff, causal;
+  __device__ void load_cols(uint32_t, int) const {}
+  __device__ void rows(int, int, int) {}
+  __device__ bool interior(int r0, int c0, const int*) const {
+    if (c0 + ptt::tc::kN > nc) return false;
+    if (!causal) return true;
+    return KeyRows ? r0 + ptt::tc::kM - 1 <= c0 + coff
+                   : c0 + ptt::tc::kN - 1 <= r0 + coff;
+  }
+  __device__ bool live(int, int row, int, int col, const int*) const {
+    return col < nc &&
+           (!causal || (KeyRows ? row <= col + coff : col <= row + coff));
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) flash_tc_fwd(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, Lay lq, Lay lk, Lay lv, Lay lo, int H, int KV,
+    int Sq, int Sk, float scale, int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int bh = blockIdx.x;
+  const int bi = bh / H, hi = bh % H, kvh = hi / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest rows first
+  const int ntiles = (kv_horizon(q0, Sq, Sk, causal) + kChunk - 1) / kChunk;
+  ptt::tc::fwd_body<D>(q + bi * lq.b + hi * lq.h, lq.s,
+                       k + bi * lk.b + kvh * lk.h, lk.s,
+                       v + bi * lv.b + kvh * lv.h, lv.s,
+                       o + bi * lo.b + hi * lo.h, lo.s,
+                       lse + static_cast<long long>(bh) * Sq, q0, Sq, Sk, 0,
+                       ntiles, scale, CausalMask<false>{Sk, Sk - Sq, causal},
+                       tc_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) flash_tc_dq(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, Lay lq, Lay lk, Lay lv, Lay ldo, Lay ldq, int H,
+    int KV, int Sq, int Sk, float scale, int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int bh = blockIdx.x;
+  const int bi = bh / H, hi = bh % H, kvh = hi / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int ntiles = (kv_horizon(q0, Sq, Sk, causal) + kChunk - 1) / kChunk;
+  const long long row0 = static_cast<long long>(bh) * Sq;
+  ptt::tc::dq_body<D>(q + bi * lq.b + hi * lq.h, lq.s,
+                      k + bi * lk.b + kvh * lk.h, lk.s,
+                      v + bi * lv.b + kvh * lv.h, lv.s,
+                      dout + bi * ldo.b + hi * ldo.h, ldo.s, lse + row0,
+                      delta + row0, dq + bi * ldq.b + hi * ldq.h, ldq.s, q0,
+                      Sq, Sk, 0, ntiles, scale,
+                      CausalMask<false>{Sk, Sk - Sq, causal}, tc_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) flash_tc_dkv(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, Lay lq, Lay lk, Lay lv,
+    Lay ldo, Lay ldk, Lay ldv, int H, int KV, int Sq, int Sk, float scale,
+    int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int G = H / KV;
+  const int bk = blockIdx.x;
+  const int bi = bk / KV, kvh = bk % KV;
+  const int k0 = blockIdx.y * kRows;  // the first k tiles see the most rows
+  const int coff = Sk - Sq;
+  // the first q tile whose last row sees this block's first key
+  int qstart = 0;
+  if (causal) {
+    const int x = k0 - coff - (kChunk - 1);
+    qstart = x <= 0 ? 0 : (x + kChunk - 1) / kChunk * kChunk;
+  }
+  const int per = qstart < Sq ? (Sq - qstart + kChunk - 1) / kChunk : 0;
+  const int h0 = kvh * G;
+  ptt::tc::dkv_body<D>(
+      q + bi * lq.b + h0 * lq.h, lq.s, lq.h, k + bi * lk.b + kvh * lk.h,
+      lk.s, v + bi * lv.b + kvh * lv.h, lv.s, dout + bi * ldo.b + h0 * ldo.h,
+      ldo.s, ldo.h, lse + (static_cast<long long>(bi) * H + h0) * Sq,
+      delta + (static_cast<long long>(bi) * H + h0) * Sq, Sq,
+      dk + bi * ldk.b + kvh * ldk.h, ldk.s, dv + bi * ldv.b + kvh * ldv.h,
+      ldv.s, k0, Sk, Sq, qstart, per, G, scale,
+      CausalMask<true>{Sq, coff, causal}, tc_smem);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -368,6 +479,61 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  void* lse, const long long* st, int B, int H, int KV,
+                  int Sq, int Sk, float scale, int causal,
+                  cudaStream_t stream) {
+  auto kern = flash_tc_fwd<D>;
+  constexpr int smem = ptt::tc::fwd_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kern<<<grid, ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), lay_at(st, 0), lay_at(st, 1), lay_at(st, 2),
+      lay_at(st, 3), H, KV, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, const long long* st, int B, int H, int KV, int Sq,
+                 int Sk, float scale, int causal, cudaStream_t stream) {
+  auto kern = flash_tc_dq<D>;
+  constexpr int smem = ptt::tc::dq_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kern<<<grid, ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), lay_at(st, 0), lay_at(st, 1), lay_at(st, 2),
+      lay_at(st, 3), lay_at(st, 4), H, KV, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, const long long* st, int B, int H,
+                  int KV, int Sq, int Sk, float scale, int causal,
+                  cudaStream_t stream) {
+  auto kern = flash_tc_dkv<D>;
+  constexpr int smem = ptt::tc::dkv_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  dim3 grid(B * KV, (Sk + kRows - 1) / kRows);
+  kern<<<grid, ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), lay_at(st, 0),
+      lay_at(st, 1), lay_at(st, 2), lay_at(st, 3), lay_at(st, 4),
+      lay_at(st, 5), H, KV, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `strides` is a host array of three element strides (batch, head, seq)
@@ -381,8 +547,12 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
 #define PTT_FWD(T, DD)                                                    \
   launch_fwd<T, DD>(q, k, v, o, lse, strides, B, H, KV, Sq, Sk, scale, \
                     causal, s)
-  PTT_DISPATCH(PTT_FWD);
+#define PTT_FWD_TC(DD)                                                     \
+  launch_fwd_tc<DD>(q, k, v, o, lse, strides, B, H, KV, Sq, Sk, scale, \
+                    causal, s)
+  PTT_DISPATCH(PTT_FWD, PTT_FWD_TC);
 #undef PTT_FWD
+#undef PTT_FWD_TC
 }
 
 extern "C" int ptt_flash_dq(const void* q, const void* k, const void* v,
@@ -395,8 +565,12 @@ extern "C" int ptt_flash_dq(const void* q, const void* k, const void* v,
 #define PTT_DQ(T, DD)                                                       \
   launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, strides, B, H, KV, Sq, Sk, \
                    scale, causal, s)
-  PTT_DISPATCH(PTT_DQ);
+#define PTT_DQ_TC(DD)                                                      \
+  launch_dq_tc<DD>(q, k, v, dout, lse, delta, dq, strides, B, H, KV, Sq, \
+                   Sk, scale, causal, s)
+  PTT_DISPATCH(PTT_DQ, PTT_DQ_TC);
 #undef PTT_DQ
+#undef PTT_DQ_TC
 }
 
 extern "C" int ptt_flash_dkv(const void* q, const void* k, const void* v,
@@ -409,6 +583,10 @@ extern "C" int ptt_flash_dkv(const void* q, const void* k, const void* v,
 #define PTT_DKV(T, DD)                                                      \
   launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, KV, Sq, \
                     Sk, scale, causal, s)
-  PTT_DISPATCH(PTT_DKV);
+#define PTT_DKV_TC(DD)                                                    \
+  launch_dkv_tc<DD>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, KV, \
+                    Sq, Sk, scale, causal, s)
+  PTT_DISPATCH(PTT_DKV, PTT_DKV_TC);
 #undef PTT_DKV
+#undef PTT_DKV_TC
 }

@@ -1,6 +1,7 @@
-// Tile loads and float32 tile products shared by the flash kernels
+// Tile loads and float32 tile products shared by the float32 flash kernels
 // (flash_attention.cu over [batch, seq, heads, head_dim], flash_varlen.cu
-// over the packed [tokens, heads, head_dim] layout).
+// over the packed [tokens, heads, head_dim] layout); bfloat16 takes the
+// tensor-core engine of flash_wgmma.cuh.
 //
 // A block of kThreads threads owns kRows rows; warp w owns rows [8w, 8w+8).
 // Tiles live in shared memory as float32, either in row layout [p][D] or
@@ -151,12 +152,14 @@ constexpr int dkv_smem() {
     }                                                                   \
   } while (0)
 
-// dtype codes: 0 float32, 1 bfloat16; head_dim 64 or 128
-#define PTT_DISPATCH(CALL)                                       \
-  do {                                                           \
-    if (dtype == 0 && D == 128) return CALL(float, 128);         \
-    if (dtype == 0 && D == 64) return CALL(float, 64);           \
-    if (dtype == 1 && D == 128) return CALL(__nv_bfloat16, 128); \
-    if (dtype == 1 && D == 64) return CALL(__nv_bfloat16, 64);   \
-    return static_cast<int>(cudaErrorInvalidValue);              \
+// dtype codes: 0 float32 (CALL(T, D): the CUDA-core kernels above), 1
+// bfloat16 (CALL_TC(D): the tensor-core engine of flash_wgmma.cuh); head_dim
+// 64 or 128
+#define PTT_DISPATCH(CALL, CALL_TC)                      \
+  do {                                                   \
+    if (dtype == 0 && D == 128) return CALL(float, 128); \
+    if (dtype == 0 && D == 64) return CALL(float, 64);   \
+    if (dtype == 1 && D == 128) return CALL_TC(128);     \
+    if (dtype == 1 && D == 64) return CALL_TC(64);       \
+    return static_cast<int>(cudaErrorInvalidValue);      \
   } while (0)

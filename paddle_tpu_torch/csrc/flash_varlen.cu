@@ -32,12 +32,23 @@
 // is false (selected, never multiplied), so such rows give zero grads.
 //
 // What bounds it: operations (4·d flops per live (query, key) pair and
-// head in the forward, against a few hundred bytes per token). This first
-// version computes in float32 on the CUDA cores with synchronous loads, as
-// flash_attention.cu does; tensor cores (wgmma), TMA and pipelining are
-// later work.
+// head in the forward, against a few hundred bytes per token: at the
+// seed's 16384-token pack, 32/8 heads, d 128, causal, 12.7 M live pairs
+// per head, the forward's 208 GFLOP take 0.21 ms at 989 TFLOP/s bf16).
+//
+// bfloat16 (varlen_tc_fwd, varlen_tc_dq, varlen_tc_dkv) runs on the tensor
+// cores through the engine of flash_wgmma.cuh, as the flash kernels do;
+// the mask is a policy over the segment ids and positions (SegMask): a
+// tile whose rows and columns all lie in one segment (and, causal, wholly
+// below the diagonal) skips the per-element test. Each grid walks its
+// blocks in the order the wrapper gives (longest run over the other side
+// first), so the grid's tail is short.
+//
+// float32 keeps the first design: float32 on the CUDA cores with
+// synchronous loads (fwd_kernel, dq_kernel, dkv_kernel).
 
 #include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -348,13 +359,126 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16: the tensor-core engine (flash_wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+using ptt::tc::bf16;
+using ptt::tc::kColWords;
+
+// the per-segment mask over padded segment ids and positions; KeyRows: the
+// block's rows are keys (dk/dv), else queries. A column tile's ids and
+// positions are the tile's column words (2 x 64 ints).
+template <bool KeyRows>
+struct SegMask {
+  const int *segr, *posr, *segc, *posc;
+  int causal;
+  int seg_r[2], pos_r[2];                      // this thread's two rows
+  int seg_lo, seg_hi, pos_first, pos_last;     // the block's rows
+  __device__ void load_cols(uint32_t dst, int c0) const {
+    const int t = threadIdx.x;
+    if (t < 64)
+      ptt::tc::load_words(dst, segc, c0, c0 + 64, t);
+    else
+      ptt::tc::load_words(dst + kColWords * 4, posc, c0, c0 + 64, t - 64);
+  }
+  __device__ void rows(int r0, int ra, int rb) {
+    seg_r[0] = segr[ra];
+    seg_r[1] = segr[rb];
+    pos_r[0] = posr[ra];
+    pos_r[1] = posr[rb];
+    seg_lo = segr[r0];
+    seg_hi = segr[r0 + ptt::tc::kM - 1];
+    pos_first = posr[r0];
+    pos_last = posr[r0 + ptt::tc::kM - 1];
+  }
+  // one segment on both sides (ids are non-decreasing) and, causal, every
+  // key at or before every query
+  __device__ bool interior(int, int, const int* cols) const {
+    const int* pc = cols + kColWords;
+    if (seg_lo != seg_hi || cols[0] != cols[63] || cols[0] != seg_lo)
+      return false;
+    return !causal || (KeyRows ? pos_last <= pc[0] : pc[63] <= pos_first);
+  }
+  __device__ bool live(int h, int, int cl, int, const int* cols) const {
+    const int pc = cols[kColWords + cl];
+    return seg_r[h] == cols[cl] &&
+           (!causal || (KeyRows ? pos_r[h] <= pc : pc <= pos_r[h]));
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) varlen_tc_fwd(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, const int* __restrict__ segq,
+    const int* __restrict__ posq, const int* __restrict__ segk,
+    const int* __restrict__ posk, const int* __restrict__ bounds,
+    const int* __restrict__ order, Lay lq, Lay lk, Lay lv, Lay lo, int H,
+    int KV, int Tq, int Tk, int nq, float scale, int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int iq = order[blockIdx.x], hi = blockIdx.y, kvh = hi / (H / KV);
+  const int j0 = bounds[iq], ntiles = max(0, bounds[nq + iq] - j0 + 1);
+  ptt::tc::fwd_body<D>(
+      q + hi * lq.h, lq.t, k + kvh * lk.h, lk.t, v + kvh * lv.h, lv.t,
+      o + hi * lo.h, lo.t, lse + static_cast<long long>(hi) * Tq, iq * kRows,
+      Tq, Tk, j0 * kChunk, ntiles, scale,
+      SegMask<false>{segq, posq, segk, posk, causal}, tc_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) varlen_tc_dq(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, const int* __restrict__ segq,
+    const int* __restrict__ posq, const int* __restrict__ segk,
+    const int* __restrict__ posk, const int* __restrict__ bounds,
+    const int* __restrict__ order, Lay lq, Lay lk, Lay lv, Lay ldo, Lay ldq,
+    int H, int KV, int Tq, int Tk, int nq, float scale, int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int iq = order[blockIdx.x], hi = blockIdx.y, kvh = hi / (H / KV);
+  const int j0 = bounds[iq], ntiles = max(0, bounds[nq + iq] - j0 + 1);
+  const long long row0 = static_cast<long long>(hi) * Tq;
+  ptt::tc::dq_body<D>(
+      q + hi * lq.h, lq.t, k + kvh * lk.h, lk.t, v + kvh * lv.h, lv.t,
+      dout + hi * ldo.h, ldo.t, lse + row0, delta + row0, dq + hi * ldq.h,
+      ldq.t, iq * kRows, Tq, Tk, j0 * kChunk, ntiles, scale,
+      SegMask<false>{segq, posq, segk, posk, causal}, tc_smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(ptt::tc::kThreads, 2) varlen_tc_dkv(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv,
+    const int* __restrict__ segq, const int* __restrict__ posq,
+    const int* __restrict__ segk, const int* __restrict__ posk,
+    const int* __restrict__ bounds, const int* __restrict__ order, Lay lq,
+    Lay lk, Lay lv, Lay ldo, Lay ldk, Lay ldv, int H, int KV, int Tq, int Tk,
+    int nk, float scale, int causal) {
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const int G = H / KV;
+  const int jk = order[blockIdx.x], kvh = blockIdx.y, h0 = kvh * G;
+  const int i0 = bounds[jk], per = max(0, bounds[nk + jk] - i0 + 1);
+  const long long row0 = static_cast<long long>(h0) * Tq;
+  ptt::tc::dkv_body<D>(
+      q + h0 * lq.h, lq.t, lq.h, k + kvh * lk.h, lk.t, v + kvh * lv.h, lv.t,
+      dout + h0 * ldo.h, ldo.t, ldo.h, lse + row0, delta + row0, Tq,
+      dk + kvh * ldk.h, ldk.t, dv + kvh * ldv.h, ldv.t, jk * kRows, Tk, Tq,
+      i0 * kChunk, per, G, scale,
+      SegMask<true>{segk, posk, segq, posq, causal}, tc_smem);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 Lay lay_at(const long long* s, int i) { return Lay{s[2 * i], s[2 * i + 1]}; }
 
-struct Segs {  // per-token segment ids and positions, and the loop bounds
-  const int *segq, *posq, *segk, *posk, *bounds;
+struct Segs {  // per-token segment ids and positions, the loop bounds and
+              // the order of the kernel's own blocks
+  const int *segq, *posq, *segk, *posk, *bounds, *order;
 };
 
 int blocks(int n) { return (n + kRows - 1) / kRows; }
@@ -412,11 +536,71 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  void* lse, Segs sg, const long long* st, int H, int KV,
+                  int Tq, int Tk, float scale, int causal,
+                  cudaStream_t stream) {
+  auto kern = varlen_tc_fwd<D>;
+  constexpr int smem = ptt::tc::fwd_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  const int nq = blocks(Tq);
+  kern<<<dim3(nq, H), ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sg.segq, sg.posq, sg.segk, sg.posk,
+      sg.bounds, sg.order, lay_at(st, 0), lay_at(st, 1), lay_at(st, 2),
+      lay_at(st, 3), H, KV, Tq, Tk, nq, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, Segs sg, const long long* st, int H, int KV,
+                 int Tq, int Tk, float scale, int causal,
+                 cudaStream_t stream) {
+  auto kern = varlen_tc_dq<D>;
+  constexpr int smem = ptt::tc::dq_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  const int nq = blocks(Tq);
+  kern<<<dim3(nq, H), ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), sg.segq, sg.posq, sg.segk, sg.posk, sg.bounds,
+      sg.order, lay_at(st, 0), lay_at(st, 1), lay_at(st, 2), lay_at(st, 3),
+      lay_at(st, 4), H, KV, Tq, Tk, nq, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, Segs sg, const long long* st, int H,
+                  int KV, int Tq, int Tk, float scale, int causal,
+                  cudaStream_t stream) {
+  auto kern = varlen_tc_dkv<D>;
+  constexpr int smem = ptt::tc::dkv_smem<D>();
+  PTT_SET_SMEM(kern, smem);
+  const int nk = blocks(Tk);
+  kern<<<dim3(nk, KV), ptt::tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sg.segq, sg.posq,
+      sg.segk, sg.posk, sg.bounds, sg.order, lay_at(st, 0), lay_at(st, 1),
+      lay_at(st, 2), lay_at(st, 3), lay_at(st, 4), lay_at(st, 5), H, KV, Tq,
+      Tk, nk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// `segs` points at five device arrays: seg_q, pos_q (padded to a multiple
-// of 64 tokens), seg_k, pos_k (likewise), and the int32 loop bounds [2, n]
-// (first and last block of the other side) of the kernel's own blocks.
+// `segs` points at six device arrays: seg_q, pos_q (padded to a multiple
+// of 64 tokens), seg_k, pos_k (likewise), the int32 loop bounds [2, n]
+// (first and last block of the other side) of the kernel's own blocks, and
+// the order [n] in which the bfloat16 kernels walk those blocks.
 // `strides` is a host array of two element strides (token, head) per
 // tensor, in argument order; dtype codes as PTT_DISPATCH.
 extern "C" int ptt_varlen_fwd(const void* q, const void* k, const void* v,
@@ -429,12 +613,17 @@ extern "C" int ptt_varlen_fwd(const void* q, const void* k, const void* v,
                 static_cast<const int*>(segs[1]),
                 static_cast<const int*>(segs[2]),
                 static_cast<const int*>(segs[3]),
-                static_cast<const int*>(segs[4])};
+                static_cast<const int*>(segs[4]),
+                static_cast<const int*>(segs[5])};
 #define PTT_FWD(T, DD)                                                    \
   launch_fwd<T, DD>(q, k, v, o, lse, sg, strides, H, KV, Tq, Tk, scale, \
                     causal, s)
-  PTT_DISPATCH(PTT_FWD);
+#define PTT_FWD_TC(DD)                                                    \
+  launch_fwd_tc<DD>(q, k, v, o, lse, sg, strides, H, KV, Tq, Tk, scale, \
+                    causal, s)
+  PTT_DISPATCH(PTT_FWD, PTT_FWD_TC);
 #undef PTT_FWD
+#undef PTT_FWD_TC
 }
 
 extern "C" int ptt_varlen_dq(const void* q, const void* k, const void* v,
@@ -449,12 +638,17 @@ extern "C" int ptt_varlen_dq(const void* q, const void* k, const void* v,
                 static_cast<const int*>(segs[1]),
                 static_cast<const int*>(segs[2]),
                 static_cast<const int*>(segs[3]),
-                static_cast<const int*>(segs[4])};
+                static_cast<const int*>(segs[4]),
+                static_cast<const int*>(segs[5])};
 #define PTT_DQ(T, DD)                                                        \
   launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, sg, strides, H, KV, Tq, Tk, \
                    scale, causal, s)
-  PTT_DISPATCH(PTT_DQ);
+#define PTT_DQ_TC(DD)                                                       \
+  launch_dq_tc<DD>(q, k, v, dout, lse, delta, dq, sg, strides, H, KV, Tq, \
+                   Tk, scale, causal, s)
+  PTT_DISPATCH(PTT_DQ, PTT_DQ_TC);
 #undef PTT_DQ
+#undef PTT_DQ_TC
 }
 
 extern "C" int ptt_varlen_dkv(const void* q, const void* k, const void* v,
@@ -469,10 +663,15 @@ extern "C" int ptt_varlen_dkv(const void* q, const void* k, const void* v,
                 static_cast<const int*>(segs[1]),
                 static_cast<const int*>(segs[2]),
                 static_cast<const int*>(segs[3]),
-                static_cast<const int*>(segs[4])};
+                static_cast<const int*>(segs[4]),
+                static_cast<const int*>(segs[5])};
 #define PTT_DKV(T, DD)                                                      \
   launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, sg, strides, H, KV, \
                     Tq, Tk, scale, causal, s)
-  PTT_DISPATCH(PTT_DKV);
+#define PTT_DKV_TC(DD)                                                     \
+  launch_dkv_tc<DD>(q, k, v, dout, lse, delta, dk, dv, sg, strides, H, KV, \
+                    Tq, Tk, scale, causal, s)
+  PTT_DISPATCH(PTT_DKV, PTT_DKV_TC);
 #undef PTT_DKV
+#undef PTT_DKV_TC
 }

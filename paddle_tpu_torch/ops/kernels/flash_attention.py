@@ -15,13 +15,16 @@ What bounds it on the H100: operations. At the training shapes (b 2, s
 against ~100 MB of q/k/v/out, far above the card's ~295 flop/byte ridge.
 The three kernels (``csrc/flash_attention.cu``: forward, dq, dk/dv) keep
 the [sq, sk] scores out of device memory: each block owns 64 rows, loops
-over 64-position chunks of the other side through shared memory up to the
+over 64-position tiles of the other side through shared memory up to the
 causal horizon, and keeps its sums in registers. dk/dv loops over the G
-query heads of its group, so nothing needs atomics. This first version
-computes in float32 on the CUDA cores with synchronous loads; tensor cores
-(``wgmma``), TMA and pipelining are later work. Any ``sq``/``sk`` works
-(the tail chunk is masked), where the Pallas kernel needs multiples of
-128.
+query heads of its group, so nothing needs atomics and results are the
+same bit for bit run to run. bfloat16 runs on the tensor cores
+(``csrc/flash_wgmma.cuh``: bf16 tiles streamed by ``cp.async`` through a
+two-stage ring, every product a ``wgmma``, probabilities and dS fed back
+as two bf16 terms, softmax statistics in float32, the causal mask on
+boundary tiles only); float32 keeps CUDA-core kernels that compute in
+float32 with synchronous loads. Any ``sq``/``sk`` works (the tail tile is
+masked), where the Pallas kernel needs multiples of 128.
 
 The backward takes ``delta = rowsum(dout * out)`` as a plain torch op, as
 the reference does; ``flash_block``'s lse cotangent folds into it as

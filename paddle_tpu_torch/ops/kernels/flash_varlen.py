@@ -18,6 +18,10 @@ the reference's meaning). A row with no live key gives out 0 and lse
 
 The three CUDA kernels (``csrc/flash_varlen.cu``) read q, k, v and dout
 through their strides in the packed layout: no transposed or padded copy.
+bfloat16 runs on the tensor cores through the engine the flash kernels
+use (``csrc/flash_wgmma.cuh``), with the segment mask evaluated on
+boundary tiles only and each grid walking its blocks longest run first
+(``longest_first``); float32 keeps CUDA-core kernels.
 The wrapper derives per-token segment ids and positions from
 ``cu_seqlens`` on the device (``segments``: ``torch.searchsorted``), the
 segment range of every 64-token block (``block_ranges``) and from them
@@ -106,18 +110,29 @@ def block_bounds(rq: torch.Tensor, rk: torch.Tensor, tok_skip: bool
 class VarlenLayout(NamedTuple):
     """What the kernels read besides the tensors: per-token segment ids
     and positions padded to whole blocks (q padding id n, k padding n + 1:
-    they match nothing and keep the block ranges non-decreasing), and
-    each side's loop bounds (``block_bounds``)."""
+    they match nothing and keep the block ranges non-decreasing), each
+    side's loop bounds (``block_bounds``) and the order in which the
+    bfloat16 kernels walk each side's blocks (``longest_first``)."""
     segq: torch.Tensor
     posq: torch.Tensor
     segk: torch.Tensor
     posk: torch.Tensor
     q_bounds: torch.Tensor
     k_bounds: torch.Tensor
+    q_order: torch.Tensor
+    k_order: torch.Tensor
 
 
 def _nblocks(t: int) -> int:
     return -(-t // BLOCK)
+
+
+def longest_first(bounds: torch.Tensor) -> torch.Tensor:
+    """The blocks of one side, longest run over the other side first (ties
+    in block order), as int32 ``[n]``: launched in this order, the grid's
+    last blocks are short ones."""
+    return torch.argsort(bounds[1] - bounds[0], descending=True,
+                         stable=True).to(torch.int32)
 
 
 def varlen_layout(cu_q: torch.Tensor, cu_k: torch.Tensor, Tq: int, Tk: int,
@@ -129,7 +144,8 @@ def varlen_layout(cu_q: torch.Tensor, cu_k: torch.Tensor, Tq: int, Tk: int,
     segk, posk = segments(cu_k, Tk, nk * BLOCK, n + 1)
     qb, kb = block_bounds(block_ranges(segq, nq, BLOCK),
                           block_ranges(segk, nk, BLOCK), tok_skip)
-    return VarlenLayout(segq, posq, segk, posk, qb, kb)
+    return VarlenLayout(segq, posq, segk, posk, qb, kb, longest_first(qb),
+                        longest_first(kb))
 
 
 def same_cu_layout(cu_seqlens_q, cu_seqlens_k) -> bool:
@@ -279,10 +295,11 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _segs(lay: VarlenLayout, bounds: torch.Tensor) -> ctypes.Array:
-    return (ctypes.c_void_p * 5)(lay.segq.data_ptr(), lay.posq.data_ptr(),
+def _segs(lay: VarlenLayout, bounds: torch.Tensor, order: torch.Tensor
+          ) -> ctypes.Array:
+    return (ctypes.c_void_p * 6)(lay.segq.data_ptr(), lay.posq.data_ptr(),
                                  lay.segk.data_ptr(), lay.posk.data_ptr(),
-                                 bounds.data_ptr())
+                                 bounds.data_ptr(), order.data_ptr())
 
 
 def _check(names, ts, like_q, like_k) -> None:
@@ -323,7 +340,8 @@ def _check_layout(lay: VarlenLayout, q: torch.Tensor, Tq: int, Tk: int):
     nq, nk = _nblocks(Tq), _nblocks(Tk)
     want = {"segq": (nq * BLOCK,), "posq": (nq * BLOCK,),
             "segk": (nk * BLOCK,), "posk": (nk * BLOCK,),
-            "q_bounds": (2, nq), "k_bounds": (2, nk)}
+            "q_bounds": (2, nq), "k_bounds": (2, nk), "q_order": (nq,),
+            "k_order": (nk,)}
     for name, t in zip(lay._fields, lay):
         if t.dtype != torch.int32 or t.device != q.device \
                 or tuple(t.shape) != want[name] or not t.is_contiguous():
@@ -368,7 +386,8 @@ def flash_varlen_fwd(q, k, v, lay: VarlenLayout, causal: bool, scale: float):
     lib = _build.load("flash_varlen", _bind)
     _run(lib.ptt_varlen_fwd,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          lse.data_ptr(), _segs(lay, lay.q_bounds), _strides(q, k, v, out)),
+          lse.data_ptr(), _segs(lay, lay.q_bounds, lay.q_order),
+          _strides(q, k, v, out)),
          (H, KV, Tq, Tk, D), scale, causal, q.dtype, q.device)
     launches_fwd.add()
     return out, lse
@@ -385,7 +404,8 @@ def flash_varlen_dq(q, k, v, dout, lse, delta, lay: VarlenLayout,
     _run(lib.ptt_varlen_dq,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-          _segs(lay, lay.q_bounds), _strides(q, k, v, dout, dq)),
+          _segs(lay, lay.q_bounds, lay.q_order),
+          _strides(q, k, v, dout, dq)),
          dims, scale, causal, q.dtype, q.device)
     launches_dq.add()
     return dq
@@ -402,7 +422,8 @@ def flash_varlen_dkv(q, k, v, dout, lse, delta, lay: VarlenLayout,
     _run(lib.ptt_varlen_dkv,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
           lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          _segs(lay, lay.k_bounds), _strides(q, k, v, dout, dk, dv)),
+          _segs(lay, lay.k_bounds, lay.k_order),
+          _strides(q, k, v, dout, dk, dv)),
          dims, scale, causal, q.dtype, q.device)
     launches_dkv.add()
     return dk, dv

@@ -16,13 +16,16 @@ most one bf16 ulp, at most 0.78% of the value; atol covers values near 0).
 
 Flash attention (forward, dq, dk/dv) over the same head_dims and groups,
 causal on and off, lengths that are not multiples of the 64-row tile (the
-tail is masked) and ``sq < sk``, float32 and bfloat16, and the folded
-``flash_block`` layout with an lse cotangent. Gradients are judged by max
+tail is masked), ``sq < sk`` and lengths that need more tiles than the
+bf16 kernels' two-stage ring holds (1000, 513 x 1100, 2049), float32 and
+bfloat16, and the folded ``flash_block`` layout with an lse cotangent;
+each bf16 kernel (flash and varlen) gives the same bytes on two launches. Gradients are judged by max
 error relative to the tensor's max: 1e-4 in float32, 1e-2 in bfloat16
 (one bf16 ulp of the largest entries). Packed (varlen) flash attention
 (forward, dq, dk/dv) over the same head_dims, GQA groups 1, 4 and 8,
 causal on and off, self packing with tails, a length-1 and an empty
-document, and cross packing (equal and unequal totals), float32 and
+document, a document longer than 1024 tokens, and cross packing (equal and
+unequal totals), float32 and
 bfloat16, with the same limits; the causal token skip on and off equal
 bit for bit; rows with no live key; the op through ``call_op`` on the
 card against the CPU; and the refusals (head_dim 96, float16, cu_seqlens
@@ -203,7 +206,10 @@ def _rel_err(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-FLASH_LENS = {"tiles": (128, 128), "tails": (100, 100), "sq<sk": (77, 200)}
+# more tiles than the bf16 kernels' two-stage ring holds, with tails
+FLASH_LENS = {"tiles": (128, 128), "tails": (100, 100), "sq<sk": (77, 200),
+              "long": (1000, 1000), "long sq<sk": (513, 1100),
+              "long tails": (2049, 2049)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,6 +262,32 @@ def test_flash_block_folded_layout_with_lse_cotangent(dev):
         assert _rel_err(a.cpu(), b) < 1e-4
 
 
+def _same_bytes_twice(fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (a if isinstance(a, tuple) else (a,)), \
+        (b if isinstance(b, tuple) else (b,))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_flash_bf16_kernels_are_bitwise_run_to_run(dev, kernel):
+    """No atomics and a fixed order of sums: two launches of each bf16
+    kernel give the same bytes."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    mk = lambda n: torch.randn((2, 700, n, 128), generator=g,  # noqa: E731
+                               device=dev).bfloat16()
+    q, k, v, dout = mk(16), mk(4), mk(4), mk(16)
+    out, lse = fa.flash_fwd_kernel(q, k, v, True, 0.09)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    call = {"fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, 0.09),
+            "dq": lambda: fa.flash_dq_kernel(q, k, v, dout, lse, delta, True,
+                                             0.09),
+            "dkv": lambda: fa.flash_dkv_kernel(q, k, v, dout, lse, delta,
+                                               True, 0.09)}[kernel]
+    assert _same_bytes_twice(call)
+
+
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
     q = torch.randn((1, 64, 4, 64), device=dev)
     before = fa.launches_fwd.count
@@ -286,7 +318,8 @@ def test_routing_sends_cuda_cases_the_kernels_lack_to_them_to_raise(
 # empty document; cross packing with equal and with unequal totals
 VARLEN_PACKS = {"docs": ([100, 1, 0, 37, 230, 64], None),
                 "cross": ([1, 199, 80], [199, 1, 80]),
-                "cross_tq_ne_tk": ([30, 100, 5, 0], [64, 20, 77, 9])}
+                "cross_tq_ne_tk": ([30, 100, 5, 0], [64, 20, 77, 9]),
+                "long_doc": ([1500, 40, 300], None)}
 
 
 def _varlen_inputs(dev, pack, h, kv, d, dtype, seed=0):
@@ -359,6 +392,21 @@ def test_varlen_token_skip_on_and_off_give_equal_results(dev, dtype):
                                          0.1)])
     for a, b in zip(*res):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_varlen_bf16_kernels_are_bitwise_run_to_run(dev, kernel):
+    q, k, v, dout, cu, _ = _varlen_inputs(dev, "long_doc", 16, 4, 128,
+                                          torch.bfloat16)
+    lay = fv.varlen_layout(cu, cu, q.shape[0], k.shape[0], True)
+    out, lse = fv.flash_varlen_fwd(q, k, v, lay, True, 0.09)
+    delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
+    call = {"fwd": lambda: fv.flash_varlen_fwd(q, k, v, lay, True, 0.09),
+            "dq": lambda: fv.flash_varlen_dq(q, k, v, dout, lse, delta, lay,
+                                             True, 0.09),
+            "dkv": lambda: fv.flash_varlen_dkv(q, k, v, dout, lse, delta,
+                                               lay, True, 0.09)}[kernel]
+    assert _same_bytes_twice(call)
 
 
 def test_varlen_rows_without_live_keys_on_the_card(dev):

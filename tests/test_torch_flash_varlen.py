@@ -204,6 +204,26 @@ def test_block_skip_changes_time_only(packing, tok_skip):
     assert by_q == want
 
 
+@pytest.mark.parametrize("packing,tok_skip", [
+    ("docs", True), ("tail", False), ("cross", False)])
+def test_blocks_walk_longest_run_first(packing, tok_skip):
+    """The bf16 kernels walk each side's blocks in ``q_order``/``k_order``:
+    every block once, runs over the other side non-increasing, ties in
+    block order."""
+    lq, lk = PACKINGS[packing]
+    cuq = _cu(lq)
+    cuk = cuq if lk is None else _cu(lk)
+    lay = fv.varlen_layout(torch.from_numpy(cuq), torch.from_numpy(cuk),
+                           int(cuq[-1]), int(cuk[-1]), tok_skip)
+    for bounds, order in ((lay.q_bounds, lay.q_order),
+                          (lay.k_bounds, lay.k_order)):
+        run = (bounds[1] - bounds[0]).numpy()
+        o = order.numpy()
+        assert order.dtype == torch.int32
+        assert sorted(o) == list(range(len(run)))
+        assert all((run[a], b) > (run[b], a) for a, b in zip(o, o[1:]))
+
+
 def test_block_skip_bounds_the_work():
     """Causal self packing of many documents walks about the sum of
     len^2 / 2, far below T^2."""
