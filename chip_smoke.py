@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. card and build: the card's name and power limit (nvidia-smi), then
    every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, one process per
-   source, all started together, timed;
+   source, all started together, timed; each tensor-core kernel's
+   registers, spills and shared memory (``ptxas[...]`` lines);
 2. serving kernel checks at the serving path's head geometry (H=32, KV=8,
    D=128, BS=64, a 512-token step over 16 rows mixing decode rows, prefill
    chunks at several offsets, empty rows and padding tokens): each kernel
@@ -45,13 +46,18 @@ Phases (any failure raises and the script exits non-zero):
    transposed view of w) against its plain version, with two planted
    faults (a zeroed live C tile, group g reading expert g mod E instead of
    g // 2), timed at the path's four launch shapes beside its bound and
-   ``torch.bmm`` over the count-masked buffer; the int4 weight-only GEMM
-   at Llama-3-8B's four (k, n) pairs and m 1, 4, 37 and 512, plus two
-   shapes with tails in m, n and k, in bf16 and float32 x, against its
-   plain version, with two planted faults (the nibbles swapped, no sign
-   extension), timed at gate/up and down at m 512 and 4 beside its bound,
-   ``torch.mm`` over the codes unpacked to bf16 and ``torch.matmul`` over
-   the bf16 weight; block-CSR SpMM through ``sparse.bcsr_from_dense`` and
+   ``torch.bmm`` over the count-masked buffer, with TFLOP/s, GB/s, the
+   share of the bound, the route the C entry took and two launches giving
+   the same bytes; the int4 weight-only GEMM at Llama-3-8B's four (k, n)
+   pairs and m 1, 4, 16, 37 and 512, plus two shapes with tails in m, n
+   and k, in bf16 and float32 x, against its plain version, with two
+   planted faults (the nibbles swapped, no sign extension), each case's
+   route (decode with its k slices, prefill, or the WMMA route), timed at
+   all four pairs at m 4, 16 (the engine's decode rows) and 512 beside its
+   bound, ``torch.mm`` over the codes unpacked to bf16 and
+   ``torch.matmul`` over the bf16 weight, with the same rates and two
+   launches giving the same bytes; block-CSR SpMM through
+   ``sparse.bcsr_from_dense`` and
    ``sparse.bcsr_matmul``, a path of its own, over Llama-3-8B's
    ``gate_proj`` and ``down_proj`` weights block-pruned in 128 x 128 blocks
    (about half kept by a mask from the seed, two block rows empty) times
@@ -1009,9 +1015,41 @@ def tc_smem_bytes(kind: str, d: int) -> int:
     return tiles * 64 * d * 2 + 2 * words * 64 * 4 + 1024
 
 
+# dynamic shared memory of the wgmma GEMM kernels, as grouped_gemm.cu and
+# weight_only_gemm.cu size them (bf16 tiles of 64-deep k; 1024 B of
+# alignment slack): the grouped GEMM's 4-stage ring of 128 x 64 A and
+# 256 x 64 B tiles; the int4 prefill's 6-stage ring of A and packed
+# [32][256] tiles plus two unpacked [64][256] B tiles; the int4 decode's
+# 6-stage ring of x's [NX][128] tile and 64 packed rows at an 80-byte pitch
+def gemm_smem_bytes(kernel: str, args) -> int:
+    if kernel == "grouped_gemm_wgmma_kernel":
+        return 4 * (128 + 256) * 64 * 2 + 1024
+    if kernel == "int4_gemm_prefill_kernel":
+        return 6 * (128 * 64 * 2 + 32 * 256) + 2 * 64 * 256 * 2 + 1024
+    if kernel == "int4_gemm_decode_kernel":
+        return 6 * (int(args[0]) * 128 * 2 + 64 * 80) + 1024
+    return 0
+
+
+def demangled_args(mangled: str):
+    """Template arguments of an Itanium-mangled kernel name, as far as
+    the port's kernels use them (ints, bools, float and bf16)."""
+    out = []
+    while mangled:
+        m = re.match(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f", mangled)
+        if not m:
+            break
+        out.append(m.group(1) or {"0": "false", "1": "true"}.get(
+            m.group(2)) or ("float" if m.group(0) == "f" else "bf16"))
+        mangled = mangled[m.end():]
+    return out
+
+
 def ptxas_tc_kernels(txt: str):
-    """Registers and spills of each bf16 attention kernel in nvcc's
-    ``-Xptxas -v`` report, with its dynamic shared memory."""
+    """Registers, spills and shared memory of each tensor-core kernel in
+    nvcc's ``-Xptxas -v`` report: the bf16 attention kernels (dynamic
+    shared memory) and every GEMM kernel of grouped_gemm.cu and
+    weight_only_gemm.cu (dynamic, or the static bytes ptxas reports)."""
     rows, name = [], None
     for line in txt.splitlines():
         m = re.search(r"Compiling entry function '\w*?((?:flash|varlen)_tc_"
@@ -1020,6 +1058,13 @@ def ptxas_tc_kernels(txt: str):
             name = dict(kernel=f"{m.group(1)}<{m.group(3)}>",
                         smem_bytes=tc_smem_bytes(m.group(2),
                                                  int(m.group(3))))
+            continue
+        m = re.search(r"Compiling entry function '\w*?\d((?:int4|grouped)"
+                      r"_gemm_\w*?kernel)I(\w*?)EEv", line)
+        if m:
+            args = demangled_args(m.group(2))
+            name = dict(kernel=f"{m.group(1)}<{', '.join(args)}>",
+                        smem_bytes=gemm_smem_bytes(m.group(1), args))
             continue
         if name is None:
             continue
@@ -1031,6 +1076,9 @@ def ptxas_tc_kernels(txt: str):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             name["registers"] = int(m.group(1))
+            static = re.search(r"(\d+) bytes smem", line)
+            if static and not name["smem_bytes"]:
+                name["smem_bytes"] = int(static.group(1))
             rows.append(name)
             name = None
     return rows
@@ -1066,13 +1114,22 @@ def library_errors(torch, dtype_name, out, grads, want_out, want_grads):
     return res
 
 
-def achieved(ms, flops, bound_ms):
-    """TFLOP/s of the products each kernel needs (forward 2, dq 3, dk/dv 4
-    of the forward's flops / 2) and the share of the bound reached."""
-    need = {"fwd": flops, "dq": 3 * flops // 2, "dkv": 2 * flops}
-    return {kern: dict(tflops=need[kern] / (ms[kern] * 1e-3) / 1e12,
-                       bound_share=bound_ms[kern] / ms[kern])
-            for kern in ms}
+def achieved(ms, flops, bound_ms, nbytes=None):
+    """TFLOP/s of the products each kernel needs, GB/s of the bytes it
+    must move (given ``nbytes``) and the share of the bound reached; each
+    argument maps a kernel to its own. ``flops`` may be one int instead:
+    the attention forward's, from which each attention kernel's need
+    follows (forward 2, dq 3, dk/dv 4 of the forward's flops / 2)."""
+    if isinstance(flops, int):
+        flops = {"fwd": flops, "dq": 3 * flops // 2, "dkv": 2 * flops}
+    out = {}
+    for kern in ms:
+        sec = ms[kern] * 1e-3
+        out[kern] = dict(tflops=flops[kern] / sec / 1e12,
+                         bound_share=bound_ms[kern] / ms[kern])
+        if nbytes is not None:
+            out[kern]["gbps"] = nbytes[kern] / sec / 1e9
+    return out
 
 
 TRAIN_B, TRAIN_S = 2, 2048
@@ -1905,7 +1962,7 @@ def phase_grouped_gemm(torch, seed, report, flush):
     counts_t = torch.from_numpy(counts).cuda()
     dead = (torch.arange(C, device="cuda")[None, :]
             >= counts_t[:, None])
-    out, faults = {}, None
+    out, faults, routes = {}, None, {}
     for label, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         errs = {}
@@ -1920,6 +1977,7 @@ def phase_grouped_gemm(torch, seed, report, flush):
                     cases.append((f"{shape}/dx_transposed_w", dy,
                                   w.transpose(1, 2)))
                 for name, a, b in cases:
+                    routes[f"{label}/{name}"] = gg.gmm_route(a, b)
                     got = gg.gmm_kernel(a, b, counts_t, gpe)
                     torch.cuda.synchronize()
                     want = gg.gmm_plain(a, b, counts_t, gpe)
@@ -1969,8 +2027,12 @@ def phase_grouped_gemm(torch, seed, report, flush):
                 b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
                                    if label == "bfloat16"
                                    else F32_FLOPS_PER_S)
-                times[f"{label}/{shape}/{launch}"] = dict(
-                    K=kk, N=nn_,
+                key = f"{label}/{shape}/{launch}"
+                times[key] = t = dict(
+                    K=kk, N=nn_, route=gg.gmm_route(a, b),
+                    bitwise_twice=bitwise_twice(
+                        torch, f"grouped_gemm[{key}]",
+                        lambda: gg.gmm_kernel(a, b, counts_t)),
                     ms=time_ms(torch, lambda: gg.gmm_kernel(
                         a, b, counts_t), flush=flush),
                     plain_ms=time_ms(torch, lambda: gg.gmm_plain(
@@ -1978,12 +2040,15 @@ def phase_grouped_gemm(torch, seed, report, flush):
                     library_ms=time_ms(torch, lambda: torch.bmm(am, b),
                                        flush=flush),
                     bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                t.update(achieved({key: t["ms"]}, {key: flops},
+                                  {key: b_ms}, {key: nbytes})[key])
                 del w, a, b, am
     for label in out:
         head = times[f"{label}/gate_up/fwd"]
         out[label].update({k: head[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     out["times"] = times
+    out["routes"] = routes
 
     # dw, outside the kernel as in the reference: the route the backward
     # takes for bf16 (bf16 products, float32 output) against the float32
@@ -2014,11 +2079,16 @@ def phase_grouped_gemm(torch, seed, report, flush):
             f"{out[label]['max_abs_err']:.3e} over "
             f"{sorted(out[label]['max_abs_err_by_case'])}")
     log(f"grouped_gemm: planted faults rejected: {faults}")
+    log(f"grouped_gemm: routes (C entry, by dtype and strides): "
+        f"{json.dumps(routes)}")
     for key, t in times.items():
         log(f"grouped_gemm[{key}] K{t['K']} N{t['N']} (counts sum "
-            f"{int(counts.sum())}): ms {t['ms']:.4f} plain_ms "
+            f"{int(counts.sum())}, {t['route']}): ms {t['ms']:.4f} plain_ms "
             f"{t['plain_ms']:.3f} library_ms {t['library_ms']:.4f} (bmm, "
-            f"masked buffer) bound_ms {t['bound_ms']:.4f} ({t['bound_by']})")
+            f"masked buffer) bound_ms {t['bound_ms']:.4f} ({t['bound_by']}),"
+            f" {t['tflops']:.1f} TFLOP/s, {t['gbps']:.0f} GB/s, "
+            f"{t['bound_share']:.1%} of the bound, two launches bitwise "
+            f"equal")
     report["kernels"]["grouped_gemm"] = out
     return out
 
@@ -2026,12 +2096,14 @@ def phase_grouped_gemm(torch, seed, report, flush):
 # -- phase 4c: the int4 weight-only GEMM ----------------------------------------
 
 # Llama-3-8B's linears as (k, n): q and o, k and v, gate and up, down; m:
-# one row, generate()'s decode batch of 4, a ragged count, and the
-# engine's 512-token step; two shapes with tails in m, n and k (the second
-# with n and k % 8 != 0, so element loads)
+# one row, generate()'s decode batch of 4, the engine's decode rows (16,
+# max_batch), a ragged count, and the engine's 512-token step; two shapes
+# with tails in m, n and k (the second with n and k % 8 != 0, so element
+# loads on the WMMA route). Timed: every Llama shape at m 4, 16 and 512
 INT4_KN = {"qo": (4096, 4096), "kv": (4096, 1024), "gate_up": (4096, 14336),
            "down": (14336, 4096)}
-INT4_MS = (1, 4, 37, 512)
+INT4_MS = (1, 4, 16, 37, 512)
+INT4_TIMED_MS = (4, 16, 512)
 INT4_TAILS = ((77, 4100, 1000), (3, 330, 1001))
 
 
@@ -2077,7 +2149,7 @@ def phase_int4_gemm(torch, seed, report, flush):
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     dtypes = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
     errs = {label: {} for label, _ in dtypes}
-    faults, times = None, {}
+    faults, times, routes = None, {}, {}
     # (name, k, n, the m of each case): one weight per entry
     weights = [(name, k, n, INT4_MS) for name, (k, n) in INT4_KN.items()] \
         + [(f"tail_{m}x{k}x{n}", k, n, (m,)) for m, k, n in INT4_TAILS]
@@ -2094,24 +2166,31 @@ def phase_int4_gemm(torch, seed, report, flush):
             errs[label][case] = check_close(
                 torch, f"weight_only_int4_gemm[{label}/{case}]", got, want,
                 label)
+            # the C entry's route for the bf16 x the wrapper passes on
+            route, slices = wog.int4_route(x.to(torch.bfloat16), q)
+            routes[case] = f"{route}/{slices} slices"
             if label == "bfloat16" and name == "gate_up" and m == 512:
                 faults = planted_int4_faults(torch, wog, x, q, s, want)
             del got, want
-            # times: gate/up and down at m 512 and 4 in bf16, and the
+            # times: every Llama shape at m 4, 16 and 512 in bf16, and the
             # gate/up step in float32; yardsticks, timed here only: one
             # torch.mm of bf16(x) and the codes unpacked to bf16 (unpacked
             # outside the window) with a float32 output, then the scale
             # (the same function up to summation order, reading 4x the
             # weight bytes); and torch.matmul over the bf16 weight before
             # quantization
-            if name in ("gate_up", "down") and m in (4, 512) and (
+            if name in INT4_KN and m in INT4_TIMED_MS and (
                     label == "bfloat16" or (name, m) == ("gate_up", 512)):
                 wq = wog._unpack_int4(q, n).bfloat16()
                 xm = x if label == "bfloat16" else x.bfloat16()
                 flops, nbytes = int4_work(m, k, n, x.element_size())
                 b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-                times[f"{label}/{name}/m{m}"] = dict(
-                    m=m, k=k, n=n,
+                key = f"{label}/{name}/m{m}"
+                t = dict(
+                    m=m, k=k, n=n, route=routes[case],
+                    bitwise_twice=bitwise_twice(
+                        torch, f"weight_only_int4_gemm[{key}]",
+                        lambda: wog.int4_matmul_kernel(x, q, s)),
                     ms=time_ms(torch, lambda: wog.int4_matmul_kernel(
                         x, q, s), flush=flush),
                     plain_ms=time_ms(torch, lambda: wog.int4_matmul_plain(
@@ -2122,6 +2201,9 @@ def phase_int4_gemm(torch, seed, report, flush):
                     library_bf16_weight_ms=time_ms(
                         torch, lambda: torch.matmul(xm, w16), flush=flush),
                     bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                t.update(achieved({key: t["ms"]}, {key: flops},
+                                  {key: b_ms}, {key: nbytes})[key])
+                times[key] = t
                 del wq, xm
             del x
         del w16, q, s
@@ -2138,15 +2220,22 @@ def phase_int4_gemm(torch, seed, report, flush):
             f"{out[label]['max_abs_err']:.3e} over {len(errs[label])} "
             f"shapes ({sorted(errs[label])})")
     out["bfloat16"]["planted_fault_max_abs_err"] = faults
+    out["bfloat16"]["decode_m16_ms"] = {
+        name: times[f"bfloat16/{name}/m16"]["ms"] for name in INT4_KN}
     out["times"] = times
+    out["routes"] = routes
     log(f"weight_only_int4_gemm: planted faults rejected: {faults}")
+    log(f"weight_only_int4_gemm: routes (C entry, by shape): "
+        f"{json.dumps(routes)}")
     for key, t in times.items():
-        log(f"weight_only_int4_gemm[{key}] k{t['k']} n{t['n']}: ms "
-            f"{t['ms']:.4f} plain_ms {t['plain_ms']:.3f} library_ms "
-            f"{t['library_ms']:.4f} (mm over the unpacked codes) "
-            f"bf16-weight matmul {t['library_bf16_weight_ms']:.4f} bound_ms "
-            f"{t['bound_ms']:.4f} ({t['bound_by']}), "
-            f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+        log(f"weight_only_int4_gemm[{key}] k{t['k']} n{t['n']} "
+            f"({t['route']}): ms {t['ms']:.4f} plain_ms "
+            f"{t['plain_ms']:.3f} library_ms {t['library_ms']:.4f} (mm "
+            f"over the unpacked codes) bf16-weight matmul "
+            f"{t['library_bf16_weight_ms']:.4f} bound_ms "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}), {t['tflops']:.1f} "
+            f"TFLOP/s, {t['gbps']:.0f} GB/s, {t['bound_share']:.1%} of "
+            f"the bound, two launches bitwise equal")
     report["kernels"]["weight_only_int4_gemm"] = out
     return out
 
@@ -2833,13 +2922,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{stem}]: {line.strip()}")
     report["ptxas_tc"] = [
-        row for stem in ("flash_attention", "flash_varlen")
+        row for stem in ("flash_attention", "flash_varlen", "grouped_gemm",
+                         "weight_only_gemm")
         for row in ptxas_tc_kernels(_build.ptxas_report(stem) or "")]
     for row in report["ptxas_tc"]:
         log(f"ptxas[{row['kernel']}]: {row['registers']} registers, "
             f"{row.get('spill_stores')} B spill stores, "
             f"{row.get('spill_loads')} B spill loads, "
-            f"{row['smem_bytes']} B dynamic shared memory")
+            f"{row['smem_bytes']} B shared memory")
 
     kern = phase_kernels(torch, args.seed, report)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")

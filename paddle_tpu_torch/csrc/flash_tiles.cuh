@@ -12,6 +12,7 @@
 #pragma once
 
 #include "paged_attention_common.cuh"
+#include "wgmma_common.cuh"  // PTT_SET_SMEM
 
 namespace ptt {
 
@@ -139,18 +140,6 @@ constexpr int dkv_smem() {
 }
 
 }  // namespace ptt
-
-// once per kernel instance: the attribute belongs to the function
-#define PTT_SET_SMEM(kern, bytes)                                       \
-  do {                                                                  \
-    static bool attr_set = false;                                       \
-    if (!attr_set) {                                                    \
-      cudaError_t err = cudaFuncSetAttribute(                           \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);    \
-      if (err != cudaSuccess) return static_cast<int>(err);             \
-      attr_set = true;                                                  \
-    }                                                                   \
-  } while (0)
 
 // dtype codes: 0 float32 (CALL(T, D): the CUDA-core kernels above), 1
 // bfloat16 (CALL_TC(D): the tensor-core engine of flash_wgmma.cuh); head_dim

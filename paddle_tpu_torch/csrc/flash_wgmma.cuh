@@ -55,10 +55,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
+
 namespace ptt {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using namespace ptt::wg;
 
 constexpr int kM = 64;          // rows a block owns (wgmma's M)
 constexpr int kN = 64;          // rows of a streamed tile
@@ -85,37 +88,7 @@ constexpr int dkv_smem() {
   return 6 * tile_bytes<D>() + 2 * 4 * kColWords * 4 + 1024;
 }
 
-// -- copies, fences, descriptors ---------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// this thread's copies have landed; after the fence and a barrier, every
-// thread's copies are visible to wgmma (the async proxy)
-__device__ __forceinline__ void cp_async_wait_visible() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-}
+// -- tile loads (copies, descriptors, fences: wgmma_common.cuh) -------------
 
 // Rows [r0, r0 + 64) of a [n, D] bf16 matrix (row stride `stride`
 // elements) into the swizzled tile at dst (1024-byte aligned); rows at or
@@ -143,44 +116,6 @@ __device__ __forceinline__ void load_words(uint32_t dst, const void* src,
   const bool ok = c0 + lane64 < n;
   cp_async4(dst + lane64 * 4,
             static_cast<const uint32_t*>(src) + (ok ? c0 + lane64 : 0), ok);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// a tile as a K-major operand (its rows along M or N, head_dim along k),
-// k step kk (16 columns): 8-row groups 1024 B apart
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc(tile + (kk / 4) * (kN * 128) + (kk % 4) * 32, 16, 1024);
-}
-
-// a tile as an MN-major operand (its rows along k, head_dim along N), k
-// step kk (16 rows): 64-column blocks kN * 128 B apart (LBO), 8-row groups
-// 1024 B apart (SBO)
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return desc(tile + kk * 16 * 128, kN * 128, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator reads across wg_wait
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -323,7 +258,7 @@ __device__ __forceinline__ void mma_rows(float (&d)[32], uint32_t a,
                                          uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    mma_ss_n64(d, desc_k(a, kk), desc_k(b, kk), kk);
+    mma_ss_n64(d, desc_k<kN>(a, kk), desc_k<kN>(b, kk), kk);
 }
 
 // d += P.B: P a 64 x 64 float32 accumulator as the bf16 fragments of its
@@ -334,9 +269,9 @@ __device__ __forceinline__ void mma_frag(float (&d)[D / 2],
                                          const uint32_t (&lo)[4][4],
                                          uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) mma_rs<D>(d, hi[kk], desc_mn(b, kk));
+  for (int kk = 0; kk < 4; ++kk) mma_rs<D>(d, hi[kk], desc_mn<kN>(b, kk));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) mma_rs<D>(d, lo[kk], desc_mn(b, kk));
+  for (int kk = 0; kk < 4; ++kk) mma_rs<D>(d, lo[kk], desc_mn<kN>(b, kk));
 }
 
 __device__ __forceinline__ int col_of(int i, int lane) {

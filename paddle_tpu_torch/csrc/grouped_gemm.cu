@@ -15,27 +15,47 @@
 //
 // Grid (N tiles, C tiles, G). A block reads counts[g] from device memory
 // (no host sync); a C tile that starts at or past counts[g] writes zeros
-// and returns, so the products scale with the routed rows, not with G*C.
-// In the partial tile, rows past counts[g] load as zeros and store as
-// zeros. Tail tiles of C, K and N are masked, so any size works.
+// and loads nothing, so the products scale with the routed rows, not
+// with G*C. In the partial tile, rows past counts[g] load as zeros and
+// store as zeros. Tail tiles of C, K and N are masked.
 //
-// What bounds it on the H100: bytes. At the MoE training shapes (G = E =
-// 64, C = 480, K x N = 2048 x 1408, ~24.6k routed rows) one launch moves
-// ~556 MB (each routed-to expert's weight once, the live x rows, the whole
-// y: 0.166 ms at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s bf16). This first
-// version is the simple one:
-//   bf16: 128 x 128 output tiles, 8 warps, each a 32 x 64 patch of WMMA
-//         16x16x16 bf16 products with float32 accumulators; 32-deep K steps
-//         through shared memory with synchronous 16-byte loads;
-//   f32:  64 x 64 tiles, 256 threads with 4 x 4 outputs each, float32 FMA
-//         on the CUDA cores (full float32: no TF32).
-// TMA, wgmma and a pipelined ring of K steps are later work.
+// What bounds it on the H100: at the MoE training shapes (G = E = 64, C =
+// 480, K x N = 2048 x 1408, ~24.6k routed rows) one launch moves ~556 MB
+// (each routed-to expert's weight once, the live x rows, the whole y:
+// 0.166 ms at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s bf16):
+// both, nearly equally, so the design has to keep the tensor cores fed
+// while it streams.
+//
+// Routes, picked by shape in ptt_grouped_gemm before any launch
+// (ptt_grouped_gemm_route says which):
+//
+// - bf16, 16-byte-aligned rows (x and w 16-byte aligned, K and N and
+//   every stride but w's unit one multiples of 8): grouped_gemm_wgmma_kernel,
+//   on the pipelined mainloop of gemm_wgmma.cuh. 128 x 256 output tiles
+//   (a tile's x rows are read once for 256 columns: the loads, from L2,
+//   are what limits it, so the wide tile's 25% fewer bytes per product
+//   count), two consumer warpgroups of m64n256k16 wgmma, a 4-stage ring
+//   of 64-deep k tiles filled by cp.async (193 KB, one block an SM), one
+//   wgmma group left running while the block passes the next barrier.
+//   x's C tile is the K-major A; w's tile is MN-major in the forward ([E,
+//   K, N], N contiguous) and K-major for dx (the strided w.transpose(1,
+//   2) view), both through one swizzled load and wgmma's transpose bit.
+//   The epilogue stages each warpgroup's tile in shared memory and stores
+//   16-byte chunks of rows.
+// - bf16 otherwise (rows not 16-byte aligned, w with neither axis
+//   contiguous): grouped_gemm_wmma_kernel, the first design: 128 x 128
+//   tiles, WMMA 16x16x16 from padded shared memory, 32-deep synchronous k
+//   steps, element loads where a chunk is not aligned.
+// - float32: grouped_gemm_f32_kernel, 64 x 64 tiles, 256 threads with 4 x
+//   4 outputs each, float32 FMA on the CUDA cores (full float32: no TF32),
+//   unchanged.
 
 #include <mma.h>
 
 #include <type_traits>
 
 #include "gemm_tiles.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -85,7 +105,7 @@ __device__ __forceinline__ void load_w(const Problem& p, const T* we, int k0,
                                  p.ws_n, p.K - k0, p.N - n0, p.vec_w, sB);
 }
 
-// -- bf16: WMMA on the tensor cores ------------------------------------------
+// -- bf16, any strides: WMMA on the tensor cores ------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
 constexpr int kPA = kBK + 8;   // pitches in elements (multiples of 8, so
@@ -232,7 +252,133 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- bf16, aligned: wgmma on the pipelined ring ------------------------------
+
+constexpr int kTM = 128, kTN = 256, kTStages = 4, kTThreads = 256;
+constexpr uint32_t kTTileA = kTM * ptt::gemm::kBK * 2;  // 16 KB
+constexpr uint32_t kTTileB = kTN * ptt::gemm::kBK * 2;  // 32 KB
+constexpr uint32_t kTStage = kTTileA + kTTileB;
+constexpr int kTSmem = kTStages * kTStage + 1024;
+
+// The ring's policy (gemm_wgmma.cuh). kKMajorB: w's tile has N rows and
+// K contiguous (dx's transposed view), else K rows and N contiguous.
+template <bool kKMajorB>
+struct GmmTiles {
+  using T = __nv_bfloat16;
+  const T* x;        // row m0 of group g
+  const T* w;        // column n0 of expert g / gpe
+  long long xs, ws;  // x's row stride; w's stride along its other axis
+  int rows, K, ncols, wg;
+  bool live;         // the warpgroup has a live row
+  uint32_t base;
+
+  __device__ __forceinline__ void fill(int slot, int t) {
+    const int k0 = t * ptt::gemm::kBK;
+    const uint32_t sA = base + slot * kTStage, sB = sA + kTTileA;
+    ptt::gemm::load_k_tile<kTM, kTThreads>(sA, x + k0, xs, rows, K - k0);
+    if constexpr (kKMajorB)
+      ptt::gemm::load_k_tile<kTN, kTThreads>(sB, w + k0, ws, ncols, K - k0);
+    else
+      ptt::gemm::load_mn_tile<ptt::gemm::kBK, kTN, kTThreads>(
+          sB, w + k0 * ws, ws, K - k0, ncols);
+  }
+
+  __device__ __forceinline__ void consume(int slot, int,
+                                          float (&acc)[kTN / 2]) {
+    using namespace ptt::wg;
+    if (!live) return;
+    const uint32_t sA = base + slot * kTStage, sB = sA + kTTileA;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ptt::gemm::mma_ss_n256<kKMajorB ? 0 : 1>(
+          acc, desc_k<kTM>(sA + wg * 64 * 128, kk),
+          kKMajorB ? desc_k<kTN>(sB, kk) : desc_mn<ptt::gemm::kBK>(sB, kk));
+    wg_commit();
+    wg_wait_but<1>();
+    reg_fence(acc);
+  }
+};
+
+template <bool kKMajorB>
+__global__ void __launch_bounds__(kTThreads, 1)
+    grouped_gemm_wgmma_kernel(Problem p) {
+  using T = __nv_bfloat16;
+  extern __shared__ uint8_t smem[];
+  const int g = blockIdx.z, m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
+  T* y = static_cast<T*>(p.y) + static_cast<long long>(g) * p.C * p.N + n0;
+  int cnt = p.counts[g];
+  cnt = cnt < 0 ? 0 : (cnt > p.C ? p.C : cnt);
+  if (m0 >= cnt) {  // a dead tile: zeros, 16 bytes a store (N % 8 == 0)
+#pragma unroll 4
+    for (int j = 0; j < kTM * kTN / 8 / kTThreads; ++j) {
+      const int i = threadIdx.x + j * kTThreads;
+      const int m = m0 + i / (kTN / 8), c = (i % (kTN / 8)) * 8;
+      if (m < p.C && n0 + c < p.N)
+        *reinterpret_cast<uint4*>(y + static_cast<long long>(m) * p.N + c) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int rows = cnt - m0 < kTM ? cnt - m0 : kTM;
+  const int wg = threadIdx.x / 128;
+  const uint32_t raw = ptt::wg::smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const T* we = static_cast<const T*>(p.w) + (g / p.gpe) * p.ws_e;
+  GmmTiles<kKMajorB> tiles{
+      static_cast<const T*>(p.x) + g * p.xs_g + m0 * p.xs_c,
+      we + n0 * (kKMajorB ? p.ws_n : 1),
+      p.xs_c, kKMajorB ? p.ws_n : p.ws_k,
+      rows, p.K, p.N - n0, wg, 64 * wg < rows, base};
+  float acc[kTN / 2];
+#pragma unroll
+  for (int i = 0; i < kTN / 2; ++i) acc[i] = 0.f;
+  ptt::gemm::mainloop<kTStages, 1>(tiles, (p.K + ptt::gemm::kBK - 1) /
+                                           ptt::gemm::kBK, acc);
+  __syncthreads();  // every product done: the ring becomes the epilogue's
+
+  const int mw = m0 + 64 * wg;
+  uint8_t* stage =
+      smem + (base - raw) + wg * ptt::gemm::wg_stage_bytes<T, kTN>();
+  ptt::gemm::store_wg_tile<T, kTN>(
+      acc, stage, wg, p.N - n0,
+      [&](int r, int, float v) { return mw + r < m0 + rows ? v : 0.f; },
+      [&](int r) -> T* {
+        return mw + r < p.C ? y + static_cast<long long>(mw + r) * p.N
+                            : nullptr;
+      });
+}
+
+enum Route { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+
+// the kernel a problem takes; col_b: w's K axis is the contiguous one
+int route(const void* x, const void* w, int K, int N, long long xs_g,
+          long long xs_c, long long ws_e, long long ws_k, long long ws_n,
+          int dtype, bool* col_b) {
+  *col_b = ws_n != 1 && ws_k == 1;
+  if (dtype != 1) return kRouteF32;
+  const bool rows16 = aligned16(x) && aligned16(w) && xs_g % 8 == 0 &&
+                      xs_c % 8 == 0 && ws_e % 8 == 0 && K % 8 == 0 &&
+                      N % 8 == 0;
+  const bool unit = *col_b ? ws_n % 8 == 0 : ws_n == 1 && ws_k % 8 == 0;
+  return rows16 && unit ? kRouteWgmma : kRouteWmma;
+}
+
 }  // namespace
+
+// The kernel ptt_grouped_gemm launches for these arguments (0: float32
+// FMA, 1: bf16 WMMA, 2: bf16 wgmma) and whether w's tile is K-major
+// (col_b 1).
+extern "C" int ptt_grouped_gemm_route(const void* x, const void* w, int K,
+                                      int N, long long xs_g, long long xs_c,
+                                      long long ws_e, long long ws_k,
+                                      long long ws_n, int dtype,
+                                      int* col_b) {
+  bool cb = false;
+  const int r = route(x, w, K, N, xs_g, xs_c, ws_e, ws_k, ws_n, dtype, &cb);
+  *col_b = cb ? 1 : 0;
+  return r;
+}
 
 // dtype: 0 float32, 1 bfloat16 (ops/kernels/_build.DTYPE_CODES). Returns
 // the cudaError_t of the launch.
@@ -242,31 +388,44 @@ extern "C" int ptt_grouped_gemm(const void* x, const void* w, void* y,
                                 long long xs_c, long long ws_e,
                                 long long ws_k, long long ws_n, int dtype,
                                 void* stream) {
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Problem p{x, w, y, static_cast<const int*>(counts), G, C, K, N, gpe,
             xs_g, xs_c, ws_e, ws_k, ws_n, false, false};
+  bool col_b = false;
+  const int r = route(x, w, K, N, xs_g, xs_c, ws_e, ws_k, ws_n, dtype,
+                      &col_b);
+  if (r == kRouteWgmma) {
+    dim3 grid((N + kTN - 1) / kTN, (C + kTM - 1) / kTM, G);
+    auto kern = col_b ? grouped_gemm_wgmma_kernel<true>
+                      : grouped_gemm_wgmma_kernel<false>;
+    if (col_b)
+      PTT_SET_SMEM(grouped_gemm_wgmma_kernel<true>, kTSmem);
+    else
+      PTT_SET_SMEM(grouped_gemm_wgmma_kernel<false>, kTSmem);
+    kern<<<grid, kTThreads, kTSmem, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long v = dtype == 1 ? 8 : 4;  // elements per 16 bytes
   // w's contiguous axis: N (row-major tiles), else K (column-major
   // tiles: the transposed view of dx), else neither (element loads)
-  const bool col_b = ws_n != 1 && ws_k == 1;
   const long long w_other = col_b ? ws_n : ws_k;
   p.vec_x = aligned16(x) && xs_g % v == 0 && xs_c % v == 0;
   p.vec_w = aligned16(w) && ws_e % v == 0 && w_other % v == 0 &&
             (col_b || ws_n == 1);
-  if (dtype == 1) {
+  if (r == kRouteWmma) {
     dim3 grid((N + kBN - 1) / kBN, (C + kBM - 1) / kBM, G);
     if (col_b)
       grouped_gemm_wmma_kernel<true><<<grid, kThreads, 0, s>>>(p);
     else
       grouped_gemm_wmma_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 0) {
+  } else {
     dim3 grid((N + kFN - 1) / kFN, (C + kFM - 1) / kFM, G);
     if (col_b)
       grouped_gemm_f32_kernel<true><<<grid, kThreads, 0, s>>>(p);
     else
       grouped_gemm_f32_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

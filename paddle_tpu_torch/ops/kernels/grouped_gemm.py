@@ -9,15 +9,18 @@ public ``grouped_matmul`` (:222).
     x [G, C, K]; w [E, K, N], group g reads expert g // gpe (G = E * gpe);
     counts [G] int32, rows c >= counts[g] of y are zero; y [G, C, N].
 
-What bounds it on the H100: bytes (the weight of every expert with a
-live row, the live x rows and the whole y, each once: ~0.17 ms per launch
-at the MoE training shapes, against ~0.14 ms of bf16 products). The kernel
-(``csrc/grouped_gemm.cu``): a block reads ``counts[g]`` from device memory
-and skips a C tile past it, so nothing syncs with the host and the
-products scale with the routed rows. Sums are float32 and round once to
-x's dtype (bf16 through WMMA on the tensor cores, float32 through FMA on
-the CUDA cores). ``w`` is read through its strides, so the backward's dx
-reuses the kernel on a transposed view of ``w`` without a copy.
+What bounds it on the H100: bytes and operations nearly equally (the
+weight of every expert with a live row, the live x rows and the whole y,
+each once: ~0.17 ms per launch at the MoE training shapes, against ~0.14
+ms of bf16 products). The kernels (``csrc/grouped_gemm.cu``): a block
+reads ``counts[g]`` from device memory and skips a C tile past it, so
+nothing syncs with the host and the products scale with the routed rows.
+Sums are float32 and round once to x's dtype. bf16 with 16-byte-aligned
+rows runs ``wgmma`` over a pipelined ring of ``cp.async`` tiles
+(``csrc/gemm_wgmma.cuh``); other bf16 strides keep a WMMA kernel
+and float32 the FMA kernel on the CUDA cores (``gmm_route`` says which).
+``w`` is read through its strides, so the backward's dx reuses the kernel
+on a transposed view of ``w`` without a copy.
 
 The backward is the reference's: dx = the grouped product of dy with
 ``w`` transposed (through the kernel on the card); dw = the count-masked
@@ -71,10 +74,31 @@ def gmm_plain(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
 
 # -- kernel -------------------------------------------------------------------
 
+ROUTES = ("f32_fma", "wmma", "wgmma")   # the C entry's route codes
+
+
 def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ptt_grouped_gemm.argtypes = [P] * 4 + [I] * 5 + [L] * 5 + [I, P]
     lib.ptt_grouped_gemm.restype = ctypes.c_int
+    lib.ptt_grouped_gemm_route.argtypes = [P, P, I, I] + [L] * 5 + [
+        I, ctypes.POINTER(ctypes.c_int)]
+    lib.ptt_grouped_gemm_route.restype = ctypes.c_int
+
+
+def gmm_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel the C entry launches for ``x @ w`` ("wgmma", "wmma" or
+    "f32_fma"; "/k_major_w" when w's K axis is the contiguous one): its
+    own choice, by dtype, strides and alignment (needs the built
+    library)."""
+    lib = _build.load("grouped_gemm", _bind)
+    col_b = ctypes.c_int(0)
+    code = lib.ptt_grouped_gemm_route(
+        x.data_ptr(), w.data_ptr(), x.shape[2], w.shape[2], x.stride(0),
+        x.stride(1), w.stride(0), w.stride(1), w.stride(2),
+        _build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
+        ctypes.byref(col_b))
+    return ROUTES[code] + ("/k_major_w" if col_b.value else "")
 
 
 def _check(x, w, counts, gpe) -> None:

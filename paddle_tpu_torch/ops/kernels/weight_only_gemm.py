@@ -18,30 +18,34 @@ to bf16 first) and cast to x's dtype.
 
 Routes:
 
-- per-channel int4, the serving path: the CUDA kernel
+- per-channel int4, the serving path: the CUDA kernels
   (``csrc/weight_only_gemm.cu``) for a CUDA tensor, ``int4_matmul_plain``
-  for a CPU one or when ``FLAGS_use_pallas_kernels`` is off. What bounds
-  it on the H100: operations at the engine's 512-token steps (60 GFLOP
-  against 48 MB for Llama-3-8B's gate projection), bytes at decode (the
-  packed weight, 29 MB). The kernel reads each packed byte once, unpacks
-  both nibbles into a bf16 tile in shared memory and runs WMMA bf16
-  products with float32 sums; the scale lands on the output in the
+  for a CPU one or when ``FLAGS_use_pallas_kernels`` is off. The C entry
+  picks the route by shape (``plan``): m <= 64 (decode, bound by the
+  packed weight's bytes) runs the weight as wgmma's A, unpacked in
+  registers, with k split over enough blocks to fill the card and the
+  slices summed in a fixed order from a float32 workspace that this
+  wrapper allocates; m > 64 (prefill, bound by operations) runs 128 x 128
+  wgmma tiles over a weight tile unpacked once per stage in shared
+  memory; shapes whose rows are not 16-byte aligned (k % 8 or n % 16 !=
+  0) keep a WMMA kernel. The scale lands on the output in the
   epilogue. The reference's ``tiles_ok`` rule (``:150-151``, a BlockSpec
-  need of the TPU kernel) is dropped: the kernel masks tails and takes any
-  even k and any n;
+  need of the TPU kernel) is dropped: every even k and any n works;
 - int8 and per-group: XLA formulations in the reference, not Pallas; here
   plain torch code (a float32 product of the bf16 operands, then the
   scale).
 
 Beside the kernel: ``int4_matmul_plain``, the reference's split-nibble
 formulation (``:165-172``) in plain PyTorch, used for CPU tensors, by the
-tests and by ``chip_smoke.py``; and the launch counter
-``weight_only_int4_gemm``.
+tests and by ``chip_smoke.py``; the launch counter
+``weight_only_int4_gemm`` (one per call, whatever the route launches);
+and ``int4_route``, the route and k slices of a product.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -138,10 +142,34 @@ def int4_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
 
 # -- kernel -------------------------------------------------------------------
 
+ROUTES = ("wmma", "decode", "prefill")   # the C entry's route codes
+
+
 def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ptt_weight_only_int4_gemm.argtypes = [P] * 4 + [I] * 4 + [P]
+    lib.ptt_weight_only_int4_gemm.argtypes = [P] * 5 + [I] * 4 + [P]
     lib.ptt_weight_only_int4_gemm.restype = ctypes.c_int
+    lib.ptt_weight_only_int4_gemm_plan.argtypes = [I] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.ptt_weight_only_int4_gemm_plan.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, n: int, k: int, aligned: bool) -> Tuple[str, int]:
+    lib = _build.load("weight_only_gemm", _bind)
+    slices = ctypes.c_int(1)
+    code = lib.ptt_weight_only_int4_gemm_plan(m, n, k, int(aligned),
+                                              ctypes.byref(slices))
+    return ROUTES[code], slices.value
+
+
+def int4_route(x: torch.Tensor, qweight: torch.Tensor) -> Tuple[str, int]:
+    """(route, k slices) the kernel takes for ``x @ dequant(qweight)``:
+    the C entry's own choice, by shape and alignment (needs the built
+    library)."""
+    m, k = x.shape
+    return _plan(m, qweight.shape[1], k,
+                 x.data_ptr() % 16 == 0 and qweight.data_ptr() % 16 == 0)
 
 
 def _check(x, qweight, scales) -> None:
@@ -180,10 +208,14 @@ def int4_matmul_kernel(x: torch.Tensor, qweight: torch.Tensor,
     if y.numel() == 0 or k == 0:
         return y.zero_()
     lib = _build.load("weight_only_gemm", _bind)
+    _, slices = int4_route(xb, q)
+    ws = torch.empty((slices, m, n), dtype=torch.float32,
+                     device=x.device) if slices > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ptt_weight_only_int4_gemm(
-            xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, n, k,
+            xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k,
             _build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")], stream)
     if rc != 0:
         raise RuntimeError(f"ptt_weight_only_int4_gemm launch failed: "

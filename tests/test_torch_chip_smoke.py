@@ -1,9 +1,12 @@
 """``chip_smoke.py``'s profile parts, on the CPU: ``categorize`` sorts the
 port's flash and varlen kernels by the exact stems of their symbols,
 checked before the matmul patterns, so a templated tensor-core kernel
-never lands in "matmul" or "other". The kernel names are read from the
-CUDA sources, in the form ``torch.profiler`` gives them (demangled, with
-template arguments). Importing the script needs no card."""
+never lands in "matmul" or "other", and every grouped-GEMM and int4-GEMM
+kernel into its own part. The kernel names are read from the CUDA
+sources, in the form ``torch.profiler`` gives them (demangled, with
+template arguments). ``ptxas_tc_kernels`` reads the tensor-core kernels'
+rows of nvcc's ``-Xptxas -v`` report. Importing the script needs no
+card."""
 
 import importlib.util
 import re
@@ -52,6 +55,64 @@ def test_categorize_sorts_every_attention_kernel_into_flash(src):
         want = "flash_fwd" if "fwd" in name else "flash_bwd"
         assert cats[want] == 2.0, (name, cats)
         assert cats["unaccounted"] == 0.0
+
+
+GEMM_SOURCES = {"grouped_gemm.cu": ("grouped_gemm", "grouped_gemm_"),
+                "weight_only_gemm.cu": ("int4_gemm", "int4_gemm_")}
+
+
+@pytest.mark.parametrize("src", sorted(GEMM_SOURCES))
+def test_categorize_sorts_every_gemm_kernel_into_its_part(src):
+    """Every ``__global__`` of the two GEMM sources (the wgmma routes,
+    split-k and its reduction, the kernels kept for unaligned shapes)
+    keeps its stem, so no name falls to the generic "matmul" pattern."""
+    smoke = _smoke()
+    part, stem = GEMM_SOURCES[src]
+    names = _kernels(src)
+    assert len(names) >= 3 and all(n.startswith(stem) for n in names), names
+    for name in names:
+        for args in ("true", "16, __nv_bfloat16", "float"):
+            prof = (f"void (anonymous namespace)::{name}<{args}>((anonymous "
+                    f"namespace)::Problem)")
+            cats = smoke.categorize({prof: 1.25}, 1.25)
+            assert cats[part] == 1.25 and cats["matmul"] == 0.0, (name, cats)
+            assert cats["unaccounted"] == 0.0
+
+
+def test_ptxas_rows_name_the_gemm_kernels():
+    """``ptxas_tc_kernels`` reads registers, spills and shared memory of
+    the GEMM kernels from nvcc's report (mangled names, as ptxas prints
+    them), beside the attention kernels."""
+    txt = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_19_"
+        "weight_only_gemm_cu_y23int4_gemm_decode_kernelILi16E13__nv_bfloat16"
+        "EEvNS_4ArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 66 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_15_"
+        "grouped_gemm_cu_y24grouped_gemm_wmma_kernelILb1EEEvNS_7ProblemE' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 126 registers, used 1 barriers, 28672 bytes "
+        "smem",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_18_"
+        "flash_attention_cu_y12flash_tc_fwdILi128EEEvPK13__nv_bfloat16' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 175 registers, used 1 barriers"])
+    smoke = _smoke()
+    rows = {r["kernel"]: r for r in smoke.ptxas_tc_kernels(txt)}
+    assert set(rows) == {"int4_gemm_decode_kernel<16, bf16>",
+                         "grouped_gemm_wmma_kernel<true>", "flash_tc_fwd<128>"}
+    dec = rows["int4_gemm_decode_kernel<16, bf16>"]
+    assert dec["registers"] == 66 and dec["spill_stores"] == 0
+    assert dec["smem_bytes"] == smoke.gemm_smem_bytes(
+        "int4_gemm_decode_kernel", ["16", "bf16"]) > 0
+    wmma = rows["grouped_gemm_wmma_kernel<true>"]
+    assert (wmma["smem_bytes"], wmma["spill_stores"], wmma["spill_loads"]) \
+        == (28672, 8, 4)
+    assert rows["flash_tc_fwd<128>"]["smem_bytes"] == \
+        smoke.tc_smem_bytes("fwd", 128)
 
 
 @pytest.mark.parametrize("name,part", [

@@ -41,15 +41,21 @@ float32 and bf16, blocks 16 x 128, 128 x 128, 32 x 16 (float32) and
 48 x 32, N tails, empty block rows and an empty matrix, with one launch
 per call, and refuses bf16 blocks that are not multiples of 16.
 The grouped GEMM matches its plain version over float32 and bfloat16,
-groups per expert 1 and 2, whole and tail C/K/N tiles, rows that are not
-16-byte aligned, w contiguous, as a transposed view (dx's) and with
-neither axis contiguous, and counts with empty, partial and full groups
-(one pattern all empty); its autograd on the card matches the CPU's.
-The int4 weight-only GEMM matches its plain version over m 1, 4, 16, 37
-and 512, whole and tail k steps and n tiles, k and n that are not
-multiples of 8 (element loads), float32 and bfloat16 x, with a bias and a
-3-D x through ``weight_only_linear``, and with ``FLAGS_use_pallas_kernels``
-off (the plain version, launching nothing).
+groups per expert 1 and 2, whole and tail C/K/N tiles, K not a multiple
+of the 64-deep k tile, rows that are not 16-byte aligned, w contiguous,
+as a transposed view (dx's) and with neither axis contiguous, and counts
+with empty, partial and full groups (one pattern all empty, one at the
+edges of the 128-row C tile); the bf16 wgmma route gives the same bytes
+on two launches; its autograd on the card matches the CPU's. The int4
+weight-only GEMM matches its plain version over m 1, 4, 16, 37, 64, 65,
+200 and 512 (both sides of the decode / prefill edge, both prefill
+widths), Llama-3-8B's k/v,
+down and gate/up shapes (every split-k slice count), whole and tail k
+steps and n tiles, k and n that are not multiples of 8 (the WMMA route),
+float32 and bfloat16 x, with a bias and a 3-D x through
+``weight_only_linear``, and with ``FLAGS_use_pallas_kernels`` off (the
+plain version, launching nothing); each route gives the same bytes on
+two launches.
 """
 
 import numpy as np
@@ -697,6 +703,7 @@ GMM_DIMS = {  # (C, K, N)
     "tiles": (256, 128, 256),       # whole 128 x 128 tiles, 16-byte loads
     "tails": (200, 72, 200),        # tail C, K and N tiles
     "odd": (37, 20, 30),            # rows not 16-byte aligned: element loads
+    "edges": (300, 136, 264),       # K not a multiple of the 64-deep k tile
 }
 GMM_LAYOUTS = ("contiguous", "transposed", "strided")
 
@@ -712,15 +719,20 @@ def _gmm_inputs(dev, dims, gpe, dtype, layout, counts_kind, seed=0):
     elif layout == "transposed":       # K contiguous, as dx's w^T
         w = torch.randn((E, N, K), generator=g, device=dev).transpose(1, 2)
     else:                               # neither K nor N contiguous
-        w = torch.randn((E, 2 * K, 2 * N), generator=g,
-                        device=dev)[:, ::2, ::2]
-    w = (w * 0.05).to(dtype)
+        w = torch.randn((E, 2 * K, 2 * N), generator=g, device=dev)
+    w = (w * 0.05).to(dtype)            # (an elementwise op keeps the
+    if layout == "strided":             # transposed view's strides, but
+        w = w[:, ::2, ::2]              # makes a strided slice contiguous)
     counts = {"mixed": [0, C, 1, min(129, C), C // 2, C - 1],
-              "all_empty": [0] * G, "full": [C] * G}[counts_kind]
+              "all_empty": [0] * G, "full": [C] * G,
+              # one row short of, at and past the 128-row C tile and twice it
+              "tile_edges": [min(c, C) for c in (127, 128, 129, 255, 256,
+                                                 257)]}[counts_kind]
     return x, w, torch.tensor(counts, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("counts_kind", ["mixed", "all_empty", "full"])
+@pytest.mark.parametrize("counts_kind", ["mixed", "all_empty", "full",
+                                         "tile_edges"])
 @pytest.mark.parametrize("layout", GMM_LAYOUTS)
 @pytest.mark.parametrize("dims", sorted(GMM_DIMS))
 @pytest.mark.parametrize("gpe", [1, 2])
@@ -739,6 +751,20 @@ def test_grouped_gemm_kernel_matches_plain(dev, dtype, gpe, dims, layout,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     dead = torch.arange(x.shape[1], device=dev)[None, :] >= counts[:, None]
     assert bool((got[dead] == 0).all()), "rows past counts must be zeros"
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("dims", ["tiles", "edges"])
+def test_grouped_gemm_bf16_kernel_is_bitwise_run_to_run(dev, dims, layout):
+    """The wgmma route sums in a fixed order: two launches, same bytes."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    x, w, counts = _gmm_inputs(dev, dims, 2, torch.bfloat16, layout,
+                               "tile_edges")
+    assert gg.gmm_route(x, w).startswith("wgmma")
+    a = gg.gmm_kernel(x, w, counts, 2)
+    b = gg.gmm_kernel(x, w, counts, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -784,6 +810,8 @@ WOG_KN = {  # (k, n)
     "tails": (200, 1000),    # tail k step and n tile, vector loads
     "odd": (66, 37),         # k % 8 and n % 8 != 0: element loads
     "kv_proj": (4096, 1024),  # Llama-3-8B's k/v projection
+    "down": (14336, 4096),   # Llama-3-8B's down projection
+    "gate_up": (4096, 14336),  # Llama-3-8B's gate and up projections
 }
 
 
@@ -798,7 +826,7 @@ def _wog_inputs(dev, m, k, n, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kn", sorted(WOG_KN))
-@pytest.mark.parametrize("m", [1, 4, 16, 37, 512])
+@pytest.mark.parametrize("m", [1, 4, 16, 37, 64, 65, 200, 512])
 def test_int4_gemm_kernel_matches_plain(dev, m, kn, dtype):
     from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
     k, n = WOG_KN[kn]
@@ -810,6 +838,24 @@ def test_int4_gemm_kernel_matches_plain(dev, m, kn, dtype):
     want = wog.int4_matmul_plain(x, q, s)
     assert got.dtype == dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kn,m,route", [
+    ("kv_proj", 16, ("decode", 16)), ("gate_up", 4, ("decode", 2)),
+    ("down", 64, ("decode", 8)), ("down", 512, ("prefill", 2)),
+    ("gate_up", 65, ("prefill", 2)), ("tiles", 512, ("prefill", 2)),
+    ("odd", 16, ("wmma", 1))])
+def test_int4_gemm_kernel_is_bitwise_run_to_run(dev, kn, m, route):
+    """Each route, split k included, sums in a fixed order (no atomics):
+    two launches give the same bytes."""
+    from paddle_tpu_torch.ops.kernels import weight_only_gemm as wog
+    k, n = WOG_KN[kn]
+    x, q, s = _wog_inputs(dev, m, k, n, torch.bfloat16, seed=7)
+    assert wog.int4_route(x, q) == route
+    a = wog.int4_matmul_kernel(x, q, s)
+    b = wog.int4_matmul_kernel(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
