@@ -26,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
    planted faults, timed with CUDA events beside its bound and one
    PyTorch library call (``scaled_dot_product_attention`` over the
    gathered, dequantized dense KV, timed here only: the port never calls
-   it);
+   it); the gang decode (a split-KV pass and a merge) also against the
+   plain mirror of its split arithmetic at its split plan, with GB/s, the
+   share of the bound and two launches giving the same bytes;
 3. training kernel checks at the training shapes (b 2, s 2048, 32/8 heads,
    d 128, causal; bf16 and float32): flash forward (out, lse), dq and
    dk/dv against the plain versions, with two planted faults that the
@@ -66,7 +68,8 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version, three planted faults (a column id off by
    one, a run cut by one block, an empty row left unwritten), times beside
    the bound, ``torch.matmul`` over the zero-filled weight and torch's BSR
-   product;
+   product, with TFLOP/s, GB/s, the share of the bound and two launches
+   giving the same bytes;
 3b. packed (varlen) attention, a main path of its own, at Llama-3-8B's
    attention width (32/8 heads, d 128) over 16384 tokens of documents
    whose lengths are drawn log-uniform over 32-4096 from the seed (the
@@ -132,7 +135,17 @@ Phases (any failure raises and the script exits non-zero):
    10 timed steps (tokens/s, step p50/p99, MFU over the active params,
    peak memory, every loss), exactly 24 grouped-GEMM launches per step,
    the choices dropped by capacity and each MoE layer's min/max counts,
-   and one profiled step with the grouped GEMM as its own part.
+   and one profiled step with the grouped GEMM as its own part;
+7. last, after every timed phase (a profiler session slows the launches
+   that follow it): the kernels the card ran for one gang decode over a
+   bf16 and an int8 pool (the split-KV pass and its merge) and for
+   ``sparse.bcsr_matmul`` at the block phase's bf16 and float32 shapes
+   (the wgmma route with the M tile its ``bm`` picks, the FMA kernel), by
+   the profiler's names.
+
+Every kernel time is the median of CUDA-event windows around one call,
+the L2 flushed before each and the card held busy while the host
+enqueues the call, so host time never counts as device time.
 
 Output: findings on earlier lines, then the ``kernels`` JSON line
 (fourteen kernels), then as the last line ``{"ok": true, "device":
@@ -196,15 +209,25 @@ def card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+# device cycles (~0.2 ms) that the card spins before each timed call, so
+# the wrapper's host work (tens of us a call: the gang-decode lines print
+# theirs) is enqueued before the start event runs and the events bracket
+# device work only
+HOLD_CYCLES = 400_000
+
+
 def time_ms(torch, fn, iters: int = 10, flush=None) -> float:
     """Median CUDA-event time of ``fn()``; ``flush()`` (outside the timed
-    window) evicts the L2 before each run, as a cold pool read would."""
+    window) evicts the L2 before each run, as a cold pool read would. The
+    card is held busy while the host enqueues the call, so a slow host
+    adds no idle gap to the window."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -337,6 +360,68 @@ def planted_faults(torch, name, plain, args, kw, want, lens_at, decode):
     return errs
 
 
+# the gang-decode kernels (csrc/paged_attention.cu): the split-KV pass and
+# its merge, by the stems of their symbols
+DECODE_KERNELS = ("paged_attention_split_kernel",
+                  "paged_attention_merge_kernel")
+
+
+def profiled_kernels(torch, fn, stems):
+    """The device activities that ``fn`` runs, by the names the profiler
+    gives them: the route as the card took it (three calls a window, up
+    to three windows until one records device time). Every stem in
+    ``stems`` must name one of them. A profiler that cannot trace leaves
+    the route not measured (recorded, not raised)."""
+    def run():
+        for _ in range(3):
+            fn()
+    for _ in range(3):
+        prof = profile_call(torch, run, 3)
+        if "all_kernels" in prof:
+            break
+    else:
+        return {"not_measured": prof.get("not_measured")}
+    names = sorted(prof["all_kernels"])
+    missing = [t for t in stems if not any(t in n for n in names)]
+    if missing:
+        raise AssertionError(f"the call ran {names}, none of them "
+                             f"{missing}")
+    return {"kernels": [n[:120] for n in names]}
+
+
+def host_us(torch, fn, n: int = 50) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's checks, its
+    allocations and the launches, not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def decode_extras(torch, pa, name, args, kw, ms, flops, nbytes, b_ms):
+    """What the gang-decode lines add to a kernel's check: the split plan,
+    the kernel against the plain mirror of its split pass and merge (at
+    the plan's split length), two launches giving the same bytes, the
+    wrapper's host time per call (``generate()`` makes 32 calls a token
+    step), GB/s and the share of the bound."""
+    sp, splits = pa.call_plan(args[0], args[1], args[3])
+    call = lambda: pa.paged_attention(*args, **kw)  # noqa: E731
+    got = call()
+    split_err = check_close(
+        torch, f"{name} vs its split-pass mirror", got,
+        pa.paged_attention_split_plain(*args, sp=sp, **kw), "bfloat16")
+    out = dict(split_positions=sp, splits=splits,
+               max_abs_err_vs_split_mirror=split_err,
+               bitwise_twice=bitwise_twice(torch, name, call),
+               host_us_per_call=host_us(torch, call))
+    out.update(achieved({"k": ms}, {"k": flops}, {"k": b_ms},
+                        {"k": nbytes})["k"])
+    return out
+
+
 def phase_kernels(torch, seed, report):
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
@@ -445,13 +530,22 @@ def phase_kernels(torch, seed, report):
               + 4 * (tbl_d.numel() + B))
     flops = rpa.attention_flops(lens, cu1, H, D)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    extra = decode_extras(torch, pa, "paged_attention[bfloat16]", args, {},
+                          ms, flops, nbytes, b_ms)
     out["paged_attention"] = {"bfloat16": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, bytes=nbytes, flops=flops,
-        rows_with_context=int(keep.sum()), planted_fault_max_abs_err=faults)}
+        rows_with_context=int(keep.sum()), planted_fault_max_abs_err=faults,
+        **extra)}
     log(f"paged_attention[bfloat16]: max_abs_err {err:.3e} ms {ms:.4f} "
         f"plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} "
-        f"bound_ms {b_ms:.4f} ({b_by}), planted faults rejected: {faults}")
+        f"bound_ms {b_ms:.4f} ({b_by}), {extra['gbps']:.0f} GB/s, "
+        f"{extra['bound_share']:.1%} of the bound, planted faults "
+        f"rejected: {faults}; {extra['splits']} splits of "
+        f"{extra['split_positions']} positions, max abs err vs the split "
+        f"mirror {extra['max_abs_err_vs_split_mirror']:.3e}, two launches "
+        f"bitwise equal, {extra['host_us_per_call']:.1f} us of host time a "
+        f"call")
 
     # gang-decode kernel over an int8 pool: the same rows and blocks, the
     # pool quantized per token slot as the serving cache writes it
@@ -482,14 +576,20 @@ def phase_kernels(torch, seed, report):
               + rpa.kv_bytes_read(lens, cu1, SMOKE_BS, KV, D, 1, True)
               + 4 * (tbl_d.numel() + B))
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    extra = decode_extras(torch, pa, "paged_attention[int8]", args, kw, ms,
+                          flops, nbytes, b_ms)
     out["paged_attention"]["int8"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, bytes=nbytes, flops=flops,
-        planted_fault_max_abs_err=faults)
+        planted_fault_max_abs_err=faults, **extra)
     log(f"paged_attention[int8]: max_abs_err {err:.3e} ms {ms:.4f} "
         f"plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} (SDPA over the "
-        f"dequantized pool) bound_ms {b_ms:.4f} ({b_by}), planted faults "
-        f"rejected: {faults}")
+        f"dequantized pool) bound_ms {b_ms:.4f} ({b_by}), "
+        f"{extra['gbps']:.0f} GB/s, {extra['bound_share']:.1%} of the "
+        f"bound, planted faults rejected: {faults}; max abs err vs the "
+        f"split mirror {extra['max_abs_err_vs_split_mirror']:.3e}, two "
+        f"launches bitwise equal, {extra['host_us_per_call']:.1f} us of "
+        f"host time a call")
     del scratch
     report["kernels"] = out
     return out
@@ -668,13 +768,14 @@ def prompt_logits(torch, model, prompt, kv="bf16", cache_cls=None):
     fresh paged cache (``cache_cls``, default ``PagedKVCache``)."""
     from paddle_tpu_torch.models.generation import PagedKVCache
     cfg = model.config
+    dev = next(model.parameters()).device
     mb = -(-len(prompt) // 64)
     cache = (cache_cls or PagedKVCache)(
         cfg.num_hidden_layers, 1, num_blocks=mb, block_size=64,
         num_kv_heads=cfg.num_key_value_heads,
         head_dim=cfg.hidden_size // cfg.num_attention_heads,
-        max_blocks_per_seq=mb, dtype=cfg.dtype, kv_dtype=kv, device="cuda")
-    ids = torch.from_numpy(prompt[None]).cuda()
+        max_blocks_per_seq=mb, dtype=cfg.dtype, kv_dtype=kv, device=dev)
+    ids = torch.from_numpy(prompt[None]).to(dev)
     return model(ids, cache=cache, start_pos=0)[0, -1].float()
 
 
@@ -753,6 +854,110 @@ def no_plain_on_card():
             setattr(m, name, fn)
 
 
+# a greedy token that flips between the gang-decode kernel's generate()
+# and the plain attention's must sit where its two candidates' logits
+# nearly tie: each path's logits lie within LOGITS_ATOL of the other's
+# (logits_check), so a flip from rounding needs the candidates' gap under
+# a third path (the prefill's) to be at most twice that. A wrong kernel
+# picks a token far down the plain path's list (logit std ~1.28 here)
+FLIP_MARGIN_MAX = 2 * LOGITS_ATOL
+GEN_NEW_TOKENS = 16     # generate()'s new tokens: 15 decode steps
+
+
+@contextlib.contextmanager
+def decode_capture(torch, layers):
+    """Records the gang-decode calls of the last layer (every ``layers``-th
+    call) on the path that runs inside: each call's inputs and the
+    kernel's output, cloned, to be held against the plain versions after
+    the run. The kernel's launch and count are the path's own."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    launch, calls, n = pa.paged_attention, [], itertools.count(1)
+
+    def clone(t):
+        return t.clone() if torch.is_tensor(t) else t
+
+    def record(*args, **kw):
+        out = launch(*args, **kw)
+        if next(n) % layers == 0:
+            calls.append(([clone(a) for a in args],
+                          {k: clone(v) for k, v in kw.items()}, out.clone()))
+        return out
+    pa.paged_attention = record
+    try:
+        yield calls
+    finally:
+        pa.paged_attention = launch
+
+
+def check_decode_calls(torch, name, calls):
+    """The gang-decode calls one ``generate()`` made at its last layer
+    (``decode_capture``): each kernel output against the plain version and
+    against the plain mirror of the split pass at the call's own plan,
+    under the bf16 TOL; the contexts, the plan and the largest errors."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    errs, split_errs, lens = [], [], []
+    for i, (args, kw, got) in enumerate(calls):
+        sp, splits = pa.call_plan(args[0], args[1], args[3])
+        errs.append(check_close(torch, f"{name} call {i}", got,
+                                pa.paged_attention_plain(*args, **kw),
+                                "bfloat16"))
+        split_errs.append(check_close(
+            torch, f"{name} call {i} vs its split-pass mirror", got,
+            pa.paged_attention_split_plain(*args, sp=sp, **kw), "bfloat16"))
+        lens += args[4].tolist()
+    if not calls:
+        raise AssertionError(f"{name}: no gang-decode call recorded")
+    args = calls[0][0]
+    return dict(calls=len(calls), batch=args[0].shape[0],
+                contexts=[min(lens), max(lens)],
+                block_table=list(args[3].shape), pool_blocks=args[1].shape[0],
+                pool_dtype=str(args[1].dtype).removeprefix("torch."),
+                split_positions=sp, splits=splits, max_abs_err=max(errs),
+                max_abs_err_vs_split_mirror=max(split_errs))
+
+
+def plain_attention_generate(torch, model, ids, out, kv):
+    """``generate()`` again with the gang decode's plain version on the
+    card (the ragged prefill and the rest unchanged), against ``out``, the
+    kernel's tokens: the share of generated tokens that agree, and for
+    each row that diverges its first divergent position and the margin
+    there between the two tokens, read off the prefill path's logits of
+    the shared prefix. A margin over ``FLIP_MARGIN_MAX`` fails: the flip
+    would not be rounding."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    launch = pa.paged_attention
+    pa.paged_attention = pa.paged_attention_plain
+    flags.set_flags({"kv_cache_dtype": kv})
+    try:
+        ref = model.generate(ids, max_new_tokens=GEN_NEW_TOKENS,
+                             temperature=0.0, cache_type="paged",
+                             block_size=64)
+    finally:
+        pa.paged_attention = launch
+        flags.set_flags({"kv_cache_dtype": "auto"})
+    p0 = ids.shape[1]
+    a, b = out[:, p0:], ref[:, p0:]
+    res = dict(agreement=float((a == b).float().mean()), flips=[])
+    for r in range(out.shape[0]):
+        diff = torch.nonzero(a[r] != b[r])
+        if len(diff) == 0:
+            continue
+        p = p0 + int(diff[0])
+        logits = prompt_logits(torch, model, out[r, :p].cpu().numpy(), kv)
+        tk, tp = int(out[r, p]), int(ref[r, p])
+        res["flips"].append(dict(
+            row=r, position=p, kernel_token=tk, plain_token=tp,
+            margin=abs(float(logits[tk] - logits[tp])),
+            top1_is_either=int(logits.argmax()) in (tk, tp)))
+    worst = max((f["margin"] for f in res["flips"]), default=0.0)
+    if worst > FLIP_MARGIN_MAX:
+        raise AssertionError(f"generate() with the kernel against the plain "
+                             f"attention: a token flips at logit margin "
+                             f"{worst} (> {FLIP_MARGIN_MAX}): {res}")
+    return res
+
+
 def phase_main(torch, seed, report):
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -797,19 +1002,23 @@ def phase_main(torch, seed, report):
         outs_spec, main["spec_k4"] = counted_serve(speculative_k=4)
         ids = torch.from_numpy(np.stack([p[:128] for p in prompts[:4]])) \
             .cuda()
+        gens = {}
         for kv in ("bf16", "int8"):   # generate() over each pool dtype
             before = kernels.launch_counts()["paged_attention"]
             flags.set_flags({"kv_cache_dtype": kv})
             tg = time.perf_counter()
             try:
-                out = model.generate(ids, max_new_tokens=16, temperature=0.0,
-                                     cache_type="paged", block_size=64)
+                with decode_capture(torch, cfg.num_hidden_layers) as calls:
+                    out = model.generate(ids, max_new_tokens=GEN_NEW_TOKENS,
+                                         temperature=0.0, cache_type="paged",
+                                         block_size=64)
                 torch.cuda.synchronize()
             finally:
                 flags.set_flags({"kv_cache_dtype": "auto"})
             gang = kernels.launch_counts()["paged_attention"] - before
+            gens[kv] = out, calls
             main["generate" if kv == "bf16" else "generate_int8"] = dict(
-                batch=4, prompt=128, new_tokens=16, kv_dtype=kv,
+                batch=4, prompt=128, new_tokens=GEN_NEW_TOKENS, kv_dtype=kv,
                 wall_s=time.perf_counter() - tg, paged_attention_launches=gang)
             if tuple(out.shape) != (4, 144) or int(out.max()) >= \
                     cfg.vocab_size or int(out.min()) < 0:
@@ -827,6 +1036,15 @@ def phase_main(torch, seed, report):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
+    # generate()'s own gang-decode calls against the plain versions, and
+    # its tokens against a generate() through the plain attention
+    for kv, (out, calls) in gens.items():
+        m = main["generate" if kv == "bf16" else "generate_int8"]
+        m["decode_calls"] = check_decode_calls(torch, f"generate({kv})",
+                                               calls)
+        m["vs_plain_attention"] = plain_attention_generate(torch, model, ids,
+                                                           out, kv)
+    del gens
 
     # greedy tokens against the bf16 run: all positions, and the first
     # token of each request (before one early flip changes the rest)
@@ -977,11 +1195,14 @@ def phase_int4_serve(torch, seed, report, outs_bf16):
     ids = torch.from_numpy(np.stack([p[:128] for p in prompts[:4]])).cuda()
     before = kernels.launch_counts()["weight_only_int4_gemm"]
     tg = time.perf_counter()
-    out = model.generate(ids, max_new_tokens=16, temperature=0.0,
-                         cache_type="paged", block_size=64)
+    with decode_capture(torch, cfg.num_hidden_layers) as calls:
+        out = model.generate(ids, max_new_tokens=GEN_NEW_TOKENS,
+                             temperature=0.0, cache_type="paged",
+                             block_size=64)
     torch.cuda.synchronize()
     res["generate"] = dict(
-        batch=4, prompt=128, new_tokens=16, wall_s=time.perf_counter() - tg,
+        batch=4, prompt=128, new_tokens=GEN_NEW_TOKENS,
+        wall_s=time.perf_counter() - tg,
         int4_gemm_launches=kernels.launch_counts()["weight_only_int4_gemm"]
         - before)
     if tuple(out.shape) != (4, 144) or int(out.max()) >= cfg.vocab_size \
@@ -989,6 +1210,11 @@ def phase_int4_serve(torch, seed, report, outs_bf16):
             <= 0:
         raise AssertionError(f"int4 generate(): {tuple(out.shape)}, "
                              f"{res['generate']}")
+    res["generate"]["decode_calls"] = check_decode_calls(
+        torch, "generate(int4)", calls)
+    res["generate"]["vs_plain_attention"] = plain_attention_generate(
+        torch, model, ids, out, "bf16")
+    del calls
     log(f"generate(paged, int4): {res['generate']}")
     # last: a profiled run of its own (the profiler slows what follows)
     _, mp = serve(torch, model, prompts, 64, profile=True)
@@ -1024,6 +1250,8 @@ def tc_smem_bytes(kind: str, d: int) -> int:
 def gemm_smem_bytes(kernel: str, args) -> int:
     if kernel == "grouped_gemm_wgmma_kernel":
         return 4 * (128 + 256) * 64 * 2 + 1024
+    if kernel == "bcsr_spmm_wgmma_kernel":   # 4 stages of [TM][64] + [64][256]
+        return 4 * (int(args[0]) + 256) * 64 * 2 + 1024
     if kernel == "int4_gemm_prefill_kernel":
         return 6 * (128 * 64 * 2 + 32 * 256) + 2 * 64 * 256 * 2 + 1024
     if kernel == "int4_gemm_decode_kernel":
@@ -1033,23 +1261,39 @@ def gemm_smem_bytes(kernel: str, args) -> int:
 
 def demangled_args(mangled: str):
     """Template arguments of an Itanium-mangled kernel name, as far as
-    the port's kernels use them (ints, bools, float and bf16)."""
+    the port's kernels use them (ints, bools, float, int8 and bf16; a
+    substitution ``S<n>_`` repeats bf16, the only type they substitute)."""
     out = []
     while mangled:
-        m = re.match(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f", mangled)
+        m = re.match(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|S\d*_|f|a",
+                     mangled)
         if not m:
             break
         out.append(m.group(1) or {"0": "false", "1": "true"}.get(
-            m.group(2)) or ("float" if m.group(0) == "f" else "bf16"))
+            m.group(2)) or {"f": "float", "a": "int8"}.get(m.group(0),
+                                                          "bf16"))
         mangled = mangled[m.end():]
     return out
 
 
+# dynamic shared memory of the gang-decode split pass, as
+# csrc/paged_attention.cu sizes it: a ring of 64-position K and V chunks in
+# the pool's dtype (3 stages, 2 for float32; int8 adds their scales), q
+# [GT][D] and the warps' P [4][GT][16] in float32, 512 block-table ids
+def decode_smem_bytes(args) -> int:
+    kt, d, gt = args[1], int(args[2]), int(args[3])
+    item = {"float": 4, "bf16": 2, "int8": 1}[kt]
+    stage = 2 * 64 * d * item + (2 * 64 * 4 if kt == "int8" else 0)
+    return (2 if item == 4 else 3) * stage + gt * d * 4 + 4 * gt * 16 * 4 \
+        + 512 * 4
+
+
 def ptxas_tc_kernels(txt: str):
-    """Registers, spills and shared memory of each tensor-core kernel in
+    """Registers, spills and shared memory of each redesigned kernel in
     nvcc's ``-Xptxas -v`` report: the bf16 attention kernels (dynamic
-    shared memory) and every GEMM kernel of grouped_gemm.cu and
-    weight_only_gemm.cu (dynamic, or the static bytes ptxas reports)."""
+    shared memory), every GEMM kernel of grouped_gemm.cu and
+    weight_only_gemm.cu, the bf16 wgmma BCSR kernel and both gang-decode
+    passes (dynamic, or the static bytes ptxas reports)."""
     rows, name = [], None
     for line in txt.splitlines():
         m = re.search(r"Compiling entry function '\w*?((?:flash|varlen)_tc_"
@@ -1060,11 +1304,14 @@ def ptxas_tc_kernels(txt: str):
                                                  int(m.group(3))))
             continue
         m = re.search(r"Compiling entry function '\w*?\d((?:int4|grouped)"
-                      r"_gemm_\w*?kernel)I(\w*?)EEv", line)
+                      r"_gemm_\w*?kernel|bcsr_spmm_wgmma_kernel|paged_"
+                      r"attention_(?:split|merge)_kernel)I(\w*?)EEv", line)
         if m:
             args = demangled_args(m.group(2))
             name = dict(kernel=f"{m.group(1)}<{', '.join(args)}>",
-                        smem_bytes=gemm_smem_bytes(m.group(1), args))
+                        smem_bytes=decode_smem_bytes(args)
+                        if "split" in m.group(1)
+                        else gemm_smem_bytes(m.group(1), args))
             continue
         if name is None:
             continue
@@ -2251,6 +2498,9 @@ BCSR_SHAPES = {"gate_proj": (14336, 4096, 128, 128),
                "blocks_16x128": (2048, 1024, 16, 128)}
 BCSR_EMPTY_ROWS = (3, 17)        # block rows pruned whole
 BCSR_TOL = {"bfloat16": 1e-2, "float32": 1e-4}   # of the output's max
+# the kernel each dtype's aligned x must reach (csrc/bcsr_spmm.cu)
+BCSR_ROUTE_STEMS = {"bfloat16": ("bcsr_spmm_wgmma_kernel",),
+                    "float32": ("bcsr_spmm_f32_kernel",)}
 
 
 def pruned_weight(torch, g, rng, M, K, bm, bk, dtype):
@@ -2363,10 +2613,11 @@ def phase_bcsr(torch, seed, report, flush):
                                   x.element_size())
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
                            if dname == "bfloat16" else F32_FLOPS_PER_S)
-        crows_d, cols_d = bs.device_structure(crows, cols, nb, K // bk,
-                                              x.device)
-        ms = time_ms(torch, lambda: bs.bcsr_spmm_kernel(
-            crows_d, cols_d, vals, x), flush=flush)
+        structure = bs.device_structure(crows, cols, nb, K // bk, x.device)
+        kern = lambda: bs.bcsr_spmm_kernel(  # noqa: E731
+            *structure, vals, x)
+        twice = bitwise_twice(torch, f"bcsr_spmm[{shape}/{dname}]", kern)
+        ms = time_ms(torch, kern, flush=flush)
         plain_ms = time_ms(torch, lambda: bs.bcsr_spmm_plain(
             crows, cols, vals, x), iters=3, flush=flush)
         # yardsticks, timed here only: the dense product over the
@@ -2379,21 +2630,26 @@ def phase_bcsr(torch, seed, report, flush):
             del wb
         except (RuntimeError, NotImplementedError, TypeError) as e:
             bsr_ms, bsr_err = None, f"{type(e).__name__}: {str(e)[:160]}"
+        rate = achieved({"k": ms}, {"k": flops}, {"k": b_ms},
+                        {"k": nbytes})["k"]
         out[label] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=dense_ms, library_bsr_ms=bsr_ms,
             library_bsr_error=bsr_err, blocks_kept=nb,
             blocks=(M // bm) * (K // bk), M=M, K=K, N=N, bm=bm, bk=bk,
-            flops=flops, bytes=nbytes,
-            tflops_per_s=flops / ms / 1e9)
+            flops=flops, bytes=nbytes, tflops_per_s=rate["tflops"],
+            gbps=rate["gbps"], bound_share=rate["bound_share"],
+            bitwise_twice=twice)
         log(f"bcsr_spmm[{label}] [{M}, {K}] in {bm}x{bk} blocks, {nb} of "
             f"{out[label]['blocks']} kept, x^T [{K}, {N}]: max_abs_err "
-            f"{err:.3e}; ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
-            f"plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}); dense "
-            f"matmul {dense_ms:.4f} ms; torch BSR "
+            f"{err:.3e}; ms {ms:.4f} ({rate['tflops']:.1f} TFLOP/s, "
+            f"{rate['gbps']:.0f} GB/s, {rate['bound_share']:.1%} of the "
+            f"bound) plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}); "
+            f"dense matmul {dense_ms:.4f} ms; torch BSR "
             + (f"{bsr_ms:.4f} ms" if bsr_ms is not None else
-               f"refused ({bsr_err})"))
-        del w, x, vals, crows_d, cols_d
+               f"refused ({bsr_err})")
+            + "; two launches bitwise equal")
+        del w, x, vals, structure
         torch.cuda.empty_cache()
     log(f"bcsr_spmm: planted faults rejected: {faults}")
     res = {"cases": out, "launches": launched,
@@ -2407,6 +2663,56 @@ def phase_bcsr(torch, seed, report, flush):
                            library_bsr_error=head["library_bsr_error"])
     report["kernels"]["bcsr_spmm"] = res
     return res
+
+
+# -- last: the routes the redesigned kernels took -------------------------------
+
+def phase_routes(torch, seed, report):
+    """The kernels the card ran for the gang decode (bf16 and int8 pools,
+    the serving head geometry) and for ``sparse.bcsr_matmul`` (each
+    BCSR_SHAPES case the block phase times), by the profiler's names: the
+    split-KV pass and its merge, the bf16 wgmma route (64- and 128-row M
+    tiles) and the float32 FMA kernel. Run after every timed phase: a
+    profiler session may slow the launches that follow it."""
+    from paddle_tpu_torch import sparse
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels.quant_common import (
+        absmax_scale, quantize_symmetric)
+    rng = np.random.RandomState(seed)
+    q, kp, vp, tbl, ctx, _ = smoke_layout(torch, rng, torch.bfloat16)
+    qd = q[:len(SMOKE_ROWS), None].contiguous()
+    ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
+    routes = {
+        "paged_attention[bfloat16]": profiled_kernels(
+            torch, lambda: pa.paged_attention(qd, kp, vp, tbl, ctx),
+            DECODE_KERNELS),
+        "paged_attention[int8]": profiled_kernels(
+            torch, lambda: pa.paged_attention(
+                qd, quantize_symmetric(kp, ks[..., None]),
+                quantize_symmetric(vp, vs[..., None]), tbl, ctx,
+                k_scale=ks, v_scale=vs), DECODE_KERNELS)}
+    del q, kp, vp, qd, ks, vs
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    for shape, dname in (("gate_proj", "bfloat16"),
+                         ("blocks_16x128", "bfloat16"),
+                         ("gate_proj", "float32")):
+        M, K, bm, bk = BCSR_SHAPES[shape]
+        dt = getattr(torch, dname)
+        N = BCSR_TOKENS if shape != "blocks_16x128" else 512
+        w = pruned_weight(torch, g, rng, M, K, bm, bk, dt)
+        x = torch.randn((K, N), generator=g, device="cuda").to(dt)
+        crows, cols, vals = sparse.bcsr_from_dense(w, bm, bk)
+        stems = BCSR_ROUTE_STEMS[dname]
+        if dname == "bfloat16":   # the M tile follows the block
+            stems = (f"{stems[0]}<{64 if bm <= 64 else 128}>",)
+        routes[f"bcsr_spmm[{shape}/{dname}]"] = profiled_kernels(
+            torch, lambda: sparse.bcsr_matmul(crows, cols, vals, x), stems)
+        del w, x, vals
+    torch.cuda.empty_cache()
+    for name, r in routes.items():
+        log(f"route[{name}]: {json.dumps(r)}")
+    report["routes"] = routes
+    return routes
 
 
 # -- phase 5: training --------------------------------------------------------
@@ -2462,6 +2768,11 @@ FLASH_BWD_STEMS = ("flash_tc_dq<", "flash_tc_dkv<", "varlen_tc_dq<",
                    "varlen_tc_dkv<", "::dq_kernel<", "::dkv_kernel<")
 
 
+# the paged kernels: the ragged kernel, the gang decode's split pass and
+# its merge
+PAGED_STEMS = ("paged_attention_kernel",) + DECODE_KERNELS
+
+
 def categorize(all_kernels, busy_ms):
     """Device ms of one step by part of the step, from every activity's
     full name; ``unaccounted`` is the busy time the parts leave out (0
@@ -2479,7 +2790,7 @@ def categorize(all_kernels, busy_ms):
             cats["grouped_gemm"] += ms
         elif "int4_gemm_" in low:
             cats["int4_gemm"] += ms
-        elif "paged_attention_kernel" in low:   # ragged and gang decode
+        elif any(t in low for t in PAGED_STEMS):  # ragged, gang decode
             cats["paged_attention"] += ms
         elif "fused_kernel" in low:
             cats["fused_optimizer"] += ms
@@ -2923,7 +3234,7 @@ def main(argv=None) -> int:
                 log(f"ptxas[{stem}]: {line.strip()}")
     report["ptxas_tc"] = [
         row for stem in ("flash_attention", "flash_varlen", "grouped_gemm",
-                         "weight_only_gemm")
+                         "weight_only_gemm", "bcsr_spmm", "paged_attention")
         for row in ptxas_tc_kernels(_build.ptxas_report(stem) or "")]
     for row in report["ptxas_tc"]:
         log(f"ptxas[{row['kernel']}]: {row['registers']} registers, "
@@ -2949,6 +3260,8 @@ def main(argv=None) -> int:
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
     moe = phase_moe_train(torch, args.seed, report)
+    torch.cuda.empty_cache()          # the MoE model is gone
+    phase_routes(torch, args.seed, report)
 
     entries = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

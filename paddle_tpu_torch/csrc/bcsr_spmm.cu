@@ -16,27 +16,50 @@
 // run, pads N to 128 lanes and reads the block structure on the host: all
 // TPU needs. Here each CTA owns one (M tile of a block row, N tile) and
 // walks its block row's run crows[i]..crows[i+1] itself, reading it on the
-// device, so no flags, no host-side row table and no order between CTAs.
-// For each block it stages the [TM, bk] slice of values and the matching
-// [bk, TN] slice of x in shared memory, 32 deep at a time, and accumulates
-// in registers; it writes its output tile once at the end (zeros for an
-// empty run). M tiles past bm, and the N and bk tails, are masked: x is
-// read in place, never padded.
+// device, so no flags, no host-side row table and no order between CTAs;
+// it writes its output tile once at the end (zeros for an empty run, no
+// k tile run). x is read in place, never padded. No atomics: two launches
+// give the same bytes.
 //
 // What bounds it on the H100: operations, at Llama-3-8B's MLP shapes (a
 // [14336, 4096] weight in 128 x 128 blocks, half kept, times [4096, 4096]:
-// 240.5 GFLOP against 210 MB, 0.243 ms at 989 TFLOP/s bf16). This first
-// version is the simple one:
-//   bf16: 128 x 128 output tiles, 8 warps each a 32 x 64 patch of WMMA
-//         16x16x16 bf16 products with float32 accumulators (bm and bk
-//         multiples of 16), synchronous 16-byte loads;
-//   f32:  64 x 64 tiles, 256 threads with 4 x 4 outputs each, float32 FMA
-//         on the CUDA cores (full float32: no TF32).
-// TMA, wgmma and a pipelined ring of stages are later work.
+// 240.5 GFLOP against 210 MB, 0.243 ms at 989 TFLOP/s bf16), so the bf16
+// design is about keeping the tensor cores fed. A block row's run is just
+// a k loop whose tiles are looked up through `cols`, so it runs on the
+// pipelined wgmma mainloop of gemm_wgmma.cuh, as the grouped GEMM does.
+// Routes, picked in ptt_bcsr_spmm before any launch (ptt_bcsr_spmm_route
+// says which):
+//
+// - bf16, 16-byte-aligned rows (values and x 16-byte aligned, x's row
+//   stride a multiple of 8 elements): bcsr_spmm_wgmma_kernel<TM>. Its k
+//   tiles are the 64-deep slices of the run's blocks in CSR order (tile t
+//   is block crows[i] + t / ceil(bk/64), slice t % ceil(bk/64)); a tile
+//   never straddles two blocks: A's columns and B's rows past bk are
+//   zero-filled, so bk = 16 .. 48 and any bk not a multiple of 64 take the
+//   same path. A is the block's [TM, 64] values slice, K-major; B the
+//   matching [64, 256] rows of x, MN-major through wgmma's transpose bit
+//   (the grouped GEMM forward's layout). The M tile follows the block: 64
+//   rows (one consumer warpgroup) for bm <= 64, else 128 (two); rows past
+//   bm load as zeros and are never stored (at bm = 16 the tensor cores do
+//   4x the needed work, still under the dense product's time there). A
+//   4-stage ring of cp.async copies, one wgmma group left running across
+//   the barrier; the next block's column id is loaded a block ahead. The
+//   epilogue stages each warpgroup's tile in shared memory and stores 16-
+//   byte chunks of rows (single elements when N % 8 != 0; x's columns past
+//   N inside the last 16-byte chunk are read but reach only unstored
+//   columns). The grid runs block rows with the most kept blocks first
+//   (the wrapper's `order`), and the N tiles of one block row back to
+//   back, so a row's values are read from device memory about once.
+// - bf16 otherwise: bcsr_spmm_wmma_kernel, the first design: 128 x 128
+//   output tiles, 8 warps each a 32 x 64 patch of WMMA 16x16x16 products,
+//   synchronous 32-deep k steps (bm and bk multiples of 16).
+// - float32: bcsr_spmm_f32_kernel, 64 x 64 tiles, 256 threads with 4 x 4
+//   outputs each, float32 FMA on the CUDA cores (full float32: no TF32).
 
 #include <mma.h>
 
 #include "gemm_tiles.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -205,15 +228,191 @@ __global__ void __launch_bounds__(kThreads) bcsr_spmm_f32_kernel(Problem p) {
   }
 }
 
+// -- bf16, aligned: wgmma on the pipelined ring ------------------------------
+
+constexpr int kTN = 256, kTStages = 4;
+
+struct Sparse {
+  const int* crows;
+  const int* cols;
+  const int* order;  // block rows in launch order
+  const __nv_bfloat16* values;
+  const __nv_bfloat16* x;
+  __nv_bfloat16* y;
+  int bm, bk, N, mtiles, ntiles;
+  long long ldx;
+};
+
+template <int TM>
+__host__ __device__ constexpr uint32_t tile_a_bytes() {
+  return TM * ptt::gemm::kBK * 2;
+}
+template <int TM>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return tile_a_bytes<TM>() + kTN * ptt::gemm::kBK * 2;
+}
+template <int TM>
+__host__ __device__ constexpr int smem_bytes() {
+  return kTStages * stage_bytes<TM>() + 1024;
+}
+
+// The ring's policy (gemm_wgmma.cuh) over one block row's run. fill() is
+// called for tiles 0, 1, 2, ... in order, so it walks the run with its
+// own (block, slice) counters and loads the next block's column id one
+// block ahead of its use.
+template <int TM>
+struct BcsrTiles {
+  using T = __nv_bfloat16;
+  static constexpr int NT = 2 * TM;  // one warpgroup per 64 rows
+  const T* v;        // row m0 of the run's first block
+  const T* x;        // column n0 of x
+  const int* cols;   // the run's column-block ids
+  long long ldx, vblk;  // x's row stride; elements of one block
+  int rows, bk, spb, ncols, nblk, wg;
+  bool live;         // the warpgroup has a row below bm
+  uint32_t base;
+  int fb, fs, col, col_next;  // the next fill's block, slice, column ids
+
+  __device__ __forceinline__ void fill(int slot, int) {
+    // (qualified: this file's kBK is the WMMA kernel's 32-deep step)
+    const int k0 = fs * ptt::gemm::kBK;
+    const uint32_t sA = base + slot * stage_bytes<TM>();
+    const uint32_t sB = sA + tile_a_bytes<TM>();
+    ptt::gemm::load_k_tile<TM, NT>(sA, v + fb * vblk + k0, bk, rows,
+                                   bk - k0);
+    ptt::gemm::load_mn_tile<ptt::gemm::kBK, kTN, NT>(
+        sB, x + (static_cast<long long>(col) * bk + k0) * ldx, ldx, bk - k0,
+        ncols);
+    if (++fs == spb) {
+      fs = 0;
+      ++fb;
+      col = col_next;
+      col_next = fb + 1 < nblk ? cols[fb + 1] : 0;
+    }
+  }
+
+  __device__ __forceinline__ void consume(int slot, int,
+                                          float (&acc)[kTN / 2]) {
+    using namespace ptt::wg;
+    if (!live) return;
+    const uint32_t sA = base + slot * stage_bytes<TM>();
+    const uint32_t sB = sA + tile_a_bytes<TM>();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ptt::gemm::mma_ss_n256<1>(acc, desc_k<TM>(sA + wg * 64 * 128, kk),
+                                desc_mn<ptt::gemm::kBK>(sB, kk));
+    wg_commit();
+    wg_wait_but<1>();
+    reg_fence(acc);
+  }
+};
+
+// One warpgroup's m64n256 sums to rows that are not 16-byte aligned: the
+// staging of store_wg_tile, then one element a store.
+template <class RowPtr>
+__device__ __forceinline__ void store_wg_tile_elems(
+    const float (&acc)[kTN / 2], uint8_t* stage, int wg, int ncols,
+    RowPtr row_ptr) {
+  using T = __nv_bfloat16;
+  constexpr int P = kTN * 2 + 16;  // row pitch in bytes, as store_wg_tile
+  ptt::gemm::for_each_pair<kTN>(acc, [&](int r, int c, float v0, float v1) {
+    ptt::gemm::store_pair(reinterpret_cast<T*>(stage + r * P) + c, v0, v1);
+  });
+  ptt::gemm::wg_barrier(wg);
+  for (int v = threadIdx.x % 128; v < 64 * kTN; v += 128) {
+    const int r = v / kTN, c = v % kTN;
+    T* out = row_ptr(r);
+    if (out != nullptr && c < ncols)
+      out[c] = reinterpret_cast<const T*>(stage + r * P)[c];
+  }
+}
+
+// grid: (M tile of a block row, N tile) pairs, N fastest, block rows in
+// `order`; 2 * TM threads
+template <int TM>
+__global__ void __launch_bounds__(2 * TM, 1)
+    bcsr_spmm_wgmma_kernel(Sparse p) {
+  using T = __nv_bfloat16;
+  extern __shared__ uint8_t smem[];
+  const int tile = blockIdx.x / p.ntiles, nt = blockIdx.x % p.ntiles;
+  const int ri = tile / p.mtiles;
+  const int i = p.order[ri];  // block row
+  const int m0 = (tile % p.mtiles) * TM, n0 = nt * kTN;
+  const int rows = min(TM, p.bm - m0);
+  const int first = p.crows[i], nblk = p.crows[i + 1] - first;
+  const int wg = threadIdx.x / 128;
+  const uint32_t raw = ptt::wg::smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  BcsrTiles<TM> tiles{
+      p.values + (static_cast<long long>(first) * p.bm + m0) * p.bk,
+      p.x + n0, p.cols + first, p.ldx,
+      static_cast<long long>(p.bm) * p.bk, rows, p.bk,
+      (p.bk + ptt::gemm::kBK - 1) / ptt::gemm::kBK, p.N - n0, nblk, wg,
+      64 * wg < rows, base, 0, 0, nblk > 0 ? p.cols[first] : 0,
+      nblk > 1 ? p.cols[first + 1] : 0};
+  float acc[kTN / 2];
+#pragma unroll
+  for (int j = 0; j < kTN / 2; ++j) acc[j] = 0.f;
+  ptt::gemm::mainloop<kTStages, 1>(tiles, nblk * tiles.spb, acc);
+  __syncthreads();  // every product done: the ring becomes the epilogue's
+
+  const int mw = 64 * wg;
+  T* y = p.y + (static_cast<long long>(i) * p.bm + m0 + mw) * p.N + n0;
+  auto row_ptr = [&](int r) -> T* {
+    return mw + r < rows ? y + static_cast<long long>(r) * p.N : nullptr;
+  };
+  uint8_t* stage =
+      smem + (base - raw) + wg * ptt::gemm::wg_stage_bytes<T, kTN>();
+  if (p.N % 8 == 0)
+    ptt::gemm::store_wg_tile<T, kTN>(
+        acc, stage, wg, p.N - n0, [](int, int, float v) { return v; },
+        row_ptr);
+  else
+    store_wg_tile_elems(acc, stage, wg, p.N - n0, row_ptr);
+}
+
+enum Route { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+
+int route(const void* values, const void* x, int bk, long long ldx,
+          int dtype) {
+  if (dtype != 1) return kRouteF32;
+  return aligned16(values) && aligned16(x) && ldx % 8 == 0 && bk % 8 == 0
+             ? kRouteWgmma
+             : kRouteWmma;
+}
+
+template <int TM>
+int launch_wgmma(const Sparse& p, int Mb, cudaStream_t s) {
+  Sparse q = p;
+  q.mtiles = (p.bm + TM - 1) / TM;
+  q.ntiles = (p.N + kTN - 1) / kTN;
+  PTT_SET_SMEM(bcsr_spmm_wgmma_kernel<TM>, smem_bytes<TM>());
+  const long long grid = static_cast<long long>(Mb) * q.mtiles * q.ntiles;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bcsr_spmm_wgmma_kernel<TM><<<static_cast<unsigned>(grid), 2 * TM,
+                               smem_bytes<TM>(), s>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The kernel ptt_bcsr_spmm launches for these arguments: 0 float32 FMA,
+// 1 bf16 WMMA, 2 bf16 wgmma.
+extern "C" int ptt_bcsr_spmm_route(const void* values, const void* x, int bk,
+                                   long long ldx, int dtype) {
+  return route(values, x, bk, ldx, dtype);
+}
+
 // dtype: 0 float32, 1 bfloat16 (ops/kernels/_build.DTYPE_CODES); bf16
-// needs bm and bk to be multiples of 16. Returns the cudaError_t of the
-// launch.
+// needs bm and bk to be multiples of 16. order: the block rows in launch
+// order ([Mb] int32 on the device, a permutation of 0 .. Mb - 1), read by
+// the wgmma route only.
+// Returns the cudaError_t of the launch.
 extern "C" int ptt_bcsr_spmm(const void* crows, const void* cols,
-                             const void* values, const void* x, void* y,
-                             int Mb, int bm, int bk, int N, long long ldx,
-                             int dtype, void* stream) {
+                             const void* order, const void* values,
+                             const void* x, void* y, int Mb, int bm, int bk,
+                             int N, long long ldx, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Problem p{static_cast<const int*>(crows), static_cast<const int*>(cols),
             values, x, y, bm, bk, N, 0, ldx, false, false};
@@ -224,6 +423,16 @@ extern "C" int ptt_bcsr_spmm(const void* crows, const void* cols,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     if (bm % 16 || bk % 16) return static_cast<int>(cudaErrorInvalidValue);
+    if (route(values, x, bk, ldx, dtype) == kRouteWgmma) {
+      using T = __nv_bfloat16;
+      const Sparse sp{static_cast<const int*>(crows),
+                      static_cast<const int*>(cols),
+                      static_cast<const int*>(order),
+                      static_cast<const T*>(values), static_cast<const T*>(x),
+                      static_cast<T*>(y), bm, bk, N, 0, 0, ldx};
+      return bm <= 64 ? launch_wgmma<64>(sp, Mb, s)
+                      : launch_wgmma<128>(sp, Mb, s);
+    }
     p.mtiles = (bm + kBM - 1) / kBM;
     dim3 grid(Mb * p.mtiles, (N + kBN - 1) / kBN);
     bcsr_spmm_wmma_kernel<<<grid, kThreads, 0, s>>>(p);

@@ -17,11 +17,15 @@ serves (2·bm·bk·N per kept block: 240.5 GFLOP for half of Llama-3-8B's
 ``gate_proj`` in 128 x 128 blocks times 4096 columns, against 210 MB).
 The kernel (``csrc/bcsr_spmm.cu``) gives each CTA one (tile of a block
 row, N tile); it walks its block row's run ``crows[i]..crows[i+1]`` on the
-device and multiplies each block with the matching rows of x through
-shared memory (bf16 through WMMA on the tensor cores, float32 through FMA
-on the CUDA cores), then writes its tile once. ``crows`` and ``cols`` go
-to the device as int32; x is read in place with its N tail masked, where
-the reference pads N to 128 lanes.
+device and writes its tile once. bf16 with 16-byte-aligned rows (values
+and x aligned, x's row stride a multiple of 8) runs the run's 64-deep
+block slices through the pipelined ``wgmma`` ring of
+``csrc/gemm_wgmma.cuh`` (64- or 128-row M tiles by ``bm``), block rows
+with the most kept blocks first (``row_order``); other bf16 inputs take
+the first design's WMMA kernel, float32 an FMA kernel on the CUDA cores
+(``bcsr_route`` says which). ``crows``, ``cols`` and the order go to the
+device as int32; x is read in place with its N tail masked, where the
+reference pads N to 128 lanes.
 
 Beside the kernel: ``bcsr_spmm_plain``, the same function in plain
 PyTorch (one float32 product per block, summed per block row with
@@ -105,18 +109,43 @@ def bcsr_spmm_reference(crows, cols, values: torch.Tensor, x: torch.Tensor
 
 # -- kernel -------------------------------------------------------------------
 
+ROUTES = ("f32_fma", "wmma", "wgmma")   # ptt_bcsr_spmm_route's codes
+
+
 def _bind(lib) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ptt_bcsr_spmm.argtypes = [P] * 5 + [I] * 4 + [ctypes.c_longlong, I,
-                                                       P]
-    lib.ptt_bcsr_spmm.restype = ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_bcsr_spmm.argtypes = [P] * 6 + [I] * 4 + [L, I, P]
+    lib.ptt_bcsr_spmm.restype = I
+    lib.ptt_bcsr_spmm_route.argtypes = [P, P, I, L, I]
+    lib.ptt_bcsr_spmm_route.restype = I
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return _build.DTYPE_CODES[str(t.dtype).removeprefix("torch.")]
+
+
+def bcsr_route(values: torch.Tensor, x: torch.Tensor) -> str:
+    """The kernel the C entry launches for ``values @ x`` ("wgmma", "wmma"
+    or "f32_fma"): its own choice, by dtype, alignment and x's row stride
+    (needs the built library)."""
+    lib = _build.load("bcsr_spmm", _bind)
+    return ROUTES[lib.ptt_bcsr_spmm_route(
+        values.data_ptr(), x.data_ptr(), values.shape[2], x.stride(0),
+        _dtype_code(x))]
+
+
+def row_order(crows: np.ndarray) -> np.ndarray:
+    """The block rows by kept blocks, most first (ties in row order), as
+    int32: launched in this order, the grid's last CTAs are short ones."""
+    return np.argsort(-np.diff(crows), kind="stable").astype(np.int32)
 
 
 def device_structure(crows, cols, nb: int, kb: int, device
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``crows`` and ``cols`` checked on the host (``crows`` runs from 0 to
     ``nb`` without falling, every column id below ``kb``) and put on
-    ``device`` as int32, as the kernel reads them."""
+    ``device`` as int32, as the kernel reads them, with the block rows'
+    launch order (:func:`row_order`)."""
     crows = np.asarray(crows.cpu() if torch.is_tensor(crows) else crows)
     cols = np.asarray(cols.cpu() if torch.is_tensor(cols) else cols)
     if crows.ndim != 1 or len(crows) < 1 or crows[0] != 0 or \
@@ -126,7 +155,7 @@ def device_structure(crows, cols, nb: int, kb: int, device
         raise ValueError(f"cols must be [{nb}] column-block ids below {kb}")
     put = lambda a: torch.from_numpy(  # noqa: E731
         a.astype(np.int32)).to(device)
-    return put(crows), put(cols)
+    return put(crows), put(cols), put(row_order(crows))
 
 
 def _check(values, x) -> None:
@@ -147,15 +176,16 @@ def _check(values, x) -> None:
 
 
 def bcsr_spmm_kernel(crows_d: torch.Tensor, cols_d: torch.Tensor,
-                     values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                     order_d: torch.Tensor, values: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
     """One kernel launch; same result as :func:`bcsr_spmm_plain`.
-    ``crows_d``/``cols_d`` are the int32 device tensors of
+    ``crows_d``, ``cols_d`` and ``order_d`` are the int32 device tensors of
     :func:`device_structure`; ``x`` is read in place when its rows are
     contiguous (copied otherwise)."""
     _check(values, x)
     if x.device.type != "cuda":
         raise ValueError(f"bcsr_spmm: no kernel for {x.device}")
-    for name, t in (("crows", crows_d), ("cols", cols_d)):
+    for name, t in (("crows", crows_d), ("cols", cols_d), ("order", order_d)):
         if t.dtype != torch.int32 or t.device != x.device:
             raise ValueError(f"{name} must be int32 on {x.device}")
     if x.stride(-1) != 1:
@@ -164,6 +194,8 @@ def bcsr_spmm_kernel(crows_d: torch.Tensor, cols_d: torch.Tensor,
     Mb = crows_d.shape[0] - 1
     _, bm, bk = values.shape
     N = x.shape[1]
+    if tuple(order_d.shape) != (Mb,):
+        raise ValueError(f"order must be [{Mb}], got {tuple(order_d.shape)}")
     y = torch.empty((Mb * bm, N), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -171,9 +203,9 @@ def bcsr_spmm_kernel(crows_d: torch.Tensor, cols_d: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ptt_bcsr_spmm(
-            crows_d.data_ptr(), cols_d.data_ptr(), values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), Mb, bm, bk, N, x.stride(0),
-            _build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")], stream)
+            crows_d.data_ptr(), cols_d.data_ptr(), order_d.data_ptr(),
+            values.data_ptr(), x.data_ptr(), y.data_ptr(), Mb, bm, bk, N,
+            x.stride(0), _dtype_code(x), stream)
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: cudaError {rc}")
     launches.add()
@@ -189,12 +221,11 @@ def bcsr_spmm(crows, cols, values: torch.Tensor, x: torch.Tensor
     if x.device.type == "cpu":
         return bcsr_spmm_plain(crows, cols, values, x)
     _check(values, x)
-    crows_d, cols_d = device_structure(crows, cols, values.shape[0],
-                                       x.shape[0] // values.shape[2],
-                                       x.device)
-    return bcsr_spmm_kernel(crows_d, cols_d, values, x)
+    structure = device_structure(crows, cols, values.shape[0],
+                                 x.shape[0] // values.shape[2], x.device)
+    return bcsr_spmm_kernel(*structure, values, x)
 
 
-__all__ = ["bcsr_from_dense", "bcsr_spmm", "bcsr_spmm_plain",
+__all__ = ["bcsr_from_dense", "bcsr_route", "bcsr_spmm", "bcsr_spmm_plain",
            "bcsr_spmm_reference", "bcsr_spmm_kernel", "device_structure",
-           "launches"]
+           "launches", "row_order"]

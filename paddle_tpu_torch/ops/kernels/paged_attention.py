@@ -8,21 +8,33 @@ skipped; a row with ``context_len`` 0 returns zeros.
 
 What bounds it on the H100: the KV bytes it reads, each row's context
 once per layer at 3.35 TB/s, with about one multiply-add per byte. The
-kernel (``csrc/paged_attention.cu``) gives each (batch row, kv head) one
-block, which reads each of the row's pool blocks once and serves all G
-query heads of the group from shared memory. It shares its tile code with
-the ragged kernel; like it, this first version computes in float32 on the
-CUDA cores with synchronous loads. An int8 pool comes with float32 scale
-pools ``[NB, BS, KV]`` and is dequantized in shared memory after the
-int8 bytes arrive, as in the ragged kernel. (The reference sends an int8
-gang decode to an XLA composite, recording ``kv_int8_gang_pallas``; here a
-CUDA tensor launches the kernel for every pool dtype.)
+kernel (``csrc/paged_attention.cu``) is a split-KV pass and a merge: the
+split pass gives each (kv head, row, split) one block, which streams
+``SP`` positions of the row's context (whole pool blocks) through a
+``cp.async`` ring in the pool's own dtype, serves all G query heads of
+the group with every warp busy, and writes a float32 partial (m, l,
+acc); the merge combines a row's partials in split order and rounds once
+to q's dtype. ``split_plan`` picks ``SP`` and the split count from what
+the host knows (MB, BS, B, KV and the card's SM count), never from
+``context_lens``, so a call never waits for the card. An int8 pool comes
+with float32 scale pools ``[NB, BS, KV]`` and is widened in registers
+after the int8 bytes arrive. (The reference sends an int8 gang decode to
+an XLA composite, recording ``kv_int8_gang_pallas``; here a CUDA tensor
+launches the kernel for every pool dtype.)
+
+Beside the kernel: ``paged_attention_plain``, the same function in plain
+PyTorch, used for CPU tensors, by the tests and by ``chip_smoke.py``;
+``paged_attention_split_plain``, a plain mirror of the split pass and the
+merge (tests and ``chip_smoke.py`` only); and ``launches``, the count of
+kernel calls (one per call: the split pass and its merge).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,12 +58,129 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
     return out[:, None]
 
 
+SPLIT_CHUNK = 64        # csrc kDecChunk: positions of one ring stage
+SPLIT_TABLE_CAP = 512   # csrc kTableCap: block-table ids of one split
+SPLIT_BLOCKS_PER_SM = 16
+MAX_SPLITS = 64
+_LOG2E = 1.4426950408889634
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(mb: int, bs: int, batch: int, kv_groups: int, sms: int
+               ) -> Tuple[int, int]:
+    """``(sp, splits)``: positions per split and the split count for a
+    block table of ``mb`` blocks of ``bs`` positions, ``batch`` rows and
+    ``kv_groups`` blocks per (row, split) on a card of ``sms`` SMs. About
+    ``SPLIT_BLOCKS_PER_SM`` blocks an SM when every row is full (a short
+    row's later splits exit at once); ``sp`` is a multiple of ``bs`` and
+    of the 64-position chunk, holds at most ``SPLIT_TABLE_CAP`` pool
+    blocks, and ``splits * sp`` covers ``mb * bs``."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    unit = math.lcm(SPLIT_CHUNK, bs)
+    total = mb * bs
+    if total <= 0:
+        return unit, 1
+    want = cdiv(SPLIT_BLOCKS_PER_SM * sms, max(1, batch * kv_groups))
+    splits = max(1, min(want, MAX_SPLITS, cdiv(total, unit)))
+    while True:
+        sp = cdiv(cdiv(total, splits), unit) * unit
+        if sp // bs <= SPLIT_TABLE_CAP:
+            return sp, cdiv(total, sp)
+        splits += 1
+
+
+def head_tile(group: int) -> int:
+    """Query heads one split block serves (the kernel's ``GT``, passed to
+    the C entry): 4 for GQA groups of at most 4, else 8."""
+    return 4 if group <= 4 else 8
+
+
+def call_plan(q: torch.Tensor, k_pool: torch.Tensor,
+              block_tables: torch.Tensor) -> Tuple[int, int]:
+    """The ``(sp, splits)`` a call over these tensors launches with."""
+    B, _, H, _ = q.shape
+    _, BS, KV, _ = k_pool.shape
+    G = H // KV
+    return split_plan(block_tables.shape[1], BS, B,
+                      KV * -(-G // head_tile(G)), sm_count(q.device))
+
+
+def paged_attention_split_plain(q, k_pool, v_pool, block_tables,
+                                context_lens, scale=None, k_scale=None,
+                                v_scale=None, sp: int = SPLIT_CHUNK):
+    """Plain mirror of the kernel's arithmetic: each row's positions in
+    splits of ``sp``, each split's (m, l, acc) in float32 with base-2
+    exponents (``log2(e)`` folded into the scale), merged in split order.
+    Same arguments and result as :func:`paged_attention_plain`."""
+    B, _, H, D = q.shape
+    NB, BS, KV, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    G = H // KV
+    if scale is None:
+        scale = D ** -0.5
+    scale2 = scale * _LOG2E
+    out = torch.zeros((B, 1, H, D), dtype=torch.float32, device=q.device)
+    tbl = block_tables.long().clamp(0, NB - 1)
+    for b, ctx in enumerate(context_lens.tolist()):
+        L = min(ctx, MB * BS)
+        if L <= 0:
+            continue
+        nblk = -(-L // BS)
+        blocks = tbl[b, :nblk]
+        k = k_pool[blocks].float()
+        v = v_pool[blocks].float()
+        ks = vs = None
+        if k_scale is not None:
+            ks = k_scale[blocks].float().reshape(nblk * BS, KV)[:L]
+            vs = v_scale[blocks].float().reshape(nblk * BS, KV)[:L]
+        k = k.reshape(nblk * BS, KV, D)[:L]
+        v = v.reshape(nblk * BS, KV, D)[:L]
+        qb = q[b, 0].float().reshape(KV, G, D)
+        parts = []
+        for s0 in range(0, L, sp):
+            kk, vv = k[s0:s0 + sp], v[s0:s0 + sp]
+            s = torch.einsum("kgd,lkd->kgl", qb, kk) * scale2
+            p_v = None
+            if ks is not None:
+                s = s * ks[s0:s0 + sp].t()[:, None, :]
+                p_v = vs[s0:s0 + sp].t()[:, None, :]
+            m = s.amax(dim=-1)                                  # [KV, G]
+            p = torch.exp2(s - m[..., None])
+            l = p.sum(dim=-1)
+            if p_v is not None:
+                p = p * p_v
+            parts.append((m, l, torch.einsum("kgl,lkd->kgd", p, vv)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        lsum = torch.zeros_like(mx)
+        acc = torch.zeros((KV, G, D), dtype=torch.float32, device=q.device)
+        for m, l, a in parts:
+            f = torch.exp2(m - mx)
+            lsum = lsum + f * l
+            acc = acc + f[..., None] * a
+        out[b, 0] = (acc / lsum[..., None]).reshape(H, D)
+    return out.to(q.dtype)
+
+
 def _bind(lib) -> None:
     fn = lib.ptt_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+_sm_counts = {}
+
+
+def sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens, k_scale,
@@ -97,17 +226,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     MB = block_tables.shape[1]
     if scale is None:
         scale = D ** -0.5
+    sp, splits = call_plan(q, k_pool, block_tables)
     lib = _build.load("paged_attention", _bind)
     out = torch.empty_like(q)
+    part = torch.empty(B * H * splits * (D + 4), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ptt_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, H, KV, D, NB, BS, MB, float(scale),
-            _build.DTYPE_CODES[_dtype_name(q)],
+            block_tables.data_ptr(), context_lens.data_ptr(),
+            part.data_ptr(), out.data_ptr(), B, H, KV, D, NB, BS, MB, sp,
+            splits, head_tile(H // KV), float(scale), _build.DTYPE_CODES[_dtype_name(q)],
             _build.DTYPE_CODES[_dtype_name(k_pool)], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

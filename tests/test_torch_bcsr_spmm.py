@@ -81,12 +81,18 @@ def test_bcsr_from_dense_bf16_keeps_dtype():
     _structure_equal(got, want)
 
 
-# (M, K, N, bm, bk, empty block rows)
+# (M, K, N, bm, bk, empty block rows); the last three are shapes the bf16
+# wgmma route sees on the card: blocks of one 64-row M tile and three
+# 64-deep slices, blocks of two M tiles (128 + 16 rows) and a bk that is no
+# multiple of 64, and N not a multiple of 8
 CASES = {
     "reference_case": (64, 256, 192, 16, 128, (2,)),
     "n_tail": (96, 256, 200, 32, 64, (0,)),
     "square_blocks": (128, 256, 64, 64, 64, ()),
     "n_one": (64, 128, 1, 16, 32, (3,)),
+    "bm64_bk192": (128, 384, 72, 64, 192, (1,)),
+    "bm144_bk48": (288, 192, 40, 144, 48, (0,)),
+    "n_odd": (144, 128, 13, 48, 32, (2,)),
 }
 
 
@@ -110,6 +116,37 @@ def test_bcsr_spmm_matches_reference_kernel(case, dtype):
         assert np.abs(g - want).max() <= 1e-2 * np.abs(want).max()
     for r in empty:
         assert (g[r * bm:(r + 1) * bm] == 0).all()     # empty row -> zeros
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bcsr_spmm_strided_x_matches_reference_kernel(dtype):
+    """x as a view whose row stride (a multiple of 8 elements) exceeds N,
+    as the wgmma route reads it in place on the card."""
+    M, K, N, bm, bk = 128, 192, 45, 64, 48
+    d = _pruned(7, M, K, bm, bk, empty_rows=(1,))
+    x = np.random.RandomState(8).randn(K, N).astype(np.float32)
+    jd, jx = jnp.asarray(d).astype(dtype), jnp.asarray(x).astype(dtype)
+    crows, cols, vals = jb.bcsr_from_dense(jd, bm, bk)
+    want = np.asarray(jb.bcsr_spmm(crows, cols, vals, jx).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    buf = torch.full((K, 56), float("nan"), dtype=tdt)
+    buf[:, :N] = torch.from_numpy(x).to(tdt)
+    xs = buf[:, :N]
+    assert xs.stride(0) == 56 and not xs.is_contiguous()
+    tc, tcols, tvals = tb.bcsr_from_dense(torch.from_numpy(d).to(tdt), bm, bk)
+    g = tb.bcsr_spmm(tc, tcols, tvals, xs).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(g, want, atol=1e-4, rtol=0)
+    else:
+        assert np.abs(g - want).max() <= 1e-2 * np.abs(want).max()
+    assert (g[bm:2 * bm] == 0).all()
+
+
+def test_row_order_puts_the_longest_runs_first():
+    crows = np.array([0, 2, 2, 7, 10, 13, 14])
+    order = tb.row_order(crows)
+    assert order.dtype == np.int32
+    assert order.tolist() == [2, 3, 4, 0, 5, 1]    # ties in row order
 
 
 def test_reference_golden_matches():
@@ -173,12 +210,15 @@ def test_device_structure_refuses_a_broken_structure(bad):
         cols = np.array([0, 1, 4])
     with pytest.raises(ValueError):
         tb.device_structure(crows, cols, 3, 4, "cpu")
-    c, k = tb.device_structure(np.array([0, 2, 3]), np.array([0, 1, 1]), 3,
-                               4, "cpu")
-    assert c.dtype == k.dtype == torch.int32
+    c, k, o = tb.device_structure(np.array([0, 2, 3]), np.array([0, 1, 1]),
+                                  3, 4, "cpu")
+    assert c.dtype == k.dtype == o.dtype == torch.int32
+    assert o.tolist() == [0, 1]         # the launch order: row_order's
 
 
 def test_kernel_refuses_a_cpu_tensor():
-    c, k = tb.device_structure(np.array([0, 1]), np.array([0]), 1, 1, "cpu")
+    structure = tb.device_structure(np.array([0, 1]), np.array([0]), 1, 1,
+                                    "cpu")
     with pytest.raises(ValueError, match="no kernel"):
-        tb.bcsr_spmm_kernel(c, k, torch.zeros(1, 16, 16), torch.zeros(16, 4))
+        tb.bcsr_spmm_kernel(*structure, torch.zeros(1, 16, 16),
+                            torch.zeros(16, 4))

@@ -139,3 +139,119 @@ def test_a_tensor_core_name_with_a_matmul_pattern_stays_flash():
             "GemmShape<64, 64, 16>, __nv_bfloat16 const*)")
     cats = _smoke().categorize({name: 3.0}, 3.0)
     assert cats["flash_bwd"] == 3.0 and cats["matmul"] == 0.0
+
+
+@pytest.mark.parametrize("src", ["paged_attention.cu",
+                                 "ragged_paged_attention.cu"])
+def test_categorize_sorts_every_paged_kernel_into_paged_attention(src):
+    """Both passes of the gang decode (the split-KV pass and its merge) and
+    the ragged kernel land in "paged_attention", whatever their template
+    arguments."""
+    smoke = _smoke()
+    names = _kernels(src)
+    if src == "paged_attention.cu":
+        assert set(names) == set(smoke.DECODE_KERNELS)
+    assert names
+    for name in names:
+        for args in ("__nv_bfloat16, signed char, 128, 4", "float, 64"):
+            prof = (f"void (anonymous namespace)::{name}<{args}>((anonymous "
+                    f"namespace)::Decode)")
+            cats = smoke.categorize({prof: 0.75}, 0.75)
+            assert cats["paged_attention"] == 0.75, (name, cats)
+            assert cats["unaccounted"] == 0.0
+
+
+def test_ptxas_rows_name_the_bcsr_and_decode_kernels():
+    """The wgmma BCSR kernel and both gang-decode passes get rows
+    (registers, spills, shared memory as the sources size it), int8 and
+    a substituted bf16 among the template arguments."""
+    txt = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_12_"
+        "bcsr_spmm_cu_y22bcsr_spmm_wgmma_kernelILi64EEEvNS_6SparseE' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_"
+        "paged_attention_cu_y28paged_attention_split_kernelI13__nv_bfloat16"
+        "aLi128ELi4EEEvNS_6DecodeE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 135 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_"
+        "paged_attention_cu_y28paged_attention_split_kernelI13__nv_bfloat16"
+        "S1_Li64ELi8EEEvNS_6DecodeE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 136 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_"
+        "paged_attention_cu_y28paged_attention_merge_kernelIfLi128EEEvNS_6"
+        "DecodeE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers"])
+    smoke = _smoke()
+    rows = {r["kernel"]: r for r in smoke.ptxas_tc_kernels(txt)}
+    assert set(rows) == {
+        "bcsr_spmm_wgmma_kernel<64>",
+        "paged_attention_split_kernel<bf16, int8, 128, 4>",
+        "paged_attention_split_kernel<bf16, bf16, 64, 8>",
+        "paged_attention_merge_kernel<float, 128>"}
+    assert rows["bcsr_spmm_wgmma_kernel<64>"]["smem_bytes"] == \
+        4 * (64 * 64 + 64 * 256) * 2 + 1024
+    # int8: 3 stages of 64 K and V rows of 128 bytes and their scales, q
+    # [4][128] and P [4][4][16] in float32, 512 table ids
+    assert rows["paged_attention_split_kernel<bf16, int8, 128, 4>"][
+        "smem_bytes"] == 3 * (2 * 64 * 128 + 512) + 4 * 128 * 4 \
+        + 4 * 4 * 16 * 4 + 512 * 4
+    assert rows["paged_attention_split_kernel<bf16, bf16, 64, 8>"][
+        "registers"] == 136
+    assert rows["paged_attention_merge_kernel<float, 128>"]["smem_bytes"] \
+        == 0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_generate_checks_hold_its_decode_calls_and_tokens(kv, monkeypatch):
+    """``decode_capture`` records ``generate()``'s last-layer gang-decode
+    calls, ``check_decode_calls`` holds each against the plain versions at
+    the call's own split plan, and ``plain_attention_generate`` compares
+    the tokens with a plain-attention ``generate()``. On the CPU both
+    paths are the plain version, so the errors are 0 and every token
+    agrees; a tiny Llama, prompts of 70 tokens."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    cs = _smoke()
+    monkeypatch.setattr(pa, "sm_count", lambda device: 132)
+    cfg = LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=160,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 128, (4, 70)))
+    flags.set_flags({"kv_cache_dtype": kv})
+    try:
+        with cs.decode_capture(torch, cfg.num_hidden_layers) as calls:
+            out = model.generate(ids, max_new_tokens=cs.GEN_NEW_TOKENS,
+                                 temperature=0.0, cache_type="paged",
+                                 block_size=64)
+    finally:
+        flags.set_flags({"kv_cache_dtype": "auto"})
+    assert pa.paged_attention.__name__ == "paged_attention"   # restored
+    got = cs.check_decode_calls(torch, "generate", calls)
+    steps = cs.GEN_NEW_TOKENS - 1
+    assert (got["calls"], got["batch"], got["contexts"]) == (
+        steps, 4, [71, 70 + steps])
+    assert got["pool_dtype"] == ("int8" if kv == "int8" else "bfloat16")
+    assert got["max_abs_err"] == 0.0
+    assert cs.plain_attention_generate(torch, model, ids, out, kv) == dict(
+        agreement=1.0, flips=[])
+    # a token changed at row 1, position 75: one flip there, refused once
+    # its margin is over the limit
+    bad = out.clone()
+    bad[1, 75] = (bad[1, 75] + 1) % cfg.vocab_size
+    res = cs.plain_attention_generate(torch, model, ids, bad, kv)
+    assert [(f["row"], f["position"]) for f in res["flips"]] == [(1, 75)]
+    assert res["agreement"] == 1 - 1 / (4 * cs.GEN_NEW_TOKENS)
+    monkeypatch.setattr(cs, "FLIP_MARGIN_MAX", 0.0)
+    with pytest.raises(AssertionError, match="flips at logit margin"):
+        cs.plain_attention_generate(torch, model, ids, bad, kv)

@@ -36,10 +36,19 @@ Lamb's two passes with the trust ratios between them, over float32 and
 bf16 compute and grad dtypes and found 0 and 1, and ``optimizer.Lamb``'s
 fused route equals its per-param route on the card. The gang-decode
 kernel over an int8 pool matches its plain version (bf16 and float32 q,
-head_dim 64 and 128). The block-CSR SpMM matches its plain version over
-float32 and bf16, blocks 16 x 128, 128 x 128, 32 x 16 (float32) and
-48 x 32, N tails, empty block rows and an empty matrix, with one launch
-per call, and refuses bf16 blocks that are not multiples of 16.
+head_dim 64 and 128); its split-KV pass and merge over contexts 0, 1, a
+split boundary and one past it and 2100 (many splits at the serving head
+geometry) for every (q, pool) dtype pair, giving the same bytes on two
+launches, and at split counts 1, 2 and many (the plan forced) with 16
+query heads a kv head (two head groups). The block-CSR SpMM matches its
+plain version over float32 and bf16, blocks 16 x 128, 128 x 128, 144 x
+32, 48 x 48 and 64 x 192, N tails, empty block rows and an empty matrix,
+with one launch per call, and refuses bf16 blocks that are not multiples
+of 16; bf16 takes the wgmma route for an x whose rows are 16-byte
+aligned (a strided view read in place, NaN past N never reaching the
+output) and the WMMA route for a contiguous x with N % 8 != 0, the route
+asserted, the wgmma route bit for bit run to run and with or without the
+row order.
 The grouped GEMM matches its plain version over float32 and bfloat16,
 groups per expert 1 and 2, whole and tail C/K/N tiles, K not a multiple
 of the 64-deep k tile, rows that are not 16-byte aligned, w contiguous,
@@ -178,6 +187,60 @@ def test_gang_decode_int8_pool_kernel_matches_plain(dev, dtype, h, kv, d):
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert bool((got[0] == 0).all()), "context_len 0 must give zeros"
+
+
+def _decode_case(dev, ctxs, dtype, kv_dtype, h=32, kv=8, d=128, bs=64,
+                 mb=40, seed=0):
+    nb = sum(-(-c // bs) for c in ctxs) + 4
+    (q, kp, vp, tbl, lens, _), kw = _layout(
+        dev, [1] * len(ctxs), ctxs, len(ctxs), h, kv, d, dtype, kv_dtype,
+        bs=bs, nb=nb, mb=mb, seed=seed)
+    return (q[:, None].contiguous(), kp, vp, tbl, lens), kw
+
+
+@pytest.mark.parametrize("kv_dtype", ["same", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gang_decode_contexts_across_splits(dev, dtype, kv_dtype):
+    """Contexts 0, 1, one split, a split boundary and one past it, and the
+    smoke's 2100 (many splits at the serving head geometry), every
+    (q, pool) dtype pair; the split pass and its merge give the same
+    bytes on two launches."""
+    kvt = torch.int8 if kv_dtype == "int8" else dtype
+    args, kw = _decode_case(dev, [2100] * 8, dtype, kvt)
+    sp, splits = pa.call_plan(args[0], args[1], args[3])
+    assert splits > 4
+    ctxs = [0, 1, sp - 1, sp, sp + 1, 2 * sp, 1500, 2100]
+    args, kw = _decode_case(dev, ctxs, dtype, kvt)
+    assert pa.call_plan(args[0], args[1], args[3]) == (sp, splits)
+    got = pa.paged_attention(*args, **kw)
+    again = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert bool((got[0] == 0).all()), "context_len 0 must give zeros"
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("plan", ["one_split", "two_splits", "many_splits"])
+def test_gang_decode_split_counts(dev, monkeypatch, plan, d):
+    """The kernel at split counts 1, 2 and many (the plan forced), the
+    contexts past one split, 16 query heads a kv head (two head groups);
+    all within the plain version's limits."""
+    mb, bs = 24, 64
+    sp = {"one_split": mb * bs, "two_splits": mb * bs // 2,
+          "many_splits": 64}[plan]
+    monkeypatch.setattr(pa, "split_plan",
+                        lambda *a: (sp, -(-(mb * bs) // sp)))
+    ctxs = [700, 0, 1536, 65, 768, 769]
+    args, _ = _decode_case(dev, ctxs, torch.bfloat16, torch.bfloat16, h=32,
+                           kv=2, d=d, mb=mb, seed=5)   # G 16: two groups
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    assert bool((got[1] == 0).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -639,11 +702,13 @@ def test_lamb_fused_equals_per_param_on_the_card(dev):
 # -- block-CSR SpMM ----------------------------------------------------------
 
 # (M, K, N, bm, bk): whole and tail N tiles, blocks of one and of several
-# M tiles, bk that is not a multiple of the 32-deep step
+# M tiles, bk that is not a multiple of the 32-deep step nor of the
+# wgmma route's 64-deep one, and a block deeper than one 64-deep slice
 BCSR_DIMS = {"ref_blocks": (64, 256, 192, 16, 128),
              "big_blocks": (384, 512, 300, 128, 128),
              "tall_blocks": (288, 96, 130, 144, 32),
-             "odd_blocks": (96, 144, 70, 48, 48)}
+             "odd_blocks": (96, 144, 70, 48, 48),
+             "deep_blocks": (192, 576, 264, 64, 192)}
 
 
 def _bcsr_case(dev, dims, dtype, empty=True, keep=0.5, seed=0):
@@ -680,6 +745,47 @@ def test_bcsr_spmm_kernel_matches_plain(dev, dtype, dims, keep):
     assert bool((got[-bm:] == 0).all()), "an empty block row must be zeros"
     if keep == 0.0:
         assert cols.size == 0 and bool((got == 0).all())
+
+
+def _padded_rows(x, pad=8):
+    """x as a view of a wider buffer: its row stride a multiple of 8
+    elements, more than N (the wgmma route reads such an x in place)."""
+    K, N = x.shape
+    buf = torch.full((K, -(-N // 8) * 8 + pad), float("nan"),
+                     dtype=x.dtype, device=x.device)
+    buf[:, :N] = x
+    return buf[:, :N]
+
+
+@pytest.mark.parametrize("dims", sorted(BCSR_DIMS))
+def test_bcsr_spmm_bf16_routes_and_strided_x(dev, dims):
+    """bf16 with 16-byte-aligned rows takes the wgmma route, x a strided
+    view read in place (NaN past N in its rows must not reach the output);
+    a contiguous x whose rows are not 16-byte aligned takes the WMMA
+    route. Both match the plain version, empty block rows exactly zero,
+    and the wgmma route gives the same bytes on two launches."""
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+    crows, cols, vals, x = _bcsr_case(dev, dims, torch.bfloat16, seed=3)
+    want = bs.bcsr_spmm_plain(crows, cols, vals, x)
+    lim = 1e-2 * max(float(want.float().abs().max()), 1.0)
+    xs = _padded_rows(x)
+    assert xs.stride(0) % 8 == 0 and xs.stride(0) > xs.shape[1]
+    assert bs.bcsr_route(vals, xs) == "wgmma"
+    before = bs.launches.count
+    got = bs.bcsr_spmm(crows, cols, vals, xs)
+    again = bs.bcsr_spmm(crows, cols, vals, xs)
+    torch.cuda.synchronize()
+    assert bs.launches.count == before + 2
+    assert float((got.float() - want.float()).abs().max()) <= lim
+    assert bool((got[-vals.shape[1]:] == 0).all())
+    assert torch.equal(got, again)
+    if x.shape[1] % 8:
+        assert bs.bcsr_route(vals, x) == "wmma"
+        got = bs.bcsr_spmm(crows, cols, vals, x)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= lim
+    else:
+        assert bs.bcsr_route(vals, x) == "wgmma"
 
 
 def test_bcsr_spmm_wrapper_refuses_what_the_kernel_does_not_take(dev):
