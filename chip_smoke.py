@@ -21,14 +21,19 @@ Phases (any failure raises and the script exits non-zero):
 2. serving kernel checks at the serving path's head geometry (H=32, KV=8,
    D=128, BS=64, a 512-token step over 16 rows mixing decode rows, prefill
    chunks at several offsets, empty rows and padding tokens): each kernel
-   against its plain version (the ragged kernel over bf16 and int8 pools,
+   against its plain version (the ragged kernels over bf16 and int8 pools,
    and float32; the gang-decode kernel over bf16 and int8 pools), with
    planted faults, timed with CUDA events beside its bound and one
    PyTorch library call (``scaled_dot_product_attention`` over the
    gathered, dequantized dense KV, timed here only: the port never calls
-   it); the gang decode (a split-KV pass and a merge) also against the
-   plain mirror of its split arithmetic at its split plan, with GB/s, the
-   share of the bound and two launches giving the same bytes;
+   it); the ragged kernels (split pass and merge for decode rows, a
+   tensor-core tile pass for the other rows) also at the engine's decode
+   step, its prefill step and a speculative verify step (RAGGED_MIXES),
+   each against the plain mirror of their arithmetic at the call's split
+   plan and tile schedule, with the wrapper's host time a call; the gang
+   decode (a split-KV pass and a merge) also against the plain mirror of
+   its split arithmetic at its split plan; each with GB/s, the share of
+   the bound and two launches giving the same bytes;
 3. training kernel checks at the training shapes (b 2, s 2048, 32/8 heads,
    d 128, causal; bf16 and float32): flash forward (out, lse), dq and
    dk/dv against the plain versions, with two planted faults that the
@@ -137,11 +142,14 @@ Phases (any failure raises and the script exits non-zero):
    the choices dropped by capacity and each MoE layer's min/max counts,
    and one profiled step with the grouped GEMM as its own part;
 7. last, after every timed phase (a profiler session slows the launches
-   that follow it): the kernels the card ran for one gang decode over a
-   bf16 and an int8 pool (the split-KV pass and its merge) and for
-   ``sparse.bcsr_matmul`` at the block phase's bf16 and float32 shapes
-   (the wgmma route with the M tile its ``bm`` picks, the FMA kernel), by
-   the profiler's names.
+   that follow it): the kernels the card ran, by the profiler's names and
+   with their device ms a call, for the ragged op at the smoke mix (bf16,
+   int8 and float32 pools) and the engine's decode and prefill steps
+   (bf16 and int8: the split pass, the tensor-core tile pass and the
+   merge), for one gang decode over a bf16 and an int8 pool (the split-KV
+   pass and its merge) and for ``sparse.bcsr_matmul`` at the block
+   phase's bf16 and float32 shapes (the wgmma route with the M tile its
+   ``bm`` picks, the FMA kernel).
 
 Every kernel time is the median of CUDA-event windows around one call,
 the L2 flushed before each and the card held busy while the host
@@ -256,25 +264,53 @@ SMOKE_T, SMOKE_NB, SMOKE_MB, SMOKE_BS = 512, 1024, 128, 64
 H, KV, D = 32, 8, 128
 
 
-def smoke_layout(torch, rng, dtype, dev="cuda"):
-    R = len(SMOKE_ROWS)
-    qlens = [q for q, _ in SMOKE_ROWS]
-    ctxs = [c for _, c in SMOKE_ROWS]
+# the engine's steps at the serving geometry (the smoke's 1024-block pool,
+# MB 128, BS 64, T 512): a decode step (16 decode rows at contexts
+# 128-2112, 496 padding tokens), a prefill step (two 256-token chunks at
+# contexts 2048 and 256; the table's other 14 rows at q_len 0) and a
+# speculative verify step (16 rows of 1 + 4 tokens)
+ENGINE_CTX = [int(c) for c in np.linspace(128, 2112, 16).round()]
+RAGGED_MIXES = {
+    "smoke_mix": SMOKE_ROWS,
+    "engine_decode": [(1, c) for c in ENGINE_CTX],
+    "engine_prefill": [(256, 2048), (256, 256)]
+                      + [(0, c) for c in ENGINE_CTX[:14]],
+    "spec_verify": [(5, c) for c in ENGINE_CTX],
+}
+# the ragged kernels by the stems of their symbols: the split pass and
+# merge (decode rows), the tile pass (bf16 q: tensor cores; float32 q:
+# CUDA cores)
+RAGGED_TC_KERNEL = "ragged_paged_attention_tc_kernel"
+RAGGED_F32_KERNEL = "ragged_paged_attention_kernel"
+RAGGED_MERGE_KERNEL = "ragged_paged_attention_merge_kernel"
+
+
+def mix_tables(rng, rows):
+    """Block tables (each row owns random blocks of the pool, disjoint from
+    the other rows'; entries past a context stay 0), context_lens and
+    cu_q_lens of a mix of (q_len, context_len) rows, numpy int32."""
+    qlens = [q for q, _ in rows]
+    ctxs = [c for _, c in rows]
     cu = np.concatenate([[0], np.cumsum(qlens)]).astype(np.int32)
-    tbl = np.zeros((R, SMOKE_MB), np.int32)
+    tbl = np.zeros((len(rows), SMOKE_MB), np.int32)
     perm = rng.permutation(SMOKE_NB)
     nxt = 0
     for r, c in enumerate(ctxs):
         n = -(-c // SMOKE_BS)
-        tbl[r, :n] = perm[nxt:nxt + n]   # entries past the context stay 0
+        tbl[r, :n] = perm[nxt:nxt + n]
         nxt += n
+    return tbl, np.asarray(ctxs, np.int32), cu
+
+
+def smoke_layout(torch, rng, dtype, dev="cuda"):
+    tbl, ctxs, cu = mix_tables(rng, SMOKE_ROWS)
     g = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
     shape = (SMOKE_NB, SMOKE_BS, KV, D)
     q = torch.randn((SMOKE_T, H, D), generator=g, device=dev).to(dtype)
     kp = torch.randn(shape, generator=g, device=dev).to(dtype)
     vp = torch.randn(shape, generator=g, device=dev).to(dtype)
     put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (q, kp, vp, put(tbl), put(np.asarray(ctxs, np.int32)), put(cu))
+    return (q, kp, vp, put(tbl), put(ctxs), put(cu))
 
 
 def dense_sdpa_inputs(torch, q, kp, vp, tbl, ctx, cu, ks=None, vs=None):
@@ -368,10 +404,11 @@ DECODE_KERNELS = ("paged_attention_split_kernel",
 
 def profiled_kernels(torch, fn, stems):
     """The device activities that ``fn`` runs, by the names the profiler
-    gives them: the route as the card took it (three calls a window, up
-    to three windows until one records device time). Every stem in
-    ``stems`` must name one of them. A profiler that cannot trace leaves
-    the route not measured (recorded, not raised)."""
+    gives them, with each one's device ms a call: the route as the card
+    took it (three calls a window, up to three windows until one records
+    device time). Every stem in ``stems`` must name one of them. A
+    profiler that cannot trace leaves the route not measured (recorded,
+    not raised)."""
     def run():
         for _ in range(3):
             fn()
@@ -386,7 +423,9 @@ def profiled_kernels(torch, fn, stems):
     if missing:
         raise AssertionError(f"the call ran {names}, none of them "
                              f"{missing}")
-    return {"kernels": [n[:120] for n in names]}
+    return {"kernels": [n[:120] for n in names],
+            "ms_per_call": {n[:120]: prof["all_kernels"][n] / 3
+                            for n in names}}
 
 
 def host_us(torch, fn, n: int = 50) -> float:
@@ -422,11 +461,115 @@ def decode_extras(torch, pa, name, args, kw, ms, flops, nbytes, b_ms):
     return out
 
 
+def ragged_case(torch, name, args, kw, kv_item, quant, flush, faults):
+    """The ragged kernels at one mix and pool dtype: against the plain
+    version (step padding exact zeros) and the plain mirror of their
+    arithmetic at the call's split plan, planted faults (``faults``) in the
+    longest row with query tokens, two calls giving the same bytes, the
+    wrapper's host time a call (the engine makes 32 calls a step), kernel
+    ms beside its bound, the plain version and SDPA over the gathered
+    dense KV (timed here only)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    q, kp, vp, tbl, ctx, cu = args
+    dname = "float32" if q.dtype == torch.float32 else "bfloat16"
+    call = lambda: rpa.ragged_paged_attention(*args, **kw)  # noqa: E731
+    plain = lambda: rpa.ragged_paged_attention_plain(*args, **kw)  # noqa
+    pad_from = int(cu[-1])
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    err = check_close(torch, name, got, want, dname, pad_from)
+    sp, splits = pa.call_plan(q, kp, tbl)
+    piece, items = rpa.call_schedule(q, kp, tbl, ctx, cu)
+    split_err = check_close(
+        torch, f"{name} vs its split mirror", got,
+        rpa.ragged_paged_attention_split_plain(*args, sp=sp, piece=piece,
+                                               **kw), dname, pad_from)
+    res = dict(max_abs_err=err, max_abs_err_vs_split_mirror=split_err,
+               split_positions=sp, splits=splits, piece_steps=piece,
+               tile_items=len(items),
+               bitwise_twice=bitwise_twice(torch, name, call),
+               host_us_per_call=host_us(torch, call))
+    if faults:
+        res["planted_fault_max_abs_err"] = planted_faults(
+            torch, name, rpa.ragged_paged_attention_plain, args, kw, want, 4,
+            (cu[1:] - cu[:-1]) > 0)
+    ms = time_ms(torch, call, flush=flush)
+    plain_ms = time_ms(torch, plain, iters=3, flush=flush)
+    dq, dk, dv, mask = dense_sdpa_inputs(
+        torch, q, kp, vp, tbl, ctx, cu, kw.get("k_scale"), kw.get("v_scale"))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        dq, dk, dv, attn_mask=mask), flush=flush)
+    del dq, dk, dv, mask
+    # q is read for the live tokens only (below cu[R]); the output is
+    # written whole, the step padding as zeros
+    nbytes = ((int(cu[-1]) + q.shape[0]) * q[0].numel() * q.element_size()
+              + rpa.kv_bytes_read(ctx, cu, SMOKE_BS, KV, D, kv_item, quant)
+              + 4 * (tbl.numel() + ctx.numel() + cu.numel()))
+    flops = rpa.attention_flops(ctx, cu, H, D)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S
+                       if dname == "float32" else BF16_FLOPS_PER_S)
+    res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, bytes=nbytes, flops=flops)
+    res.update(achieved({"k": ms}, {"k": flops}, {"k": b_ms},
+                        {"k": nbytes})["k"])
+    log(f"ragged_paged_attention[{name}]: max_abs_err {err:.3e} (vs the "
+        f"split mirror {split_err:.3e}) ms {ms:.4f} plain_ms "
+        f"{plain_ms:.3f} library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} "
+        f"({b_by}), {res['bound_share']:.1%} of the bound; {splits} splits "
+        f"of {sp} positions, {len(items)} tile pieces of <= {piece} steps, "
+        f"two calls bitwise equal, "
+        f"{res['host_us_per_call']:.1f} us of host time a call"
+        + (f", planted faults rejected: "
+           f"{res['planted_fault_max_abs_err']}" if faults else ""))
+    return res
+
+
+def quantized_pools(torch, kp, vp):
+    """An int8 pool as the serving cache writes it (per token slot and kv
+    head), with its scales."""
+    from paddle_tpu_torch.ops.kernels.quant_common import (
+        absmax_scale, quantize_symmetric)
+    ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
+    return (quantize_symmetric(kp, ks[..., None]),
+            quantize_symmetric(vp, vs[..., None]), ks, vs)
+
+
+def ragged_cases(torch, rng, layout, flush):
+    """Every mix of RAGGED_MIXES over the smoke's pool: bf16 and int8
+    pools (the smoke mix also float32). Keys: the smoke mix by dtype
+    (``bfloat16``, ``int8``, ``float32``), the others ``<mix>/<dtype>``."""
+    q, kp, vp, tbl, ctx, cu = layout
+    kq, vq, ks, vs = quantized_pools(torch, kp, vp)
+    g = torch.Generator(device="cuda").manual_seed(int(rng.randint(1 << 30)))
+    put = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    res = {}
+    for mix, rows in RAGGED_MIXES.items():
+        if mix != "smoke_mix":
+            t, c, u = mix_tables(rng, rows)
+            q = torch.randn((SMOKE_T, H, D), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            tbl, ctx, cu = put(t), put(c), put(u)
+        cases = {"bfloat16": ((q, kp, vp, tbl, ctx, cu), {}, 2, False),
+                 "int8": ((q, kq, vq, tbl, ctx, cu),
+                          dict(k_scale=ks, v_scale=vs), 1, True)}
+        if mix == "smoke_mix":
+            cases["float32"] = ((q.float(), kp.float(), vp.float(), tbl, ctx,
+                                 cu), {}, 4, False)
+        for label, (args, kw, item, quant) in cases.items():
+            key = label if mix == "smoke_mix" else f"{mix}/{label}"
+            res[key] = ragged_case(torch, key, args, kw, item, quant, flush,
+                                   faults=label != "float32")
+            del args
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernels(torch, seed, report):
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
-    from paddle_tpu_torch.ops.kernels.quant_common import (
-        absmax_scale, quantize_symmetric)
     import torch.nn.functional as F
 
     rng = np.random.RandomState(seed)
@@ -434,63 +577,11 @@ def phase_kernels(torch, seed, report):
     flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
     out = {}
 
-    # ragged kernel, bf16 / int8 / float32 pools
-    q, kp, vp, tbl, ctx, cu = smoke_layout(torch, rng, torch.bfloat16)
-    pad_from = int(cu[-1])
-    used = {}
-    for label in ("bfloat16", "int8", "float32"):
-        if label == "int8":
-            ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
-            kq = quantize_symmetric(kp, ks[..., None])
-            vq = quantize_symmetric(vp, vs[..., None])
-            args = (q, kq, vq, tbl, ctx, cu)
-            kw = dict(k_scale=ks, v_scale=vs)
-            kv_item, quant = 1, True
-        elif label == "float32":
-            args = (q.float(), kp.float(), vp.float(), tbl, ctx, cu)
-            kw, kv_item, quant = {}, 4, False
-        else:
-            args = (q, kp, vp, tbl, ctx, cu)
-            kw, kv_item, quant = {}, 2, False
-        got = rpa.ragged_paged_attention(*args, **kw)
-        torch.cuda.synchronize()
-        want = rpa.ragged_paged_attention_plain(*args, **kw)
-        err = check_close(torch, f"ragged[{label}]", got, want,
-                          "float32" if label == "float32" else "bfloat16",
-                          pad_from)
-        faults = planted_faults(
-            torch, f"ragged[{label}]", rpa.ragged_paged_attention_plain,
-            args, kw, want, 4, (cu[1:] - cu[:-1]) == 1) \
-            if label == "bfloat16" else None
-        ms = time_ms(torch, lambda: rpa.ragged_paged_attention(*args, **kw),
-                     flush=flush)
-        plain_ms = time_ms(
-            torch, lambda: rpa.ragged_paged_attention_plain(*args, **kw),
-            iters=3, flush=flush)
-        dq, dk, dv, mask = dense_sdpa_inputs(
-            torch, args[0], args[1], args[2], tbl, ctx, cu,
-            kw.get("k_scale"), kw.get("v_scale"))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            dq, dk, dv, attn_mask=mask), flush=flush)
-        del dq, dk, dv, mask
-        q_item = args[0].element_size()
-        nbytes = (2 * args[0].numel() * q_item
-                  + rpa.kv_bytes_read(ctx, cu, SMOKE_BS, KV, D, kv_item,
-                                      quant)
-                  + 4 * (tbl.numel() + ctx.numel() + cu.numel()))
-        flops = rpa.attention_flops(ctx, cu, H, D)
-        b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S
-                           if label == "float32" else BF16_FLOPS_PER_S)
-        used[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                           bytes=nbytes, flops=flops)
-        if faults:
-            used[label]["planted_fault_max_abs_err"] = faults
-        log(f"ragged_paged_attention[{label}]: max_abs_err {err:.3e} "
-            f"ms {ms:.4f} plain_ms {plain_ms:.3f} library_ms {lib_ms:.4f} "
-            f"bound_ms {b_ms:.4f} ({b_by})"
-            + (f", planted faults rejected: {faults}" if faults else ""))
-    out["ragged_paged_attention"] = used
+    # ragged kernels over bf16 / int8 / float32 pools at the smoke mix,
+    # then the engine's steps
+    layout = smoke_layout(torch, rng, torch.bfloat16)
+    out["ragged_paged_attention"] = ragged_cases(torch, rng, layout, flush)
+    _, kp, vp, tbl, _, _ = layout
 
     # gang-decode kernel, bf16: 16 rows, one with context 0
     ctxs = np.array([c for _, c in SMOKE_ROWS], np.int32)
@@ -549,9 +640,8 @@ def phase_kernels(torch, seed, report):
 
     # gang-decode kernel over an int8 pool: the same rows and blocks, the
     # pool quantized per token slot as the serving cache writes it
-    ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
-    args = (qd, quantize_symmetric(kp, ks[..., None]),
-            quantize_symmetric(vp, vs[..., None]), tbl_d, lens)
+    kq, vq, ks, vs = quantized_pools(torch, kp, vp)
+    args = (qd, kq, vq, tbl_d, lens)
     kw = dict(k_scale=ks, v_scale=vs)
     got = pa.paged_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -1288,12 +1378,24 @@ def decode_smem_bytes(args) -> int:
         + 512 * 4
 
 
+# dynamic shared memory of the ragged tensor-core tile pass, as
+# csrc/ragged_paged_attention.cu sizes it: two stages of K and V bf16
+# tiles [64][D] (bf16 pool), or one K/V pair and two stages of int8 K/V
+# codes and their scales (Q stays in registers)
+def ragged_smem_bytes(args) -> int:
+    kt, d = args[0], int(args[1])
+    if kt == "int8":
+        return 2 * 64 * d * 2 + 2 * (2 * 64 * d + 2 * 64 * 4) + 1024
+    return 2 * 2 * 64 * d * 2 + 1024
+
+
 def ptxas_tc_kernels(txt: str):
     """Registers, spills and shared memory of each redesigned kernel in
     nvcc's ``-Xptxas -v`` report: the bf16 attention kernels (dynamic
     shared memory), every GEMM kernel of grouped_gemm.cu and
-    weight_only_gemm.cu, the bf16 wgmma BCSR kernel and both gang-decode
-    passes (dynamic, or the static bytes ptxas reports)."""
+    weight_only_gemm.cu, the bf16 wgmma BCSR kernel, both split-KV
+    passes (the gang decode's and the ragged decode rows') and the ragged
+    tensor-core tile pass (dynamic, or the static bytes ptxas reports)."""
     rows, name = [], None
     for line in txt.splitlines():
         m = re.search(r"Compiling entry function '\w*?((?:flash|varlen)_tc_"
@@ -1305,12 +1407,15 @@ def ptxas_tc_kernels(txt: str):
             continue
         m = re.search(r"Compiling entry function '\w*?\d((?:int4|grouped)"
                       r"_gemm_\w*?kernel|bcsr_spmm_wgmma_kernel|paged_"
-                      r"attention_(?:split|merge)_kernel)I(\w*?)EEv", line)
+                      r"attention_(?:split|merge)_kernel|ragged_paged_"
+                      r"attention_tc_kernel)I(\w*?)EEv", line)
         if m:
             args = demangled_args(m.group(2))
             name = dict(kernel=f"{m.group(1)}<{', '.join(args)}>",
                         smem_bytes=decode_smem_bytes(args)
                         if "split" in m.group(1)
+                        else ragged_smem_bytes(args)
+                        if "ragged" in m.group(1)
                         else gemm_smem_bytes(m.group(1), args))
             continue
         if name is None:
@@ -2668,30 +2773,52 @@ def phase_bcsr(torch, seed, report, flush):
 # -- last: the routes the redesigned kernels took -------------------------------
 
 def phase_routes(torch, seed, report):
-    """The kernels the card ran for the gang decode (bf16 and int8 pools,
-    the serving head geometry) and for ``sparse.bcsr_matmul`` (each
-    BCSR_SHAPES case the block phase times), by the profiler's names: the
-    split-KV pass and its merge, the bf16 wgmma route (64- and 128-row M
-    tiles) and the float32 FMA kernel. Run after every timed phase: a
-    profiler session may slow the launches that follow it."""
+    """The kernels the card ran for the ragged op (bf16, int8 and float32
+    pools at the smoke mix, bf16 and int8 at the engine's decode and
+    prefill steps), the gang decode (bf16 and int8 pools, the serving head
+    geometry) and ``sparse.bcsr_matmul`` (each BCSR_SHAPES case the block
+    phase times), by the profiler's names, with each one's device ms a
+    call: the split-KV pass and its merge, the ragged tile pass (bf16:
+    tensor cores; float32: CUDA cores), the bf16 wgmma BCSR route (64-
+    and 128-row M tiles) and the float32 FMA kernel. Run after every timed
+    phase: a profiler session may slow the launches that follow it."""
     from paddle_tpu_torch import sparse
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.ops.kernels.quant_common import (
-        absmax_scale, quantize_symmetric)
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     rng = np.random.RandomState(seed)
-    q, kp, vp, tbl, ctx, _ = smoke_layout(torch, rng, torch.bfloat16)
+    q, kp, vp, tbl, ctx, cu = smoke_layout(torch, rng, torch.bfloat16)
     qd = q[:len(SMOKE_ROWS), None].contiguous()
-    ks, vs = absmax_scale(kp, -1), absmax_scale(vp, -1)
+    kq, vq, ks, vs = quantized_pools(torch, kp, vp)
+    ragged_bf16 = (DECODE_KERNELS[0], RAGGED_TC_KERNEL, RAGGED_MERGE_KERNEL)
     routes = {
         "paged_attention[bfloat16]": profiled_kernels(
             torch, lambda: pa.paged_attention(qd, kp, vp, tbl, ctx),
             DECODE_KERNELS),
         "paged_attention[int8]": profiled_kernels(
             torch, lambda: pa.paged_attention(
-                qd, quantize_symmetric(kp, ks[..., None]),
-                quantize_symmetric(vp, vs[..., None]), tbl, ctx,
-                k_scale=ks, v_scale=vs), DECODE_KERNELS)}
-    del q, kp, vp, qd, ks, vs
+                qd, kq, vq, tbl, ctx, k_scale=ks, v_scale=vs),
+            DECODE_KERNELS)}
+    put = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    for mix in ("smoke_mix", "engine_decode", "engine_prefill"):
+        if mix != "smoke_mix":
+            t, c, u = mix_tables(rng, RAGGED_MIXES[mix])
+            tbl, ctx, cu = put(t), put(c), put(u)
+        routes[f"ragged[{mix}/bfloat16]"] = profiled_kernels(
+            torch, lambda: rpa.ragged_paged_attention(q, kp, vp, tbl, ctx,
+                                                      cu), ragged_bf16)
+        routes[f"ragged[{mix}/int8]"] = profiled_kernels(
+            torch, lambda: rpa.ragged_paged_attention(
+                q, kq, vq, tbl, ctx, cu, k_scale=ks, v_scale=vs),
+            ragged_bf16)
+        if mix == "smoke_mix":
+            qf, kf, vf = q.float(), kp.float(), vp.float()
+            routes[f"ragged[{mix}/float32]"] = profiled_kernels(
+                torch, lambda: rpa.ragged_paged_attention(qf, kf, vf, tbl,
+                                                          ctx, cu),
+                (DECODE_KERNELS[0], RAGGED_F32_KERNEL + "<",
+                 RAGGED_MERGE_KERNEL))
+            del qf, kf, vf
+    del q, kp, vp, qd, kq, vq, ks, vs
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     for shape, dname in (("gate_proj", "bfloat16"),
                          ("blocks_16x128", "bfloat16"),
@@ -2768,9 +2895,9 @@ FLASH_BWD_STEMS = ("flash_tc_dq<", "flash_tc_dkv<", "varlen_tc_dq<",
                    "varlen_tc_dkv<", "::dq_kernel<", "::dkv_kernel<")
 
 
-# the paged kernels: the ragged kernel, the gang decode's split pass and
-# its merge
-PAGED_STEMS = ("paged_attention_kernel",) + DECODE_KERNELS
+# the paged kernels: the ragged tile passes, and the split pass and merge
+# (the gang decode's and the ragged decode rows')
+PAGED_STEMS = (RAGGED_F32_KERNEL, RAGGED_TC_KERNEL) + DECODE_KERNELS
 
 
 def categorize(all_kernels, busy_ms):
@@ -3234,7 +3361,8 @@ def main(argv=None) -> int:
                 log(f"ptxas[{stem}]: {line.strip()}")
     report["ptxas_tc"] = [
         row for stem in ("flash_attention", "flash_varlen", "grouped_gemm",
-                         "weight_only_gemm", "bcsr_spmm", "paged_attention")
+                         "weight_only_gemm", "bcsr_spmm", "paged_attention",
+                         "ragged_paged_attention")
         for row in ptxas_tc_kernels(_build.ptxas_report(stem) or "")]
     for row in report["ptxas_tc"]:
         log(f"ptxas[{row['kernel']}]: {row['registers']} registers, "

@@ -1,6 +1,7 @@
-// Shared device code of the two paged-attention kernels
-// (ragged_paged_attention.cu, paged_attention.cu); flash_attention.cu
-// takes the tile shape, conversions and warp reductions from here too.
+// Shared device code of the paged-attention kernels: the float32 tile of
+// the ragged kernel (ragged_paged_attention.cu), conversions that the
+// split-KV pass (paged_split.cuh) takes; flash_attention.cu takes the tile
+// shape, conversions and warp reductions from here too.
 //
 // One thread block owns one q tile of one kv head: up to kRows query rows
 // (tokens x the kv head's GQA group), all of them attending the same
@@ -11,9 +12,10 @@
 //
 // Each chunk of K and V is gathered through the block table into shared
 // memory once and converted to float32 there (int8 pools are dequantized
-// here, so device-memory reads stay at int8 bytes). All arithmetic is
-// float32 on the CUDA cores; the scores and the output accumulate in
-// float32 and the output is rounded once, to q's dtype.
+// here, so device-memory reads stay at int8 bytes). A long tile may walk
+// its positions in pieces, one block each, merged afterwards. All
+// arithmetic is float32 on the CUDA cores; the scores and the output
+// accumulate in float32 and the output is rounded once, to q's dtype.
 //
 // Warp w owns rows [w*8, w*8+8). Lane l holds the scores of kv columns l
 // and l+32 of the chunk, and the output columns l, l+32, l+64, ... of D.
@@ -137,9 +139,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Attend one tile. Query row ri = qi * G + g is token tok0 + qi, head
 // kvh * G + g, at absolute position qp0 + qi; it sees kv positions
-// p <= qp0 + qi with p < kv_end. Rows with qi >= qc are padding: they are
-// neither read nor written. A row that sees no position writes zeros
-// (l == 0 divides by 1).
+// c_begin <= p < kv_end with p <= qp0 + qi (c_begin a multiple of
+// kChunk). Rows with qi >= qc are padding: they are neither read nor
+// written. With rec == nullptr each row writes its output, and a row that
+// sees no position writes zeros (l == 0 divides by 1); else row ri writes
+// its partial record (m in log2 units, l, two pad words, acc[D]) at
+// rec + ri * (D + 4), for a merge.
 template <typename QT, typename KT, int D>
 __device__ void attend_tile(const QT* __restrict__ q,
                             const KT* __restrict__ k_pool,
@@ -148,8 +153,8 @@ __device__ void attend_tile(const QT* __restrict__ q,
                             const float* __restrict__ v_scale,
                             const int* __restrict__ tbl_row, QT* __restrict__ out,
                             int H, int KV, int G, int NB, int BS, int kvh,
-                            int tok0, int qc, int qp0, int kv_end, float scale,
-                            float* smem) {
+                            int tok0, int qc, int qp0, int c_begin, int kv_end,
+                            float scale, float* smem, float* rec) {
   static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int DL = D / 32;  // output columns per lane
   float* Qs = smem;                          // [kRows][D]
@@ -198,7 +203,7 @@ __device__ void attend_tile(const QT* __restrict__ q,
     qpos[r] = ri < nrows ? qp0 + ri / G : -1;
   }
 
-  for (int c0 = 0; c0 < kv_end; c0 += kChunk) {
+  for (int c0 = c_begin; c0 < kv_end; c0 += kChunk) {
     __syncthreads();  // previous chunk fully consumed (and Q tile written)
     load_chunk<KT, D>(k_pool, k_scale, tbl_row, NB, BS, KV, kvh, c0, kv_end,
                       Kt, true);
@@ -269,6 +274,21 @@ __device__ void attend_tile(const QT* __restrict__ q,
   }
 
   if (!warp_active) return;
+  if (rec != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int ri = r0 + r;
+      if (ri >= nrows) continue;
+      float* dst = rec + ri * (D + 4);
+      if (lane == 0) {
+        dst[0] = m[r] * 1.4426950408889634f;  // log2 units
+        dst[1] = l[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DL; ++i) dst[4 + lane + 32 * i] = acc[r][i];
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int ri = r0 + r;

@@ -8,8 +8,10 @@ skipped; a row with ``context_len`` 0 returns zeros.
 
 What bounds it on the H100: the KV bytes it reads, each row's context
 once per layer at 3.35 TB/s, with about one multiply-add per byte. The
-kernel (``csrc/paged_attention.cu``) is a split-KV pass and a merge: the
-split pass gives each (kv head, row, split) one block, which streams
+kernel (``csrc/paged_attention.cu``; its bodies are in
+``csrc/paged_split.cuh``, shared with the ragged kernel's decode rows) is
+a split-KV pass and a merge: the split pass gives each (kv head, row,
+split) one block, which streams
 ``SP`` positions of the row's context (whole pool blocks) through a
 ``cp.async`` ring in the pool's own dtype, serves all G query heads of
 the group with every warp busy, and writes a float32 partial (m, l,
@@ -99,12 +101,16 @@ def head_tile(group: int) -> int:
 
 def call_plan(q: torch.Tensor, k_pool: torch.Tensor,
               block_tables: torch.Tensor) -> Tuple[int, int]:
-    """The ``(sp, splits)`` a call over these tensors launches with."""
-    B, _, H, _ = q.shape
+    """The ``(sp, splits)`` a call over these tensors launches with: the
+    gang decode's (q ``[B, 1, H, D]``) and the ragged kernel's decode rows
+    (q ``[T, H, D]``), one split block per (row of ``block_tables``, kv
+    head x head group, split)."""
+    H = q.shape[-2]
     _, BS, KV, _ = k_pool.shape
     G = H // KV
-    return split_plan(block_tables.shape[1], BS, B,
-                      KV * -(-G // head_tile(G)), sm_count(q.device))
+    rows, mb = block_tables.shape
+    return split_plan(mb, BS, rows, KV * -(-G // head_tile(G)),
+                      sm_count(q.device))
 
 
 def paged_attention_split_plain(q, k_pool, v_pool, block_tables,

@@ -10,28 +10,36 @@ Layout: packed ``q[T, H, D]`` segmented by ``cu_q_lens[R+1]``; row r's
 token i sits at position ``context_lens[r] - q_len_r + i`` (the chunk is
 already written: write-then-attend).
 
-What bounds it on the H100: the KV bytes it reads. A decode step reads
-every live row's whole context once per layer (about 1 MB per 1000
-tokens of context per layer at Llama-3-8B widths in bf16, half that in
-int8), at 3.35 TB/s; the attention arithmetic per KV byte is low. The
-kernel (``csrc/ragged_paged_attention.cu``) reads each pool block of a
-(q tile, kv head) once and serves all of the tile's query rows and GQA
-heads from shared memory, dequantizes int8 blocks after they arrive, and
-skips every block past the tile's causal horizon. This first version does
-its arithmetic in float32 on the CUDA cores and loads synchronously; a
-decode row fills only G of a tile's 64 rows. Tensor cores (``wgmma``), TMA
-and a pipelined load are later work.
+What bounds it on the H100: a decode row reads its whole context once
+per layer (about 1 MB per 1000 positions at Llama-3-8B widths in bf16,
+half that in int8) for about one multiply-add a byte; a prefill chunk
+over a long context does hundreds of operations a byte. So the kernels
+(``csrc/ragged_paged_attention.cu``) take two routes, each block picking
+its own from ``cu_q_lens`` and ``context_lens`` on the card (no host
+sync) over a grid of static quantities (T, R, MB, BS, KV, G and the SM
+count): decode rows (q_len 1) go through the gang decode's split-KV pass
+and merge (``csrc/paged_split.cuh``, the split plan of
+``paged_attention.call_plan`` with R rows), and rows of two or more
+tokens through a tile pass of 64 query rows (TQ tokens x G heads) that
+runs its products on the tensor cores (``wgmma``) for bf16 q, fed by
+``cp.async`` through the block table, and on the CUDA cores for float32
+q; a tile with a long causal range is cut into pieces of a few 64-position
+steps (``tile_schedule``). Three launches a call: the split pass, the
+tile pass, one merge for both.
 
-Beside the kernel: ``ragged_paged_attention_plain``, the same function in
+Beside the kernels: ``ragged_paged_attention_plain``, the same function in
 plain PyTorch, row by row (each row gathers its ``ceil(ctx/BS)`` blocks
-once), used for CPU tensors, by the tests and by ``chip_smoke.py``; and
-``launches``, the count of kernel launches.
+once), used for CPU tensors, by the tests and by ``chip_smoke.py``;
+``ragged_paged_attention_split_plain``, a plain mirror of the kernels'
+arithmetic, and ``tile_schedule``, a mirror of the tile pass's schedule
+(tests and ``chip_smoke.py`` only); and ``launches``, the count of op
+calls that launched the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -44,6 +52,12 @@ HEAD_DIMS = (64, 128)
 _NEG = -1e30
 
 
+def _paged():
+    # imported at the call: paged_attention imports this module
+    from . import paged_attention
+    return paged_attention
+
+
 def tile_tokens(num_heads: int, num_kv_heads: int) -> int:
     """Query tokens per tile: the tile's 64 rows hold TQ tokens of G
     heads each."""
@@ -54,6 +68,82 @@ def num_tiles(T: int, R: int, tq: int) -> int:
     """Static tile-count bound ``R + ceil(T/TQ)``: each row wastes at most
     one partial tile, so one grid serves every mix of a token budget."""
     return R + -(-T // tq)
+
+
+MIN_PIECE = 4           # steps a tile piece takes at least (passed to csrc)
+TILE_ITEMS_PER_SM = 4   # extra work items of the tile pass, per SM
+TILE_POSITIONS = 64     # csrc kTileRows: K/V positions of a tile step
+
+
+def launch_geometry(T: int, H: int, KV: int, R: int, MB: int, BS: int,
+                    sms: int) -> dict:
+    """The launches of an op call, from static quantities only (never
+    ``cu_q_lens`` or ``context_lens``): the split pass's plan (``sp``,
+    ``splits``, ``gt``: ``paged_attention.split_plan`` with R rows, the
+    gang decode's), its grid ``split_grid``; the tile pass's ``tq`` tokens
+    a tile, ``tiles`` (NT) and ``extra`` (E) work items, its grid
+    ``tile_grid``."""
+    pa = _paged()
+    G = H // KV
+    gt = pa.head_tile(G)
+    groups = -(-G // gt)
+    sp, splits = pa.split_plan(MB, BS, R, KV * groups, sms)
+    tq = tile_tokens(H, KV)
+    nt, extra = num_tiles(T, R, tq), extra_items(KV, sms)
+    return dict(sp=sp, splits=splits, gt=gt, split_grid=(KV * groups, R,
+                                                         splits),
+                tq=tq, tiles=nt, extra=extra, tile_grid=(nt + extra, KV))
+
+
+def extra_items(num_kv_heads: int, sms: int) -> int:
+    """``E``, the tile pass's extra work items beyond ``num_tiles``: about
+    ``TILE_ITEMS_PER_SM`` blocks an SM over the kv heads."""
+    return -(-TILE_ITEMS_PER_SM * sms // num_kv_heads)
+
+
+def tile_schedule(cu, ctx, T: int, tq: int, mb: int, bs: int,
+                  extra: int) -> Tuple[int, List[Tuple[int, int, int, int]]]:
+    """Mirror of the tile pass's schedule (``find_work``) over ``cu`` and
+    ``ctx`` (lists): ``(P, items)``, P the steps of a piece and items the
+    work items in order, each ``(row, tile, piece, pieces)``. Rows of two
+    or more tokens own ``ceil(q_len / tq)`` tiles; tile j attends
+    positions below :func:`tile_end`, in steps of 64; a tile of s steps
+    is ``max(1, ceil(s / P))`` pieces, ``P = max(MIN_PIECE, ceil(W /
+    extra))``, W the steps of all tiles. Work item ``len(items) + i`` of
+    the grid zeroes tokens ``cu[R] + i * tq`` up to ``tq`` on."""
+    tiles = [(r, j) for r in range(len(cu) - 1) if cu[r + 1] - cu[r] >= 2
+             for j in range(-(-(cu[r + 1] - cu[r]) // tq))]
+    steps = [-(-tile_end(cu, ctx, T, tq, mb, bs, r, j) // TILE_POSITIONS)
+             for r, j in tiles]
+    P = max(MIN_PIECE, -(-sum(steps) // extra))
+    items = []
+    for (r, j), s in zip(tiles, steps):
+        n = max(1, -(-s // P))
+        items += [(r, j, k, n) for k in range(n)]
+    return P, items
+
+
+def call_schedule(q, k_pool, block_tables, context_lens, cu_q_lens
+                  ) -> Tuple[int, List[Tuple[int, int, int, int]]]:
+    """The :func:`tile_schedule` of a call over these tensors on the card
+    (reads ``cu_q_lens`` and ``context_lens`` on the host: tests and
+    ``chip_smoke.py`` only)."""
+    T, H, _ = q.shape
+    _, BS, KV, _ = k_pool.shape
+    return tile_schedule(
+        [int(x) for x in cu_q_lens.tolist()],
+        [int(x) for x in context_lens.tolist()], T, tile_tokens(H, KV),
+        block_tables.shape[1], BS,
+        extra_items(KV, _paged().sm_count(q.device)))
+
+
+def tile_end(cu, ctx, T: int, tq: int, mb: int, bs: int, r: int,
+             j: int) -> int:
+    """Positions ``[0, end)`` that tile j of row r attends: its last
+    token's causal horizon, never past the table (csrc ``tile_end``)."""
+    ql = cu[r + 1] - cu[r]
+    qc = min(tq, ql - j * tq, T - (cu[r] + j * tq))
+    return 0 if qc <= 0 else max(0, min(ctx[r] - ql + j * tq + qc, mb * bs))
 
 
 def ragged_paged_attention_plain(q, k_pool, v_pool, block_tables,
@@ -102,9 +192,101 @@ def ragged_paged_attention_plain(q, k_pool, v_pool, block_tables,
     return out
 
 
+_LOG2E = 1.4426950408889634
+
+
+def ragged_paged_attention_split_plain(q, k_pool, v_pool, block_tables,
+                                       context_lens, cu_q_lens, scale=None,
+                                       k_scale=None, v_scale=None,
+                                       sp: int = TILE_POSITIONS,
+                                       piece: Optional[int] = None):
+    """Plain mirror of the kernels' arithmetic. Decode rows (q_len 1) go
+    through the split-KV mirror (``paged_attention_split_plain``: splits
+    of ``sp`` positions, base-2 exponents, merged in split order); rows of
+    two or more tokens walk their positions in pieces of ``piece`` steps
+    of 64 (None: one piece), each piece with a running (m, l, acc) in
+    float32 and base-2 exponents, an int8 pool's ``k_scale`` multiplying
+    the score columns and ``v_scale`` P's columns before P.V, the pieces
+    merged in order. Same arguments and result as
+    :func:`ragged_paged_attention_plain`."""
+    T, H, D = q.shape
+    NB, BS, KV, _ = k_pool.shape
+    R, MB = block_tables.shape
+    G = H // KV
+    if scale is None:
+        scale = D ** -0.5
+    scale2 = scale * _LOG2E
+    out = torch.zeros_like(q)
+    cu = [int(x) for x in cu_q_lens.tolist()]
+    ctx = [int(x) for x in context_lens.tolist()]
+    dec = [r for r in range(R) if cu[r + 1] - cu[r] == 1]
+    if dec:
+        idx = torch.tensor(dec, device=q.device)
+        got = _paged().paged_attention_split_plain(
+            q[[cu[r] for r in dec]][:, None].contiguous(), k_pool, v_pool,
+            block_tables[idx], context_lens[idx], scale, k_scale, v_scale,
+            sp=sp)
+        out[[cu[r] for r in dec]] = got[:, 0]
+    tbl = block_tables.long().clamp(0, NB - 1)
+    neg = float("-inf")
+    for r in range(R):
+        ql = cu[r + 1] - cu[r]
+        L = min(ctx[r], MB * BS)
+        if ql < 2 or L <= 0:
+            continue
+        nblk = -(-L // BS)
+        blocks = tbl[r, :nblk]
+        k = k_pool[blocks].float().reshape(nblk * BS, KV, D)[:L]
+        v = v_pool[blocks].float().reshape(nblk * BS, KV, D)[:L]
+        if k_scale is not None:
+            ks = k_scale[blocks].float().reshape(nblk * BS, KV)[:L]
+            vs = v_scale[blocks].float().reshape(nblk * BS, KV)[:L]
+        qr = q[cu[r]:cu[r + 1]].float().reshape(ql, KV, G, D)
+        qpos = ctx[r] - ql + torch.arange(ql, device=q.device)
+        span = L if piece is None else piece * TILE_POSITIONS
+        parts = []
+        for p0 in range(0, L, span):
+            m = torch.full((KV, G, ql), neg, device=q.device)
+            l = torch.zeros((KV, G, ql), device=q.device)
+            acc = torch.zeros((KV, G, ql, D), device=q.device)
+            for c0 in range(p0, min(p0 + span, L), TILE_POSITIONS):
+                c1 = min(c0 + TILE_POSITIONS, L)
+                s = torch.einsum("qkgd,lkd->kgql", qr, k[c0:c1]) * scale2
+                if k_scale is not None:
+                    s = s * ks[c0:c1].t()[:, None, None, :]
+                live = (torch.arange(c0, c1, device=q.device)[None, :]
+                        <= qpos[:, None])
+                s = s.masked_fill(~live, neg)
+                mn = torch.maximum(m, s.amax(dim=-1))
+                mu = torch.where(mn == neg, torch.zeros_like(mn), mn)
+                alpha = torch.exp2(m - mu)
+                p = torch.exp2(s - mu[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                if v_scale is not None:
+                    p = p * vs[c0:c1].t()[:, None, None, :]
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "kgql,lkd->kgqd", p, v[c0:c1])
+                m = mn
+            parts.append((m, l, acc))
+        # the pieces in order, those with l > 0 (csrc merge_records)
+        mx = torch.stack([torch.where(l > 0, m, torch.full_like(m, neg))
+                          for m, l, _ in parts]).amax(dim=0)
+        lsum = torch.zeros_like(mx)
+        osum = torch.zeros_like(parts[0][2])
+        for m, l, a in parts:
+            f = torch.where(l > 0, torch.exp2(m - mx), torch.zeros_like(m))
+            lsum = lsum + f * l
+            osum = osum + f[..., None] * a
+        o = osum / torch.where(lsum == 0, torch.ones_like(lsum),
+                               lsum)[..., None]
+        out[cu[r]:cu[r + 1]] = (o.permute(2, 0, 1, 3)
+                                .reshape(ql, H, D).to(q.dtype))
+    return out
+
+
 def _bind(lib) -> None:
     fn = lib.ptt_ragged_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -199,7 +381,7 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``cu_q_lens[R]`` are zeros.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernels (split pass, merge, tile pass) or raises."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pool, v_pool, block_tables, context_lens, cu_q_lens,
@@ -211,11 +393,16 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     T, H, D = q.shape
     NB, BS, KV, _ = k_pool.shape
     R, MB = block_tables.shape
-    tq = tile_tokens(H, KV)
     if scale is None:
         scale = D ** -0.5
+    geo = launch_geometry(T, H, KV, R, MB, BS,
+                          _paged().sm_count(q.device))
+    nt, extra, splits = geo["tiles"], geo["extra"], geo["splits"]
     lib = _build.load("ragged_paged_attention", _bind)
     out = torch.empty_like(q)
+    part = torch.empty((R * H * splits + (nt + extra) * KV * TILE_POSITIONS)
+                       * (D + 4) + 4 * (nt + 1), dtype=torch.float32,
+                       device=q.device)
     codes = _build.DTYPE_CODES
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -224,10 +411,11 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), context_lens.data_ptr(),
-            cu_q_lens.data_ptr(), out.data_ptr(),
-            T, H, KV, D, NB, BS, R, MB, num_tiles(T, R, tq), tq,
-            float(scale), codes[_dtype_name(q)], codes[_dtype_name(k_pool)],
-            stream)
+            cu_q_lens.data_ptr(), part.data_ptr(), out.data_ptr(),
+            T, H, KV, D, NB, BS, R, MB, nt, geo["tq"], extra, MIN_PIECE,
+            geo["sp"],
+            splits, geo["gt"], float(scale), codes[_dtype_name(q)],
+            codes[_dtype_name(k_pool)], stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -266,5 +454,7 @@ def attention_flops(context_lens, cu_q_lens, num_heads: int,
 
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "launches", "tile_tokens", "num_tiles", "kv_bytes_read",
-           "attention_flops", "check_tensors", "check_pools"]
+           "ragged_paged_attention_split_plain", "launches", "tile_tokens",
+           "num_tiles", "extra_items", "launch_geometry", "tile_schedule",
+           "call_schedule", "tile_end", "kv_bytes_read", "attention_flops",
+           "check_tensors", "check_pools"]

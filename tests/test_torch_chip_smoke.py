@@ -27,7 +27,11 @@ def _smoke():
 
 
 def _kernels(src):
+    """The ``__global__`` names of a source and of the local headers it
+    includes (the gang decode's passes live in ``paged_split.cuh``)."""
     text = (CSRC / src).read_text()
+    for hdr in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += (CSRC / hdr).read_text()
     return re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
                       text)
 
@@ -145,8 +149,8 @@ def test_a_tensor_core_name_with_a_matmul_pattern_stays_flash():
                                  "ragged_paged_attention.cu"])
 def test_categorize_sorts_every_paged_kernel_into_paged_attention(src):
     """Both passes of the gang decode (the split-KV pass and its merge) and
-    the ragged kernel land in "paged_attention", whatever their template
-    arguments."""
+    the ragged kernels (that split pass, the tile passes, their merge)
+    land in "paged_attention", whatever their template arguments."""
     smoke = _smoke()
     names = _kernels(src)
     if src == "paged_attention.cu":
@@ -255,3 +259,36 @@ def test_generate_checks_hold_its_decode_calls_and_tokens(kv, monkeypatch):
     monkeypatch.setattr(cs, "FLIP_MARGIN_MAX", 0.0)
     with pytest.raises(AssertionError, match="flips at logit margin"):
         cs.plain_attention_generate(torch, model, ids, bad, kv)
+
+
+def test_ptxas_rows_name_the_ragged_kernels():
+    """The ragged tensor-core tile pass gets a row with the shared memory
+    its source sizes (two stages of bf16 K/V tiles; for int8 one K/V pair
+    and two stages of codes and scales), and the split pass under the
+    ragged row policy keeps its template arguments."""
+    txt = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_12_"
+        "ragged_cu_y32ragged_paged_attention_tc_kernelI13__nv_bfloat16"
+        "Li128EEEvNS_5TilesE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 219 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__x_12_"
+        "ragged_cu_y32ragged_paged_attention_tc_kernelIaLi64EEEvNS_5TilesE'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 167 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3ptt3dec28paged_"
+        "attention_split_kernelIffLi128ELi8ENS0_10RaggedRowsEEEvNS0_6"
+        "DecodeE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 1 barriers"])
+    rows = {r["kernel"]: r for r in _smoke().ptxas_tc_kernels(txt)}
+    assert set(rows) == {"ragged_paged_attention_tc_kernel<bf16, 128>",
+                         "ragged_paged_attention_tc_kernel<int8, 64>",
+                         "paged_attention_split_kernel<float, float, 128, 8>"}
+    assert rows["ragged_paged_attention_tc_kernel<bf16, 128>"][
+        "smem_bytes"] == 2 * 2 * 64 * 128 * 2 + 1024
+    assert rows["ragged_paged_attention_tc_kernel<int8, 64>"][
+        "smem_bytes"] == 2 * 64 * 64 * 2 + 2 * (2 * 64 * 64 + 512) + 1024
+    assert rows["ragged_paged_attention_tc_kernel<bf16, 128>"][
+        "registers"] == 219

@@ -9,7 +9,15 @@ card (the test imports torch and the port only, so no JAX is needed):
 Covers what ``chip_smoke.py`` does not: head_dim 64 and 128, GQA groups
 1, 4 and 8, float32 and bfloat16 queries over float32, bfloat16 and int8
 pools, block-table entries outside ``[0, NB)`` (clamped), empty rows,
-step padding, and the wrappers' refusals. Tolerances: float32 outputs
+step padding, and the wrappers' refusals. The ragged kernels' routes at a
+forced split length: decode rows at contexts 0, one split, a split
+boundary and one past it (the split pass and merge), verify rows of 5
+tokens, chunks and a context past the table (the tile pass, its long
+tiles cut in pieces and merged), against the plain version and the plain
+mirror of their arithmetic, two calls giving the same bytes; and what the
+ragged wrapper refuses (a GQA group that does not divide 64, misshapen or
+mistyped cu_q_lens and context_lens, a pool in another dtype, a table on
+another device). Tolerances: float32 outputs
 atol/rtol 1e-4 (both sum in float32, in another order); bfloat16 outputs
 atol 2e-3, rtol 1e-2 (both round once from float32, so they differ by at
 most one bf16 ulp, at most 0.78% of the value; atol covers values near 0).
@@ -104,7 +112,7 @@ def _layout(dev, qlens, ctxs, T, h, kv, d, q_dtype, kv_dtype, bs=16, nb=48,
     perm = rng.permutation(nb)
     nxt = 0
     for r, c in enumerate(ctxs):
-        n = -(-c // bs)
+        n = min(-(-c // bs), mb)   # a context past mb * bs fills the row
         tbl[r, :n] = perm[nxt:nxt + n]
         nxt += n
     q = torch.from_numpy(rng.randn(T, h, d).astype(np.float32))
@@ -151,6 +159,72 @@ def test_ragged_kernel_matches_plain(dev, name, q_dtype, kv_dtype, h, kv, d):
     torch.testing.assert_close(got.float(), want.float(), **TOL[q_dtype])
     n = sum(qlens)
     assert bool((got[n:] == 0).all()), "step padding must be exact zeros"
+
+
+# every route of one ragged call at a forced split length of 128: decode
+# rows at contexts 0, one split, a split boundary and one past it, two
+# splits less one and 1500; verify rows of 5 tokens; a 200-token chunk; a
+# 37-token chunk whose context runs past the table (mb * bs = 1536); an
+# empty row with a context; 13 padding tokens
+ROUTE_SP, ROUTE_MB, ROUTE_BS = 128, 24, 64
+ROUTE_ROWS = [(1, 0), (1, 128), (1, 129), (1, 1500), (5, 5), (5, 700),
+              (0, 300), (200, 1000), (1, 255), (37, 1636), (1, 64)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,kv", [(8, 8), (16, 4), (32, 4)])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.int8), (torch.float32, torch.int8)],
+    ids=["f32", "bf16", "bf16-int8", "f32-int8"])
+def test_ragged_routes_match_plain(dev, monkeypatch, q_dtype, kv_dtype, h,
+                                   kv, d):
+    """The split pass and merge (decode rows across split boundaries and
+    a context of 0), the tile pass (verify rows, chunks, a context past
+    the table) and the padding, against the plain version and the plain
+    mirror of their arithmetic; two calls give the same bytes; one launch
+    counted a call."""
+    mb, bs, sp = ROUTE_MB, ROUTE_BS, ROUTE_SP
+    monkeypatch.setattr(pa, "split_plan",
+                        lambda *a: (sp, -(-(mb * bs) // sp)))
+    qlens = [q for q, _ in ROUTE_ROWS]
+    ctxs = [c for _, c in ROUTE_ROWS]
+    nb = sum(min(-(-c // bs), mb) for c in ctxs) + 4
+    args, kw = _layout(dev, qlens, ctxs, sum(qlens) + 13, h, kv, d, q_dtype,
+                       kv_dtype, bs=bs, nb=nb, mb=mb, seed=h + d)
+    before = rpa.launches.count
+    got = rpa.ragged_paged_attention(*args, **kw)
+    again = rpa.ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert rpa.launches.count == before + 2
+    want = rpa.ragged_paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[q_dtype])
+    piece, items = rpa.call_schedule(*args[:2], *args[3:])
+    assert max(n for *_, n in items) > 1, "a tile cut in pieces"
+    mirror = rpa.ragged_paged_attention_split_plain(*args, sp=sp,
+                                                    piece=piece, **kw)
+    torch.testing.assert_close(got.float(), mirror.float(), **TOL[q_dtype])
+    assert bool((got[sum(qlens):] == 0).all()), "padding must be zeros"
+    assert bool((got[0] == 0).all()), "context_len 0 must give zeros"
+    assert torch.equal(got, again)
+
+
+def test_ragged_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    (q, kp, vp, tbl, lens, cu), _ = _layout(
+        dev, [1, 3], [9, 3], 4, 8, 2, 64, torch.bfloat16, torch.bfloat16)
+    before = rpa.launches.count
+    with pytest.raises(ValueError, match="GQA group"):   # G 3: 64 % 3
+        rpa.ragged_paged_attention(q[:, :6].contiguous(), kp, vp, tbl, lens,
+                                   cu)
+    with pytest.raises(ValueError, match="cu_q_lens"):
+        rpa.ragged_paged_attention(q, kp, vp, tbl, lens, cu[:2].contiguous())
+    with pytest.raises(ValueError, match="context_lens"):
+        rpa.ragged_paged_attention(q, kp, vp, tbl, lens.long(), cu)
+    with pytest.raises(ValueError, match="pool dtype"):
+        rpa.ragged_paged_attention(q, kp.float(), vp.float(), tbl, lens, cu)
+    with pytest.raises(ValueError, match="is on"):
+        rpa.ragged_paged_attention(q, kp, vp, tbl.cpu(), lens, cu)
+    assert rpa.launches.count == before
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module under ``paddle_tpu_torch/``,
-not ``chip_smoke.py``, not ``tools/decode_ab.py`` and not the card-only
+not ``chip_smoke.py``, no script under ``tools/`` and not the card-only
 kernel tests (which run where there is no JAX) imports ``jax`` or
 ``paddle_tpu`` (an AST scan of every import statement, top level or
 inside a function), and importing the port loads neither."""
@@ -13,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "decode_ab.py",
+    ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py")),
     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 BANNED = ("jax", "jaxlib", "paddle_tpu")
 
