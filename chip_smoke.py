@@ -1331,13 +1331,28 @@ def tc_smem_bytes(kind: str, d: int) -> int:
     return tiles * 64 * d * 2 + 2 * words * 64 * 4 + 1024
 
 
-# dynamic shared memory of the wgmma GEMM kernels, as grouped_gemm.cu and
-# weight_only_gemm.cu size them (bf16 tiles of 64-deep k; 1024 B of
-# alignment slack): the grouped GEMM's 4-stage ring of 128 x 64 A and
-# 256 x 64 B tiles; the int4 prefill's 6-stage ring of A and packed
+def f32_smem_bytes(tm: int) -> int:
+    """Dynamic shared memory of a float32 FMA kernel with a ``tm``-row M
+    tile, as csrc/gemm_f32.cuh's ``Tile`` sizes it: per k group a 3-slot
+    ring of 16-deep [16][tm + 4] A and [16][tn + 4] B float32 tiles (tn 128,
+    or 64 with two k groups at tm 16)."""
+    tn, kg = (64, 2) if tm == 16 else (128, 1)
+    return kg * 3 * 16 * (tm + 4 + tn + 4) * 4
+
+
+# dynamic shared memory of the GEMM kernels, as grouped_gemm.cu,
+# bcsr_spmm.cu and weight_only_gemm.cu size them (bf16 tiles of 64-deep k;
+# 1024 B of alignment slack): the grouped GEMM's 4-stage ring of 128 x 64
+# A and 256 x 64 B tiles; the int4 prefill's 6-stage ring of A and packed
 # [32][256] tiles plus two unpacked [64][256] B tiles; the int4 decode's
-# 6-stage ring of x's [NX][128] tile and 64 packed rows at an 80-byte pitch
+# 6-stage ring of x's [NX][128] tile and 64 packed rows at an 80-byte
+# pitch; the float32 kernels' rings (f32_smem_bytes: the grouped GEMM's
+# 64-row forward and 128-row dx tiles, the template's M tile for BCSR)
 def gemm_smem_bytes(kernel: str, args) -> int:
+    if kernel == "grouped_gemm_f32_kernel":
+        return f32_smem_bytes(128 if args[0] == "true" else 64)
+    if kernel == "bcsr_spmm_f32_kernel":
+        return f32_smem_bytes(int(args[0]))
     if kernel == "grouped_gemm_wgmma_kernel":
         return 4 * (128 + 256) * 64 * 2 + 1024
     if kernel == "bcsr_spmm_wgmma_kernel":   # 4 stages of [TM][64] + [64][256]
@@ -1393,7 +1408,7 @@ def ptxas_tc_kernels(txt: str):
     """Registers, spills and shared memory of each redesigned kernel in
     nvcc's ``-Xptxas -v`` report: the bf16 attention kernels (dynamic
     shared memory), every GEMM kernel of grouped_gemm.cu and
-    weight_only_gemm.cu, the bf16 wgmma BCSR kernel, both split-KV
+    weight_only_gemm.cu, the wgmma and float32 BCSR kernels, both split-KV
     passes (the gang decode's and the ragged decode rows') and the ragged
     tensor-core tile pass (dynamic, or the static bytes ptxas reports)."""
     rows, name = [], None
@@ -1406,8 +1421,8 @@ def ptxas_tc_kernels(txt: str):
                                                  int(m.group(3))))
             continue
         m = re.search(r"Compiling entry function '\w*?\d((?:int4|grouped)"
-                      r"_gemm_\w*?kernel|bcsr_spmm_wgmma_kernel|paged_"
-                      r"attention_(?:split|merge)_kernel|ragged_paged_"
+                      r"_gemm_\w*?kernel|bcsr_spmm_(?:wgmma|f32)_kernel|"
+                      r"paged_attention_(?:split|merge)_kernel|ragged_paged_"
                       r"attention_tc_kernel)I(\w*?)EEv", line)
         if m:
             args = demangled_args(m.group(2))
@@ -2349,10 +2364,10 @@ def phase_grouped_gemm(torch, seed, report, flush):
                       "max_abs_err": max(errs.values())}
     out["bfloat16"]["planted_fault_max_abs_err"] = faults
 
-    # times at the path's four launch shapes (bf16, gpe 1): the forward
-    # products and their dx through the transposed view; float32 at the
-    # gate/up forward. Yardstick: torch.bmm over the count-masked buffer
-    # (what gmm_reference computes: a near-equal function that spends
+    # times at the path's four launch shapes (gpe 1), bf16 and float32:
+    # the forward products and their dx through the transposed view.
+    # Yardstick: torch.bmm over the count-masked buffer, on the same view
+    # of w (what gmm_reference computes: a near-equal function that spends
     # products on the dead rows), timed here only
     rows = ~dead[..., None]
     times = {}
@@ -2360,9 +2375,6 @@ def phase_grouped_gemm(torch, seed, report, flush):
                       ("float32", torch.float32)):
         for shape, (K, N) in GMM_SHAPES.items():
             for launch in ("fwd", "dx"):
-                if label == "float32" and (shape, launch) != ("gate_up",
-                                                              "fwd"):
-                    continue
                 w = (torch.randn((G, K, N), generator=g, device="cuda")
                      * 0.02).to(dt)
                 if launch == "fwd":
@@ -2608,6 +2620,14 @@ BCSR_ROUTE_STEMS = {"bfloat16": ("bcsr_spmm_wgmma_kernel",),
                     "float32": ("bcsr_spmm_f32_kernel",)}
 
 
+def bcsr_tile_rows(dname, bm):
+    """The M tile of the BCSR kernel that ``bm`` takes (csrc/bcsr_spmm.cu):
+    bf16 (wgmma) 64 or 128 rows; float32 the smallest of 16, 32, 64 and
+    128 that holds bm, 128 past it."""
+    tiles = (64, 128) if dname == "bfloat16" else (16, 32, 64, 128)
+    return next((t for t in tiles if bm <= t), 128)
+
+
 def pruned_weight(torch, g, rng, M, K, bm, bk, dtype):
     """A normal(0, 0.02) [M, K] weight with about half of its bm x bk
     blocks zeroed by a mask from ``rng``, and BCSR_EMPTY_ROWS zeroed."""
@@ -2780,8 +2800,9 @@ def phase_routes(torch, seed, report):
     phase times), by the profiler's names, with each one's device ms a
     call: the split-KV pass and its merge, the ragged tile pass (bf16:
     tensor cores; float32: CUDA cores), the bf16 wgmma BCSR route (64-
-    and 128-row M tiles) and the float32 FMA kernel. Run after every timed
-    phase: a profiler session may slow the launches that follow it."""
+    and 128-row M tiles) and the float32 FMA kernel (its M tile by bm).
+    Run after every timed phase: a profiler session may slow the launches
+    that follow it."""
     from paddle_tpu_torch import sparse
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
@@ -2822,16 +2843,16 @@ def phase_routes(torch, seed, report):
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     for shape, dname in (("gate_proj", "bfloat16"),
                          ("blocks_16x128", "bfloat16"),
-                         ("gate_proj", "float32")):
+                         ("gate_proj", "float32"),
+                         ("blocks_16x128", "float32")):
         M, K, bm, bk = BCSR_SHAPES[shape]
         dt = getattr(torch, dname)
         N = BCSR_TOKENS if shape != "blocks_16x128" else 512
         w = pruned_weight(torch, g, rng, M, K, bm, bk, dt)
         x = torch.randn((K, N), generator=g, device="cuda").to(dt)
         crows, cols, vals = sparse.bcsr_from_dense(w, bm, bk)
-        stems = BCSR_ROUTE_STEMS[dname]
-        if dname == "bfloat16":   # the M tile follows the block
-            stems = (f"{stems[0]}<{64 if bm <= 64 else 128}>",)
+        stems = BCSR_ROUTE_STEMS[dname]   # the M tile follows the block
+        stems = (f"{stems[0]}<{bcsr_tile_rows(dname, bm)}>",)
         routes[f"bcsr_spmm[{shape}/{dname}]"] = profiled_kernels(
             torch, lambda: sparse.bcsr_matmul(crows, cols, vals, x), stems)
         del w, x, vals
@@ -2904,9 +2925,9 @@ def categorize(all_kernels, busy_ms):
     """Device ms of one step by part of the step, from every activity's
     full name; ``unaccounted`` is the busy time the parts leave out (0
     when no two activities overlap)."""
-    cats = {"grouped_gemm": 0.0, "int4_gemm": 0.0, "paged_attention": 0.0,
-            "flash_fwd": 0.0, "flash_bwd": 0.0, "fused_optimizer": 0.0,
-            "matmul": 0.0, "other": 0.0}
+    cats = {"grouped_gemm": 0.0, "int4_gemm": 0.0, "bcsr_spmm": 0.0,
+            "paged_attention": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0,
+            "fused_optimizer": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in all_kernels.items():
         low = name.lower()
         if any(t in name for t in FLASH_FWD_STEMS):
@@ -2917,6 +2938,8 @@ def categorize(all_kernels, busy_ms):
             cats["grouped_gemm"] += ms
         elif "int4_gemm_" in low:
             cats["int4_gemm"] += ms
+        elif "bcsr_spmm_" in low:
+            cats["bcsr_spmm"] += ms
         elif any(t in low for t in PAGED_STEMS):  # ragged, gang decode
             cats["paged_attention"] += ms
         elif "fused_kernel" in low:

@@ -53,11 +53,27 @@
 // - bf16 otherwise: bcsr_spmm_wmma_kernel, the first design: 128 x 128
 //   output tiles, 8 warps each a 32 x 64 patch of WMMA 16x16x16 products,
 //   synchronous 32-deep k steps (bm and bk multiples of 16).
-// - float32: bcsr_spmm_f32_kernel, 64 x 64 tiles, 256 threads with 4 x 4
-//   outputs each, float32 FMA on the CUDA cores (full float32: no TF32).
+// - float32: bcsr_spmm_f32_kernel<TM>, full float32 FMA on the CUDA
+//   cores (no TF32), so its bound is operations at 67 TFLOP/s: 3.54 ms at
+//   half of `gate_proj` in 128 x 128 blocks times 4096 columns, 0.016 ms
+//   for the [2048, 1024] weight in 16 x 128 blocks times 512 columns
+//   (where x, re-read from L2 for every block row, weighs more). It runs
+//   the run's 16-deep block slices on the pipelined mainloop of
+//   gemm_f32.cuh: the values slice staged through registers and stored
+//   k-major, x's rows copied by cp.async (4-byte copies where its rows
+//   are not 16-byte aligned), a 3-slot ring with the next tiles' loads in
+//   flight during the FMAs. The M tile follows the block: the smallest of
+//   16, 32, 64 and 128 rows that holds bm (a row tail past 128), so rows
+//   past bm are never computed (the first design ran 64-row tiles, 4x
+//   the work at bm 16). 128 columns a tile and 8 x 8 (TM 64, 128) or 4 x
+//   8 (TM 32) sums a thread; at TM 16, 64 columns, 4 x 4 sums and two k
+//   groups, since there the longest block rows set the launch's time and
+//   more, shorter chains shorten it. Block rows run in the wrapper's
+//   `order`, as the wgmma route's do.
 
 #include <mma.h>
 
+#include "gemm_f32.cuh"
 #include "gemm_tiles.cuh"
 #include "gemm_wgmma.cuh"
 
@@ -71,10 +87,11 @@ using ptt_gemm::load_tile;
 struct Problem {
   const int* crows;
   const int* cols;
+  const int* order;  // block rows in launch order (the float32 route)
   const void* values;
   const void* x;
   void* y;
-  int bm, bk, N, mtiles;
+  int bm, bk, N, mtiles, ntiles;
   long long ldx;  // x's row stride, in elements
   bool vec_v, vec_x;
 };
@@ -166,66 +183,84 @@ __global__ void __launch_bounds__(kThreads) bcsr_spmm_wmma_kernel(Problem p) {
     }
 }
 
-// -- float32: FMA on the CUDA cores -------------------------------------------
+// -- float32: FMA on the CUDA cores, on the ring of gemm_f32.cuh -------------
 
-constexpr int kFM = 64, kFN = 64, kFK = 16;
-constexpr int kFPA = kFK + 4;
-constexpr int kFPB = kFN + 4;
+// The ring's policy (gemm_f32.cuh) over one block row's run, its k tiles
+// the kBK-deep slices of the run's blocks in CSR order (tile t is block t
+// / spb, slice t % spb; a tile never straddles two blocks, columns and
+// rows past bk are zero-filled). A is the block's [TM, kBK] values slice,
+// staged through registers (k contiguous); B the matching [kBK, 128] rows
+// of x, copied by cp.async. fill() is called for a k group's tiles in
+// increasing order, so it walks the run with its own counters and loads
+// the next block's column id a block ahead of its use.
+template <int TM>
+struct BcsrF32Tiles {
+  using G = ptt::f32::Tile<TM>;
+  const float* v;       // row m0 of the run's first block
+  const float* x;       // column n0 of x
+  const int* cols;      // the run's column-block ids
+  long long ldx, vblk;  // x's row stride; elements of one block
+  int rows, bk, spb, ncols, nblk;
+  bool vec_v, vec_x;
+  int ft, fb, fs, col, col_next;  // the walk's tile, block, slice, ids
+  ptt::f32::Staged<TM, G::NT> a;
 
-__global__ void __launch_bounds__(kThreads) bcsr_spmm_f32_kernel(Problem p) {
-  __shared__ __align__(16) float sA[kFM * kFPA];
-  __shared__ __align__(16) float sB[kFK * kFPB];
+  __device__ __forceinline__ void fetch(int t) {
+    const int b = t / spb, k0 = (t - b * spb) * ptt::f32::kBK;
+    a.fetch(v + b * vblk + k0, bk, rows, bk - k0, vec_v);
+  }
 
-  const int i = blockIdx.x / p.mtiles;
-  const int m0 = (blockIdx.x % p.mtiles) * kFM;
-  const int n0 = blockIdx.y * kFN;
-  const int rows = min(kFM, p.bm - m0);
-  const int first = p.crows[i], last = p.crows[i + 1];
-  const float* vals = static_cast<const float*>(p.values);
-  const float* x = static_cast<const float*>(p.x);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 4 x 4 outputs
+  __device__ __forceinline__ void put(float* slot) const { a.put(slot); }
 
-  float acc[4][4] = {};
-  for (int blk = first; blk < last; ++blk) {
-    const float* vb =
-        vals + (static_cast<long long>(blk) * p.bm + m0) * p.bk;
-    const float* xb =
-        x + static_cast<long long>(p.cols[blk]) * p.bk * p.ldx + n0;
-    for (int k0 = 0; k0 < p.bk; k0 += kFK) {
-      load_tile<float, kFM, kFK, kFPA, kThreads>(vb + k0, p.bk, 1, rows,
-                                                 p.bk - k0, p.vec_v, sA);
-      load_tile<float, kFK, kFN, kFPB, kThreads>(xb + k0 * p.ldx, p.ldx, 1,
-                                                 p.bk - k0, p.N - n0,
-                                                 p.vec_x, sB);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kFK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) a[u] = sA[(ty * 4 + u) * kFPA + kk];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) b[v] = sB[kk * kFPB + tx * 4 + v];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
+  __device__ __forceinline__ void fill(float* slot, int t) {
+    for (; ft < t; ++ft)
+      if (++fs == spb) {
+        fs = 0;
+        ++fb;
+        col = col_next;
+        col_next = fb + 1 < nblk ? cols[fb + 1] : 0;
       }
-      __syncthreads();
-    }
+    const int k0 = fs * ptt::f32::kBK;
+    ptt::f32::fill_rows<G::TN, G::NT>(
+        ptt::wg::smem_u32(slot + ptt::f32::kBK * G::PA),
+        x + (static_cast<long long>(col) * bk + k0) * ldx, ldx, 1, bk - k0,
+        ncols, vec_x);
   }
-  float* y = static_cast<float*>(p.y);
-  const long long row0 = static_cast<long long>(i) * p.bm + m0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int r = ty * 4 + u;
-    if (r >= rows) continue;
-    float* out = y + (row0 + r) * p.N;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int n = n0 + tx * 4 + v;
-      if (n < p.N) out[n] = acc[u][v];
-    }
-  }
+};
+
+// grid: (M tile of a block row, N tile) pairs, N fastest, block rows in
+// `order`; Tile<TM>::THREADS threads. Rows past bm are never computed: the
+// M tile is the smallest that holds bm (a row tail past 128).
+template <int TM>
+__global__ void __launch_bounds__(ptt::f32::Tile<TM>::THREADS,
+                                  ptt::f32::Tile<TM>::MINB)
+    bcsr_spmm_f32_kernel(Problem p) {
+  using G = ptt::f32::Tile<TM>;
+  extern __shared__ float4 f32_smem[];
+  const int tile = blockIdx.x / p.ntiles, nt = blockIdx.x % p.ntiles;
+  const int i = p.order[tile / p.mtiles];  // block row
+  const int m0 = (tile % p.mtiles) * TM, n0 = nt * G::TN;
+  const int rows = min(TM, p.bm - m0);
+  const int first = p.crows[i], nblk = p.crows[i + 1] - first;
+  const int spb = (p.bk + ptt::f32::kBK - 1) / ptt::f32::kBK;
+  BcsrF32Tiles<TM> tiles{
+      static_cast<const float*>(p.values) +
+          (static_cast<long long>(first) * p.bm + m0) * p.bk,
+      static_cast<const float*>(p.x) + n0, p.cols + first, p.ldx,
+      static_cast<long long>(p.bm) * p.bk, rows, p.bk, spb, p.N - n0, nblk,
+      p.vec_v, p.vec_x, 0, 0, 0, nblk > 0 ? p.cols[first] : 0,
+      nblk > 1 ? p.cols[first + 1] : 0};
+  ptt::f32::Acc<TM> acc = {};
+  ptt::f32::mainloop<TM>(tiles, nblk * spb,
+                         reinterpret_cast<float*>(f32_smem), acc);
+  float* y = static_cast<float*>(p.y) +
+             (static_cast<long long>(i) * p.bm + m0) * p.N + n0;
+  ptt::f32::store_tile<TM>(acc, p.N - n0, p.N % 4 == 0, rows,
+                           [&](int r) -> float* {
+                             return r < rows
+                                        ? y + static_cast<long long>(r) * p.N
+                                        : nullptr;
+                           });
 }
 
 // -- bf16, aligned: wgmma on the pipelined ring ------------------------------
@@ -395,6 +430,20 @@ int launch_wgmma(const Sparse& p, int Mb, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int TM>
+int launch_f32(const Problem& p, int Mb, cudaStream_t s) {
+  using G = ptt::f32::Tile<TM>;
+  Problem q = p;
+  q.mtiles = (p.bm + TM - 1) / TM;
+  q.ntiles = (p.N + G::TN - 1) / G::TN;
+  PTT_SET_SMEM(bcsr_spmm_f32_kernel<TM>, G::SMEM);
+  const long long grid = static_cast<long long>(Mb) * q.mtiles * q.ntiles;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bcsr_spmm_f32_kernel<TM>
+      <<<static_cast<unsigned>(grid), G::THREADS, G::SMEM, s>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The kernel ptt_bcsr_spmm launches for these arguments: 0 float32 FMA,
@@ -415,7 +464,8 @@ extern "C" int ptt_bcsr_spmm(const void* crows, const void* cols,
                              int N, long long ldx, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Problem p{static_cast<const int*>(crows), static_cast<const int*>(cols),
-            values, x, y, bm, bk, N, 0, ldx, false, false};
+            static_cast<const int*>(order), values, x, y, bm, bk, N, 0, 0,
+            ldx, false, false};
   const long long v = dtype == 1 ? 8 : 4;  // elements per 16 bytes
   p.vec_v = aligned16(values) && bk % v == 0;
   p.vec_x = aligned16(x) && ldx % v == 0;
@@ -437,9 +487,10 @@ extern "C" int ptt_bcsr_spmm(const void* crows, const void* cols,
     dim3 grid(Mb * p.mtiles, (N + kBN - 1) / kBN);
     bcsr_spmm_wmma_kernel<<<grid, kThreads, 0, s>>>(p);
   } else if (dtype == 0) {
-    p.mtiles = (bm + kFM - 1) / kFM;
-    dim3 grid(Mb * p.mtiles, (N + kFN - 1) / kFN);
-    bcsr_spmm_f32_kernel<<<grid, kThreads, 0, s>>>(p);
+    return bm <= 16   ? launch_f32<16>(p, Mb, s)
+           : bm <= 32 ? launch_f32<32>(p, Mb, s)
+           : bm <= 64 ? launch_f32<64>(p, Mb, s)
+                      : launch_f32<128>(p, Mb, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,11 +20,11 @@
 // store as zeros. Tail tiles of C, K and N are masked.
 //
 // What bounds it on the H100: at the MoE training shapes (G = E = 64, C =
-// 480, K x N = 2048 x 1408, ~24.6k routed rows) one launch moves ~556 MB
-// (each routed-to expert's weight once, the live x rows, the whole y:
-// 0.166 ms at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s bf16):
-// both, nearly equally, so the design has to keep the tensor cores fed
-// while it streams.
+// 480, K x N = 2048 x 1408, ~24.6k routed rows) one bf16 launch moves
+// ~556 MB (each routed-to expert's weight once, the live x rows, the
+// whole y: 0.166 ms at 3.35 TB/s) for 142 GFLOP (0.143 ms at 989 TFLOP/s
+// bf16): both, nearly equally, so the bf16 design has to keep the tensor
+// cores fed while it streams; float32 (below) is bound by its FMAs.
 //
 // Routes, picked by shape in ptt_grouped_gemm before any launch
 // (ptt_grouped_gemm_route says which):
@@ -46,14 +46,26 @@
 //   contiguous): grouped_gemm_wmma_kernel, the first design: 128 x 128
 //   tiles, WMMA 16x16x16 from padded shared memory, 32-deep synchronous k
 //   steps, element loads where a chunk is not aligned.
-// - float32: grouped_gemm_f32_kernel, 64 x 64 tiles, 256 threads with 4 x
-//   4 outputs each, float32 FMA on the CUDA cores (full float32: no TF32),
-//   unchanged.
+// - float32: grouped_gemm_f32_kernel, full float32 FMA on the CUDA cores
+//   (no TF32), so its bound is operations at 67 TFLOP/s: ~2.0 ms for each
+//   of the MoE shapes' four launches (gate/up and down, forward and dx),
+//   against ~0.17 ms of bytes. It runs on the pipelined mainloop of
+//   gemm_f32.cuh: 64 x 128 output tiles in the forward (128 threads; a
+//   group's last C tile holds fewer dead rows than a 128-row one) and 128
+//   x 128 for dx (256 threads), each thread keeping 8 x 8 sums in
+//   registers (every shared value feeds 8 FMAs, read as conflict-free
+//   float4s), a 3-slot ring of 16-deep k tiles with the next tiles' loads
+//   in flight during the FMAs. x's C tile is staged
+//   through registers and stored k-major; w's tile is copied by cp.async
+//   in the forward ([E, K, N]: 16-byte copies, or 4-byte ones when
+//   neither axis is contiguous) and staged like x for dx's transposed
+//   view. Dead tiles and rows as above.
 
 #include <mma.h>
 
 #include <type_traits>
 
+#include "gemm_f32.cuh"
 #include "gemm_tiles.cuh"
 #include "gemm_wgmma.cuh"
 
@@ -194,62 +206,87 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// -- float32: FMA on the CUDA cores -------------------------------------------
+// -- float32: FMA on the CUDA cores, on the ring of gemm_f32.cuh -------------
 
-constexpr int kFM = 64, kFN = 64, kFK = 16;
-constexpr int kFPA = kFK + 4;
-constexpr int kFPBr = kFN + 4;
-constexpr int kFPBc = kFK + 4;
+// The float32 tile: 64 x 128 in the forward (a group's last C tile holds
+// fewer dead rows than a 128-row one), 128 x 128 for dx (its staged B
+// tile needs the 256 threads of the 128-row block to stay in registers).
+template <bool kColB>
+using F32Tile = ptt::f32::Tile<kColB ? 128 : 64>;
+
+// The ring's policy (gemm_f32.cuh): x's C tile is A, staged through
+// registers (K contiguous); w's tile is B, copied by cp.async when its K
+// axis is the row axis ([E, K, N]; element copies when neither axis is
+// contiguous) or, kColB, staged like A (dx's transposed view: K
+// contiguous).
+template <bool kColB>
+struct GmmF32Tiles {
+  using G = F32Tile<kColB>;
+  const float* x;  // row m0 of group g
+  const float* w;  // column n0 of expert g / gpe
+  long long xs, ws_k, ws_n;
+  int rows, K, ncols;
+  bool vec_x, vec_w;
+  ptt::f32::Staged<G::M, G::NT> a;
+  ptt::f32::Staged<G::TN, G::NT> b;  // kColB only
+
+  __device__ __forceinline__ void fetch(int t) {
+    const int k0 = t * ptt::f32::kBK;
+    a.fetch(x + k0, xs, rows, K - k0, vec_x);
+    if constexpr (kColB) b.fetch(w + k0, ws_n, ncols, K - k0, vec_w);
+  }
+
+  __device__ __forceinline__ void put(float* slot) const {
+    a.put(slot);
+    if constexpr (kColB) b.put(slot + ptt::f32::kBK * G::PA);
+  }
+
+  __device__ __forceinline__ void fill(float* slot, int t) {
+    if constexpr (!kColB) {
+      const int k0 = t * ptt::f32::kBK;
+      ptt::f32::fill_rows<G::TN, G::NT>(
+          ptt::wg::smem_u32(slot + ptt::f32::kBK * G::PA), w + k0 * ws_k,
+          ws_k, ws_n, K - k0, ncols, vec_w);
+    }
+  }
+};
+
+// grid (N tiles, C tiles, G) of F32Tile output tiles, each thread 8 x 8
+// sums
+template <bool kColB>
+__global__ void __launch_bounds__(F32Tile<kColB>::THREADS,
+                                  F32Tile<kColB>::MINB)
+    grouped_gemm_f32_kernel(Problem p) {
+  using G = F32Tile<kColB>;
+  extern __shared__ float4 f32_smem[];
+  const int g = blockIdx.z, m0 = blockIdx.y * G::M, n0 = blockIdx.x * G::TN;
+  const int rows = tile_rows<float, G::M, G::TN, G::THREADS>(p, g, m0, n0);
+  if (rows == 0) return;
+  const float* we = static_cast<const float*>(p.w) + (g / p.gpe) * p.ws_e;
+  GmmF32Tiles<kColB> tiles{
+      static_cast<const float*>(p.x) + g * p.xs_g + m0 * p.xs_c,
+      we + n0 * p.ws_n, p.xs_c, p.ws_k, p.ws_n, rows, p.K, p.N - n0,
+      p.vec_x, p.vec_w};
+  ptt::f32::Acc<G::M> acc = {};
+  ptt::f32::mainloop<G::M>(tiles, (p.K + ptt::f32::kBK - 1) / ptt::f32::kBK,
+                           reinterpret_cast<float*>(f32_smem), acc);
+  float* y = static_cast<float*>(p.y) +
+             (static_cast<long long>(g) * p.C + m0) * p.N + n0;
+  ptt::f32::store_tile<G::M>(acc, p.N - n0, p.N % 4 == 0, rows,
+                             [&](int r) -> float* {
+                               return m0 + r < p.C
+                                          ? y + static_cast<long long>(r) * p.N
+                                          : nullptr;
+                             });
+}
 
 template <bool kColB>
-__global__ void __launch_bounds__(kThreads)
-    grouped_gemm_f32_kernel(Problem p) {
-  using T = float;
-  constexpr int PB = kColB ? kFPBc : kFPBr;
-  constexpr int B_ELEMS = kColB ? kFN * kFPBc : kFK * kFPBr;
-  __shared__ __align__(16) float sA[kFM * kFPA];
-  __shared__ __align__(16) float sB[B_ELEMS];
-
-  const int g = blockIdx.z, m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
-  const int rows = tile_rows<T, kFM, kFN, kThreads>(p, g, m0, n0);
-  if (rows == 0) return;
-  const T* xg = static_cast<const T*>(p.x) + g * p.xs_g + m0 * p.xs_c;
-  const T* we = static_cast<const T*>(p.w) + (g / p.gpe) * p.ws_e;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 4 x 4 outputs
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.K; k0 += kFK) {
-    load_tile<T, kFM, kFK, kFPA, kThreads>(xg + k0, p.xs_c, 1, rows,
-                                           p.K - k0, p.vec_x, sA);
-    load_w<T, kColB, kFK, kFN, PB, kThreads>(p, we, k0, n0, sB);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[(ty * 4 + i) * kFPA + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = kColB ? sB[(tx * 4 + j) * PB + kk] : sB[kk * PB + tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* y = static_cast<float*>(p.y);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.C) continue;
-    float* out = y + (static_cast<long long>(g) * p.C + m) * p.N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < p.N) out[n] = m < m0 + rows ? acc[i][j] : 0.f;
-    }
-  }
+int launch_f32(const Problem& p, cudaStream_t s) {
+  using G = F32Tile<kColB>;
+  PTT_SET_SMEM(grouped_gemm_f32_kernel<kColB>, G::SMEM);
+  dim3 grid((p.N + G::TN - 1) / G::TN, (p.C + G::M - 1) / G::M, p.G);
+  grouped_gemm_f32_kernel<kColB><<<grid, G::THREADS, G::SMEM, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- bf16, aligned: wgmma on the pipelined ring ------------------------------
@@ -421,11 +458,7 @@ extern "C" int ptt_grouped_gemm(const void* x, const void* w, void* y,
     else
       grouped_gemm_wmma_kernel<false><<<grid, kThreads, 0, s>>>(p);
   } else {
-    dim3 grid((N + kFN - 1) / kFN, (C + kFM - 1) / kFM, G);
-    if (col_b)
-      grouped_gemm_f32_kernel<true><<<grid, kThreads, 0, s>>>(p);
-    else
-      grouped_gemm_f32_kernel<false><<<grid, kThreads, 0, s>>>(p);
+    return col_b ? launch_f32<true>(p, s) : launch_f32<false>(p, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

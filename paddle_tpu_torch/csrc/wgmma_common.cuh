@@ -1,5 +1,7 @@
 // Hopper primitives shared by the tensor-core engines: the attention
-// engine (flash_wgmma.cuh) and the GEMM mainloop (gemm_wgmma.cuh).
+// engine (flash_wgmma.cuh) and the GEMM mainloop (gemm_wgmma.cuh); the
+// float32 GEMM mainloop (gemm_f32.cuh) takes its cp.async copies and
+// waits.
 //
 // - cp.async copies of 16 (and 4) bytes into shared memory, zero-filled
 //   when the source is out of range, with their commit and waits;

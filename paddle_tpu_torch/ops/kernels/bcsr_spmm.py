@@ -20,10 +20,12 @@ row, N tile); it walks its block row's run ``crows[i]..crows[i+1]`` on the
 device and writes its tile once. bf16 with 16-byte-aligned rows (values
 and x aligned, x's row stride a multiple of 8) runs the run's 64-deep
 block slices through the pipelined ``wgmma`` ring of
-``csrc/gemm_wgmma.cuh`` (64- or 128-row M tiles by ``bm``), block rows
-with the most kept blocks first (``row_order``); other bf16 inputs take
-the first design's WMMA kernel, float32 an FMA kernel on the CUDA cores
-(``bcsr_route`` says which). ``crows``, ``cols`` and the order go to the
+``csrc/gemm_wgmma.cuh`` (64- or 128-row M tiles by ``bm``); other bf16
+inputs take the first design's WMMA kernel; float32 runs full float32
+FMA on the CUDA cores over the pipelined ring of ``csrc/gemm_f32.cuh``
+(16-, 32-, 64- or 128-row M tiles by ``bm``). ``bcsr_route`` says which.
+Both pipelined routes launch block rows with the most kept blocks first
+(``row_order``). ``crows``, ``cols`` and the order go to the
 device as int32; x is read in place with its N tail masked, where the
 reference pads N to 128 lanes.
 

@@ -17,8 +17,9 @@ reads ``counts[g]`` from device memory and skips a C tile past it, so
 nothing syncs with the host and the products scale with the routed rows.
 Sums are float32 and round once to x's dtype. bf16 with 16-byte-aligned
 rows runs ``wgmma`` over a pipelined ring of ``cp.async`` tiles
-(``csrc/gemm_wgmma.cuh``); other bf16 strides keep a WMMA kernel
-and float32 the FMA kernel on the CUDA cores (``gmm_route`` says which).
+(``csrc/gemm_wgmma.cuh``); other bf16 strides keep a WMMA kernel; float32
+runs full float32 FMA on the CUDA cores over the pipelined ring of
+``csrc/gemm_f32.cuh`` (``gmm_route`` says which).
 ``w`` is read through its strides, so the backward's dx reuses the kernel
 on a transposed view of ``w`` without a copy.
 

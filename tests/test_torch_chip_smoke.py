@@ -62,20 +62,23 @@ def test_categorize_sorts_every_attention_kernel_into_flash(src):
 
 
 GEMM_SOURCES = {"grouped_gemm.cu": ("grouped_gemm", "grouped_gemm_"),
-                "weight_only_gemm.cu": ("int4_gemm", "int4_gemm_")}
+                "weight_only_gemm.cu": ("int4_gemm", "int4_gemm_"),
+                "bcsr_spmm.cu": ("bcsr_spmm", "bcsr_spmm_")}
 
 
 @pytest.mark.parametrize("src", sorted(GEMM_SOURCES))
 def test_categorize_sorts_every_gemm_kernel_into_its_part(src):
-    """Every ``__global__`` of the two GEMM sources (the wgmma routes,
-    split-k and its reduction, the kernels kept for unaligned shapes)
-    keeps its stem, so no name falls to the generic "matmul" pattern."""
+    """Every ``__global__`` of the GEMM sources (the wgmma routes, split-k
+    and its reduction, the kernels kept for unaligned shapes, the float32
+    kernels at every M tile) keeps its stem, so no name falls to the
+    generic "matmul" pattern."""
     smoke = _smoke()
     part, stem = GEMM_SOURCES[src]
     names = _kernels(src)
     assert len(names) >= 3 and all(n.startswith(stem) for n in names), names
     for name in names:
-        for args in ("true", "16, __nv_bfloat16", "float"):
+        for args in ("true", "false", "16, __nv_bfloat16", "float", "16",
+                     "32", "64", "128"):
             prof = (f"void (anonymous namespace)::{name}<{args}>((anonymous "
                     f"namespace)::Problem)")
             cats = smoke.categorize({prof: 1.25}, 1.25)
@@ -292,3 +295,74 @@ def test_ptxas_rows_name_the_ragged_kernels():
         "smem_bytes"] == 2 * 64 * 64 * 2 + 2 * (2 * 64 * 64 + 512) + 1024
     assert rows["ragged_paged_attention_tc_kernel<bf16, 128>"][
         "registers"] == 219
+
+
+def test_ptxas_rows_name_the_f32_kernels():
+    """Both float32 FMA kernels get rows: the grouped GEMM's (both w
+    layouts) and the BCSR kernel's at each M tile, with the dynamic shared
+    memory of gemm_f32.cuh's rings and the spills ptxas reports."""
+    txt = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1a607d2d"
+        "_15_grouped_gemm_cu_55035d3a23grouped_gemm_f32_kernelILb0EEEvNS_7"
+        "ProblemE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN48_GLOBAL__N__1a607d2d_"
+        "15_grouped_gemm_cu_55035d3a23grouped_gemm_f32_kernelILb0EEEvNS_7"
+        "ProblemE",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 127 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b146cf15"
+        "_12_bcsr_spmm_cu_7a681df120bcsr_spmm_f32_kernelILi16EEEvNS_7Problem"
+        "E' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b146cf15"
+        "_12_bcsr_spmm_cu_7a681df120bcsr_spmm_f32_kernelILi128EEEvNS_7Proble"
+        "mE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers"])
+    smoke = _smoke()
+    rows = {r["kernel"]: r for r in smoke.ptxas_tc_kernels(txt)}
+    assert set(rows) == {"grouped_gemm_f32_kernel<false>",
+                         "bcsr_spmm_f32_kernel<16>",
+                         "bcsr_spmm_f32_kernel<128>"}
+    gmm = rows["grouped_gemm_f32_kernel<false>"]
+    assert (gmm["registers"], gmm["spill_stores"]) == (127, 0)
+    # the forward's 64-row tile: 3 slots of [16][68] A and [16][132] B
+    assert gmm["smem_bytes"] == 3 * 16 * (68 + 132) * 4
+    t16 = rows["bcsr_spmm_f32_kernel<16>"]
+    assert (t16["spill_stores"], t16["spill_loads"]) == (4, 4)
+    # two k groups, each 3 slots of [16][20] A and [16][68] B floats
+    assert t16["smem_bytes"] == 2 * 3 * 16 * (20 + 68) * 4
+    # dx's 128-row tile, as BCSR's: 3 slots of [16][132] A and B floats
+    assert rows["bcsr_spmm_f32_kernel<128>"]["smem_bytes"] == \
+        smoke.gemm_smem_bytes("grouped_gemm_f32_kernel", ["true"]) == \
+        3 * 16 * (132 + 132) * 4
+
+
+def test_f32_smem_bytes_follows_the_header():
+    """``f32_smem_bytes`` mirrors gemm_f32.cuh's k depth, ring slots and
+    tile shapes (read from the header), at every M tile."""
+    text = (CSRC / "gemm_f32.cuh").read_text()
+    bk = int(re.search(r"constexpr int kBK = (\d+);", text).group(1))
+    stages = int(re.search(r"constexpr int kStages = (\d+);",
+                           text).group(1))
+    assert "KG = TM == 16 ? 2 : 1" in text and \
+        "NJ = TM >= 32 ? 2 : 1" in text
+    smoke = _smoke()
+    for tm in (16, 32, 64, 128):
+        tn, kg = (64, 2) if tm == 16 else (128, 1)
+        assert smoke.f32_smem_bytes(tm) == \
+            kg * stages * bk * (tm + 4 + tn + 4) * 4
+        assert smoke.gemm_smem_bytes("bcsr_spmm_f32_kernel", [str(tm)]) == \
+            smoke.f32_smem_bytes(tm)
+
+
+@pytest.mark.parametrize("dname,bm,tm", [
+    ("float32", 16, 16), ("float32", 17, 32), ("float32", 32, 32),
+    ("float32", 48, 64), ("float32", 96, 128), ("float32", 128, 128),
+    ("float32", 144, 128), ("bfloat16", 16, 64), ("bfloat16", 128, 128),
+    ("bfloat16", 144, 128)])
+def test_bcsr_tile_rows_names_the_kernel_each_block_takes(dname, bm, tm):
+    """``phase_routes`` asks the profile for the BCSR kernel at the M tile
+    the C entry picks for ``bm`` (ptt_bcsr_spmm)."""
+    assert _smoke().bcsr_tile_rows(dname, bm) == tm

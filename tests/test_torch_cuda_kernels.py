@@ -50,9 +50,11 @@ geometry) for every (q, pool) dtype pair, giving the same bytes on two
 launches, and at split counts 1, 2 and many (the plan forced) with 16
 query heads a kv head (two head groups). The block-CSR SpMM matches its
 plain version over float32 and bf16, blocks 16 x 128, 128 x 128, 144 x
-32, 48 x 48 and 64 x 192, N tails, empty block rows and an empty matrix,
-with one launch per call, and refuses bf16 blocks that are not multiples
-of 16; bf16 takes the wgmma route for an x whose rows are 16-byte
+32, 48 x 48, 64 x 192, 32 x 64 and 96 x 48, N tails, empty block rows and
+an empty matrix, with one launch per call, and refuses bf16 blocks that
+are not multiples of 16; its float32 route at every M tile (and bk 6 and
+20) gives the same bytes on two launches, with or without the row order
+and for an x whose rows are not 16-byte aligned; bf16 takes the wgmma route for an x whose rows are 16-byte
 aligned (a strided view read in place, NaN past N never reaching the
 output) and the WMMA route for a contiguous x with N % 8 != 0, the route
 asserted, the wgmma route bit for bit run to run and with or without the
@@ -62,8 +64,9 @@ groups per expert 1 and 2, whole and tail C/K/N tiles, K not a multiple
 of the 64-deep k tile, rows that are not 16-byte aligned, w contiguous,
 as a transposed view (dx's) and with neither axis contiguous, and counts
 with empty, partial and full groups (one pattern all empty, one at the
-edges of the 128-row C tile); the bf16 wgmma route gives the same bytes
-on two launches; its autograd on the card matches the CPU's. The int4
+edges of the 128-row C tile), C, K and N one past the float32 route's
+tiles, K and N not multiples of 4; the bf16 wgmma route and the float32
+route (every w layout) give the same bytes on two launches; its autograd on the card matches the CPU's. The int4
 weight-only GEMM matches its plain version over m 1, 4, 16, 37, 64, 65,
 200 and 512 (both sides of the decode / prefill edge, both prefill
 widths), Llama-3-8B's k/v,
@@ -777,17 +780,25 @@ def test_lamb_fused_equals_per_param_on_the_card(dev):
 
 # (M, K, N, bm, bk): whole and tail N tiles, blocks of one and of several
 # M tiles, bk that is not a multiple of the 32-deep step nor of the
-# wgmma route's 64-deep one, and a block deeper than one 64-deep slice
+# wgmma route's 64-deep one, and a block deeper than one 64-deep slice;
+# bm 16, 32, 48, 64, 96, 128 and 144 reach every M tile of the float32
+# route (16, 32, 64, 128 rows) and its row tail past 128
 BCSR_DIMS = {"ref_blocks": (64, 256, 192, 16, 128),
              "big_blocks": (384, 512, 300, 128, 128),
              "tall_blocks": (288, 96, 130, 144, 32),
              "odd_blocks": (96, 144, 70, 48, 48),
-             "deep_blocks": (192, 576, 264, 64, 192)}
+             "deep_blocks": (192, 576, 264, 64, 192),
+             "bm32_blocks": (128, 320, 260, 32, 64),
+             "bm96_blocks": (288, 192, 129, 96, 48)}
+# float32 only (bf16 blocks are multiples of 16): bk not a multiple of 4
+# (element loads of the values) nor of the 16-deep k tile
+BCSR_F32_DIMS = {"thin_k_blocks": (96, 60, 100, 48, 6),
+                 "bk20_blocks": (192, 100, 133, 96, 20)}
 
 
 def _bcsr_case(dev, dims, dtype, empty=True, keep=0.5, seed=0):
     from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
-    M, K, N, bm, bk = BCSR_DIMS[dims]
+    M, K, N, bm, bk = {**BCSR_DIMS, **BCSR_F32_DIMS}[dims]
     g = torch.Generator(device=dev).manual_seed(seed)
     d = torch.randn((M, K), generator=g, device=dev)
     mask = torch.rand((M // bm, K // bk), generator=g, device=dev) < keep
@@ -862,6 +873,38 @@ def test_bcsr_spmm_bf16_routes_and_strided_x(dev, dims):
         assert bs.bcsr_route(vals, x) == "wgmma"
 
 
+@pytest.mark.parametrize("dims", sorted(BCSR_DIMS) + sorted(BCSR_F32_DIMS))
+def test_bcsr_spmm_f32_route_bytes_order_and_unaligned_x(dev, dims):
+    """The float32 route at every M tile: within 1e-4 of the plain
+    version's max, empty block rows exactly zero; two launches give the
+    same bytes, and so do the block rows in CSR order instead of
+    ``row_order``; an x view whose rows are not 16-byte aligned (4-byte
+    copies; NaN past N never reaching the output) gives them too."""
+    from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
+    crows, cols, vals, x = _bcsr_case(dev, dims, torch.float32, seed=5)
+    assert bs.bcsr_route(vals, x) == "f32_fma"
+    want = bs.bcsr_spmm_plain(crows, cols, vals, x)
+    lim = 1e-4 * max(float(want.float().abs().max()), 1.0)
+    crows_d, cols_d, order_d = bs.device_structure(
+        crows, cols, vals.shape[0], x.shape[0] // vals.shape[2], dev)
+    assert _same_bytes_twice(
+        lambda: bs.bcsr_spmm_kernel(crows_d, cols_d, order_d, vals, x))
+    got = bs.bcsr_spmm_kernel(crows_d, cols_d, order_d, vals, x)
+    in_order = torch.arange(len(crows) - 1, dtype=torch.int32, device=dev)
+    again = bs.bcsr_spmm_kernel(crows_d, cols_d, in_order, vals, x)
+    K, N = x.shape
+    buf = torch.full((K, N + 1 if (N + 1) % 4 else N + 2), float("nan"),
+                     device=dev)
+    buf[:, :N] = x
+    xs = buf[:, :N]
+    assert xs.stride(0) % 4 != 0
+    unaligned = bs.bcsr_spmm_kernel(crows_d, cols_d, order_d, vals, xs)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= lim
+    assert bool((got[-vals.shape[1]:] == 0).all())
+    assert torch.equal(got, again) and torch.equal(got, unaligned)
+
+
 def test_bcsr_spmm_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from paddle_tpu_torch.ops.kernels import bcsr_spmm as bs
     crows, cols, vals, x = _bcsr_case(dev, "odd_blocks", torch.float32)
@@ -884,6 +927,11 @@ GMM_DIMS = {  # (C, K, N)
     "tails": (200, 72, 200),        # tail C, K and N tiles
     "odd": (37, 20, 30),            # rows not 16-byte aligned: element loads
     "edges": (300, 136, 264),       # K not a multiple of the 64-deep k tile
+    # one row and column past the 128 x 128 tile, K past the 16-deep k
+    # tile with more tiles than the float32 ring's 3 slots; K % 4 and N % 4
+    # != 0 (float32 rows not 16-byte aligned: element loads and copies)
+    "ring_tails": (129, 300, 257),
+    "unaligned": (150, 37, 131),
 }
 GMM_LAYOUTS = ("contiguous", "transposed", "strided")
 
@@ -945,6 +993,19 @@ def test_grouped_gemm_bf16_kernel_is_bitwise_run_to_run(dev, dims, layout):
     b = gg.gmm_kernel(x, w, counts, 2)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", GMM_LAYOUTS)
+@pytest.mark.parametrize("dims", sorted(GMM_DIMS))
+def test_grouped_gemm_f32_kernel_is_bitwise_run_to_run(dev, dims, layout):
+    """The float32 route sums in a fixed order: two launches, same bytes,
+    for every w layout (cp.async rows, the staged transposed view,
+    element copies)."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    x, w, counts = _gmm_inputs(dev, dims, 2, torch.float32, layout,
+                               "tile_edges")
+    assert gg.gmm_route(x, w).startswith("f32_fma")
+    assert _same_bytes_twice(lambda: gg.gmm_kernel(x, w, counts, 2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
