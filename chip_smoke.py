@@ -1331,6 +1331,21 @@ def tc_smem_bytes(kind: str, d: int) -> int:
     return tiles * 64 * d * 2 + 2 * words * 64 * 4 + 1024
 
 
+# dynamic shared memory of the float32 attention kernels, as flash_f32.cuh
+# sizes it: [64][d + 4] float32 tiles (forward: its hb query heads' Q, a K
+# and a V slot; dq: Q, dO and two stages of K and V; dk/dv: K, V and three
+# slots of Q or dO), W tiles of [64][64 hb + 4] floats (dk/dv: one for P,
+# one for dS) and 64-word column arrays (the forward's one set of 2, dq's
+# two stages of 2, dk/dv's two sets of 4)
+def f32_attn_smem_bytes(kind: str, d: int, hb: int = 1) -> int:
+    tile, w = 64 * (d + 4) * 4, 64 * (64 * hb + 4) * 4
+    if kind == "fwd":
+        return (hb + 2) * tile + w + 2 * 64 * 4
+    if kind == "dq":
+        return 6 * tile + w + 2 * 2 * 64 * 4
+    return 5 * tile + 2 * w + 2 * 4 * 64 * 4
+
+
 def f32_smem_bytes(tm: int) -> int:
     """Dynamic shared memory of a float32 FMA kernel with a ``tm``-row M
     tile, as csrc/gemm_f32.cuh's ``Tile`` sizes it: per k group a 3-slot
@@ -1406,13 +1421,24 @@ def ragged_smem_bytes(args) -> int:
 
 def ptxas_tc_kernels(txt: str):
     """Registers, spills and shared memory of each redesigned kernel in
-    nvcc's ``-Xptxas -v`` report: the bf16 attention kernels (dynamic
-    shared memory), every GEMM kernel of grouped_gemm.cu and
+    nvcc's ``-Xptxas -v`` report: the bf16 and float32 attention kernels
+    (dynamic shared memory; the float32 ones named by their source, as
+    ``flash_varlen::fwd_kernel<128, 2>``), every GEMM kernel of
+    grouped_gemm.cu and
     weight_only_gemm.cu, the wgmma and float32 BCSR kernels, both split-KV
     passes (the gang decode's and the ragged decode rows') and the ragged
     tensor-core tile pass (dynamic, or the static bytes ptxas reports)."""
     rows, name = [], None
     for line in txt.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_(flash_attention|"
+                      r"flash_varlen)_cu_\w*?\d(fwd|dq|dkv)_kernelILi(\d+)E"
+                      r"(?:Li(\d+)E)?E", line)
+        if m:
+            d, hb = int(m.group(3)), int(m.group(4) or 1)
+            args = f"{d}, {hb}" if m.group(4) else f"{d}"
+            name = dict(kernel=f"{m.group(1)}::{m.group(2)}_kernel<{args}>",
+                        smem_bytes=f32_attn_smem_bytes(m.group(2), d, hb))
+            continue
         m = re.search(r"Compiling entry function '\w*?((?:flash|varlen)_tc_"
                       r"(fwd|dq|dkv))ILi(\d+)E", line)
         if m:
@@ -1549,18 +1575,19 @@ def attn_work(pairs, nq, nk, h, kv, d, item):
             2 * qb + 4 * kb + 2 * lse)   # q k v dO lse delta -> dk dv
 
 
-def planted_flash_faults(torch, fa, q, k, v, scale, want, grads):
+def planted_flash_faults(torch, fa, q, k, v, scale, want, grads, dtype_name):
     """Two faults a kernel could make, produced with the plain version:
     a forward that skips the diagonal 64-key tile of the last q tile (its
     rows then attend keys [0, S-64) only), and a dk/dv that drops the
-    middle 64-key tile (zeros). Each must fail the limits above."""
+    middle 64-key tile (zeros). Each must fail the limits above for the
+    inputs' dtype."""
     S = q.shape[1]
     bad = want.clone()
     bad[:, S - 64:] = fa.flash_fwd_plain(q[:, S - 64:], k[:, :S - 64],
                                          v[:, :S - 64], False, scale)[0]
     errs = {}
     try:
-        check_close(torch, "flash_fwd", bad, want, "bfloat16")
+        check_close(torch, "flash_fwd", bad, want, dtype_name)
         raise AssertionError("flash_fwd: the tolerance passes a planted "
                              "fault (skipped causal tile)")
     except AssertionError as e:
@@ -1573,7 +1600,7 @@ def planted_flash_faults(torch, fa, q, k, v, scale, want, grads):
         bad = g.clone()
         bad[:, mid:mid + 64] = 0
         err = rel_err(torch, bad, g)
-        if err <= GRAD_REL_TOL["bfloat16"]:
+        if err <= GRAD_REL_TOL[dtype_name]:
             raise AssertionError(f"flash {name}: the tolerance passes a "
                                  f"planted fault (dropped kv tile)")
         errs[f"drop_kv_tile_{name}"] = err
@@ -1618,9 +1645,9 @@ def phase_flash(torch, seed, report, flush):
                     f"flash {name}[{label}]: kernel differs from plain "
                     f"version: max err {errs[name]} of the tensor's max "
                     f"(limit {GRAD_REL_TOL[label]})")
-        faults = planted_flash_faults(torch, fa, q, k, v, scale, wo, ref) \
-            if label == "bfloat16" else None
-        bitwise = label == "bfloat16" and all((
+        faults = planted_flash_faults(torch, fa, q, k, v, scale, wo, ref,
+                                      label)
+        bitwise = all((
             bitwise_twice(torch, "flash_fwd", lambda: fa.flash_fwd_kernel(
                 q, k, v, True, scale)),
             bitwise_twice(torch, "flash_dq", lambda: fa.flash_dq_kernel(
@@ -1661,10 +1688,14 @@ def phase_flash(torch, seed, report, flush):
                                                q.element_size())
         rate = BF16_FLOPS_PER_S if label == "bfloat16" else F32_FLOPS_PER_S
         # minimum backward = five products (2.5x the forward's flops): dq
-        # owns the dq product, dk/dv owns the recomputed s, dp, dk, dv
+        # owns the dq product, dk/dv owns the recomputed s, dp, dk, dv.
+        # The dq kernel recomputes s and dp too, so a dq kept apart from
+        # dk/dv (no atomics) has a floor of three products, printed beside
+        # its bound (which stays the one product, comparable across runs)
         bounds = {"fwd": bound(b_fwd, flops, rate),
                   "dq": bound(b_dq, flops // 2, rate),
                   "dkv": bound(b_dkv, 2 * flops, rate)}
+        dq_floor = bound(b_dq, 3 * flops // 2, rate)[0]
         abs_errs["fwd"], errs["fwd"] = e_out, e_out_rel
         abs_errs["dkv"] = max(abs_errs["dk"], abs_errs["dv"])
         errs["dkv"] = max(errs["dk"], errs["dv"])
@@ -1680,6 +1711,7 @@ def phase_flash(torch, seed, report, flush):
                 **rates[kern])
         res["fwd"]["lse_max_abs_err"] = e_lse
         res["fwd"]["flops"] = flops
+        res["dq"]["three_product_floor_ms"] = dq_floor
         res["grad_errs"] = errs
         res["library_errs"] = lib_err
         res["bitwise_run_to_run"] = bitwise
@@ -1695,8 +1727,8 @@ def phase_flash(torch, seed, report, flush):
             + f"; plain fwd {plain['fwd']:.2f} bwd {plain['bwd']:.2f}; "
             f"library fwd {lib_fwd:.3f} bwd {lib_bwd:.3f}, its own errors "
             f"vs plain {lib_err}; bound fwd {bounds['fwd'][0]:.4f} dq "
-            f"{bounds['dq'][0]:.4f} dkv {bounds['dkv'][0]:.4f} "
-            f"({bounds['fwd'][1]})"
+            f"{bounds['dq'][0]:.4f} (three-product floor {dq_floor:.4f}) dkv "
+            f"{bounds['dkv'][0]:.4f} ({bounds['fwd'][1]})"
             + ("; two launches of each kernel give the same bytes"
                if bitwise else "")
             + (f"; planted faults rejected: {faults}" if faults else ""))
@@ -1922,9 +1954,8 @@ def phase_flash_varlen(torch, seed, report, flush):
                     f"{errs[name + '_main']}) of the tensor's max (limit "
                     f"{GRAD_REL_TOL[dname]})")
         faults = planted_varlen_faults(torch, fv, fa, q, k, v, cuq, cuk,
-                                       lens, lk, scale, wo, wl, lse, dname) \
-            if dt == torch.bfloat16 else None
-        bitwise = dt == torch.bfloat16 and all((
+                                       lens, lk, scale, wo, wl, lse, dname)
+        bitwise = all((
             bitwise_twice(torch, "flash_varlen_fwd",
                           lambda: fv.flash_varlen_fwd(q, k, v, lay, True,
                                                       scale)),
@@ -1943,6 +1974,7 @@ def phase_flash_varlen(torch, seed, report, flush):
         bounds = {"fwd": bound(b_fwd, flops, rate),
                   "dq": bound(b_dq, flops // 2, rate),
                   "dkv": bound(b_dkv, 2 * flops, rate)}
+        dq_floor = bound(b_dq, 3 * flops // 2, rate)[0]   # as phase_flash
         run = lambda f, *a: time_ms(torch, lambda: f(*a), flush=flush)  # noqa
         ms = {"fwd": run(fv.flash_varlen_fwd, q, k, v, lay, True, scale),
               "dq": run(fv.flash_varlen_dq, q, k, v, dout, wl, delta, lay,
@@ -2009,7 +2041,8 @@ def phase_flash_varlen(torch, seed, report, flush):
                                             else "bwd"],
                 bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
                 library_ms=lib_ms, padded_flash_ms=padded.get(kern),
-                **rates[kern])
+                launches=counts[f"flash_varlen_{kern}"], **rates[kern])
+        res["dq"]["three_product_floor_ms"] = dq_floor
         tiles, interior = varlen_tiles(torch, lay)
         res.update(lse_max_abs_err=e_lse, pairs=pairs, flops=flops,
                    tiles=tiles, interior_tile_share=interior,
@@ -2027,7 +2060,8 @@ def phase_flash_varlen(torch, seed, report, flush):
                         for n, r in rates.items())
             + f"; plain fwd {plain['fwd']:.2f} bwd "
             f"{plain['bwd']:.2f}; bound fwd {bounds['fwd'][0]:.4f} dq "
-            f"{bounds['dq'][0]:.4f} dkv {bounds['dkv'][0]:.4f} "
+            f"{bounds['dq'][0]:.4f} (three-product floor {dq_floor:.4f}) "
+            f"dkv {bounds['dkv'][0]:.4f} "
             f"({bounds['fwd'][1]}; {pairs} pairs, {tiles} tiles per head, "
             f"{interior:.3f} of them interior)"
             + (f"; library {lib_name}: fwd {lib['fwd']:.3f} bwd "
@@ -2909,8 +2943,8 @@ def kernel_vs_plain_training(torch, model, crit, ids):
 
 # the port's attention kernels by the exact stems of their symbols, checked
 # before any other pattern: a templated or renamed kernel must not land in
-# "matmul" or "other" (bf16: the tensor-core kernels; float32: the CUDA-core
-# kernels of flash_attention.cu and flash_varlen.cu)
+# "matmul" or "other" (bf16: the tensor-core kernels; float32: the FMA
+# engine's kernels of flash_attention.cu and flash_varlen.cu)
 FLASH_FWD_STEMS = ("flash_tc_fwd<", "varlen_tc_fwd<", "::fwd_kernel<")
 FLASH_BWD_STEMS = ("flash_tc_dq<", "flash_tc_dkv<", "varlen_tc_dq<",
                    "varlen_tc_dkv<", "::dq_kernel<", "::dkv_kernel<")
@@ -3497,12 +3531,15 @@ def main(argv=None) -> int:
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
                       "padded_flash_ms", "library_bsr_ms",
-                      "library_bsr_error"):
+                      "library_bsr_error", "three_product_floor_ms"):
             if extra in head:
                 e[extra] = head[extra]
+        # other dtypes: their numbers, the dq floor, and their main-path
+        # launches where the phase counts them per dtype (varlen)
         for label, v in per.items():
             if label != "bfloat16" and isinstance(v, dict) and "ms" in v:
-                e[label] = {k: v[k] for k in keys}
+                e[label] = {k: v[k] for k in keys + (
+                    "three_product_floor_ms", "launches") if k in v}
         entries.append(e)
     report["total_s"] = time.perf_counter() - t_start
     try:

@@ -1,8 +1,8 @@
 // The bf16 attention engine on Hopper's tensor cores, shared by the flash
 // kernels (flash_attention.cu, [batch, seq, heads, head_dim]) and the
 // packed (varlen) kernels (flash_varlen.cu, [tokens, heads, head_dim]):
-// the forward, dq and dk/dv bodies. float32 keeps the CUDA-core kernels of
-// flash_tiles.cuh.
+// the forward, dq and dk/dv bodies. float32 runs the same bodies on the
+// CUDA cores through flash_f32.cuh, under the same mask policies.
 //
 // What bounds them: operations. At the training shape (b 2, s 2048, 32/8
 // heads, d 128, causal) the forward does 68.7 GFLOP against ~100 MB of

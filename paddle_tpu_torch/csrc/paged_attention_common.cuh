@@ -1,7 +1,6 @@
 // Shared device code of the paged-attention kernels: the float32 tile of
 // the ragged kernel (ragged_paged_attention.cu), conversions that the
-// split-KV pass (paged_split.cuh) takes; flash_attention.cu takes the tile
-// shape, conversions and warp reductions from here too.
+// split-KV pass (paged_split.cuh) takes.
 //
 // One thread block owns one q tile of one kv head: up to kRows query rows
 // (tokens x the kv head's GQA group), all of them attending the same

@@ -22,9 +22,12 @@ same bit for bit run to run. bfloat16 runs on the tensor cores
 (``csrc/flash_wgmma.cuh``: bf16 tiles streamed by ``cp.async`` through a
 two-stage ring, every product a ``wgmma``, probabilities and dS fed back
 as two bf16 terms, softmax statistics in float32, the causal mask on
-boundary tiles only); float32 keeps CUDA-core kernels that compute in
-float32 with synchronous loads. Any ``sq``/``sk`` works (the tail tile is
-masked), where the Pallas kernel needs multiples of 128.
+boundary tiles only); float32 runs the same three bodies in full float32
+FMA on the CUDA cores (``csrc/flash_f32.cuh``: register tiles, float32
+tiles streamed by ``cp.async`` through two stages, the forward over two
+query heads of a GQA group at a time, the same mask policy and grid
+order). Any ``sq``/``sk`` works (the tail tile is masked), where the
+Pallas kernel needs multiples of 128.
 
 The backward takes ``delta = rowsum(dout * out)`` as a plain torch op, as
 the reference does; ``flash_block``'s lse cotangent folds into it as

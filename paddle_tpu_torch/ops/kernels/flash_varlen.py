@@ -19,9 +19,10 @@ the reference's meaning). A row with no live key gives out 0 and lse
 The three CUDA kernels (``csrc/flash_varlen.cu``) read q, k, v and dout
 through their strides in the packed layout: no transposed or padded copy.
 bfloat16 runs on the tensor cores through the engine the flash kernels
-use (``csrc/flash_wgmma.cuh``), with the segment mask evaluated on
-boundary tiles only and each grid walking its blocks longest run first
-(``longest_first``); float32 keeps CUDA-core kernels.
+use (``csrc/flash_wgmma.cuh``), float32 on the CUDA cores through their
+float32 FMA engine (``csrc/flash_f32.cuh``); both evaluate the segment
+mask on boundary tiles only and walk each grid's blocks longest run first
+(``longest_first``).
 The wrapper derives per-token segment ids and positions from
 ``cu_seqlens`` on the device (``segments``: ``torch.searchsorted``), the
 segment range of every 64-token block (``block_ranges``) and from them

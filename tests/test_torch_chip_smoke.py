@@ -5,7 +5,8 @@ never lands in "matmul" or "other", and every grouped-GEMM and int4-GEMM
 kernel into its own part. The kernel names are read from the CUDA
 sources, in the form ``torch.profiler`` gives them (demangled, with
 template arguments). ``ptxas_tc_kernels`` reads the tensor-core kernels'
-rows of nvcc's ``-Xptxas -v`` report. Importing the script needs no
+rows of nvcc's ``-Xptxas -v`` report, the float32 attention kernels' shared
+memory as csrc/flash_f32.cuh sizes it. Importing the script needs no
 card."""
 
 import importlib.util
@@ -37,8 +38,9 @@ def _kernels(src):
 
 
 def _profiled(name, dtype):
-    """A kernel's name as the profiler shows it."""
-    args = "128" if "_tc_" in name else f"{dtype}, 128"
+    """A kernel's name as the profiler shows it (the float32 forward's
+    second argument: the query heads a block owns)."""
+    args = "128, 2" if name == "fwd_kernel" else "128"
     return (f"void (anonymous namespace)::{name}<{args}>({dtype} const*, "
             f"{dtype} const*, {dtype} const*, (anonymous namespace)::Lay, "
             f"int, int, float, int)")
@@ -337,6 +339,77 @@ def test_ptxas_rows_name_the_f32_kernels():
     assert rows["bcsr_spmm_f32_kernel<128>"]["smem_bytes"] == \
         smoke.gemm_smem_bytes("grouped_gemm_f32_kernel", ["true"]) == \
         3 * 16 * (132 + 132) * 4
+
+
+def test_ptxas_rows_name_the_f32_attention_kernels():
+    """The six float32 attention kernels get rows, named by their source
+    (both define fwd_kernel, dq_kernel and dkv_kernel), with the forward's
+    query heads a block, the registers and spills ptxas reports and the
+    dynamic shared memory of flash_f32.cuh's bodies."""
+    def entry(src, n, kern, args):
+        return ("ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__"
+                f"4af27cb8_{len(src) + 3}_{src}_cu_c0b5d747{n}{kern}I{args}"
+                "EEvPKfS2_S2_PfS3_NS_3LayES4_S4_S4_iiiifi' for 'sm_90a'")
+    spill = "    {0} bytes stack frame, {0} bytes spill stores, {0} bytes " \
+        "spill loads"
+    txt = "\n".join([
+        entry("flash_attention", 10, "fwd_kernel", "Li128ELi2E"),
+        spill.format(0), "ptxas info    : Used 254 registers, used 1 barriers",
+        entry("flash_attention", 9, "dq_kernel", "Li128E"),
+        spill.format(0), "ptxas info    : Used 210 registers, used 1 barriers",
+        entry("flash_varlen", 10, "dkv_kernel", "Li128E"),
+        spill.format(0), "ptxas info    : Used 255 registers, used 1 barriers",
+        entry("flash_varlen", 10, "fwd_kernel", "Li64ELi1E"),
+        spill.format(8), "ptxas info    : Used 128 registers, used 1 "
+        "barriers, 8 bytes cumulative stack size"])
+    smoke = _smoke()
+    rows = {r["kernel"]: r for r in smoke.ptxas_tc_kernels(txt)}
+    assert set(rows) == {"flash_attention::fwd_kernel<128, 2>",
+                         "flash_attention::dq_kernel<128>",
+                         "flash_varlen::dkv_kernel<128>",
+                         "flash_varlen::fwd_kernel<64, 1>"}
+    fwd = rows["flash_attention::fwd_kernel<128, 2>"]
+    assert (fwd["registers"], fwd["spill_stores"]) == (254, 0)
+    # two Q tiles, a K and a V slot of [64][132] floats, W [64][132], and
+    # 2 x 64 column words
+    assert fwd["smem_bytes"] == 4 * 64 * 132 * 4 + 64 * 132 * 4 + 512
+    assert rows["flash_attention::dq_kernel<128>"]["smem_bytes"] == \
+        6 * 64 * 132 * 4 + 64 * 68 * 4 + 1024
+    # K, V and three Q / dO slots, a W tile for P and one for dS
+    assert rows["flash_varlen::dkv_kernel<128>"]["smem_bytes"] == \
+        5 * 64 * 132 * 4 + 2 * 64 * 68 * 4 + 2048 == \
+        smoke.f32_attn_smem_bytes("dkv", 128)
+    small = rows["flash_varlen::fwd_kernel<64, 1>"]
+    assert (small["spill_stores"], small["spill_loads"]) == (8, 8)
+    assert small["smem_bytes"] == 3 * 64 * 68 * 4 + 64 * 68 * 4 + 512
+
+
+def test_f32_attention_smem_bytes_follows_the_header():
+    """``f32_attn_smem_bytes`` mirrors flash_f32.cuh's tile shape, padding
+    and counts of tiles and column words (read from the header), for every
+    kernel, head_dim and forward head count, each within a block's
+    limit."""
+    text = (CSRC / "flash_f32.cuh").read_text()
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+             for n in ("kM", "kN", "kPad", "kMaxSmem")}
+    words = int(re.search(r"constexpr int kColWords = (\d+);",
+                          (CSRC / "flash_wgmma.cuh").read_text()).group(1))
+    assert "w * kN * w_pitch<NA>()" in text
+    assert "smem_bytes<D, HB>(HB + 2, 1, 2)" in text
+    assert "smem_bytes<D>(6, 1, 4)" in text and \
+        "smem_bytes<D>(5, 2, 8)" in text
+    smoke = _smoke()
+    for d in (64, 128):
+        tile = const["kM"] * (d + const["kPad"]) * 4
+        for hb in (1, 2):
+            w = const["kN"] * (const["kN"] * hb + const["kPad"]) * 4
+            assert smoke.f32_attn_smem_bytes("fwd", d, hb) == \
+                (hb + 2) * tile + w + 2 * words * 4 <= const["kMaxSmem"]
+        w = const["kN"] * (const["kN"] + const["kPad"]) * 4
+        assert smoke.f32_attn_smem_bytes("dq", d) == \
+            6 * tile + w + 4 * words * 4 <= const["kMaxSmem"]
+        assert smoke.f32_attn_smem_bytes("dkv", d) == \
+            5 * tile + 2 * w + 8 * words * 4 <= const["kMaxSmem"]
 
 
 def test_f32_smem_bytes_follows_the_header():

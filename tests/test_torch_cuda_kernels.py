@@ -27,14 +27,17 @@ causal on and off, lengths that are not multiples of the 64-row tile (the
 tail is masked), ``sq < sk`` and lengths that need more tiles than the
 bf16 kernels' two-stage ring holds (1000, 513 x 1100, 2049), float32 and
 bfloat16, and the folded ``flash_block`` layout with an lse cotangent;
-each bf16 kernel (flash and varlen) gives the same bytes on two launches. Gradients are judged by max
+each kernel (flash and varlen, bf16 and float32) gives the same bytes on
+two launches. Gradients are judged by max
 error relative to the tensor's max: 1e-4 in float32, 1e-2 in bfloat16
 (one bf16 ulp of the largest entries). Packed (varlen) flash attention
 (forward, dq, dk/dv) over the same head_dims, GQA groups 1, 4 and 8,
 causal on and off, self packing with tails, a length-1 and an empty
-document, a document longer than 1024 tokens, and cross packing (equal and
-unequal totals), float32 and
-bfloat16, with the same limits; the causal token skip on and off equal
+document, a document longer than 1024 tokens, the longest document last,
+and cross packing (equal and unequal totals), float32 and
+bfloat16, with the same limits; the float32 kernels under the layout's
+longest-first block order and under the identity order give the same
+bytes; the causal token skip on and off equal
 bit for bit; rows with no live key; the op through ``call_op`` on the
 card against the CPU; and the refusals (head_dim 96, float16, cu_seqlens
 off the card). The fused optimizer kernel equals
@@ -416,13 +419,15 @@ def _same_bytes_twice(fn):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_flash_bf16_kernels_are_bitwise_run_to_run(dev, kernel):
-    """No atomics and a fixed order of sums: two launches of each bf16
-    kernel give the same bytes."""
+def test_flash_kernels_are_bitwise_run_to_run(dev, kernel, dtype):
+    """No atomics and a fixed order of sums: two launches of each kernel
+    (the tensor-core engine's in bf16, the FMA engine's in float32) give
+    the same bytes."""
     g = torch.Generator(device=dev).manual_seed(3)
     mk = lambda n: torch.randn((2, 700, n, 128), generator=g,  # noqa: E731
-                               device=dev).bfloat16()
+                               device=dev).to(dtype)
     q, k, v, dout = mk(16), mk(4), mk(4), mk(16)
     out, lse = fa.flash_fwd_kernel(q, k, v, True, 0.09)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -461,11 +466,13 @@ def test_routing_sends_cuda_cases_the_kernels_lack_to_them_to_raise(
 # -- packed (varlen) flash attention -----------------------------------------
 
 # (q lengths, k lengths or None for self packing): tails, a length-1 and an
-# empty document; cross packing with equal and with unequal totals
+# empty document; cross packing with equal and with unequal totals; the
+# longest document last (so the longest-first block order is no identity)
 VARLEN_PACKS = {"docs": ([100, 1, 0, 37, 230, 64], None),
                 "cross": ([1, 199, 80], [199, 1, 80]),
                 "cross_tq_ne_tk": ([30, 100, 5, 0], [64, 20, 77, 9]),
-                "long_doc": ([1500, 40, 300], None)}
+                "long_doc": ([1500, 40, 300], None),
+                "longest_last": ([30, 64, 5, 200, 1300], None)}
 
 
 def _varlen_inputs(dev, pack, h, kv, d, dtype, seed=0):
@@ -540,10 +547,11 @@ def test_varlen_token_skip_on_and_off_give_equal_results(dev, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_varlen_bf16_kernels_are_bitwise_run_to_run(dev, kernel):
+def test_varlen_kernels_are_bitwise_run_to_run(dev, kernel, dtype):
     q, k, v, dout, cu, _ = _varlen_inputs(dev, "long_doc", 16, 4, 128,
-                                          torch.bfloat16)
+                                          dtype)
     lay = fv.varlen_layout(cu, cu, q.shape[0], k.shape[0], True)
     out, lse = fv.flash_varlen_fwd(q, k, v, lay, True, 0.09)
     delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
@@ -553,6 +561,41 @@ def test_varlen_bf16_kernels_are_bitwise_run_to_run(dev, kernel):
             "dkv": lambda: fv.flash_varlen_dkv(q, k, v, dout, lse, delta,
                                                lay, True, 0.09)}[kernel]
     assert _same_bytes_twice(call)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_f32_kernels_read_the_block_order(dev, causal):
+    """The float32 kernels walk their blocks in the layout's order (the
+    longest run first, blocks of the last document here): the same layout
+    with both orders replaced by the identity gives the same bytes, and
+    both match the plain version."""
+    q, k, v, dout, cu, _ = _varlen_inputs(dev, "longest_last", 16, 4, 128,
+                                          torch.float32)
+    lay = fv.varlen_layout(cu, cu, q.shape[0], k.shape[0], causal)
+    assert int(lay.q_order[0]) >= (30 + 64 + 5 + 200) // 64
+    ident = lay._replace(
+        q_order=torch.arange(len(lay.q_order), dtype=torch.int32, device=dev),
+        k_order=torch.arange(len(lay.k_order), dtype=torch.int32, device=dev))
+    want, want_lse = fv.flash_varlen_fwd_plain(q, k, v, cu, cu, causal, 0.1)
+    delta = (dout.float() * want.float()).sum(-1).transpose(0, 1)
+    delta = delta.contiguous()
+    ref = fv.flash_varlen_bwd_plain(q, k, v, dout, want_lse, delta, cu, cu,
+                                    causal, 0.1)
+    res = []
+    for layout in (lay, ident):
+        out, lse = fv.flash_varlen_fwd(q, k, v, layout, causal, 0.1)
+        res.append([out, lse,
+                    fv.flash_varlen_dq(q, k, v, dout, want_lse, delta, layout,
+                                       causal, 0.1),
+                    *fv.flash_varlen_dkv(q, k, v, dout, want_lse, delta,
+                                         layout, causal, 0.1)])
+    torch.cuda.synchronize()
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(res[0][0], want, **TOL[torch.float32])
+    torch.testing.assert_close(res[0][1], want_lse, atol=1e-4, rtol=1e-5)
+    for a, b in zip(res[0][2:], ref):
+        assert _rel_err(a, b) < 1e-4
 
 
 def test_varlen_rows_without_live_keys_on_the_card(dev):
