@@ -168,6 +168,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -402,30 +403,42 @@ DECODE_KERNELS = ("paged_attention_split_kernel",
                   "paged_attention_merge_kernel")
 
 
-def profiled_kernels(torch, fn, stems):
+def profiled_kernels(torch, fn, stems, windows: int = 5):
     """The device activities that ``fn`` runs, by the names the profiler
     gives them, with each one's device ms a call: the route as the card
-    took it (three calls a window, up to three windows until one records
-    device time). Every stem in ``stems`` must name one of them. A
-    profiler that cannot trace leaves the route not measured (recorded,
-    not raised)."""
+    took it (three calls a window). Every stem in ``stems`` must name one
+    of them in one window. The profiler can lose a window's device records,
+    all of them or some (one ragged window once kept only the merge kernel
+    of its three calls' nine launches), so up to ``windows`` windows are
+    taken until one holds every stem; each window that lacked one is kept
+    in the result as ``lossy_windows``, and the call fails if no window
+    held them all. A profiler that records no device time in any window
+    leaves the route not measured (recorded, not raised)."""
     def run():
         for _ in range(3):
             fn()
-    for _ in range(3):
+    lossy, prof = [], {}
+    for _ in range(windows):
         prof = profile_call(torch, run, 3)
-        if "all_kernels" in prof:
+        if "all_kernels" not in prof:
+            continue
+        names = sorted(prof["all_kernels"])
+        missing = [t for t in stems if not any(t in n for n in names)]
+        if not missing:
             break
+        lossy.append({"kernels": [n[:120] for n in names],
+                      "missing": missing})
     else:
+        if lossy:
+            raise AssertionError(f"in {windows} profiler windows the call "
+                                 f"never ran all of {list(stems)}: {lossy}")
         return {"not_measured": prof.get("not_measured")}
-    names = sorted(prof["all_kernels"])
-    missing = [t for t in stems if not any(t in n for n in names)]
-    if missing:
-        raise AssertionError(f"the call ran {names}, none of them "
-                             f"{missing}")
-    return {"kernels": [n[:120] for n in names],
-            "ms_per_call": {n[:120]: prof["all_kernels"][n] / 3
-                            for n in names}}
+    out = {"kernels": [n[:120] for n in names],
+           "ms_per_call": {n[:120]: prof["all_kernels"][n] / 3
+                           for n in names}}
+    if lossy:
+        out["lossy_windows"] = lossy
+    return out
 
 
 def host_us(torch, fn, n: int = 50) -> float:
@@ -3160,6 +3173,434 @@ def train_lamb(torch, model, crit, ids, flops_tok):
     return res
 
 
+# -- phase 5b: scheduled mixed-precision training -----------------------------
+
+AMP_ACCUM = 2          # micro-batches per optimizer step
+AMP_STEPS, AMP_WARMUP = 12, 2        # O2: 2 warm-up and 10 timed steps
+O1_STEPS, O1_WARMUP = 7, 2           # O1: 2 warm-up and 5 timed steps
+RESUME_LAYERS, RESUME_STEPS = 2, 3   # resume: 3 steps, save, 3 more, twice
+FLASH_KERNELS = TRAINING_KERNELS[:3]
+# the six per-parameter rules on the card vs on the CPU, over a gate_proj-
+# shaped and a norm-shaped parameter: the same torch ops on both, each
+# rounded once, so bit for bit is expected where the ops round alike. The
+# CPU's torch.sqrt does not (one ulp off the correctly rounded value on
+# ~0.7% of float32 inputs, sqrt_rounding() counts it), so Adadelta,
+# RMSProp and Adagrad may differ: the float32 values the rules compute
+# (float32 params, masters, slots) within 1e-6 of each tensor's largest
+# magnitude. A bf16 param must equal its own master's rounding on each
+# device; across devices it may then differ by a bf16 ulp wherever the
+# masters differ at all (reported, no limit beyond the masters')
+PER_PARAM_SHAPES = ((4096, 14336), (4096,))
+PER_PARAM_RULES = {
+    "Adamax": dict(learning_rate=1e-3, weight_decay=0.01),
+    "Adadelta": dict(learning_rate=1.0, rho=0.95, weight_decay=0.01),
+    "ASGD": dict(learning_rate=1e-3, batch_num=3, weight_decay=0.01),
+    "Rprop": dict(learning_rate=1e-3),
+    "Adagrad": dict(learning_rate=1e-2, weight_decay=0.01,
+                    initial_accumulator_value=0.1),
+    "RMSProp": dict(learning_rate=1e-3, momentum=0.9, centered=True,
+                    weight_decay=0.01),
+}
+PER_PARAM_REL_TOL = 1e-6
+
+
+def amp_schedule(lr):
+    """The recipe's schedule: 4 warm-up steps to 1e-4, then cosine over
+    10 (``lr`` is the port's ``optimizer.lr`` module)."""
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=10),
+                           warmup_steps=4, start_lr=0.0, end_lr=1e-4)
+
+
+def no_norm_decay(name: str) -> bool:
+    """``apply_decay_param_fun``: no weight decay on the norm weights."""
+    return "norm" not in name
+
+
+def lr_mismatches(seen, want):
+    """Optimizer steps whose lr, as each bucket's kernel read it
+    (``seen[k]``, one value per bucket), is not the scheduler's value for
+    that step in float32 (``want[k]``): ``[(step, seen, want)]``."""
+    bad = [(k, s, float(np.float32(w)))
+           for k, (s, w) in enumerate(zip(seen, want))
+           if not s or any(x != float(np.float32(w)) for x in s)]
+    if len(seen) != len(want):
+        bad.append(("steps", len(seen), len(want)))
+    return bad
+
+
+def launch_pattern_errors(per_call, accum, buckets, layers):
+    """Calls of ``TrainStep(grad_accum=accum)`` whose launches (a dict of
+    count deltas per call) break the pattern: each call one launch of
+    each flash kernel per layer, and the fused AdamW kernel once per
+    bucket on the last call of each window and never on a micro step."""
+    errs = []
+    for i, c in enumerate(per_call):
+        want = buckets if (i + 1) % accum == 0 else 0
+        if c.get("fused_optimizer", 0) != want:
+            errs.append((i, "fused_optimizer", c.get("fused_optimizer", 0),
+                         want))
+        errs += [(i, k, c.get(k, 0), layers) for k in FLASH_KERNELS
+                 if c.get(k, 0) != layers]
+    return errs
+
+
+def amp_model(torch, cfg, seed, level):
+    """The recipe over ``cfg``: the model built in float32 from the seed,
+    ``AdamW`` over the schedule with the global-norm clip (given the
+    named parameters: the decay rule reads the names), then
+    ``amp.decorate`` to bf16 under O2, and ``TrainStep(grad_accum=2,
+    amp_level=level)``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                             device="cuda", generator=gen)
+    opt = AdamW(learning_rate=amp_schedule(lr), weight_decay=0.01,
+                parameters=model.named_parameters(),
+                apply_decay_param_fun=no_norm_decay,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if level == "O2":
+        amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    train = TrainStep(model, LlamaPretrainingCriterion(cfg), opt,
+                      grad_accum=AMP_ACCUM, amp_level=level)
+    return model, opt, train
+
+
+def amp_steps(torch, train, opt, mbs, steps, warmup=0):
+    """``steps`` optimizer steps of ``len(mbs)`` calls each, the
+    scheduler stepped after each: every call's loss and launches, each
+    timed step's seconds, and the lr each bucket's kernel read per step
+    (kept as the device vectors the launches read, read after the run)
+    beside the scheduler's value."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import fused_counters
+
+    losses, per_call, step_s, svecs, want = [], [], [], [], []
+    fallbacks = fused_counters["fallbacks"]
+    for k in range(steps):
+        ts = time.perf_counter()
+        want.append(opt.get_lr())
+        for ids in mbs:
+            before = kernels.launch_counts()
+            losses.append(train((ids,), (ids,)))
+            after = kernels.launch_counts()
+            per_call.append({n: after[n] - before[n] for n in after
+                             if after[n] != before[n]})
+        torch.cuda.synchronize()
+        if k >= warmup:
+            step_s.append(time.perf_counter() - ts)
+        svecs.append([b.svec for b in
+                      next(iter(opt._fused_plans.values())).buckets])
+        opt._lr.step()
+    if fused_counters["fallbacks"] != fallbacks:
+        raise AssertionError(f"the fused optimizer fell back "
+                             f"{fused_counters['fallbacks'] - fallbacks} "
+                             f"times: {opt._fused_last_reason}")
+    return dict(losses=[float(x) for x in losses], per_call=per_call,
+                step_s=step_s, want=want,
+                seen=[[float(v[0]) for v in vs] for vs in svecs])
+
+
+def check_amp_run(run, opt, layers, label):
+    plan = next(iter(opt._fused_plans.values()))
+    errs = launch_pattern_errors(run["per_call"], AMP_ACCUM,
+                                 len(plan.buckets), layers)
+    if errs:
+        raise AssertionError(f"{label}: launches off the pattern: "
+                             f"{errs[:6]}")
+    bad = lr_mismatches(run["seen"], run["want"])
+    if bad:
+        raise AssertionError(f"{label}: the kernel read another lr than "
+                             f"the scheduler's: {bad[:6]}")
+    lr_scalars = [k for k in opt._live if k[0] == "lr"]
+    if len(lr_scalars) != 1 or len(set(run["want"])) < 2:
+        raise AssertionError(f"{label}: {len(lr_scalars)} lr device "
+                             f"scalars over {len(set(run['want']))} lr "
+                             f"values, want one scalar")
+    per_step = [float(np.mean(run["losses"][i:i + AMP_ACCUM]))
+                for i in range(0, len(run["losses"]), AMP_ACCUM)]
+    if not all(np.isfinite(run["losses"])) or \
+            not per_step[-1] < per_step[0]:
+        raise AssertionError(f"{label}: losses not finite and falling: "
+                             f"{run['losses']}")
+    return plan
+
+
+def amp_metrics(torch, run, flops_tok, tokens):
+    tok_s = tokens / float(np.mean(run["step_s"]))
+    return dict(tokens_per_s=tok_s,
+                step_ms_p50=1e3 * float(np.percentile(run["step_s"], 50)),
+                step_ms_p99=1e3 * float(np.percentile(run["step_s"], 99)),
+                step_ms=[1e3 * x for x in run["step_s"]],
+                mfu=tok_s * flops_tok / BF16_FLOPS_PER_S,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+@contextlib.contextmanager
+def flash_dtypes(fa, seen):
+    """Record the q dtype each flash kernel wrapper was called with."""
+    saved = fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel
+
+    def tap(name, fn):
+        def wrapped(q, *args):
+            seen.setdefault(name, set()).add(str(q.dtype))
+            return fn(q, *args)
+        return wrapped
+
+    fa.flash_fwd_kernel = tap("fwd", saved[0])
+    fa.flash_dq_kernel = tap("dq", saved[1])
+    fa.flash_dkv_kernel = tap("dkv", saved[2])
+    try:
+        yield seen
+    finally:
+        fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel = saved
+
+
+def train_flops(model, cfg) -> int:
+    """Training FLOPs per token as bench.py counts them: 6 per matmul
+    parameter (the embedding's gather is none) and the attention's
+    6·s·hidden per layer."""
+    n_matmul = sum(p.numel() for p in model.parameters()) \
+        - model.llama.embed_tokens.weight.numel()
+    return 6 * n_matmul + 6 * TRAIN_S * cfg.hidden_size \
+        * model.config.num_hidden_layers
+
+
+def amp_o1(torch, cfg, seed, mbs):
+    """The same recipe over float32 weights under O1: the flash kernels
+    must see bf16 q/k/v (the white list cast them) and the fused optimizer
+    float32 buckets. Falls back to half the depth if the card refuses the
+    full one (recorded)."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    res = {}
+    for layers in (cfg.num_hidden_layers, cfg.num_hidden_layers // 2):
+        model = opt = train = None
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            model, opt, train = amp_model(
+                torch, dataclasses.replace(cfg, num_hidden_layers=layers),
+                seed, "O1")
+            kernels.reset_launch_counts()
+            with flash_dtypes(fa, {}) as seen:
+                run = amp_steps(torch, train, opt, mbs, O1_STEPS, O1_WARMUP)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            cut = f"{layers} layers: {str(e).splitlines()[0][:160]}"
+        res.setdefault("depth_cut", []).append(cut)
+        model = opt = train = None     # the traceback is gone: free all
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"O1 did not fit: {res}")
+    plan = check_amp_run(run, opt, layers, "train_amp[O1]")
+    if any(s != {"torch.bfloat16"} for s in seen.values()) or \
+            len(seen) != 3:
+        raise AssertionError(f"O1: the flash kernels saw {seen}, not bf16 "
+                             f"only")
+    cdt = {(b.cdtype, b.gdtype, b.low) for b in plan.buckets}
+    if cdt != {("float32", "float32", None)}:
+        raise AssertionError(f"O1: optimizer buckets {cdt}, want float32")
+    n_params = sum(p.numel() for p in model.parameters())
+    res.update(layers=layers, params=n_params,
+               flash_q_dtypes={k: sorted(v) for k, v in seen.items()},
+               buckets=[(b.cdtype, b.gdtype, b.total) for b in plan.buckets],
+               losses=run["losses"], lr=run["want"],
+               launches=kernels.launch_counts(),
+               **amp_metrics(torch, run, train_flops(model, cfg),
+                             AMP_ACCUM * TRAIN_B * TRAIN_S))
+    del model, opt, train
+    torch.cuda.empty_cache()
+    return res
+
+
+def amp_resume(torch, cfg, seed, mbs):
+    """At 2 full-width layers: 3 steps, ``state_dict`` and the weights
+    taken, 3 more steps; then a new model and optimizer loaded with them
+    take the same 3 steps. Losses and final weights must be equal bit for
+    bit."""
+    cfg = dataclasses.replace(cfg, num_hidden_layers=RESUME_LAYERS)
+    model, opt, train = amp_model(torch, cfg, seed, "O2")
+    amp_steps(torch, train, opt, mbs, RESUME_STEPS)
+    sd = opt.state_dict()
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    first = amp_steps(torch, train, opt, mbs, RESUME_STEPS)
+    final = [p.detach().clone() for p in model.parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, train
+    torch.cuda.empty_cache()
+    model, opt, train = amp_model(torch, cfg, seed + 1, "O2")
+    model.load_state_dict(weights)
+    opt.set_state_dict(sd)
+    second = amp_steps(torch, train, opt, mbs, RESUME_STEPS)
+    same_w = all(torch.equal(a, p.detach())
+                 for a, p in zip(final, model.parameters()))
+    res = dict(layers=RESUME_LAYERS, params=n_params,
+               losses_first=first["losses"],
+               losses_resumed=second["losses"],
+               lr_first=first["want"], lr_resumed=second["want"],
+               losses_bitwise=first["losses"] == second["losses"],
+               weights_bitwise=same_w)
+    del model, opt, train, sd, weights, final
+    torch.cuda.empty_cache()
+    if not (res["losses_bitwise"] and same_w
+            and first["want"] == second["want"]):
+        raise AssertionError(f"resume not bit for bit: {res}")
+    return res
+
+
+def per_param_on_card(torch, seed):
+    """Each per-parameter rule, 3 steps over PER_PARAM_SHAPES in float32
+    and as bf16 with float32 masters, on the card and on the CPU from the
+    same numpy inputs: the largest difference of the updated values and
+    of every slot, relative to the CPU value's largest magnitude."""
+    from paddle_tpu_torch import optimizer as O
+
+    rng = np.random.default_rng(seed)
+    init = [rng.standard_normal(s, dtype=np.float32) * 0.02
+            for s in PER_PARAM_SHAPES]
+    grads = [[rng.standard_normal(s, dtype=np.float32) * 1e-3
+              for s in PER_PARAM_SHAPES] for _ in range(3)]
+    res = {}
+    for name, kw in PER_PARAM_RULES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            outs = []
+            for dev in ("cuda", "cpu"):
+                ps = [torch.nn.Parameter(torch.from_numpy(x).to(
+                    dev, dt, copy=True)) for x in init]
+                opt = getattr(O, name)(parameters=ps, **kw)
+                for gs in grads:
+                    for p, g in zip(ps, gs):
+                        p.grad = torch.from_numpy(g).to(dev, dt, copy=True)
+                    opt.step()
+                    opt.clear_grad()
+                vals, low = {}, set()
+                for i, p in enumerate(ps):
+                    m = opt._masters[i]
+                    if m is not None:
+                        if not torch.equal(p.detach(), m.to(p.dtype)):
+                            raise AssertionError(
+                                f"{name} on {dev}: a bf16 param is not "
+                                f"its master's rounding")
+                        vals[f"master{i}"] = m
+                        low.add(f"param{i}")
+                    vals[f"param{i}"] = p.detach()
+                    vals.update({f"{k}{i}": v
+                                 for k, v in opt._states[i].items()})
+                outs.append({k: v.float().cpu() for k, v in vals.items()})
+                del ps, opt, vals
+            card, cpu = outs
+
+            def rel(k):
+                return float((card[k] - cpu[k]).abs().max()) \
+                    / max(float(cpu[k].abs().max()), 1e-30)
+
+            err = max(rel(k) for k in cpu if k not in low)
+            label = f"{name}[{str(dt).removeprefix('torch.')}]"
+            res[label] = dict(
+                max_rel_err=err,
+                bf16_param_rel_err=max([rel(k) for k in low] or [0.0]),
+                bitwise=all(torch.equal(card[k], cpu[k]) for k in cpu),
+                slots=sorted(cpu))
+            if not err <= PER_PARAM_REL_TOL:
+                raise AssertionError(f"{label} on the card vs the CPU: "
+                                     f"{res[label]}")
+    res["sqrt_rounding"] = sqrt_rounding(torch, rng)
+    return res
+
+
+def sqrt_rounding(torch, rng, n=1 << 22):
+    """How many float32 inputs (uniform over [1e-7, 1.1e-6], the rules'
+    second-moment range) each device's ``torch.sqrt`` rounds other than
+    the correctly rounded value (numpy's float32 sqrt)."""
+    x = (rng.random(n, dtype=np.float32) * 1e-6 + 1e-7).astype(np.float32)
+    want = np.sqrt(x)
+    t = torch.from_numpy(x)
+    return {"inputs": n, "card_off": int((torch.sqrt(t.cuda()).cpu().numpy()
+                                          != want).sum()),
+            "cpu_off": int((torch.sqrt(t).numpy() != want).sum())}
+
+
+def phase_train_amp(torch, seed, report):
+    """Scheduled mixed-precision training at Llama-3-8B width (8 layers):
+    O2 with grad_accum 2, then O1, the resume check at 2 layers, and the
+    six per-parameter optimizers on the card against the CPU."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_LAYERS)
+    ids = lcg_ids(torch, AMP_ACCUM * TRAIN_B, TRAIN_S, cfg.vocab_size)
+    mbs = [ids[i * TRAIN_B:(i + 1) * TRAIN_B] for i in range(AMP_ACCUM)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, train = amp_model(torch, cfg, seed, "O2")
+    n_params = sum(p.numel() for p in model.parameters())
+    flops_tok = train_flops(model, cfg)
+    tokens = AMP_ACCUM * TRAIN_B * TRAIN_S
+    log(f"train_amp model: Llama-3-8B width, {cfg.num_hidden_layers} "
+        f"layers, {n_params / 1e9:.3f} B parameters built in float32 and "
+        f"decorated to bf16 (O2) in {time.perf_counter() - t0:.1f} s; "
+        f"AdamW over LinearWarmup(4) + cosine(10), grad_accum "
+        f"{AMP_ACCUM} x {TRAIN_B} x {TRAIN_S}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    run = amp_steps(torch, train, opt, mbs, AMP_STEPS, AMP_WARMUP)
+    counts = kernels.launch_counts()
+    plan = check_amp_run(run, opt, cfg.num_hidden_layers, "train_amp[O2]")
+    res = {"layers": cfg.num_hidden_layers, "params": n_params,
+           "micro_batch": [TRAIN_B, TRAIN_S], "grad_accum": AMP_ACCUM,
+           "tokens_per_step": tokens, "flops_per_token": flops_tok,
+           "losses": run["losses"], "lr": run["want"],
+           "lr_read": run["seen"], "launches": counts,
+           "buckets": [(b.cdtype, b.gdtype, b.low, b.wd, b.total)
+                       for b in plan.buckets]}
+    res.update(amp_metrics(torch, run, flops_tok, tokens))
+    log(f"train_amp[O2]: losses {[round(x, 4) for x in run['losses']]}")
+    log(f"train_amp[O2]: lr read by the kernel each step {run['seen']}")
+    log(f"train_amp[O2]: {res['tokens_per_s']:.1f} tokens/s ({tokens} a "
+        f"step), step p50 {res['step_ms_p50']:.1f} ms p99 "
+        f"{res['step_ms_p99']:.1f} ms, mfu {res['mfu']:.4f}, peak "
+        f"{res['peak_mem_gib']:.2f} GiB, {len(plan.buckets)} buckets, "
+        f"launches {counts}")
+    prof = profile_call(torch, lambda: [train((m,), (m,)) for m in mbs], 1)
+    if "all_kernels" in prof:
+        prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                        prof["device_busy_ms"])
+    res["profile"] = prof
+    log(f"train_amp[O2] profile (one optimizer step, {AMP_ACCUM} micro "
+        f"steps): {json.dumps(prof)}")
+    del model, opt, train
+    torch.cuda.empty_cache()
+
+    res["o1"] = amp_o1(torch, cfg, seed, mbs)
+    o1 = res["o1"]
+    log(f"train_amp[O1]: {o1['layers']} layers over float32 weights, "
+        f"flash q dtypes {o1['flash_q_dtypes']}, buckets {o1['buckets']}, "
+        f"losses {[round(x, 4) for x in o1['losses']]}, "
+        f"{o1['tokens_per_s']:.1f} tokens/s, step p50 "
+        f"{o1['step_ms_p50']:.1f} ms p99 {o1['step_ms_p99']:.1f} ms, mfu "
+        f"{o1['mfu']:.4f}, peak {o1['peak_mem_gib']:.2f} GiB"
+        + (f", depth cut: {o1['depth_cut']}" if "depth_cut" in o1 else ""))
+    res["resume"] = amp_resume(torch, cfg, seed, mbs)
+    log(f"train_amp[resume]: {RESUME_LAYERS} layers "
+        f"({res['resume']['params'] / 1e9:.3f} B), losses bit for bit "
+        f"{res['resume']['losses_bitwise']}, weights bit for bit "
+        f"{res['resume']['weights_bitwise']}: "
+        f"{res['resume']['losses_resumed']}")
+    res["per_param"] = per_param_on_card(torch, seed)
+    log(f"train_amp[per-param rules, card vs CPU]: "
+        f"{json.dumps(res['per_param'])}")
+    report["train_amp"] = res
+    return res
+
+
 # -- phase 6: MoE training ------------------------------------------------------
 
 MOE_LAYERS = 5    # the dense layer and 4 MoE layers, each with all 64
@@ -3444,6 +3885,7 @@ def main(argv=None) -> int:
     int4 = phase_int4_serve(torch, args.seed, report, outs_bf16)
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
+    train_amp = phase_train_amp(torch, args.seed, report)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone
     phase_routes(torch, args.seed, report)
@@ -3524,10 +3966,15 @@ def main(argv=None) -> int:
     launched.update({name: train["lamb"]["launches"][name]
                      for name in LAMB_KERNELS})
     launched["bcsr_spmm"] = bcsr["launches"]
+    # the scheduled mixed-precision path's own launches (phase 5b)
+    launched_amp = {name: train_amp["launches"][name]
+                    for name in TRAINING_KERNELS}
     for name, per in per_kernel.items():
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": launched[name]}
+        if name in launched_amp:
+            e["launches_train_amp"] = launched_amp[name]
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
                       "padded_flash_ms", "library_bsr_ms",

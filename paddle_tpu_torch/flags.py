@@ -56,12 +56,16 @@ def _bool(value: Any) -> bool:
 # use_pallas_kernels: the hand-written kernels where the reference gates
 #   its Pallas kernels on this flag (the per-channel int4 weight-only
 #   GEMM): off, a CUDA tensor takes the plain version.
+# check_nan_inf: every op at the choke point (ops/dispatcher.py:hooked)
+#   checks its floating outputs and raises FloatingPointError on a NaN or
+#   an Inf (one host sync per output).
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
     "fused_optimizer": (True, _bool),
     "anomaly_sentinel": (False, _bool),
     "use_pallas_kernels": (True, _bool),
+    "check_nan_inf": (False, _bool),
 }
 
 _VALUES: Dict[str, Any] = {

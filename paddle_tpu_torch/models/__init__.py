@@ -1,5 +1,5 @@
-from .convert import (from_jax_state_dict, named_grads,
-                      named_optimizer_state)
+from .convert import (from_jax_optimizer_state, from_jax_state_dict,
+                      named_grads, named_optimizer_state)
 from .generation import GenerationMixin, PagedKVCache, kv_pool_blocks
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
 from .moe import (MoEConfig, MoEDecoderLayer, MoEForCausalLM, MoEMLP,
@@ -12,5 +12,6 @@ __all__ = ["ContinuousBatchingEngine", "GenerationMixin", "LlamaConfig",
            "MoEDecoderLayer", "MoEForCausalLM", "MoEMLP", "MoEModel",
            "MoEPretrainingCriterion", "NGramProposer",
            "PagedKVCache", "PrefixCache", "QueueFull", "Request",
-           "from_jax_state_dict", "kv_pool_blocks", "named_grads",
+           "from_jax_optimizer_state", "from_jax_state_dict",
+           "kv_pool_blocks", "named_grads",
            "named_optimizer_state"]

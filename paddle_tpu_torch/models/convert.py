@@ -10,11 +10,18 @@ weight-only quantized model's int8 ``qweight`` and float32
 ``weight_scale`` buffers (quantize the port skeleton first with
 ``nn.quant.quantize_for_inference``).
 
+The optimizer's state comes across too: ``from_jax_optimizer_state(
+model, optimizer, state, names)`` loads the reference optimizer's
+``state_dict()`` (its arrays as numpy; ``names`` the reference's parameter
+names in its optimizer's order) into a port optimizer by parameter name:
+the step count, the float32 masters, every state slot (ASGD's gradient
+ring ``ys`` ``[batch_num, *shape]`` too) and the scheduler's state.
+
 The other way, for holding training to the reference name for name:
 ``named_grads(model)`` and ``named_optimizer_state(model, optimizer)``
-give the port's grads, and its optimizer's float32 masters and moments,
-as numpy arrays keyed by the same ``state_dict`` names the JAX model's
-``named_parameters()`` gives.
+give the port's grads, and its optimizer's float32 masters and state
+slots (whatever their shapes), as numpy arrays keyed by the same
+``state_dict`` names the JAX model's ``named_parameters()`` gives.
 """
 
 from __future__ import annotations
@@ -49,11 +56,46 @@ def from_jax_state_dict(model: torch.nn.Module,
             if str(arr.dtype) not in _NP_DTYPES.get(target.dtype, ()):
                 raise ValueError(f"dtype mismatch for {name!r}: {arr.dtype} "
                                  f"vs {target.dtype}")
-            src = (torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-                   if str(arr.dtype) == "bfloat16"
-                   else torch.from_numpy(np.array(arr, copy=True)))
-            target.copy_(src.to(target.device))
+            target.copy_(_tensor(arr).to(target.device))
     return model
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array (bf16 from JAX included) as a CPU tensor."""
+    arr = np.asarray(arr)
+    if str(arr.dtype) == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def from_jax_optimizer_state(model: torch.nn.Module, optimizer, state: Dict,
+                             names: List[str]):
+    """Load the JAX optimizer's ``state_dict()`` into ``optimizer`` (built
+    over ``model``'s parameters) by parameter name. ``state``: ``{"step",
+    "states", "masters"[, "lr"]}`` with numpy arrays, listed in the JAX
+    optimizer's parameter order, whose names are ``names``. Raises on a
+    name the port optimizer lacks."""
+    ref_states = state.get("states") or [None] * len(names)
+    ref_masters = state.get("masters") or [None] * len(names)
+    if not len(names) == len(ref_states) == len(ref_masters):
+        raise ValueError("names must list the JAX optimizer's parameters")
+    own = param_names(model, optimizer._parameter_list)
+    where = {n: i for i, n in enumerate(own)}
+    missing = sorted(set(names) - set(where))
+    if missing:
+        raise KeyError(f"parameters the port optimizer lacks: {missing[:5]}")
+    states, masters = [None] * len(own), [None] * len(own)
+    for name, st, m in zip(names, ref_states, ref_masters):
+        if st is not None:
+            states[where[name]] = {k: _tensor(v) for k, v in st.items()}
+        if m is not None:
+            masters[where[name]] = _tensor(m)
+    sd = {"step": int(state.get("step", 0)), "states": states,
+          "masters": masters}
+    if "lr" in state:
+        sd["lr"] = state["lr"]
+    optimizer.set_state_dict(sd)
+    return optimizer
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

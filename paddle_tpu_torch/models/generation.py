@@ -211,7 +211,7 @@ class GenerationMixin:
         if cache_type != "paged":
             raise NotImplementedError(
                 "cache_type='contiguous' (the dense KVCache) is not ported "
-                "yet (ROADMAP.md, A7): use cache_type='paged'")
+                "yet (ROADMAP.md, A6): use cache_type='paged'")
         cfg = self.config
         device = self.device
         input_ids = input_ids.to(device=device, dtype=torch.int32)

@@ -193,11 +193,11 @@ class LlamaModel(nn.Module):
         if config.use_scan_layers:
             raise NotImplementedError(
                 "use_scan_layers (the stacked-layer scan) is not ported yet "
-                "(ROADMAP A4)")
+                "(ROADMAP A3)")
         if config.recompute not in (False, True):
             raise NotImplementedError(
                 f"recompute={config.recompute!r}: only full-layer "
-                f"recompute is ported; selective recompute is ROADMAP A4")
+                f"recompute is ported; selective recompute is ROADMAP A3")
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       init)
@@ -259,7 +259,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:  # tied: logits = h @ E^T
-            return torch.matmul(hidden, self.llama.embed_tokens.weight.T)
+            return K.matmul(hidden, self.llama.embed_tokens.weight.T)
         return self.lm_head(hidden)
 
 
@@ -272,4 +272,4 @@ class LlamaPretrainingCriterion(nn.Module):
         super().__init__()
 
     def forward(self, logits, labels):
-        return K.fused_softmax_ce(logits[:, :-1, :], labels[:, 1:]).mean()
+        return K.mean(K.fused_softmax_ce(logits[:, :-1, :], labels[:, 1:]))

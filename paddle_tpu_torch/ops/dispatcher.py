@@ -10,6 +10,18 @@ is positional-only), and calls its kernel with every argument by name.
 The ops take and return ``torch.Tensor``s: no Tensor class, no jit
 cache, no legacy-name table (``op_compat``), no metrics.
 
+The op choke point: every op of the registry, every op of
+``ops/kernels/nn.py`` and the Llama path's tied-logits ``matmul`` and loss
+``mean`` run through :func:`hooked` under the reference op's name. It is
+the reference's ``_dispatch`` (:379-519) cut to its hooks: the AMP cast of
+the floating inputs (``set_amp_hook``, :285), the span hook around the op
+(``set_op_span_hook``, :363), the NaN/Inf check of the outputs under
+``FLAGS_check_nan_inf`` (:514-519) and the tensor-stats hook on the
+outputs (``set_tensor_stats_hook``, :368). With no hook set and the flag
+off, an op pays one test of four module globals. The port's raw tensor
+arithmetic (residual adds, reshapes, slices) does not pass through it,
+where the reference dispatches every Tensor method.
+
 The table holds each op whose reference arguments a port function takes
 as they are. Left out until their functions take the reference's
 arguments: ``swiglu`` (``y=None``), ``rms_norm`` (``bias``,
@@ -20,8 +32,13 @@ arguments: ``swiglu`` (``y=None``), ``rms_norm`` (``bias``,
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from .. import flags as _flags
 
 REQUIRED = inspect.Parameter.empty
 
@@ -64,8 +81,75 @@ SCHEMA: Dict[str, Tuple[Tuple[str, Any], ...]] = {
 KERNELS: Dict[str, Callable] = {}
 _OP_FNS: Dict[str, Callable] = {}
 
+# -- the op choke point -------------------------------------------------------
+# amp hook: (op name, [args...]) -> the args with floating tensors cast
+_AMP_HOOK = None
+# span hook: op name -> a context manager around the op
+_OP_SPAN_HOOK = None
+# tensor-stats hook: (op name, (output tensors...)) -> None
+_TENSOR_STATS_HOOK = None
+_FLAG_VALUES = _flags._VALUES
+
+
+def set_amp_hook(fn) -> None:
+    global _AMP_HOOK
+    _AMP_HOOK = fn
+
+
+def set_op_span_hook(fn) -> None:
+    global _OP_SPAN_HOOK
+    _OP_SPAN_HOOK = fn
+
+
+def set_tensor_stats_hook(fn) -> None:
+    global _TENSOR_STATS_HOOK
+    _TENSOR_STATS_HOOK = fn
+
+
+def _outputs(res) -> Tuple[torch.Tensor, ...]:
+    items = res if isinstance(res, (tuple, list)) else (res,)
+    return tuple(t for t in items if isinstance(t, torch.Tensor))
+
+
+def _run_hooked(name: str, fn: Callable, args, kwargs):
+    if _AMP_HOOK is not None:
+        keys = list(kwargs)
+        cast = _AMP_HOOK(name, list(args) + [kwargs[k] for k in keys])
+        args = tuple(cast[:len(args)])
+        kwargs = dict(zip(keys, cast[len(args):]))
+    span = _OP_SPAN_HOOK
+    if span is not None:
+        with span(name):
+            res = fn(*args, **kwargs)
+    else:
+        res = fn(*args, **kwargs)
+    if _FLAG_VALUES["check_nan_inf"]:
+        for o in _outputs(res):
+            if (o.is_floating_point()
+                    and not bool(torch.isfinite(o).all())):
+                raise FloatingPointError(
+                    f"NaN/Inf in output of op '{name}'")
+    if _TENSOR_STATS_HOOK is not None:
+        _TENSOR_STATS_HOOK(name, _outputs(res))
+    return res
+
+
+def hooked(name: str, fn: Callable) -> Callable:
+    """``fn`` as the op ``name`` at the choke point: the AMP cast, the
+    span, the NaN/Inf check and the tensor-stats hook around it."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        if _AMP_HOOK is None and _OP_SPAN_HOOK is None \
+                and _TENSOR_STATS_HOOK is None \
+                and not _FLAG_VALUES["check_nan_inf"]:
+            return fn(*args, **kwargs)
+        return _run_hooked(name, fn, args, kwargs)
+    return op
+
 
 def register_kernel(name: str):
+    """Register ``fn`` as the kernel of the registry op ``name`` (the op
+    that ``call_op`` builds runs it through :func:`hooked`)."""
     def deco(fn):
         KERNELS[name] = fn
         return fn
@@ -83,7 +167,7 @@ def signature(name: str) -> inspect.Signature:
 
 
 def _make_op(name: str) -> Callable:
-    sig, kernel = signature(name), KERNELS[name]
+    sig, kernel = signature(name), hooked(name, KERNELS[name])
 
     def op_fn(*args, **kwargs):
         bound = sig.bind(*args, **kwargs)

@@ -90,7 +90,7 @@ class Bucket:
     dtype, weight decay), with their offsets in the bucket's flat state."""
 
     __slots__ = ("ids", "offsets", "sizes", "shapes", "total", "cdtype",
-                 "gdtype", "low", "wd", "table", "scratch")
+                 "gdtype", "low", "wd", "table", "scratch", "svec")
 
     def __init__(self, ids, offsets, sizes, shapes, cdtype, gdtype, low, wd):
         self.ids = tuple(ids)
@@ -104,6 +104,7 @@ class Bucket:
         self.wd = float(wd)
         self.table = None   # (pointer key, device chunk table, rows)
         self.scratch = None  # Lamb: (tr_div views, ratios), see lamb_scratch
+        self.svec = None     # the scalar vector of the bucket's last step
 
 
 class BucketPlan:
@@ -500,6 +501,7 @@ def fused_apply(plan: BucketPlan, targets, grads, states, lows, lr, step,
     for bucket, wd in zip(plan.buckets, wd_list):
         svec = pack_scalars(lr=lr, step=step, inv=inv, coeff=coeff,
                             found=found, wd=wd, inv_bc1=bc1, inv_bc2=bc2)
+        bucket.svec = svec     # what the launches read, for checks
         ids = bucket.ids
         fused_bucket(plan.kind, plan.cfg, [targets[k] for k in ids],
                      [grads[k] for k in ids], [states[k] for k in ids],

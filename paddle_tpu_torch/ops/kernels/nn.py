@@ -4,10 +4,16 @@ Counterparts in ``paddle_tpu/ops/kernels/nn.py``: ``swiglu`` (:58),
 ``linear`` (:91), ``embedding`` (:99), ``rms_norm`` (:124), ``rope``
 (:679), ``scaled_dot_product_attention`` (:624), the ``flash_attention``
 routing (:723), the ``flash_attn_unpadded`` routing (:761) and
-``fused_softmax_ce`` (:839). They keep the reference's order of casts, so
-a bf16 model rounds at the same places in both packages. The op registry
-(``ops/dispatcher.py``) holds those whose arguments are the reference
-op's.
+``fused_softmax_ce`` (:839), and the two Tensor ops of the Llama path,
+``matmul`` (the tied logits) and ``mean`` (the loss). They keep the
+reference's order of casts, so a bf16 model rounds at the same places in
+both packages. The op registry (``ops/dispatcher.py``) holds those whose
+arguments are the reference op's.
+
+Each public function here is the op at the choke point
+(``dispatcher.hooked``: AMP cast, span, NaN/Inf check, tensor stats) under
+the reference op's name; the routing calls the composite attention
+directly, so one op is one hooked call, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,28 +23,39 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dispatcher import register_kernel
+from ..dispatcher import hooked, register_kernel
 from . import flash_attention as _fa
 from . import flash_varlen as _fv
 
 
-def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """silu(x) * y."""
     return F.silu(x) * y
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """x @ W, W in Paddle's ``[in, out]`` layout (Llama's linears have no
     bias)."""
     return torch.matmul(x, weight)
 
 
-def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` (the reference's ``matmul`` op; the tied logits pass the
+    transposed embedding)."""
+    return torch.matmul(x, y)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every element (the reference's ``Tensor.mean``)."""
+    return x.mean()
+
+
+def _embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return weight[ids.long()]
 
 
-def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             epsilon: float = 1e-6) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+              epsilon: float = 1e-6) -> torch.Tensor:
     """Mean of squares in float32, cast back to ``x.dtype``, then the
     weight multiply (in the weight's dtype, as the reference does)."""
     acc = x.float()
@@ -54,9 +71,9 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x2, x1], dim=-1)
 
 
-def rope(q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor,
-         sin: torch.Tensor, position_ids: torch.Tensor
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _rope(q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor,
+          sin: torch.Tensor, position_ids: torch.Tensor
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Rotary embedding, rotate-half (neox) style.
 
     q/k ``[b, s, heads, head_dim]``; cos/sin float32 tables
@@ -72,11 +89,9 @@ def rope(q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor,
 
 
 @register_kernel("scaled_dot_product_attention")
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p: float = 0.0,
-                                 is_causal: bool = False,
-                                 scale: Optional[float] = None,
-                                 generator: Optional[torch.Generator] = None):
+def _sdpa(query, key, value, attn_mask=None, dropout_p: float = 0.0,
+          is_causal: bool = False, scale: Optional[float] = None,
+          generator: Optional[torch.Generator] = None):
     """The composite attention over ``[batch, seq, heads, head_dim]``, in
     plain torch ops: float32 scores, right-aligned causal mask and
     ``attn_mask`` (bool keeps, float adds) at -inf, softmax cast to q's
@@ -111,9 +126,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 @register_kernel("flash_attention")
-def flash_attention(query, key, value, attn_mask=None, dropout_p: float = 0.0,
-                    is_causal: bool = False, scale: Optional[float] = None,
-                    generator: Optional[torch.Generator] = None):
+def _flash_attention(query, key, value, attn_mask=None,
+                     dropout_p: float = 0.0, is_causal: bool = False,
+                     scale: Optional[float] = None,
+                     generator: Optional[torch.Generator] = None):
     """Attention routing, as the reference's ``flash_attention`` op: with
     no mask and no dropout, a shape the flash path takes (``supported``)
     goes to ``flash_attention.flash_attention`` (the kernels for a CUDA
@@ -124,15 +140,14 @@ def flash_attention(query, key, value, attn_mask=None, dropout_p: float = 0.0,
             query.shape, key.shape, is_causal):
         return _fa.flash_attention(query, key, value, causal=is_causal,
                                    scale=scale)
-    return scaled_dot_product_attention(query, key, value, attn_mask,
-                                        dropout_p, is_causal, scale,
-                                        generator)
+    return _sdpa(query, key, value, attn_mask, dropout_p, is_causal, scale,
+                 generator)
 
 
 @register_kernel("flash_attn_unpadded")
-def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
-                        max_seqlen_q=0, max_seqlen_k=0, scale=0.0,
-                        causal=False):
+def _flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                         max_seqlen_q=0, max_seqlen_k=0, scale=0.0,
+                         causal=False):
     """Packed varlen attention, as the reference's ``flash_attn_unpadded``
     op: ``scale`` 0.0 or None means ``head_dim ** -0.5``, ``max_seqlen_*``
     are accepted and unused, ``cu_seqlens_*`` are cast to int32; then
@@ -202,8 +217,22 @@ class _FusedSoftmaxCE(torch.autograd.Function):
 
 
 @register_kernel("fused_softmax_ce")
-def fused_softmax_ce(logits: torch.Tensor, labels: torch.Tensor
-                     ) -> torch.Tensor:
+def _fused_softmax_ce(logits: torch.Tensor, labels: torch.Tensor
+                      ) -> torch.Tensor:
     """Per-position cross entropy ``lse - logits[label]`` in float32 over
     the last axis; label -100 gives 0 and no gradient."""
     return _FusedSoftmaxCE.apply(logits, labels)
+
+
+# the ops, by the reference's op names
+swiglu = hooked("swiglu", _swiglu)
+linear = hooked("linear", _linear)
+matmul = hooked("matmul", _matmul)
+mean = hooked("mean", _mean)
+embedding = hooked("embedding", _embedding)
+rms_norm = hooked("rms_norm", _rms_norm)
+rope = hooked("rope", _rope)
+scaled_dot_product_attention = hooked("scaled_dot_product_attention", _sdpa)
+flash_attention = hooked("flash_attention", _flash_attention)
+flash_attn_unpadded = hooked("flash_attn_unpadded", _flash_attn_unpadded)
+fused_softmax_ce = hooked("fused_softmax_ce", _fused_softmax_ce)

@@ -3,8 +3,9 @@
 Counterpart of ``paddle_tpu/ops/kernels/quant.py:54-92``:
 ``weight_quantize``, ``weight_dequantize`` and ``weight_only_linear``, over
 ``weight_only_gemm.py`` (the reference's layout; the CUDA int4 kernel for
-per-channel int4 on the card). The port has no op registry yet (ROADMAP
-A2), so these are plain functions with the reference's arguments.
+per-channel int4 on the card). Each takes the reference's arguments and
+is registered as the op of the same name (``ops/dispatcher.py``:
+``call_op("weight_only_linear", ...)``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
-"""Optimizers: SGD, Momentum, Adam, AdamW and Lamb.
+"""Optimizers: SGD, Momentum, Adam, AdamW, Lamb, Adamax, Adadelta, ASGD,
+Rprop, Adagrad and RMSProp.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``: ``Optimizer``
-(:161) with ``step``, ``clear_grad``, ``get_lr``/``set_lr`` (a float
-learning rate; schedulers are not ported yet) and ``multi_precision``
-float32 masters for bf16 params (:419-429); ``SGD``, ``Momentum``,
-``Adam``, ``AdamW`` and ``Lamb`` (:865-995); the fused route's frozen
+(:161) with ``step``, ``clear_grad`` (alias ``clear_gradients``),
+``minimize``, ``get_lr``/``set_lr`` (a float or an ``LRScheduler`` of
+``optimizer/lr.py``; ``set_lr`` raises under a scheduler), ``state_dict``/
+``set_state_dict`` (:613-634) and ``multi_precision`` float32 masters for
+bf16 params (:419-429); ``SGD``, ``Momentum``, ``Adam``, ``AdamW`` and
+``Lamb`` (:865-995); ``Adamax``, ``Adadelta``, ``ASGD``, ``Rprop``,
+``Adagrad`` and ``RMSProp`` (:998-1186, per-parameter route only: no fused
+kernel computes their rules); the fused route's frozen
 ``FUSED_OPT_FALLBACK_REASONS`` (:69), ``fused_counters`` and
 ``_fused_kind_cfg`` (:91, exact type match); and the anomaly sentinel
 (``FLAGS_anomaly_sentinel``, :450-471).
@@ -28,6 +33,11 @@ implementation of the rule math, so at float32 the routes agree bit for
 bit. Every scalar (lr, step, weight decay, bias corrections, clip
 coefficient, sentinel flag) is a device tensor: a step syncs with the
 host only once, after the update is queued, when the sentinel is on.
+The learning rate and the step count are one persistent float32 scalar
+each per device, refreshed in place (``fill_``) when the host value
+changes (the reference's "one transfer per lr change",
+``paddle_tpu/jit/api.py:447-450``), so a scheduled run makes no tensor
+per step and the kernels always read the same scalars.
 
 Memory: the masters and the moments of the parameters that share a
 compute dtype live in one flat buffer each, allocated at the first step,
@@ -37,10 +47,19 @@ param 2 + grad 2 + master 4 + m 4 + v 4 = 16 bytes per parameter. Lamb
 holds its ``tr_div`` as well: on the fused route one scratch buffer per
 bucket kept with the plan, 4 more bytes per parameter over float32
 masters.
+
+``parameters`` may be ``(name, param)`` pairs (``Module.named_parameters()``):
+the names are what AdamW's ``apply_decay_param_fun`` is given (Paddle
+gives ``param.name``); a plain list gives it ``param_{i}``.
+
+``state_dict`` returns copies; ``set_state_dict`` makes the state it
+lacks and copies into the flat buffers' views (the fused plans hold
+them), so a resume continues bit for bit on either route.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -49,6 +68,7 @@ from .. import flags as _flags
 from ..nn.clip import (ClipGradBase, ClipGradByGlobalNorm, global_norm_coeff,
                        sum_of_squares)
 from ..ops.kernels import fused_optimizer as fok
+from .lr import LRScheduler
 
 # Frozen fallback-reason taxonomy of the fused route: every reason that
 # reaches _fused_fallback() is one of these (it raises on any other).
@@ -122,11 +142,18 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters must be provided (a list of "
                              "tensors)")
-        if not isinstance(learning_rate, (int, float)):
-            raise TypeError("only a float learning rate is ported; LR "
-                            "schedulers (optimizer/lr.py) are ROADMAP A2")
-        self._parameter_list = list(parameters)
-        self._lr = float(learning_rate)
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate)}")
+        params = list(parameters)
+        # (name, param) pairs, as Module.named_parameters() gives them:
+        # the names reach apply_decay_param_fun (Paddle's param.name)
+        named = bool(params) and all(isinstance(x, tuple) for x in params)
+        self._param_names = [n for n, _ in params] if named \
+            else [None] * len(params)
+        self._parameter_list = [p for _, p in params] if named else params
+        self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self._weight_decay = 0.0 if weight_decay is None else float(
             getattr(weight_decay, "coeff", weight_decay))
         self._grad_clip = grad_clip
@@ -144,20 +171,24 @@ class Optimizer:
         self._fused_plans: Dict = {}
         self._fused_last_reason: Optional[str] = None
         self._scalars: Dict = {}
+        self._live: Dict = {}
 
     # -- lr and weight decay --------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return self._lr
 
     def set_lr(self, value: float) -> None:
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("optimizer uses an LRScheduler; call "
+                               "scheduler APIs")
         self._lr = float(value)
 
     def _param_weight_decay(self, i: int) -> float:
         fn = self._apply_decay_param_fun
-        if fn is not None:
-            p = self._parameter_list[i]
-            if not fn(getattr(p, "name", None) or f"param_{i}"):
-                return 0.0
+        if fn is not None and not fn(self._param_names[i] or f"param_{i}"):
+            return 0.0
         return self._weight_decay
 
     def _scalar(self, value: float, device) -> torch.Tensor:
@@ -171,6 +202,25 @@ class Optimizer:
             self._scalars[key] = t
         return t
 
+    def _live_scalar(self, key: str, value: float, device) -> torch.Tensor:
+        """The persistent float32 device scalar ``key`` (the lr, the step
+        count): one tensor per device, refreshed in place only when the
+        host value changes."""
+        slot = self._live.get((key, str(device)))
+        value = float(value)
+        if slot is None:
+            slot = [value, torch.full((), value, dtype=torch.float32,
+                                      device=device)]
+            self._live[(key, str(device))] = slot
+        elif slot[0] != value:
+            self._refresh(slot[1], value)
+            slot[0] = value
+        return slot[1]
+
+    @staticmethod
+    def _refresh(t: torch.Tensor, value: float) -> None:
+        t.fill_(value)   # a kernel argument: no host copy, no sync
+
     # -- the rule (override) --------------------------------------------------
     _STATE_KEYS: Tuple[str, ...] = ()   # the rule's state slots
 
@@ -183,16 +233,26 @@ class Optimizer:
         cast to ``p.dtype``."""
         raise NotImplementedError
 
+    def _slot_specs(self) -> Dict[str, Tuple[float, Tuple[int, ...]]]:
+        """Each state slot's ``(initial value, leading dims)``: a slot
+        holds ``leading dims + param shape`` elements."""
+        return {k: (0.0, ()) for k in self._STATE_KEYS}
+
+    def _state_targets(self, state, sc) -> Dict[str, torch.Tensor]:
+        """Where each slot of ``_update``'s new state is written (ASGD
+        writes one row of its gradient ring)."""
+        return state
+
     # -- state ----------------------------------------------------------------
     def _create_state(self, idxs: List[int]) -> None:
         """Masters and state of the parameters that have none yet: one
         flat buffer per (device, compute dtype) and slot, per-parameter
-        views into it."""
+        views into it, filled with the slot's initial value."""
         todo = [i for i in idxs if self._states[i] is None]
         if not todo:
             return
         params = self._parameter_list
-        keys = self._STATE_KEYS
+        slots = self._slot_specs()
         groups: Dict[Tuple, List[int]] = {}
         for i in todo:
             p = params[i]
@@ -200,28 +260,26 @@ class Optimizer:
                 else p.dtype
             groups.setdefault((p.device, cdt), []).append(i)
 
-        def views(flat, ids):
+        def views(ids, dtype, device, fill=0.0, lead=()):
+            n_lead = math.prod(lead)
+            flat = torch.full((n_lead * sum(params[i].numel() for i in ids),),
+                              fill, dtype=dtype, device=device)
             out, off = [], 0
             for i in ids:
-                n = params[i].numel()
-                out.append(flat[off:off + n].view(params[i].shape))
+                n = n_lead * params[i].numel()
+                out.append(flat[off:off + n].view(*lead, *params[i].shape))
                 off += n
             return out
 
-        def flat(ids, dtype, device):
-            return torch.zeros(sum(params[i].numel() for i in ids),
-                               dtype=dtype, device=device)
-
         for (dev, cdt), ids in groups.items():
             masters = [i for i in ids if params[i].dtype != cdt]
-            if masters:
-                for i, v in zip(masters, views(flat(masters, cdt, dev),
-                                               masters)):
-                    v.copy_(params[i].detach())
-                    self._masters[i] = v
-            per_key = {k: views(flat(ids, cdt, dev), ids) for k in keys}
+            for i, v in zip(masters, views(masters, cdt, dev)):
+                v.copy_(params[i].detach())
+                self._masters[i] = v
+            per_key = {k: views(ids, cdt, dev, fill, lead)
+                       for k, (fill, lead) in slots.items()}
             for j, i in enumerate(ids):
-                self._states[i] = {k: per_key[k][j] for k in keys}
+                self._states[i] = {k: per_key[k][j] for k in slots}
 
     # -- fused route ----------------------------------------------------------
     def _fused_fallback(self, reason: str) -> None:
@@ -316,9 +374,8 @@ class Optimizer:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
         self._step_count += 1
         self._create_state(idxs)
-        lr = self._scalar(self.get_lr(), dev)
-        step = torch.full((), float(self._step_count), dtype=torch.float32,
-                          device=dev)
+        lr = self._live_scalar("lr", self.get_lr(), dev)
+        step = self._live_scalar("step", self._step_count, dev)
         sentinel = bool(_flags.get_flag("anomaly_sentinel"))
         targets = [self._masters[i] if self._masters[i] is not None
                    else self._parameter_list[i].detach() for i in idxs]
@@ -351,14 +408,15 @@ class Optimizer:
                 new_p, new_s = self._update(
                     target, g, st, lr,
                     self._scalar(self._param_weight_decay(i), dev), sc)
+                dst = self._state_targets(st, sc)
                 if found is not None:
                     keep = found > 0
                     new_p = torch.where(keep, target, new_p)
-                    new_s = {k: torch.where(keep, st[k], v)
+                    new_s = {k: torch.where(keep, dst[k], v)
                              for k, v in new_s.items()}
                 target.copy_(new_p)
                 for k, v in new_s.items():
-                    st[k].copy_(v)
+                    dst[k].copy_(v)
                 if self._masters[i] is not None:
                     p.detach().copy_(target.to(p.dtype))
         if found is not None:
@@ -399,6 +457,73 @@ class Optimizer:
                 p.grad.zero_()
             else:
                 p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None) -> None:
+        loss.backward()
+        self.step()
+        self.clear_grad()
+
+    # -- checkpointing --------------------------------------------------------
+    def state_dict(self) -> Dict:
+        """``{"step", "states", "masters"}`` (and ``"lr"``, the
+        scheduler's state, under a scheduler), per parameter in the
+        optimizer's order; the tensors are copies."""
+        def cp(t):
+            return None if t is None else t.detach().clone()
+
+        out = {"step": self._step_count,
+               "states": [None if s is None else {k: cp(v)
+                                                  for k, v in s.items()}
+                          for s in self._states],
+               "masters": [cp(m) for m in self._masters]}
+        if isinstance(self._lr, LRScheduler):
+            out["lr"] = self._lr.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, sd: Dict) -> None:
+        """Load a :meth:`state_dict` (tensors or numpy arrays): the state
+        of each listed parameter is made where missing, then copied into
+        its views (never rebound: the fused plans hold those views)."""
+        n = len(self._parameter_list)
+        states, masters = sd.get("states"), sd.get("masters")
+        for key, lst in (("states", states), ("masters", masters)):
+            if lst is not None and len(lst) != n:
+                raise ValueError(f"state_dict {key!r} lists {len(lst)} "
+                                 f"parameters, the optimizer has {n}")
+        states = states if states is not None else [None] * n
+        masters = masters if masters is not None else [None] * n
+        have = [i for i in range(n)
+                if states[i] is not None or masters[i] is not None]
+        self._create_state(have)
+        for i in have:
+            own = dict(self._states[i])
+            if masters[i] is not None:
+                if self._masters[i] is None:
+                    raise ValueError(f"parameter {i} keeps no float32 master "
+                                     f"here, the state_dict has one")
+                own["master"] = self._masters[i]
+            src = dict(states[i] or {})
+            if masters[i] is not None:
+                src["master"] = masters[i]
+            if states[i] is not None and \
+                    set(states[i]) != set(self._states[i]):
+                raise KeyError(f"parameter {i}: state slots "
+                               f"{sorted(states[i])}, expected "
+                               f"{sorted(self._states[i])}")
+            for k, v in src.items():
+                v = torch.as_tensor(v)
+                if tuple(v.shape) != tuple(own[k].shape):
+                    raise ValueError(f"parameter {i} slot {k!r}: shape "
+                                     f"{tuple(v.shape)}, expected "
+                                     f"{tuple(own[k].shape)}")
+                own[k].copy_(v)
+        self._step_count = int(sd.get("step", 0))
+        if "lr" in sd and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(sd["lr"])
 
 
 class SGD(Optimizer):
@@ -460,12 +585,11 @@ class AdamW(Adam):
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
                  grad_clip=None, multi_precision=True,
                  apply_decay_param_fun=None, lr_ratio=None, name=None):
-        if lr_ratio is not None:
-            raise NotImplementedError("AdamW lr_ratio is not ported yet "
-                                      "(ROADMAP A2)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, multi_precision, name=name)
         self._apply_decay_param_fun = apply_decay_param_fun
+        # stored and read nowhere, as in the reference (:944)
+        self._lr_ratio = lr_ratio
 
     def _decoupled(self) -> bool:
         return True
@@ -510,3 +634,194 @@ class Lamb(Optimizer):
                                         sc["inv_bc1"], sc["inv_bc2"])
         r = fok.lamb_trust_ratio(p, tr_div)
         return fok.lamb_apply(p, tr_div, r, lr), {"m": m, "v": v}
+
+
+# -- the per-parameter rules (:998-1186) --------------------------------------
+# Each is the reference's ``_update`` in torch ops, one op per rounding in
+# the reference's order; a divisor that varies is a device scalar, so the
+# card divides as the CPU does (a divisor given as a Python number is a
+# reciprocal multiply on the card).
+
+class Adamax(Optimizer):
+    """Adam with the infinity norm: ``inf = max(|g|, b2·inf + eps)``,
+    ``p -= lr/(1 - b1^t) · m / inf``; the weight decay is added to the
+    grad."""
+
+    _STATE_KEYS = ("m", "inf")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _step_scalars(self, step):
+        bc1, _ = fok.bias_inv(self._beta1, self._beta2, step)
+        return {"inv_bc1": bc1}
+
+    def _update(self, p, g, state, lr, wd, sc):
+        b1, b2, eps = self._beta1, self._beta2, self._eps
+        lr = lr.to(p.dtype)
+        g = g + wd.to(p.dtype) * p
+        m = b1 * state["m"] + (1 - b1) * g
+        inf = torch.maximum(torch.abs(g), b2 * state["inf"] + eps)
+        lr_t = lr * sc["inv_bc1"].to(lr.dtype)
+        return p - lr_t * m / inf, {"m": m, "inf": inf}
+
+
+class Adadelta(Optimizer):
+    """``E[g²] = ρE[g²] + (1-ρ)g²``, ``upd = -sqrt(E[dx²]+eps) /
+    sqrt(E[g²]+eps) · g``, ``E[dx²] = ρE[dx²] + (1-ρ)upd²``, ``p +=
+    lr·upd``."""
+
+    _STATE_KEYS = ("g2", "dx2")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._rho, self._eps = rho, epsilon
+
+    def _update(self, p, g, state, lr, wd, sc):
+        rho, eps = self._rho, self._eps
+        g = g + wd.to(p.dtype) * p
+        g2 = rho * state["g2"] + (1 - rho) * (g * g)
+        upd = -torch.sqrt(state["dx2"] + eps) / torch.sqrt(g2 + eps) * g
+        dx2 = rho * state["dx2"] + (1 - rho) * (upd * upd)
+        return p + lr.to(p.dtype) * upd, {"g2": g2, "dx2": dx2}
+
+
+class ASGD(Optimizer):
+    """Averaged SGD over the last ``batch_num`` grads: slot ``(t-1) % n``
+    of the ring ``ys`` (``[n, *shape]``) is swapped out of the running sum
+    ``d``, and ``p -= lr·(d / min(t, n) + wd·p)``. ``t`` is the host step
+    count (applied updates): a step the sentinel skips leaves the ring,
+    the sum and the count as they were, so the next step writes the same
+    slot, as in the reference."""
+
+    _STATE_KEYS = ("d", "ys")
+
+    def __init__(self, learning_rate=0.001, batch_num=1, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        if batch_num < 1:
+            raise ValueError("batch_num must be >= 1")
+        self._n = int(batch_num)
+
+    def _slot_specs(self):
+        return {"d": (0.0, ()), "ys": (0.0, (self._n,))}
+
+    def _step_scalars(self, step):
+        t = self._step_count
+        return {"idx": (t - 1) % self._n,
+                "denom": self._scalar(float(min(t, self._n)), step.device)}
+
+    def _state_targets(self, state, sc):
+        return {"d": state["d"], "ys": state["ys"][sc["idx"]]}
+
+    def _update(self, p, g, state, lr, wd, sc):
+        d = state["d"] - state["ys"][sc["idx"]] + g
+        upd = d / sc["denom"].to(p.dtype) + wd.to(p.dtype) * p
+        return p - lr.to(p.dtype) * upd, {"d": d, "ys": g}
+
+
+class Rprop(Optimizer):
+    """Resilient backprop: a per-element step size that grows by
+    ``etas[1]`` (capped at ``learning_rate_range[1]``) while the grad
+    keeps its sign, shrinks by ``etas[0]`` (floored at
+    ``learning_rate_range[0]``) and skips the update when it flips. The
+    learning rate seeds the step sizes, so a scheduler raises
+    ``TypeError``; there is no weight decay."""
+
+    _STATE_KEYS = ("prev", "lrs")
+
+    def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50.0),
+                 parameters=None, etas=(0.5, 1.2), grad_clip=None,
+                 multi_precision=True, name=None):
+        if isinstance(learning_rate, LRScheduler):
+            raise TypeError(
+                "Rprop keeps per-element step sizes seeded from a float "
+                "learning_rate; LR schedulers do not apply (full-batch "
+                "only)")
+        super().__init__(learning_rate, parameters, None, grad_clip,
+                         multi_precision, name)
+        self._lr0 = float(learning_rate)
+        self._lr_min, self._lr_max = (float(x) for x in learning_rate_range)
+        self._eta_minus, self._eta_plus = (float(x) for x in etas)
+
+    def _slot_specs(self):
+        return {"prev": (0.0, ()), "lrs": (self._lr0, ())}
+
+    def _update(self, p, g, state, lr, wd, sc):
+        sign = g * state["prev"]
+        lrs = torch.where(
+            sign > 0, torch.clamp(state["lrs"] * self._eta_plus,
+                                  max=self._lr_max),
+            torch.where(sign < 0, torch.clamp(state["lrs"] * self._eta_minus,
+                                              min=self._lr_min),
+                        state["lrs"]))
+        step_w = torch.where(sign < 0, torch.zeros_like(p),
+                             torch.sign(g) * lrs)
+        prev = torch.where(sign < 0, torch.zeros_like(g), g)
+        return p - step_w, {"prev": prev, "lrs": lrs}
+
+
+class Adagrad(Optimizer):
+    """``acc += g²``, ``p -= lr·g / (sqrt(acc) + eps)``; ``acc`` starts at
+    ``initial_accumulator_value``."""
+
+    _STATE_KEYS = ("acc",)
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._eps = epsilon
+        self._init_acc = float(initial_accumulator_value)
+
+    def _slot_specs(self):
+        return {"acc": (self._init_acc, ())}
+
+    def _update(self, p, g, state, lr, wd, sc):
+        g = g + wd.to(p.dtype) * p
+        acc = state["acc"] + g * g
+        return p - lr.to(p.dtype) * g / (torch.sqrt(acc) + self._eps), \
+            {"acc": acc}
+
+
+class RMSProp(Optimizer):
+    """``ms = ρ·ms + (1-ρ)g²``; centered, ``mg = ρ·mg + (1-ρ)g`` and the
+    denominator ``sqrt(ms - mg² + eps)``, else ``sqrt(ms + eps)``; ``mom =
+    momentum·mom + lr·g/denom``, ``p -= mom``. The ``mg`` slot exists only
+    when centered."""
+
+    def __init__(self, learning_rate=0.001, rho=0.95, epsilon=1e-06,
+                 momentum=0.0, centered=False, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+        self._STATE_KEYS = ("ms", "mom") + (("mg",) if centered else ())
+
+    def _update(self, p, g, state, lr, wd, sc):
+        rho = self._rho
+        g = g + wd.to(p.dtype) * p
+        ms = rho * state["ms"] + (1 - rho) * (g * g)
+        if self._centered:
+            mg = rho * state["mg"] + (1 - rho) * g
+            denom = torch.sqrt(ms - mg * mg + self._eps)
+            new_state = {"ms": ms, "mg": mg}
+        else:
+            denom = torch.sqrt(ms + self._eps)
+            new_state = {"ms": ms}
+        mom = self._momentum * state["mom"] + lr.to(p.dtype) * g / denom
+        new_state["mom"] = mom
+        return p - mom, new_state

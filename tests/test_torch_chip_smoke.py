@@ -6,8 +6,15 @@ kernel into its own part. The kernel names are read from the CUDA
 sources, in the form ``torch.profiler`` gives them (demangled, with
 template arguments). ``ptxas_tc_kernels`` reads the tensor-core kernels'
 rows of nvcc's ``-Xptxas -v`` report, the float32 attention kernels' shared
-memory as csrc/flash_f32.cuh sizes it. Importing the script needs no
-card."""
+memory as csrc/flash_f32.cuh sizes it. The scheduled mixed-precision
+phase's checks: ``lr_mismatches`` passes the lr that a CPU optimizer's
+fused route reads under a scheduler and catches a planted stale lr
+scalar, and ``launch_pattern_errors`` passes one fused AdamW launch per
+bucket per optimizer step with a flash launch per layer on every call,
+and flags any other count. ``profiled_kernels`` reads a route from the
+first profiler window that recorded every stem, keeps the windows that
+lost one, fails when none held them all, and leaves a route with no
+device time not measured. Importing the script needs no card."""
 
 import importlib.util
 import re
@@ -439,3 +446,131 @@ def test_bcsr_tile_rows_names_the_kernel_each_block_takes(dname, bm, tm):
     """``phase_routes`` asks the profile for the BCSR kernel at the M tile
     the C entry picks for ``bm`` (ptt_bcsr_spmm)."""
     assert _smoke().bcsr_tile_rows(dname, bm) == tm
+
+
+def _lr_run(monkeypatch=None, steps=6):
+    """The lr each bucket's fused launch read, per optimizer step, and
+    the scheduler's value, from a CPU AdamW under the smoke's schedule;
+    with ``monkeypatch``, the lr scalar is never refreshed."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.optimizer import lr
+
+    smoke = _smoke()
+    if monkeypatch is not None:
+        monkeypatch.setattr(TO.Optimizer, "_refresh",
+                            staticmethod(lambda t, value: None))
+    params = [torch.nn.Parameter(torch.ones(4, 3)),
+              torch.nn.Parameter(torch.ones(3))]
+    opt = TO.AdamW(learning_rate=smoke.amp_schedule(lr),
+                   parameters=[(f"layer.{'norm' if p.ndim == 1 else 'w'}",
+                                p) for p in params],
+                   apply_decay_param_fun=smoke.no_norm_decay)
+    seen, want = [], []
+    for _ in range(steps):
+        for p in params:
+            p.grad = torch.full_like(p, 0.5)
+        want.append(opt.get_lr())
+        opt.step()
+        opt.clear_grad()
+        plan = next(iter(opt._fused_plans.values()))
+        seen.append([float(b.svec[0]) for b in plan.buckets])
+        opt._lr.step()
+    assert [b.wd for b in plan.buckets] == [0.01, 0.0]
+    return smoke, seen, want
+
+
+def test_lr_check_passes_the_scheduled_reads():
+    smoke, seen, want = _lr_run()
+    assert smoke.lr_mismatches(seen, want) == []
+    assert len(set(want)) == len(want)        # a new lr every step
+
+
+def test_lr_check_catches_a_stale_lr_scalar(monkeypatch):
+    smoke, seen, want = _lr_run(monkeypatch)
+    bad = smoke.lr_mismatches(seen, want)
+    assert [b[0] for b in bad] == list(range(1, len(want)))
+    assert smoke.lr_mismatches(seen[:-1], want)[-1][0] == "steps"
+    assert smoke.lr_mismatches([[0.0, 1.0]], [0.0]) == [(0, [0.0, 1.0],
+                                                          0.0)]
+
+
+def _calls(steps, buckets, layers, accum=2):
+    flash = {k: layers for k in ("flash_attention_fwd", "flash_attention_dq",
+                                 "flash_attention_dkv")}
+    out = []
+    for i in range(steps * accum):
+        c = dict(flash)
+        if (i + 1) % accum == 0:
+            c["fused_optimizer"] = buckets
+        out.append(c)
+    return out
+
+
+def test_launch_pattern_passes_one_update_per_window():
+    smoke = _smoke()
+    assert smoke.launch_pattern_errors(_calls(3, 2, 8), 2, 2, 8) == []
+
+
+@pytest.mark.parametrize("fault", ["micro_update", "missing_update",
+                                   "extra_bucket", "flash_short"])
+def test_launch_pattern_flags_other_counts(fault):
+    smoke = _smoke()
+    calls = _calls(3, 2, 8)
+    if fault == "micro_update":
+        calls[2]["fused_optimizer"] = 2
+    elif fault == "missing_update":
+        del calls[3]["fused_optimizer"]
+    elif fault == "extra_bucket":
+        calls[5]["fused_optimizer"] = 3
+    else:
+        calls[4]["flash_attention_dq"] = 7
+    errs = smoke.launch_pattern_errors(calls, 2, 2, 8)
+    assert len(errs) == 1
+
+
+
+# profiler windows as ``profile_call`` returns them: every stem recorded,
+# one of them lost, and no device time at all
+_ROUTE = ("split_kernel", "tc_kernel", "merge_kernel")
+_WINDOWS = {
+    "whole": {"all_kernels": {"void split_kernel<128>()": 0.3,
+                              "void tc_kernel<128>()": 0.6,
+                              "void merge_kernel<128>()": 0.09}},
+    "lossy": {"all_kernels": {"void merge_kernel<128>()": 0.09}},
+    "empty": {"not_measured": "profiler recorded no device time"},
+}
+
+
+def _route(monkeypatch, windows):
+    smoke = _smoke()
+    seen = iter(windows)
+    monkeypatch.setattr(smoke, "profile_call",
+                        lambda torch, fn, n: dict(_WINDOWS[next(seen)]))
+    return smoke.profiled_kernels(None, lambda: None, _ROUTE)
+
+
+@pytest.mark.parametrize("windows,lossy", [
+    (["whole"], 0), (["lossy", "whole"], 1), (["empty", "lossy", "whole"], 1),
+    (["lossy"] * 4 + ["whole"], 4)])
+def test_route_is_read_from_the_first_whole_window(monkeypatch, windows,
+                                                   lossy):
+    r = _route(monkeypatch, windows)
+    assert len(r["kernels"]) == 3
+    assert r["ms_per_call"]["void tc_kernel<128>()"] == pytest.approx(0.2)
+    assert len(r.get("lossy_windows", [])) == lossy
+    for w in r.get("lossy_windows", []):
+        assert w["missing"] == ["split_kernel", "tc_kernel"]
+
+
+@pytest.mark.parametrize("windows", [["lossy"] * 5,
+                                     ["empty"] * 4 + ["lossy"]])
+def test_route_that_no_window_shows_whole_fails(monkeypatch, windows):
+    with pytest.raises(AssertionError, match="never ran all of"):
+        _route(monkeypatch, windows)
+
+
+def test_route_with_no_device_time_is_not_measured(monkeypatch):
+    r = _route(monkeypatch, ["empty"] * 5)
+    assert r == {"not_measured": "profiler recorded no device time"}
