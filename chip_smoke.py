@@ -8,7 +8,9 @@ again quantized to int4 weights through the int4 GEMM kernel, multiply
 block-pruned Llama-3-8B MLP weights through ``sparse.bcsr_matmul``, train
 Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW and then
 with Lamb, then train DeepSeek-MoE-16B's width (5 layers) the same way as
-the first through the grouped-GEMM kernel.
+the first through the grouped-GEMM kernel. The serving and training
+steps run as CUDA graphs (step capture), each held against its eager
+run.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -100,11 +102,18 @@ Phases (any failure raises and the script exits non-zero):
    versions made to raise on a CUDA tensor; both serving kernels' launch
    counts must rise, every request must
    finish with in-vocabulary tokens, the bf16 run's peak memory must stay
-   at slice 1's, and the model's last-position logits through the kernels
-   must agree with the plain path's. Last, two more runs (bf16 and int8
-   pools) each profile one prefill step and three decode steps with
-   torch.profiler (device time by kernel and by part); their launches
-   are not counted;
+   at slice 1's (restated by the step graph's pool bytes, measured in
+   the run), and the model's last-position logits through the kernels
+   must agree with the plain path's. The engine step is one CUDA graph:
+   each of the bf16, int8 and speculative runs has 1 capture, steps - 1
+   replays and no fallback, and after the path's counts are read the same
+   requests run through the eager engine step (``FLAGS_step_capture=0``),
+   which must give the same tokens; captured against eager: tokens/s,
+   step p50/p99, TTFT, TPOT, peak memory, capture time and pool bytes.
+   Last, more runs (bf16 and int8 pools captured, bf16 eager) each
+   profile one prefill step and three decode steps with torch.profiler
+   (device time by kernel and by part, the busy share of wall); their
+   launches are not counted;
 4b. int4 serving, after the serving model is freed: the same model from
    the same seed, its bf16 logits of one prompt, then
    ``quantize_for_inference(model, "weight_only_int4")`` on the card
@@ -112,16 +121,22 @@ Phases (any failure raises and the script exits non-zero):
    kernel against the plain route (``FLAGS_use_pallas_kernels`` off) and,
    without a limit, against bf16; the same 16 requests with a bf16 pool,
    with exactly 224 int4 GEMM launches per engine step (counts reset just
-   before), greedy agreement with the bf16 run's tokens; a paged
-   ``generate()``; a profiled run with the int4 GEMM as its own part;
+   before), greedy agreement with the bf16 run's tokens, and the same
+   capture checks against its eager run; a paged ``generate()``; a
+   profiled run with the int4 GEMM as its own part;
 5. training, the second main path, after the serving model is freed:
    ``LlamaForCausalLM`` at Llama-3-8B width with 8 layers (2.80 B params,
    bf16, float32 masters), ``LlamaPretrainingCriterion``,
    ``AdamW(lr 1e-4, weight_decay 0.01, ClipGradByGlobalNorm(1.0))``
-   through ``TrainStep`` on an LCG-scrambled batch of 2 x 2048 tokens: the
-   loss and layer-0 grads through the kernels vs the plain versions, then
-   2 warm-up and 10 timed steps (tokens/s, step p50/p99, MFU as bench.py
+   through ``TrainStep`` on an LCG-scrambled batch of 2 x 2048 tokens:
+   first the hand-written eager loop (forward, loss, backward, ``step``,
+   ``clear_grad``) twice from the seed's weights, which must agree bit for
+   bit; then the loss and layer-0 grads through the kernels vs the plain
+   versions, then the captured ``TrainStep`` (a probe, a warm-up and
+   capture, 10 timed replays: tokens/s, step p50/p99, MFU as bench.py
    defines it, peak memory, every loss, which must be finite and fall),
+   whose losses and final weights (params and float32 masters, by
+   fingerprints of their bits) must equal the eager loop's,
    the four training kernels' launch counts (reset just before), one
    profiled step (device time by kernel and by part of the step), and a
    GradScaler step with a poisoned grad, which must be skipped with the
@@ -134,13 +149,25 @@ Phases (any failure raises and the script exits non-zero):
    ``MoEForCausalLM`` at DeepSeek-MoE-16B width (hidden 2048, 16 heads,
    64 routed experts of width 1408, 6 per token, 2 shared, the first layer
    dense) with 5 layers (2.855 B params, bf16), ``MoEPretrainingCriterion``
-   and the same optimizer, step and batch: the loss and the first MoE
+   and the same optimizer, step and batch: two eager loops of 6 steps
+   (the expert sums' atomics are not bitwise), then the loss and the first MoE
    layer's expert and router grads through the grouped-GEMM kernel vs its
    plain version (that layer's routing must be equal), then 2 warm-up and
    10 timed steps (tokens/s, step p50/p99, MFU over the active params,
-   peak memory, every loss), exactly 24 grouped-GEMM launches per step,
+   peak memory, every loss; the first 6 losses within the eager loops'
+   spread), exactly 24 grouped-GEMM launches per step,
    the choices dropped by capacity and each MoE layer's min/max counts,
    and one profiled step with the grouped GEMM as its own part;
+5c. capture edges and ``Model.fit``: on a small linear layer a
+   GradScaler step with an inf planted in a replay is skipped on the device
+   (weights bitwise unchanged) and ``consume_anomaly()`` brings the step
+   count back; a step that calls ``.item()`` falls back as "trace failed"
+   and random draws still work after the failed capture; then
+   ``hapi.Model.fit`` over a shuffled ``io.DataLoader`` (Llama-3-8B width,
+   2 layers, 11 steps of 2 x 512) with single-step capture and with
+   ``FLAGS_multi_step=4`` (two 4-step blocks in one graph each and a
+   3-step tail), which must give the same losses bit for bit; each
+   graph's pool bytes (a K-step block's pool against a single step's);
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -155,7 +182,8 @@ Every kernel time is the median of CUDA-event windows around one call,
 the L2 flushed before each and the card held busy while the host
 enqueues the call, so host time never counts as device time.
 
-Output: findings on earlier lines, then the ``kernels`` JSON line
+Output: findings on earlier lines (a ``capture:`` line sums up every
+captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
@@ -799,11 +827,13 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
     under the profiler (their steps stay out of the step percentiles, but
     the run's wall time and TTFT include them: profile in a run of its
     own)."""
+    from paddle_tpu_torch.jit import capture_counters
     from paddle_tpu_torch.models import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
         model, max_batch=16, block_size=64, token_budget=512,
         prefill_chunk=256, kv_pool_bytes=8 << 30, temperature=0.0,
         **engine_kw)
+    fallbacks0 = capture_counters["fallbacks"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -852,7 +882,9 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              num_blocks=eng.cache.k[0].shape[0],
              kv_dtype=eng.cache.kv_dtype, stats=dict(eng.stats),
-             profile=profiles)
+             profile=profiles,
+             capture=dict(eng.capture_stats, fallbacks=capture_counters[
+                 "fallbacks"] - fallbacks0))
     for rid, toks in outs.items():
         if len(toks) != new_tokens:
             raise AssertionError(f"request {rid} emitted {len(toks)} of "
@@ -864,6 +896,44 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
     del eng
     torch.cuda.empty_cache()
     return outs, m
+
+
+def eager_serve(torch, model, prompts, new_tokens, **kw):
+    """:func:`serve` with ``FLAGS_step_capture`` off: the eager engine
+    step, the baseline of a captured run over the same requests."""
+    from paddle_tpu_torch import flags
+    flags.set_flags({"step_capture": False})
+    try:
+        return serve(torch, model, prompts, new_tokens, **kw)
+    finally:
+        flags.set_flags({"step_capture": True})
+
+
+SERVE_METRICS = ("tokens_per_s", "step_ms_p50", "step_ms_p99", "ttft_ms_p50",
+                 "ttft_ms_p99", "tpot_ms_p50", "tpot_ms_p99", "peak_mem_gib")
+
+
+def check_capture(label, m, outs, m_eager, outs_eager):
+    """A captured serve run against its eager run over the same requests:
+    token-identical, one capture, steps - 1 replays, no eager step and no
+    fallback. Returns the captured-vs-eager comparison."""
+    c = m["capture"]
+    if outs != outs_eager:
+        raise AssertionError(f"{label}: captured tokens differ from the "
+                             f"eager run's: {agree(outs, outs_eager)}")
+    if (c["captures"], c["replays"], c["eager_steps"], c["fallbacks"]) != \
+            (1, m["steps"] - 1, 0, 0):
+        raise AssertionError(f"{label}: capture stats {c} over "
+                             f"{m['steps']} steps, want 1 capture, "
+                             f"{m['steps'] - 1} replays, 0 fallbacks")
+    if m_eager["capture"]["eager_steps"] != m_eager["steps"]:
+        raise AssertionError(f"{label}: the eager run captured: "
+                             f"{m_eager['capture']}")
+    return {"token_identical": True, "captures": c["captures"],
+            "replays": c["replays"], "capture_s": c["capture_s"],
+            "pool_bytes": c["pool_bytes"],
+            "captured": {k: m[k] for k in SERVE_METRICS},
+            "eager": {k: m_eager[k] for k in SERVE_METRICS}}
 
 
 def prompt_logits(torch, model, prompt, kv="bf16", cache_cls=None):
@@ -1093,11 +1163,16 @@ def phase_main(torch, seed, report):
     with no_plain_on_card():
         outs_bf16, main["bf16"] = counted_serve()
         # trainable params must not make serving build an autograd graph:
-        # the bf16 run's peak stays at slice 1's (23.12 GiB on an H100)
-        if main["bf16"]["peak_mem_gib"] > SERVE_PEAK_GIB * 1.05:
+        # the bf16 run's peak stays at slice 1's (23.12 GiB on an H100),
+        # restated by the step graph's pool, measured in this run
+        pool_gib = main["bf16"]["capture"]["pool_bytes"] / 2 ** 30
+        limit = SERVE_PEAK_GIB * 1.05 + pool_gib
+        main["bf16"]["peak_limit_gib"] = limit
+        if main["bf16"]["peak_mem_gib"] > limit:
             raise AssertionError(f"serving peak "
                                  f"{main['bf16']['peak_mem_gib']} GiB is "
-                                 f"over slice 1's {SERVE_PEAK_GIB} GiB")
+                                 f"over slice 1's {SERVE_PEAK_GIB} GiB x "
+                                 f"1.05 + the graph pool's {pool_gib} GiB")
         if main["bf16"]["stats"]["prefix_hit_blocks"] <= 0:
             raise AssertionError("the shared-prefix request did not hit the "
                                  "prefix cache")
@@ -1139,6 +1214,17 @@ def phase_main(torch, seed, report):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
+    # the same requests through the eager engine step (after the path's
+    # counts were read)
+    vs_eager = {}
+    with no_plain_on_card():
+        for k, kw, outs in (("bf16", {}, outs_bf16),
+                            ("int8", dict(kv_dtype="int8"), outs_int8),
+                            ("spec_k4", dict(speculative_k=4), outs_spec)):
+            oe, me = eager_serve(torch, model, prompts, 64, **kw)
+            vs_eager[k] = check_capture(f"serve[{k}]", main[k], outs, me, oe)
+            log(f"serve[{k}] captured vs eager: {json.dumps(vs_eager[k])}")
+    main["capture_vs_eager"] = vs_eager
     # generate()'s own gang-decode calls against the plain versions, and
     # its tokens against a generate() through the plain attention
     for kv, (out, calls) in gens.items():
@@ -1184,6 +1270,11 @@ def phase_main(torch, seed, report):
         main[f"profile_{kv}"] = m["profile"]
         for window, prof in m["profile"].items():
             log(f"profile[{kv}/{window}]: {json.dumps(prof)}")
+    # the eager engine step's windows, for the busy share against capture
+    _, m = eager_serve(torch, model, prompts, 64, profile=True)
+    main["profile_bf16_eager"] = m["profile"]
+    for window, prof in m["profile"].items():
+        log(f"profile[bf16 eager/{window}]: {json.dumps(prof)}")
     report["main"] = main
     return main, outs_bf16
 
@@ -1284,6 +1375,10 @@ def phase_int4_serve(torch, seed, report, outs_bf16):
     m["greedy_token_agreement_vs_bf16"] = dict(
         all=agree(outs, outs_bf16), first=agree(outs, outs_bf16, first=True))
     res["serve"] = m
+    oe, me = eager_serve(torch, model, prompts, 64)
+    res["capture_vs_eager"] = check_capture("serve[int4]", m, outs, me, oe)
+    log(f"serve[int4] captured vs eager: "
+        f"{json.dumps(res['capture_vs_eager'])}")
     log(f"serve[int4]: {m['requests']} requests, {m['prompt_tokens']} prompt "
         f"+ {m['generated_tokens']} generated tokens in {m['wall_s']:.2f} s: "
         f"{m['tokens_per_s']:.1f} tok/s, step p50 {m['step_ms_p50']:.1f} ms "
@@ -3000,6 +3095,81 @@ def categorize(all_kernels, busy_ms):
     return cats
 
 
+TRAIN_STEPS = 12
+
+
+def bits_fingerprint(torch, tensors, chunk=1 << 26):
+    """Per tensor, the sum and a position-weighted sum of its bit patterns
+    (int64, in chunks): weights equal bit for bit give equal fingerprints,
+    and one differing element moves both sums."""
+    out = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        bits = flat.view({1: torch.int8, 2: torch.int16,
+                          4: torch.int32}[flat.element_size()])
+        s = w = 0
+        for a in range(0, bits.numel(), chunk):
+            b = bits[a:a + chunk].long()
+            pos = torch.arange(a, a + b.numel(), device=b.device) % 65521 + 1
+            s += int(b.sum())
+            w += int((b * pos).sum())
+        out.append((s, w))
+    return out
+
+
+def train_state(model, opt):
+    """The weights a run ends with: the params and the float32 masters."""
+    return list(model.parameters()) + [m for m in opt._masters
+                                       if m is not None]
+
+
+def eager_train_run(torch, build, ids, steps):
+    """The hand-written eager loop (forward, loss, backward, ``step``,
+    ``clear_grad``) over ``build() -> (model, crit, opt)``: losses, the
+    weights' fingerprint, tokens/s, step p50/p99 (steps 2 on) and peak."""
+    torch.cuda.reset_peak_memory_stats()
+    model, crit, opt = build()
+    losses, step_s = [], []
+    for i in range(steps):
+        ts = time.perf_counter()
+        loss = crit(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss.detach()))
+    res = dict(losses=losses,
+               fingerprint=bits_fingerprint(torch, train_state(model, opt)),
+               tokens_per_s=ids.numel() / float(np.mean(step_s)),
+               step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+               step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, crit, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def eager_llama_run(torch, cfg, seed, ids, steps):
+    """phase_train's recipe (AdamW, lr 1e-4, global-norm clip) as the
+    eager loop, from the seed's weights."""
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+        return model, LlamaPretrainingCriterion(cfg), AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            parameters=model.parameters(),
+            grad_clip=ClipGradByGlobalNorm(1.0))
+    return eager_train_run(torch, build, ids, steps)
+
+
 def phase_train(torch, seed, report):
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
@@ -3011,6 +3181,15 @@ def phase_train(torch, seed, report):
 
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
                               num_hidden_layers=TRAIN_LAYERS)
+    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    # the hand-written eager loop, twice: the baseline of the captured
+    # TrainStep below, which must match it bit for bit
+    eager = [eager_llama_run(torch, cfg, seed, ids, TRAIN_STEPS)
+             for _ in range(2)]
+    if eager[0]["losses"] != eager[1]["losses"] or \
+            eager[0]["fingerprint"] != eager[1]["fingerprint"]:
+        raise AssertionError("two eager Llama training runs differ: the "
+                             "bitwise check has no baseline")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3021,7 +3200,6 @@ def phase_train(torch, seed, report):
     log(f"train model: Llama-3-8B width, {cfg.num_hidden_layers} layers, "
         f"{n_params / 1e9:.3f} B parameters (bf16, seed {seed}) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
     res = {"layers": cfg.num_hidden_layers, "params": n_params,
            "batch": TRAIN_B, "seq": TRAIN_S}
     res["kernel_vs_plain"] = kernel_vs_plain_training(torch, model, crit,
@@ -3034,9 +3212,10 @@ def phase_train(torch, seed, report):
                 grad_clip=ClipGradByGlobalNorm(1.0))
     train = TrainStep(model, crit, opt)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     losses, step_s = [], []
-    for i in range(12):            # 2 warm-up steps, then 10 timed
+    for i in range(TRAIN_STEPS):   # probe, capture, then 10 timed replays
         ts = time.perf_counter()
         loss = train((ids,), (ids,))
         torch.cuda.synchronize()
@@ -3045,6 +3224,23 @@ def phase_train(torch, seed, report):
         losses.append(float(loss))
     counts = kernels.launch_counts()
     res["launches"] = counts
+    fp = bits_fingerprint(torch, train_state(model, opt))
+    graphs = train.graphs()
+    res["capture_vs_eager"] = dict(
+        losses_bitwise=losses == eager[0]["losses"],
+        weights_bitwise=fp == eager[0]["fingerprint"],
+        eager_runs_bitwise=True, graphs=len(graphs),
+        capture_s=[g["capture_s"] for g in graphs],
+        pool_bytes=[g["pool_bytes"] for g in graphs],
+        eager={k: eager[0][k] for k in ("tokens_per_s", "step_ms_p50",
+                                        "step_ms_p99", "peak_mem_gib")})
+    log(f"train: captured TrainStep vs the eager loop: "
+        f"{json.dumps(res['capture_vs_eager'])}")
+    if not (res["capture_vs_eager"]["losses_bitwise"]
+            and res["capture_vs_eager"]["weights_bitwise"]
+            and res["capture_vs_eager"]["graphs"] == 1):
+        raise AssertionError(f"captured TrainStep is not the eager loop bit "
+                             f"for bit: {losses} vs {eager[0]['losses']}")
     for name in TRAINING_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -3095,6 +3291,7 @@ def phase_train(torch, seed, report):
     log("train: GradScaler skipped the poisoned step, params bitwise "
         "unchanged")
     del snap, opt, train
+    gc.collect()
     torch.cuda.empty_cache()
     res["lamb"] = train_lamb(torch, model, crit, ids, flops_tok)
     del model
@@ -3275,8 +3472,8 @@ def amp_steps(torch, train, opt, mbs, steps, warmup=0):
     """``steps`` optimizer steps of ``len(mbs)`` calls each, the
     scheduler stepped after each: every call's loss and launches, each
     timed step's seconds, and the lr each bucket's kernel read per step
-    (kept as the device vectors the launches read, read after the run)
-    beside the scheduler's value."""
+    (copies of the device vectors the launches read, taken after each
+    step and read after the run) beside the scheduler's value."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.optimizer import fused_counters
 
@@ -3294,7 +3491,8 @@ def amp_steps(torch, train, opt, mbs, steps, warmup=0):
         torch.cuda.synchronize()
         if k >= warmup:
             step_s.append(time.perf_counter() - ts)
-        svecs.append([b.svec for b in
+        # a copy now: under replay the graph rewrites the same vectors
+        svecs.append([b.svec.clone() for b in
                       next(iter(opt._fused_plans.values())).buckets])
         opt._lr.step()
     if fused_counters["fallbacks"] != fallbacks:
@@ -3416,6 +3614,7 @@ def amp_o1(torch, cfg, seed, mbs):
                **amp_metrics(torch, run, train_flops(model, cfg),
                              AMP_ACCUM * TRAIN_B * TRAIN_S))
     del model, opt, train
+    gc.collect()
     torch.cuda.empty_cache()
     return res
 
@@ -3434,6 +3633,7 @@ def amp_resume(torch, cfg, seed, mbs):
     final = [p.detach().clone() for p in model.parameters()]
     n_params = sum(p.numel() for p in model.parameters())
     del model, opt, train
+    gc.collect()
     torch.cuda.empty_cache()
     model, opt, train = amp_model(torch, cfg, seed + 1, "O2")
     model.load_state_dict(weights)
@@ -3577,6 +3777,7 @@ def phase_train_amp(torch, seed, report):
     log(f"train_amp[O2] profile (one optimizer step, {AMP_ACCUM} micro "
         f"steps): {json.dumps(prof)}")
     del model, opt, train
+    gc.collect()
     torch.cuda.empty_cache()
 
     res["o1"] = amp_o1(torch, cfg, seed, mbs)
@@ -3598,6 +3799,175 @@ def phase_train_amp(torch, seed, report):
     log(f"train_amp[per-param rules, card vs CPU]: "
         f"{json.dumps(res['per_param'])}")
     report["train_amp"] = res
+    return res
+
+
+# -- phase 5b: capture edges and Model.fit in K-step blocks --------------------
+
+FIT_LAYERS, FIT_BATCH, FIT_SEQ, FIT_SAMPLES, FIT_K = 2, 2, 512, 22, 4
+
+
+def capture_edges(torch):
+    """On a small linear layer: a GradScaler step with a planted inf is
+    skipped on the device under replay (weights bitwise unchanged) and
+    ``consume_anomaly()`` brings the step count back; a step that calls
+    ``.item()`` falls back as "trace failed" and the process keeps
+    drawing random numbers after the failed capture."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import jit_step
+    from paddle_tpu_torch.optimizer import SGD
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = torch.nn.Linear(256, 256, device="cuda")
+    opt = SGD(learning_rate=0.1, parameters=net.parameters())
+    sc = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+
+    def scaled_step(x):
+        loss = net(x).square().mean()
+        sc.scale(loss).backward()
+        sc.step(opt)
+        opt.clear_grad()
+        return loss.detach()
+
+    step = jit_step(scaled_step)
+    x = torch.randn(64, 256, device="cuda", generator=gen)
+    for _ in range(3):                   # probe, capture, replay
+        step(x)
+    w0 = [p.detach().clone() for p in net.parameters()]
+    n0 = opt._step_count
+    step(x * float("inf"))               # a replay whose grads are inf
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, p.detach())
+                    for a, p in zip(w0, net.parameters()))
+    host_ahead = opt._step_count
+    skipped = opt.consume_anomaly()
+    reconciled = opt._step_count
+    step(x)
+    moved = not all(torch.equal(a, p.detach())
+                    for a, p in zip(w0, net.parameters()))
+    scaler = dict(weights_unchanged=unchanged, anomaly=skipped,
+                  steps_before=n0, host_count_before_consume=host_ahead,
+                  host_count_after_consume=reconciled,
+                  bad_steps=sc.state_dict()["bad"], next_step_moved=moved)
+    if not (unchanged and skipped and skipped[0] and host_ahead == n0 + 1
+            and reconciled == n0 and opt._step_count == n0 + 1 and moved):
+        raise AssertionError(f"GradScaler under replay: {scaler}")
+
+    net2 = torch.nn.Linear(64, 64, device="cuda")
+    opt2 = SGD(learning_rate=0.1, parameters=net2.parameters())
+
+    def synced_step(x):
+        loss = net2(x).square().mean()
+        loss.backward()
+        opt2.step()
+        opt2.clear_grad()
+        if loss.item() > 1e30:           # a host sync: no graph can hold it
+            raise AssertionError("unreachable")
+        return loss.detach()
+
+    step2 = jit_step(synced_step)
+    x2 = torch.randn(8, 64, device="cuda", generator=gen)
+    for _ in range(3):
+        step2(x2)
+    reason = step2.last_fallback or ""
+    draw = float(torch.randn(4, device="cuda").abs().sum())
+    item = dict(fallback=reason[:160], draws_after=bool(np.isfinite(draw)))
+    if not reason.startswith("trace failed"):
+        raise AssertionError(f".item() in a captured step: {item}")
+    return dict(grad_scaler=scaler, item=item)
+
+
+def free_card(torch):
+    """Collect cycles, then return the cache to the card: a finished
+    run's graph pools are released only once their owners are gone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fit_run(torch, cfg, seed, data, k):
+    """``Model.fit`` over a shuffled DataLoader for one epoch with
+    ``FLAGS_multi_step`` = k: per-step losses, wall, peak and the graphs'
+    pool bytes."""
+    from paddle_tpu_torch import flags, io
+    from paddle_tpu_torch.hapi import Model, callbacks
+    from paddle_tpu_torch.jit import capture_counters
+    from paddle_tpu_torch.jit.multi_step import multi_counters
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    losses = []
+
+    class Record(callbacks.ProgBarLogger):     # a read-only observer
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    flags.set_flags({"multi_step": k})
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    m = Model(model)
+    m.prepare(opt, LlamaPretrainingCriterion(cfg))
+    np.random.seed(seed)
+    loader = io.DataLoader(io.TensorDataset([data, data]), places="cuda",
+                           batch_size=FIT_BATCH, shuffle=True)
+    before = dict(capture_counters), dict(multi_counters)
+    t0 = time.perf_counter()
+    try:
+        m.fit(loader, epochs=1, verbose=0, callbacks=[Record(verbose=0)])
+    finally:
+        flags.set_flags({"multi_step": 0})
+    torch.cuda.synchronize()
+    graphs = [g for s in (m._captured_step, m._multi_step) if s is not None
+              for g in s.graphs()]
+    res = dict(k=k, losses=losses, wall_s=time.perf_counter() - t0,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               graphs=graphs,
+               capture_counters={c: capture_counters[c] - before[0][c]
+                                 for c in capture_counters},
+               multi_counters={c: multi_counters[c] - before[1][c]
+                               for c in multi_counters})
+    del m, model, opt, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_capture(torch, seed, report):
+    """The capture edges, then Model.fit over a DataLoader at Llama-3-8B
+    width cut to FIT_LAYERS layers: single-step capture, and K-step blocks
+    (FLAGS_multi_step = FIT_K) that must give the same losses."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    res = capture_edges(torch)
+    log(f"capture edges: {json.dumps(res)}")
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=FIT_LAYERS)
+    data = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(FIT_SAMPLES, FIT_SEQ)).astype(np.int64)
+    single = fit_run(torch, cfg, seed, data, 0)
+    free_card(torch)
+    multi = fit_run(torch, cfg, seed, data, FIT_K)
+    free_card(torch)
+    steps = FIT_SAMPLES // FIT_BATCH
+    blocks, tail = divmod(steps, FIT_K)
+    res["fit"] = dict(layers=FIT_LAYERS, batch=FIT_BATCH, seq=FIT_SEQ,
+                      steps=steps, single=single, multi=multi,
+                      losses_equal=single["losses"] == multi["losses"])
+    log(f"capture fit: {json.dumps(res['fit'])}")
+    mc = multi["multi_counters"]
+    # the first block probes (eager), the others capture or replay
+    if not res["fit"]["losses_equal"] or len(multi["losses"]) != steps \
+            or mc["blocks"] != blocks - 1 or mc["tail_steps"] != tail \
+            or multi["capture_counters"]["fallbacks"] \
+            or single["capture_counters"]["fallbacks"]:
+        raise AssertionError(f"Model.fit multi-step vs single-step: "
+                             f"{res['fit']}")
+    report["capture_edges"] = res
     return res
 
 
@@ -3723,6 +4093,35 @@ def kernel_vs_plain_moe(torch, model, crit, ids):
     return out
 
 
+MOE_EAGER_STEPS = 6
+
+
+def moe_spread(losses, eager, graphs):
+    """The captured MoE run's first MOE_EAGER_STEPS losses against two
+    eager loops': each within the two eager losses of its step widened by
+    their spread (atomics reorder the expert sums run to run), floored at
+    1e-4 of the loss (for steps where the two eager runs happen to
+    agree)."""
+    a, b = eager[0]["losses"], eager[1]["losses"]
+    worst = []
+    for k in range(MOE_EAGER_STEPS):
+        band = max(abs(a[k] - b[k]), 1e-4 * abs(a[k]))
+        lo, hi = min(a[k], b[k]) - band, max(a[k], b[k]) + band
+        worst.append(max(lo - losses[k], losses[k] - hi, 0.0))
+    out = dict(eager_spread=[abs(x - y) for x, y in zip(a, b)],
+               captured_minus_eager=[c - x for c, x in zip(losses, a)],
+               outside_band=worst, graphs=len(graphs),
+               capture_s=[g["capture_s"] for g in graphs],
+               pool_bytes=[g["pool_bytes"] for g in graphs],
+               eager={k: eager[0][k] for k in ("tokens_per_s", "step_ms_p50",
+                                               "step_ms_p99",
+                                               "peak_mem_gib")})
+    if max(worst) > 0 or len(graphs) != 1:
+        raise AssertionError(f"captured MoE run outside the eager spread: "
+                             f"{out}")
+    return out
+
+
 def phase_moe_train(torch, seed, report):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (MoEForCausalLM,
@@ -3733,6 +4132,20 @@ def phase_moe_train(torch, seed, report):
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = moe_config()
+    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    free_card(torch)
+
+    def build():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = MoEForCausalLM(cfg, device="cuda", generator=gen)
+        return model, MoEPretrainingCriterion(cfg, model), AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            parameters=model.parameters(),
+            grad_clip=ClipGradByGlobalNorm(1.0))
+    # two eager loops: the expert products' index_add_ atomics are not
+    # bitwise, so the captured run is held to their spread
+    eager = [eager_train_run(torch, build, ids, MOE_EAGER_STEPS)
+             for _ in range(2)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3746,7 +4159,6 @@ def phase_moe_train(torch, seed, report):
         f", {cfg.num_shared_experts} shared), {n_params / 1e9:.3f} B params, "
         f"{n_active / 1e9:.3f} B active matmul params (bf16, seed {seed}) "
         f"built in {time.perf_counter() - t0:.1f} s")
-    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
     res = {"layers": cfg.num_hidden_layers, "params": n_params,
            "active_matmul_params": n_active, "batch": TRAIN_B,
            "seq": TRAIN_S, "capacity": mo.moe_capacity(
@@ -3761,9 +4173,10 @@ def phase_moe_train(torch, seed, report):
                 grad_clip=ClipGradByGlobalNorm(1.0))
     train = TrainStep(model, crit, opt)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     losses, step_s = [], []
-    for i in range(12):            # 2 warm-up steps, then 10 timed
+    for i in range(TRAIN_STEPS):   # probe, capture, then 10 timed replays
         ts = time.perf_counter()
         loss = train((ids,), (ids,))
         torch.cuda.synchronize()
@@ -3772,6 +4185,9 @@ def phase_moe_train(torch, seed, report):
         losses.append(float(loss))
     counts = kernels.launch_counts()
     res["launches"] = counts
+    res["capture_vs_eager"] = moe_spread(losses, eager, train.graphs())
+    log(f"moe train: captured TrainStep vs two eager loops: "
+        f"{json.dumps(res['capture_vs_eager'])}")
     per_step = 6 * n_moe          # 3 forward products and their 3 dx
     if counts["grouped_gemm"] != per_step * 12:
         raise AssertionError(f"grouped_gemm launched {counts['grouped_gemm']}"
@@ -3818,6 +4234,7 @@ def phase_moe_train(torch, seed, report):
     res["profile"] = prof
     log(f"moe train profile (one step): {json.dumps(prof)}")
     del model, opt, train, crit
+    gc.collect()
     torch.cuda.empty_cache()
     report["moe_train"] = res
     return res
@@ -3886,9 +4303,18 @@ def main(argv=None) -> int:
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
     train_amp = phase_train_amp(torch, args.seed, report)
+    edges = phase_capture(torch, args.seed, report)
+    free_card(torch)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone
     phase_routes(torch, args.seed, report)
+    report["capture"] = dict(
+        serving={**main_res["capture_vs_eager"],
+                 "int4": int4["capture_vs_eager"]},
+        train=train["capture_vs_eager"], moe=moe["capture_vs_eager"],
+        grad_scaler=edges["grad_scaler"], item=edges["item"],
+        fit=edges["fit"])
+    log(f"capture: {json.dumps(report['capture'])}")
 
     entries = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -23,8 +23,13 @@ owns them (checked; it raises otherwise). Its float32 masters come from
 
 The loss scale and the good/bad step counters are device tensors, so
 scaling, unscaling, the finiteness check and the dynamic transition all
-stay on the device. ``step`` makes one host sync (of ``found``) and skips
-``optimizer.step()`` on a non-finite step. When the optimizer's next step
+stay on the device, updated in place (a captured graph keeps reading and
+writing the same tensors). ``step`` makes one host sync (of ``found``)
+and skips ``optimizer.step()`` on a non-finite step; under whole-step
+capture (``jit/step_capture.py``) a sync would fail the capture, so it
+runs ``optimizer.step()`` every time with ``found`` masking the update
+on the device, and the optimizer's ``consume_anomaly()`` reconciles its
+step count. When the optimizer's next step
 takes the fused route, ``unscale_`` leaves the grads scaled and hands the
 scale to the optimizer, whose kernel applies the reciprocal in registers
 (``Optimizer._fused_defer_scale``).
@@ -221,7 +226,8 @@ class GradScaler:
         if optimizer._fused_defer_scale():
             found, gnorm = optimizer_mod.sentinel_reduce(
                 optimizer_mod.conditioned(grads, inv))
-            optimizer._pending_scale = self._scale_t
+            # a copy: step() moves the scale in place before the update
+            optimizer._pending_scale = self._scale_t.clone()
         else:
             for g in grads:
                 g.mul_(inv.to(g.dtype))
@@ -235,19 +241,28 @@ class GradScaler:
         self.unscale_(optimizer)
         found, gnorm = self._found_dev, self._gnorm_dev
         if found is not None and self._dynamic:
-            self._scale_t, self._good_t, self._bad_t = update_loss_scaling(
+            new = update_loss_scaling(
                 found, self._scale_t, self._good_t, self._bad_t,
                 self._incr_every, self._decr_every, self._incr_ratio,
                 self._decr_ratio)
-        # the one host sync, after the scale transition is queued
-        skip = bool(found > 0) if found is not None else False
-        self._found_last = skip
-        if not skip:
+            for t, v in zip((self._scale_t, self._good_t, self._bad_t), new):
+                t.copy_(v)
+        if optimizer_mod._CAPTURE is not None:
+            # no host sync: the update is masked by found on the device
+            self._found_last = False
+            optimizer._pending_found = None if found is None \
+                else (found, gnorm)
             optimizer.step()
-        if found is not None:
-            optimizer._stash_anomaly(found, gnorm)
-            if skip:   # optimizer.step never ran: keep the ledger even
-                optimizer._reconciled_skips += 1
+        else:
+            # the one host sync, after the scale transition is queued
+            skip = bool(found > 0) if found is not None else False
+            self._found_last = skip
+            if not skip:
+                optimizer.step()
+            if found is not None:
+                optimizer._stash_anomaly(found, gnorm)
+                if skip:   # optimizer.step never ran: keep the ledger even
+                    optimizer._reconciled_skips += 1
         self._found_dev = self._gnorm_dev = None
         optimizer._pending_scale = None
         self._unscaled.discard(id(optimizer))

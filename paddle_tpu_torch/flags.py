@@ -59,6 +59,17 @@ def _bool(value: Any) -> bool:
 # check_nan_inf: every op at the choke point (ops/dispatcher.py:hooked)
 #   checks its floating outputs and raises FloatingPointError on a NaN or
 #   an Inf (one host sync per output).
+# step_capture: whole-step capture (jit/step_capture.py): a repeated
+#   training step (forward, backward, clip, optimizer update) is captured
+#   as ONE CUDA graph and replayed. Gates ``jit_step``, the
+#   ``hapi.Model.train_batch`` auto-capture and the serving engine's step
+#   graph; steps it cannot capture run eagerly with the reason counted.
+#   ``TrainStep`` always captures, as the reference always compiles.
+# multi_step: K > 1 makes ``hapi.Model.fit`` train in K-step blocks: ONE
+#   CUDA graph runs K whole steps over a ``[K, ...]`` block the DataLoader
+#   stacks (``DataLoader.fill_ring``); epoch tails and unsupported edges
+#   run single-step capture. 0 (default) = off; ``jit_step(fn,
+#   k_steps=K)`` ignores it.
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
@@ -66,11 +77,18 @@ _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "anomaly_sentinel": (False, _bool),
     "use_pallas_kernels": (True, _bool),
     "check_nan_inf": (False, _bool),
+    "step_capture": (True, _bool),
+    "multi_step": (0, int),
 }
 
 _VALUES: Dict[str, Any] = {
     n: parse(os.environ.get("FLAGS_" + n, d))
     for n, (d, parse) in _FLAGS.items()}
+
+
+# bumped by every set_flags: capture keys fold it in, so a flag change
+# re-probes instead of replaying a graph recorded under the old routes
+version = 0
 
 
 def _name(name: str) -> str:
@@ -85,6 +103,8 @@ def get_flag(name: str) -> Any:
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
+    global version
     for k, v in flags.items():
         k = _name(k)
         _VALUES[k] = _FLAGS[k][1](v)
+    version += 1

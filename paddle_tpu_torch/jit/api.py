@@ -19,23 +19,43 @@ rewrites them; on the per-parameter route they are divided in place
 divides on both; the kernel's multiply by ``1/n`` rounds ``1/n`` to the
 grad's dtype first, exact for n a power of two.
 
-It runs eagerly: the reference compiles the whole step into one XLA
-program, and capturing the step as a CUDA graph is ROADMAP A3. The
-reference's compiled step applies each parameter's ``_update``; this one
-goes through ``optimizer.step()``, which takes the fused kernel. The two
-agree because the fused rule is the per-parameter rule (the tests hold
-both routes to each other and to the reference). The learning rate is
-read once per optimizer step (``optimizer.get_lr()``, a scheduler's
-current value); advancing the scheduler is the caller's, as in the
-reference.
+The step is captured: the reference compiles it into one XLA program
+(:226), and here it is one CUDA graph (``jit/step_capture.py``), always,
+on the card as the reference always compiles. The first call of each
+shape probes eagerly, the second warms up and captures, every later one
+replays; with ``grad_accum`` > 1 there are two graphs over one memory
+pool, the micro step and the window's last step (the mean, the clip and
+the update), and the micro step captures one call later (its third) so
+that no warm-up runs while the other graph holds the pool. A step the capture cannot express RAISES, naming the
+reason: the reference's compile would fail too, and ``TrainStep`` has no
+eager fallback. Each call returns a clone of the graph's loss. On the
+CPU the capture's stand-in runs (the body re-run as the replay). The
+step goes through ``optimizer.step()``, which takes the fused kernel; the
+learning rate is read once per optimizer step (``optimizer.get_lr()``,
+refreshed before each replay); advancing the scheduler is the caller's,
+as in the reference.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional, Sequence
+import weakref
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from .step_capture import CapturedStep
+
+
+def _weak(method):
+    """``method`` called through a weak reference to its object: the
+    captured steps a TrainStep holds must not hold it back, or a deleted
+    TrainStep would keep its graphs' memory until a garbage collection."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        return ref()(*args, **kwargs)
+    return call
 
 
 class TrainStep:
@@ -50,6 +70,7 @@ class TrainStep:
         self.amp_level = amp_level
         self._micro = 0      # micro steps taken in the current window
         self._accum_scale: Optional[torch.Tensor] = None
+        self._steps: Optional[Tuple[CapturedStep, CapturedStep]] = None
 
     def _amp_ctx(self):
         if self.amp_level:
@@ -57,25 +78,54 @@ class TrainStep:
             return amp.auto_cast(level=self.amp_level)
         return contextlib.nullcontext()
 
-    def __call__(self, inputs: Sequence, labels: Sequence) -> torch.Tensor:
-        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
-            else (inputs,)
-        labels = tuple(labels) if isinstance(labels, (list, tuple)) \
-            else (labels,)
+    def _forward_backward(self, inputs, labels) -> torch.Tensor:
         with self._amp_ctx():
             out = self.model(*inputs)
             outs = tuple(out) if isinstance(out, (list, tuple)) else (out,)
             loss = self.loss_fn(*outs, *labels)
         loss.backward()
-        self._micro += 1
-        if self._micro < self.grad_accum:
-            return loss.detach().float()
-        self._micro = 0
+        return loss.detach().float()
+
+    def _micro_step(self, inputs, labels) -> torch.Tensor:
+        return self._forward_backward(inputs, labels)
+
+    def _update_step(self, inputs, labels) -> torch.Tensor:
+        loss = self._forward_backward(inputs, labels)
         if self.grad_accum > 1:
             self._mean_grads()
         self.optimizer.step()
         self.optimizer.clear_grad()
-        return loss.detach().float()
+        return loss
+
+    def graphs(self) -> List:
+        """Each captured graph's capture seconds and pool bytes (both
+        steps share one pool)."""
+        return [] if self._steps is None else \
+            [e for s in self._steps for e in s.graphs()]
+
+    def __call__(self, inputs: Sequence, labels: Sequence) -> torch.Tensor:
+        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
+            else (inputs,)
+        labels = tuple(labels) if isinstance(labels, (list, tuple)) \
+            else (labels,)
+        if self._steps is None:
+            # one memory pool for both graphs: they never run at once
+            pool = torch.cuda.graph_pool_handle() \
+                if torch.cuda.is_available() else None
+            params = list(getattr(self.optimizer, "_parameter_list", ()))
+            # the micro step captures one call late: its graph must not
+            # hold a step's activations in the shared pool while the
+            # update step's eager warm-up needs as much again
+            self._steps = (CapturedStep(_weak(self._micro_step), strict=True,
+                                        pool=pool, params=params,
+                                        defer=True),
+                           CapturedStep(_weak(self._update_step),
+                                        strict=True, pool=pool))
+        self._micro += 1
+        if self._micro < self.grad_accum:
+            return self._steps[0](inputs, labels)
+        self._micro = 0
+        return self._steps[1](inputs, labels)
 
     @torch.no_grad()
     def _mean_grads(self) -> None:

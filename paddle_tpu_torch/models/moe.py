@@ -117,6 +117,14 @@ class MoEModel(nn.Module):
                                  init)
 
     def forward(self, input_ids, attn_mask=None, position_ids=None):
+        # the last forward's aux losses go first: their graph reaches every
+        # parameter before the MoE layers (the router reads the hidden
+        # state), and kept alive into this forward it would hand its grad
+        # accumulators, and the CUDA stream each was made on, to this one
+        # (a captured step's backward then syncs with the legacy stream)
+        for layer in self.layers:
+            if isinstance(layer.mlp, MoEMLP):
+                layer.mlp.moe.aux_loss = None
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
             x = layer(x, attn_mask, position_ids)

@@ -21,10 +21,29 @@ Counterpart of ``paddle_tpu/models/serving.py``: ``QueueFull``,
 - **Schedule-independent sampling.** Each request samples through its own
   counter-based stream keyed on (engine seed, rid, token index).
 
+- **One CUDA graph per engine geometry.** The reference packs a fixed
+  ``token_budget`` "so XLA compiles the step once and every mix of
+  prefill/decode replays it" (:9-15). Here the model call, the sample-row
+  gather and ``sample_logits_keyed`` are captured once (the engine's
+  first step: a warm-up on a side stream, then the capture) and every
+  later step replays them. The graph reads static device buffers (ids,
+  positions, write slots, block tables, lens, cu, sample rows, keys,
+  stream positions), filled each step from ONE pinned host staging
+  buffer by one copy, every element rewritten: a padding token's write
+  slot is the trash slot again in each step. Host scheduling, prefix-
+  cache copy-on-write and the ``nxt.cpu()`` read stay outside the graph.
+  The key is the geometry (``token_budget``, ``max_batch``, the ``spec_k``
+  lanes, ``kv_dtype``, the sampling settings) and the flags that route
+  kernels. A replay adds the launches its capture recorded to the kernel
+  counters. ``FLAGS_step_capture=0`` runs the same step eagerly (a
+  deliberate difference: the reference has no eager engine step); a
+  capture failure raises. On the CPU the step runs eagerly and counts as
+  a replay of its first step's stand-in capture.
+
 Metrics, tracing and the perf ledger of the reference wait for a later
 slice; the engine keeps plain integer counters on itself
-(``steps``, ``preempt_count``, ``stats``). ``GangScheduledEngine`` waits
-too.
+(``steps``, ``preempt_count``, ``stats``, ``capture_stats``).
+``GangScheduledEngine`` waits too.
 """
 
 from __future__ import annotations
@@ -179,6 +198,41 @@ class _RaggedView:
         return out.reshape(b, s, h, d)
 
 
+class _StepBuffers:
+    """The ragged step's static device inputs, views into ONE device byte
+    buffer, and the pinned host staging buffer of the same layout that
+    one copy moves to it each step."""
+
+    def __init__(self, B: int, R: int, L: int, MB: int,
+                 device: torch.device):
+        fields = (("ids", (1, B), torch.int32), ("pos", (1, B), torch.int32),
+                  ("slot", (B,), torch.int64), ("tables", (R, MB),
+                                                torch.int32),
+                  ("lens", (R,), torch.int32), ("cu", (R + 1,), torch.int32),
+                  ("sample_idx", (R * L,), torch.int64),
+                  ("keys", (R * L, 2), torch.int64),
+                  ("stream_pos", (R * L,), torch.int64))
+        spans, off = [], 0
+        for name, shape, dt in fields:
+            n = int(np.prod(shape)) * torch.tensor([], dtype=dt).element_size()
+            spans.append((name, shape, dt, off, n))
+            off += -(-n // 16) * 16            # 16-byte aligned fields
+        pin = device.type == "cuda"
+        self.host = torch.zeros(off, dtype=torch.uint8, pin_memory=pin)
+        self.dev = torch.zeros(off, dtype=torch.uint8, device=device)
+        self.np: Dict[str, np.ndarray] = {}
+        self.t: Dict[str, torch.Tensor] = {}
+        for name, shape, dt, o, n in spans:
+            self.np[name] = self.host[o:o + n].view(dt).view(shape).numpy()
+            self.t[name] = self.dev[o:o + n].view(dt).view(shape)
+
+    def upload(self) -> None:
+        """Host staging -> device, one copy. The previous step's copy has
+        finished (each step ends reading its sampled tokens back), so
+        the staging buffer is free to rewrite."""
+        self.dev.copy_(self.host, non_blocking=True)
+
+
 class ContinuousBatchingEngine:
     """Ragged continuous batching: chunked prefill + decode in one model
     call per step over the paged pool, with prefix-cache block sharing.
@@ -272,6 +326,16 @@ class ContinuousBatchingEngine:
              "finished", "rejected", "prefix_hit_blocks",
              "prefix_miss_blocks", "prefix_evictions", "cow_copies",
              "spec_proposed", "spec_accepted", "spec_verify_rows"), 0)
+        # the step graph: static buffers, one graph per key (see module
+        # docstring)
+        self._buf = _StepBuffers(self.token_budget, max_batch,
+                                 self.spec_k + 1,
+                                 self.cache.block_tables.shape[1],
+                                 self.device)
+        self._graphs: Dict[tuple, tuple] = {}
+        self._stream = None
+        self.capture_stats = dict(captures=0, replays=0, eager_steps=0,
+                                  capture_s=0.0, pool_bytes=0)
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32) -> int:
@@ -589,18 +653,23 @@ class ContinuousBatchingEngine:
         cu = np.zeros((R + 1,), np.int32)
         np.cumsum(qlen, out=cu[1:])
 
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
-        view = _RaggedView(self.cache, put(slot_vec),
-                           put(self.cache.block_tables), put(lens), put(cu))
-        logits = self.model(put(ids[None]), cache=view,
-                            start_pos=put(pos[None]))
-        lrows = logits.reshape(B, -1).index_select(0, put(sample_idx))
-        nxt = S.sample_logits_keyed(lrows, put(keys), put(stream_pos),
-                                    **self.sampling)
+        # every element of every static buffer, rewritten
+        hb = self._buf.np
+        hb["ids"][0] = ids
+        hb["pos"][0] = pos
+        hb["slot"][:] = slot_vec
+        hb["tables"][:] = self.cache.block_tables
+        hb["lens"][:] = lens
+        hb["cu"][:] = cu
+        hb["sample_idx"][:] = sample_idx
+        hb["keys"][:] = keys
+        hb["stream_pos"][:] = stream_pos
+        self._buf.upload()
+        if _flags.get_flag("step_capture"):
+            nxt = self._graph_step()
+        else:
+            self.capture_stats["eager_steps"] += 1
+            nxt = self._forward()
         sampled = nxt.cpu().numpy().reshape(-1)
         self.steps += 1
         self.stats["step_tokens"] += t
@@ -650,6 +719,93 @@ class ContinuousBatchingEngine:
             with self.finish_cv:
                 self.finish_cv.notify_all()
         return finished
+
+    # -- the step graph ------------------------------------------------------
+    def _forward(self) -> torch.Tensor:
+        """The model call, the sample-row gather and the keyed sampler
+        over the static buffers: what the graph captures."""
+        t = self._buf.t
+        view = _RaggedView(self.cache, t["slot"], t["tables"], t["lens"],
+                           t["cu"])
+        logits = self.model(t["ids"], cache=view, start_pos=t["pos"])
+        lrows = logits.reshape(self.token_budget, -1).index_select(
+            0, t["sample_idx"])
+        return S.sample_logits_keyed(lrows, t["keys"], t["stream_pos"],
+                                     **self.sampling)
+
+    def _graph_key(self) -> tuple:
+        routes = tuple(sorted((k, v) for k, v in _flags._VALUES.items()
+                              if k not in ("step_capture", "multi_step")))
+        return (self.token_budget, self.max_batch, self.spec_k + 1,
+                self.cache.kv_dtype, tuple(sorted(self.sampling.items())),
+                routes)
+
+    def _graph_step(self) -> torch.Tensor:
+        from ..jit import step_capture as sc
+        key = self._graph_key()
+        ent = self._graphs.get(key)
+        if ent is None:
+            return self._capture_step(key)
+        graph, out, delta = ent
+        if graph is not None:
+            graph.replay()
+        else:                   # the CPU's stand-in for the replay
+            before = sc._counter_state()
+            out = self._forward()
+            sc._counter_restore(before)
+        sc._counter_add(delta)
+        self.capture_stats["replays"] += 1
+        sc.capture_counters["replays"] += 1
+        return out
+
+    def _capture_step(self, key) -> torch.Tensor:
+        """The geometry's first step: a warm-up over the static buffers
+        (on a side stream: every kernel library loads and sets its
+        attributes before the capture), which is this step's result and
+        its launches, then the capture, which runs nothing. Raises if the
+        capture fails."""
+        from ..jit import step_capture as sc
+        cuda = self.device.type == "cuda"
+        before = sc._counter_state()
+        if cuda:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            s = self._stream
+            s.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(s):
+                out = self._forward()
+            torch.cuda.current_stream(self.device).wait_stream(s)
+        else:
+            out = self._forward()
+        warm = sc._counter_delta(before)
+        graph = None
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            cnt = sc._counter_state()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    static = self._forward()
+            except Exception as e:
+                raise RuntimeError(f"serving step capture failed: "
+                                   f"{type(e).__name__}: {e}") from e
+            finally:
+                delta = sc._counter_delta(cnt)
+                sc._counter_restore(cnt)
+            torch.cuda.synchronize(self.device)
+            self.capture_stats["capture_s"] += time.perf_counter() - t0
+            self.capture_stats["pool_bytes"] += \
+                torch.cuda.memory_reserved(self.device) - reserved0
+            self._graphs[key] = (graph, static, delta)
+        else:
+            self._graphs[key] = (None, None, warm)
+        self.capture_stats["captures"] += 1
+        sc.capture_counters["captures"] += 1
+        return out
 
     def pop_result(self, rid: int,
                    timeout: Optional[float] = None) -> Optional[Request]:

@@ -32,14 +32,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
+# every LaunchCounter made, in creation order: a captured step graph
+# records each counter's advance during its capture and adds it once per
+# replay (jit/step_capture.py), because a replay runs no Python
+COUNTERS: List["LaunchCounter"] = []
+
 
 class LaunchCounter:
     """Counts launches of one kernel: its wrapper adds one where it
-    launches the kernel, and nowhere else."""
+    launches the kernel, and nowhere else. A CUDA graph replay adds the
+    launches its capture recorded, so the count stays the launches the
+    card ran."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        COUNTERS.append(self)
 
     def add(self) -> None:
         self.count += 1

@@ -104,7 +104,7 @@ class Bucket:
         self.wd = float(wd)
         self.table = None   # (pointer key, device chunk table, rows)
         self.scratch = None  # Lamb: (tr_div views, ratios), see lamb_scratch
-        self.svec = None     # the scalar vector of the bucket's last step
+        self.svec = None     # the scalar vector the bucket's launches read
 
 
 class BucketPlan:
@@ -249,11 +249,11 @@ def condition_grad(g, inv=None, coeff=None):
 SLOTS = ("lr", "step", "inv", "coeff", "found", "wd", "inv_bc1", "inv_bc2")
 
 
-def pack_scalars(**sv) -> torch.Tensor:
+def pack_scalars(out: Optional[torch.Tensor] = None, **sv) -> torch.Tensor:
     """The kernel's scalar vector ``[lr, step, inv, coeff, found, wd,
     inv_bc1, inv_bc2]``, float32 on the device, built there from device
-    scalars (no host sync)."""
-    return torch.stack([sv[k].float().reshape(()) for k in SLOTS])
+    scalars (no host sync); written into ``out`` when given."""
+    return torch.stack([sv[k].float().reshape(()) for k in SLOTS], out=out)
 
 
 def _write_back(p, new_p, low, found) -> None:
@@ -408,7 +408,14 @@ def chunk_rows(kind, targets, grads, states, lows, scratch=None
 def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
                  lows, scratch=None) -> Tuple[torch.Tensor, int]:
     """:func:`chunk_rows` on the device, rebuilt only when a pointer moved
-    (grads are new tensors after every ``clear_grad``)."""
+    (grads are new tensors after every ``clear_grad``).
+
+    Never inside a graph capture: the upload would become a graph node
+    copying from a pinned host buffer the caching host allocator hands
+    out again, so replays would read a garbage table. A captured step
+    keeps its grads in storage that outlives the graph and builds the
+    table in its warm-up (``jit/step_capture.py``); an upload while a
+    capture is active raises."""
     extra = [] if scratch is None else scratch[0] + [scratch[1]]
     key = tuple(t.data_ptr() for ts in (targets, grads, lows, extra)
                 for t in ts if t is not None) + tuple(
@@ -416,12 +423,31 @@ def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
     if bucket is not None and bucket.table is not None \
             and bucket.table[0] == key:
         return bucket.table[1], bucket.table[2]
+    if capture_active():
+        raise RuntimeError(
+            "fused_optimizer: chunk table upload while a graph capture is "
+            "active (a grad, param or state pointer moved since the "
+            "warm-up): replays would read a freed host buffer")
     host = chunk_rows(kind, targets, grads, states, lows, scratch)
     table = torch.from_numpy(host).pin_memory().to(targets[0].device,
                                                    non_blocking=True)
     if bucket is not None:
         bucket.table = (key, table, len(host))
     return table, len(host)
+
+
+# set by jit/step_capture.py while its capture (or, on the CPU, the
+# stand-in's replay of the captured body) runs
+CAPTURING = False
+
+
+def capture_active() -> bool:
+    """True while a step is being captured: the port's own capture, or
+    any CUDA stream capture on this thread."""
+    if CAPTURING:
+        return True
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def launch_pass(name: str, kind: str, cfg: Dict, targets, grads, states,
@@ -499,9 +525,15 @@ def fused_apply(plan: BucketPlan, targets, grads, states, lows, lr, step,
     else:
         bc1 = bc2 = torch.ones((), dtype=torch.float32, device=step.device)
     for bucket, wd in zip(plan.buckets, wd_list):
-        svec = pack_scalars(lr=lr, step=step, inv=inv, coeff=coeff,
-                            found=found, wd=wd, inv_bc1=bc1, inv_bc2=bc2)
-        bucket.svec = svec     # what the launches read, for checks
+        # one persistent vector a bucket: a captured step's graph writes
+        # and reads the same one each replay, so it also reads, after any
+        # step, as what that step's launches read
+        keep = bucket.svec if bucket.svec is not None \
+            and bucket.svec.device == step.device else None
+        svec = pack_scalars(out=keep, lr=lr, step=step, inv=inv,
+                            coeff=coeff, found=found, wd=wd, inv_bc1=bc1,
+                            inv_bc2=bc2)
+        bucket.svec = svec
         ids = bucket.ids
         fused_bucket(plan.kind, plan.cfg, [targets[k] for k in ids],
                      [grads[k] for k in ids], [states[k] for k in ids],

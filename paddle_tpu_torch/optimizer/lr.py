@@ -10,8 +10,11 @@ give equal sequences.
 An optimizer reads ``scheduler()`` once per step (``Optimizer.get_lr``);
 the caller advances the scheduler with ``step()``, as in Paddle.
 
-Left out: the reference's ``_PROBE`` hook (:10-14), which reports each
-``step()`` to its whole-step capture. Step capture is not ported yet.
+``_PROBE`` (the reference's :10-14): while whole-step capture
+(``jit/step_capture.py``) runs its discovery step, each ``step()``
+reports itself, so replays of the captured graph re-apply the same
+host-side advance; a ``step()`` given an epoch or a metric marks the
+step as one the capture cannot replay.
 
 One addition: ``LinearWarmup.state_dict`` also holds the wrapped
 scheduler's state (``"lr_after"``), so a resume past the warm-up goes on
@@ -23,6 +26,9 @@ from __future__ import annotations
 
 import math
 from typing import Callable, List, Optional
+
+# the discovery sink of jit/step_capture.py while it probes a step
+_PROBE = None
 
 
 class LRScheduler:
@@ -41,6 +47,8 @@ class LRScheduler:
         raise NotImplementedError
 
     def step(self, epoch: Optional[int] = None):
+        if _PROBE is not None:
+            _PROBE.saw_scheduler_step(self, epoch)
         if epoch is None:
             self.last_epoch += 1
         else:
@@ -228,6 +236,9 @@ class ReduceOnPlateau(LRScheduler):
         return self._current
 
     def step(self, metrics=None, epoch=None):
+        if _PROBE is not None:
+            _PROBE.saw_scheduler_step(
+                self, metrics if metrics is not None else epoch)
         self.last_epoch += 1
         if metrics is None:
             self.last_lr = self._current

@@ -55,6 +55,18 @@ gives ``param.name``); a plain list gives it ``param_{i}``.
 ``state_dict`` returns copies; ``set_state_dict`` makes the state it
 lacks and copies into the flat buffers' views (the fused plans hold
 them), so a resume continues bit for bit on either route.
+
+Whole-step capture (``jit/step_capture.py``, the reference's ``_PROBE`` /
+``_CAPTURE``, :30): while it probes a step, ``_PROBE`` sees each
+optimizer at the top of ``step()``; while it captures or replays one,
+``_CAPTURE`` hands ``step()`` the learning rate (refreshed on the host's
+stream before each replay, outside the graph) and the step scalar (a
+device counter the graph advances itself, by ``1 - found`` when an
+update is guarded), and the sentinel's host sync is left out: a skipped
+update stays on the device and ``consume_anomaly()`` reconciles the host
+count from the cumulative-skip channel. ``clear_grad()`` under capture
+zeroes the grads in place, so the captured step keeps them in storage
+that outlives the graph (the fused kernel's chunk table points at it).
 """
 
 from __future__ import annotations
@@ -80,6 +92,11 @@ FUSED_OPT_FALLBACK_REASONS = frozenset({
     "tensor hook attached to a parameter",
     "unsupported param/grad dtype layout",
 })
+
+# step-capture hooks (jit/step_capture.py): the discovery sink while a
+# step is probed, the capture context while one is captured or replayed
+_PROBE = None
+_CAPTURE = None
 
 # `buckets`: the bucket count of the most recent fused plan;
 # `updates`/`fallbacks`: steps that took the fused / per-param route
@@ -135,6 +152,16 @@ def sentinel_reduce(grads: Iterable[torch.Tensor]
     return found, torch.sqrt(sq)
 
 
+def _merge_found(found, gnorm, ext):
+    """The sentinel's ``(found, gnorm)`` and a GradScaler's (``ext``,
+    handed over under capture) as one guard: found if either found."""
+    if ext is None:
+        return found, gnorm
+    if found is None:
+        return ext
+    return torch.maximum(found, ext[0]), gnorm
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip: Optional[ClipGradBase] = None,
@@ -168,6 +195,10 @@ class Optimizer:
         self._reconciled_skips = 0
         # the GradScaler's deferred scale, applied inside the fused kernel
         self._pending_scale: Optional[torch.Tensor] = None
+        # the GradScaler's (found, gnorm) under capture: the update is
+        # masked on the device instead of skipped on the host
+        self._pending_found: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None
         self._fused_plans: Dict = {}
         self._fused_last_reason: Optional[str] = None
         self._scalars: Dict = {}
@@ -220,6 +251,20 @@ class Optimizer:
     @staticmethod
     def _refresh(t: torch.Tensor, value: float) -> None:
         t.fill_(value)   # a kernel argument: no host copy, no sync
+
+    def _stale_live(self, key: str) -> None:
+        """Forget the host value behind the live scalar ``key`` on every
+        device (a graph wrote the tensor), so the next read refreshes."""
+        for (k, _), slot in self._live.items():
+            if k == key:
+                slot[0] = math.nan
+
+    def _dev_step(self, device) -> torch.Tensor:
+        """The captured step's device step counter: applied updates so
+        far, float32. Refilled from the host count (outside any graph)
+        when that count moved other than by the graph's own advance: a
+        ``set_state_dict``, or ``consume_anomaly`` reconciling skips."""
+        return self._live_scalar("dev_step", self._step_count, device)
 
     # -- the rule (override) --------------------------------------------------
     _STATE_KEYS: Tuple[str, ...] = ()   # the rule's state slots
@@ -355,6 +400,9 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        if _PROBE is not None:
+            _PROBE.saw_optimizer(self)
+        cap = _CAPTURE
         idxs = self._grad_idxs()
         if not idxs:
             return
@@ -374,9 +422,13 @@ class Optimizer:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
         self._step_count += 1
         self._create_state(idxs)
-        lr = self._live_scalar("lr", self.get_lr(), dev)
-        step = self._live_scalar("step", self._step_count, dev)
+        if cap is None:
+            lr = self._live_scalar("lr", self.get_lr(), dev)
+            step = self._live_scalar("step", self._step_count, dev)
+        else:
+            lr, step = cap.lr(self, dev), cap.step(self, dev)
         sentinel = bool(_flags.get_flag("anomaly_sentinel"))
+        ext, self._pending_found = self._pending_found, None
         targets = [self._masters[i] if self._masters[i] is not None
                    else self._parameter_list[i].detach() for i in idxs]
         states = [self._states[i] for i in idxs]
@@ -388,6 +440,7 @@ class Optimizer:
                                           self._grad_clip.clip_norm)
             if sentinel:
                 found, gnorm = sentinel_reduce(conditioned(grads, inv, coeff))
+            found, gnorm = _merge_found(found, gnorm, ext)
             one = self._scalar(1.0, dev)
             lows = [p.detach() if self._masters[i] is not None else None
                     for i, p in zip(idxs, params)]
@@ -401,6 +454,7 @@ class Optimizer:
         else:
             if sentinel:
                 found, gnorm = sentinel_reduce(grads)
+            found, gnorm = _merge_found(found, gnorm, ext)
             sc = self._step_scalars(step)
             for i, p, target, g, st in zip(idxs, params, targets, grads,
                                            states):
@@ -421,19 +475,28 @@ class Optimizer:
                     p.detach().copy_(target.to(p.dtype))
         if found is not None:
             self._stash_anomaly(found, gnorm)
+        if cap is not None:
+            # no host sync: the device counter advances by the updates
+            # applied, consume_anomaly() reconciles the host count
+            cap.advance(self, dev, found)
+        elif found is not None and bool(found > 0):
             # the one host sync, after the update is queued: keeps the
             # step count at applied updates
-            if bool(found > 0):
-                self._step_count -= 1
-                self._reconciled_skips += 1
+            self._step_count -= 1
+            self._reconciled_skips += 1
 
     # -- sentinel -------------------------------------------------------------
     def _stash_anomaly(self, found: torch.Tensor, gnorm: torch.Tensor
                        ) -> None:
-        prev = self._anomaly[2] if self._anomaly is not None \
-            else torch.zeros((), dtype=torch.float32, device=found.device)
-        self._anomaly = torch.stack([found.float(), gnorm.float(),
-                                     prev + found.float()])
+        """``[found, global_norm, cumulative_skips]`` of the last guarded
+        step, written in place into one persistent tensor, so a captured
+        graph keeps adding to the same cumulative channel."""
+        a = self._anomaly
+        if a is None or a.device != found.device:
+            a = self._anomaly = torch.zeros(3, dtype=torch.float32,
+                                            device=found.device)
+        a.copy_(torch.stack([found.float(), gnorm.float(),
+                             a[2] + found.float()]))
 
     def consume_anomaly(self) -> Optional[Tuple[bool, float]]:
         """Host-read the last guarded step: ``(skipped, grad_norm)``, or
@@ -450,9 +513,12 @@ class Optimizer:
         return a[0] > 0, a[1]
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
+        cap = _CAPTURE
         for p in self._parameter_list:
             if p.grad is None:
                 continue
+            if cap is not None and cap.clear_grad(p):
+                continue   # a captured step's grad storage: zeroed
             if set_to_zero:
                 p.grad.zero_()
             else:
@@ -716,6 +782,9 @@ class ASGD(Optimizer):
         return {"d": (0.0, ()), "ys": (0.0, (self._n,))}
 
     def _step_scalars(self, step):
+        if _CAPTURE is not None:
+            _CAPTURE.abort("trace failed", "ASGD indexes its gradient ring "
+                           "by the host step count")
         t = self._step_count
         return {"idx": (t - 1) % self._n,
                 "denom": self._scalar(float(min(t, self._n)), step.device)}

@@ -14,7 +14,13 @@ bucket per optimizer step with a flash launch per layer on every call,
 and flags any other count. ``profiled_kernels`` reads a route from the
 first profiler window that recorded every stem, keeps the windows that
 lost one, fails when none held them all, and leaves a route with no
-device time not measured. Importing the script needs no card."""
+device time not measured. The step-capture checks: ``check_capture``
+passes a token-identical run with one capture and steps - 1 replays and
+fails a changed token, a replay short, a second capture, a fallback or
+an eager run that captured; ``moe_spread`` holds a run inside the eager
+runs' band and fails one outside it; ``bits_fingerprint`` sees one flipped
+bit in float32, bf16 and int8; and the lr check passes through a captured
+step's replays. Importing the script needs no card."""
 
 import importlib.util
 import re
@@ -574,3 +580,99 @@ def test_route_that_no_window_shows_whole_fails(monkeypatch, windows):
 def test_route_with_no_device_time_is_not_measured(monkeypatch):
     r = _route(monkeypatch, ["empty"] * 5)
     assert r == {"not_measured": "profiler recorded no device time"}
+
+
+# -- the step-capture checks ------------------------------------------------------
+
+def _serve_metrics(steps, captures, replays, eager_steps=0, fallbacks=0):
+    m = {k: 1.0 for k in ("tokens_per_s", "step_ms_p50", "step_ms_p99",
+                          "ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50",
+                          "tpot_ms_p99", "peak_mem_gib")}
+    m.update(steps=steps, capture=dict(captures=captures, replays=replays,
+                                       eager_steps=eager_steps,
+                                       fallbacks=fallbacks, capture_s=0.1,
+                                       pool_bytes=1 << 20))
+    return m
+
+
+def test_capture_check_holds_tokens_and_counts():
+    smoke = _smoke()
+    outs = {0: [1, 2, 3], 1: [4, 5, 6]}
+    eager = _serve_metrics(10, 0, 0, eager_steps=10)
+    res = smoke.check_capture("s", _serve_metrics(10, 1, 9), outs, eager,
+                              dict(outs))
+    assert res["token_identical"] and res["replays"] == 9
+    for bad_m, bad_outs in (
+            (_serve_metrics(10, 1, 9), {0: [1, 2, 3], 1: [4, 5, 7]}),
+            (_serve_metrics(10, 1, 8), outs),
+            (_serve_metrics(10, 2, 8), outs),
+            (_serve_metrics(10, 1, 9, fallbacks=1), outs)):
+        with pytest.raises(AssertionError):
+            smoke.check_capture("s", bad_m, bad_outs, eager, outs)
+    with pytest.raises(AssertionError, match="eager run captured"):
+        smoke.check_capture("s", _serve_metrics(10, 1, 9), outs,
+                            _serve_metrics(10, 1, 9), outs)
+
+
+def test_moe_spread_band():
+    smoke = _smoke()
+    n = smoke.MOE_EAGER_STEPS
+    a = [10.0 - k for k in range(n)]
+    b = [x + 1e-3 for x in a]
+    eager = [dict(losses=a, tokens_per_s=1.0, step_ms_p50=1.0,
+                  step_ms_p99=1.0, peak_mem_gib=1.0),
+             dict(losses=b)]
+    inside = [x + 1.5e-3 for x in a]
+    graphs = [dict(capture_s=0.1, pool_bytes=1)]
+    assert max(smoke.moe_spread(inside, eager, graphs)["outside_band"]) == 0
+    with pytest.raises(AssertionError, match="outside the eager spread"):
+        smoke.moe_spread([x + 5e-3 for x in a], eager, graphs)
+    with pytest.raises(AssertionError):
+        smoke.moe_spread(inside, eager, graphs * 2)
+
+
+def test_bits_fingerprint_sees_one_ulp():
+    import torch
+    smoke = _smoke()
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        t = torch.arange(1000).to(dt)
+        u = t.clone()
+        u.view(-1).view({1: torch.int8, 2: torch.int16,
+                         4: torch.int32}[u.element_size()])[517] += 1
+        assert smoke.bits_fingerprint(torch, [t]) == \
+            smoke.bits_fingerprint(torch, [t.clone()])
+        assert smoke.bits_fingerprint(torch, [t], chunk=64) != \
+            smoke.bits_fingerprint(torch, [u], chunk=64)
+
+
+def test_lr_check_passes_under_capture_replays():
+    """The same AdamW under the schedule, stepped through a captured step:
+    on the stand-in's replays each bucket's vector holds the lr that step
+    read (one persistent vector a bucket)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.jit import jit_step
+    from paddle_tpu_torch.optimizer import lr
+
+    smoke = _smoke()
+    w = torch.nn.Parameter(torch.ones(4, 3))
+    opt = TO.AdamW(learning_rate=smoke.amp_schedule(lr), parameters=[w])
+
+    def step(x):
+        loss = (w * x).sum()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    cap = jit_step(step)
+    seen, want, vecs = [], [], set()
+    for _ in range(6):
+        want.append(opt.get_lr())
+        cap(torch.full((4, 3), 0.5))
+        plan = next(iter(opt._fused_plans.values()))
+        seen.append([float(b.svec[0]) for b in plan.buckets])
+        vecs.add(id(plan.buckets[0].svec))
+        opt._lr.step()
+    assert smoke.lr_mismatches(seen, want) == [] and len(vecs) == 1

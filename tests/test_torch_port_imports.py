@@ -44,8 +44,11 @@ def test_scan_sees_the_whole_port():
     assert {"serving.py", "llama.py", "ragged_paged_attention.py",
             "paged_attention.py", "flash_attention.py", "fused_optimizer.py",
             "optimizer.py", "clip.py", "api.py", "flash_varlen.py",
-            "dispatcher.py", "chip_smoke.py", "bcsr_spmm.py"} <= names
-    assert ROOT / "paddle_tpu_torch" / "sparse" / "__init__.py" in FILES
+            "dispatcher.py", "chip_smoke.py", "bcsr_spmm.py",
+            "step_capture.py", "multi_step.py", "model.py",
+            "callbacks.py"} <= names
+    for pkg in ("sparse", "io", "hapi"):
+        assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
 def test_import_loads_neither_jax_nor_reference():
@@ -53,7 +56,9 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.ops.kernels.serving, paddle_tpu_torch.amp, "
             "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.ops.dispatcher, paddle_tpu_torch.sparse, "
-            "paddle_tpu_torch.ops.kernels.bcsr_spmm; "
+            "paddle_tpu_torch.ops.kernels.bcsr_spmm, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.hapi, paddle_tpu_torch.jit.multi_step, "
+            "paddle_tpu_torch.jit.step_capture; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
