@@ -161,13 +161,19 @@ Phases (any failure raises and the script exits non-zero):
 5c. capture edges and ``Model.fit``: on a small linear layer a
    GradScaler step with an inf planted in a replay is skipped on the device
    (weights bitwise unchanged) and ``consume_anomaly()`` brings the step
-   count back; a step that calls ``.item()`` falls back as "trace failed"
-   and random draws still work after the failed capture; then
-   ``hapi.Model.fit`` over a shuffled ``io.DataLoader`` (Llama-3-8B width,
-   2 layers, 11 steps of 2 x 512) with single-step capture and with
-   ``FLAGS_multi_step=4`` (two 4-step blocks in one graph each and a
-   3-step tail), which must give the same losses bit for bit; each
-   graph's pool bytes (a K-step block's pool against a single step's);
+   count back; a step that calls ``.item()`` falls back as "trace failed",
+   random draws still work after the failed capture and its memory pool
+   is gone; ``jit_step`` over an MLP with the fused AdamW, two batch
+   shapes in turns, equals the eager loop bit for bit (each shape's eager
+   probe rebuilds the buckets' chunk tables between the other shape's
+   replays); then ``hapi.Model.fit`` over a shuffled ``io.DataLoader``
+   (Llama-3-8B width, 2 layers, 2 epochs of 19 steps of 2 x 512, the lr
+   halved after the first) eagerly, with single-step capture and with
+   ``FLAGS_multi_step=4`` (per epoch four 4-step blocks and a 3-step
+   tail: the K-step graph is captured in the first epoch's second block
+   and replayed 6 times, the second epoch's at the halved lr), which must
+   all give the same losses bit for bit; each graph's pool bytes (a
+   K-step block's pool against a single step's);
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -3572,31 +3578,17 @@ def train_flops(model, cfg) -> int:
 def amp_o1(torch, cfg, seed, mbs):
     """The same recipe over float32 weights under O1: the flash kernels
     must see bf16 q/k/v (the white list cast them) and the fused optimizer
-    float32 buckets. Falls back to half the depth if the card refuses the
-    full one (recorded)."""
+    float32 buckets. At the full depth: running out of memory fails."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     res = {}
-    for layers in (cfg.num_hidden_layers, cfg.num_hidden_layers // 2):
-        model = opt = train = None
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            model, opt, train = amp_model(
-                torch, dataclasses.replace(cfg, num_hidden_layers=layers),
-                seed, "O1")
-            kernels.reset_launch_counts()
-            with flash_dtypes(fa, {}) as seen:
-                run = amp_steps(torch, train, opt, mbs, O1_STEPS, O1_WARMUP)
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            cut = f"{layers} layers: {str(e).splitlines()[0][:160]}"
-        res.setdefault("depth_cut", []).append(cut)
-        model = opt = train = None     # the traceback is gone: free all
-        gc.collect()
-        torch.cuda.empty_cache()
-    else:
-        raise AssertionError(f"O1 did not fit: {res}")
+    layers = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, train = amp_model(torch, cfg, seed, "O1")
+    kernels.reset_launch_counts()
+    with flash_dtypes(fa, {}) as seen:
+        run = amp_steps(torch, train, opt, mbs, O1_STEPS, O1_WARMUP)
     plan = check_amp_run(run, opt, layers, "train_amp[O1]")
     if any(s != {"torch.bfloat16"} for s in seen.values()) or \
             len(seen) != 3:
@@ -3787,8 +3779,7 @@ def phase_train_amp(torch, seed, report):
         f"losses {[round(x, 4) for x in o1['losses']]}, "
         f"{o1['tokens_per_s']:.1f} tokens/s, step p50 "
         f"{o1['step_ms_p50']:.1f} ms p99 {o1['step_ms_p99']:.1f} ms, mfu "
-        f"{o1['mfu']:.4f}, peak {o1['peak_mem_gib']:.2f} GiB"
-        + (f", depth cut: {o1['depth_cut']}" if "depth_cut" in o1 else ""))
+        f"{o1['mfu']:.4f}, peak {o1['peak_mem_gib']:.2f} GiB")
     res["resume"] = amp_resume(torch, cfg, seed, mbs)
     log(f"train_amp[resume]: {RESUME_LAYERS} layers "
         f"({res['resume']['params'] / 1e9:.3f} B), losses bit for bit "
@@ -3804,7 +3795,8 @@ def phase_train_amp(torch, seed, report):
 
 # -- phase 5b: capture edges and Model.fit in K-step blocks --------------------
 
-FIT_LAYERS, FIT_BATCH, FIT_SEQ, FIT_SAMPLES, FIT_K = 2, 2, 512, 22, 4
+FIT_LAYERS, FIT_BATCH, FIT_SEQ, FIT_SAMPLES, FIT_K = 2, 2, 512, 38, 4
+FIT_EPOCHS = 2
 
 
 def capture_edges(torch):
@@ -3867,14 +3859,80 @@ def capture_edges(torch):
 
     step2 = jit_step(synced_step)
     x2 = torch.randn(8, 64, device="cuda", generator=gen)
+    pools0 = graph_pools(torch)
     for _ in range(3):
         step2(x2)
     reason = step2.last_fallback or ""
     draw = float(torch.randn(4, device="cuda").abs().sum())
-    item = dict(fallback=reason[:160], draws_after=bool(np.isfinite(draw)))
-    if not reason.startswith("trace failed"):
+    free_card(torch)
+    pools1 = graph_pools(torch)
+    # the scaled step's graph holds one pool; the failed capture's pool
+    # must be gone once the cache is returned
+    item = dict(fallback=reason[:160], draws_after=bool(np.isfinite(draw)),
+                graph_pools_before=len(pools0), graph_pools_after=len(pools1))
+    if not reason.startswith("trace failed") or not pools0 \
+            or pools1 != pools0:
         raise AssertionError(f".item() in a captured step: {item}")
-    return dict(grad_scaler=scaler, item=item)
+    return dict(grad_scaler=scaler, item=item,
+                alternating_shapes=alternating_shapes(torch))
+
+
+def graph_pools(torch):
+    """The private pools (CUDA graphs' memory) that hold segments."""
+    return {tuple(s["segment_pool_id"]) for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id") or (0, 0)) != (0, 0)}
+
+
+def alternating_shapes(torch):
+    """``jit_step`` over an MLP with the fused AdamW, two batch shapes in
+    turns: each shape's eager probe rebuilds the optimizer buckets' chunk
+    tables between the other shape's replays (junk allocations then reuse
+    any block freed), and losses and weights must equal the eager loop's
+    bit for bit."""
+    from paddle_tpu_torch.jit import capture_counters, jit_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def run(captured):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        net = torch.nn.Sequential(torch.nn.Linear(512, 1024), torch.nn.GELU(),
+                                  torch.nn.Linear(1024, 512)).cuda()
+        with torch.no_grad():
+            for p in net.parameters():
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                        * 0.02)
+        opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                    parameters=net.parameters())
+
+        def step(x):
+            loss = net(x).square().mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        fn = jit_step(step) if captured else step
+        losses = []
+        for i in range(16):
+            n = (64, 96)[(i // 3) % 2]
+            x = torch.randn(n, 512, device="cuda", generator=gen)
+            losses.append(float(fn(x)))
+            junk = torch.full((1 << 20,), -1, dtype=torch.int64,
+                              device="cuda")
+            del junk
+        return losses, [p.detach().clone() for p in net.parameters()]
+
+    le, we = run(False)
+    before = dict(capture_counters)
+    lc, wc = run(True)
+    moved = {k: capture_counters[k] - before[k]
+             for k in ("probes", "captures", "replays", "fallbacks")}
+    res = dict(losses_bitwise=le == lc,
+               weights_bitwise=all(torch.equal(a, b)
+                                   for a, b in zip(we, wc)), **moved)
+    if not (res["losses_bitwise"] and res["weights_bitwise"]
+            and moved["replays"] >= 8 and not moved["fallbacks"]):
+        raise AssertionError(f"jit_step over alternating shapes: {res}")
+    return res
 
 
 def free_card(torch):
@@ -3884,10 +3942,11 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def fit_run(torch, cfg, seed, data, k):
-    """``Model.fit`` over a shuffled DataLoader for one epoch with
-    ``FLAGS_multi_step`` = k: per-step losses, wall, peak and the graphs'
-    pool bytes."""
+def fit_run(torch, cfg, seed, data, k, capture=True):
+    """``Model.fit`` over a shuffled DataLoader for FIT_EPOCHS epochs
+    (the lr halved after each by fit's default LRScheduler callback) with
+    ``FLAGS_multi_step`` = k, or with capture off: per-step losses, wall,
+    peak and the graphs' pool bytes."""
     from paddle_tpu_torch import flags, io
     from paddle_tpu_torch.hapi import Model, callbacks
     from paddle_tpu_torch.jit import capture_counters
@@ -3895,7 +3954,7 @@ def fit_run(torch, cfg, seed, data, k):
     from paddle_tpu_torch.models import (LlamaForCausalLM,
                                          LlamaPretrainingCriterion)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import AdamW, lr
 
     losses = []
 
@@ -3903,11 +3962,12 @@ def fit_run(torch, cfg, seed, data, k):
         def on_train_batch_end(self, step, logs=None):
             losses.append(logs["loss"])
 
-    flags.set_flags({"multi_step": k})
+    flags.set_flags({"multi_step": k, "step_capture": capture})
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+    opt = AdamW(learning_rate=lr.StepDecay(1e-4, step_size=1, gamma=0.5),
+                weight_decay=0.01,
                 parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
     m = Model(model)
@@ -3918,13 +3978,15 @@ def fit_run(torch, cfg, seed, data, k):
     before = dict(capture_counters), dict(multi_counters)
     t0 = time.perf_counter()
     try:
-        m.fit(loader, epochs=1, verbose=0, callbacks=[Record(verbose=0)])
+        m.fit(loader, epochs=FIT_EPOCHS, verbose=0,
+              callbacks=[Record(verbose=0)])
     finally:
-        flags.set_flags({"multi_step": 0})
+        flags.set_flags({"multi_step": 0, "step_capture": True})
     torch.cuda.synchronize()
     graphs = [g for s in (m._captured_step, m._multi_step) if s is not None
               for g in s.graphs()]
-    res = dict(k=k, losses=losses, wall_s=time.perf_counter() - t0,
+    res = dict(k=k, capture=capture, losses=losses,
+               wall_s=time.perf_counter() - t0,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                graphs=graphs,
                capture_counters={c: capture_counters[c] - before[0][c]
@@ -3949,6 +4011,8 @@ def phase_capture(torch, seed, report):
                               num_hidden_layers=FIT_LAYERS)
     data = np.random.RandomState(seed).randint(
         0, cfg.vocab_size, size=(FIT_SAMPLES, FIT_SEQ)).astype(np.int64)
+    eager = fit_run(torch, cfg, seed, data, 0, capture=False)
+    free_card(torch)
     single = fit_run(torch, cfg, seed, data, 0)
     free_card(torch)
     multi = fit_run(torch, cfg, seed, data, FIT_K)
@@ -3956,17 +4020,25 @@ def phase_capture(torch, seed, report):
     steps = FIT_SAMPLES // FIT_BATCH
     blocks, tail = divmod(steps, FIT_K)
     res["fit"] = dict(layers=FIT_LAYERS, batch=FIT_BATCH, seq=FIT_SEQ,
-                      steps=steps, single=single, multi=multi,
-                      losses_equal=single["losses"] == multi["losses"])
+                      epochs=FIT_EPOCHS, steps=steps * FIT_EPOCHS,
+                      eager=eager, single=single, multi=multi,
+                      losses_equal=eager["losses"] == single["losses"]
+                      == multi["losses"])
     log(f"capture fit: {json.dumps(res['fit'])}")
     mc = multi["multi_counters"]
-    # the first block probes (eager), the others capture or replay
-    if not res["fit"]["losses_equal"] or len(multi["losses"]) != steps \
-            or mc["blocks"] != blocks - 1 or mc["tail_steps"] != tail \
+    # epoch 1: the first block probes (eager), the second warms up and
+    # captures, the rest replay; epoch 2's blocks all replay (at the
+    # halved lr, from the lr stack); the tails take single-step capture
+    replays = FIT_EPOCHS * blocks - 2
+    if not res["fit"]["losses_equal"] \
+            or len(multi["losses"]) != steps * FIT_EPOCHS \
+            or mc["blocks"] != FIT_EPOCHS * blocks - 1 \
+            or mc["replays"] != replays or replays < 4 \
+            or mc["tail_steps"] != FIT_EPOCHS * tail \
             or multi["capture_counters"]["fallbacks"] \
             or single["capture_counters"]["fallbacks"]:
-        raise AssertionError(f"Model.fit multi-step vs single-step: "
-                             f"{res['fit']}")
+        raise AssertionError(f"Model.fit multi-step vs single-step vs "
+                             f"eager: {res['fit']}")
     report["capture_edges"] = res
     return res
 

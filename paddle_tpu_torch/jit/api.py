@@ -20,20 +20,26 @@ divides on both; the kernel's multiply by ``1/n`` rounds ``1/n`` to the
 grad's dtype first, exact for n a power of two.
 
 The step is captured: the reference compiles it into one XLA program
-(:226), and here it is one CUDA graph (``jit/step_capture.py``), always,
-on the card as the reference always compiles. The first call of each
-shape probes eagerly, the second warms up and captures, every later one
-replays; with ``grad_accum`` > 1 there are two graphs over one memory
-pool, the micro step and the window's last step (the mean, the clip and
-the update), and the micro step captures one call later (its third) so
-that no warm-up runs while the other graph holds the pool. A step the capture cannot express RAISES, naming the
+(:226), and here it is CUDA graphs (``jit/step_capture.py``) under
+``FLAGS_step_capture`` (default on, as the reference always compiles;
+off, the same steps run eagerly). The first call of each shape probes
+eagerly, the second warms up and captures, every later one replays.
+With ``grad_accum`` 1 the whole step is one graph that allocates the
+grads in its own pool, as the eager step does, so capture costs no
+memory the eager step does not hold. With ``grad_accum`` > 1 the graph
+is split at the update: every call replays the forward and backward
+(the grads add up in storage made before the capture), and the window's
+last call then replays a second, small graph with the mean, the clip,
+the update and the clear. Only the first graph holds a step's
+activations (two graphs each holding them did not fit O1 at 8 layers on
+an 80 GB card). A step the capture cannot express RAISES, naming the
 reason: the reference's compile would fail too, and ``TrainStep`` has no
-eager fallback. Each call returns a clone of the graph's loss. On the
-CPU the capture's stand-in runs (the body re-run as the replay). The
-step goes through ``optimizer.step()``, which takes the fused kernel; the
-learning rate is read once per optimizer step (``optimizer.get_lr()``,
-refreshed before each replay); advancing the scheduler is the caller's,
-as in the reference.
+eager fallback. Each call returns a
+clone of the graph's loss. On the CPU the capture's stand-in runs (the
+body re-run as the replay). The step goes through ``optimizer.step()``,
+which takes the fused kernel; the learning rate is read once per
+optimizer step (``optimizer.get_lr()``, refreshed before each replay);
+advancing the scheduler is the caller's, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import flags
 from .step_capture import CapturedStep
 
 
@@ -70,7 +77,7 @@ class TrainStep:
         self.amp_level = amp_level
         self._micro = 0      # micro steps taken in the current window
         self._accum_scale: Optional[torch.Tensor] = None
-        self._steps: Optional[Tuple[CapturedStep, CapturedStep]] = None
+        self._steps: Optional[Tuple[CapturedStep, ...]] = None
 
     def _amp_ctx(self):
         if self.amp_level:
@@ -86,46 +93,48 @@ class TrainStep:
         loss.backward()
         return loss.detach().float()
 
-    def _micro_step(self, inputs, labels) -> torch.Tensor:
-        return self._forward_backward(inputs, labels)
-
-    def _update_step(self, inputs, labels) -> torch.Tensor:
+    def _whole_step(self, inputs, labels) -> torch.Tensor:
         loss = self._forward_backward(inputs, labels)
-        if self.grad_accum > 1:
-            self._mean_grads()
         self.optimizer.step()
         self.optimizer.clear_grad()
         return loss
 
+    def _apply_step(self) -> None:
+        self._mean_grads()
+        self.optimizer.step()
+        self.optimizer.clear_grad()
+
     def graphs(self) -> List:
-        """Each captured graph's capture seconds and pool bytes (both
-        steps share one pool)."""
-        return [] if self._steps is None else \
-            [e for s in self._steps for e in s.graphs()]
+        """Each captured graph's capture seconds and pool bytes."""
+        return [e for s in self._steps or () for e in s.graphs()]
 
     def __call__(self, inputs: Sequence, labels: Sequence) -> torch.Tensor:
         inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
             else (inputs,)
         labels = tuple(labels) if isinstance(labels, (list, tuple)) \
             else (labels,)
-        if self._steps is None:
-            # one memory pool for both graphs: they never run at once
-            pool = torch.cuda.graph_pool_handle() \
-                if torch.cuda.is_available() else None
-            params = list(getattr(self.optimizer, "_parameter_list", ()))
-            # the micro step captures one call late: its graph must not
-            # hold a step's activations in the shared pool while the
-            # update step's eager warm-up needs as much again
-            self._steps = (CapturedStep(_weak(self._micro_step), strict=True,
-                                        pool=pool, params=params,
-                                        defer=True),
-                           CapturedStep(_weak(self._update_step),
-                                        strict=True, pool=pool))
-        self._micro += 1
-        if self._micro < self.grad_accum:
+        capture = flags.get_flag("step_capture")
+        if self.grad_accum == 1:
+            if not capture:
+                return self._whole_step(inputs, labels)
+            if self._steps is None:
+                self._steps = (CapturedStep(_weak(self._whole_step),
+                                            strict=True),)
             return self._steps[0](inputs, labels)
-        self._micro = 0
-        return self._steps[1](inputs, labels)
+        if self._steps is None:
+            params = list(getattr(self.optimizer, "_parameter_list", ()))
+            self._steps = (CapturedStep(_weak(self._forward_backward),
+                                        strict=True, params=params),
+                           CapturedStep(_weak(self._apply_step),
+                                        strict=True))
+        micro, apply = self._steps if capture else (
+            self._forward_backward, self._apply_step)
+        loss = micro(inputs, labels)
+        self._micro += 1
+        if self._micro == self.grad_accum:
+            self._micro = 0
+            apply()
+        return loss
 
     @torch.no_grad()
     def _mean_grads(self) -> None:

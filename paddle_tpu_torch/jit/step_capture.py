@@ -18,12 +18,13 @@ leaves, the state's structure, the flags):
 2. **warm-up** -- the next call runs the step over static input buffers
    under the capture context (``optimizer._CAPTURE``), on a side stream,
    so every ``_build.load`` and each kernel's one-time
-   ``cudaFuncSetAttribute`` happen before the capture, and the fused
-   optimizer builds its chunk table over the grads the graph will use.
+   ``cudaFuncSetAttribute`` happen before the capture; the fused
+   optimizer's launches record the size of each chunk table they use.
    This run is the call's step: its outputs are returned;
-3. **capture** -- the same body runs once more inside ``torch.cuda.graph``
-   (nothing executes); the host state it moved (step counts, schedulers,
-   launch counters) is rolled back;
+3. **capture** -- the same body runs once more inside a CUDA graph capture
+   (:func:`capture_graph`, which the serving engine shares; nothing
+   executes); the host state it moved (step counts, schedulers, launch
+   counters) is rolled back;
 4. **replay** -- each later call copies its args into the static buffers,
    refreshes the lr scalars on the host's stream (outside the graph),
    replays, re-applies the recorded host effects (optimizer step-count
@@ -40,11 +41,19 @@ What the graph needs from the code it runs, and what the port does:
 - no host sync: the sentinel's and the GradScaler's skip stay on the
   device, and ``Optimizer.consume_anomaly()`` reconciles the host step
   count, as the reference's cumulative-skip channel does;
-- the grads live in storage that outlives the graph: each parameter's
-  grad is made (or adopted) before the warm-up and ``clear_grad()`` under
-  capture zeroes it in place, so the backward accumulates into the same
-  addresses every replay, and the fused optimizer's chunk table, built in
-  the warm-up, stays valid (an upload during a capture raises);
+- the grads: a step that clears what it steps (it starts and ends with
+  every grad None, as ``TrainStep`` without accumulation and ``Model.fit``
+  do) gets them from the graph's pool, as the eager step gets them from
+  the cache, and nothing holds them between replays. Any other step (a
+  micro step of an accumulation window) keeps them in storage made before
+  the warm-up, which ``clear_grad()`` under capture zeroes in place, so
+  the backward accumulates into the same addresses every replay;
+- the fused optimizer's chunk tables hold grad addresses: each launch in
+  the capture takes a table allocated before it (outside the pool, whose
+  memory earlier nodes reuse), whose rows are written after the capture
+  ends from the addresses the capture used; the graph owns its tables,
+  so no rebuild of a bucket's table by a later eager step frees them,
+  and an upload while a capture is active raises;
 - state updated in place (parameters, moments, BatchNorm statistics, the
   GradScaler's scale) replays correctly; a step that REBINDS a tensor
   attribute, or reads its batch from a closure instead of its arguments,
@@ -206,27 +215,171 @@ def _counter_add(delta) -> None:
         optimizer_mod.fused_counters[k] += n
 
 
+_POOL_CALLS = ("_cuda_endAllocateToPool", "_cuda_releasePool")
+
+
 def _abandon_capture(pool) -> None:
     """Clean up after a capture that ended in an error. Its end raised
     before it told the caching allocator the capture was over, so the
     allocator would keep a capture "underway" (and, while one is, never
     return its cache to the card on an out-of-memory retry): end the
-    graph's pool routing and release the pool. It also left the default
-    CUDA generator marked as captured (its epilogue never ran), so every
-    later random draw would raise: one trivial capture runs the prologue
-    and epilogue again."""
+    graph's pool routing and release the pool. Torch has no public call
+    for this; a build without the two private ones raises here rather
+    than leave the allocator routing to a dead pool."""
+    missing = [n for n in _POOL_CALLS if not hasattr(torch._C, n)]
+    if missing:
+        raise RuntimeError(
+            f"step capture: this torch build lacks torch._C."
+            f"{' and torch._C.'.join(missing)}, so a failed capture cannot "
+            f"release its memory pool")
+    end, release = (getattr(torch._C, n) for n in _POOL_CALLS)
     dev = torch.cuda.current_device()
-    for name in ("_cuda_endAllocateToPool", "_cuda_releasePool"):
-        fn = getattr(torch._C, name, None)
-        if fn is not None:
-            try:
-                fn(dev, pool)
-            except RuntimeError:
-                pass     # the capture's end got that far itself
+    try:
+        end(dev, pool)
+    except RuntimeError as e:
+        # the capture's end got as far as ending the routing itself
+        if "not currently recording" not in str(e):
+            raise
+    release(dev, pool)
+    _reset_generator()
+
+
+def _reset_generator() -> None:
+    """A failed capture leaves the default CUDA generator marked as
+    captured (its epilogue never ran), so every later random draw would
+    raise: one trivial capture runs the prologue and epilogue again."""
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g, capture_error_mode="thread_local"):
         torch.zeros(1, device="cuda").add_(1)
     del g
+
+
+# -- one captured graph: shared by CapturedStep and the serving engine ---------
+
+@contextlib.contextmanager
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """Run the block on ``stream`` (None: where it is), ordered after the
+    current stream's work and before its later work: a capture's warm-up
+    runs where the capture will, so every kernel library loads and sets
+    its attributes before the capture."""
+    if stream is None:
+        yield
+        return
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        yield
+    cur.wait_stream(stream)
+
+
+def _uncounted(body: Callable, tables=()):
+    """``body()`` with the launch counters rolled back after it and its
+    chunk tables deferred, as a capture would (the CPU's stand-in for a
+    replay: the replay adds the capture's recorded launches)."""
+    cnt = _counter_state()
+    try:
+        with fok.deferred_tables(tables) as made:
+            out = body()
+        fok.fill_tables(made)
+    finally:
+        _counter_restore(cnt)
+    return out
+
+
+class Graph:
+    """One captured step: the CUDA graph (None on the CPU, where a replay
+    re-runs the body), its static outputs, the launch counts a replay
+    adds, the fused optimizer's chunk tables the graph reads (owned here,
+    so no rebuild of a bucket's table frees them; ``spec`` their rows and
+    devices), the capture's seconds and the bytes its pool reserved."""
+
+    __slots__ = ("graph", "out", "delta", "spec", "tables", "capture_s",
+                 "pool_bytes")
+
+    def __init__(self, graph, out, delta, spec=(), tables=(),
+                 capture_s=0.0, pool_bytes=0):
+        self.graph = graph
+        self.out = out
+        self.delta = delta
+        self.spec = list(spec)
+        self.tables = list(tables)
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+
+    def replay(self, stand_in: Callable):
+        """Replay (on the CPU: ``stand_in()``, its launches uncounted) and
+        add the recorded launches; the static outputs, or the stand-in's."""
+        if self.graph is not None:
+            self.graph.replay()
+            out = self.out
+        else:
+            out = _uncounted(stand_in, self.spec)
+        _counter_add(self.delta)
+        return out
+
+
+def capture_graph(body: Callable, stream: "torch.cuda.Stream",
+                  generators: Sequence[torch.Generator] = (),
+                  tables=()) -> Graph:
+    """Capture ``body()`` on ``stream`` into one CUDA graph over a pool of
+    its own; nothing runs. The launch counters' advance is
+    recorded and rolled back. ``tables``: the ``(rows, device)`` of each
+    chunk table the body's optimizer launches take, as its warm-up
+    recorded them; they are allocated before the capture (never in the
+    pool: earlier nodes of the graph reuse its memory, so rows written
+    there outside the graph would not survive a replay) and filled after
+    it ends. An error in the body or the capture's end is cleaned up
+    (:func:`_abandon_capture`) and raised as ``CaptureAbort("trace
+    failed", <the error>)`` (a ``CaptureAbort`` raised inside as itself);
+    running out of device memory raises as it would eagerly."""
+    with torch.cuda.device(stream.device), \
+            fok.deferred_tables(tables) as made:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        g = torch.cuda.CUDAGraph()
+        for gen in generators:
+            g.register_generator_state(gen)
+        # the pool's id is known even if the capture fails (a failed graph
+        # cannot say it): the clean-up needs it
+        pool = torch.cuda.graph_pool_handle()
+        cnt = _counter_state()
+        t0 = time.perf_counter()
+        err: Optional[BaseException] = None
+        ended = False
+        out = None
+        try:
+            with torch.cuda.stream(stream):
+                # capture_begin/_end by hand (torch.cuda.graph's context):
+                # whether the end succeeded decides the clean-up
+                g.capture_begin(pool, capture_error_mode="thread_local")
+                try:
+                    out = _detached(body())
+                except Exception as e:
+                    err = e
+                try:
+                    g.capture_end()
+                    ended = True
+                except Exception as e:
+                    err = err or e
+        finally:
+            delta = _counter_delta(cnt)
+            _counter_restore(cnt)
+        if err is not None:
+            out = None
+            if not ended:
+                _abandon_capture(pool)
+            if isinstance(err, torch.cuda.OutOfMemoryError):
+                raise err       # the card's memory, not the step's form
+            abort = _abort_in(err)
+            if abort is not None:
+                raise abort from None
+            raise CaptureAbort("trace failed",
+                               f"{type(err).__name__}: {err}") from err
+        torch.cuda.synchronize()
+        pool_bytes = torch.cuda.memory_reserved() - reserved0
+    return Graph(g, out, delta, tables, fok.fill_tables(made),
+                 time.perf_counter() - t0, pool_bytes)
 
 
 # -- discovery ----------------------------------------------------------------
@@ -332,6 +485,8 @@ class _Discovery:
             self.reason = _HOOKS
         self.opts = list(probe.opts)
         self.params = params
+        # the step left every grad None (it clears what it steps)
+        self.clears = False
         self.opt_steps = {id(o): o._step_count - probe.opt_step0[id(o)]
                           for o in probe.opts}
         self.sched_deltas: List[Tuple[Any, int]] = []
@@ -415,16 +570,14 @@ class _CaptureCtx:
 
 
 @contextlib.contextmanager
-def _installed(ctx: _CaptureCtx, capturing: bool):
+def _installed(ctx: _CaptureCtx):
     global _ACTIVE
     optimizer_mod._CAPTURE = ctx
-    fok.CAPTURING = capturing
     _ACTIVE = True
     try:
         yield ctx
     finally:
         optimizer_mod._CAPTURE = None
-        fok.CAPTURING = False
         _ACTIVE = False
 
 
@@ -474,36 +627,45 @@ def _cloned(out):
 
 
 class _Entry:
-    """One captured step: its graph (None on the CPU), static buffers,
-    the host effects and counter advance a replay re-applies."""
+    """One captured step: its :class:`Graph` (no CUDA graph on the CPU),
+    static buffers, and the host effects a replay re-applies.
 
-    __slots__ = ("disc", "cuda", "graph", "captured", "static_in",
-                 "static_out", "rebuild", "delta", "cleared", "ptrs",
-                 "capture_s", "pool_bytes", "lr_stacks", "cols")
+    ``pool_grads``: the step starts and ends with every grad None (it
+    clears what it steps), so the capture allocates the grads in the
+    graph's pool, as an eager step allocates them, and nothing holds them
+    between replays. Otherwise (a micro step, a step that keeps its
+    grads) they live in capture grad storage made before the capture."""
+
+    __slots__ = ("disc", "cuda", "graph", "static_in",
+                 "rebuild", "warm_delta", "tables", "cleared", "ptrs",
+                 "pool_grads",
+                 "lr_stacks", "cols")
 
     def __init__(self, disc, rebuild, cuda: bool):
         self.disc = disc
         self.rebuild = rebuild
         self.cuda = cuda
-        self.graph = None
-        self.captured = False
+        self.graph: Optional[Graph] = None
         self.static_in: List[torch.Tensor] = []
-        self.static_out = None
-        self.delta = None
+        self.warm_delta = None
+        self.tables: List = []      # the warm-up's chunk tables' shapes
         self.cleared: set = set()
         self.ptrs: Tuple = ()
-        self.capture_s = 0.0
-        self.pool_bytes = 0
+        self.pool_grads = False
         self.lr_stacks: Dict[int, torch.Tensor] = {}   # multi-step only
         self.cols: List[List[float]] = []
 
 
-def _state_ptrs(disc: _Discovery) -> Tuple:
-    """Addresses of every tensor the graph reads or writes in place: a
-    moved one (``model.to``, ``p.data = ...``) invalidates the graph."""
+def _state_ptrs(entry: _Entry) -> Tuple:
+    """Addresses of every tensor the graph reads or writes in place and
+    does not own: a moved one (``model.to``, ``p.data = ...``)
+    invalidates the graph. Its chunk tables, and the grads of a
+    ``pool_grads`` step, are the graph's own."""
+    disc = entry.disc
     out = [p.data_ptr() for p in disc.params]
-    out += [_static_grad(p).data_ptr() for p in disc.params
-            if _static_grad(p) is not None]
+    if not entry.pool_grads:
+        out += [_static_grad(p).data_ptr() for p in disc.params
+                if _static_grad(p) is not None]
     for o in disc.opts:
         out += [m.data_ptr() for m in o._masters if m is not None]
         out += [t.data_ptr() for s in o._states if s is not None
@@ -518,20 +680,15 @@ class CapturedStep:
     structure is stable, replays as one CUDA graph."""
 
     def __init__(self, fn: Callable, strict: bool = False,
-                 generators: Sequence[torch.Generator] = (), pool=None,
-                 params: Sequence[torch.Tensor] = (), defer: bool = False):
+                 generators: Sequence[torch.Generator] = (),
+                 params: Sequence[torch.Tensor] = ()):
         self._fn = fn
         self._strict = strict
-        # capture at the call after the warm-up (then replay): a step whose
-        # pool another step shares, so that this one's warm-up never runs
-        # while the other's graph holds a step's activations in the pool
-        self._defer = defer
         # parameters whose grads the step accumulates without stepping
         # their optimizer (TrainStep's micro step): they get capture grad
         # storage too
         self._params = list(params)
         self._generators = tuple(generators)
-        self._pool = pool
         self._stream = None
         self._disc: Optional[_Discovery] = None
         self._entries: Dict[Any, Any] = {}
@@ -593,6 +750,7 @@ class CapturedStep:
             _ACTIVE = False
         mutated = any(t._version != v for t, v in zip(dyn, versions))
         self._disc = _Discovery(probe, mutated, self._params)
+        self._disc.clears = all(p.grad is None for p in self._disc.params)
         key = (flags.version, arg_sig, self._state_sig())
         if self._disc.reason is not None:
             self._put_entry(key, ("unfusable", self._disc.reason, None))
@@ -611,11 +769,8 @@ class CapturedStep:
         if not cuda:
             yield
             return
-        s = self._capture_stream()
-        s.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(s):
+        with on_stream(self._capture_stream()):
             yield
-        torch.cuda.current_stream().wait_stream(s)
 
     def _capture_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
@@ -628,16 +783,21 @@ class CapturedStep:
                                                        for t in dyn)
 
     def _attach_grads(self, d: _Discovery) -> None:
-        """Give every trained parameter its capture grad storage: its
+        """Give every trained parameter its capture grad storage, made
+        before the warm-up so it outlives the graph and holding the
         current grad (an open accumulation window keeps its sum), else
-        zeros, made before the warm-up so it outlives the graph."""
+        zeros. New storage is allocated after the cache goes back to the
+        card, so no long-lived grad pins a segment that held a step's
+        activations."""
+        new = {id(p) for p in d.params
+               if (g := _static_grad(p)) is None or g.shape != p.shape
+               or g.device != p.device or g.dtype != p.dtype}
+        if any(p.is_cuda for p in d.params if id(p) in new):
+            torch.cuda.empty_cache()
         for p in d.params:
             g = _static_grad(p)
-            if g is None or g.shape != p.shape or g.device != p.device \
-                    or g.dtype != p.dtype:
-                g = p.grad if p.grad is not None \
-                    else torch.zeros_like(p, memory_format=torch.
-                                          preserve_format)
+            if id(p) in new:
+                g = torch.zeros_like(p) if p.grad is None else p.grad.clone()
                 setattr(p, _GRAD_ATTR, g)
             elif p.grad is None:
                 # None after a captured step cleared it: the storage is
@@ -649,15 +809,17 @@ class CapturedStep:
             setattr(p, _CLEAN_ATTR, False)
             p.grad = g
 
-    def _prepare(self, d: _Discovery) -> None:
+    def _prepare(self, d: _Discovery, attach: bool) -> None:
         """Before a warm-up, capture or replay, on the host's stream and
         outside any graph: the lr scalars refreshed, the device step
-        counters refilled where the host count moved, grads attached."""
+        counters refilled where the host count moved, grads attached
+        (``attach``: the step keeps capture grad storage)."""
         for o in d.opts:
             dev = _param_device(o)
             o._live_scalar("lr", o.get_lr(), dev)
             o._dev_step(dev)
-        self._attach_grads(d)
+        if attach:
+            self._attach_grads(d)
 
     def _synced(self, d: _Discovery, cleared) -> None:
         """After a run: the device step counters hold the host count, and
@@ -689,84 +851,53 @@ class CapturedStep:
 
     # -- warm-up and capture ---------------------------------------------------
     def _warm_up(self, entry: _Entry):
+        """The step, eagerly, over the static inputs under the capture
+        context on the capture's stream. A step that starts with no grads
+        and ended its probe with none runs as an eager one (``pool_grads``
+        when it ends with none again); any other gets capture grad
+        storage first."""
         d = entry.disc
-        backup = {id(p): p.grad.clone() for p in d.params
-                  if p.grad is not None}
+        fresh = d.clears and all(p.grad is None for p in d.params)
+        # a failed warm-up falls back to the eager step, which must see
+        # the grads as they were (a strict step raises instead: no copy)
+        backup = {} if self._strict else {
+            id(p): p.grad.clone() for p in d.params if p.grad is not None}
         snap = _HostSnapshot(d)
-        self._prepare(d)
+        self._prepare(d, attach=not fresh)
         ctx = _CaptureCtx(d)
         cnt = _counter_state()
         try:
-            with _installed(ctx, capturing=False), \
-                    self._side_stream(entry.cuda):
+            with _installed(ctx), self._side_stream(entry.cuda), \
+                    fok.recorded_tables() as tables:
                 out = self._body(entry, ctx)
         except BaseException:
             snap.restore()
-            for p in d.params:
-                p.grad = backup.get(id(p))
+            if not self._strict:
+                for p in d.params:
+                    p.grad = backup.get(id(p))
             raise
-        entry.delta = _counter_delta(cnt)
+        entry.warm_delta = _counter_delta(cnt)
+        entry.tables = list(tables)
         entry.cleared = set(ctx.cleared)
+        entry.pool_grads = fresh and all(p.grad is None for p in d.params)
         self._synced(d, ())
         return out
 
     def _capture(self, entry: _Entry) -> None:
         d = entry.disc
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved()
-        g = torch.cuda.CUDAGraph()
-        for gen in self._generators:
-            g.register_generator_state(gen)
         snap = _HostSnapshot(d)
-        cnt = _counter_state()
-        self._prepare(d)
+        self._prepare(d, attach=not entry.pool_grads)
         ctx = _CaptureCtx(d)
-        # the pool's id is known even if the capture fails (a failed
-        # graph cannot say it): the clean-up needs it
-        pool = self._pool if self._pool is not None \
-            else torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        err: Optional[BaseException] = None
-        ended = False
         try:
-            with _installed(ctx, capturing=True), \
-                    torch.cuda.stream(self._capture_stream()):
-                # capture_begin/_end by hand (torch.cuda.graph's context):
-                # whether the end succeeded decides the clean-up
-                g.capture_begin(pool, capture_error_mode="thread_local")
-                try:
-                    out = self._body(entry, ctx)
-                    entry.static_out = _detached(out)
-                    del out
-                except Exception as e:
-                    err = e
-                try:
-                    g.capture_end()
-                    ended = True
-                except Exception as e:
-                    err = err or e
+            with _installed(ctx):
+                graph = capture_graph(lambda: self._body(entry, ctx),
+                                      self._capture_stream(),
+                                      self._generators, entry.tables)
         finally:
-            delta = _counter_delta(cnt)
-            _counter_restore(cnt)
             snap.restore()
             self._synced(d, ())
-        if err is not None:
-            if not ended:
-                _abandon_capture(pool)
-            if isinstance(err, torch.cuda.OutOfMemoryError):
-                raise err       # the card's memory, not the step's form
-            abort = _abort_in(err)
-            if abort is not None:
-                raise abort from None
-            raise CaptureAbort("trace failed",
-                               f"{type(err).__name__}: {err}") from err
-        torch.cuda.synchronize()
-        entry.capture_s = time.perf_counter() - t0
-        entry.delta = delta
         entry.cleared = set(ctx.cleared)
-        entry.graph = g
-        entry.pool_bytes = torch.cuda.memory_reserved() - reserved0
+        entry.graph = graph
 
     def _attempt_capture(self, key, dyn, rebuild):
         d = self._disc
@@ -774,10 +905,6 @@ class CapturedStep:
         entry.static_in = [t.detach().clone() for t in dyn]
         self._setup_entry(entry)
         out = self._warm_up(entry)
-        if self._defer:        # captured at the next call, then replayed
-            self._put_entry(key, entry)
-            self._synced(d, entry.cleared)
-            return out
         if entry.cuda:
             try:
                 self._capture(entry)
@@ -785,31 +912,23 @@ class CapturedStep:
                 e.warmed = out      # the warm-up was this call's step
                 self._synced(d, entry.cleared)
                 raise
-        entry.captured = True
-        entry.ptrs = _state_ptrs(d)
+        else:       # the CPU: the warm-up's launches stand for the graph's
+            entry.graph = Graph(None, None, entry.warm_delta, entry.tables)
+        entry.ptrs = _state_ptrs(entry)
         self._put_entry(key, entry)
         self._synced(d, entry.cleared)
         return out
-
-    def _deferred_capture(self, entry: _Entry, dyn):
-        """The call after a deferred warm-up: capture (nothing runs),
-        then replay once as this call's step."""
-        if entry.cuda:
-            for s, t in zip(entry.static_in, dyn):
-                s.copy_(t)
-            self._before_replay(entry)
-            self._capture(entry)
-        entry.captured = True
-        entry.ptrs = _state_ptrs(entry.disc)
-        return self._replay(entry, dyn, count=False)
 
     def _setup_entry(self, entry: _Entry) -> None:
         """Hook for multi-step capture: the lr stacks."""
 
     # -- replay --------------------------------------------------------------
-    def _replay(self, entry: _Entry, dyn, count: bool = True):
+    def _replay(self, entry: _Entry, dyn):
         d = entry.disc
-        if _state_ptrs(d) != entry.ptrs:
+        if _state_ptrs(entry) != entry.ptrs or (entry.pool_grads and any(
+                p.grad is not None for p in d.params)):
+            # moved state, or grads the graph would not add to (a
+            # pool_grads step allocates its own): re-probe
             capture_counters["invalidations"] += 1
             self._entries.clear()
             self._disc = None
@@ -817,18 +936,12 @@ class CapturedStep:
         for s, t in zip(entry.static_in, dyn):
             s.copy_(t)
         self._before_replay(entry)
-        self._prepare(d)
-        if entry.graph is not None:
-            entry.graph.replay()
-            out = _cloned(entry.static_out)
-        else:
-            out = self._stand_in(entry)
-        _counter_add(entry.delta)
+        self._prepare(d, attach=not entry.pool_grads)
+        out = _cloned(entry.graph.replay(lambda: self._stand_in(entry)))
         self._apply_host_effects(d, self._host_reps())
         self._after_replay(entry)
         self._synced(d, entry.cleared)
-        if count:
-            capture_counters["replays"] += 1
+        capture_counters["replays"] += 1
         return out
 
     def _before_replay(self, entry: _Entry) -> None:
@@ -840,17 +953,13 @@ class CapturedStep:
     def _stand_in(self, entry: _Entry):
         """The CPU's replay: the captured body re-run over the static
         buffers, its host side rolled back (a graph runs no Python)."""
-        d = entry.disc
-        snap = _HostSnapshot(d)
-        cnt = _counter_state()
-        ctx = _CaptureCtx(d)
+        snap = _HostSnapshot(entry.disc)
+        ctx = _CaptureCtx(entry.disc)
         try:
-            with _installed(ctx, capturing=True):
-                out = self._body(entry, ctx)
+            with _installed(ctx):
+                return _detached(self._body(entry, ctx))
         finally:
-            _counter_restore(cnt)
             snap.restore()
-        return _cloned(_detached(out))
 
     # -- dispatch ------------------------------------------------------------
     def _eager(self, args, kwargs):
@@ -893,8 +1002,7 @@ class CapturedStep:
                 self._fallback(e.reason, e.detail)
                 return self._eager(args, kwargs) if warmed is None \
                     else warmed
-            if not self._defer:
-                capture_counters["captures"] += 1
+            capture_counters["captures"] += 1
             self._streak = 0
             return out
         if isinstance(ent, tuple):       # ("unfusable", reason, detail)
@@ -902,17 +1010,6 @@ class CapturedStep:
             return self._eager(args, kwargs)
         self._entries.pop(key)
         self._entries[key] = ent
-        if not ent.captured:
-            try:
-                out = self._deferred_capture(ent, dyn)
-            except CaptureAbort as e:
-                self._put_entry(key, ("unfusable", e.reason, e.detail))
-                self._disc = None
-                self._fallback(e.reason, e.detail)
-                return self._eager(args, kwargs)
-            capture_counters["captures"] += 1
-            self._streak = 0
-            return out
         try:
             out = self._replay(ent, dyn)
         except CaptureAbort as e:
@@ -932,9 +1029,10 @@ class CapturedStep:
     def graphs(self) -> List[Dict[str, Any]]:
         """Each captured entry's capture seconds and pool bytes (``cuda``
         False: the CPU stand-in, no graph)."""
-        return [dict(capture_s=e.capture_s, pool_bytes=e.pool_bytes,
-                     cuda=e.cuda)
-                for e in self._entries.values() if isinstance(e, _Entry)]
+        return [dict(capture_s=e.graph.capture_s,
+                     pool_bytes=e.graph.pool_bytes, cuda=e.cuda)
+                for e in self._entries.values()
+                if isinstance(e, _Entry) and e.graph is not None]
 
 
 def jit_step(function: Optional[Callable] = None, *, k_steps: int = 1,

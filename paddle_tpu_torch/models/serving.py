@@ -53,7 +53,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -332,7 +332,7 @@ class ContinuousBatchingEngine:
                                  self.spec_k + 1,
                                  self.cache.block_tables.shape[1],
                                  self.device)
-        self._graphs: Dict[tuple, tuple] = {}
+        self._graphs: Dict[tuple, Any] = {}
         self._stream = None
         self.capture_stats = dict(captures=0, replays=0, eager_steps=0,
                                   capture_s=0.0, pool_bytes=0)
@@ -746,63 +746,35 @@ class ContinuousBatchingEngine:
         ent = self._graphs.get(key)
         if ent is None:
             return self._capture_step(key)
-        graph, out, delta = ent
-        if graph is not None:
-            graph.replay()
-        else:                   # the CPU's stand-in for the replay
-            before = sc._counter_state()
-            out = self._forward()
-            sc._counter_restore(before)
-        sc._counter_add(delta)
+        out = ent.replay(self._forward)
         self.capture_stats["replays"] += 1
         sc.capture_counters["replays"] += 1
         return out
 
     def _capture_step(self, key) -> torch.Tensor:
         """The geometry's first step: a warm-up over the static buffers
-        (on a side stream: every kernel library loads and sets its
-        attributes before the capture), which is this step's result and
-        its launches, then the capture, which runs nothing. Raises if the
-        capture fails."""
+        (on the capture's side stream: every kernel library loads and
+        sets its attributes before the capture), which is this step's
+        result and its launches, then the capture, which runs nothing.
+        Raises if the capture fails."""
         from ..jit import step_capture as sc
         cuda = self.device.type == "cuda"
+        if cuda and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
         before = sc._counter_state()
-        if cuda:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            s = self._stream
-            s.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(s):
-                out = self._forward()
-            torch.cuda.current_stream(self.device).wait_stream(s)
-        else:
+        with sc.on_stream(self._stream if cuda else None):
             out = self._forward()
-        warm = sc._counter_delta(before)
-        graph = None
         if cuda:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            reserved0 = torch.cuda.memory_reserved(self.device)
-            graph = torch.cuda.CUDAGraph()
-            cnt = sc._counter_state()
-            t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(graph, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    static = self._forward()
-            except Exception as e:
-                raise RuntimeError(f"serving step capture failed: "
-                                   f"{type(e).__name__}: {e}") from e
-            finally:
-                delta = sc._counter_delta(cnt)
-                sc._counter_restore(cnt)
-            torch.cuda.synchronize(self.device)
-            self.capture_stats["capture_s"] += time.perf_counter() - t0
-            self.capture_stats["pool_bytes"] += \
-                torch.cuda.memory_reserved(self.device) - reserved0
-            self._graphs[key] = (graph, static, delta)
-        else:
-            self._graphs[key] = (None, None, warm)
+                graph = sc.capture_graph(self._forward, self._stream)
+            except (sc.CaptureAbort, torch.cuda.OutOfMemoryError) as e:
+                raise RuntimeError(f"serving step capture failed: {e}") \
+                    from e
+            self.capture_stats["capture_s"] += graph.capture_s
+            self.capture_stats["pool_bytes"] += graph.pool_bytes
+        else:       # the CPU: the warm-up's launches stand for the graph's
+            graph = sc.Graph(None, None, sc._counter_delta(before))
+        self._graphs[key] = graph
         self.capture_stats["captures"] += 1
         sc.capture_counters["captures"] += 1
         return out

@@ -114,11 +114,6 @@ class MoELayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, h = x.shape
-        # the last forward's loss (and its autograd graph) goes first: a
-        # graph kept alive across steps keeps the grad accumulators of the
-        # step that made it, with that step's CUDA stream, and a captured
-        # step's backward would then sync with the legacy stream
-        self.aux_loss = None
         out, aux = M.moe_ffn(
             x.reshape(b * s, h), self.gate.weight, self.experts.gate_weight,
             self.experts.up_weight, self.experts.down_weight,

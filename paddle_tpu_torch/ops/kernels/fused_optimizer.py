@@ -49,6 +49,7 @@ and by ``chip_smoke.py``; and the launch counters ``fused_optimizer``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -410,12 +411,25 @@ def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
     """:func:`chunk_rows` on the device, rebuilt only when a pointer moved
     (grads are new tensors after every ``clear_grad``).
 
-    Never inside a graph capture: the upload would become a graph node
-    copying from a pinned host buffer the caching host allocator hands
-    out again, so replays would read a garbage table. A captured step
-    keeps its grads in storage that outlives the graph and builds the
-    table in its warm-up (``jit/step_capture.py``); an upload while a
-    capture is active raises."""
+    Never uploaded inside a graph capture: the upload would become a graph
+    node copying from a pinned host buffer the caching host allocator
+    hands out again, so replays would read a garbage table. While
+    ``jit/step_capture.py`` captures a step (:func:`deferred_tables`),
+    the launch takes the next of the tables allocated for it before the
+    capture (outside the graph's pool, whose memory earlier nodes of the
+    graph reuse) and the rows are written after the capture ends; the
+    graph owns the table, so no later rebuild of the bucket's own table
+    frees what a replay reads. An upload during any other capture
+    raises."""
+    if capture_active():
+        if _deferred is None:
+            raise RuntimeError(
+                "fused_optimizer: chunk table upload while a graph capture "
+                "is active: replays would read a freed host buffer")
+        host = chunk_rows(kind, targets, grads, states, lows, scratch)
+        return _deferred.take(host, targets[0].device), len(host)
+    if _recorded is not None:
+        _recorded.append(table_rows(targets))
     extra = [] if scratch is None else scratch[0] + [scratch[1]]
     key = tuple(t.data_ptr() for ts in (targets, grads, lows, extra)
                 for t in ts if t is not None) + tuple(
@@ -423,11 +437,6 @@ def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
     if bucket is not None and bucket.table is not None \
             and bucket.table[0] == key:
         return bucket.table[1], bucket.table[2]
-    if capture_active():
-        raise RuntimeError(
-            "fused_optimizer: chunk table upload while a graph capture is "
-            "active (a grad, param or state pointer moved since the "
-            "warm-up): replays would read a freed host buffer")
     host = chunk_rows(kind, targets, grads, states, lows, scratch)
     table = torch.from_numpy(host).pin_memory().to(targets[0].device,
                                                    non_blocking=True)
@@ -436,15 +445,79 @@ def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
     return table, len(host)
 
 
-# set by jit/step_capture.py while its capture (or, on the CPU, the
-# stand-in's replay of the captured body) runs
-CAPTURING = False
+def table_rows(targets) -> Tuple[int, str]:
+    """``(rows, device)`` of the chunk table over ``targets``."""
+    return (sum(-(-t.numel() // CHUNK) for t in targets),
+            str(targets[0].device))
+
+
+class _Deferred:
+    """The chunk tables of one capture: allocated before it, taken in
+    launch order, their rows written after it (:func:`fill_tables`)."""
+
+    def __init__(self, spec):
+        self.spare = [torch.empty((n, ROW), dtype=torch.int64, device=dev)
+                      for n, dev in spec]
+        self.made: List = []
+
+    def take(self, host: np.ndarray, device) -> torch.Tensor:
+        k = len(self.made)
+        if k >= len(self.spare) or self.spare[k].shape[0] != len(host) \
+                or self.spare[k].device != device:
+            raise RuntimeError(
+                f"fused_optimizer: launch {k} of the capture needs a chunk "
+                f"table of {len(host)} rows on {device} that its warm-up "
+                f"did not (the step's structure changed)")
+        self.made.append((self.spare[k], host))
+        return self.spare[k]
+
+
+# set by jit/step_capture.py: the tables of the capture under way (or, on
+# the CPU, of the stand-in's replay of one), and the (rows, device) of
+# each table a warm-up's launches used
+_deferred: Optional[_Deferred] = None
+_recorded: Optional[List] = None
+
+
+@contextlib.contextmanager
+def deferred_tables(spec=()):
+    """While a step is captured: each launch takes the next of the
+    tables ``spec`` (``(rows, device)`` each, as :func:`recorded_tables`
+    lists them) allocates here, before the capture; yields the
+    :class:`_Deferred` for :func:`fill_tables`."""
+    global _deferred
+    prev, _deferred = _deferred, _Deferred(spec)
+    try:
+        yield _deferred
+    finally:
+        _deferred = prev
+
+
+@contextlib.contextmanager
+def recorded_tables():
+    """While a step's warm-up runs: the ``(rows, device)`` of each chunk
+    table its launches use, in order (the capture's ``spec``)."""
+    global _recorded
+    prev, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = prev
+
+
+def fill_tables(made: _Deferred) -> List[torch.Tensor]:
+    """Write each taken table's rows (after its capture ended: a plain
+    copy, no graph node); returns the tables, which the graph's owner
+    keeps alive."""
+    for table, host in made.made:
+        table.copy_(torch.from_numpy(host))
+    return [table for table, _ in made.made]
 
 
 def capture_active() -> bool:
     """True while a step is being captured: the port's own capture, or
     any CUDA stream capture on this thread."""
-    if CAPTURING:
+    if _deferred is not None:
         return True
     return torch.cuda.is_available() and \
         torch.cuda.is_current_stream_capturing()

@@ -65,8 +65,8 @@ device counter the graph advances itself, by ``1 - found`` when an
 update is guarded), and the sentinel's host sync is left out: a skipped
 update stays on the device and ``consume_anomaly()`` reconciles the host
 count from the cumulative-skip channel. ``clear_grad()`` under capture
-zeroes the grads in place, so the captured step keeps them in storage
-that outlives the graph (the fused kernel's chunk table points at it).
+zeroes in place the grads a captured step keeps in storage made before
+it (an accumulation window's); other grads it frees, as eagerly.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ reference's ``tests/test_step_capture.py``.
   grad, a tensor hook, ``backward(create_graph=True)``, a functional
   ``grad()``, a scheduler stepped with an epoch, an argument mutated in
   place, an unhashable static argument, and an lr changed before
-  ``optimizer.step``. ``TrainStep`` raises instead; its micro step
-  captures one call after its warm-up.
+  ``optimizer.step``. ``TrainStep`` raises instead; under accumulation
+  its update is a second graph, captured a window after the first.
 - A shape change re-probes; a never-repeating stream of shapes trips the
   breaker; the entry cache holds at most ``_ENTRIES_MAX`` entries; a
   weight given new storage invalidates the graph and re-probes; a
@@ -27,9 +27,17 @@ reference's ``tests/test_step_capture.py``.
   of the port's, on the same weights and ids, held to
   ``test_torch_llama_training.py``'s limits (losses atol 1e-5; every
   parameter atol 1e-4, all but 1 in 10^4 elements within 1e-5).
-- The fused optimizer's chunk table is built before the capture and never
-  uploaded while one is active: the upload guard raises inside a
-  capture, and a captured step's replays reuse the warm-up's table.
+- The fused optimizer's chunk table is never uploaded while a capture is
+  active: the upload guard raises inside a foreign capture, and inside
+  the port's own each table is made empty, owned by the graph and filled
+  after the capture (never the bucket's cached one); two shapes in turns
+  replay their own tables bit for bit against an eager loop.
+- A step that clears its grads keeps them in the graph's pool (no grad
+  storage outlives the step); grads present before such a replay
+  re-probe; a TrainStep window keeps its grads in capture storage, and
+  ``FLAGS_step_capture=0`` runs TrainStep eagerly, bit for bit.
+- A failed capture ends its pool routing and releases the pool through
+  the allocator's private calls, and raises where they are missing.
 - The anomaly sentinel and a GradScaler under capture skip a non-finite
   step on the device, and ``consume_anomaly()`` reconciles the count.
 """
@@ -345,10 +353,13 @@ class TestFallbackEdges:
             before = sc.capture_counters["captures"]
             train((x,), (x,))
             caps.append(sc.capture_counters["captures"] - before)
-        # micro: probe, warm-up, capture + replay; update: probe, warm-up
-        # + capture: no warm-up runs while the other graph holds the pool
-        assert caps == [0, 0, 0, 1, 1, 0, 0, 0]
+        # the forward and backward: probe, then warm-up + capture at the
+        # second call; the update graph (mean, clip, step, clear) runs on
+        # each window's last call: probe, then warm-up + capture a window
+        # later, so it captures a call after the micro step's capture
+        assert caps == [0, 1, 0, 1, 0, 0, 0, 0]
         assert opt._step_count == 4
+        assert len(train.graphs()) == 2
 
     def test_train_step_raises_naming_the_reason(self):
         net = _net()
@@ -517,39 +528,54 @@ def test_tiny_llama_three_steps_track_reference_jit_step(monkeypatch):
 # -- the chunk table and the device-side skip ----------------------------------
 
 def test_table_upload_inside_a_capture_raises(monkeypatch):
+    """A capture other than the port's own (no deferred-table list) must
+    not upload a chunk table: it raises. Outside any capture it uploads."""
     monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
     p = torch.zeros(8)
     g = torch.ones(8)
-    fok.CAPTURING = True
-    try:
-        with pytest.raises(RuntimeError, match="chunk table upload"):
-            fok._chunk_table(None, "sgd", [p], [g], [{}], [None])
-    finally:
-        fok.CAPTURING = False
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="chunk table upload"):
+        fok._chunk_table(None, "sgd", [p], [g], [{}], [None])
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
     table, n = fok._chunk_table(None, "sgd", [p], [g], [{}], [None])
     assert n == 1
 
 
-def test_captured_step_builds_its_table_before_the_capture(monkeypatch):
-    """The fused route through its chunk table (the CPU runs the plain
-    update after building it): the warm-up builds the table over the
-    grads the captured step keeps, and no replay uploads one (an upload
-    while the stand-in replays raises)."""
-    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
+def _count_uploads(monkeypatch):
+    """Route the CPU's fused optimizer through its chunk table and record,
+    per host-to-device upload, whether a capture was active."""
     uploads = []
-    real_rows = fok.chunk_rows
 
-    def counted_rows(*a, **kw):
+    def pinned(self):
         uploads.append(fok.capture_active())
-        return real_rows(*a, **kw)
+        return self
 
     def fused(kind, cfg, targets, grads, states, lows, svec, bucket=None):
         fok._chunk_table(bucket, kind, targets, grads, states, lows)
         return fok.fused_bucket_plain(kind, cfg, targets, grads, states,
                                       lows, svec)
 
-    monkeypatch.setattr(fok, "chunk_rows", counted_rows)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pinned)
     monkeypatch.setattr(fok, "fused_bucket", fused)
+    return uploads
+
+
+def test_captured_step_builds_its_table_before_the_capture(monkeypatch):
+    """The fused route through its chunk table (the CPU runs the plain
+    update after building it): the eager steps upload a table each; the
+    captured step uploads only in its probe and warm-up, which records
+    the table's shape; inside the capture (each stand-in replay) the
+    launch takes a table allocated before it, filled after it ends, never
+    uploaded while it is active."""
+    uploads = _count_uploads(monkeypatch)
+    deferred = []
+    real_fill = fok.fill_tables
+    monkeypatch.setattr(fok, "fill_tables",
+                        lambda made: deferred.append(len(made.made))
+                        or real_fill(made))
     le, ne, _ = _train("adamw", "plain", captured=False)
     n_eager = len(uploads)
     uploads.clear()
@@ -557,8 +583,211 @@ def test_captured_step_builds_its_table_before_the_capture(monkeypatch):
     assert le == lc
     assert n_eager == 6                     # new grads every eager step
     assert uploads == [False, False]        # the probe's, the warm-up's
+    assert deferred == [1] * 4              # one bucket, four replays
     for a, b in zip(ne.parameters(), nc.parameters()):
         assert torch.equal(a, b)
+
+
+def test_deferred_tables_never_reuse_the_buckets_table(monkeypatch):
+    """Inside a capture the graph gets a table of its own even where the
+    bucket's cached one matches, so an eager rebuild of the bucket's
+    table later never frees what the graph reads: the one allocated
+    before the capture from the warm-up's record. Its rows are written
+    only by ``fill_tables``, after the capture; a launch the warm-up did
+    not record raises."""
+    uploads = _count_uploads(monkeypatch)
+    p, g = torch.zeros(3 * fok.CHUNK // 2), torch.ones(3 * fok.CHUNK // 2)
+    bucket = fok.Bucket([0], [0], [p.numel()], [p.shape], "float32",
+                        "float32", None, 0.0)
+    with fok.recorded_tables() as spec:
+        cached, _ = fok._chunk_table(bucket, "sgd", [p], [g], [{}], [None])
+    assert spec == [(2, "cpu")] and fok._recorded is None
+    assert uploads == [False] and bucket.table[1] is cached
+    with fok.deferred_tables(spec) as made:
+        spare = made.spare[0]
+        table, n = fok._chunk_table(bucket, "sgd", [p], [g], [{}], [None])
+        assert table is spare and n == 2
+        with pytest.raises(RuntimeError, match="did not"):
+            fok._chunk_table(bucket, "sgd", [p], [g], [{}], [None])
+    assert table is not cached and bucket.table[1] is cached
+    assert uploads == [False]               # nothing uploaded inside
+    assert fok.fill_tables(made) == [table]
+    assert torch.equal(table, cached)
+    assert fok._deferred is None
+
+
+def test_alternating_shapes_replay_their_own_tables(monkeypatch):
+    """Two shapes in turns: each shape's probe runs eagerly (rebuilding
+    the bucket's table) between the other shape's replays; the losses and
+    weights equal an eager loop's bit for bit."""
+    _count_uploads(monkeypatch)
+
+    def run(captured):
+        net = _net()
+        opt = TO.AdamW(learning_rate=0.05, parameters=net.parameters())
+
+        def step(x):
+            loss = net(x).square().mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        fn = jit_step(step) if captured else step
+        losses = [float(fn(torch.from_numpy(f32(i, 4 if i % 2 else 3, 6))))
+                  for i in range(12)]
+        return losses, [p.detach().clone() for p in net.parameters()], fn
+
+    le, we, _ = run(False)
+    before = sc.capture_counters["replays"]
+    lc, wc, fn = run(True)
+    assert sc.capture_counters["replays"] - before == 8
+    assert le == lc
+    assert all(torch.equal(a, b) for a, b in zip(we, wc))
+    assert len(fn._entries) == 2
+
+
+def test_pool_grads_keep_no_grad_storage():
+    """A step that clears what it steps runs with the grads in the
+    graph's pool: no capture grad storage stays on the parameters. A
+    TrainStep accumulating over a window keeps its grads in storage made
+    before the capture."""
+    net = _net()
+    opt = TO.AdamW(learning_rate=0.05, parameters=net.parameters())
+
+    def step(x):
+        loss = net(x).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    cap = jit_step(step)
+    for i in range(4):
+        cap(torch.from_numpy(f32(i, 4, 6)))
+    (entry,) = cap._entries.values()
+    assert entry.pool_grads
+    assert all(getattr(p, sc._GRAD_ATTR, None) is None and p.grad is None
+               for p in net.parameters())
+
+    net2 = _net()
+    opt2 = TO.AdamW(learning_rate=0.05, parameters=net2.parameters())
+    train = TrainStep(net2, lambda out, y: out.square().mean(), opt2,
+                      grad_accum=2)
+    x = torch.from_numpy(f32(0, 4, 6))
+    for _ in range(6):
+        train((x,), (x,))
+    ents = [e for s in train._steps for e in s._entries.values()]
+    assert ents and not any(e.pool_grads for e in ents)
+    assert all(getattr(p, sc._GRAD_ATTR, None) is not None
+               for p in net2.parameters())
+
+
+def test_pool_grads_replay_with_grads_present_reprobes():
+    """Grads left on the parameters before a replay of a pool-grads step
+    (which allocates its own) invalidate the graph: the step re-probes
+    and adds to them as the eager step does."""
+    def run(captured):
+        net = torch.nn.Linear(4, 2)
+        with torch.no_grad():
+            net.weight.copy_(torch.from_numpy(f32(1, 2, 4)))
+            net.bias.zero_()
+        opt = TO.SGD(learning_rate=0.1, parameters=net.parameters())
+
+        def step(x):
+            net(x).sum().backward()
+            opt.step()
+            opt.clear_grad()
+            return net.weight.detach().clone()
+
+        fn = jit_step(step) if captured else step
+        x = torch.from_numpy(f32(2, 3, 4))
+        for _ in range(3):
+            fn(x)
+        net(x).square().sum().backward()    # grads the next step adds to
+        return fn(x), fn(x)
+
+    before = sc.capture_counters["invalidations"]
+    want = run(False)
+    got = run(True)
+    assert sc.capture_counters["invalidations"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+def test_train_step_flag_off_runs_eagerly():
+    """FLAGS_step_capture=0 runs TrainStep's steps eagerly (no probe, no
+    capture), bit for bit the captured run's."""
+    def run(on):
+        tflags.set_flags({"step_capture": on})
+        net = _net()
+        opt = TO.AdamW(learning_rate=0.05, parameters=net.parameters())
+        train = TrainStep(net, lambda out, y: out.square().mean(), opt,
+                          grad_accum=2)
+        before = dict(sc.capture_counters)
+        losses = [float(train((torch.from_numpy(f32(i, 4, 6)),),
+                              (torch.zeros(1),))) for i in range(8)]
+        moved = {k: sc.capture_counters[k] - before[k]
+                 for k in ("probes", "captures", "replays")}
+        return losses, [p.detach().clone() for p in net.parameters()], moved
+
+    le, we, me = run(False)
+    lc, wc, mc = run(True)
+    assert me == dict(probes=0, captures=0, replays=0)
+    assert mc["captures"] == 2
+    assert le == lc and all(torch.equal(a, b) for a, b in zip(we, wc))
+
+
+class _FakePool:
+    """Stand-ins for the allocator's private pool calls."""
+
+    def __init__(self, end_error=None):
+        self.calls = []
+        self.end_error = end_error
+
+    def end(self, dev, pool):
+        self.calls.append(("end", dev, pool))
+        if self.end_error:
+            raise RuntimeError(self.end_error)
+
+    def release(self, dev, pool):
+        self.calls.append(("release", dev, pool))
+
+
+@pytest.mark.parametrize("end_error", [
+    None, "endAllocatePool: not currently recording to mempool_id"])
+def test_abandoned_capture_releases_its_pool(monkeypatch, end_error):
+    """After a failed capture the pool's routing is ended (or was ended
+    by the capture's own end) and the pool released, then the generator
+    reset."""
+    fake = _FakePool(end_error)
+    monkeypatch.setattr(torch._C, "_cuda_endAllocateToPool", fake.end,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_releasePool", fake.release,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    reset = []
+    monkeypatch.setattr(sc, "_reset_generator", lambda: reset.append(1))
+    sc._abandon_capture((7, 3))
+    assert fake.calls == [("end", 0, (7, 3)), ("release", 0, (7, 3))]
+    assert reset == [1]
+
+
+def test_abandoned_capture_fails_loudly(monkeypatch):
+    """A torch build without the private pool calls raises, naming them;
+    an unexpected error from ending the routing is not swallowed."""
+    for name in sc._POOL_CALLS:
+        monkeypatch.delattr(torch._C, name, raising=False)
+    with pytest.raises(RuntimeError, match="_cuda_releasePool"):
+        sc._abandon_capture((1, 1))
+    fake = _FakePool("some other allocator error")
+    monkeypatch.setattr(torch._C, "_cuda_endAllocateToPool", fake.end,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_releasePool", fake.release,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(RuntimeError, match="some other allocator error"):
+        sc._abandon_capture((1, 1))
+    assert fake.calls == [("end", 0, (1, 1))]
 
 
 def test_sentinel_skips_on_the_device_and_reconciles():
