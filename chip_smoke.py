@@ -7,10 +7,15 @@ continuous-batching engine and ``generate(cache_type="paged")``, serve it
 again quantized to int4 weights through the int4 GEMM kernel, multiply
 block-pruned Llama-3-8B MLP weights through ``sparse.bcsr_matmul``, train
 Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW and then
-with Lamb, then train DeepSeek-MoE-16B's width (5 layers) the same way as
-the first through the grouped-GEMM kernel. The serving and training
-steps run as CUDA graphs (step capture), each held against its eager
-run.
+with Lamb, and again under selective and full recompute and with
+stacked (scan) layers, then train DeepSeek-MoE-16B's width (5 layers) the
+same way as the first through the grouped-GEMM kernel. The serving and
+training steps run as CUDA graphs (step capture), each held against its
+eager run; ``hapi.Model.fit`` also runs over DataLoader worker
+processes, and a network built from the ported layers trains on the card
+against the CPU. Its dataset classes sit at module level and its run
+under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
+import this script.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -173,7 +178,32 @@ Phases (any failure raises and the script exits non-zero):
    tail: the K-step graph is captured in the first epoch's second block
    and replayed 6 times, the second epoch's at the halved lr), which must
    all give the same losses bit for bit; each graph's pool bytes (a
-   K-step block's pool against a single step's);
+   K-step block's pool against a single step's); then once more with
+   single-step capture over ``io.DataLoader(num_workers=2,
+   persistent_workers=True)``, whose losses must equal the
+   ``num_workers=0`` fit's bit for bit, from two worker processes other
+   than this one;
+5d. ``train_layers``, after phase 5: the 8-layer Llama-3-8B-width
+   training of phase 5 (the same seed, batch, optimizer and captured
+   ``TrainStep``) built three more ways, one at a time (each build's
+   model, optimizer and graphs freed and the cache returned before the
+   next; ``memory_reserved()`` printed at each start): list layers with
+   ``recompute="selective"``, with ``recompute=True``, and
+   ``use_scan_layers=True`` with ``recompute="selective"``; each 2 + 5
+   steps (counts reset just before): its first 3 losses equal phase 5's
+   bit for bit (the scan build: step 1 bit for bit, then within
+   SCAN_LOSS_ATOL), flash forward launches per step twice phase 5's, dq,
+   dk/dv and the fused optimizer's equal to phase 5's; tokens/s, step
+   p50/p99, peak memory and the graph's pool bytes beside phase 5's;
+5e. the layer surface, after phase 5c: a network built only from the
+   ported layers (Conv2D, BatchNorm2D, ReLU, MaxPool2D, Flatten, Dropout
+   with its own CUDA generator, Linear with a bias) trained with
+   ``hapi.Model.fit`` over two worker processes, captured, for 2 epochs
+   on the card and on the CPU from the same weights and Dropout masks:
+   losses, weights and BatchNorm statistics within LAYER_NET_ATOL /
+   LAYER_NET_REL; then ASGD (batch_num 3) under a captured ``TrainStep``
+   for 6 steps with a poisoned batch at step 3, bit for bit its eager
+   steps;
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -190,7 +220,8 @@ enqueues the call, so host time never counts as device time.
 
 Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
-(fourteen kernels), then as the last line ``{"ok": true, "device":
+(fourteen kernels; the training kernels' entries add their
+``train_amp`` and ``train_layers`` launches), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -3797,6 +3828,8 @@ def phase_train_amp(torch, seed, report):
 
 FIT_LAYERS, FIT_BATCH, FIT_SEQ, FIT_SAMPLES, FIT_K = 2, 2, 512, 38, 4
 FIT_EPOCHS = 2
+FIT_WORKERS = 2          # the DataLoader's worker processes in the 4th fit
+WORKER_TIMEOUT_S = 300   # a worker's batch may take this long, then raise
 
 
 def capture_edges(torch):
@@ -3942,11 +3975,12 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def fit_run(torch, cfg, seed, data, k, capture=True):
+def fit_run(torch, cfg, seed, data, k, capture=True, workers=0):
     """``Model.fit`` over a shuffled DataLoader for FIT_EPOCHS epochs
     (the lr halved after each by fit's default LRScheduler callback) with
-    ``FLAGS_multi_step`` = k, or with capture off: per-step losses, wall,
-    peak and the graphs' pool bytes."""
+    ``FLAGS_multi_step`` = k, or with capture off, over ``workers``
+    persistent worker processes (0: the prefetch thread): per-step
+    losses, wall, peak, the graphs' pool bytes and the workers' PIDs."""
     from paddle_tpu_torch import flags, io
     from paddle_tpu_torch.hapi import Model, callbacks
     from paddle_tpu_torch.jit import capture_counters
@@ -3956,11 +3990,12 @@ def fit_run(torch, cfg, seed, data, k, capture=True):
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW, lr
 
-    losses = []
+    losses, pids = [], set()
 
     class Record(callbacks.ProgBarLogger):     # a read-only observer
         def on_train_batch_end(self, step, logs=None):
             losses.append(logs["loss"])
+            pids.update(loader.worker_pids())
 
     flags.set_flags({"multi_step": k, "step_capture": capture})
     torch.cuda.reset_peak_memory_stats()
@@ -3974,7 +4009,10 @@ def fit_run(torch, cfg, seed, data, k, capture=True):
     m.prepare(opt, LlamaPretrainingCriterion(cfg))
     np.random.seed(seed)
     loader = io.DataLoader(io.TensorDataset([data, data]), places="cuda",
-                           batch_size=FIT_BATCH, shuffle=True)
+                           batch_size=FIT_BATCH, shuffle=True,
+                           num_workers=workers,
+                           persistent_workers=bool(workers),
+                           timeout=WORKER_TIMEOUT_S if workers else 0)
     before = dict(capture_counters), dict(multi_counters)
     t0 = time.perf_counter()
     try:
@@ -3982,11 +4020,13 @@ def fit_run(torch, cfg, seed, data, k, capture=True):
               callbacks=[Record(verbose=0)])
     finally:
         flags.set_flags({"multi_step": 0, "step_capture": True})
+        if loader._pool is not None:
+            loader._pool.shutdown()
     torch.cuda.synchronize()
     graphs = [g for s in (m._captured_step, m._multi_step) if s is not None
               for g in s.graphs()]
-    res = dict(k=k, capture=capture, losses=losses,
-               wall_s=time.perf_counter() - t0,
+    res = dict(k=k, capture=capture, workers=workers, losses=losses,
+               worker_pids=sorted(pids), wall_s=time.perf_counter() - t0,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                graphs=graphs,
                capture_counters={c: capture_counters[c] - before[0][c]
@@ -4017,14 +4057,26 @@ def phase_capture(torch, seed, report):
     free_card(torch)
     multi = fit_run(torch, cfg, seed, data, FIT_K)
     free_card(torch)
+    workers = fit_run(torch, cfg, seed, data, 0, workers=FIT_WORKERS)
+    free_card(torch)
     steps = FIT_SAMPLES // FIT_BATCH
     blocks, tail = divmod(steps, FIT_K)
     res["fit"] = dict(layers=FIT_LAYERS, batch=FIT_BATCH, seq=FIT_SEQ,
                       epochs=FIT_EPOCHS, steps=steps * FIT_EPOCHS,
                       eager=eager, single=single, multi=multi,
+                      workers=workers, parent_pid=os.getpid(),
                       losses_equal=eager["losses"] == single["losses"]
-                      == multi["losses"])
+                      == multi["losses"],
+                      workers_losses_equal=workers["losses"]
+                      == single["losses"])
     log(f"capture fit: {json.dumps(res['fit'])}")
+    if not res["fit"]["workers_losses_equal"] \
+            or len(workers["worker_pids"]) != FIT_WORKERS \
+            or os.getpid() in workers["worker_pids"] \
+            or workers["capture_counters"]["fallbacks"]:
+        raise AssertionError(f"Model.fit over {FIT_WORKERS} worker "
+                             f"processes vs the prefetch thread: "
+                             f"{res['fit']['workers']}")
     mc = multi["multi_counters"]
     # epoch 1: the first block probes (eager), the second warms up and
     # captures, the rest replay; epoch 2's blocks all replay (at the
@@ -4040,6 +4092,312 @@ def phase_capture(torch, seed, report):
         raise AssertionError(f"Model.fit multi-step vs single-step vs "
                              f"eager: {res['fit']}")
     report["capture_edges"] = res
+    return res
+
+
+# -- phase 5d: the training loop's rest and the layer surface ------------------
+
+# the three builds of train_layers, each at TRAIN_LAYERS layers
+LAYER_BUILDS = {
+    "list_selective": dict(recompute="selective"),
+    "list_full": dict(recompute=True),
+    "scan_selective": dict(use_scan_layers=True, recompute="selective")}
+LAYER_WARM, LAYER_TIMED = 2, 5     # probe + capture, then timed replays
+LAYER_CHECK_STEPS = 3              # losses held to the list build's
+# scan vs list after the first clip: the stacked global norm sums its
+# per-tensor norms in another order, an ulp of the clip coefficient that a
+# bf16 rounding can turn into an ulp of a weight; the bf16 loss limit of
+# tests/test_torch_layer_stack.py (and test_torch_llama_training.py)
+SCAN_LOSS_ATOL = 2e-3
+
+
+class ImageRows:
+    """A seeded table of 3 x 32 x 32 float32 images and int64 labels of 10
+    classes. Module level: the DataLoader's forkserver workers import it
+    (this script's ``__main__`` as ``__mp_main__``)."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        self.x = rng.randn(n, 3, 32, 32).astype(np.float32)
+        self.y = rng.randint(0, 10, n).astype(np.int64)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+    def __len__(self):
+        return len(self.x)
+
+
+def train_layers_build(torch, cfg, seed, ids, name, kw):
+    """One build of ``train_layers``: from the seed's weights, the
+    captured TrainStep for LAYER_WARM + LAYER_TIMED steps (counts reset
+    just before), then everything dropped and the cache returned."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    free_card(torch)
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(dataclasses.replace(cfg, **kw), device="cuda",
+                             generator=gen)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    train = TrainStep(model, LlamaPretrainingCriterion(cfg), opt)
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    steps = LAYER_WARM + LAYER_TIMED
+    for i in range(steps):
+        ts = time.perf_counter()
+        loss = train((ids,), (ids,))
+        torch.cuda.synchronize()
+        if i >= LAYER_WARM:
+            step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    graphs = train.graphs()
+    res = dict(build=name, config=kw,
+               reserved_at_start_gib=reserved0 / 2 ** 30, losses=losses,
+               tokens_per_s=ids.numel() / float(np.mean(step_s)),
+               step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+               step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               step_ms=[1e3 * x for x in step_s],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               graphs=len(graphs),
+               pool_bytes=[g["pool_bytes"] for g in graphs],
+               launches={k: counts[k] for k in TRAINING_KERNELS},
+               launches_per_step={k: counts[k] / steps
+                                  for k in TRAINING_KERNELS})
+    del train, opt, model, loss
+    free_card(torch)
+    return res
+
+
+def phase_train_layers(torch, seed, report, base):
+    """``train_layers``: the 8-layer Llama-3-8B-width training of
+    phase_train built three more ways (list layers with selective and with
+    full recompute, scan layers with selective recompute); ``base`` is
+    phase_train's no-recompute list result of this run."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_LAYERS)
+    ids = lcg_ids(torch, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    want = base["losses"][:LAYER_CHECK_STEPS]
+    base_per_step = {k: base["launches"][k] / TRAIN_STEPS
+                     for k in TRAINING_KERNELS}
+    res = {"baseline": {k: base[k] for k in (
+        "tokens_per_s", "step_ms_p50", "step_ms_p99", "peak_mem_gib")}}
+    res["baseline"].update(
+        pool_bytes=base["capture_vs_eager"]["pool_bytes"],
+        launches_per_step=base_per_step)
+    errors = []
+    for name, kw in LAYER_BUILDS.items():
+        r = train_layers_build(torch, cfg, seed, ids, name, kw)
+        got = r["losses"][:LAYER_CHECK_STEPS]
+        if name.startswith("scan"):
+            ok = got[0] == want[0] and all(
+                abs(a - b) <= SCAN_LOSS_ATOL for a, b in zip(got, want))
+        else:
+            ok = got == want
+        r["losses_vs_list"] = dict(
+            bitwise=got == want, step1_bitwise=got[0] == want[0],
+            max_abs_diff=max(abs(a - b) for a, b in zip(got, want)))
+        per = r["launches_per_step"]
+        expect = dict(base_per_step,
+                      flash_attention_fwd=2 * base_per_step[
+                          "flash_attention_fwd"])
+        if not ok:
+            errors.append(f"{name}: losses {got} vs the list build's {want}")
+        if per != expect:
+            errors.append(f"{name}: launches per step {per}, want {expect}")
+        if r["graphs"] != 1 or not all(np.isfinite(r["losses"])):
+            errors.append(f"{name}: {r['graphs']} graphs, losses "
+                          f"{r['losses']}")
+        log(f"train_layers {name}: {r['tokens_per_s']:.1f} tokens/s, step "
+            f"p50 {r['step_ms_p50']:.1f} ms p99 {r['step_ms_p99']:.1f} ms, "
+            f"peak {r['peak_mem_gib']:.2f} GiB, pool "
+            f"{[b / 2 ** 30 for b in r['pool_bytes']]} GiB, reserved at "
+            f"start {r['reserved_at_start_gib']:.2f} GiB, launches per step "
+            f"{per}, losses vs list {r['losses_vs_list']} (no recompute, "
+            f"list: {res['baseline']['tokens_per_s']:.1f} tokens/s, p50 "
+            f"{res['baseline']['step_ms_p50']:.1f} ms, peak "
+            f"{res['baseline']['peak_mem_gib']:.2f} GiB)")
+        res[name] = r
+    report["train_layers"] = res
+    if errors:
+        raise AssertionError("train_layers: " + "; ".join(errors))
+    return res
+
+
+def asgd_capture(torch):
+    """ASGD (batch_num 3) through a captured TrainStep on the card: six
+    steps with a poisoned batch at step 3 under the anomaly sentinel, bit
+    for bit the eager steps (``FLAGS_step_capture=0``)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.jit import TrainStep, capture_counters
+    from paddle_tpu_torch.optimizer import ASGD
+
+    def run(capture):
+        flags.set_flags({"step_capture": capture, "anomaly_sentinel": True})
+        tnn.initializer.seed(0)
+        net = tnn.Sequential(tnn.Linear(512, 1024), tnn.GELU(),
+                             tnn.Linear(1024, 512))
+        opt = ASGD(learning_rate=1e-3, batch_num=3, weight_decay=0.01,
+                   parameters=net.parameters())
+        train = TrainStep(net, tnn.MSELoss(), opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        before = capture_counters["captures"]
+        losses = []
+        for t in range(6):
+            x = torch.randn(64, 512, device="cuda", generator=gen)
+            if t == 2:
+                x[3, 7] = float("nan")
+            losses.append(float(train((x,), (x,))))
+            opt.consume_anomaly()
+        torch.cuda.synchronize()
+        state = [v.clone() for st in opt._states for v in st.values()]
+        return (np.array(losses, np.float32).view(np.int32).tolist(),
+                [p.detach().clone() for p in net.parameters()], state,
+                opt._step_count, capture_counters["captures"] - before)
+
+    try:
+        le, pe, se, ne, _ = run(False)
+        lc, pc, sc_, nc, captures = run(True)
+    finally:
+        flags.set_flags({"step_capture": True, "anomaly_sentinel": False})
+    res = dict(steps=6, captures=captures, step_count=[ne, nc],
+               losses_bitwise=le == lc,
+               params_bitwise=all(torch.equal(a, b) for a, b in zip(pe, pc)),
+               state_bitwise=all(torch.equal(a, b) for a, b in zip(se, sc_)))
+    if not (captures == 1 and ne == nc == 5 and res["losses_bitwise"]
+            and res["params_bitwise"] and res["state_bitwise"]):
+        raise AssertionError(f"ASGD under a captured TrainStep: {res}")
+    return res
+
+
+# the layer-built network on the card vs the same network on the CPU:
+# float32 on both (no TF32), the same weights and Dropout masks; cuDNN's
+# convolutions and the CPU's sum in other orders, so after the 8 SGD steps
+# losses, weights and BatchNorm statistics differ by summation order
+# only: within LAYER_NET_ATOL absolute (losses) and LAYER_NET_REL of each
+# tensor's max (weights, statistics)
+LAYER_NET_ATOL, LAYER_NET_REL = 1e-3, 1e-3
+LAYER_NET_SAMPLES, LAYER_NET_BATCH = 64, 16
+
+
+def layer_net(tnn, dropout):
+    """Convolutions without a bias: BatchNorm cancels one, so its true
+    grad is zero and its trained value float noise."""
+    return tnn.Sequential(
+        tnn.Conv2D(3, 16, 3, padding=1, bias_attr=False),
+        tnn.BatchNorm2D(16), tnn.ReLU(), tnn.MaxPool2D(2),
+        tnn.Conv2D(16, 32, 3, padding=1, bias_attr=False),
+        tnn.BatchNorm2D(32), tnn.ReLU(), tnn.MaxPool2D(2), tnn.Flatten(),
+        dropout, tnn.Linear(32 * 8 * 8, 10))
+
+
+def phase_layer_net(torch, seed, report):
+    """A network built only from the ported layers (Conv2D, BatchNorm2D,
+    ReLU, MaxPool2D, Flatten, Dropout with its generator, Linear with a
+    bias) trains through ``hapi.Model.fit`` over a DataLoader with
+    FIT_WORKERS worker processes, captured, on the card and on the CPU
+    from the same weights and Dropout masks (the CPU copy's Dropout draws
+    its masks from a CUDA generator seeded as the card's); then ASGD under
+    a captured TrainStep."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.hapi import Model, callbacks
+    from paddle_tpu_torch.jit import capture_counters
+    from paddle_tpu_torch.optimizer import Momentum
+
+    class CardMaskDropout(tnn.Dropout):
+        """The port's dropout on a CPU tensor with the mask drawn on the
+        card (the same draw the card's layer makes)."""
+
+        def forward(self, x):
+            if not self.training:
+                return x
+            keep = 1.0 - self.p
+            mask = torch.rand(x.shape, generator=self.generator,
+                              device="cuda") < keep
+            return torch.where(mask.cpu(), x / keep, 0.0).to(x.dtype)
+
+    def fit(net, device):
+        losses, pids = [], set()
+
+        class Record(callbacks.ProgBarLogger):
+            def on_train_batch_end(self, step, logs=None):
+                losses.append(logs["loss"])
+                pids.update(loader.worker_pids())
+
+        m = Model(net)
+        m.prepare(Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=net.parameters()),
+                  tnn.CrossEntropyLoss())
+        np.random.seed(seed)
+        loader = io.DataLoader(ImageRows(LAYER_NET_SAMPLES, seed),
+                               places=device, batch_size=LAYER_NET_BATCH,
+                               shuffle=True, num_workers=FIT_WORKERS,
+                               persistent_workers=True,
+                               timeout=WORKER_TIMEOUT_S)
+        before = capture_counters["captures"], capture_counters["fallbacks"]
+        try:
+            m.fit(loader, epochs=FIT_EPOCHS, verbose=0,
+                  callbacks=[Record(verbose=0)])
+        finally:
+            if loader._pool is not None:
+                loader._pool.shutdown()
+        state = {k: v.detach().float().cpu()
+                 for k, v in net.state_dict().items()}
+        return dict(losses=losses, worker_pids=sorted(pids),
+                    captures=capture_counters["captures"] - before[0],
+                    fallbacks=capture_counters["fallbacks"] - before[1]), \
+            state
+
+    set_device("cpu")
+    try:
+        tnn.initializer.seed(seed)
+        cpu_net = layer_net(tnn, CardMaskDropout(
+            0.25, generator=torch.Generator(device="cuda").manual_seed(seed)))
+    finally:
+        set_device(None)
+    card_net = layer_net(tnn, tnn.Dropout(
+        0.25, generator=torch.Generator(device="cuda").manual_seed(seed)))
+    card_net.set_state_dict(cpu_net.state_dict())
+    card, card_state = fit(card_net, "cuda")
+    cpu, cpu_state = fit(cpu_net, "cpu")
+    diffs = {k: float((card_state[k] - cpu_state[k]).abs().max()
+                      / max(float(cpu_state[k].abs().max()), 1e-30))
+             for k in cpu_state}
+    res = dict(samples=LAYER_NET_SAMPLES, batch=LAYER_NET_BATCH,
+               epochs=FIT_EPOCHS, card=card, cpu=cpu,
+               loss_max_abs_diff=max(abs(a - b) for a, b in
+                                     zip(card["losses"], cpu["losses"])),
+               state_max_rel_diff=max(diffs.values()),
+               bn_stats_max_rel_diff=max(v for k, v in diffs.items()
+                                         if k.endswith(("_mean",
+                                                        "_variance"))))
+    res["asgd_capture"] = asgd_capture(torch)
+    log(f"layer net: {json.dumps(res)}")
+    report["layer_net"] = res
+    steps = FIT_EPOCHS * LAYER_NET_SAMPLES // LAYER_NET_BATCH
+    if not (len(card["losses"]) == len(cpu["losses"]) == steps
+            and res["loss_max_abs_diff"] <= LAYER_NET_ATOL
+            and res["state_max_rel_diff"] <= LAYER_NET_REL
+            and card["captures"] == 1 and not card["fallbacks"]
+            and len(card["worker_pids"]) == FIT_WORKERS
+            and os.getpid() not in card["worker_pids"]
+            and np.mean(card["losses"][steps // 2:])
+            < np.mean(card["losses"][:steps // 2])):
+        raise AssertionError(f"the layer-built network, card vs CPU: {res}")
     return res
 
 
@@ -4374,8 +4732,11 @@ def main(argv=None) -> int:
     int4 = phase_int4_serve(torch, args.seed, report, outs_bf16)
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
+    layers = phase_train_layers(torch, args.seed, report, train)
     train_amp = phase_train_amp(torch, args.seed, report)
     edges = phase_capture(torch, args.seed, report)
+    free_card(torch)
+    phase_layer_net(torch, args.seed, report)
     free_card(torch)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone
@@ -4473,6 +4834,8 @@ def main(argv=None) -> int:
              "replaces": sources[name][1], "launches": launched[name]}
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
+            e["launches_train_layers"] = {
+                b: layers[b]["launches"][name] for b in LAYER_BUILDS}
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
                       "padded_flash_ms", "library_bsr_ms",

@@ -6,7 +6,10 @@ It serves Llama through the ragged continuous-batching engine
 also with int4 weight-only linears (``nn.quant.quantize_for_inference``);
 trains Llama and the DeepSeekMoE family (``models.LlamaForCausalLM``,
 ``models.MoEForCausalLM``) through ``jit.TrainStep`` with the fused AdamW
-optimizer; and exports the op registry's ops at the top level
+optimizer (selective or full recompute, list or stacked layers, a
+worker-process ``io.DataLoader`` under ``hapi.Model.fit``); builds
+networks the Paddle way from ``nn.Layer`` and the common layers,
+initializers and losses; and exports the op registry's ops at the top level
 (``flash_attn_unpadded``, ``flash_attention``, ``grouped_gemm``, ...;
 ``ops.dispatcher.call_op(name, ...)`` reaches the same). The TPU kernels of
 those paths are CUDA C++ kernels for Hopper (``csrc/``), built at first
@@ -17,10 +20,12 @@ The package imports torch, never jax, and nothing of paddle_tpu.
 """
 
 from . import flags
-from .core.device import resolve_device
+from .core.device import get_device, resolve_device, set_device
+from .nn.initializer import seed
 from .ops import dispatcher as _dispatcher
 
 globals().update(_dispatcher.build_ops())
 
-__all__ = ["flags", "resolve_device", *_dispatcher.SCHEMA]
+__all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
+           *_dispatcher.SCHEMA]
 __version__ = "0.1.0"

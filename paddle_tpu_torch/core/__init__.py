@@ -1,3 +1,5 @@
-from .device import dtype_of, resolve_device
+from .device import (dtype_of, get_device, layer_device, resolve_device,
+                     set_device)
 
-__all__ = ["dtype_of", "resolve_device"]
+__all__ = ["dtype_of", "get_device", "layer_device", "resolve_device",
+           "set_device"]

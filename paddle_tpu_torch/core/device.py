@@ -33,6 +33,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device(device)
 
 
+_DEFAULT: list = [None]
+
+
+def set_device(device: DeviceLike) -> None:
+    """Where layers built the Paddle way (``nn.Linear(4, 8)``) put their
+    parameters (the reference's ``paddle.set_device``): ``"gpu"`` /
+    ``"gpu:0"`` name the CUDA card, ``"cpu"`` the CPU, ``None`` the
+    default (the card)."""
+    if isinstance(device, str):
+        device = device.replace("gpu", "cuda")
+    _DEFAULT[0] = None if device is None else torch.device(device)
+
+
+def get_device() -> DeviceLike:
+    """The device :func:`set_device` set (None: the card)."""
+    return _DEFAULT[0]
+
+
+def layer_device() -> torch.device:
+    """The device a new layer's parameters go to."""
+    return resolve_device(_DEFAULT[0])
+
+
 def dtype_of(name: Union[str, torch.dtype]) -> torch.dtype:
     """Torch dtype from the JAX package's dtype names ('float32',
     'bfloat16', ...)."""
@@ -40,7 +63,8 @@ def dtype_of(name: Union[str, torch.dtype]) -> torch.dtype:
         return name
     table = {"float32": torch.float32, "bfloat16": torch.bfloat16,
              "float16": torch.float16, "int8": torch.int8,
-             "int32": torch.int32}
+             "int32": torch.int32, "float64": torch.float64,
+             "int64": torch.int64}
     if name not in table:
         raise ValueError(f"unsupported dtype name {name!r}")
     return table[name]

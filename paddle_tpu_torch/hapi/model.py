@@ -137,11 +137,18 @@ class Model:
         if _flags.get_flag("step_capture"):
             if self._captured_step is None:
                 from ..jit.step_capture import jit_step
-                self._captured_step = jit_step(self._eager_step_fn())
+                self._captured_step = jit_step(
+                    self._eager_step_fn(), generators=self._generators())
             loss, _ = self._captured_step(tuple(inputs), tuple(labels))
             return float(loss)
         loss, _ = self._eager_step_fn()(tuple(inputs), tuple(labels))
         return float(loss)
+
+    def _generators(self):
+        """The generators the network's layers draw from (a ``Dropout``'s
+        own): a captured step registers them."""
+        from ..distributed.recompute import module_generators
+        return module_generators(self.network)
 
     def _scalar_loss(self, *args):
         loss = self._loss(*args)
@@ -357,7 +364,8 @@ class Model:
         lbs = [self._tensor(x) for x in lbs]
         if self._multi_step is None or self._multi_step.k_steps != k:
             from ..jit.step_capture import jit_step
-            self._multi_step = jit_step(self._eager_step_fn(), k_steps=k)
+            self._multi_step = jit_step(self._eager_step_fn(), k_steps=k,
+                                        generators=self._generators())
         loss, _ = self._multi_step(tuple(ins), tuple(lbs))
         return [float(v) for v in loss.float().cpu().numpy()]
 

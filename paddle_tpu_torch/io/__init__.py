@@ -17,15 +17,36 @@ per leaf moves it and the copy runs beside the training step; a ring
 block is stacked on the host first, so one copy per leaf fills the whole
 ``[K, ...]`` block.
 
-``num_workers > 0`` (the reference's worker processes, ``_WorkerPool``)
-is not ported: it raises, naming ROADMAP A3.
+``num_workers > 0`` starts worker PROCESSES (the reference's
+``_WorkerPool``, :211-330): index batches fan out over per-worker queues,
+each worker collates NUMPY batches and sends them back on one result
+queue, where they are put back in order by sequence number; messages
+carry an epoch tag, so results of an abandoned epoch are dropped;
+``persistent_workers`` keeps the pool across epochs; ``timeout`` bounds
+each wait for a result; a worker's exception is raised in the parent with
+its traceback; each worker seeds ``np.random`` with ``base_seed +
+worker_id`` (``base_seed`` drawn from ``np.random`` when the pool
+starts) and runs ``worker_init_fn(worker_id)``. A worker never touches
+CUDA: the parent makes the tensors and pins them. The start method is
+``forkserver`` (a forked copy of a process that has initialised CUDA is
+unsafe), so the dataset, ``collate_fn`` and ``worker_init_fn`` must be
+picklable, i.e. defined at module level (a script's under ``if __name__ ==
+"__main__"``, since the workers import its module); when they are not,
+the pool falls back to ``fork`` with a warning, as the reference does.
+An ``IterableDataset`` keeps the thread path.
 """
 
 from __future__ import annotations
 
+import atexit
 import itertools
+import multiprocessing as mp
+import pickle
 import queue
 import threading
+import time
+import traceback
+import warnings
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -230,6 +251,168 @@ def default_collate_fn(batch: List):
     return batch
 
 
+def _worker_loop(dataset, index_q, data_q, collate_fn, init_fn, worker_id,
+                 base_seed):
+    """A worker process: take ``(epoch, seq, indices)``, collate the
+    samples, put ``(epoch, seq, batch, error)`` back; stop at None."""
+    np.random.seed((base_seed + worker_id) % (2 ** 31))
+    try:
+        if init_fn is not None:
+            init_fn(worker_id)
+        while True:
+            item = index_q.get()
+            if item is None:
+                break
+            epoch, seq, idxs = item
+            try:
+                batch = collate_fn([dataset[i] for i in idxs])
+                data_q.put((epoch, seq, batch, None))
+            except Exception:
+                data_q.put((epoch, seq, None, traceback.format_exc()))
+    except KeyboardInterrupt:
+        pass
+
+
+class _WorkerPool:
+    """``num_workers`` processes; ``run_epoch`` dispatches ``(seq,
+    indices)`` round-robin and yields the collated batches in order."""
+
+    def __init__(self, dataset, collate_fn, num_workers, worker_init_fn,
+                 prefetch_factor, timeout):
+        self.num_workers = num_workers
+        self.timeout = timeout or None
+        self.prefetch = prefetch_factor
+        self.procs: List = []
+        self.index_qs: List = []
+        try:
+            self._spawn("forkserver", dataset, collate_fn, worker_init_fn)
+        except (TypeError, AttributeError, ImportError,
+                pickle.PicklingError) as e:
+            warnings.warn(
+                f"DataLoader dataset/collate_fn/worker_init_fn is not "
+                f"picklable ({e}); falling back to fork-started workers "
+                f"(unsafe in multithreaded processes). Make them "
+                f"module-level to use the forkserver start method.",
+                RuntimeWarning)
+            self._spawn("fork", dataset, collate_fn, worker_init_fn)
+        self._closed = False
+        self._epoch = 0
+        atexit.register(self.shutdown)
+
+    def _spawn(self, method, dataset, collate_fn, worker_init_fn):
+        ctx = mp.get_context(method)
+        self.data_q = ctx.Queue()
+        self.index_qs = [ctx.Queue() for _ in range(self.num_workers)]
+        base_seed = int(np.random.randint(0, 2 ** 31))
+        self.procs = []
+        for w in range(self.num_workers):
+            p = ctx.Process(
+                target=_worker_loop,
+                args=(dataset, self.index_qs[w], self.data_q, collate_fn,
+                      worker_init_fn, w, base_seed),
+                daemon=True)
+            try:
+                p.start()
+            except Exception:
+                for q in self.procs:
+                    q.terminate()
+                raise
+            self.procs.append(p)
+
+    def pids(self) -> List[int]:
+        return [p.pid for p in self.procs]
+
+    def run_epoch(self, index_iter):
+        """The collated batches of ``index_iter``, in its order; at most
+        ``num_workers * prefetch_factor`` in flight."""
+        self._epoch += 1
+        epoch = self._epoch
+        seq_out, pending = 0, 0
+        buffered = {}
+        it = iter(enumerate(index_iter))
+
+        def dispatch():
+            nonlocal pending
+            try:
+                seq, idxs = next(it)
+            except StopIteration:
+                return False
+            self.index_qs[seq % self.num_workers].put((epoch, seq, idxs))
+            pending += 1
+            return True
+
+        for _ in range(self.num_workers * self.prefetch):
+            if not dispatch():
+                break
+        while pending > 0 or seq_out in buffered:
+            while seq_out in buffered:
+                yield buffered.pop(seq_out)
+                seq_out += 1
+                dispatch()
+            if pending == 0:
+                break
+            ep, seq, batch, err = self._next_result()
+            if ep != epoch:
+                continue        # left over from an abandoned epoch
+            pending -= 1
+            if err is not None:
+                self.shutdown()
+                raise RuntimeError(f"DataLoader worker failed:\n{err}")
+            buffered[seq] = batch
+
+    def _next_result(self):
+        """The next message, checking every second that no worker died
+        (one that cannot unpickle its dataset exits at once)."""
+        waited = 0.0
+        while True:
+            step = 1.0 if self.timeout is None else \
+                min(1.0, self.timeout - waited)
+            try:
+                return self.data_q.get(timeout=max(step, 0.0))
+            except queue.Empty:
+                waited += step
+            dead = [p for p in self.procs if p.exitcode not in (None, 0)]
+            if dead:
+                self.shutdown()
+                raise RuntimeError(
+                    f"DataLoader worker (pid {dead[0].pid}) exited with "
+                    f"code {dead[0].exitcode} (a worker that cannot "
+                    f"import the dataset's class, e.g. one defined under "
+                    f"`if __name__ == '__main__'`, exits at once)")
+            if self.timeout is not None and waited >= self.timeout:
+                self.shutdown()
+                raise RuntimeError(
+                    f"DataLoader worker timed out after {self.timeout}s")
+
+    def shutdown(self):
+        if self._closed:
+            return
+        self._closed = True
+        atexit.unregister(self.shutdown)
+        for q in self.index_qs:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass    # the worker is gone: the join below reaps it
+        # drain the results while the workers exit: a worker whose
+        # results are still buffered cannot finish before they are read
+        deadline = time.monotonic() + 5.0
+        while any(p.is_alive() for p in self.procs) \
+                and time.monotonic() < deadline:
+            try:
+                self.data_q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=5)
+        for q in self.index_qs:
+            q.cancel_join_thread()     # undelivered indices are moot
+            q.close()
+        self.data_q.close()
+
+
 class DataLoader:
     """Batching loader with a RESUMABLE stream: :meth:`state_dict` /
     :meth:`load_state_dict` hold (epoch, batch cursor, sampler seed), so a
@@ -245,15 +428,13 @@ class DataLoader:
                  shuffle=False, drop_last=False, collate_fn=None,
                  num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  timeout=0, worker_init_fn=None, persistent_workers=False):
-        if int(num_workers) > 0 and not isinstance(dataset, IterableDataset):
-            raise NotImplementedError(
-                "DataLoader(num_workers > 0): the worker processes are not "
-                "ported yet (ROADMAP A3); use num_workers=0 (the prefetch "
-                "thread)")
         self.dataset = dataset
         self.device = resolve_device(places)
         self.collate_fn = collate_fn or default_collate_fn
-        self.num_workers = 0
+        self.num_workers = int(num_workers)
+        self.worker_init_fn = worker_init_fn
+        self.persistent_workers = persistent_workers
+        self._pool: Optional[_WorkerPool] = None
         if int(prefetch_factor) < 1:
             raise ValueError(
                 f"prefetch_factor must be >= 1, got {prefetch_factor} "
@@ -275,6 +456,7 @@ class DataLoader:
         self._ring_state: Optional[dict] = None
         if isinstance(dataset, IterableDataset):
             self.batch_sampler = None
+            self.num_workers = 0   # a stream stays on the thread path
             self._owns_sampler = False
         else:
             self._owns_sampler = batch_sampler is None
@@ -286,6 +468,28 @@ class DataLoader:
         if self.batch_sampler is None:
             raise TypeError("IterableDataset DataLoader has no len()")
         return len(self.batch_sampler)
+
+    def __del__(self):
+        if getattr(self, "_pool", None) is not None:
+            self._pool.shutdown()
+
+    def worker_pids(self) -> List[int]:
+        """The live worker processes' PIDs (empty without a pool)."""
+        return [] if self._pool is None or self._pool._closed \
+            else self._pool.pids()
+
+    def _iter_multiprocess(self, idx_iter):
+        if self._pool is None or self._pool._closed:
+            self._pool = _WorkerPool(self.dataset, self.collate_fn,
+                                     self.num_workers, self.worker_init_fn,
+                                     self.prefetch_factor, self.timeout)
+        pool = self._pool
+        try:
+            yield from pool.run_epoch(idx_iter)
+        finally:
+            if not self.persistent_workers:
+                pool.shutdown()
+                self._pool = None
 
     # -- resumable-stream state ----------------------------------------------
     def state_dict(self) -> dict:
@@ -392,6 +596,9 @@ class DataLoader:
         idx_iter = self._index_batches(self._epoch)
         if start:
             idx_iter = itertools.islice(idx_iter, start, None)
+        if self.num_workers > 0:
+            yield from self._iter_multiprocess(idx_iter)
+            return
         for idxs in idx_iter:
             yield self.collate_fn([self.dataset[i] for i in idxs])
 
@@ -406,7 +613,7 @@ class DataLoader:
             yield from src
             return
         src = (self._tensors(b) for b in self._epoch_batches())
-        if self.use_buffer_reader:
+        if self.use_buffer_reader and self.num_workers == 0:
             src = self._buffered(src)
         for b in src:
             # counted as consumed BEFORE it is handed out: a state_dict

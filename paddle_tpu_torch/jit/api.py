@@ -104,6 +104,12 @@ class TrainStep:
         self.optimizer.step()
         self.optimizer.clear_grad()
 
+    def _generators(self) -> List[torch.Generator]:
+        """The generators the model's layers draw from (a ``Dropout``'s
+        own), registered with each graph."""
+        from ..distributed.recompute import module_generators
+        return module_generators(self.model)
+
     def graphs(self) -> List:
         """Each captured graph's capture seconds and pool bytes."""
         return [e for s in self._steps or () for e in s.graphs()]
@@ -119,12 +125,14 @@ class TrainStep:
                 return self._whole_step(inputs, labels)
             if self._steps is None:
                 self._steps = (CapturedStep(_weak(self._whole_step),
-                                            strict=True),)
+                                            strict=True,
+                                            generators=self._generators()),)
             return self._steps[0](inputs, labels)
         if self._steps is None:
             params = list(getattr(self.optimizer, "_parameter_list", ()))
             self._steps = (CapturedStep(_weak(self._forward_backward),
-                                        strict=True, params=params),
+                                        strict=True, params=params,
+                                        generators=self._generators()),
                            CapturedStep(_weak(self._apply_step),
                                         strict=True))
         micro, apply = self._steps if capture else (

@@ -64,7 +64,9 @@ What the graph needs from the code it runs, and what the port does:
   to that stream ("trace failed"). The probe, the warm-up and the capture
   run on one side stream, so the step's own nodes agree;
 - dropout's generator: the default CUDA generator is registered by
-  ``torch.cuda.graph``; pass others as ``jit_step(fn, generators=...)``.
+  ``torch.cuda.graph``; pass others as ``jit_step(fn, generators=...)``
+  (``TrainStep`` and ``hapi.Model`` pass their network's ``Dropout``
+  generators; a CPU generator among them is not registered).
   An unregistered one fails the capture ("trace failed").
 
 Unfusable steps fall back to the eager path with a frozen reason:
@@ -339,7 +341,8 @@ def capture_graph(body: Callable, stream: "torch.cuda.Stream",
         reserved0 = torch.cuda.memory_reserved()
         g = torch.cuda.CUDAGraph()
         for gen in generators:
-            g.register_generator_state(gen)
+            if gen.device.type == "cuda":
+                g.register_generator_state(gen)
         # the pool's id is known even if the capture fails (a failed graph
         # cannot say it): the clean-up needs it
         pool = torch.cuda.graph_pool_handle()
@@ -417,42 +420,68 @@ class _Probe:
 @contextlib.contextmanager
 def _probing(probe: _Probe):
     """Install the probe: the optimizer and scheduler hooks, and watches
-    on tensor hooks, ``create_graph`` and functional ``grad()``."""
+    on tensor hooks, ``create_graph`` and functional ``grad()``. The
+    watches are module-level functions that read the active probe from a
+    global, never closures over it: torch caches some of its functions
+    the first time it lists them (``torch.overrides``' lru cache), and a
+    closure cached there would keep the probe, and every optimizer it
+    saw, alive for good."""
+    global _WATCHED
     saved = (torch.Tensor.register_hook,
              torch.Tensor.register_post_accumulate_grad_hook,
              torch.autograd.backward, torch.autograd.grad)
-    reg, reg_post, backward, grad = saved
-
-    def register_hook(self, hook):
-        probe.hooked = True
-        return reg(self, hook)
-
-    def register_post_hook(self, hook):
-        probe.hooked = True
-        return reg_post(self, hook)
-
-    def watched_backward(tensors, grad_tensors=None, retain_graph=None,
-                         create_graph=False, *a, **kw):
-        probe.create_graph |= bool(create_graph)
-        return backward(tensors, grad_tensors, retain_graph, create_graph,
-                        *a, **kw)
-
-    def watched_grad(*a, **kw):
-        probe.functional_grad = True
-        return grad(*a, **kw)
-
+    outer = _WATCHED
+    _WATCHED = (probe, saved)
     optimizer_mod._PROBE = lr_mod._PROBE = probe
-    torch.Tensor.register_hook = register_hook
-    torch.Tensor.register_post_accumulate_grad_hook = register_post_hook
-    torch.autograd.backward = watched_backward
-    torch.autograd.grad = watched_grad
+    torch.Tensor.register_hook = _watched_register_hook
+    torch.Tensor.register_post_accumulate_grad_hook = _watched_post_hook
+    torch.autograd.backward = _watched_backward
+    torch.autograd.grad = _watched_grad
     try:
         yield probe
     finally:
         optimizer_mod._PROBE = lr_mod._PROBE = None
+        _WATCHED = outer
         (torch.Tensor.register_hook,
          torch.Tensor.register_post_accumulate_grad_hook,
          torch.autograd.backward, torch.autograd.grad) = saved
+
+
+# (the probe, the functions it replaced) while a probe runs; a watch
+# called outside one (kept by a cache) calls torch's own function
+_WATCHED: Optional[Tuple[_Probe, tuple]] = None
+_TORCH_OWN = (torch.Tensor.register_hook,
+              torch.Tensor.register_post_accumulate_grad_hook,
+              torch.autograd.backward, torch.autograd.grad)
+
+
+def _watch(flag: str, seen: bool = True):
+    """The functions the active probe replaced (its ``flag`` set when
+    ``seen``)."""
+    if _WATCHED is None:
+        return _TORCH_OWN
+    probe, saved = _WATCHED
+    if seen:
+        setattr(probe, flag, True)
+    return saved
+
+
+def _watched_register_hook(self, hook):
+    return _watch("hooked")[0](self, hook)
+
+
+def _watched_post_hook(self, hook):
+    return _watch("hooked")[1](self, hook)
+
+
+def _watched_backward(tensors, grad_tensors=None, retain_graph=None,
+                      create_graph=False, *a, **kw):
+    return _watch("create_graph", bool(create_graph))[2](
+        tensors, grad_tensors, retain_graph, create_graph, *a, **kw)
+
+
+def _watched_grad(*a, **kw):
+    return _watch("functional_grad")[3](*a, **kw)
 
 
 def _param_device(opt) -> torch.device:

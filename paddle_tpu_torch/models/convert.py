@@ -4,11 +4,14 @@
 ``state_dict()`` as numpy arrays (``{name: np.ndarray}``; the reference's
 ``Layer.state_dict`` names) and copies every entry into the port module of
 the same name, checking shapes and dtypes. Linear weights keep the
-``[in, out]`` layout in both packages, so nothing is transposed. The
-rotary ``cos_cached``/``sin_cached`` buffers are copied too, and so are a
-weight-only quantized model's int8 ``qweight`` and float32
-``weight_scale`` buffers (quantize the port skeleton first with
-``nn.quant.quantize_for_inference``).
+``[in, out]`` layout in both packages, so nothing is transposed. Buffers
+come across too: the rotary ``cos_cached``/``sin_cached``, BatchNorm's
+``_mean``/``_variance``, a weight-only quantized model's int8
+``qweight`` and float32 ``weight_scale`` (quantize the port skeleton
+first with ``nn.quant.quantize_for_inference``). It loads any reference
+``Layer`` into its port counterpart (``nn.Linear``, ``nn.Conv2D``, ...,
+``nn.Sequential`` of them), and the stacked Llama
+(``use_scan_layers=True``: ``llama.layer_stack.stacked_{j}``).
 
 The optimizer's state comes across too: ``from_jax_optimizer_state(
 model, optimizer, state, names)`` loads the reference optimizer's

@@ -14,7 +14,9 @@ Two forwards, both unsharded:
   ``arange(s)``), then causal attention through the ``flash_attention``
   routing (the flash kernels on the card), or the composite when
   ``use_flash_attention=False``. ``recompute=True`` re-runs each layer in
-  the backward (``torch.utils.checkpoint``, non-reentrant).
+  the backward, ``recompute="selective"`` all but its matrix products
+  (``distributed.recompute``); ``use_scan_layers`` stores the layers as
+  one ``nn.LayerStack``.
 
 ``LlamaPretrainingCriterion`` (:327-339) is the shifted next-token cross
 entropy through ``fused_softmax_ce``, averaged over all positions.
@@ -27,13 +29,24 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike
+from ..distributed.recompute import dots_saveable, recompute
 from ..nn.initializer import ParamInit
-from ..nn.layers_common import Embedding, Linear  # noqa: F401 (re-exported)
+from ..nn.layers_common import Embedding, Linear
+from ..nn.stack import LayerStack
 from ..ops.kernels import nn as K
 from .generation import GenerationMixin
+
+
+def _linear(in_features: int, out_features: int, init: ParamInit) -> Linear:
+    """A bias-free ``Linear`` drawn from the model's ``ParamInit``."""
+    return Linear(in_features, out_features, weight_attr=init.attr(),
+                  bias_attr=False)
+
+
+def _embedding(num: int, dim: int, init: ParamInit) -> Embedding:
+    return Embedding(num, dim, weight_attr=init.attr())
 
 
 @dataclass
@@ -126,10 +139,10 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
         h = config.hidden_size
-        self.q_proj = Linear(h, self.num_heads * self.head_dim, init)
-        self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, init)
-        self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, init)
-        self.o_proj = Linear(self.num_heads * self.head_dim, h, init)
+        self.q_proj = _linear(h, self.num_heads * self.head_dim, init)
+        self.k_proj = _linear(h, self.num_kv_heads * self.head_dim, init)
+        self.v_proj = _linear(h, self.num_kv_heads * self.head_dim, init)
+        self.o_proj = _linear(self.num_heads * self.head_dim, h, init)
         self.rotary = rotary
 
     def forward(self, x, attn_mask=None, position_ids=None, cache=None,
@@ -160,9 +173,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, m, init)
-        self.up_proj = Linear(h, m, init)
-        self.down_proj = Linear(m, h, init)
+        self.gate_proj = _linear(h, m, init)
+        self.up_proj = _linear(h, m, init)
+        self.down_proj = _linear(m, h, init)
 
     def forward(self, x):
         return self.down_proj(K.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -188,25 +201,31 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    """The decoder: a layer list, or with ``use_scan_layers`` one
+    ``LayerStack`` (``layer_stack``, parameters ``stacked_{j}``), whose
+    training forward runs each block over views of the stacked weights
+    and whose cache forward raises, as the reference's does.
+    ``recompute`` (training only) checkpoints each layer: ``True`` keeps
+    the layer's input, ``"selective"`` also every matrix product's output
+    (``dots_saveable``), and everything else, the flash forward included,
+    runs again in the backward."""
+
     def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
-        if config.use_scan_layers:
-            raise NotImplementedError(
-                "use_scan_layers (the stacked-layer scan) is not ported yet "
-                "(ROADMAP A3)")
-        if config.recompute not in (False, True):
-            raise NotImplementedError(
-                f"recompute={config.recompute!r}: only full-layer "
-                f"recompute is ported; selective recompute is ROADMAP A3")
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      init)
+        self.embed_tokens = _embedding(config.vocab_size,
+                                       config.hidden_size, init)
         rotary = LlamaRotaryEmbedding(
             config.hidden_size // config.num_attention_heads,
             config.max_position_embeddings, config.rope_theta, init.device)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, rotary, init)
-             for _ in range(config.num_hidden_layers)])
+        if config.use_scan_layers:
+            self.layer_stack = LayerStack(
+                lambda: LlamaDecoderLayer(config, rotary, init),
+                config.num_hidden_layers, remat=config.recompute)
+        else:
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config, rotary, init)
+                 for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  init)
 
@@ -214,14 +233,22 @@ class LlamaModel(nn.Module):
                 cache=None, start_pos=None):
         x = self.embed_tokens(input_ids)
         if cache is not None:
+            if not hasattr(self, "layers"):
+                raise NotImplementedError(
+                    "KV-cache decode requires the unrolled layer list "
+                    "(use_scan_layers stacks are a train-time layout)")
             for i, layer in enumerate(self.layers):
                 x = layer(x, attn_mask, cache=cache, start_pos=start_pos,
                           layer_idx=i)
             return self.norm(x)
+        if hasattr(self, "layer_stack"):
+            return self.norm(self.layer_stack(x, attn_mask, position_ids))
+        policy = dots_saveable if self.config.recompute == "selective" \
+            else None
         for layer in self.layers:
             if self.config.recompute and self.training:
-                x = checkpoint(layer, x, attn_mask, position_ids,
-                               use_reentrant=False)
+                x = recompute(layer, x, attn_mask, position_ids,
+                              policy=policy)
             else:
                 x = layer(x, attn_mask, position_ids)
         return self.norm(x)
@@ -242,8 +269,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.llama = LlamaModel(config, init)
         self.lm_head = None
         if not config.tie_word_embeddings:
-            self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  init)
+            self.lm_head = _linear(config.hidden_size, config.vocab_size,
+                                   init)
 
     @property
     def device(self) -> torch.device:

@@ -27,8 +27,8 @@ from ..core.device import DeviceLike
 from ..nn.initializer import ParamInit
 from ..nn.moe import MoELayer
 from ..ops.kernels import nn as K
-from .llama import (Embedding, Linear, LlamaAttention, LlamaConfig,
-                    LlamaMLP, LlamaRMSNorm, LlamaRotaryEmbedding)
+from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, LlamaRMSNorm,
+                    LlamaRotaryEmbedding, _embedding, _linear)
 
 
 @dataclass
@@ -105,8 +105,8 @@ class MoEModel(nn.Module):
     def __init__(self, config: MoEConfig, init: ParamInit):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      init)
+        self.embed_tokens = _embedding(config.vocab_size,
+                                       config.hidden_size, init)
         rotary = LlamaRotaryEmbedding(
             config.hidden_size // config.num_attention_heads,
             config.max_position_embeddings, config.rope_theta, init.device)
@@ -150,7 +150,7 @@ class MoEForCausalLM(nn.Module):
         init = ParamInit.make(device, config.dtype, generator)
         self.config = config
         self.model = MoEModel(config, init)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, init)
+        self.lm_head = _linear(config.hidden_size, config.vocab_size, init)
 
     @property
     def device(self) -> torch.device:

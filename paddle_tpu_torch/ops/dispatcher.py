@@ -23,10 +23,11 @@ arithmetic (residual adds, reshapes, slices) does not pass through it,
 where the reference dispatches every Tensor method.
 
 The table holds each op whose reference arguments a port function takes
-as they are. Left out until their functions take the reference's
-arguments: ``swiglu`` (``y=None``), ``rms_norm`` (``bias``,
-``begin_norm_axis``), ``linear`` (``bias``), ``embedding``
-(``padding_idx``, ``sparse``), ``rope`` (``rotate_half_style``) and
+as they are: the attention, CE, GEMM and quantization ops, the Llama
+path's ``linear``, ``embedding``, ``rms_norm``, ``swiglu`` and ``rope``,
+and every op the layers of ``nn/layers_common.py`` and ``nn/loss.py``
+reach (convolutions, norms, dropout, activations, pools, resizes, the
+losses). Left out until its function takes the reference's arguments:
 ``moe_ffn`` (``expert_axis``).
 """
 
@@ -77,6 +78,84 @@ SCHEMA: Dict[str, Tuple[Tuple[str, Any], ...]] = {
         ("cu_q_lens", REQUIRED), ("scale", None), ("k_scale", None),
         ("v_scale", None)),
 }
+
+_X = (("x", REQUIRED),)
+_NORM = _X + (("weight", None), ("bias", None), ("epsilon", 1e-05))
+_CONV = (("x", REQUIRED), ("weight", REQUIRED), ("bias", None),
+         ("stride", 1), ("padding", 0))
+_ADAPTIVE = _X + (("output_size", REQUIRED), ("data_format", "NCHW"))
+_LOSS = (("input", REQUIRED), ("label", REQUIRED))
+SCHEMA.update({
+    "linear": (("x", REQUIRED), ("weight", REQUIRED), ("bias", None)),
+    "embedding": (("x", REQUIRED), ("weight", REQUIRED),
+                  ("padding_idx", None), ("sparse", False)),
+    "rms_norm": _NORM[:3] + (("epsilon", 1e-06), ("begin_norm_axis", -1)),
+    "swiglu": _X + (("y", None),),
+    "rope": (("q", REQUIRED), ("k", None), ("cos", None), ("sin", None),
+             ("position_ids", None), ("rotate_half_style", True)),
+    "layer_norm": _NORM + (("begin_norm_axis", -1),),
+    "batch_norm_infer": _X + (
+        ("running_mean", REQUIRED), ("running_var", REQUIRED),
+        ("weight", None), ("bias", None), ("epsilon", 1e-05),
+        ("data_format", "NCHW")),
+    "batch_norm_train": _NORM + (("data_format", "NCHW"),),
+    "group_norm": _NORM + (("groups", 1), ("data_format", "NCHW")),
+    "instance_norm": _NORM,
+    "conv2d": _CONV + (("dilation", 1), ("groups", 1),
+                       ("data_format", "NCHW")),
+    "conv1d": _CONV + (("dilation", 1), ("groups", 1),
+                       ("data_format", "NCL")),
+    "conv2d_transpose": _CONV + (("output_padding", 0), ("dilation", 1),
+                                 ("groups", 1), ("data_format", "NCHW")),
+    "max_pool2d": _X + (("kernel_size", REQUIRED), ("stride", None),
+                        ("padding", 0), ("ceil_mode", False),
+                        ("data_format", "NCHW")),
+    "avg_pool2d": _X + (("kernel_size", REQUIRED), ("stride", None),
+                        ("padding", 0), ("ceil_mode", False),
+                        ("exclusive", True), ("data_format", "NCHW")),
+    "adaptive_avg_pool2d": _ADAPTIVE,
+    "adaptive_max_pool2d": _ADAPTIVE,
+    "interpolate_nearest": _X + (("out_h", REQUIRED), ("out_w", REQUIRED),
+                                 ("data_format", "NCHW")),
+    "interpolate_bilinear": _X + (("out_h", REQUIRED), ("out_w", REQUIRED),
+                                  ("align_corners", False),
+                                  ("data_format", "NCHW")),
+    "pixel_shuffle": _X + (("upscale_factor", REQUIRED),
+                           ("data_format", "NCHW")),
+    "flatten": _X + (("start_axis", 0), ("stop_axis", -1)),
+    "pad": _X + (("pad", REQUIRED), ("mode", "constant"), ("value", 0.0),
+                 ("data_format", "NCHW")),
+    "one_hot": _X + (("num_classes", REQUIRED),),
+    "dropout": _X + (("p", 0.5), ("training", True),
+                     ("mode", "upscale_in_train")),
+    "relu": _X, "relu6": _X, "selu": _X, "softsign": _X, "silu": _X,
+    "swish": _X, "mish": _X, "hardswish": _X, "sigmoid": _X, "tanh": _X,
+    "logsigmoid": _X,
+    "elu": _X + (("alpha", 1.0),),
+    "softplus": _X + (("beta", 1.0), ("threshold", 20.0)),
+    "hardsigmoid": _X + (("slope", 0.16666666666666666), ("offset", 0.5)),
+    "leaky_relu": _X + (("negative_slope", 0.01),),
+    "prelu": _X + (("weight", REQUIRED),),
+    "gelu": _X + (("approximate", False),),
+    "softmax": _X + (("axis", -1),),
+    "log_softmax": _X + (("axis", -1),),
+    "cross_entropy_mean": (
+        ("logits", REQUIRED), ("label", REQUIRED), ("soft_label", False),
+        ("ignore_index", -100), ("axis", -1), ("weight", None),
+        ("reduction", "mean")),
+    "nll_loss": (("log_prob", REQUIRED), ("label", REQUIRED),
+                 ("weight", None), ("ignore_index", -100),
+                 ("reduction", "mean")),
+    "mse_loss": _LOSS + (("reduction", "mean"),),
+    "l1_loss": _LOSS + (("reduction", "mean"),),
+    "smooth_l1_loss": _LOSS + (("reduction", "mean"), ("delta", 1.0)),
+    "binary_cross_entropy": _LOSS + (("weight", None),
+                                     ("reduction", "mean")),
+    "binary_cross_entropy_with_logits": (
+        ("logit", REQUIRED), ("label", REQUIRED), ("weight", None),
+        ("pos_weight", None), ("reduction", "mean")),
+    "kl_div": _LOSS + (("reduction", "mean"), ("log_target", False)),
+})
 
 KERNELS: Dict[str, Callable] = {}
 _OP_FNS: Dict[str, Callable] = {}

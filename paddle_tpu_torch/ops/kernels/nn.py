@@ -28,15 +28,23 @@ from . import flash_attention as _fa
 from . import flash_varlen as _fv
 
 
-def _swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """silu(x) * y."""
+@register_kernel("swiglu")
+def _swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """silu(x) * y; with ``y=None`` the halves of x's last axis."""
+    if y is None:
+        x, y = torch.chunk(x, 2, dim=-1)
     return F.silu(x) * y
 
 
-def _linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """x @ W, W in Paddle's ``[in, out]`` layout (Llama's linears have no
-    bias)."""
-    return torch.matmul(x, weight)
+@register_kernel("linear")
+def _linear(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ W (+ b), W in Paddle's ``[in, out]`` layout."""
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -50,19 +58,38 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean()
 
 
-def _embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return weight[ids.long()]
+@register_kernel("embedding")
+def _embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None,
+               sparse: bool = False) -> torch.Tensor:
+    """Rows of ``weight`` at ``x``; rows at ``padding_idx`` (>= 0) come
+    out as zeros and pass no grad. ``sparse`` is accepted (the grad is
+    dense, as in the reference)."""
+    out = weight[x.long()]
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((x == padding_idx)[..., None],
+                          out.new_zeros(()), out)
+    return out
 
 
+def _norm_dims(x: torch.Tensor, begin_norm_axis: int):
+    return -1 if begin_norm_axis == -1 else \
+        tuple(range(begin_norm_axis % x.dim(), x.dim()))
+
+
+@register_kernel("rms_norm")
 def _rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-              epsilon: float = 1e-6) -> torch.Tensor:
-    """Mean of squares in float32, cast back to ``x.dtype``, then the
-    weight multiply (in the weight's dtype, as the reference does)."""
+              bias: Optional[torch.Tensor] = None, epsilon: float = 1e-6,
+              begin_norm_axis: int = -1) -> torch.Tensor:
+    """Mean of squares in float32 over the axes from ``begin_norm_axis``,
+    cast back to ``x.dtype``, then the weight multiply (in the weight's
+    dtype, as the reference does) and the bias add."""
     acc = x.float()
-    ms = acc.square().mean(dim=-1, keepdim=True)
+    ms = acc.square().mean(dim=_norm_dims(x, begin_norm_axis), keepdim=True)
     out = (acc * torch.rsqrt(ms + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
+    if bias is not None:
+        out = out + bias
     return out
 
 
@@ -71,21 +98,46 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x2, x1], dim=-1)
 
 
-def _rope(q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor,
-          sin: torch.Tensor, position_ids: torch.Tensor
-          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Rotary embedding, rotate-half (neox) style.
+def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
+    """GPT-J style: each (even, odd) pair rotated."""
+    return torch.stack([-x[..., 1::2], x[..., ::2]], dim=-1).reshape(x.shape)
 
-    q/k ``[b, s, heads, head_dim]``; cos/sin float32 tables
-    ``[max_pos, head_dim]``; position_ids ``[b, s]``. The tables are
-    gathered at the positions in float32 and only then cast to q's dtype,
-    as the reference does."""
-    c = cos[position_ids.long()][:, :, None, :].to(q.dtype)
-    s = sin[position_ids.long()][:, :, None, :].to(q.dtype)
-    out_q = q * c + _rotate_half(q) * s
+
+@register_kernel("rope")
+def _rope(q: torch.Tensor, k: Optional[torch.Tensor] = None,
+          cos: Optional[torch.Tensor] = None,
+          sin: Optional[torch.Tensor] = None,
+          position_ids: Optional[torch.Tensor] = None,
+          rotate_half_style: bool = True):
+    """Rotary embedding over q/k ``[b, s, heads, head_dim]``.
+
+    cos/sin: float32 half-concat tables ``[max_pos, head_dim]`` (or
+    ``[1, seq, 1, head_dim]``), gathered at ``position_ids [b, s]`` in
+    float32 and only then cast to q's dtype, as the reference does;
+    without positions, ``[seq, head_dim]`` tables apply as they are.
+    ``rotate_half_style`` True is the neox convention, False GPT-J's
+    interleaved pairs (the tables re-laid to repeat per pair). Returns
+    ``(q, k)``, or q alone when k is None."""
+    rot = _rotate_half if rotate_half_style else _rotate_pairs
+
+    def relayout(t):
+        if rotate_half_style:
+            return t
+        return t[..., :t.shape[-1] // 2].repeat_interleave(2, dim=-1)
+
+    if position_ids is not None:
+        idx = position_ids.long()
+        c = relayout(cos.reshape(-1, cos.shape[-1])[idx])[:, :, None, :]
+        s = relayout(sin.reshape(-1, sin.shape[-1])[idx])[:, :, None, :]
+    else:
+        c, s = relayout(cos), relayout(sin)
+        if c.dim() == 2:
+            c, s = c[None, :, None, :], s[None, :, None, :]
+    c, s = c.to(q.dtype), s.to(q.dtype)
+    out_q = q * c + rot(q) * s
     if k is None:
-        return out_q, None
-    return out_q, k * c + _rotate_half(k) * s
+        return out_q
+    return out_q, k * c + rot(k) * s
 
 
 @register_kernel("scaled_dot_product_attention")
@@ -236,3 +288,479 @@ scaled_dot_product_attention = hooked("scaled_dot_product_attention", _sdpa)
 flash_attention = hooked("flash_attention", _flash_attention)
 flash_attn_unpadded = hooked("flash_attn_unpadded", _flash_attn_unpadded)
 fused_softmax_ce = hooked("fused_softmax_ce", _fused_softmax_ce)
+
+
+# -- the layer ops (``nn/layers_common.py``, ``nn/loss.py``) -----------------
+# Counterparts of the reference ops of ``paddle_tpu/ops/kernels/nn.py``
+# (activations :17-74, norms :107-197, conv and pooling :200-455, losses
+# :474-636), ``math.py`` (sigmoid, tanh, logsigmoid), ``manipulation.py``
+# (flatten :99, pad :240, one_hot :358) and ``random.py`` (dropout :96).
+# No op here has a Pallas kernel: products and convolutions stay
+# ``torch.matmul`` / ``F.conv2d``, as the reference's stay XLA's.
+
+def _act(name, fn):
+    register_kernel(name)(fn)
+    return hooked(name, fn)
+
+
+relu = _act("relu", lambda x: F.relu(x))
+relu6 = _act("relu6", lambda x: F.relu6(x))
+elu = _act("elu", lambda x, alpha=1.0: F.elu(x, alpha))
+selu = _act("selu", lambda x: F.selu(x))
+softplus = _act("softplus", lambda x, beta=1.0, threshold=20.0:
+                F.softplus(x, beta, threshold))
+softsign = _act("softsign", lambda x: F.softsign(x))
+silu = _act("silu", lambda x: F.silu(x))
+swish = _act("swish", lambda x: F.silu(x))
+mish = _act("mish", lambda x: F.mish(x))
+hardswish = _act("hardswish", lambda x: F.hardswish(x))
+hardsigmoid = _act("hardsigmoid",
+                   lambda x, slope=0.16666666666666666, offset=0.5:
+                   torch.clamp(x * slope + offset, 0.0, 1.0))
+leaky_relu = _act("leaky_relu", lambda x, negative_slope=0.01:
+                  F.leaky_relu(x, negative_slope))
+prelu = _act("prelu", lambda x, weight: torch.where(x >= 0, x, weight * x))
+sigmoid = _act("sigmoid", lambda x: torch.sigmoid(x))
+tanh = _act("tanh", lambda x: torch.tanh(x))
+logsigmoid = _act("logsigmoid", lambda x: F.logsigmoid(x))
+gelu = _act("gelu", lambda x, approximate=False:
+            F.gelu(x, approximate="tanh" if approximate else "none"))
+softmax = _act("softmax", lambda x, axis=-1: torch.softmax(x, dim=axis))
+log_softmax = _act("log_softmax",
+                   lambda x, axis=-1: torch.log_softmax(x, dim=axis))
+
+
+# -- norms --------------------------------------------------------------------
+
+def _bcast(x: torch.Tensor, data_format: str):
+    """The per-channel broadcast shape: channels at 1 (NC...) or last."""
+    if data_format in ("NCHW", "NCL", "NCDHW"):
+        return [1, -1] + [1] * (x.dim() - 2)
+    return [1] * (x.dim() - 1) + [-1]
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@register_kernel("layer_norm")
+def _layer_norm(x, weight=None, bias=None, epsilon=1e-05,
+                begin_norm_axis=-1):
+    """Normalized over the axes from ``begin_norm_axis`` with the biased
+    variance, then the weight and bias (shaped as those axes)."""
+    dims = _norm_dims(x, begin_norm_axis)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+@register_kernel("batch_norm_infer")
+def _batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
+                      epsilon=1e-05, data_format="NCHW"):
+    shape = _bcast(x, data_format)
+    out = (x - running_mean.reshape(shape)) \
+        * torch.rsqrt(running_var.reshape(shape) + epsilon)
+    return _affine(out, weight, bias, shape)
+
+
+@register_kernel("batch_norm_train")
+def _batch_norm_train(x, weight=None, bias=None, epsilon=1e-05,
+                      data_format="NCHW"):
+    """``(out, batch mean, batch variance)``: the statistics over every
+    axis but the channel, the variance biased (the reference's
+    ``jnp.var``); updating running statistics is the layer's."""
+    shape = _bcast(x, data_format)
+    ch = 1 if shape[1] == -1 else x.dim() - 1
+    dims = tuple(d for d in range(x.dim()) if d != ch)
+    mean = x.mean(dim=dims)
+    var = x.var(dim=dims, correction=0)
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    return _affine(out, weight, bias, shape), mean, var
+
+
+@register_kernel("group_norm")
+def _group_norm(x, weight=None, bias=None, epsilon=1e-05, groups=1,
+                data_format="NCHW"):
+    if data_format != "NCHW":
+        x = x.movedim(-1, 1)
+    n, c = x.shape[:2]
+    g = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    dims = tuple(range(2, g.dim()))
+    mean = g.mean(dim=dims, keepdim=True)
+    var = g.var(dim=dims, keepdim=True, correction=0)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    out = _affine(out, weight, bias, [1, c] + [1] * (x.dim() - 2))
+    return out.movedim(1, -1) if data_format != "NCHW" else out
+
+
+@register_kernel("instance_norm")
+def _instance_norm(x, weight=None, bias=None, epsilon=1e-05):
+    dims = tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    return _affine(out, weight, bias, [1, -1] + [1] * (x.dim() - 2))
+
+
+# -- convolution and pooling --------------------------------------------------
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(size, k, s, d):
+    """XLA's "SAME" padding of one spatial axis: (low, high)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+@register_kernel("conv2d")
+def _conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+            data_format="NCHW"):
+    """One ``F.conv2d`` (kernel ``[out, in/groups, kh, kw]``); ``padding``
+    an int, a pair, ``[top, bottom, left, right]`` or "SAME" / "VALID";
+    NHWC is moved to NCHW and back. The output keeps x's dtype."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    nhwc = data_format != "NCHW"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            pads = [(0, 0), (0, 0)]
+        else:
+            pads = [_same_pads(x.shape[2 + i], weight.shape[2 + i],
+                               stride[i], dilation[i]) for i in range(2)]
+    else:
+        p = _pair(padding)
+        pads = [(p[0], p[0]), (p[1], p[1])] if len(p) == 2 else \
+            [(p[0], p[1]), (p[2], p[3])]
+    if all(lo == hi for lo, hi in pads):
+        out = F.conv2d(x, weight, None, stride, (pads[0][0], pads[1][0]),
+                       dilation, groups)
+    else:
+        x = F.pad(x, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+        out = F.conv2d(x, weight, None, stride, 0, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    if nhwc:
+        out = out.permute(0, 2, 3, 1)
+    return out.to(x.dtype)
+
+
+@register_kernel("conv1d")
+def _conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+            data_format="NCL"):
+    """The 1-D convolution as a conv2d over a unit height, as the
+    reference computes it."""
+    ncl = data_format == "NCL"
+    x4 = x[:, :, None, :] if ncl else x[:, None, :, :]
+    first = (lambda v: v if isinstance(v, int) else v[0])
+    pd = padding if isinstance(padding, str) else (0, first(padding))
+    out = _conv2d(x4, weight[:, :, None, :], bias, stride=(1, first(stride)),
+                  padding=pd, dilation=(1, first(dilation)), groups=groups,
+                  data_format="NCHW" if ncl else "NHWC")
+    return out[:, :, 0, :] if ncl else out[:, 0, :, :]
+
+
+@register_kernel("conv2d_transpose")
+def _conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                      output_padding=0, dilation=1, groups=1,
+                      data_format="NCHW"):
+    """``F.conv_transpose2d``: the kernel ``[in, out/groups, kh, kw]`` in
+    Paddle's layout, which is torch's."""
+    return F.conv_transpose2d(x, weight, bias, _pair(stride), _pair(padding),
+                              _pair(output_padding), groups, _pair(dilation))
+
+
+def _nchw(x, data_format, fn):
+    if data_format == "NCHW":
+        return fn(x)
+    return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+@register_kernel("max_pool2d")
+def _max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+                data_format="NCHW"):
+    k = _pair(kernel_size)
+    st = k if stride is None else _pair(stride)
+    return _nchw(x, data_format, lambda t: F.max_pool2d(
+        t, k, st, _pair(padding), ceil_mode=ceil_mode))
+
+
+@register_kernel("avg_pool2d")
+def _avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+                exclusive=True, data_format="NCHW"):
+    """``exclusive`` divides by the window's unpadded elements."""
+    k = _pair(kernel_size)
+    st = k if stride is None else _pair(stride)
+    return _nchw(x, data_format, lambda t: F.avg_pool2d(
+        t, k, st, _pair(padding), ceil_mode=ceil_mode,
+        count_include_pad=not exclusive))
+
+
+def _out_size(output_size):
+    return _pair(output_size) if isinstance(output_size, int) \
+        else tuple(output_size)
+
+
+@register_kernel("adaptive_avg_pool2d")
+def _adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """Paddle's bins (floor start, ceil end), torch's too; None keeps an
+    axis."""
+    return _nchw(x, data_format, lambda t: F.adaptive_avg_pool2d(
+        t, _out_size(output_size)))
+
+
+@register_kernel("adaptive_max_pool2d")
+def _adaptive_max_pool2d(x, output_size, data_format="NCHW"):
+    return _nchw(x, data_format, lambda t: F.adaptive_max_pool2d(
+        t, _out_size(output_size)))
+
+
+@register_kernel("interpolate_nearest")
+def _interpolate_nearest(x, out_h, out_w, data_format="NCHW"):
+    """Integer upscales repeat each pixel; other sizes sample the nearest
+    pixel centre (``nearest-exact``, the reference's ``jax.image``)."""
+    def run(t):
+        h, w = t.shape[2:]
+        if out_h % h == 0 and out_w % w == 0 and out_h >= h and out_w >= w:
+            return t.repeat_interleave(out_h // h, dim=2) \
+                .repeat_interleave(out_w // w, dim=3)
+        return F.interpolate(t, size=(out_h, out_w), mode="nearest-exact")
+    return _nchw(x, data_format, run)
+
+
+@register_kernel("interpolate_bilinear")
+def _interpolate_bilinear(x, out_h, out_w, align_corners=False,
+                          data_format="NCHW"):
+    """Half-pixel bilinear (antialiased when shrinking, as ``jax.image``
+    is), or corner-aligned."""
+    align = bool(align_corners) and out_h > 1 and out_w > 1
+    return _nchw(x, data_format, lambda t: F.interpolate(
+        t, size=(out_h, out_w), mode="bilinear", align_corners=align,
+        antialias=not align).to(t.dtype))
+
+
+@register_kernel("pixel_shuffle")
+def _pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    return F.pixel_shuffle(x, upscale_factor)
+
+
+@register_kernel("flatten")
+def _flatten(x, start_axis=0, stop_axis=-1):
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis, stop_axis)
+
+
+@register_kernel("pad")
+def _pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
+    """``pad`` gives (low, high) per axis from the first when it covers
+    every axis; otherwise pairs from the LAST spatial axis inward (the
+    reference's ``nn/functional/common.py`` order)."""
+    pad = [int(p) for p in pad]
+    if len(pad) == 2 * x.dim():
+        widths = [(pad[2 * i], pad[2 * i + 1]) for i in range(x.dim())]
+    else:
+        spatial = [(pad[2 * i], pad[2 * i + 1])
+                   for i in range(len(pad) // 2)][::-1]
+        if data_format in ("NCHW", "NCL", "NCDHW"):
+            widths = [(0, 0), (0, 0)] + spatial
+        else:
+            widths = [(0, 0)] + spatial + [(0, 0)]
+    flat = [w for lo_hi in reversed(widths) for w in lo_hi]
+    if mode == "constant":
+        return F.pad(x, flat, mode="constant", value=value)
+    while flat[-2:] == [0, 0]:       # F.pad's other modes pad trailing axes
+        flat = flat[:-2]
+    return F.pad(x, flat, mode=mode)
+
+
+@register_kernel("one_hot")
+def _one_hot(x, num_classes):
+    return F.one_hot(x.long(), num_classes).float()
+
+
+@register_kernel("dropout")
+def _dropout(x, p=0.5, training=True, mode="upscale_in_train",
+             generator: Optional[torch.Generator] = None, axis=None):
+    """Keep each element with probability ``1 - p`` (``upscale_in_train``
+    scales the kept ones by ``1 / (1 - p)``); outside training the input
+    passes through. The mask draws from ``generator`` (uniform float32 <
+    1 - p), by default the port's generator for x's device, never torch's
+    global one; ``axis`` draws one mask value per index of those axes."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        from ...nn.initializer import default_generator
+        generator = default_generator(x.device)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = {a % x.dim() for a in ((axis,) if isinstance(axis, int)
+                                      else axis)}
+        shape = [n if d in axes else 1 for d, n in enumerate(shape)]
+    keep = 1.0 - p
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    kept = x / keep if mode == "upscale_in_train" else x
+    return torch.where(mask, kept, 0.0).to(x.dtype)
+
+
+# -- losses -------------------------------------------------------------------
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def _softmax_ce(logits, label, soft_label, ignore_index, axis):
+    """Per-row CE with the class axis kept (size 1)."""
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        return -(label * logp).sum(dim=axis, keepdim=True)
+    lab = label
+    if lab.dim() == logits.dim() and lab.shape[axis] == 1:
+        lab = lab.squeeze(axis)
+    lab = lab.long()
+    nll = -logp.gather(axis, torch.where(lab == ignore_index, 0, lab)
+                       .unsqueeze(axis))
+    return torch.where((lab != ignore_index).unsqueeze(axis), nll, 0.0)
+
+
+@register_kernel("cross_entropy_mean")
+def _cross_entropy_mean(logits, label, soft_label=False, ignore_index=-100,
+                        axis=-1, weight=None, reduction="mean"):
+    """Softmax cross entropy over ``axis``; hard labels ``[N]`` or
+    ``[N, 1]``; ``mean`` over the unignored rows (or the class-weighted
+    mean), as the reference reduces."""
+    loss = _softmax_ce(logits, label, soft_label, ignore_index, axis) \
+        .squeeze(axis)
+    if not soft_label and label.dim() == logits.dim() \
+            and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    if weight is not None and not soft_label:
+        lab = label.long()
+        w = torch.where(lab == ignore_index, 0.0,
+                        weight[torch.where(lab == ignore_index, 0, lab)])
+        loss = loss * w
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(w.sum(), min=1e-12)
+    if reduction == "mean":
+        if not soft_label:
+            valid = (label != ignore_index).to(loss.dtype)
+            return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+        return loss.mean()
+    return _reduce(loss, reduction)
+
+
+@register_kernel("nll_loss")
+def _nll_loss(log_prob, label, weight=None, ignore_index=-100,
+              reduction="mean"):
+    if label.dim() == log_prob.dim() and label.shape[-1] == 1:
+        label = label.squeeze(-1)
+    lab = label.long()
+    safe = torch.where(lab == ignore_index, 0, lab)
+    nll = -log_prob.gather(-1, safe[..., None])[..., 0]
+    w = (lab != ignore_index).to(log_prob.dtype)
+    if weight is not None:
+        w = weight[safe] * w
+    nll = nll * w
+    if reduction == "mean":
+        return nll.sum() / torch.clamp(w.sum(), min=1e-12)
+    return _reduce(nll, reduction)
+
+
+@register_kernel("mse_loss")
+def _mse_loss(input, label, reduction="mean"):
+    return _reduce(torch.square(input - label), reduction)
+
+
+@register_kernel("l1_loss")
+def _l1_loss(input, label, reduction="mean"):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+@register_kernel("smooth_l1_loss")
+def _smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = input - label
+    loss = torch.where(d.abs() < delta, 0.5 * d * d / delta,
+                       d.abs() - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+@register_kernel("binary_cross_entropy")
+def _binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(torch.clamp(input, min=eps))
+             + (1 - label) * torch.log(torch.clamp(1 - input, min=eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@register_kernel("binary_cross_entropy_with_logits")
+def _bce_with_logits(logit, label, weight=None, pos_weight=None,
+                     reduction="mean"):
+    max_val = torch.clamp(-logit, min=0)
+    soft = torch.log1p(torch.exp(-logit.abs())) + max_val
+    if pos_weight is not None:
+        soft = ((pos_weight - 1.0) * label + 1.0) * soft
+    loss = (1 - label) * logit + soft
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@register_kernel("kl_div")
+def _kl_div(input, label, reduction="mean", log_target=False):
+    if log_target:
+        loss = torch.exp(label) * (label - input)
+    else:
+        safe = torch.where(label > 0, label, 1.0)
+        loss = torch.where(label > 0, label * (torch.log(safe) - input), 0.0)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+layer_norm = hooked("layer_norm", _layer_norm)
+batch_norm_infer = hooked("batch_norm_infer", _batch_norm_infer)
+batch_norm_train = hooked("batch_norm_train", _batch_norm_train)
+group_norm = hooked("group_norm", _group_norm)
+instance_norm = hooked("instance_norm", _instance_norm)
+conv2d = hooked("conv2d", _conv2d)
+conv1d = hooked("conv1d", _conv1d)
+conv2d_transpose = hooked("conv2d_transpose", _conv2d_transpose)
+max_pool2d = hooked("max_pool2d", _max_pool2d)
+avg_pool2d = hooked("avg_pool2d", _avg_pool2d)
+adaptive_avg_pool2d = hooked("adaptive_avg_pool2d", _adaptive_avg_pool2d)
+adaptive_max_pool2d = hooked("adaptive_max_pool2d", _adaptive_max_pool2d)
+interpolate_nearest = hooked("interpolate_nearest", _interpolate_nearest)
+interpolate_bilinear = hooked("interpolate_bilinear", _interpolate_bilinear)
+pixel_shuffle = hooked("pixel_shuffle", _pixel_shuffle)
+flatten = hooked("flatten", _flatten)
+pad = hooked("pad", _pad)
+one_hot = hooked("one_hot", _one_hot)
+dropout = hooked("dropout", _dropout)
+cross_entropy_mean = hooked("cross_entropy_mean", _cross_entropy_mean)
+nll_loss = hooked("nll_loss", _nll_loss)
+mse_loss = hooked("mse_loss", _mse_loss)
+l1_loss = hooked("l1_loss", _l1_loss)
+smooth_l1_loss = hooked("smooth_l1_loss", _smooth_l1_loss)
+binary_cross_entropy = hooked("binary_cross_entropy", _binary_cross_entropy)
+binary_cross_entropy_with_logits = hooked(
+    "binary_cross_entropy_with_logits", _bce_with_logits)
+kl_div = hooked("kl_div", _kl_div)

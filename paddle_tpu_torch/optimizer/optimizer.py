@@ -284,9 +284,14 @@ class Optimizer:
         return {k: (0.0, ()) for k in self._STATE_KEYS}
 
     def _state_targets(self, state, sc) -> Dict[str, torch.Tensor]:
-        """Where each slot of ``_update``'s new state is written (ASGD
-        writes one row of its gradient ring)."""
+        """The current value of each slot of ``_update``'s new state (what
+        a skipped step keeps; ASGD's is one row of its gradient ring)."""
         return state
+
+    def _store_state(self, state, sc, new_s) -> None:
+        """Write ``_update``'s new state into the slots, in place."""
+        for k, v in new_s.items():
+            state[k].copy_(v)
 
     # -- state ----------------------------------------------------------------
     def _create_state(self, idxs: List[int]) -> None:
@@ -462,15 +467,14 @@ class Optimizer:
                 new_p, new_s = self._update(
                     target, g, st, lr,
                     self._scalar(self._param_weight_decay(i), dev), sc)
-                dst = self._state_targets(st, sc)
                 if found is not None:
                     keep = found > 0
+                    old = self._state_targets(st, sc)
                     new_p = torch.where(keep, target, new_p)
-                    new_s = {k: torch.where(keep, dst[k], v)
+                    new_s = {k: torch.where(keep, old[k], v)
                              for k, v in new_s.items()}
                 target.copy_(new_p)
-                for k, v in new_s.items():
-                    dst[k].copy_(v)
+                self._store_state(st, sc, new_s)
                 if self._masters[i] is not None:
                     p.detach().copy_(target.to(p.dtype))
         if found is not None:
@@ -762,10 +766,12 @@ class Adadelta(Optimizer):
 class ASGD(Optimizer):
     """Averaged SGD over the last ``batch_num`` grads: slot ``(t-1) % n``
     of the ring ``ys`` (``[n, *shape]``) is swapped out of the running sum
-    ``d``, and ``p -= lr·(d / min(t, n) + wd·p)``. ``t`` is the host step
-    count (applied updates): a step the sentinel skips leaves the ring,
-    the sum and the count as they were, so the next step writes the same
-    slot, as in the reference."""
+    ``d``, and ``p -= lr·(d / min(t, n) + wd·p)``. ``t`` is the device
+    step scalar (applied updates, this one included), so the slot is
+    picked on the device (``index_select`` / ``index_copy_``) and a
+    captured step replays with the live count: a step the sentinel or the
+    GradScaler skips leaves the ring, the sum and the count as they were,
+    so the next step writes the same slot, as in the reference."""
 
     _STATE_KEYS = ("d", "ys")
 
@@ -782,18 +788,20 @@ class ASGD(Optimizer):
         return {"d": (0.0, ()), "ys": (0.0, (self._n,))}
 
     def _step_scalars(self, step):
-        if _CAPTURE is not None:
-            _CAPTURE.abort("trace failed", "ASGD indexes its gradient ring "
-                           "by the host step count")
-        t = self._step_count
-        return {"idx": (t - 1) % self._n,
-                "denom": self._scalar(float(min(t, self._n)), step.device)}
+        idx = torch.remainder(step - 1.0, float(self._n)).long().reshape(1)
+        return {"idx": idx, "denom": torch.clamp(step, max=float(self._n))}
 
     def _state_targets(self, state, sc):
-        return {"d": state["d"], "ys": state["ys"][sc["idx"]]}
+        return {"d": state["d"],
+                "ys": state["ys"].index_select(0, sc["idx"])[0]}
+
+    def _store_state(self, state, sc, new_s):
+        state["d"].copy_(new_s["d"])
+        state["ys"].index_copy_(0, sc["idx"], new_s["ys"].unsqueeze(0))
 
     def _update(self, p, g, state, lr, wd, sc):
-        d = state["d"] - state["ys"][sc["idx"]] + g
+        y_old = state["ys"].index_select(0, sc["idx"])[0]
+        d = state["d"] - y_old + g
         upd = d / sc["denom"].to(p.dtype) + wd.to(p.dtype) * p
         return p - lr.to(p.dtype) * upd, {"d": d, "ys": g}
 

@@ -17,8 +17,10 @@ same datasets and numpy seeds give the same batches, element for element
 - ``fill_ring(K)``: full blocks are the K batches stacked, the epoch tail
   comes back as single batches, and the committed stream state resumes at
   the block boundary;
-- the port's own rules: ``num_workers > 0`` raises naming its ROADMAP
-  item; ``places=None`` means the card and raises without one.
+- the port's own rules: ``num_workers > 0`` gives the batches of
+  ``num_workers=0`` (the worker processes' own checks are in
+  ``test_torch_io_workers.py``); ``places=None`` means the card and
+  raises without one.
 """
 
 import numpy as np
@@ -214,9 +216,16 @@ def test_fill_ring_blocks_tail_and_commit():
 
 def test_workers_and_device_rules():
     x, y = _arrays()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tio.DataLoader(tio.TensorDataset([x, y]), places="cpu",
-                       num_workers=2)
+    batches = []
+    for workers in (0, 2):
+        loader = tio.DataLoader(tio.TensorDataset([x, y]), places="cpu",
+                                batch_size=4, num_workers=workers,
+                                timeout=120)
+        batches.append([_np(b) for b in loader])
+        assert loader._pool is None          # shut down after the epoch
+    for a, b in zip(*batches):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tio.DataLoader(tio.TensorDataset([x, y]))

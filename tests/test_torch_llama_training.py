@@ -231,13 +231,6 @@ def test_recompute_and_composite_give_the_same_grads(fwd_bwd, variant):
         assert _rel(g, tg_ref[n]) <= (0 if tol == 0 else 1e-4), n
 
 
-def test_unported_layer_options_raise():
-    for kw in (dict(recompute="selective"), dict(use_scan_layers=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(), **kw),
-                             device="cpu")
-
-
 def test_no_cache_logits_equal_cache_prefill():
     _, tm = _pair()
     ids = torch.from_numpy(_ids(5, b=1, s=40))

@@ -306,3 +306,45 @@ def test_adamw_lr_ratio_is_accepted_and_unused():
         assert torch.equal(a.detach(), b.detach())
     assert JO.AdamW(parameters=[Tensor(np.zeros(2, np.float32))],
                     lr_ratio=lambda p: 0.5)._lr_ratio is not None
+
+
+def test_asgd_trains_under_a_captured_train_step_as_eagerly():
+    """ASGD picks its ring slot from the device step scalar, so a captured
+    TrainStep (the CPU stand-in) runs it: six steps with a poisoned batch
+    at step 3 under the anomaly sentinel are bit for bit the eager ones
+    (``FLAGS_step_capture=0``): params, the running sum, the ring, and the
+    step count once ``consume_anomaly`` has reconciled it."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.jit import step_capture as sc
+
+    def run(capture):
+        tflags.set_flags({"step_capture": capture, "anomaly_sentinel": True})
+        try:
+            torch.manual_seed(0)
+            net = torch.nn.Linear(6, 3)
+            opt = TO.ASGD(learning_rate=0.05, batch_num=3, weight_decay=0.01,
+                          parameters=net.parameters())
+            train = TrainStep(net, lambda out, y: (out - y).square().mean(),
+                              opt)
+            before = sc.capture_counters["captures"]
+            for t in range(6):
+                x = torch.from_numpy(np.random.RandomState(t).randn(4, 6)
+                                     .astype(np.float32))
+                if t == 2:
+                    x[1, 3] = float("nan")
+                train((x,), (torch.ones(4, 3),))
+                opt.consume_anomaly()
+            state = [v.clone() for st in opt._states for v in st.values()]
+            return ([p.detach().clone() for p in net.parameters()], state,
+                    opt._step_count,
+                    sc.capture_counters["captures"] - before)
+        finally:
+            tflags.set_flags({"step_capture": True,
+                              "anomaly_sentinel": False})
+
+    pe, se, ne, _ = run(False)
+    pc, sc_, nc, captures = run(True)
+    assert captures == 1
+    assert ne == nc == 5
+    assert all(torch.equal(a, b) for a, b in zip(pe, pc))
+    assert all(torch.equal(a, b) for a, b in zip(se, sc_))

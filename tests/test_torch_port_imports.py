@@ -46,8 +46,10 @@ def test_scan_sees_the_whole_port():
             "optimizer.py", "clip.py", "api.py", "flash_varlen.py",
             "dispatcher.py", "chip_smoke.py", "bcsr_spmm.py",
             "step_capture.py", "multi_step.py", "model.py",
-            "callbacks.py"} <= names
-    for pkg in ("sparse", "io", "hapi"):
+            "callbacks.py", "recompute.py", "stack.py", "layer_base.py",
+            "layers_common.py", "initializer.py", "loss.py",
+            "functional.py"} <= names
+    for pkg in ("sparse", "io", "hapi", "distributed", "nn"):
         assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
@@ -58,7 +60,8 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.ops.dispatcher, paddle_tpu_torch.sparse, "
             "paddle_tpu_torch.ops.kernels.bcsr_spmm, paddle_tpu_torch.io, "
             "paddle_tpu_torch.hapi, paddle_tpu_torch.jit.multi_step, "
-            "paddle_tpu_torch.jit.step_capture; "
+            "paddle_tpu_torch.jit.step_capture, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.distributed; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
