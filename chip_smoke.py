@@ -13,7 +13,9 @@ same way as the first through the grouped-GEMM kernel. The serving and
 training steps run as CUDA graphs (step capture), each held against its
 eager run; ``hapi.Model.fit`` also runs over DataLoader worker
 processes, and a network built from the ported layers trains on the card
-against the CPU. Its dataset classes sit at module level and its run
+against the CPU. Then BERT-base fine-tunes on SQuAD-shaped batches and
+the PP-OCR models (CRNN recognition, DBNet detection) train, at their own
+widths, on the op table, ``nn.transformer``, ``nn.rnn`` and the CTC loss. Its dataset classes sit at module level and its run
 under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
 import this script.
 
@@ -204,6 +206,32 @@ Phases (any failure raises and the script exits non-zero):
    LAYER_NET_REL; then ASGD (batch_num 3) under a captured ``TrainStep``
    for 6 steps with a poisoned batch at step 3, bit for bit its eager
    steps;
+5f. ``bert_squad``: ``BertForQuestionAnswering(BertConfig.base())`` (hidden
+   768, 12 layers, 12 heads, 108.9 M params) from the seed, fine-tuned as
+   PaddleNLP's ``run_squad`` runs it: batch 12 x 384 tokens of random ids
+   with a padded tail of 10-30% a row and a random span, AdamW (lr 3e-5,
+   weight decay 0.01), global-norm clip 1.0, dropout 0.1; the mean of the
+   start and end cross entropies; three runs of 10 ``TrainStep``s on the
+   fixed batch: float32 captured, float32 eager (``FLAGS_step_capture=0``)
+   and ``amp.decorate`` O2 bf16 captured; per run tokens/s, step p50/p99,
+   peak memory, losses, MFU over 67 (float32) or 989 TFLOP/s (bf16) with
+   6 N + 12 layers hidden seq FLOPs a token (N the non-embedding params),
+   and the fused optimizer's launches; one profiled float32 step by part
+   and the composite attention timed alone; the captured float32 losses
+   must equal the eager ones bit for bit, every run's losses be finite and
+   falling, and with dropout off the first loss at batch 2 be within
+   BERT_CPU_REL of the CPU's from the same weights;
+5g. ``ocr``: CRNN at PP-OCR rec's width (3 x 32 x 320, T 81, BiLSTM 256 ->
+   96 x 2 layers, 97 classes) at batch 128 with labels of 1-25 symbols,
+   Adam lr 1e-3 through ``CTCHeadLoss``: 10 captured and 10 eager steps,
+   bit for bit (cuDNN's deterministic convolutions for the phase), each
+   with images/s, step p50/p99, peak memory, losses and a profiled step's
+   kernel count; its BiLSTM forward and backward eager and as a CUDA graph
+   beside cuDNN's ``torch.nn.LSTM`` on the same weights (largest output
+   difference within LSTM_CUDNN_ATOL), ``ctc_loss`` beside ``F.ctc_loss``;
+   then DBNet (scale 0.5) at 3 x 640 x 640, batch 8, 5 captured steps;
+   each model's first loss against the CPU from the same weights (CRNN at
+   batch 8, DBNet at 1) within OCR_CPU_REL;
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -221,7 +249,8 @@ enqueues the call, so host time never counts as device time.
 Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
-``train_amp`` and ``train_layers`` launches), then as the last line ``{"ok": true, "device":
+``train_amp`` and ``train_layers`` launches, the fused optimizer's its
+``bert_squad`` and ``ocr`` launches), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -836,6 +865,7 @@ def profile_call(torch, fn, n: int):
     span = (max(b for _, _, b in acts) - min(a for _, a, _ in acts)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"steps": n, "wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "launches": sum(c for _, c in by_name.values()),
             "device_busy_ms_per_step": busy / n,
             "device_span_ms": span, "busy_share_of_span": busy / span,
             "busy_share_of_wall": busy / (1e3 * wall),
@@ -2245,53 +2275,111 @@ def fused_bucket_tensors(torch, g, dev="cuda"):
     return masters, grads, states, lows
 
 
+def fused_vs_plain(torch, kind, cfg, bucket, lr, wd, step):
+    """``fused_bucket_kernel`` on ``bucket = (targets, grads, states,
+    lows)``, in place, against ``fused_bucket_plain`` on copies, bit for
+    bit over three Adam steps from ``step``: a plain one; one through the
+    unscale and clip channels (inv 1/64, coeff 0.5), its weight decay
+    0.01 where ``wd`` is 0, so a coupled rule's decay term runs too; and
+    found = 1, where the kernel must leave every input as it was. Returns
+    the steps checked."""
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+
+    targets, grads, states, lows = bucket
+    copies = ([t.clone() for t in targets], grads,
+              [{k: t.clone() for k, t in s.items()} for s in states],
+              [None if t is None else t.clone() for t in lows])
+    one = torch.ones((), device=targets[0].device)
+
+    def svec(at, inv=1.0, coeff=1.0, found=0.0, decay=wd):
+        st = one * at
+        bc1, bc2 = fo.bias_inv(cfg["b1"], cfg["b2"], st)
+        return fo.pack_scalars(lr=one * lr, step=st, inv=one * inv,
+                               coeff=one * coeff, found=one * found,
+                               wd=one * decay, inv_bc1=bc1, inv_bc2=bc2)
+
+    def flat(side):
+        return side[0] + [t for t in side[3] if t is not None] \
+            + [t for s in side[2] for t in s.values()]
+
+    def same(tag):
+        for a, b in zip(flat(bucket), flat(copies)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"fused_optimizer ({tag}): kernel and plain version "
+                    f"differ: {int((a != b).sum())} elements of a "
+                    f"{tuple(a.shape)} {a.dtype} tensor")
+
+    decay = wd or 0.01
+    steps = [("plain step", svec(step)),
+             (f"inv 1/64, coeff 0.5, wd {decay}",
+              svec(step + 1, inv=1 / 64, coeff=0.5, decay=decay))]
+    for tag, sv in steps:
+        fo.fused_bucket_kernel(kind, cfg, *bucket, sv)
+        torch.cuda.synchronize()
+        fo.fused_bucket_plain(kind, cfg, *copies, sv)
+        same(tag)
+    # found = 1: the kernel must leave every input as it was (the copies
+    # hold them), and then the plain version too
+    sv = svec(step + 2, found=1.0)
+    fo.fused_bucket_kernel(kind, cfg, *bucket, sv)
+    torch.cuda.synchronize()
+    same("found=1, kernel outputs vs inputs")
+    fo.fused_bucket_plain(kind, cfg, *copies, sv)
+    same("found=1, plain")
+    return [t for t, _ in steps] + ["found=1"]
+
+
+def run_buckets_vs_plain(torch, train, inputs, labels):
+    """The fused optimizer's kernel against its plain version on a
+    training run's own buckets (:func:`fused_vs_plain`): the plan, rule
+    and hyperparameters of ``train``'s optimizer, its parameters,
+    masters and moments after the run, and the grads of one more
+    backward on the run's batch. Leaves the model and optimizer
+    changed: call it on a run that is done."""
+    from paddle_tpu_torch.optimizer.optimizer import _fused_kind_cfg
+    opt = train.optimizer
+    train._forward_backward(tuple(inputs), tuple(labels))
+    idxs = opt._grad_idxs()
+    plan = opt._fused_route(idxs, record=False)
+    kind, cfg = _fused_kind_cfg(opt)
+    if plan is None or kind != "adam":
+        raise AssertionError(f"the run's optimizer takes no fused Adam "
+                             f"route ({type(opt).__name__})")
+    params = opt._parameter_list
+    lr = float(opt.get_lr())
+    out = []
+    for b in plan.buckets:
+        ks = [idxs[j] for j in b.ids]
+        bucket = ([params[i].detach() if opt._masters[i] is None
+                   else opt._masters[i] for i in ks],
+                  [params[i].grad for i in ks],
+                  [opt._states[i] for i in ks],
+                  [None if opt._masters[i] is None else params[i].detach()
+                   for i in ks])
+        steps = fused_vs_plain(torch, kind, cfg, bucket, lr, b.wd,
+                               opt._step_count + 1)
+        out.append(dict(params=b.total, compute=b.cdtype, grads=b.gdtype,
+                        write_back=b.low, wd=b.wd,
+                        decoupled=cfg["decoupled"], bitwise_equal=True,
+                        checked_steps=steps))
+    opt.clear_grad()
+    return out
+
+
 def phase_fused_optimizer(torch, seed, report, flush):
     from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
 
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     cfg = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "decoupled": True}
     A = fused_bucket_tensors(torch, g)
-    Bt = ([t.clone() for t in A[0]], A[1],
-          [{k: t.clone() for k, t in s.items()} for s in A[2]],
-          [t.clone() for t in A[3]])
     n = sum(t.numel() for t in A[0])
     one = torch.ones((), device="cuda")
-
-    def svec(step, inv=1.0, coeff=1.0, found=0.0):
-        st = one * step
-        bc1, bc2 = fo.bias_inv(cfg["b1"], cfg["b2"], st)
-        return fo.pack_scalars(lr=one * 1e-4, step=st, inv=one * inv,
-                               coeff=one * coeff, found=one * found,
-                               wd=one * 0.01, inv_bc1=bc1, inv_bc2=bc2)
-
-    def flat(side):
-        return side[0] + side[3] + [t for s in side[2] for t in s.values()]
-
-    def same(tag):
-        for a, b in zip(flat(A), flat(Bt)):
-            if not torch.equal(a, b):
-                raise AssertionError(
-                    f"fused_optimizer ({tag}): kernel and plain version "
-                    f"differ: {int((a != b).sum())} elements of a "
-                    f"{tuple(a.shape)} tensor")
-
-    steps = [("plain step", svec(1)),
-             ("inv 1/64, coeff 0.5", svec(2, inv=1 / 64, coeff=0.5))]
-    for tag, sv in steps:
-        fo.fused_bucket_kernel("adam", cfg, *A, sv)
-        torch.cuda.synchronize()
-        fo.fused_bucket_plain("adam", cfg, *Bt, sv)
-        same(tag)
-    # found = 1: the kernel must leave every input as it was (Bt holds
-    # them), and then the plain version too
-    sv = svec(3, found=1.0)
-    fo.fused_bucket_kernel("adam", cfg, *A, sv)
-    torch.cuda.synchronize()
-    same("found=1, kernel outputs vs inputs")
-    fo.fused_bucket_plain("adam", cfg, *Bt, sv)
-    same("found=1, plain")
-    del Bt
-    sv = svec(2, inv=1 / 64, coeff=0.5)
+    checked = fused_vs_plain(torch, "adam", cfg, A, 1e-4, 0.01, 1)
+    bc1, bc2 = fo.bias_inv(cfg["b1"], cfg["b2"], one * 2)
+    sv = fo.pack_scalars(lr=one * 1e-4, step=one * 2, inv=one / 64,
+                         coeff=one * 0.5, found=one * 0, wd=one * 0.01,
+                         inv_bc1=bc1, inv_bc2=bc2)
     # a bucket caches the chunk table (built by the warm-up call), so the
     # timed window holds the launch only, as on the training path
     bucket = fo.plan_buckets("adam", cfg, [
@@ -2315,8 +2403,7 @@ def phase_fused_optimizer(torch, seed, report, flush):
     b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS_PER_S)
     res = dict(max_abs_err=0.0, bitwise_equal=True, params=n, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms, bytes=nbytes,
-               checked_steps=[t for t, _ in steps] + ["found=1"])
+               library_ms=lib_ms, bytes=nbytes, checked_steps=checked)
     log(f"fused_optimizer[adamw, {n / 1e6:.0f}M bf16 params, f32 masters]: "
         f"bitwise equal to plain over {res['checked_steps']}; ms {ms:.3f} "
         f"plain_ms {plain_ms:.2f} library_ms {lib_ms:.3f} "
@@ -4401,6 +4488,446 @@ def phase_layer_net(torch, seed, report):
     return res
 
 
+# -- phase 5f: BERT-base SQuAD fine-tuning -------------------------------------
+
+BERT_B, BERT_S = 12, 384        # PaddleNLP run_squad: batch 12, max_seq 384
+BERT_STEPS = 10                 # a probe, the capture, then 8 timed replays
+BERT_LR, BERT_WD = 3e-5, 0.01
+BERT_CPU_B = 2                  # the first step's loss against the CPU
+BERT_CPU_REL = 1e-4
+
+
+def squad_batch(torch, seed, vocab, device="cuda"):
+    """SQuAD-shaped rows from the seed: [CLS] question [SEP] context [SEP]
+    token ids (random), type ids 0 for the question and 1 after, a padded
+    tail of 10-30% per row (mask 0, id 0), and a start / end span inside
+    each row's context."""
+    rng = np.random.RandomState(seed)
+    b, s = BERT_B, BERT_S
+    ids = np.zeros((b, s), np.int64)
+    types = np.zeros((b, s), np.int64)
+    mask = np.zeros((b, s), np.int64)
+    start = np.zeros(b, np.int64)
+    end = np.zeros(b, np.int64)
+    for r in range(b):
+        valid = s - int(s * rng.uniform(0.10, 0.30))
+        q = int(rng.randint(12, min(64, valid // 2)))
+        ids[r, :valid] = rng.randint(1000, vocab, valid)
+        ids[r, 0], ids[r, q], ids[r, valid - 1] = 101, 102, 102
+        types[r, q + 1:valid] = 1
+        mask[r, :valid] = 1
+        start[r] = rng.randint(q + 1, valid - 1)
+        end[r] = min(start[r] + rng.randint(0, 30), valid - 2)
+    return [torch.from_numpy(a).to(device)
+            for a in (ids, types, mask, start, end)]
+
+
+def squad_loss(start_logits, end_logits, start, end):
+    """The mean of the start and end cross entropies (PaddleNLP's
+    ``CrossEntropyLossForSQuAD``)."""
+    from paddle_tpu_torch.nn import functional as F
+    return (F.cross_entropy(start_logits, start)
+            + F.cross_entropy(end_logits, end)) / 2
+
+
+def bert_flops_per_token(model, cfg, seq):
+    """6 N + 12 layers hidden seq, N the non-embedding parameters."""
+    emb = sum(p.numel() for n, p in model.named_parameters()
+              if "embeddings" in n)
+    n = sum(p.numel() for p in model.parameters()) - emb
+    return 6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq, n
+
+
+def bert_build(torch, seed, dropout=True):
+    """BERT-base QA from the seed, the SQuAD loss, and run_squad's AdamW
+    (lr 3e-5, weight decay 0.01, global-norm clip 1.0)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import BertConfig, BertForQuestionAnswering
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig.base()
+    if not dropout:
+        cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+    paddle_tpu_torch.seed(seed)
+    model = BertForQuestionAnswering(cfg)
+    return model, squad_loss, AdamW(
+        learning_rate=BERT_LR, weight_decay=BERT_WD,
+        parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def train_run(torch, build, inputs, labels, steps, unit, per_step,
+              capture=True, amp_level=None):
+    """The model, loss and optimizer that ``build()`` makes, through
+    ``TrainStep`` for ``steps`` steps on one batch (``amp.decorate`` O2
+    to bf16 first when ``amp_level`` is "O2"), FLAGS_step_capture set to
+    ``capture``: losses, ``unit``s a second (``per_step`` a step), step
+    p50/p99 (steps 3 on), peak memory, the fused optimizer's launches and
+    the graphs. Returns the metrics and the ``TrainStep``."""
+    from paddle_tpu_torch import amp, flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, loss_fn, opt = build()
+    if amp_level == "O2":
+        amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    train = TrainStep(model, loss_fn, opt, amp_level=amp_level)
+    flags.set_flags({"step_capture": capture})
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    try:
+        for i in range(steps):
+            ts = time.perf_counter()
+            loss = train(inputs, labels)
+            torch.cuda.synchronize()
+            if i >= 2:
+                step_s.append(time.perf_counter() - ts)
+            losses.append(float(loss))
+    finally:
+        flags.set_flags({"step_capture": True})
+    res = {"losses": losses,
+           f"{unit}_per_s": per_step / float(np.mean(step_s)),
+           "step_ms_p50": 1e3 * float(np.percentile(step_s, 50)),
+           "step_ms_p99": 1e3 * float(np.percentile(step_s, 99)),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "fused_optimizer_launches":
+               kernels.launch_counts()["fused_optimizer"],
+           "graphs": len(train.graphs())}
+    return res, train
+
+
+def cpu_first_loss(torch, build, inputs, labels, rows):
+    """The first loss (train mode, before any update) of ``build()``'s
+    model on the card and, from the same weights, on the CPU, over the
+    batch's first ``rows`` rows (``None`` inputs pass as they are)."""
+    from paddle_tpu_torch.core.device import set_device
+
+    def first_loss(model, loss_fn, dev):
+        def cut(ts):
+            return [None if t is None else t[:rows].to(dev) for t in ts]
+        with torch.no_grad():
+            out = model(*cut(inputs))
+            outs = tuple(out) if isinstance(out, (list, tuple)) else (out,)
+            return float(loss_fn(*outs, *cut(labels)))
+    card, card_loss = build()[:2]
+    want = first_loss(card, card_loss, inputs[0].device)
+    set_device("cpu")
+    try:
+        cpu, cpu_loss = build()[:2]
+    finally:
+        set_device(None)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    got = first_loss(cpu, cpu_loss, "cpu")
+    del card, cpu
+    free_card(torch)
+    return dict(card_loss=want, cpu_loss=got, batch=rows,
+                rel_diff=abs(got - want) / abs(want))
+
+
+def attention_composite_ms(torch, cfg, batch):
+    """One layer's composite attention (the registry op over [b, s, heads,
+    head_dim] float32 with the padding mask and dropout 0.1), forward
+    and backward, by CUDA events; times the layers."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    ids, _, mask, _, _ = batch
+    h, d = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(BERT_B, BERT_S, h, d, device="cuda", generator=g)
+               .requires_grad_() for _ in range(3))
+    add = (1.0 - mask.float()[:, None, None, :]) * -1e9
+    ct = torch.randn(BERT_B, BERT_S, h, d, device="cuda", generator=g)
+
+    def step():
+        out = call_op("scaled_dot_product_attention", q, k, v,
+                      attn_mask=add, dropout_p=0.1)
+        out.backward(ct)
+    return time_ms(torch, step) * cfg.num_hidden_layers
+
+
+def phase_bert_squad(torch, seed, report):
+    """BERT-base SQuAD fine-tuning on the card: float32 captured, float32
+    eager (FLAGS_step_capture=0), O2 bf16 captured; each 10 steps on one
+    fixed batch. The eager run's AdamW bucket (float32 params and grads)
+    is then held to the plain version."""
+    from paddle_tpu_torch.models import BertConfig
+    cfg = BertConfig.base()
+    batch = squad_batch(torch, seed, cfg.vocab_size)
+    inputs, labels = (batch[0], batch[1], None, batch[2]), tuple(batch[3:])
+    res = dict(batch=BERT_B, seq=BERT_S, steps=BERT_STEPS,
+               padded_tokens=int((batch[2] == 0).sum()))
+    runs = {}
+    for label, kw in (("float32", {}), ("float32_eager", dict(capture=False)),
+                      ("bf16_o2", dict(amp_level="O2"))):
+        run, train = train_run(torch, lambda: bert_build(torch, seed),
+                               inputs, labels, BERT_STEPS, "tokens",
+                               batch[0].numel(), **kw)
+        flops_tok, n = bert_flops_per_token(train.model, cfg, BERT_S)
+        peak = BF16_FLOPS_PER_S if "amp_level" in kw else F32_FLOPS_PER_S
+        run.update(mfu=run["tokens_per_s"] * flops_tok / peak,
+                   flops_per_token=flops_tok, non_embedding_params=n)
+        runs[label] = run
+        if label == "float32":
+            n_params = sum(p.numel() for p in train.model.parameters())
+            prof = profile_call(torch, lambda: train(inputs, labels), 1)
+            if "all_kernels" in prof:
+                prof["by_part_ms"] = categorize(prof.pop("all_kernels"),
+                                                prof["device_busy_ms"])
+            res["profile_float32"] = prof
+        elif label == "float32_eager":
+            res["optimizer_vs_plain"] = run_buckets_vs_plain(
+                torch, train, inputs, labels)
+        del train
+        free_card(torch)
+        log(f"bert_squad {label}: {json.dumps(run)}")
+    res["params"] = n_params
+    res["runs"] = runs
+    res["attention_composite_ms"] = attention_composite_ms(torch, cfg, batch)
+    res["cpu_check"] = cpu_first_loss(
+        torch, lambda: bert_build(torch, seed, dropout=False), inputs,
+        labels, BERT_CPU_B)
+    res["captured_losses_bitwise_eager"] = \
+        runs["float32"]["losses"] == runs["float32_eager"]["losses"]
+    log(f"bert_squad: {n_params / 1e6:.1f} M params, profile "
+        f"{json.dumps(res.get('profile_float32'))}, attention composite "
+        f"(isolated, fwd+bwd, all layers) {res['attention_composite_ms']:.2f}"
+        f" ms, CPU check {json.dumps(res['cpu_check'])}, fused optimizer "
+        f"vs plain {json.dumps(res['optimizer_vs_plain'])}")
+    report["bert_squad"] = res
+    for label, run in runs.items():
+        ls = run["losses"]
+        if not (all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            raise AssertionError(f"bert_squad {label}: losses not finite "
+                                 f"and falling: {ls}")
+        if run["fused_optimizer_launches"] <= 0:
+            raise AssertionError(f"bert_squad {label}: the fused optimizer "
+                                 f"kernel was not launched")
+    if not res["captured_losses_bitwise_eager"]:
+        raise AssertionError(
+            f"bert_squad: captured float32 losses differ from eager: "
+            f"{runs['float32']['losses']} vs "
+            f"{runs['float32_eager']['losses']}")
+    if not res["cpu_check"]["rel_diff"] <= BERT_CPU_REL:
+        raise AssertionError(f"bert_squad: the card's first loss is not the "
+                             f"CPU's: {res['cpu_check']}")
+    return res
+
+
+# -- phase 5g: PP-OCR recognition (CRNN) and detection (DBNet) training --------
+
+OCR_B, OCR_H, OCR_W = 128, 32, 320     # PP-OCR rec: 3 x 32 x 320
+OCR_CLASSES, OCR_HIDDEN, OCR_MAX_LEN = 97, 96, 25
+OCR_STEPS = 10
+DB_B, DB_SIZE, DB_STEPS = 8, 640, 5    # PP-OCR det: 3 x 640 x 640
+OCR_CPU_REL = 1e-4                     # first-step loss, card vs CPU
+LSTM_CUDNN_ATOL = 1e-4
+# the port's CTC against F.ctc_loss at b 128, T 81: losses of ~1e2-4e2,
+# where a float32 ulp is 1.5e-5-3e-5, each summed over 81 steps in its
+# own order (1.5e-4 apart in PR 16's first run); the logits' gradients
+# are posteriors taken through exp(alpha + beta - loss), so the loss's
+# rounding shows in them as the same relative error
+CTC_LIBRARY_ATOL = 1e-3
+CTC_GRAD_ATOL = 1e-3
+
+
+def ocr_batch(torch, seed, device="cuda"):
+    rng = np.random.RandomState(seed)
+    imgs = rng.rand(OCR_B, 3, OCR_H, OCR_W).astype(np.float32)
+    lens = rng.randint(1, OCR_MAX_LEN + 1, OCR_B)
+    labels = np.zeros((OCR_B, OCR_MAX_LEN), np.int64)
+    for i, n in enumerate(lens):
+        labels[i, :n] = rng.randint(1, OCR_CLASSES, n)
+    return [torch.from_numpy(a).to(device) for a in (imgs, labels, lens)]
+
+
+def db_batch(torch, seed):
+    rng = np.random.RandomState(seed + 1)
+    shape = (DB_B, 1, DB_SIZE, DB_SIZE)
+    out = [rng.rand(DB_B, 3, DB_SIZE, DB_SIZE).astype(np.float32),
+           (rng.rand(*shape) > 0.8).astype(np.float32),
+           rng.rand(*shape).astype(np.float32),
+           (rng.rand(*shape) > 0.5).astype(np.float32)]
+    return [torch.from_numpy(a).to("cuda") for a in out]
+
+
+def ocr_build(torch, seed, kind):
+    """``kind``'s model from the seed ("crnn": PP-OCR rec's CRNN and its
+    CTC head loss; "dbnet": DBNet at scale 0.5 and DBLoss) and Adam (lr
+    1e-3, no weight decay: the coupled rule)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import CRNN, CTCHeadLoss, DBLoss, DBNet
+    from paddle_tpu_torch.optimizer import Adam
+    paddle_tpu_torch.seed(seed)
+    if kind == "crnn":
+        model, crit = CRNN(3, OCR_CLASSES, OCR_HIDDEN), CTCHeadLoss()
+    else:
+        model, crit = DBNet(3, scale=0.5), DBLoss()
+    return model, crit, Adam(learning_rate=1e-3,
+                             parameters=model.parameters())
+
+
+def lstm_vs_cudnn(torch, lstm, t_len):
+    """The CRNN's BiLSTM (the port's recurrence op, eager and as a CUDA
+    graph of forward and backward) beside cuDNN's ``torch.nn.LSTM`` over
+    the same weights, at the model's shapes: ms and the largest output
+    difference."""
+    x = torch.randn(OCR_B, t_len, 256, device="cuda", requires_grad=True)
+    ref = torch.nn.LSTM(256, OCR_HIDDEN, num_layers=2, bidirectional=True,
+                        batch_first=True).cuda()
+    ref.load_state_dict({k: v.detach().clone()
+                         for k, v in lstm.named_parameters()})
+    ct = torch.randn(OCR_B, t_len, 2 * OCR_HIDDEN, device="cuda")
+    with torch.no_grad():
+        diff = float((lstm(x)[0] - ref(x)[0]).abs().max())
+
+    class Outputs(torch.nn.Module):      # the sequence output alone
+        def __init__(self):
+            super().__init__()
+            self.lstm = lstm
+
+        def forward(self, t):
+            return self.lstm(t)[0]
+    graphed = torch.cuda.make_graphed_callables(Outputs(), (x,),
+                                                num_warmup_iters=3)
+    out = dict(max_abs_diff_vs_cudnn=diff,
+               fwd_ms=time_ms(torch, lambda: lstm(x)),
+               fwd_bwd_ms=time_ms(torch, lambda: lstm(x)[0].backward(ct)),
+               graphed_fwd_bwd_ms=time_ms(torch,
+                                          lambda: graphed(x).backward(ct)),
+               cudnn_fwd_ms=time_ms(torch, lambda: ref(x)),
+               cudnn_fwd_bwd_ms=time_ms(torch,
+                                        lambda: ref(x)[0].backward(ct)))
+    prof = profile_call(torch, lambda: lstm(x)[0].backward(ct), 1)
+    out["eager_fwd_bwd_launches"] = prof.get("launches")
+    return out
+
+
+def ctc_vs_library(torch, t_len, labels, lens):
+    """The port's ``ctc_loss`` (forward and backward) beside torch's
+    ``F.ctc_loss`` at the CRNN's shapes: the rows where both losses are
+    finite, the largest difference of those losses and of the logits'
+    gradients of their sum, and each one's ms."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    logits = torch.randn(t_len, OCR_B, OCR_CLASSES, device="cuda",
+                         requires_grad=True)
+    in_len = torch.full((OCR_B,), t_len, dtype=torch.long, device="cuda")
+
+    def port():
+        return call_op("ctc_loss", torch.log_softmax(logits, -1), labels,
+                       in_len, lens)
+
+    def lib():
+        return F.ctc_loss(torch.log_softmax(logits, -1), labels, in_len, lens,
+                          reduction="none")
+
+    def loss_and_grad(fn):
+        loss = fn()
+        return loss.detach(), torch.autograd.grad(loss.sum(), logits)[0]
+    got, g_got = loss_and_grad(port)
+    want, g_want = loss_and_grad(lib)
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    return dict(finite_rows=int(finite.sum()),
+                loss_range=[float(want.min()), float(want.max())],
+                max_abs_diff_vs_library=float((got - want)[finite].abs()
+                                              .max()),
+                max_abs_grad_diff_vs_library=float((g_got - g_want).abs()
+                                                   .max()),
+                fwd_bwd_ms=time_ms(torch, lambda: port().sum().backward()),
+                library_fwd_bwd_ms=time_ms(
+                    torch, lambda: lib().sum().backward()))
+
+
+def phase_ocr(torch, seed, report):
+    """CRNN at PP-OCR rec's width trained 10 steps captured and 10 eager
+    (bit for bit), its BiLSTM and CTC beside cuDNN's and torch's, the
+    eager run's Adam bucket against the plain version; then DBNet at
+    PP-OCR det's input size, 5 steps; each first loss against the CPU."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # convolution grads, bitwise
+    try:
+        imgs, labels, lens = ocr_batch(torch, seed)
+        crnn_in, crnn_lab = (imgs,), (labels, lens)
+        res = dict(crnn=dict(batch=OCR_B, image=[3, OCR_H, OCR_W],
+                             classes=OCR_CLASSES, hidden=OCR_HIDDEN))
+        runs = {}
+        for label, capture in (("captured", True), ("eager", False)):
+            run, train = train_run(
+                torch, lambda: ocr_build(torch, seed, "crnn"), crnn_in,
+                crnn_lab, OCR_STEPS, "images", OCR_B, capture)
+            runs[label] = run
+            # one more step under the profiler: the kernels it runs (an
+            # eager step launches each one; a replay is one graph launch)
+            prof = profile_call(torch, lambda: train(crnn_in, crnn_lab), 1)
+            res["crnn"][f"{label}_step_profile"] = {
+                k: prof.get(k) for k in ("device_busy_ms", "wall_ms",
+                                         "busy_share_of_wall", "launches",
+                                         "not_measured")}
+            if capture:
+                with torch.no_grad():
+                    t_len = train.model(imgs[:1]).shape[0]
+                res["crnn"]["time_steps"] = t_len
+                res["lstm"] = lstm_vs_cudnn(torch, train.model.rnn, t_len)
+            else:
+                res["crnn"]["optimizer_vs_plain"] = run_buckets_vs_plain(
+                    torch, train, crnn_in, crnn_lab)
+            del train
+            free_card(torch)
+            log(f"ocr crnn {label}: {json.dumps(run)}")
+        res["crnn"]["runs"] = runs
+        res["ctc"] = ctc_vs_library(torch, res["crnn"]["time_steps"], labels,
+                                    lens)
+        res["crnn"]["cpu_check"] = cpu_first_loss(
+            torch, lambda: ocr_build(torch, seed, "crnn"), crnn_in, crnn_lab,
+            8)
+        db_in = db_batch(torch, seed)
+        run, train = train_run(torch, lambda: ocr_build(torch, seed, "dbnet"),
+                               db_in[:1], db_in[1:], DB_STEPS, "images", DB_B)
+        del train
+        free_card(torch)
+        res["dbnet"] = dict(batch=DB_B, image=[3, DB_SIZE, DB_SIZE],
+                            scale=0.5, run=run,
+                            cpu_check=cpu_first_loss(
+                                torch, lambda: ocr_build(torch, seed,
+                                                         "dbnet"),
+                                db_in[:1], db_in[1:], 1))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"ocr: lstm {json.dumps(res['lstm'])}; ctc {json.dumps(res['ctc'])};"
+        f" crnn {json.dumps({k: v for k, v in res['crnn'].items() if k != 'runs'})};"
+        f" dbnet {json.dumps(res['dbnet'])}")
+    report["ocr"] = res
+    crnn = res["crnn"]
+    for name, ls in (("crnn captured", runs["captured"]["losses"]),
+                     ("crnn eager", runs["eager"]["losses"]),
+                     ("dbnet", res["dbnet"]["run"]["losses"])):
+        if not (all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            raise AssertionError(f"ocr {name}: losses not finite and "
+                                 f"falling: {ls}")
+    if runs["captured"]["losses"] != runs["eager"]["losses"]:
+        raise AssertionError(f"ocr: captured CRNN losses differ from eager: "
+                             f"{runs['captured']['losses']} vs "
+                             f"{runs['eager']['losses']}")
+    for name, chk in (("crnn", crnn["cpu_check"]),
+                      ("dbnet", res["dbnet"]["cpu_check"])):
+        if not chk["rel_diff"] <= OCR_CPU_REL:
+            raise AssertionError(f"ocr {name}: the card's first loss is not "
+                                 f"the CPU's: {chk}")
+    if not res["lstm"]["max_abs_diff_vs_cudnn"] <= LSTM_CUDNN_ATOL:
+        raise AssertionError(f"ocr: the LSTM differs from cuDNN's: "
+                             f"{res['lstm']}")
+    ctc = res["ctc"]
+    if not (ctc["finite_rows"] == OCR_B
+            and ctc["max_abs_diff_vs_library"] <= CTC_LIBRARY_ATOL
+            and ctc["max_abs_grad_diff_vs_library"] <= CTC_GRAD_ATOL):
+        raise AssertionError(f"ocr: ctc_loss differs from F.ctc_loss: {ctc}")
+    if not (runs["captured"]["fused_optimizer_launches"] > 0
+            and res["dbnet"]["run"]["fused_optimizer_launches"] > 0):
+        raise AssertionError("ocr: the fused optimizer kernel was not "
+                             "launched")
+    return res
+
+
 # -- phase 6: MoE training ------------------------------------------------------
 
 MOE_LAYERS = 5    # the dense layer and 4 MoE layers, each with all 64
@@ -4738,6 +5265,10 @@ def main(argv=None) -> int:
     free_card(torch)
     phase_layer_net(torch, args.seed, report)
     free_card(torch)
+    bert = phase_bert_squad(torch, args.seed, report)
+    free_card(torch)
+    ocr = phase_ocr(torch, args.seed, report)
+    free_card(torch)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone
     phase_routes(torch, args.seed, report)
@@ -4832,6 +5363,17 @@ def main(argv=None) -> int:
         head = per["bfloat16"]
         e = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1], "launches": launched[name]}
+        if name == "fused_optimizer":
+            e["launches_bert"] = {
+                k: v["fused_optimizer_launches"]
+                for k, v in bert["runs"].items()}
+            e["launches_ocr"] = {
+                "crnn": ocr["crnn"]["runs"]["captured"][
+                    "fused_optimizer_launches"],
+                "dbnet": ocr["dbnet"]["run"]["fused_optimizer_launches"]}
+            # the float32 buckets of those paths, held to the plain version
+            e["vs_plain_bert"] = bert["optimizer_vs_plain"]
+            e["vs_plain_crnn"] = ocr["crnn"]["optimizer_vs_plain"]
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
             e["launches_train_layers"] = {

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,15 +57,25 @@ def layer_device() -> torch.device:
     return resolve_device(_DEFAULT[0])
 
 
-def dtype_of(name: Union[str, torch.dtype]) -> torch.dtype:
+def dtype_of(name) -> torch.dtype:
     """Torch dtype from the JAX package's dtype names ('float32',
-    'bfloat16', ...)."""
+    'bfloat16', 'int64', 'bool', ...), a numpy dtype or a Python type
+    (``float``, ``int``, ``bool``)."""
     if isinstance(name, torch.dtype):
         return name
-    table = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-             "float16": torch.float16, "int8": torch.int8,
-             "int32": torch.int32, "float64": torch.float64,
-             "int64": torch.int64}
-    if name not in table:
+    py = {float: "float32", int: "int64", bool: "bool"}
+    if isinstance(name, type) and name in py:
+        name = py[name]
+    elif not isinstance(name, str):
+        name = np.dtype(name).name
+    name = name.replace("paddle.", "")
+    if name not in _DTYPES:
         raise ValueError(f"unsupported dtype name {name!r}")
-    return table[name]
+    return _DTYPES[name]
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64,
+           "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+           "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+           "complex64": torch.complex64, "complex128": torch.complex128}

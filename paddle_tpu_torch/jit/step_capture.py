@@ -63,10 +63,13 @@ What the graph needs from the code it runs, and what the port does:
   the legacy stream (a loss a module stores) ties the captured backward
   to that stream ("trace failed"). The probe, the warm-up and the capture
   run on one side stream, so the step's own nodes agree;
-- dropout's generator: the default CUDA generator is registered by
-  ``torch.cuda.graph``; pass others as ``jit_step(fn, generators=...)``
-  (``TrainStep`` and ``hapi.Model`` pass their network's ``Dropout``
-  generators; a CPU generator among them is not registered).
+- dropout's generator: every graph registers the port's generator for
+  the card (``nn.initializer.default_generator``: the ``dropout``,
+  attention-dropout and ``gumbel_softmax`` ops draw from it when no
+  layer's generator is passed); pass others as ``jit_step(fn,
+  generators=...)`` (``TrainStep`` and ``hapi.Model`` pass their
+  network's ``Dropout`` generators; a CPU generator among them is not
+  registered).
   An unregistered one fails the capture ("trace failed").
 
 Unfusable steps fall back to the eager path with a frozen reason:
@@ -103,6 +106,7 @@ from torch.utils import _pytree as pytree
 
 from .. import flags
 from ..ops.kernels import _build
+from ..nn.initializer import default_generator
 from ..ops.kernels import fused_optimizer as fok
 from ..optimizer import lr as lr_mod
 from ..optimizer import optimizer as optimizer_mod
@@ -340,7 +344,11 @@ def capture_graph(body: Callable, stream: "torch.cuda.Stream",
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved()
         g = torch.cuda.CUDAGraph()
-        for gen in generators:
+        # the port's generator for the card: the ops' own draws
+        # (``dropout``, attention dropout, ``gumbel_softmax``) without a
+        # layer's generator
+        port_gen = default_generator(stream.device)
+        for gen in [port_gen] + [x for x in generators if x is not port_gen]:
             if gen.device.type == "cuda":
                 g.register_generator_state(gen)
         # the pool's id is known even if the capture fails (a failed graph

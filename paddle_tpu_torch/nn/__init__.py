@@ -1,7 +1,8 @@
 """``paddle.nn``: ``Layer``, the common layers, the initializers, the
-losses, ``functional``, the grad clips, the MoE layers, ``LayerStack`` and
-``quant`` (counterpart of ``paddle_tpu/nn/__init__.py``; ``SyncBatchNorm``,
-``nn/transformer.py`` and ``nn/rnn.py`` are ROADMAP A4/A8)."""
+losses, ``functional``, the grad clips, the transformer encoder, the
+recurrent layers, the MoE layers, ``LayerStack`` and ``quant``
+(counterpart of ``paddle_tpu/nn/__init__.py``; ``SyncBatchNorm`` is
+ROADMAP A8)."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -22,11 +23,16 @@ from .layers_common import __all__ as _LAYERS
 from .loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss,
                    L1Loss, MSELoss, NLLLoss, SmoothL1Loss)
 from .moe import ExpertFFN, MoELayer, TopKGate
+from .rnn import GRU, LSTM, GRUCell, LSTMCell, SimpleRNN, SimpleRNNCell
 from .stack import LayerStack
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = sorted(set(_LAYERS) | {
     "BCELoss", "BCEWithLogitsLoss", "ClipGradBase", "ClipGradByGlobalNorm",
     "ClipGradByNorm", "ClipGradByValue", "CrossEntropyLoss", "ExpertFFN",
-    "KLDivLoss", "L1Loss", "Layer", "LayerStack", "LazyGuard", "MSELoss",
-    "MoELayer", "NLLLoss", "ParamAttr", "ParamInit", "SmoothL1Loss",
-    "TopKGate", "functional", "initializer", "quant"})
+    "GRU", "GRUCell", "KLDivLoss", "L1Loss", "LSTM", "LSTMCell", "Layer",
+    "LayerStack", "LazyGuard", "MSELoss", "MoELayer", "MultiHeadAttention",
+    "NLLLoss", "ParamAttr", "ParamInit", "SimpleRNN", "SimpleRNNCell",
+    "SmoothL1Loss", "TopKGate", "TransformerEncoder",
+    "TransformerEncoderLayer", "functional", "initializer", "quant"})

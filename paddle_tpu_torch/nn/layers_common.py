@@ -302,12 +302,8 @@ class Dropout(Layer):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.p, self.axis, self.mode = p, axis, mode
-        if generator is None:
-            dev = layer_device()
-            seed = int(torch.randint(
-                0, 2 ** 62, (1,), generator=I.default_generator("cpu")))
-            generator = torch.Generator(device=dev).manual_seed(seed)
-        self.generator = generator
+        self.generator = generator if generator is not None \
+            else _fresh_generator(layer_device())
 
     def forward(self, x):
         return K.dropout(x, p=self.p, training=self.training, mode=self.mode,
@@ -316,6 +312,23 @@ class Dropout(Layer):
 
 class Dropout2D(Dropout):
     pass
+
+
+def _fresh_generator(device) -> torch.Generator:
+    """A generator on ``device`` seeded from the port's CPU generator."""
+    seed = int(torch.randint(0, 2 ** 62, (1,),
+                             generator=I.default_generator("cpu")))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def reseed_dropouts(layer: torch.nn.Module) -> None:
+    """Give each ``Dropout`` under ``layer`` a generator of its own on its
+    generator's device, seeded from the port's generator: a deep copy
+    clones its original's generator state, so copies would draw the
+    same masks."""
+    for m in layer.modules():
+        if isinstance(m, Dropout):
+            m.generator = _fresh_generator(m.generator.device)
 
 
 def _act_layer(op_name, **fixed):

@@ -157,6 +157,156 @@ SCHEMA.update({
     "kl_div": _LOSS + (("reduction", "mean"), ("log_target", False)),
 })
 
+# -- the core op table (creation, math, manipulation, search/sort) and the
+# recurrences: ``ops.yaml`` lines 13-334, 423-426 and 686
+_R = REQUIRED
+_XY = (("x", _R), ("y", _R))
+_SHAPE = (("shape", ()), ("dtype", None))
+_LIKE = _X + (("dtype", None),)
+_RED = _X + (("axis", None), ("keepdim", False))
+_CLOSE = _XY + (("rtol", 1e-05), ("atol", 1e-08), ("equal_nan", False))
+_DIAG = _X + (("offset", 0), ("axis1", 0), ("axis2", 1))
+_ARG = _RED + (("dtype", None),)
+_RNN = (("x", _R), ("w_ih", _R), ("w_hh", _R), ("b_ih", _R), ("b_hh", _R),
+        ("h0", _R))
+_LENGTHS = (("input_lengths", _R), ("label_lengths", _R), ("blank", 0))
+UNARY_OPS = (
+    "assign", "abs", "exp", "log", "log2", "log10", "log1p", "expm1", "sqrt",
+    "rsqrt", "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh",
+    "asinh", "acosh", "atanh", "floor", "ceil", "round", "trunc", "sign",
+    "square", "reciprocal", "neg", "erf", "erfinv", "lgamma", "digamma",
+    "frac", "conj", "angle", "real", "imag", "isnan", "isinf", "isfinite",
+    "logical_not", "bitwise_not", "t", "inverse", "matrix_transpose",
+    "numel", "shape_op", "as_real", "as_complex", "tanhshrink")
+BINARY_OPS = (
+    "add", "subtract", "multiply", "divide", "pow", "maximum", "minimum",
+    "remainder", "mod", "fmod", "floor_divide", "atan2", "logaddexp",
+    "hypot", "gcd", "lcm", "equal", "not_equal", "less_than", "less_equal",
+    "greater_than", "greater_equal", "logical_and", "logical_or",
+    "logical_xor", "bitwise_and", "bitwise_or", "bitwise_xor", "equal_all",
+    "dot", "outer", "bmm", "kron")
+SCHEMA.update({name: _X for name in UNARY_OPS})
+SCHEMA.update({name: _XY for name in BINARY_OPS})
+SCHEMA.update({
+    # creation
+    "full": (("shape", ()), ("fill_value", 0.0), ("dtype", None)),
+    "full_like": _X + (("fill_value", 0.0), ("dtype", None)),
+    "zeros": _SHAPE, "ones": _SHAPE, "empty": _SHAPE,
+    "zeros_like": _LIKE, "ones_like": _LIKE, "empty_like": _LIKE,
+    "arange": (("start", 0), ("end", None), ("step", 1), ("dtype", None)),
+    "linspace": (("start", _R), ("stop", _R), ("num", _R), ("dtype", None)),
+    "eye": (("num_rows", _R), ("num_columns", None), ("dtype", None)),
+    "tril_indices": (("rows", _R), ("cols", _R), ("offset", 0)),
+    "diag": _X + (("offset", 0),),
+    "diagflat": _X + (("offset", 0),),
+    "meshgrid": (("xs", _R),),
+    "getitem": _X + (("index", None),),
+    # math
+    "allclose": _CLOSE, "isclose": _CLOSE,
+    "scale": _X + (("scale", 1.0), ("bias", 0.0), ("bias_after_scale", True)),
+    "clip": _X + (("min", None), ("max", None)),
+    "lerp": _XY + (("weight", _R),),
+    "addmm": (("input", _R),) + _XY + (("beta", 1.0), ("alpha", 1.0)),
+    # reductions
+    "sum": _X + (("axis", None), ("dtype", None), ("keepdim", False)),
+    "mean": _RED, "max": _RED, "min": _RED, "any": _RED, "all": _RED,
+    "logsumexp": _RED, "amax": _RED, "amin": _RED, "median": _RED,
+    "nanmean": _RED, "nansum": _RED,
+    "prod": _RED + (("dtype", None),),
+    "std": _X + (("axis", None), ("unbiased", True), ("keepdim", False)),
+    "var": _X + (("axis", None), ("unbiased", True), ("keepdim", False)),
+    "cumsum": _X + (("axis", None),),
+    "cumprod": _X + (("dim", None),),
+    "cummax": _X + (("axis", -1),),
+    "cummin": _X + (("axis", -1),),
+    # linalg
+    "matmul": _XY + (("transpose_x", False), ("transpose_y", False)),
+    "cross": _XY + (("axis", -1),),
+    "mv": _X + (("vec", _R),),
+    "norm": _X + (("p", 2.0), ("axis", None), ("keepdim", False)),
+    "einsum_impl": (("operands", _R), ("equation", "")),
+    "triangular_solve": _XY + (("upper", True), ("transpose", False),
+                               ("unitriangular", False)),
+    "cholesky": _X + (("upper", False),),
+    "trace": _DIAG, "diagonal": _DIAG,
+    # manipulation
+    "reshape": _X + (("shape", _R),),
+    "transpose": _X + (("perm", _R),),
+    "swapaxes": _X + (("axis1", _R), ("axis2", _R)),
+    "moveaxis": _X + (("source", _R), ("destination", _R)),
+    "concat": (("xs", _R), ("axis", 0)),
+    "stack": (("xs", _R), ("axis", 0)),
+    "split": _X + (("num_or_sections", _R), ("axis", 0)),
+    "chunk": _X + (("chunks", _R), ("axis", 0)),
+    "unstack": _X + (("axis", 0), ("num", None)),
+    "unbind": _X + (("axis", 0),),
+    "squeeze": _X + (("axis", None),),
+    "unsqueeze": _X + (("axis", _R),),
+    "expand": _X + (("shape", _R),),
+    "broadcast_to": _X + (("shape", _R),),
+    "tile": _X + (("repeat_times", _R),),
+    "repeat_interleave": _X + (("repeats", _R), ("axis", None)),
+    "flip": _X + (("axis", _R),),
+    "roll": _X + (("shifts", _R), ("axis", None)),
+    "cast": _X + (("dtype", _R),),
+    "slice": _X + (("axes", _R), ("starts", _R), ("ends", _R)),
+    "strided_slice": _X + (("axes", _R), ("starts", _R), ("ends", _R),
+                           ("strides", _R)),
+    "gather": _X + (("index", _R), ("axis", 0)),
+    "gather_nd": _X + (("index", _R),),
+    "take_along_axis": _X + (("indices", _R), ("axis", _R)),
+    "put_along_axis": _X + (("indices", _R), ("values", _R), ("axis", _R),
+                            ("reduce", "assign")),
+    "scatter": _X + (("index", _R), ("updates", _R), ("overwrite", True)),
+    "scatter_nd_add": _X + (("index", _R), ("updates", _R)),
+    "index_select": _X + (("index", _R), ("axis", 0)),
+    "index_add": _X + (("index", _R), ("axis", _R), ("value", _R)),
+    "where": (("condition", _R), ("x", None), ("y", None)),
+    "masked_fill": _X + (("mask", _R), ("value", _R)),
+    "tril": _X + (("diagonal", 0),),
+    "triu": _X + (("diagonal", 0),),
+    # search / sort
+    "argmax": _ARG, "argmin": _ARG,
+    "argsort": _X + (("axis", -1), ("descending", False), ("stable", True)),
+    "sort": _X + (("axis", -1), ("descending", False)),
+    "topk": _X + (("k", _R), ("axis", -1), ("largest", True),
+                  ("sorted", True)),
+    "searchsorted": (("sorted_sequence", _R), ("values", _R),
+                     ("out_int32", False), ("right", False)),
+    "bincount": _X + (("weights", None), ("minlength", 0)),
+    "histogram": _X + (("bins", 100), ("min", 0.0), ("max", 0.0)),
+    "nonzero": _X + (("as_tuple", False),),
+    "masked_select": _X + (("mask", _R),),
+    "unique": _X + (("return_index", False), ("return_inverse", False),
+                    ("return_counts", False), ("axis", None)),
+    # activations, nn core, losses
+    "celu": _X + (("alpha", 1.0),),
+    "hardtanh": _X + (("min", -1.0), ("max", 1.0)),
+    "softshrink": _X + (("threshold", 0.5),),
+    "hardshrink": _X + (("threshold", 0.5),),
+    "thresholded_relu": _X + (("threshold", 1.0),),
+    "glu": _X + (("axis", -1),),
+    "gumbel_softmax": _X + (("temperature", 1.0), ("hard", False),
+                            ("axis", -1)),
+    "unfold": _X + (("kernel_sizes", _R), ("strides", 1), ("paddings", 0),
+                    ("dilations", 1)),
+    "softmax_with_cross_entropy": (
+        ("logits", _R), ("label", _R), ("soft_label", False),
+        ("ignore_index", -100), ("axis", -1)),
+    "cosine_similarity": (("x1", _R), ("x2", _R), ("axis", 1),
+                          ("eps", 1e-08)),
+    "hinge_embedding_loss": _LOSS + (("margin", 1.0), ("reduction", "mean")),
+    # recurrences and sequence losses
+    "lstm_layer": _RNN + (("c0", _R), ("lens", None), ("reverse", False)),
+    "gru_layer": _RNN + (("lens", None), ("reverse", False)),
+    "simple_rnn_layer": _RNN + (("lens", None), ("reverse", False),
+                                ("activation", "tanh")),
+    "ctc_loss": (("log_probs", _R), ("labels", _R)) + _LENGTHS + (
+        ("norm_by_times", False),),
+    "rnnt_loss": (("input", _R), ("label", _R)) + _LENGTHS + (
+        ("fastemit_lambda", 0.0),),
+})
+
 KERNELS: Dict[str, Callable] = {}
 _OP_FNS: Dict[str, Callable] = {}
 
@@ -263,7 +413,8 @@ def _make_op(name: str) -> Callable:
 def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
-        from .kernels import moe, nn, quant, serving  # noqa: F401  (register)
+        from .kernels import (creation, manipulation, math, moe,  # noqa
+                              nn, quant, rnn, serving)  # F401 (register)
         for name in SCHEMA:
             if name not in KERNELS:
                 raise RuntimeError(f"op '{name}': no kernel registered")

@@ -4,8 +4,8 @@ Counterparts in ``paddle_tpu/ops/kernels/nn.py``: ``swiglu`` (:58),
 ``linear`` (:91), ``embedding`` (:99), ``rms_norm`` (:124), ``rope``
 (:679), ``scaled_dot_product_attention`` (:624), the ``flash_attention``
 routing (:723), the ``flash_attn_unpadded`` routing (:761) and
-``fused_softmax_ce`` (:839), and the two Tensor ops of the Llama path,
-``matmul`` (the tied logits) and ``mean`` (the loss). They keep the
+``fused_softmax_ce`` (:839), and the registry's ``matmul`` (the tied
+logits) and ``mean`` (the loss) of ``math.py``. They keep the
 reference's order of casts, so a bf16 model rounds at the same places in
 both packages. The op registry (``ops/dispatcher.py``) holds those whose
 arguments are the reference op's.
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..dispatcher import hooked, register_kernel
 from . import flash_attention as _fa
 from . import flash_varlen as _fv
+from .math import _matmul, _mean
 
 
 @register_kernel("swiglu")
@@ -45,17 +46,6 @@ def _linear(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out
-
-
-def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y`` (the reference's ``matmul`` op; the tied logits pass the
-    transposed embedding)."""
-    return torch.matmul(x, y)
-
-
-def _mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of every element (the reference's ``Tensor.mean``)."""
-    return x.mean()
 
 
 @register_kernel("embedding")
@@ -147,8 +137,11 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p: float = 0.0,
     """The composite attention over ``[batch, seq, heads, head_dim]``, in
     plain torch ops: float32 scores, right-aligned causal mask and
     ``attn_mask`` (bool keeps, float adds) at -inf, softmax cast to q's
-    dtype, dropout only when a generator is given (the reference needs an
-    rng key), then ``probs @ v`` in q's dtype. GQA repeats kv heads."""
+    dtype, dropout of the probabilities when ``dropout_p > 0`` (the mask
+    from ``generator``, by default the port's generator for q's device,
+    as the reference draws a fresh key each call; kept ones scaled by
+    ``1 / (1 - p)``), then ``probs @ v`` in q's dtype. GQA repeats kv
+    heads."""
     b, sq, h, d = query.shape
     sk = key.shape[1]
     if scale is None:
@@ -169,7 +162,10 @@ def _sdpa(query, key, value, attn_mask=None, dropout_p: float = 0.0,
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    if dropout_p > 0.0 and generator is not None:
+    if dropout_p > 0.0:
+        if generator is None:
+            from ...nn.initializer import default_generator
+            generator = default_generator(probs.device)
         keep_p = 1.0 - dropout_p
         drop = torch.rand(probs.shape, generator=generator,
                           device=probs.device) < keep_p
@@ -276,7 +272,8 @@ def _fused_softmax_ce(logits: torch.Tensor, labels: torch.Tensor
     return _FusedSoftmaxCE.apply(logits, labels)
 
 
-# the ops, by the reference's op names
+# the ops, by the reference's op names (``matmul`` and ``mean`` are the
+# registry's, of ``math.py``: the Llama path's tied logits and loss)
 swiglu = hooked("swiglu", _swiglu)
 linear = hooked("linear", _linear)
 matmul = hooked("matmul", _matmul)
@@ -292,8 +289,9 @@ fused_softmax_ce = hooked("fused_softmax_ce", _fused_softmax_ce)
 
 # -- the layer ops (``nn/layers_common.py``, ``nn/loss.py``) -----------------
 # Counterparts of the reference ops of ``paddle_tpu/ops/kernels/nn.py``
-# (activations :17-74, norms :107-197, conv and pooling :200-455, losses
-# :474-636), ``math.py`` (sigmoid, tanh, logsigmoid), ``manipulation.py``
+# (activations :17-74 and ``glu`` / ``gumbel_softmax``, norms :107-197,
+# conv and pooling :200-455 with ``unfold`` :440, losses :462-636),
+# ``math.py`` (sigmoid, tanh, logsigmoid), ``manipulation.py``
 # (flatten :99, pad :240, one_hot :358) and ``random.py`` (dropout :96).
 # No op here has a Pallas kernel: products and convolutions stay
 # ``torch.matmul`` / ``F.conv2d``, as the reference's stay XLA's.
@@ -328,6 +326,54 @@ gelu = _act("gelu", lambda x, approximate=False:
 softmax = _act("softmax", lambda x, axis=-1: torch.softmax(x, dim=axis))
 log_softmax = _act("log_softmax",
                    lambda x, axis=-1: torch.log_softmax(x, dim=axis))
+celu = _act("celu", lambda x, alpha=1.0: F.celu(x, alpha))
+hardtanh = _act("hardtanh", lambda x, min=-1.0, max=1.0:
+                torch.clamp(x, min, max))
+tanhshrink = _act("tanhshrink", lambda x: x - torch.tanh(x))
+softshrink = _act("softshrink", lambda x, threshold=0.5: torch.where(
+    x > threshold, x - threshold,
+    torch.where(x < -threshold, x + threshold, 0.0)))
+hardshrink = _act("hardshrink", lambda x, threshold=0.5:
+                  torch.where(x.abs() > threshold, x, 0.0))
+thresholded_relu = _act("thresholded_relu", lambda x, threshold=1.0:
+                        torch.where(x > threshold, x, 0.0))
+
+
+@register_kernel("glu")
+def _glu(x, axis=-1):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def gumbel_noise(shape, dtype, generator) -> torch.Tensor:
+    """Standard Gumbel draws ``-log(-log(u))``, u uniform in (0, 1) from
+    ``generator``."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (-torch.log(-torch.log(u.clamp(min=tiny)))).to(dtype)
+
+
+@register_kernel("gumbel_softmax")
+def _gumbel_softmax(x, temperature=1.0, hard=False, axis=-1,
+                    generator: Optional[torch.Generator] = None):
+    """softmax((x + g) / temperature) with Gumbel noise g from
+    ``generator`` (by default the port's generator for x's device; the
+    reference's op takes a fresh key); ``hard``: the one-hot of the
+    argmax forward, the soft grads backward (straight through)."""
+    if generator is None:
+        from ...nn.initializer import default_generator
+        generator = default_generator(x.device)
+    y = torch.softmax((x + gumbel_noise(x.shape, x.dtype, generator))
+                      / temperature, dim=axis)
+    if hard:
+        idx = y.argmax(dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter(axis, idx, 1.0)
+        y = y_hard + y - y.detach()
+    return y
+
+
+glu = hooked("glu", _glu)
+gumbel_softmax = hooked("gumbel_softmax", _gumbel_softmax)
 
 
 # -- norms --------------------------------------------------------------------
@@ -489,24 +535,69 @@ def _nchw(x, data_format, fn):
     return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def _ceil_pads(x, k, st, pad):
+    """Per spatial axis (low, high) padding: ``pad`` each side, plus, in
+    ceil mode, enough on the high side for the last partial window (the
+    reference's ``pool2d``, ``extra_nn.py:173-199``); and whether any
+    window reaches padding."""
+    pads, padded = [], any(pad)
+    for i in range(2):
+        size = x.shape[2 + i] + 2 * pad[i] - k[i]
+        extra = (-(-size // st[i]) - size // st[i]) * st[i]
+        pads.append((pad[i], pad[i] + extra))
+        padded = padded or extra > 0
+    return pads, padded
+
+
+def _pool_ceil(t, k, st, pad, op, exclusive=True):
+    """A window pool over ``t`` padded as :func:`_ceil_pads` says: max
+    over -inf padding; avg over zeros, divided by the window's unpadded
+    elements (``exclusive``) or by the whole k·k."""
+    pads, padded = _ceil_pads(t, k, st, pad)
+    (t0, t1), (l0, l1) = pads
+    flat = (l0, l1, t0, t1)
+    if op == "max":
+        fill = float("-inf") if t.is_floating_point() \
+            else torch.iinfo(t.dtype).min
+        return F.max_pool2d(F.pad(t, flat, value=fill), k, st)
+    acc = t.float()
+    out = F.avg_pool2d(F.pad(acc, flat), k, st, divisor_override=1)
+    if exclusive and padded:
+        ones = F.pad(torch.ones_like(acc[:1, :1]), flat)
+        out = out / F.avg_pool2d(ones, k, st, divisor_override=1) \
+            .clamp(min=1.0)
+    else:
+        out = out / float(k[0] * k[1])
+    return out.to(t.dtype)
+
+
 @register_kernel("max_pool2d")
 def _max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                 data_format="NCHW"):
+    """Max over each window, padding at -inf; ``ceil_mode`` keeps the
+    last partial window as the reference's ``pool2d`` op does."""
     k = _pair(kernel_size)
     st = k if stride is None else _pair(stride)
+    if ceil_mode:
+        return _nchw(x, data_format, lambda t: _pool_ceil(
+            t, k, st, _pair(padding), "max"))
     return _nchw(x, data_format, lambda t: F.max_pool2d(
-        t, k, st, _pair(padding), ceil_mode=ceil_mode))
+        t, k, st, _pair(padding)))
 
 
 @register_kernel("avg_pool2d")
 def _avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                 exclusive=True, data_format="NCHW"):
-    """``exclusive`` divides by the window's unpadded elements."""
+    """``exclusive`` divides by the window's unpadded elements, else by
+    the whole k·k (in ceil mode too, as the reference's ``pool2d``, where
+    torch's ``count_include_pad`` would clip the divisor at the edge)."""
     k = _pair(kernel_size)
     st = k if stride is None else _pair(stride)
+    if ceil_mode:
+        return _nchw(x, data_format, lambda t: _pool_ceil(
+            t, k, st, _pair(padding), "avg", exclusive))
     return _nchw(x, data_format, lambda t: F.avg_pool2d(
-        t, k, st, _pair(padding), ceil_mode=ceil_mode,
-        count_include_pad=not exclusive))
+        t, k, st, _pair(padding), count_include_pad=not exclusive))
 
 
 def _out_size(output_size):
@@ -555,6 +646,13 @@ def _interpolate_bilinear(x, out_h, out_w, align_corners=False,
 @register_kernel("pixel_shuffle")
 def _pixel_shuffle(x, upscale_factor, data_format="NCHW"):
     return F.pixel_shuffle(x, upscale_factor)
+
+
+@register_kernel("unfold")
+def _unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """im2col: ``[N, C·kh·kw, L]`` patches, C major (``F.unfold``)."""
+    return F.unfold(x, _pair(kernel_sizes), _pair(dilations),
+                    _pair(paddings), _pair(strides))
 
 
 @register_kernel("flatten")
@@ -638,6 +736,30 @@ def _softmax_ce(logits, label, soft_label, ignore_index, axis):
     nll = -logp.gather(axis, torch.where(lab == ignore_index, 0, lab)
                        .unsqueeze(axis))
     return torch.where((lab != ignore_index).unsqueeze(axis), nll, 0.0)
+
+
+@register_kernel("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(logits, label, soft_label=False,
+                                ignore_index=-100, axis=-1):
+    """Per-row CE with the class axis kept (size 1); ignored rows 0."""
+    return _softmax_ce(logits, label, soft_label, ignore_index, axis)
+
+
+@register_kernel("cosine_similarity")
+def _cosine_similarity(x1, x2, axis=1, eps=1e-08):
+    """``<x1, x2> / max(|x1| |x2|, eps)`` (the product of the norms
+    clipped, as the reference does, not each norm)."""
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / torch.clamp(n1 * n2, min=eps)
+
+
+@register_kernel("hinge_embedding_loss")
+def _hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    loss = torch.where(label == 1.0, input,
+                       torch.clamp(margin - input, min=0))
+    return _reduce(loss, reduction)
 
 
 @register_kernel("cross_entropy_mean")
@@ -764,3 +886,8 @@ binary_cross_entropy = hooked("binary_cross_entropy", _binary_cross_entropy)
 binary_cross_entropy_with_logits = hooked(
     "binary_cross_entropy_with_logits", _bce_with_logits)
 kl_div = hooked("kl_div", _kl_div)
+unfold = hooked("unfold", _unfold)
+softmax_with_cross_entropy = hooked("softmax_with_cross_entropy",
+                                    _softmax_with_cross_entropy)
+cosine_similarity = hooked("cosine_similarity", _cosine_similarity)
+hinge_embedding_loss = hooked("hinge_embedding_loss", _hinge_embedding_loss)

@@ -172,13 +172,37 @@ class TestRouting:
                     else torch.from_numpy(mask))
         j_kw = dict(kw, attn_mask=None if mask is None else jnp.asarray(mask))
         if kind == "dropout":
-            # no generator / no rng key: both skip the dropout itself
-            t_kw["dropout_p"] = j_kw["dropout_p"] = 0.5
+            # the port drops from its generator (the reference's op draws
+            # a fresh key); its mask is replayed below
+            from paddle_tpu_torch.nn.initializer import seed
+            seed(5)
+            t_kw["dropout_p"] = 0.5
         got = tnn.flash_attention(*map(torch.from_numpy, (q, k, v)), **t_kw)
         assert calls == []
         want = jnn.flash_attention(*map(jnp.asarray, (q, k, v)), **j_kw)
+        if kind == "dropout":
+            want = self._dropped(q, k, v, np.asarray(want))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
                                    equal_nan=True)
+
+    @staticmethod
+    def _dropped(q, k, v, want0):
+        """The causal composite with the mask the port's generator drew
+        (seed 5), its probabilities held to the reference's output
+        without dropout first."""
+        from paddle_tpu_torch.nn.initializer import default_generator, seed
+        qt, kt, vt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+        kt, vt = (t.repeat_interleave(2, dim=1) for t in (kt, vt))
+        logits = qt @ kt.transpose(-1, -2) * q.shape[-1] ** -0.5
+        causal = torch.ones(logits.shape[-2:], dtype=torch.bool).tril()
+        probs = torch.softmax(logits.masked_fill(~causal, float("-inf")), -1)
+        np.testing.assert_allclose((probs @ vt).transpose(1, 2).numpy(),
+                                   want0, atol=2e-6)
+        seed(5)
+        keep = torch.rand(probs.shape, generator=default_generator("cpu")) \
+            < 0.5
+        return (torch.where(keep, probs / 0.5, 0.0) @ vt).transpose(1, 2) \
+            .numpy()
 
     @pytest.mark.parametrize("q_shape,k_shape,causal,want", [
         ((2, 16, 4, 96), (2, 16, 2, 96), True, True),    # any head_dim

@@ -57,9 +57,27 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
+class _RefCeilPool(jnn.Layer):
+    """The reference's pooling with ``ceil_mode``: its ``pool2d`` op (its
+    ``max_pool2d`` / ``avg_pool2d`` ops ignore ``ceil_mode``)."""
+
+    def __init__(self, name, kernel_size, stride, padding, ceil_mode=True,
+                 exclusive=True):
+        super().__init__()
+        self.kw = dict(kernel_size=(kernel_size,) * 2, strides=(stride,) * 2,
+                       paddings=(padding,) * 2, ceil_mode=ceil_mode,
+                       exclusive=exclusive,
+                       pooling_type="max" if name == "MaxPool2D" else "avg")
+
+    def forward(self, x):
+        from paddle_tpu.ops.dispatcher import call_op
+        return call_op("pool2d", x, **self.kw)
+
+
 def _pair(name, *args, **kw):
     paddle.seed(0)
-    jl = getattr(jnn, name)(*args, **kw)
+    jl = _RefCeilPool(name, *args, **kw) if kw.get("ceil_mode") \
+        else getattr(jnn, name)(*args, **kw)
     tl = getattr(tnn, name)(*args, **kw)
     from_jax_state_dict(tl, {k: np.asarray(v._data)
                              for k, v in jl.state_dict().items()})
@@ -146,6 +164,14 @@ CASES = {
     "avg_pool_inclusive": (("AvgPool2D", 3),
                            dict(stride=2, padding=1, exclusive=False),
                            (2, 3, 7, 7)),
+    # ceil mode (C5): held to the reference's pool2d op
+    **{f"{kind}_pool_ceil_p{pad}": (
+        ("MaxPool2D" if kind == "max" else "AvgPool2D", 3),
+        dict(stride=2, padding=pad, ceil_mode=True,
+             **({} if kind == "max" else
+                {"exclusive": kind == "avg_exclusive"})), (2, 3, 8, 8))
+       for kind in ("max", "avg_exclusive", "avg_inclusive")
+       for pad in (0, 1)},
     "adaptive_avg_uniform": (("AdaptiveAvgPool2D", 2), {}, (2, 3, 8, 8)),
     "adaptive_avg_bins": (("AdaptiveAvgPool2D", 3), {}, (2, 3, 7, 8)),
     "adaptive_max_bins": (("AdaptiveMaxPool2D", (3, 2)), {}, (2, 3, 7, 5)),
