@@ -232,6 +232,26 @@ Phases (any failure raises and the script exits non-zero):
    then DBNet (scale 0.5) at 3 x 640 x 640, batch 8, 5 captured steps;
    each model's first loss against the CPU from the same weights (CRNN at
    batch 8, DBNet at 1) within OCR_CPU_REL;
+5h. ``eager_surface``: Paddle's canonical eager loop written as user code
+   over ``import paddle_tpu_torch as paddle`` at phase 5's width (8
+   layers, 2 x 2048, bf16, AdamW lr 1e-4, weight decay 0.01, global-norm
+   clip 1.0): ``paddle.seed``, ids from ``paddle.randint`` on the card,
+   inputs by ``Tensor`` slicing, then 6 steps of ``loss = crit(model(x),
+   x)``, ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``,
+   ``loss.item()``; the same 6 steps from the same weights over the same
+   ids as plain tensors (``eager_llama_run``). The losses and the weights'
+   fingerprint must be equal bit for bit, ``model(x)`` a ``Tensor``, one
+   ``paddle.grad(loss, [embed.weight], retain_graph=True)`` equal to the
+   step's accumulated grad, a ``no_grad`` forward ``stop_gradient``, and
+   ``loss.numpy()`` equal ``loss.item()``; each loop's steps/s and host ms
+   a step (the boundary's cost), the flash forward, dq and dk/dv launches
+   (8 a step each) and fused AdamW's (1 a step), peak memory. Then
+   ``rand``, ``randn``, ``randint``, ``bernoulli`` and ``multinomial`` at
+   2^24 draws on the card (moments within MOMENT_SE standard errors, the
+   same bytes after the same seed with ``torch.manual_seed`` between, each
+   draw under ``jit_step`` over 4 calls equal to 4 eager draws: probe,
+   warm-up, two replays of one graph), and the WGAN-GP penalty step with
+   ``paddle.grad(create_graph=True)``, card against CPU within WGAN_REL;
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -265,6 +285,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -3250,25 +3271,29 @@ def train_state(model, opt):
 def eager_train_run(torch, build, ids, steps):
     """The hand-written eager loop (forward, loss, backward, ``step``,
     ``clear_grad``) over ``build() -> (model, crit, opt)``: losses, the
-    weights' fingerprint, tokens/s, step p50/p99 (steps 2 on) and peak."""
+    weights' fingerprint, tokens/s, step p50/p99 (steps 2 on), the host's
+    ms a step until ``clear_grad`` returns (before the sync) and peak."""
     torch.cuda.reset_peak_memory_stats()
     model, crit, opt = build()
-    losses, step_s = [], []
+    losses, step_s, host_s = [], [], []
     for i in range(steps):
         ts = time.perf_counter()
         loss = crit(model(ids), ids)
         loss.backward()
         opt.step()
         opt.clear_grad()
+        th = time.perf_counter()
         torch.cuda.synchronize()
         if i >= 2:
             step_s.append(time.perf_counter() - ts)
+            host_s.append(th - ts)
         losses.append(float(loss.detach()))
     res = dict(losses=losses,
                fingerprint=bits_fingerprint(torch, train_state(model, opt)),
                tokens_per_s=ids.numel() / float(np.mean(step_s)),
                step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
                step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+               host_ms_p50=1e3 * float(np.percentile(host_s, 50)),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del model, crit, opt, loss
     gc.collect()
@@ -5197,6 +5222,242 @@ def phase_moe_train(torch, seed, report):
     return res
 
 
+# -- phase eager_surface: Paddle's eager loop through the Tensor surface ------
+EAGER_STEPS = 6
+RANDOM_N = 1 << 24
+CAPTURED_DRAW_N = 1 << 20
+MOMENT_SE = 6.0          # the moments' limit in standard errors
+WGAN_REL = 1e-5          # WGAN-GP penalty and grads, card vs CPU
+_U = 1.0 / math.sqrt(12.0)
+# name -> (draw(paddle, n), (mean, std) of the law, support (lo, hi))
+RANDOM_DRAWS = {
+    "rand": (lambda P, n: P.rand([n]), (0.5, _U), (0.0, 1.0)),
+    "randn": (lambda P, n: P.randn([n]), (0.0, 1.0), None),
+    "randint": (lambda P, n: P.randint(0, 10, [n]),
+                (4.5, math.sqrt(99 / 12)), (0, 9)),
+    "bernoulli": (lambda P, n: P.bernoulli(P.full([n], 0.3)),
+                  (0.3, math.sqrt(0.21)), (0, 1)),
+    # weights 1 : 2 : 3, made on the card (a host copy cannot be captured)
+    "multinomial": (lambda P, n: P.multinomial(
+        P.arange(1, 4, dtype="float32"), n, replacement=True),
+        (4 / 3, math.sqrt(14 / 6 - 16 / 9)), (0, 2)),
+}
+
+
+def draw_stats(torch, t):
+    """(n, mean, std, min, max) of a draw, reduced on its device."""
+    d = t.as_subclass(torch.Tensor).double()
+    return (d.numel(), float(d.mean()), float(d.std(unbiased=False)),
+            float(d.min()), float(d.max()))
+
+
+def moment_errors(name, stats):
+    """The ways a draw's stats miss its law: mean beyond MOMENT_SE standard
+    errors, std beyond that plus 5% (discrete or capped laws), support."""
+    (mu, sd), support = RANDOM_DRAWS[name][1], RANDOM_DRAWS[name][2]
+    n, m, s, lo, hi = stats
+    errs = []
+    if abs(m - mu) > MOMENT_SE * sd / math.sqrt(n):
+        errs.append(f"{name}: mean {m} vs {mu}")
+    if abs(s - sd) > MOMENT_SE * sd / math.sqrt(2 * n) + 0.05 * sd:
+        errs.append(f"{name}: std {s} vs {sd}")
+    if support is not None and (lo < support[0] or hi > support[1]):
+        errs.append(f"{name}: [{lo}, {hi}] outside {support}")
+    return errs
+
+
+def wgan_gp(P, np_seed=3):
+    """The reference's WGAN-GP penalty step (tests/test_double_grad.py:134)
+    at its shapes, on ``set_device``'s device: the penalty and the critic's
+    grads (None as zeros), as numpy."""
+    rng = np.random.RandomState(np_seed)
+    ws = [(rng.randn(*s) * 0.5).astype(np.float32)
+          for s in ((4, 8), (8,), (8, 1), (1,))]
+
+    def attr(w):
+        return P.ParamAttr(initializer=P.nn.initializer.Assign(w))
+    critic = P.nn.Sequential(
+        P.nn.Linear(4, 8, weight_attr=attr(ws[0]), bias_attr=attr(ws[1])),
+        P.nn.Tanh(),
+        P.nn.Linear(8, 1, weight_attr=attr(ws[2]), bias_attr=attr(ws[3])))
+    x = P.to_tensor(np.random.RandomState(0).randn(6, 4).astype(np.float32),
+                    stop_gradient=False)
+    (gx,) = P.grad(critic(x).sum(), x, create_graph=True)
+    norm = (gx * gx).sum(axis=1).sqrt()
+    penalty = ((norm - 1.0) ** 2).mean()
+    penalty.backward()
+    return [penalty.numpy()] + [
+        np.zeros(tuple(p.shape), np.float32) if p.grad is None
+        else p.grad.detach().cpu().numpy() for p in critic.parameters()]
+
+
+def paddle_train_loop(torch, P, model, crit, opt, x, steps):
+    """Paddle's canonical eager loop as user code: losses by ``item()``,
+    seconds a step and the host's seconds until ``clear_grad`` returns
+    (steps 2 on), and the last loss's ``numpy()``."""
+    losses, step_s, host_s = [], [], []
+    for i in range(steps):
+        ts = time.perf_counter()
+        loss = crit(model(x), x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        th = time.perf_counter()
+        losses.append(loss.item())
+        if i >= 2:
+            step_s.append(time.perf_counter() - ts)
+            host_s.append(th - ts)
+    return dict(losses=losses, step_s=step_s, host_s=host_s,
+                last_numpy=loss.numpy().item(), last_item=losses[-1])
+
+
+def random_on_card(torch, P, seed):
+    """The random ops at RANDOM_N draws on the card: moments, the same
+    bytes after the same seed with torch's global seed moved between, and
+    each draw captured in a graph and replayed against the eager draws."""
+    from paddle_tpu_torch.jit import jit_step
+    P.seed(seed)
+    first = {k: d(P, RANDOM_N) for k, (d, _, _) in RANDOM_DRAWS.items()}
+    stats = {k: draw_stats(torch, v) for k, v in first.items()}
+    errs = [e for k, st in stats.items() for e in moment_errors(k, st)]
+    P.seed(seed)
+    torch.manual_seed(seed + 12345)
+    again = {k: d(P, RANDOM_N) for k, (d, _, _) in RANDOM_DRAWS.items()}
+    same = {k: bool(torch.equal(first[k], again[k])) for k in first}
+    del first, again
+    captured = {}
+    for k, (d, _, _) in RANDOM_DRAWS.items():
+        P.seed(seed)
+        eager = [d(P, CAPTURED_DRAW_N) for _ in range(4)]
+        P.seed(seed)
+        step = jit_step(lambda z, _d=d: _d(P, CAPTURED_DRAW_N) + z)
+        zero = P.zeros([], dtype=eager[0].dtype)
+        got = [step(zero) for _ in range(4)]
+        captured[k] = dict(
+            equal=[bool(torch.equal(a, b)) for a, b in zip(got, eager)],
+            graphs=len(step.graphs()))
+        del step, got, eager
+    return dict(stats=stats, moment_errors=errs, same_bytes=same,
+                captured=captured)
+
+
+def phase_eager_surface(torch, seed, report):
+    """Paddle's eager loop at Llama-3-8B's width through the Tensor
+    surface, against the same steps over plain tensors, bit for bit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_LAYERS)
+    paddle.set_device("gpu")
+    paddle.seed(seed)
+    ids = paddle.randint(0, cfg.vocab_size, [TRAIN_B, TRAIN_S + 1],
+                         dtype="int64")
+    x = ids[:, :-1]            # the inputs; the criterion shifts the labels
+    if not (isinstance(x, paddle.Tensor) and x.place == paddle.CUDAPlace(0)):
+        raise AssertionError(f"randint and slicing gave {type(x)} on "
+                             f"{x.place}")
+    res = {"layers": cfg.num_hidden_layers, "batch": TRAIN_B,
+           "seq": TRAIN_S, "steps": EAGER_STEPS}
+    # the same steps over plain tensors: phase_train's eager baseline
+    base = eager_llama_run(torch, cfg, seed, x.as_subclass(torch.Tensor),
+                           EAGER_STEPS)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    run = paddle_train_loop(torch, paddle, model, crit, opt, x, EAGER_STEPS)
+    counts = kernels.launch_counts()
+    fp = bits_fingerprint(torch, train_state(model, opt))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = TRAIN_B * TRAIN_S
+    res["paddle_loop"] = dict(
+        losses=run["losses"], steps_per_s=1.0 / float(np.mean(run["step_s"])),
+        tokens_per_s=tokens / float(np.mean(run["step_s"])),
+        host_ms_p50=1e3 * float(np.percentile(run["host_s"], 50)),
+        step_ms_p50=1e3 * float(np.percentile(run["step_s"], 50)),
+        peak_mem_gib=peak)
+    res["plain_loop"] = dict(
+        losses=base["losses"],
+        steps_per_s=base["tokens_per_s"] / tokens,
+        tokens_per_s=base["tokens_per_s"], host_ms_p50=base["host_ms_p50"],
+        step_ms_p50=base["step_ms_p50"], peak_mem_gib=base["peak_mem_gib"])
+    per_step = {k: counts[k] / EAGER_STEPS for k in TRAINING_KERNELS}
+    res["launches"] = {k: counts[k] for k in TRAINING_KERNELS}
+    res["launches_per_step"] = per_step
+    # the autograd API at this width: paddle.grad against the accumulated
+    # grad of the same step, a no_grad forward, numpy() against item()
+    embed = model.llama.embed_tokens.weight
+    logits = model(x)
+    returns_tensor = isinstance(logits, paddle.Tensor)
+    loss = crit(logits, x)
+    (g,) = paddle.grad(loss, [embed], retain_graph=True)
+    loss.backward()
+    grad_equal = bool(torch.equal(g.as_subclass(torch.Tensor), embed.grad))
+    opt.clear_grad()
+    del g, loss, logits
+    with paddle.no_grad():
+        nograd_sg = model(x).stop_gradient
+    res["checks"] = dict(
+        losses_bitwise=run["losses"] == base["losses"],
+        weights_bitwise=fp == base["fingerprint"],
+        model_returns_tensor=returns_tensor,
+        paddle_grad_equals_accumulated=grad_equal,
+        no_grad_stop_gradient=bool(nograd_sg),
+        numpy_equals_item=run["last_numpy"] == run["last_item"])
+    del model, crit, opt, embed
+    free_card(torch)
+    log(f"eager_surface: Paddle loop vs plain loop: "
+        f"{json.dumps({k: res[k] for k in ('paddle_loop', 'plain_loop')})}")
+    log(f"eager_surface: checks {json.dumps(res['checks'])}, launches "
+        f"{json.dumps(res['launches'])}")
+    bad = [k for k, v in res["checks"].items() if v is not True]
+    if bad:
+        raise AssertionError(f"eager_surface: {bad} failed: "
+                             f"{run['losses']} vs {base['losses']}")
+    want = {"flash_attention_fwd": TRAIN_LAYERS,
+            "flash_attention_dq": TRAIN_LAYERS,
+            "flash_attention_dkv": TRAIN_LAYERS, "fused_optimizer": 1}
+    if per_step != want:
+        raise AssertionError(f"eager_surface: launches a step {per_step}, "
+                             f"want {want}")
+    rnd = random_on_card(torch, paddle, seed)
+    res["random"] = rnd
+    log(f"eager_surface: random ops at {RANDOM_N} draws: "
+        f"{json.dumps(rnd)}")
+    bad = rnd["moment_errors"] + [
+        f"{k} not reproducible" for k, v in rnd["same_bytes"].items()
+        if not v] + [f"{k} captured {v}" for k, v in rnd["captured"].items()
+                     if not all(v["equal"]) or v["graphs"] != 1]
+    if bad:
+        raise AssertionError(f"eager_surface: random ops: {bad}")
+    card = wgan_gp(paddle)
+    paddle.set_device("cpu")
+    try:
+        cpu = wgan_gp(paddle)
+    finally:
+        paddle.set_device(None)
+    rel = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+           for a, b in zip(card, cpu)]
+    res["wgan_gp"] = dict(rel_err=rel, limit=WGAN_REL,
+                          penalty=float(card[0]))
+    log(f"eager_surface: WGAN-GP card vs CPU rel err {rel}")
+    if not max(rel) <= WGAN_REL:
+        raise AssertionError(f"eager_surface: WGAN-GP card vs CPU {rel}")
+    report["eager_surface"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5260,6 +5521,8 @@ def main(argv=None) -> int:
     train = phase_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the Llama training model is gone
     layers = phase_train_layers(torch, args.seed, report, train)
+    free_card(torch)
+    eager_surface = phase_eager_surface(torch, args.seed, report)
     train_amp = phase_train_amp(torch, args.seed, report)
     edges = phase_capture(torch, args.seed, report)
     free_card(torch)
@@ -5376,6 +5639,7 @@ def main(argv=None) -> int:
             e["vs_plain_crnn"] = ocr["crnn"]["optimizer_vs_plain"]
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
+            e["launches_eager_surface"] = eager_surface["launches"][name]
             e["launches_train_layers"] = {
                 b: layers[b]["launches"][name] for b in LAYER_BUILDS}
         e.update({k: head[k] for k in keys})

@@ -102,6 +102,14 @@ def get_flag(name: str) -> Any:
     return _VALUES[_name(name)]
 
 
+def get_flags(names) -> Dict[str, Any]:
+    """``{"FLAGS_<name>": value}`` for a name or a list of names (the
+    reference's ``paddle.get_flags``)."""
+    if isinstance(names, str):
+        names = [names]
+    return {"FLAGS_" + _name(n): _VALUES[_name(n)] for n in names}
+
+
 def set_flags(flags: Dict[str, Any]) -> None:
     global version
     for k, v in flags.items():

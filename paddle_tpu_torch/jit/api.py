@@ -51,6 +51,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from .. import flags
+from ..core.tensor import paddle_call
 from .step_capture import CapturedStep
 
 
@@ -115,6 +116,11 @@ class TrainStep:
         return [e for s in self._steps or () for e in s.graphs()]
 
     def __call__(self, inputs: Sequence, labels: Sequence) -> torch.Tensor:
+        """One step on ``(inputs, labels)``; its loss. Paddle
+        ``Tensor``s in give a ``Tensor`` out."""
+        return paddle_call(self._call, (inputs, labels), {})
+
+    def _call(self, inputs: Sequence, labels: Sequence) -> torch.Tensor:
         inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
             else (inputs,)
         labels = tuple(labels) if isinstance(labels, (list, tuple)) \

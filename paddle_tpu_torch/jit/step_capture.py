@@ -105,6 +105,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import flags
+from ..core.tensor import paddle_call
 from ..ops.kernels import _build
 from ..nn.initializer import default_generator
 from ..ops.kernels import fused_optimizer as fok
@@ -1003,6 +1004,9 @@ class CapturedStep:
         return self._fn(*args, **kwargs)
 
     def __call__(self, *args, **kwargs):
+        return paddle_call(self._call, args, kwargs)
+
+    def _call(self, *args, **kwargs):
         if not self._strict and not flags.get_flag("step_capture"):
             self._fallback("FLAGS_step_capture disabled")
             return self._eager(args, kwargs)

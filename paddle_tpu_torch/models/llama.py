@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike
+from ..core.tensor import PaddleCall
 from ..distributed.recompute import dots_saveable, recompute
 from ..nn.initializer import ParamInit
 from ..nn.layers_common import Embedding, Linear
@@ -200,7 +201,7 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(PaddleCall, nn.Module):
     """The decoder: a layer list, or with ``use_scan_layers`` one
     ``LayerStack`` (``layer_stack``, parameters ``stacked_{j}``), whose
     training forward runs each block over views of the stacked weights
@@ -254,7 +255,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module, GenerationMixin):
+class LlamaForCausalLM(PaddleCall, nn.Module, GenerationMixin):
     """Llama causal LM. ``device=None`` means the CUDA card (raises when
     there is none). Parameters are drawn normal(0, 0.02) from
     ``generator`` (default: a generator on ``device`` seeded 0); norm
@@ -290,7 +291,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return self.lm_head(hidden)
 
 
-class LlamaPretrainingCriterion(nn.Module):
+class LlamaPretrainingCriterion(PaddleCall, nn.Module):
     """Shifted next-token cross entropy: ``fused_softmax_ce(logits[:, :-1],
     labels[:, 1:]).mean()``, the mean over all positions (label -100
     counts as 0), as the reference takes it."""

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike
+from ..core.tensor import PaddleCall
 from ..nn.initializer import ParamInit
 from ..nn.moe import MoELayer
 from ..ops.kernels import nn as K
@@ -101,7 +102,7 @@ class MoEDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class MoEModel(nn.Module):
+class MoEModel(PaddleCall, nn.Module):
     def __init__(self, config: MoEConfig, init: ParamInit):
         super().__init__()
         self.config = config
@@ -139,7 +140,7 @@ class MoEModel(nn.Module):
         return total
 
 
-class MoEForCausalLM(nn.Module):
+class MoEForCausalLM(PaddleCall, nn.Module):
     """MoE causal LM. ``device=None`` means the CUDA card (raises when
     there is none); parameters are drawn normal(0, 0.02) from
     ``generator`` (default: a generator on the device seeded 0)."""
@@ -160,7 +161,7 @@ class MoEForCausalLM(nn.Module):
         return self.lm_head(self.model(input_ids, attn_mask, position_ids))
 
 
-class MoEPretrainingCriterion(nn.Module):
+class MoEPretrainingCriterion(PaddleCall, nn.Module):
     """Next-token cross entropy (mean over all positions, label -100
     counts as 0) plus ``aux_loss_alpha`` x the MoE layers' aux losses."""
 

@@ -25,35 +25,14 @@ reference weights are loaded with ``models.convert.from_jax_state_dict``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.device import DeviceLike, dtype_of, resolve_device
-
-_SEED = [0]
-_GENERATORS: Dict[str, torch.Generator] = {}
-
-
-def seed(s: int) -> None:
-    """Reseed the port's per-device generators (the reference's
-    ``paddle.seed``): every later default draw starts from ``s``."""
-    _SEED[0] = int(s)
-    _GENERATORS.clear()
-
-
-def default_generator(device: DeviceLike) -> torch.Generator:
-    """The port's generator for ``device``, seeded from :func:`seed`."""
-    device = torch.device(device)
-    key = str(device)
-    g = _GENERATORS.get(key)
-    if g is None:
-        g = torch.Generator(device=device).manual_seed(_SEED[0])
-        _GENERATORS[key] = g
-    return g
-
+from ..core.generator import default_generator, seed  # noqa: F401
 
 def _fan_in_out(shape):
     if len(shape) == 0:

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.device import dtype_of, layer_device
+from ..core.device import dtype_of, layer_device, place_of
+from ..core.tensor import paddle_call
 from . import initializer as I
 
 _LAZY = [0]
@@ -52,7 +53,17 @@ class LazyGuard:
 
 
 class Parameter(nn.Parameter):
-    """A trainable tensor: ``trainable`` is ``requires_grad``."""
+    """A trainable tensor: ``trainable`` is ``requires_grad``.
+
+    A ``Parameter`` keeps torch's meaning for the names that Paddle's
+    ``Tensor`` gives another (``shape``, ``size``, ``reshape``, ``sum``,
+    ``grad``, ...): the optimizers and the models call them. It has the
+    Paddle properties that do not clash: ``stop_gradient``, ``place``,
+    ``inplace_version``, ``clear_gradient`` / ``clear_grad``,
+    ``set_value``, ``numpy()`` (read from the card), ``name`` and
+    ``persistable``."""
+
+    persistable = True
 
     def __new__(cls, data=None, trainable: bool = True):
         return super().__new__(cls, data, requires_grad=trainable)
@@ -64,6 +75,53 @@ class Parameter(nn.Parameter):
     @trainable.setter
     def trainable(self, value: bool) -> None:
         self.requires_grad_(bool(value))
+
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value: bool) -> None:
+        self.requires_grad_(not value)
+
+    @property
+    def place(self):
+        return place_of(self.device)
+
+    @property
+    def inplace_version(self) -> int:
+        return self._version
+
+    @property
+    def name(self):
+        return self.__dict__.get("_name")
+
+    @name.setter
+    def name(self, value) -> None:
+        self.__dict__["_name"] = value
+
+    def clear_gradient(self, set_to_zero: bool = False) -> None:
+        if set_to_zero and self.grad is not None:
+            self.grad.zero_()
+        else:
+            self.grad = None
+
+    clear_grad = clear_gradient
+
+    def set_value(self, value) -> None:
+        """Write ``value`` (a tensor or array of this shape) in place."""
+        src = value if isinstance(value, torch.Tensor) else \
+            torch.as_tensor(np.asarray(value))
+        with torch.no_grad():
+            self.copy_(src.to(device=self.device, dtype=self.dtype)
+                       .reshape(self.shape))
+
+    def numpy(self) -> np.ndarray:
+        """A numpy copy, read from the card; bfloat16 widens to float32."""
+        t = self.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return np.array(t.cpu().numpy(), copy=True)
 
 
 def _dtype(dtype) -> torch.dtype:
@@ -229,7 +287,7 @@ class Layer(nn.Module):
     def __call__(self, *inputs, **kwargs):
         if "_has_lazy" in self.__dict__:
             materialize(self)
-        return super().__call__(*inputs, **kwargs)
+        return paddle_call(super().__call__, inputs, kwargs)
 
 
 _DTYPE_NAMES = ("float32", "bfloat16", "float16", "float64", "int8",

@@ -307,6 +307,141 @@ SCHEMA.update({
         ("fastemit_lambda", 0.0),),
 })
 
+# -- the Tensor surface's ops: the method ops of ``math_ext.py`` /
+# ``extra_math.py``, the inplace bases, the random ops (``key: true``) and
+# the ops of ``ops.yaml:809-819``
+_AX = _X + (("axis", None), ("keepdim", False))
+_SPLIT = _X + (("num_or_indices", 2),)
+_RND = (("shape", ()), ("dtype", None))
+SCHEMA.update({name: _X for name in (
+    "deg2rad", "rad2deg", "signbit", "sgn", "isneginf", "isposinf",
+    "isreal", "i0", "i0e", "i1", "i1e", "frexp", "gammaln", "bernoulli",
+    "poisson", "shuffle_batch", "standard_gamma")})
+SCHEMA.update({name: _XY for name in (
+    "heaviside", "copysign", "ldexp", "expand_as", "gammainc", "gammaincc",
+    "nextafter", "bitwise_left_shift", "bitwise_right_shift", "fmax",
+    "fmin", "inner")})
+SCHEMA.update({
+    # statistics, math, search and manipulation (Tensor methods)
+    "quantile": _X + (("q", 0.5), ("axis", None), ("keepdim", False),
+                      ("interpolation", "linear")),
+    "kthvalue": _X + (("k", 1), ("axis", -1), ("keepdim", False)),
+    "mode": _X + (("axis", -1), ("keepdim", False)),
+    "count_nonzero": _AX, "nanmedian": _AX,
+    "logcumsumexp": _X + (("axis", None),),
+    "renorm": _X + (("p", 2.0), ("axis", 0), ("max_norm", 1.0)),
+    "diff": _X + (("n", 1), ("axis", -1)),
+    "nan_to_num": _X + (("nan", 0.0), ("posinf", None), ("neginf", None)),
+    "logit": _X + (("eps", None),),
+    "take": _X + (("index", _R), ("mode", "raise")),
+    "bucketize": _X + (("sorted_sequence", _R), ("out_int32", False),
+                       ("right", False)),
+    "index_fill": _X + (("index", _R), ("axis", 0), ("value", 0.0)),
+    "masked_scatter": _X + (("mask", _R), ("value", _R)),
+    "rot90": _X + (("k", 1), ("axes", (0, 1))),
+    "unflatten": _X + (("axis", 0), ("shape", ())),
+    "view_as": _X + (("other", _R),),
+    "increment": _X + (("value", 1.0),),
+    "tensor_split": _SPLIT + (("axis", 0),),
+    "hsplit": _SPLIT, "vsplit": _SPLIT, "dsplit": _SPLIT,
+    "fill_diagonal": _X + (("value", 0.0), ("offset", 0), ("wrap", False)),
+    "polygamma": _X + (("n", 1),),
+    "multigammaln": _X + (("p", 1),),
+    "reverse": _X + (("axis", ()),),
+    "index_sample": _X + (("index", _R),),
+    "index_put": _X + (("indices", _R), ("value", _R),
+                       ("accumulate", False)),
+    "as_strided": _X + (("shape", ()), ("stride", ()), ("offset", 0)),
+    "tensor_unfold": _X + (("axis", 0), ("size", 1), ("step", 1)),
+    "fill": _X + (("value", 0.0),),
+    # random
+    "uniform": _RND + (("min", 0.0), ("max", 1.0)),
+    "gaussian": (("shape", ()), ("mean", 0.0), ("std", 1.0),
+                 ("dtype", None)),
+    "rand": _RND, "randn": _RND,
+    "randint": (("low", 0), ("high", None), ("shape", ()), ("dtype", None)),
+    "randperm": (("n", _R), ("dtype", None)),
+    "truncated_gaussian_random": (
+        ("shape", ()), ("mean", 0.0), ("std", 1.0), ("a", -2.0), ("b", 2.0),
+        ("dtype", "float32")),
+    "multinomial": _X + (("num_samples", 1), ("replacement", False)),
+    "normal_like": _X + (("mean", 0.0), ("std", 1.0)),
+    "uniform_like": _X + (("min", -1.0), ("max", 1.0)),
+    "exponential": _X + (("lam", 1.0),),
+    "cauchy_like": _X + (("loc", 0.0), ("scale", 1.0)),
+    "geometric_like": _X + (("probs", 0.5),),
+    "shuffle": _X + (("axis", 0),),
+    "rrelu": _X + (("lower", 0.125), ("upper", 0.333333),
+                   ("is_test", False)),
+    "binomial": (("count", _R), ("prob", _R)),
+    "dirichlet": (("alpha", _R),),
+    "fused_dropout_add": _XY + (("p", 0.5), ("training", True),
+                                ("mode", "upscale_in_train")),
+    "uniform_random_batch_size_like": (
+        ("input", _R), ("shape", ()), ("min", -1.0), ("max", 1.0),
+        ("dtype", None), ("input_dim_idx", 0), ("output_dim_idx", 0)),
+    "pca_lowrank": _X + (("q", None), ("center", True), ("niter", 2)),
+    # the differentiable forms of tensor_api's long tail
+    "tensordot_impl": _XY + (("axes_x", ()), ("axes_y", ())),
+    "pdist": _X + (("p", 2.0),),
+    "cumulative_trapezoid": (("y", _R), ("x", None), ("dx", None),
+                             ("axis", -1)),
+    "combinations": _X + (("r", 2), ("with_replacement", False)),
+    "diagonal_scatter": _XY + (("offset", 0), ("axis1", 0), ("axis2", 1)),
+    "select_scatter": _X + (("values", _R), ("axis", 0), ("index", 0)),
+    "slice_scatter": _X + (("value", _R), ("axes", ()), ("starts", ()),
+                           ("ends", ()), ("strides", ())),
+    "scatter_nd": (("index", _R), ("updates", _R), ("shape", ())),
+})
+
+# ops whose first argument is not a tensor: no Tensor method
+NOT_TENSOR_FIRST = frozenset({
+    "full", "zeros", "ones", "empty", "arange", "linspace", "eye",
+    "tril_indices", "uniform", "gaussian", "rand", "randn", "randint",
+    "randperm", "truncated_gaussian_random"})
+
+# the inplace family (``ops.yaml:628-657``, ``:728-808``): name -> base op
+INPLACE = {
+    "fill_": "fill", "exponential_": "exponential", "exp_": "exp",
+    "sqrt_": "sqrt", "rsqrt_": "rsqrt", "tanh_": "tanh",
+    "sigmoid_": "sigmoid", "relu_": "relu", "clip_": "clip",
+    "scale_": "scale", "add_": "add", "subtract_": "subtract",
+    "multiply_": "multiply", "divide_": "divide", "remainder_": "remainder",
+    "floor_": "floor", "ceil_": "ceil", "round_": "round", "trunc_": "trunc",
+    "reciprocal_": "reciprocal", "erfinv_": "erfinv", "lerp_": "lerp",
+    "zero_": "fill", "normal_": "normal_like", "flatten_": "flatten",
+    "reshape_": "reshape", "squeeze_": "squeeze", "unsqueeze_": "unsqueeze",
+    "abs_": "abs", "acos_": "acos", "acosh_": "acosh", "addmm_": "addmm",
+    "asin_": "asin", "asinh_": "asinh", "atan_": "atan", "atanh_": "atanh",
+    "bitwise_and_": "bitwise_and",
+    "bitwise_left_shift_": "bitwise_left_shift",
+    "bitwise_not_": "bitwise_not", "bitwise_or_": "bitwise_or",
+    "bitwise_right_shift_": "bitwise_right_shift",
+    "bitwise_xor_": "bitwise_xor", "cast_": "cast", "cauchy_": "cauchy_like",
+    "copysign_": "copysign", "cos_": "cos", "cosh_": "cosh",
+    "cumprod_": "cumprod", "cumsum_": "cumsum", "digamma_": "digamma",
+    "erf_": "erf", "expm1_": "expm1", "equal_": "equal",
+    "floor_divide_": "floor_divide", "floor_mod_": "remainder",
+    "frac_": "frac", "gammainc_": "gammainc", "gammaincc_": "gammaincc",
+    "gammaln_": "gammaln", "gcd_": "gcd", "geometric_": "geometric_like",
+    "greater_equal_": "greater_equal", "greater_than_": "greater_than",
+    "hypot_": "hypot", "i0_": "i0", "lcm_": "lcm", "ldexp_": "ldexp",
+    "less_equal_": "less_equal", "less_than_": "less_than",
+    "lgamma_": "lgamma", "log_": "log", "log10_": "log10", "log2_": "log2",
+    "logical_and_": "logical_and", "logical_not_": "logical_not",
+    "logical_or_": "logical_or", "logical_xor_": "logical_xor",
+    "logit_": "logit", "masked_fill_": "masked_fill",
+    "masked_scatter_": "masked_scatter", "mod_": "remainder",
+    "multigammaln_": "multigammaln", "nan_to_num_": "nan_to_num",
+    "neg_": "neg", "not_equal_": "not_equal", "polygamma_": "polygamma",
+    "pow_": "pow", "renorm_": "renorm", "scatter_": "scatter",
+    "sin_": "sin", "sinh_": "sinh", "square_": "square", "t_": "t",
+    "tan_": "tan", "transpose_": "transpose", "tril_": "tril",
+    "triu_": "triu", "uniform_": "uniform_like", "log1p_": "log1p",
+    "index_fill_": "index_fill", "index_put_": "index_put",
+    "put_along_axis_": "put_along_axis",
+}
+
 KERNELS: Dict[str, Callable] = {}
 _OP_FNS: Dict[str, Callable] = {}
 
@@ -413,8 +548,9 @@ def _make_op(name: str) -> Callable:
 def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
-        from .kernels import (creation, manipulation, math, moe,  # noqa
-                              nn, quant, rnn, serving)  # F401 (register)
+        from .kernels import (creation, manipulation, math,  # noqa: F401
+                              math_ext, moe, nn, quant, random, rnn,
+                              serving, tensor_api_ext)  # (register)
         for name in SCHEMA:
             if name not in KERNELS:
                 raise RuntimeError(f"op '{name}': no kernel registered")
@@ -435,3 +571,146 @@ def call_op(name: str, /, *args, **kwargs):
     """The op ``name`` on the arguments; the op name is positional-only,
     so a ``name=`` keyword reaches the op (which drops it)."""
     return get_op(name)(*args, **kwargs)
+
+
+# -- the Paddle surface: top-level functions, Tensor methods, the inplace
+# family and the dunders (the reference's ``build_ops`` :704-800, :886) ----
+
+_PUBLIC: Dict[str, Callable] = {}
+
+
+def public_op(name: str, /) -> Callable:
+    """The op ``name`` on the Paddle surface: ``Tensor`` results always
+    (``core.tensor.public``)."""
+    fn = _PUBLIC.get(name)
+    if fn is None:
+        from ..core.tensor import public
+        fn = _PUBLIC[name] = public(get_op(name))
+    return fn
+
+
+def _needs_snapshot(target, args, kwargs) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    return target.requires_grad or any(
+        isinstance(a, torch.Tensor) and a.requires_grad
+        for a in list(args) + list(kwargs.values()))
+
+
+def inplace_apply(target: torch.Tensor, compute: Callable, args=(),
+                  kwargs=None) -> torch.Tensor:
+    """The inplace discipline of every ``*_`` op and ``where_`` (the
+    reference's ``inplace_rebind``, :747): a leaf that requires grad may
+    not be written while grad is on (its grad would land on the old
+    value); the op runs out of place, on a snapshot when a graph is being
+    recorded (the op may save its input, which the write would change);
+    the result is written into ``target`` (same shape and dtype: a
+    ``copy_``, which makes it the graph's new head and bumps its version)
+    or rebinds it (``core.tensor._rebind``). Returns ``target``."""
+    from ..core.tensor import _Call, _NoSubclassTF, _rebind
+    kwargs = kwargs or {}
+    with _NoSubclassTF():
+        if torch.is_grad_enabled() and target.requires_grad \
+                and target.is_leaf:
+            raise ValueError("Leaf Tensor that doesn't stop gradient can't "
+                             "use inplace strategy")
+    c = _Call()
+    plain = c.unwrap(target)
+    args, kwargs = c.unwrap(args), c.unwrap(kwargs)
+    snap = plain.clone() if _needs_snapshot(plain, args, kwargs) else plain
+    out = compute(snap, *args, **kwargs)
+    if isinstance(out, (tuple, list)):
+        out = out[0]
+    if out.untyped_storage().data_ptr() == \
+            plain.untyped_storage().data_ptr():
+        out = out.clone()
+    if out.shape == plain.shape and out.dtype == plain.dtype:
+        plain.copy_(out)
+    else:
+        del plain, snap, c
+        _rebind(target, out)
+    return target
+
+
+def _inplace_fn(name: str, base: str) -> Callable:
+    def fn(x, *args, **kwargs):
+        return inplace_apply(x, get_op(base), args, kwargs)
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = f"In-place ``{base}``: writes the result into ``x``."
+    return fn
+
+
+def _as_method(fn: Callable) -> Callable:
+    def method(self, *args, **kwargs):
+        return fn(self, *args, **kwargs)
+    method.__name__ = fn.__name__
+    method.__doc__ = fn.__doc__
+    return method
+
+
+_OPERAND = (torch.Tensor, int, float, bool, complex)
+
+
+def _binop(name: str, reflect: bool = False) -> Callable:
+    def dunder(self, other):
+        import numpy as np
+        if not isinstance(other, _OPERAND + (np.ndarray, np.number)):
+            return NotImplemented
+        fn = public_op(name)
+        return fn(other, self) if reflect else fn(self, other)
+    dunder.__name__ = name
+    return dunder
+
+
+def _unop(name: str) -> Callable:
+    def dunder(self):
+        return public_op(name)(self)
+    return dunder
+
+
+_DUNDERS = {
+    "__add__": ("add", False), "__radd__": ("add", True),
+    "__sub__": ("subtract", False), "__rsub__": ("subtract", True),
+    "__mul__": ("multiply", False), "__rmul__": ("multiply", True),
+    "__truediv__": ("divide", False), "__rtruediv__": ("divide", True),
+    "__floordiv__": ("floor_divide", False),
+    "__rfloordiv__": ("floor_divide", True),
+    "__mod__": ("remainder", False), "__rmod__": ("remainder", True),
+    "__pow__": ("pow", False), "__rpow__": ("pow", True),
+    "__matmul__": ("matmul", False), "__rmatmul__": ("matmul", True),
+    "__eq__": ("equal", False), "__ne__": ("not_equal", False),
+    "__lt__": ("less_than", False), "__le__": ("less_equal", False),
+    "__gt__": ("greater_than", False), "__ge__": ("greater_equal", False),
+    "__and__": ("bitwise_and", False), "__rand__": ("bitwise_and", True),
+    "__or__": ("bitwise_or", False), "__ror__": ("bitwise_or", True),
+    "__xor__": ("bitwise_xor", False), "__rxor__": ("bitwise_xor", True),
+}
+
+
+def build_surface() -> Dict[str, Callable]:
+    """Attach the op surface to ``core.tensor.Tensor`` and return the
+    top-level functions (every op, on the Paddle surface, and every
+    inplace op): each tensor-first op is a method (Paddle's meaning wins
+    over torch's inherited method, but for ``core.tensor.TORCH_OWNED``
+    and the names ``Tensor`` defines itself), each inplace op is a method
+    and a function, and the arithmetic and comparison dunders run the
+    registry's ops."""
+    from ..core.tensor import TORCH_OWNED, Tensor
+    build_ops()
+    own = set(vars(Tensor))
+    funcs = {name: public_op(name) for name in SCHEMA}
+    for name in SCHEMA:
+        if name in NOT_TENSOR_FIRST or name in TORCH_OWNED or name in own:
+            continue
+        setattr(Tensor, name, _as_method(funcs[name]))
+    for name, base in INPLACE.items():
+        fn = _inplace_fn(name, base)
+        funcs[name] = fn
+        setattr(Tensor, name, fn)
+    for dunder, (name, reflect) in _DUNDERS.items():
+        setattr(Tensor, dunder, _binop(name, reflect))
+    Tensor.__neg__ = _unop("neg")
+    Tensor.__abs__ = _unop("abs")
+    Tensor.__invert__ = _unop("logical_not")
+    Tensor.__hash__ = torch.Tensor.__hash__
+    return funcs

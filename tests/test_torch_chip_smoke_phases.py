@@ -69,3 +69,56 @@ def test_bert_base_flops_per_token(smoke):
     assert flops == 6 * n + 12 * 12 * 768 * 384
     step = flops * smoke.BERT_B * smoke.BERT_S
     assert np.isclose(step / 1e12, 2.547, atol=1e-3)
+
+
+def test_eager_surface_moment_checks(smoke):
+    """Phase ``eager_surface``'s random checks on the CPU at 2^16 draws:
+    every draw passes its law's limits, a draw whose mean moves by 10
+    standard errors (or one outside the support) fails them, and the same seed repeats the
+    bytes with torch's global seed moved between."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    try:
+        paddle.seed(0)
+        for name, (draw, _, _) in smoke.RANDOM_DRAWS.items():
+            t = draw(paddle, 1 << 16)
+            stats = smoke.draw_stats(torch, t)
+            assert smoke.moment_errors(name, stats) == [], name
+            n, m, s, lo, hi = stats
+            assert smoke.moment_errors(name, (n, m + 10 * s / n ** 0.5, s,
+                                              lo, hi))
+            if smoke.RANDOM_DRAWS[name][2] is not None:
+                assert smoke.moment_errors(name, (n, m, s, lo - 1, hi))
+            paddle.seed(5)
+            a = draw(paddle, 1000)
+            paddle.seed(5)
+            torch.manual_seed(77)
+            assert torch.equal(a, draw(paddle, 1000))
+    finally:
+        paddle.set_device(None)
+
+
+def test_eager_surface_wgan_gp_and_loop_on_the_cpu(smoke):
+    """The phase's WGAN-GP step gives the reference test's penalty grads
+    (finite, the last bias unreached: zeros), and its Paddle loop over a
+    tiny Llama returns ``Tensor`` logits and ``numpy()`` equal to
+    ``item()``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    paddle.set_device("cpu")
+    try:
+        out = smoke.wgan_gp(paddle)
+        assert len(out) == 5 and all(np.isfinite(o).all() for o in out)
+        assert not out[4].any() and out[1].any()
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        paddle.seed(0)
+        x = paddle.randint(0, 256, [2, 33])[:, :-1]
+        run = smoke.paddle_train_loop(torch, paddle, model,
+                                      LlamaPretrainingCriterion(), opt, x, 3)
+        assert run["last_numpy"] == run["last_item"]
+        assert len(run["step_s"]) == 1 and run["losses"][2] < run["losses"][0]
+    finally:
+        paddle.set_device(None)

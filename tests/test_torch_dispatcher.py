@@ -37,7 +37,12 @@ def test_kernel_takes_every_argument_by_name(name):
     kernel = tdisp.KERNELS[name]
     inspect.signature(kernel).bind(**{n: None for n, _ in
                                       tdisp.SCHEMA[name]})
-    assert getattr(paddle_tpu_torch, name) is tdisp.get_op(name)
+    # the top-level export is the op on the Paddle surface (Tensor
+    # results), or tensor_api's function over it
+    top = getattr(paddle_tpu_torch, name)
+    assert top is tdisp.public_op(name) or \
+        name in paddle_tpu_torch.tensor_api.__all__
+    assert tdisp.public_op(name).__wrapped_op__ is tdisp.get_op(name)
 
 
 def test_unknown_op_raises_key_error():
