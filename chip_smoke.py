@@ -15,7 +15,11 @@ eager run; ``hapi.Model.fit`` also runs over DataLoader worker
 processes, and a network built from the ported layers trains on the card
 against the CPU. Then BERT-base fine-tunes on SQuAD-shaped batches and
 the PP-OCR models (CRNN recognition, DBNet detection) train, at their own
-widths, on the op table, ``nn.transformer``, ``nn.rnn`` and the CTC loss. Its dataset classes sit at module level and its run
+widths, on the op table, ``nn.transformer``, ``nn.rnn`` and the CTC loss,
+and ``paddle.vision``'s ResNet-18 (CIFAR-10, also through ``Model.fit``
+over ``vision.datasets.Cifar10``), ResNet-50 and YOLOv3-DarkNet53 train
+at their published widths, with every vision registry op and zoo model
+held to the CPU. Its dataset classes sit at module level and its run
 under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
 import this script.
 
@@ -252,6 +256,41 @@ Phases (any failure raises and the script exits non-zero):
    draw under ``jit_step`` over 4 calls equal to 4 eager draws: probe,
    warm-up, two replays of one graph), and the WGAN-GP penalty step with
    ``paddle.grad(create_graph=True)``, card against CPU within WGAN_REL;
+5i. ``vision_cifar`` (``BASELINE.md`` config 1, ``bench.py:246-271``):
+   ``vision.models.resnet18(num_classes=10)``, ``CrossEntropyLoss``,
+   ``Momentum(lr 0.1, momentum 0.9)`` at b 256 x 3 x 32 x 32 float32
+   through ``TrainStep``, 2 + 10 steps captured and 2 + 10 eager (cuDNN's
+   deterministic convolutions: bit for bit), the eager run's Momentum
+   bucket against the plain version bit for bit, the first loss against
+   the CPU (VISION_CPU_REL); then ``hapi.Model.fit`` for one epoch over
+   ``vision.datasets.Cifar10`` reading a 10,240-image CIFAR-10-format
+   tar.gz written from the seed, RandomCrop(32, 4), RandomHorizontalFlip,
+   Normalize and Transpose in 2 worker processes, ``prepare(metrics=
+   Accuracy())``, the step captured (images/s, losses, accuracy, the
+   evaluation of the test batch);
+5j. ``vision_resnet50`` (PaddleClas ``ResNet50.yaml``): ``resnet50()``,
+   1000 classes, 224 x 224, b 64, Momentum 0.9, lr 0.1, L2 1e-4: float32
+   captured and eager, 2 + 10 steps each, bit for bit; O2 bf16 captured,
+   finite and falling; MFU over 3 x 2 x 4.1 G multiply-adds an image; the
+   fused Momentum kernel over ResNet-50's parameters bit for bit its
+   plain version, timed beside its bound and ``torch._fused_sgd_``;
+5k. ``vision_yolov3`` (PaddleDetection ``yolov3_darknet53_270e_coco``):
+   ``yolov3_darknet53(num_classes=80)`` at 608 x 608, b 8, 1-50 gt boxes
+   an image from the seed, Momentum 0.9, lr 0.001, L2 5e-4: 2 + 5 steps
+   captured and 2 + 5 eager, bit for bit; ``predict`` (``yolo_box`` +
+   ``multiclass_nms3``) on the first image from the seed's weights (the
+   BatchNorm statistics taken from the batch) on the card and on the
+   CPU: the same labels and indices, boxes and scores within
+   YOLO_PREDICT_REL;
+5l. ``vision_ops``: every registry entry of ``extra_nn.py``,
+   ``detection.py`` and ``vision_io.py`` but ``decode_jpeg`` (PIL) at a
+   size its models run (``roi_align`` over a 256 x 200 x 304 FPN level
+   with 512 boxes, ``conv3d`` at 16 x 64 x 16 x 56 x 56, ...) on the card
+   and on the CPU from the same inputs, within each case's limit, with
+   the card's ms; then each zoo model's float32 forward at 224 x 224,
+   batch 2, card against CPU within ZOO_REL; every vision phase prints
+   images/s, step p50/p99, peak GiB, MFU, every loss, the fused
+   optimizer's route and launches and a profiled step's kernels;
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -270,7 +309,8 @@ Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
 ``train_amp`` and ``train_layers`` launches, the fused optimizer's its
-``bert_squad`` and ``ocr`` launches), then as the last line ``{"ok": true, "device":
+``bert_squad``, ``ocr`` and vision launches and its Momentum time over
+ResNet-50's parameters), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -2314,7 +2354,8 @@ def fused_vs_plain(torch, kind, cfg, bucket, lr, wd, step):
 
     def svec(at, inv=1.0, coeff=1.0, found=0.0, decay=wd):
         st = one * at
-        bc1, bc2 = fo.bias_inv(cfg["b1"], cfg["b2"], st)
+        # Adam's bias corrections (the Momentum rule reads none)
+        bc1, bc2 = fo.bias_inv(cfg.get("b1", 0.9), cfg.get("b2", 0.999), st)
         return fo.pack_scalars(lr=one * lr, step=st, inv=one * inv,
                                coeff=one * coeff, found=one * found,
                                wd=one * decay, inv_bc1=bc1, inv_bc2=bc2)
@@ -2364,9 +2405,9 @@ def run_buckets_vs_plain(torch, train, inputs, labels):
     idxs = opt._grad_idxs()
     plan = opt._fused_route(idxs, record=False)
     kind, cfg = _fused_kind_cfg(opt)
-    if plan is None or kind != "adam":
-        raise AssertionError(f"the run's optimizer takes no fused Adam "
-                             f"route ({type(opt).__name__})")
+    if plan is None or kind not in ("adam", "momentum"):
+        raise AssertionError(f"the run's optimizer takes no fused Adam or "
+                             f"Momentum route ({type(opt).__name__})")
     params = opt._parameter_list
     lr = float(opt.get_lr())
     out = []
@@ -2381,8 +2422,8 @@ def run_buckets_vs_plain(torch, train, inputs, labels):
         steps = fused_vs_plain(torch, kind, cfg, bucket, lr, b.wd,
                                opt._step_count + 1)
         out.append(dict(params=b.total, compute=b.cdtype, grads=b.gdtype,
-                        write_back=b.low, wd=b.wd,
-                        decoupled=cfg["decoupled"], bitwise_equal=True,
+                        write_back=b.low, wd=b.wd, rule=kind,
+                        decoupled=cfg.get("decoupled"), bitwise_equal=True,
                         checked_steps=steps))
     opt.clear_grad()
     return out
@@ -5458,6 +5499,796 @@ def phase_eager_surface(torch, seed, report):
     return res
 
 
+# -- phase vision: paddle.vision's zoo trained on the card ----------------------
+
+# BASELINE.md config 1 (bench.py:246-271): resnet18 on CIFAR-10 shapes,
+# Momentum(lr 0.1, 0.9), at the chip batch
+CIFAR_B, CIFAR_STEPS = 256, 12          # 2 warm-up steps and 10 timed
+CIFAR_FIT_IMAGES, CIFAR_TEST_IMAGES = 10240, 1024
+CIFAR_FIT_WORKERS = 2
+CIFAR_MEAN, CIFAR_STD = [125.3, 123.0, 113.9], [63.0, 62.1, 66.7]
+# PaddleClas ResNet50.yaml: Momentum 0.9, lr 0.1, L2Decay 1e-4; 224 x 224
+R50_B, R50_SIZE, R50_STEPS = 64, 224, 12
+R50_MACS = 4.1e9                        # multiply-adds an image, forward
+# PaddleDetection yolov3_darknet53_270e_coco: Momentum 0.9, lr 0.001, L2
+# 5e-4, 608 x 608, 80 classes, up to 50 gt boxes an image
+YOLO_B, YOLO_SIZE, YOLO_STEPS, YOLO_GTS = 8, 608, 7, 50
+YOLO_CLASSES = 80
+VISION_CPU_REL = 1e-4                   # first-step loss, card vs CPU
+VISION_CPU_ROWS = {"resnet18": 8, "resnet50": 4, "yolov3": 1}
+YOLO_PREDICT_REL = 1e-4                 # kept boxes and scores, card vs CPU
+ZOO_SIZE, ZOO_B = 224, 2
+# the zoo's logits card vs CPU (cuDNN's algorithms against the CPU's over
+# up to ~160 float32 layers), of the largest logit: at most 6.8e-6 on an
+# H100 (MobileNetV3-Large)
+ZOO_REL = 1e-4
+ZOO = (("resnet18", {}), ("resnet50", {}), ("resnext50_32x4d", {}),
+       ("wide_resnet50_2", {}), ("vgg16", dict(batch_norm=True)),
+       ("alexnet", {}), ("mobilenet_v1", {}), ("mobilenet_v2", {}),
+       ("mobilenet_v3_small", {}), ("mobilenet_v3_large", {}),
+       ("squeezenet1_0", {}), ("squeezenet1_1", {}), ("densenet121", {}),
+       ("shufflenet_v2_x1_0", {}), ("shufflenet_v2_swish", {}),
+       ("googlenet", {}), ("inception_v3", {}), ("LeNet", {}))
+
+
+def vision_mfu(run, macs, batch, peak):
+    """Model FLOPs utilization: 3 passes x 2 FLOPs x ``macs`` an image
+    (forward, and a backward of twice its work), over ``peak``."""
+    return run["images_per_s"] * 3 * 2 * macs / peak
+
+
+def fused_route(before, after, steps):
+    """The fused optimizer's route counters over a run of ``steps``
+    steps: every step fused, none on the per-parameter route."""
+    d = {k: after[k] - before[k] for k in ("updates", "fallbacks")}
+    d["buckets"] = after["buckets"]
+    d["every_step_fused"] = d["fallbacks"] == 0 and d["updates"] >= steps
+    return d
+
+
+def vision_train(torch, build, inputs, labels, steps, batch, capture=True,
+                 amp_level=None, profile=True):
+    """``train_run`` with the fused optimizer's route counters and one
+    profiled step more; returns the run's metrics and the ``TrainStep``."""
+    from paddle_tpu_torch.optimizer import fused_counters
+    before = dict(fused_counters)
+    run, train = train_run(torch, build, inputs, labels, steps, "images",
+                           batch, capture, amp_level)
+    run["fused_route"] = fused_route(before, fused_counters, steps)
+    if profile:
+        prof = profile_call(torch, lambda: train(inputs, labels), 1)
+        run["step_profile"] = {k: prof.get(k) for k in (
+            "device_busy_ms", "wall_ms", "busy_share_of_wall", "launches",
+            "top", "not_measured")}
+    return run, train
+
+
+def check_vision_runs(name, runs, bitwise=("captured", "eager"),
+                      falling=()):
+    """Finite losses everywhere, the fused route on every step, captured
+    float32 bit for bit against eager, and ``falling`` runs falling."""
+    for label, run in runs.items():
+        ls = run["losses"]
+        if not all(np.isfinite(ls)):
+            raise AssertionError(f"{name} {label}: losses not finite: {ls}")
+        if not (run["fused_route"]["every_step_fused"]
+                and run["fused_optimizer_launches"] > 0):
+            raise AssertionError(f"{name} {label}: the fused optimizer did "
+                                 f"not take its route on every step: "
+                                 f"{run['fused_route']}, launches "
+                                 f"{run['fused_optimizer_launches']}")
+    a, b = bitwise
+    if runs[a]["losses"] != runs[b]["losses"]:
+        raise AssertionError(f"{name}: {a} losses differ from {b}: "
+                             f"{runs[a]['losses']} vs {runs[b]['losses']}")
+    for label in falling:
+        ls = runs[label]["losses"]
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"{name} {label}: losses not falling: {ls}")
+
+
+def cifar_batch(torch, seed, b=None, device="cuda"):
+    rng = np.random.RandomState(seed)
+    b = b or CIFAR_B
+    x = rng.randn(b, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, b).astype(np.int64)
+    return [torch.from_numpy(a).to(device) for a in (x, y)]
+
+
+def resnet_build(torch, seed, depth, classes, lr, wd=None):
+    """``resnet{depth}`` from the seed, CrossEntropyLoss and Momentum."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+    paddle_tpu_torch.seed(seed)
+    model = getattr(models, f"resnet{depth}")(num_classes=classes)
+    return model, nn.CrossEntropyLoss(), Momentum(
+        learning_rate=lr, momentum=0.9, parameters=model.parameters(),
+        weight_decay=wd)
+
+
+def write_cifar10(path, seed, n_train, n_test):
+    """A CIFAR-10 python-version tar.gz from the seed: five training
+    batches and a test batch of pickled dicts (``data`` [N, 3072] uint8
+    CHW rows, ``labels``), the format ``vision.datasets.Cifar10`` reads."""
+    import io
+    import pickle
+    import tarfile
+    rng = np.random.RandomState(seed)
+    per = n_train // 5
+    with tarfile.open(path, "w:gz") as tar:
+        for name, n in [(f"cifar-10-batches-py/data_batch_{i + 1}", per)
+                        for i in range(5)] + [
+                ("cifar-10-batches-py/test_batch", n_test)]:
+            raw = pickle.dumps({
+                b"data": rng.randint(0, 256, (n, 3072)).astype(np.uint8),
+                b"labels": [int(v) for v in rng.randint(0, 10, n)]})
+            info = tarfile.TarInfo(name)
+            info.size = len(raw)
+            tar.addfile(info, io.BytesIO(raw))
+    return path
+
+
+def cifar_fit(torch, seed):
+    """``hapi.Model.fit`` for one epoch over ``vision.datasets.Cifar10``
+    read from a CIFAR-10-format file written from the seed, with
+    RandomCrop(32, 4), RandomHorizontalFlip, Normalize and Transpose in 2
+    DataLoader worker processes, ``prepare(metrics=Accuracy())``, the step
+    captured: images/s, the logged losses and accuracy, the route."""
+    import tempfile
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.hapi import Model, callbacks
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import fused_counters
+    from paddle_tpu_torch.vision import datasets, transforms as T
+
+    class Record(callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.steps = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.steps.append((time.perf_counter(), logs["loss"],
+                               logs["acc"]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_cifar10(os.path.join(tmp, "cifar-10-python.tar.gz"),
+                             seed, CIFAR_FIT_IMAGES, CIFAR_TEST_IMAGES)
+        tf = T.Compose([T.RandomCrop(32, padding=4),
+                        T.RandomHorizontalFlip(),
+                        T.Normalize(CIFAR_MEAN, CIFAR_STD,
+                                    data_format="HWC"),
+                        T.Transpose()])
+        train = datasets.Cifar10(path, mode="train", transform=tf)
+        test = datasets.Cifar10(path, mode="test", transform=T.Compose([
+            T.Normalize(CIFAR_MEAN, CIFAR_STD, data_format="HWC"),
+            T.Transpose()]))
+        net, loss, opt = resnet_build(torch, seed, 18, 10, 0.1)
+        model = Model(net)
+        model.prepare(opt, loss, metrics=Accuracy())
+        rec = Record()
+        flags.set_flags({"step_capture": True})
+        kernels.reset_launch_counts()
+        before = dict(fused_counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.fit(train, batch_size=CIFAR_B, epochs=1, shuffle=True,
+                  num_workers=CIFAR_FIT_WORKERS, drop_last=True, verbose=0,
+                  callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(rec.steps)
+        launches = kernels.launch_counts()["fused_optimizer"]
+        route = fused_route(before, fused_counters, steps)
+        ev = model.evaluate(test, batch_size=CIFAR_B, verbose=0)
+        cap = model._captured_step
+        graphs = len(cap.graphs()) if cap is not None else 0
+    times = [t for t, _, _ in rec.steps]
+    warm = np.diff(times[1:]) if len(times) > 2 else [wall]
+    res = dict(images=len(train), batch=CIFAR_B, steps=steps,
+               workers=CIFAR_FIT_WORKERS, epoch_s=wall,
+               images_per_s_epoch=steps * CIFAR_B / wall,
+               images_per_s_steady=CIFAR_B / float(np.median(warm)),
+               first_step_s=times[0] - t0 if times else None,
+               losses=[round(float(l), 6) for _, l, _ in rec.steps],
+               acc=[float(a) for _, _, a in rec.steps],
+               eval={k: float(v) for k, v in ev.items()},
+               peak_mem_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, fused_optimizer_launches=launches,
+               fused_route=route, graphs=graphs)
+    del model, net, opt, cap
+    free_card(torch)
+    return res
+
+
+def momentum_on(torch, model):
+    """The fused Momentum kernel over ``model``'s float32 parameters (one
+    bucket, L2 1e-4), bit for bit against the plain version over three
+    steps, timed beside the plain version, its bound and
+    ``torch._fused_sgd_`` (momentum, weight decay) over the same tensors."""
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+    cfg = {"momentum": 0.9, "nesterov": False}
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ps = [p.detach().clone() for p in model.parameters()]
+    grads = [torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+             for p in ps]
+    states = [{"velocity": torch.zeros_like(p)} for p in ps]
+    bucket = (ps, grads, states, [None] * len(ps))
+    checked = fused_vs_plain(torch, "momentum", cfg, bucket, 0.1, 1e-4, 1)
+    n = sum(p.numel() for p in ps)
+    one = torch.ones((), device="cuda")
+    sv = fo.pack_scalars(lr=one * 0.1, step=one * 2, inv=one, coeff=one,
+                         found=one * 0, wd=one * 1e-4, inv_bc1=one,
+                         inv_bc2=one)
+    plan = fo.plan_buckets("momentum", cfg, [
+        (tuple(p.shape), "float32", "float32", None, 1e-4) for p in ps])
+    b = plan.buckets[0]
+    ms = time_ms(torch, lambda: fo.fused_bucket_kernel(
+        "momentum", cfg, *bucket, sv, b), flush=flush)
+    plain_ms = time_ms(torch, lambda: fo.fused_bucket_plain(
+        "momentum", cfg, *bucket, sv), iters=3, flush=flush)
+    bufs = [s["velocity"] for s in states]
+    try:
+        lib_ms = time_ms(torch, lambda: torch._fused_sgd_(
+            ps, grads, bufs, weight_decay=1e-4, momentum=0.9, lr=0.1,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), flush=flush)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        lib_ms, why = None, f"{type(e).__name__}: {e}"
+    else:
+        why = None
+    nbytes = 20 * n                 # p, g, v read; p, v written
+    b_ms, b_by = bound(nbytes, 6 * n, F32_FLOPS_PER_S)
+    res = dict(params=n, buckets=len(plan.buckets), bitwise_equal=True,
+               checked_steps=checked, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library="torch._fused_sgd_", bytes=nbytes)
+    if why:
+        res["library_not_measured"] = why
+    del ps, grads, states, bucket, bufs, scratch
+    return res
+
+
+def phase_vision_cifar(torch, seed, report):
+    """BASELINE.md config 1 on the card: resnet18(num_classes=10),
+    CrossEntropyLoss, Momentum(lr 0.1, 0.9) at b 256 x 3 x 32 x 32 float32
+    through ``TrainStep``, captured and eager (bit for bit), the eager
+    run's Momentum bucket against the plain version, the first loss
+    against the CPU; then ``hapi.Model.fit`` for one epoch over
+    ``vision.datasets.Cifar10``."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # convolution grads, bitwise
+    try:
+        x, y = cifar_batch(torch, seed)
+        build = lambda: resnet_build(torch, seed, 18, 10, 0.1)  # noqa: E731
+        res = dict(model="resnet18", classes=10, batch=CIFAR_B,
+                   image=[3, 32, 32], steps=CIFAR_STEPS,
+                   optimizer="Momentum(lr 0.1, momentum 0.9)")
+        runs = {}
+        for label, capture in (("captured", True), ("eager", False)):
+            run, train = vision_train(torch, build, (x,), (y,), CIFAR_STEPS,
+                                      CIFAR_B, capture)
+            if not capture:
+                run["optimizer_vs_plain"] = run_buckets_vs_plain(
+                    torch, train, (x,), (y,))
+            runs[label] = run
+            del train
+            free_card(torch)
+            log(f"vision_cifar {label}: {json.dumps(run)}")
+        res["runs"] = runs
+        res["cpu_check"] = cpu_first_loss(torch, build, (x,), (y,),
+                                          VISION_CPU_ROWS["resnet18"])
+        res["fit"] = cifar_fit(torch, seed)
+        log(f"vision_cifar fit: {json.dumps(res['fit'])}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    report["vision_cifar"] = res
+    check_vision_runs("vision_cifar", runs)
+    fit = res["fit"]
+    if not (fit["steps"] == CIFAR_FIT_IMAGES // CIFAR_B
+            and all(np.isfinite(fit["losses"]))
+            and fit["fused_route"]["every_step_fused"]
+            and fit["fused_optimizer_launches"] > 0 and fit["graphs"] >= 1
+            and 0.0 <= fit["acc"][-1] <= 1.0 and "acc" in fit["eval"]):
+        raise AssertionError(f"vision_cifar: Model.fit over Cifar10 went "
+                             f"wrong: {fit}")
+    if not res["cpu_check"]["rel_diff"] <= VISION_CPU_REL:
+        raise AssertionError(f"vision_cifar: the card's first loss is not "
+                             f"the CPU's: {res['cpu_check']}")
+    return res
+
+
+def phase_vision_resnet50(torch, seed, report):
+    """resnet50() (1000 classes) at 224 x 224, b 64, PaddleClas's recipe
+    (Momentum 0.9, lr 0.1, L2 1e-4): float32 captured and eager (bit for
+    bit), O2 bf16 captured (finite, falling), MFU; the fused Momentum
+    kernel over ResNet-50's parameters; the first loss against the CPU."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.RandomState(seed + 1)
+        x = torch.from_numpy(rng.randn(R50_B, 3, R50_SIZE, R50_SIZE)
+                             .astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, R50_B)).cuda()
+        build = lambda: resnet_build(torch, seed, 50, 1000, 0.1,  # noqa
+                                     1e-4)
+        res = dict(model="resnet50", classes=1000, batch=R50_B,
+                   image=[3, R50_SIZE, R50_SIZE], steps=R50_STEPS,
+                   optimizer="Momentum(lr 0.1, momentum 0.9, L2 1e-4)",
+                   flops_per_image=3 * 2 * R50_MACS)
+        runs = {}
+        for label, capture, amp in (("captured", True, None),
+                                    ("eager", False, None),
+                                    ("o2_bf16", True, "O2")):
+            run, train = vision_train(torch, build, (x,), (y,), R50_STEPS,
+                                      R50_B, capture, amp)
+            run["mfu"] = vision_mfu(run, R50_MACS, R50_B,
+                                    BF16_FLOPS_PER_S if amp
+                                    else F32_FLOPS_PER_S)
+            runs[label] = run
+            if label == "captured":
+                res["momentum_kernel"] = momentum_on(torch, train.model)
+            del train
+            free_card(torch)
+            log(f"vision_resnet50 {label}: {json.dumps(run)}")
+        res["runs"] = runs
+        res["cpu_check"] = cpu_first_loss(torch, build, (x,), (y,),
+                                          VISION_CPU_ROWS["resnet50"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"vision_resnet50: momentum kernel "
+        f"{json.dumps(res['momentum_kernel'])}; cpu {res['cpu_check']}")
+    report["vision_resnet50"] = res
+    check_vision_runs("vision_resnet50", runs, falling=("o2_bf16",))
+    if not res["cpu_check"]["rel_diff"] <= VISION_CPU_REL:
+        raise AssertionError(f"vision_resnet50: the card's first loss is "
+                             f"not the CPU's: {res['cpu_check']}")
+    return res
+
+
+def yolo_batch(torch, seed, device="cuda"):
+    """Images and gts from the seed: 1 to 50 gt boxes an image (normalized
+    cx, cy, w, h; the rest zero rows), labels over 80 classes, mixup
+    scores 1."""
+    rng = np.random.RandomState(seed + 2)
+    x = rng.rand(YOLO_B, 3, YOLO_SIZE, YOLO_SIZE).astype(np.float32)
+    box = np.zeros((YOLO_B, YOLO_GTS, 4), np.float32)
+    lab = np.zeros((YOLO_B, YOLO_GTS), np.int64)
+    for i in range(YOLO_B):
+        n = rng.randint(1, YOLO_GTS + 1)
+        box[i, :n, :2] = rng.uniform(0.05, 0.95, (n, 2))
+        box[i, :n, 2:] = rng.uniform(0.02, 0.6, (n, 2))
+        lab[i, :n] = rng.randint(0, YOLO_CLASSES, n)
+    score = np.ones((YOLO_B, YOLO_GTS), np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, box, lab, score)]
+
+
+def yolo_build(torch, seed):
+    """yolov3_darknet53(num_classes=80) from the seed, its loss over the
+    three heads, and Momentum(lr 0.001, 0.9, L2 5e-4)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+    paddle_tpu_torch.seed(seed)
+    model = models.yolov3_darknet53(num_classes=YOLO_CLASSES)
+
+    def loss(o1, o2, o3, box, label, score):
+        return model.loss([o1, o2, o3], box, label, score)
+    return model, loss, Momentum(learning_rate=0.001, momentum=0.9,
+                                 parameters=model.parameters(),
+                                 weight_decay=5e-4)
+
+
+YOLO_PREDICT_PICK = (50, 200)           # candidates kept by the threshold
+YOLO_BN_PASSES = 30                     # train-mode forwards before predict
+
+
+def yolo_threshold(torch, model, x, size):
+    """A score threshold for ``predict`` from the card's decoded scores
+    of one image: in the widest relative gap between the 50th and the
+    200th best (box, class) scores, so the candidate set does not hang on
+    the last float32 bits (the card's and the CPU's convolutions round
+    differently)."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    with torch.no_grad():
+        outs = model(x)
+        scores = []
+        for i, (out, mask) in enumerate(zip(outs, model.ANCHOR_MASKS)):
+            anchors = [model.ANCHORS[2 * m + d] for m in mask for d in (0, 1)]
+            scores.append(call_op("yolo_box", out, size, anchors=anchors,
+                                  class_num=model.num_classes,
+                                  conf_thresh=0.0,
+                                  downsample_ratio=32 // 2 ** i)[1])
+    top = torch.cat(scores, 1).flatten().topk(YOLO_PREDICT_PICK[1] + 1)[0]
+    top = top.double().cpu().numpy()
+    lo, hi = YOLO_PREDICT_PICK
+    gaps = (top[lo - 1:hi] - top[lo:hi + 1]) / top[lo:hi + 1]
+    k = lo - 1 + int(np.argmax(gaps))
+    return float((top[k] + top[k + 1]) / 2), float(gaps.max()), k + 1
+
+
+def yolo_predict_vs_cpu(torch, model, x):
+    """``predict`` (yolo_box + multiclass_nms3) on one image on the card
+    and, from the same weights, on the CPU, at a threshold from a gap in
+    the card's scores: the kept detections. The BatchNorm statistics are
+    first taken from the batch (train-mode forwards without grads): at
+    their initial (0, 1) the untrained net's eval logits saturate every
+    score at 1."""
+    import copy
+    size = torch.tensor([[YOLO_SIZE, YOLO_SIZE]], dtype=torch.int64)
+    model.train()
+    with torch.no_grad():
+        for _ in range(YOLO_BN_PASSES):
+            model(x)
+    model.eval()
+    thresh, gap, cands = yolo_threshold(torch, model, x[:1], size.cuda())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, idx, num = model.predict(x[:1], size.cuda(),
+                                      conf_thresh=thresh)
+    card_s = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        c_out, c_idx, c_num = cpu_model.predict(x[:1].cpu(), size,
+                                                conf_thresh=thresh)
+    del cpu_model
+    out, idx, num = out.cpu(), idx.cpu(), num.cpu()
+    same_sel = (torch.equal(num, c_num) and torch.equal(idx, c_idx)
+                and torch.equal(out[:, 0], c_out[:, 0]))
+    scale = float(c_out[:, 1:].abs().max()) if c_out.numel() else 1.0
+    err = float((out[:, 1:] - c_out[:, 1:]).abs().max()) \
+        if same_sel and out.numel() else None
+    return dict(threshold=thresh, threshold_gap=gap, candidates=cands,
+                kept=int(num[0]), kept_cpu=int(c_num[0]),
+                same_labels_and_indices=bool(same_sel), max_abs_err=err,
+                rel_err=None if err is None else err / max(scale, 1e-30),
+                limit=YOLO_PREDICT_REL, predict_s=card_s,
+                labels=[int(v) for v in out[:8, 0]])
+
+
+def phase_vision_yolov3(torch, seed, report):
+    """yolov3_darknet53(num_classes=80) at 608 x 608, b 8, up to 50 gts an
+    image, PaddleDetection's recipe (Momentum 0.9, lr 0.001, L2 5e-4):
+    2 + 5 steps captured and 2 + 5 eager, bit for bit; then ``predict``
+    on the batch's first image on the card against the CPU on the seed's
+    weights; the first loss against the CPU."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, box, lab, score = yolo_batch(torch, seed)
+        build = lambda: yolo_build(torch, seed)  # noqa: E731
+        res = dict(model="yolov3_darknet53", classes=YOLO_CLASSES,
+                   batch=YOLO_B, image=[3, YOLO_SIZE, YOLO_SIZE],
+                   steps=YOLO_STEPS, gts=[int((box[i, :, 2] > 0).sum())
+                                          for i in range(YOLO_B)],
+                   optimizer="Momentum(lr 0.001, momentum 0.9, L2 5e-4)")
+        runs = {}
+        for label, capture in (("captured", True), ("eager", False)):
+            run, train = vision_train(torch, build, (x,),
+                                      (box, lab, score), YOLO_STEPS, YOLO_B,
+                                      capture)
+            runs[label] = run
+            del train
+            free_card(torch)
+            log(f"vision_yolov3 {label}: {json.dumps(run)}")
+        res["runs"] = runs
+        # the seed's weights: trained on one random batch, the objectness
+        # sinks below float32's range within a few steps
+        res["predict"] = yolo_predict_vs_cpu(torch, build()[0], x)
+        free_card(torch)
+        res["cpu_check"] = cpu_first_loss(torch, build, (x,),
+                                          (box, lab, score),
+                                          VISION_CPU_ROWS["yolov3"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"vision_yolov3: predict {json.dumps(res['predict'])}; cpu "
+        f"{res['cpu_check']}")
+    report["vision_yolov3"] = res
+    check_vision_runs("vision_yolov3", runs)
+    p = res["predict"]
+    if not (p["same_labels_and_indices"] and p["kept"] > 0
+            and p["rel_err"] <= YOLO_PREDICT_REL):
+        raise AssertionError(f"vision_yolov3: predict on the card differs "
+                             f"from the CPU's: {p}")
+    if not res["cpu_check"]["rel_diff"] <= VISION_CPU_REL:
+        raise AssertionError(f"vision_yolov3: the card's first loss is not "
+                             f"the CPU's: {res['cpu_check']}")
+    return res
+
+
+def _boxes_xyxy(rng, n, w, h, lo=8.0, hi=0.4):
+    xy = rng.uniform(0, 1, (n, 2)) * [w * 0.8, h * 0.8]
+    wh = rng.uniform(lo, 1, (n, 2)) * [w * hi, h * hi]
+    wh = np.maximum(wh, lo)
+    return np.concatenate([xy, np.minimum(xy + wh, [w - 1, h - 1])], 1) \
+        .astype(np.float32)
+
+
+def vision_op_cases(rng, tmpdir):
+    """Each registry entry of the vision tranche at a size its models run,
+    one case at a time: ``(name, (op, args, kwargs, rel))`` with numpy
+    args, ``rel`` the limit of the largest difference card vs CPU over the
+    output's largest value."""
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)  # noqa
+    F32, CONV = 1e-5, 1e-4
+    yield "grid_sample", ("grid_sample", [f(8, 64, 128, 128),
+                                        u(-1, 1, 8, 128, 128, 2)], {}, F32)
+    yield "affine_grid", ("affine_grid", [f(8, 2, 3)],
+                        dict(output_shape=[8, 64, 128, 128]), F32)
+    yield "pixel_unshuffle", ("pixel_unshuffle", [f(8, 64, 128, 128)],
+                            dict(downscale_factor=2), 0.0)
+    yield "channel_shuffle", ("channel_shuffle", [f(64, 232, 14, 14)],
+                            dict(groups=2), 0.0)
+    yield "temporal_shift", ("temporal_shift", [f(64, 256, 56, 56)],
+                           dict(seg_num=8), 0.0)
+    yield "maxout", ("maxout", [f(32, 256, 28, 28)], dict(groups=2), 0.0)
+    yield "pad3d", ("pad3d", [f(4, 64, 16, 56, 56)],
+                  dict(paddings=[1] * 6, mode="reflect"), 0.0)
+    yield "pool2d", ("pool2d", [f(64, 64, 112, 112)],
+                   dict(kernel_size=[3, 3], strides=[2, 2], paddings=[1, 1],
+                        ceil_mode=True), 0.0)
+    yield "pool3d", ("pool3d", [f(16, 64, 16, 56, 56)],
+                   dict(kernel_size=[2, 2, 2], strides=[2, 2, 2],
+                        pooling_type="avg"), F32)
+    x_idx = f(32, 64, 112, 112)
+    yield "max_pool2d_with_index", ("max_pool2d_with_index", [x_idx],
+                                  dict(kernel_size=[3, 3], strides=[2, 2],
+                                       paddings=[1, 1]), 0.0)
+    yield "max_pool3d_with_index", ("max_pool3d_with_index",
+                                  [f(8, 64, 16, 56, 56)],
+                                  dict(kernel_size=[2, 2, 2],
+                                       strides=[2, 2, 2]), 0.0)
+    flat = x_idx.reshape(32, 64, 56, 2, 56, 2).transpose(0, 1, 2, 4, 3, 5) \
+        .reshape(32, 64, 56, 56, 4)
+    arg = flat.argmax(-1)
+    pos = ((np.arange(56)[:, None] * 2 + arg // 2) * 112
+           + np.arange(56)[None, :] * 2 + arg % 2)
+    yield "unpool", ("unpool", [flat.max(-1), pos.astype(np.int64)],
+                   dict(kernel_size=[2, 2], strides=[2, 2],
+                        output_size=[112, 112]), 0.0)
+    yield "unpool3d", ("unpool3d", [f(4, 32, 8, 28, 28),
+                                  (np.arange(8 * 28 * 28) * 8).reshape(
+                                      1, 1, 8, 28, 28).repeat(4, 0)
+                                  .repeat(32, 1).astype(np.int64)],
+                     dict(kernel_size=[2, 2, 2], strides=[2, 2, 2],
+                          output_size=[16, 56, 56]), 0.0)
+    yield "fold", ("fold", [f(16, 64 * 9, 56 * 56)],
+                 dict(output_sizes=[56, 56], kernel_sizes=[3, 3],
+                      paddings=[1, 1]), F32)
+    yield "fractional_max_pool2d", ("fractional_max_pool2d",
+                                  [f(16, 64, 56, 56)],
+                                  dict(output_size=[32, 32], random_u=0.4,
+                                       return_mask=True), 0.0)
+    yield "conv3d", ("conv3d", [f(16, 64, 16, 56, 56),
+                              f(64, 64, 3, 3, 3) * 0.05],
+                   dict(padding=[1, 1, 1]), CONV)
+    yield "conv3d_transpose", ("conv3d_transpose",
+                             [f(8, 64, 8, 28, 28), f(64, 32, 2, 2, 2) * 0.1],
+                             dict(stride=[2, 2, 2]), CONV)
+    yield "bilinear_interp", ("bilinear_interp", [f(16, 256, 64, 64)],
+                            dict(scale_factor=2.0), F32)
+    yield "bilinear_interp_down", ("bilinear_interp", [f(8, 3, 512, 512)],
+                                 dict(size=[224, 224]), F32)
+    yield "nearest_interp", ("nearest_interp", [f(8, 256, 38, 38)],
+                           dict(scale_factor=2.0), 0.0)
+    yield "bicubic_interp", ("bicubic_interp", [f(8, 3, 224, 224)],
+                           dict(size=[299, 299]), F32)
+    yield "linear_interp", ("linear_interp", [f(16, 64, 1000)],
+                          dict(size=[2000], align_corners=True), F32)
+    yield "trilinear_interp", ("trilinear_interp", [f(4, 32, 16, 56, 56)],
+                             dict(scale_factor=2.0), F32)
+    yield "spectral_norm", ("spectral_norm", [f(512, 512, 3, 3) * 0.02,
+                                            f(512), f(4608)],
+                          dict(power_iters=1), CONV)
+    yield "segment_pool", ("segment_pool", [f(100000, 128), np.sort(
+        rng.randint(0, 1000, 100000)).astype(np.int64)],
+        dict(pooltype="MEAN"), CONV)
+    yield "overlap_add", ("overlap_add", [f(16, 400, 512)],
+                        dict(hop_length=128), F32)
+    prior = _boxes_xyxy(rng, 8732, 300, 300) / 300
+    yield "box_coder", ("box_coder", [prior, u(0.1, 0.2, 8732, 4),
+                                    _boxes_xyxy(rng, 50, 300, 300) / 300],
+                      {}, F32)
+    yield "box_coder_decode", ("box_coder", [prior, u(0.1, 0.2, 8732, 4),
+                                           f(8, 8732, 4) * 0.5],
+                             dict(code_type="decode_center_size", axis=1),
+                             F32)
+    yield "roi_align", ("roi_align", [f(2, 256, 200, 304),
+                                    _boxes_xyxy(rng, 512, 1216, 800),
+                                    np.array([256, 256], np.int64)],
+                      dict(pooled_height=7, pooled_width=7,
+                           spatial_scale=0.25, sampling_ratio=2), F32)
+    yield "roi_pool", ("roi_pool", [f(2, 256, 50, 76),
+                                  _boxes_xyxy(rng, 128, 1216, 800),
+                                  np.array([64, 64], np.int64)],
+                     dict(pooled_height=7, pooled_width=7,
+                          spatial_scale=1 / 16), 0.0)
+    yield "prior_box", ("prior_box", [f(1, 512, 38, 38), f(1, 3, 300, 300)],
+                      dict(min_sizes=[30.0], max_sizes=[60.0],
+                           aspect_ratios=[2.0], flip=True, clip=True), 0.0)
+    yield "batch_norm", ("batch_norm", [f(64, 256, 56, 56), f(256),
+                                      u(0.5, 2, 256), f(256), f(256)], {},
+                       CONV)
+    anchors = [10, 13, 16, 30, 33, 23]
+    yield "yolo_box", ("yolo_box", [f(8, 255, 76, 76),
+                                  np.full((8, 2), 608, np.int64)],
+                     dict(anchors=anchors, class_num=80,
+                          downsample_ratio=8), F32)
+    gt = np.zeros((8, 50, 4), np.float32)
+    gt[:, :30, :2] = u(0.05, 0.95, 8, 30, 2)
+    gt[:, :30, 2:] = u(0.01, 0.5, 8, 30, 2)
+    yield "yolo_loss", ("yolo_loss", [f(8, 255, 76, 76), gt,
+                                    rng.randint(0, 80, (8, 50)).astype(
+                                        np.int64), np.ones((8, 50),
+                                                           np.float32)],
+                      dict(anchors=anchors + [30, 61, 62, 45, 59, 119, 116,
+                                              90, 156, 198, 373, 326],
+                           anchor_mask=[0, 1, 2], class_num=80,
+                           downsample_ratio=8), F32)
+    yield "deformable_conv", ("deformable_conv",
+                            [f(4, 64, 56, 56), f(4, 18, 56, 56),
+                             f(64, 64, 3, 3) * 0.05, u(0, 1, 4, 9, 56, 56)],
+                            dict(paddings=[1, 1]), CONV)
+    yield "psroi_pool", ("psroi_pool", [f(2, 21 * 49, 38, 50),
+                                      _boxes_xyxy(rng, 300, 800, 600),
+                                      np.array([150, 150], np.int64)],
+                       dict(pooled_height=7, pooled_width=7,
+                            output_channels=21, spatial_scale=1 / 16), F32)
+    yb = _boxes_xyxy(rng, 22743, 608, 608)
+    yield "multiclass_nms3", ("multiclass_nms3",
+                            [np.stack([yb, yb[::-1]]),
+                             u(0, 1, 2, 80, 22743) ** 4],
+                            dict(score_threshold=0.3, nms_top_k=1000,
+                                 keep_top_k=100, nms_threshold=0.45,
+                                 background_label=-1), 0.0)
+    yield "matrix_nms", ("matrix_nms", [np.stack([yb, yb[::-1]]),
+                                      u(0, 1, 2, 80, 22743) ** 4],
+                       dict(score_threshold=0.3, post_threshold=0.05,
+                            nms_top_k=400, keep_top_k=100,
+                            background_label=-1), 0.0)
+    A, H, W = 15, 50, 76
+    an = np.concatenate([u(0, 1000, H, W, A, 2),
+                         u(0, 1000, H, W, A, 2) + 64], -1)
+    yield "generate_proposals", ("generate_proposals",
+                               [u(0, 1, 2, A, H, W), f(2, 4 * A, H, W) * 0.2,
+                                np.array([[800, 1216], [800, 1216]],
+                                         np.float32), an,
+                                np.ones((H, W, A, 4), np.float32)], {}, 0.0)
+    yield "distribute_fpn_proposals", ("distribute_fpn_proposals",
+                                     [_boxes_xyxy(rng, 2000, 1216, 800),
+                                      np.array([1000, 1000], np.int64)], {},
+                                     0.0)
+    yield "nms", ("nms", [_boxes_xyxy(rng, 2000, 608, 608), u(0, 1, 2000)],
+                dict(iou_threshold=0.5), 0.0)
+    path = os.path.join(tmpdir, "blob.bin")
+    with open(path, "wb") as fh:
+        fh.write(rng.randint(0, 256, 1 << 20).astype(np.uint8).tobytes())
+    yield "read_file", ("read_file", [], dict(filename=path), 0.0)
+
+
+# ops that run on the host (numpy) or read sizes on the host: timed once
+VISION_HOST_OPS = {"segment_pool", "roi_pool", "prior_box", "psroi_pool",
+                   "multiclass_nms3", "matrix_nms", "generate_proposals",
+                   "distribute_fpn_proposals", "nms", "read_file"}
+
+
+def vision_op_check(torch, name, op, args, kw, rel):
+    """The op on the card and on the CPU from the same numpy inputs: the
+    largest difference over the output's largest value (integer outputs
+    must be equal), and the card's ms."""
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.ops.dispatcher import call_op
+
+    def run(dev):
+        ts = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+              else a for a in args]
+        out = call_op(op, *ts, **kw)
+        return ts, list(out) if isinstance(out, (list, tuple)) else [out]
+    card_in, card = run("cuda")
+    set_device("cpu")
+    try:
+        _, cpu = run("cpu")
+    finally:
+        set_device(None)
+    if len(card) != len(cpu):
+        raise AssertionError(f"vision_ops {name}: {len(card)} outputs on "
+                             f"the card, {len(cpu)} on the CPU")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a = a.detach().cpu()
+        if a.shape != b.shape:
+            raise AssertionError(f"vision_ops {name}: shapes {a.shape} vs "
+                                 f"{b.shape}")
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"vision_ops {name}: integer outputs "
+                                     f"differ card vs CPU")
+            continue
+        if b.numel():
+            scale = max(float(b.abs().max()), 1e-30)
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    if name in VISION_HOST_OPS:
+        t0 = time.perf_counter()
+        call_op(op, *card_in, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    else:
+        ms = time_ms(torch, lambda: call_op(op, *card_in, **kw), iters=5)
+    return dict(op=op, rel_err=worst, limit=rel, ms=ms,
+                shape=list(card[0].shape) if card else [])
+
+
+def zoo_vs_cpu(torch, seed, name, kw):
+    """A zoo model built on the CPU from the seed, its float32 logits at
+    224 x 224 (LeNet: 1 x 28 x 28), batch 2, eval mode, on the CPU and
+    on the card: the largest difference over the largest logit."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.vision import models
+    rng = np.random.RandomState(seed + 5)
+    shape = (1, 28, 28) if name == "LeNet" else (3, ZOO_SIZE, ZOO_SIZE)
+    x = torch.from_numpy(rng.rand(ZOO_B, *shape).astype(np.float32))
+    set_device("cpu")
+    try:
+        paddle_tpu_torch.seed(seed)
+        model = getattr(models, name)(**kw).eval()
+        with torch.no_grad():
+            want = model(x)
+    finally:
+        set_device(None)
+    model = model.cuda()
+    with torch.no_grad():
+        got = model(x.cuda()).cpu()
+        ms = time_ms(torch, lambda: model(x.cuda()), iters=3)
+    n = sum(p.numel() for p in model.parameters())
+    del model
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+    return dict(params=n, logits=list(got.shape), rel_err=rel,
+                limit=ZOO_REL, fwd_ms=ms)
+
+
+def phase_vision_ops(torch, seed, report):
+    """Every registry entry of the vision tranche (but ``decode_jpeg``,
+    which needs PIL) on the card at a size its models run, held to the
+    CPU run on the same inputs; then each zoo model's float32 forward at
+    224 x 224, batch 2, held to the CPU."""
+    import tempfile
+    rng = np.random.RandomState(seed + 4)
+    res = {"ops": {}, "zoo": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (op, args, kw, rel) in vision_op_cases(rng, tmp):
+            res["ops"][name] = vision_op_check(torch, name, op, args, kw,
+                                               rel)
+            free_card(torch)
+    log(f"vision_ops: {json.dumps(res['ops'])}")
+    for name, kw in ZOO:
+        res["zoo"][name] = zoo_vs_cpu(torch, seed, name, kw)
+        free_card(torch)
+    log(f"vision_ops zoo: {json.dumps(res['zoo'])}")
+    report["vision_ops"] = res
+    bad = {k: v for k, v in list(res["ops"].items()) + list(
+        res["zoo"].items()) if not v["rel_err"] <= v["limit"]}
+    if bad:
+        raise AssertionError(f"vision_ops: card vs CPU beyond the limits: "
+                             f"{bad}")
+    from paddle_tpu_torch.ops import dispatcher
+    from paddle_tpu_torch.ops.kernels import detection, extra_nn, vision_io
+    mods = {extra_nn.__name__, detection.__name__, vision_io.__name__}
+    entries = {n for n, k in dispatcher.KERNELS.items()
+               if k.__module__ in mods} - {"decode_jpeg"}
+    missed = entries - {v["op"] for v in res["ops"].values()}
+    if missed:
+        raise AssertionError(f"vision_ops: entries not run: {missed}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5531,6 +6362,14 @@ def main(argv=None) -> int:
     bert = phase_bert_squad(torch, args.seed, report)
     free_card(torch)
     ocr = phase_ocr(torch, args.seed, report)
+    free_card(torch)
+    vision = {"cifar": phase_vision_cifar(torch, args.seed, report)}
+    free_card(torch)
+    vision["resnet50"] = phase_vision_resnet50(torch, args.seed, report)
+    free_card(torch)
+    vision["yolov3"] = phase_vision_yolov3(torch, args.seed, report)
+    free_card(torch)
+    phase_vision_ops(torch, args.seed, report)
     free_card(torch)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone
@@ -5637,6 +6476,17 @@ def main(argv=None) -> int:
             # the float32 buckets of those paths, held to the plain version
             e["vs_plain_bert"] = bert["optimizer_vs_plain"]
             e["vs_plain_crnn"] = ocr["crnn"]["optimizer_vs_plain"]
+            # the vision trainings' Momentum: launches per run, the route,
+            # the resnet18 bucket against the plain version, the rule's
+            # time over ResNet-50's parameters
+            e["launches_vision"] = {
+                f"{m}_{k}": v["fused_optimizer_launches"]
+                for m, r in vision.items() for k, v in r["runs"].items()}
+            e["launches_vision"]["cifar_fit"] = \
+                vision["cifar"]["fit"]["fused_optimizer_launches"]
+            e["vs_plain_resnet18_momentum"] = \
+                vision["cifar"]["runs"]["eager"]["optimizer_vs_plain"]
+            e["momentum_resnet50"] = vision["resnet50"]["momentum_kernel"]
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
             e["launches_eager_surface"] = eager_surface["launches"][name]

@@ -20,7 +20,9 @@ loop with the fused AdamW optimizer (selective or full recompute, list or
 stacked layers, a worker-process ``io.DataLoader`` under
 ``hapi.Model.fit``); trains BERT and the PP-OCR models; builds networks
 the Paddle way from ``nn.Layer`` and the common layers, initializers and
-losses. The TPU kernels of those paths are CUDA C++ kernels for Hopper
+losses; trains the vision zoo (``vision.models``: ResNet, YOLOv3-DarkNet53
+and the rest) over ``vision.datasets`` and ``vision.transforms`` with
+``metric.Accuracy``. The TPU kernels of those paths are CUDA C++ kernels for Hopper
 (``csrc/``), built at first use. Entry points run on the CUDA card unless
 the caller passes ``device=`` / ``set_device("cpu")`` or CPU tensors; they
 never fall back to the CPU quietly. The models, criteria, layers,
@@ -61,8 +63,8 @@ from .tensor_api import _attach_tensor_methods  # noqa: E402
 
 _attach_tensor_methods()
 
-from . import (amp, distributed, hapi, io, jit, models, nn,  # noqa: E402
-               optimizer, sparse)
+from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
+               models, nn, optimizer, sparse, vision)
 from .jit import jit_step  # noqa: E402
 from .nn import LazyGuard, ParamAttr  # noqa: E402
 from .nn.layer_base import Parameter  # noqa: E402

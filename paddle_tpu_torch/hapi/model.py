@@ -17,10 +17,13 @@ steer training between steps (``LRScheduler(by_step=True)``, a callback
 overriding the per-batch hooks) keep fit on single steps, with the block
 reason counted (``jit.multi_step.record_block_fallback``).
 
-Not ported: ``metrics=`` needs ``paddle.metric`` (ROADMAP A9) and raises;
-``fit(resilience_dir=)`` needs ``distributed/resilience`` (ROADMAP A8)
-and raises. Data that is not a DataLoader is wrapped in one on the
-network's device.
+``prepare(metrics=...)`` takes ``paddle.metric`` metrics: each batch's
+outputs (a captured step's too, and each step of a K-step block) go
+through ``compute`` and ``update``, and the logs carry ``accumulate()``
+under the metric's names; each epoch and each evaluation resets them.
+Not ported: ``fit(resilience_dir=)`` needs ``distributed/resilience``
+(ROADMAP A8) and raises. Data that is not a DataLoader is wrapped in one on
+the network's device.
 """
 
 from __future__ import annotations
@@ -89,10 +92,11 @@ class Model:
     # -- prepare ----------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=False):
-        if _to_list(metrics):
-            raise NotImplementedError(
-                "Model.prepare(metrics=...): paddle.metric is not ported "
-                "yet (ROADMAP A9)")
+        from ..metric import Metric
+        metrics = _to_list(metrics)
+        for m in metrics:
+            if not isinstance(m, Metric):
+                raise TypeError(f"metric {m} is not a paddle.metric.Metric")
         if loss is not None and not callable(loss):
             raise TypeError("loss must be a Layer or a callable")
         self._optimizer = optimizer
@@ -100,7 +104,7 @@ class Model:
         self._multi_step = None
         self._train_step = None
         self._loss = loss
-        self._metrics = []
+        self._metrics = metrics
         self._jit = bool(jit)
         if amp_configs not in (None, "O0", False):
             self._amp_level = amp_configs if isinstance(amp_configs, str) \
@@ -129,20 +133,70 @@ class Model:
                 self._train_step = TrainStep(
                     self.network, self._scalar_loss, self._optimizer,
                     amp_level=self._amp_level)
-            return float(self._train_step(tuple(inputs), tuple(labels)))
+            lv = float(self._train_step(tuple(inputs), tuple(labels)))
+            if not self._metrics:
+                return lv
+            # TrainStep returns no outputs: one more forward for the
+            # metrics, in eval mode (BatchNorm statistics and dropout
+            # stay as the step left them)
+            self.network.eval()
+            try:
+                with torch.no_grad():
+                    outputs = _to_list(self.network(*inputs))
+            finally:
+                self.network.train()
+            return self._with_metric_results(outputs, labels, [lv])
         if not update:     # loss only, no parameter change
             with torch.no_grad():
                 outputs = self._forward_amp(inputs)
-                return float(self._loss_value(outputs, labels))
+                lv = float(self._loss_value(outputs, labels))
+            return self._with_metric_results(outputs, labels, [lv])
         if _flags.get_flag("step_capture"):
             if self._captured_step is None:
                 from ..jit.step_capture import jit_step
                 self._captured_step = jit_step(
                     self._eager_step_fn(), generators=self._generators())
-            loss, _ = self._captured_step(tuple(inputs), tuple(labels))
-            return float(loss)
-        loss, _ = self._eager_step_fn()(tuple(inputs), tuple(labels))
-        return float(loss)
+            loss, outputs = self._captured_step(tuple(inputs),
+                                                tuple(labels))
+        else:
+            loss, outputs = self._eager_step_fn()(tuple(inputs),
+                                                  tuple(labels))
+        return self._with_metric_results(outputs, labels, [float(loss)])
+
+    def _with_metric_results(self, outputs, labels, losses):
+        """The losses alone (one: a float) without metrics; with them,
+        ``(losses, [each metric's update() result])`` after each metric's
+        ``compute`` and ``update`` over this batch."""
+        if not self._metrics:
+            return losses if len(losses) != 1 else losses[0]
+        vals = []
+        for m in self._metrics:
+            computed = m.compute(*_to_list(outputs), *labels)
+            vals.append(m.update(*_to_list(computed)))
+        return losses, vals
+
+    def _update_logs(self, res):
+        """The callbacks' logs of a batch result: "loss", and each
+        metric's ``accumulate()`` under its names."""
+        logs = {}
+        if isinstance(res, tuple) and len(res) == 2 \
+                and isinstance(res[0], list):
+            losses, _ = res
+            if losses:
+                logs["loss"] = losses[0]
+            for m in self._metrics:
+                for n, v in zip(_to_list(m.name()), _to_list(m.accumulate())):
+                    logs[n] = v
+        elif isinstance(res, list):
+            if res:
+                logs["loss"] = res[0]
+        else:
+            logs["loss"] = res
+        return logs
+
+    def _metric_names(self):
+        return ["loss"] + [n for m in self._metrics
+                           for n in _to_list(m.name())]
 
     def _generators(self):
         """The generators the network's layers draw from (a ``Dropout``'s
@@ -189,9 +243,12 @@ class Model:
         labels = [self._tensor(x) for x in _to_list(labels)]
         with torch.no_grad():
             outputs = self._forward_amp(inputs)
+            losses = []
             if self._loss is not None and labels:
-                return float(self._loss_value(outputs, labels))
-        return []
+                losses.append(float(self._loss_value(outputs, labels)))
+        if not self._metrics:
+            return losses[0] if losses else []
+        return self._with_metric_results(outputs, labels, losses)
 
     def predict_batch(self, inputs):
         self.network.eval()
@@ -242,7 +299,7 @@ class Model:
         cbks = cbks_mod.config_callbacks(
             callbacks, model=self, epochs=epochs, steps=steps,
             log_freq=log_freq, verbose=verbose, save_freq=save_freq,
-            save_dir=save_dir, metrics=["loss"])
+            save_dir=save_dir, metrics=self._metric_names())
         self.stop_training = False
         k_steps = self._multi_k(loader, cbks)
         cbks.on_train_begin()
@@ -250,6 +307,8 @@ class Model:
         logs = {}
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
             logs = {}
             if k_steps:
                 logs = self._fit_epoch_multi(loader, cbks, n_labels,
@@ -258,7 +317,7 @@ class Model:
                 for step, batch in enumerate(loader):
                     cbks.on_train_batch_begin(step)
                     ins, lbs = self._split_batch(batch, n_labels)
-                    logs = {"loss": self.train_batch(ins, lbs)}
+                    logs = self._update_logs(self.train_batch(ins, lbs))
                     cbks.on_train_batch_end(step, logs)
                     if self.stop_training:
                         break
@@ -329,11 +388,17 @@ class Model:
         step = 0
         for block in blocks():
             if block.stacked is not None:
-                losses = self._train_block(block.stacked, n_labels, k)
+                losses, outputs, lbs = self._train_block(block.stacked,
+                                                         n_labels, k)
                 loader._commit_stream_state(block.stream_state)
                 for i in range(block.size):
                     cbks.on_train_batch_begin(step)
-                    logs = {"loss": losses[i]}
+                    res = losses[i]
+                    if self._metrics:    # each step's slice of the block
+                        res = self._with_metric_results(
+                            [o[i] for o in outputs], [y[i] for y in lbs],
+                            [losses[i]])
+                    logs = self._update_logs(res)
                     cbks.on_train_batch_end(step, logs)
                     step += 1
                     if self.stop_training:
@@ -342,7 +407,7 @@ class Model:
                 for batch in block.batches:
                     cbks.on_train_batch_begin(step)
                     ins, lbs = self._split_batch(batch, n_labels)
-                    logs = {"loss": self.train_batch(ins, lbs)}
+                    logs = self._update_logs(self.train_batch(ins, lbs))
                     loader._commit_stream_state(block.stream_state)
                     multi_counters["tail_steps"] += 1
                     cbks.on_train_batch_end(step, logs)
@@ -353,9 +418,10 @@ class Model:
                 break
         return logs
 
-    def _train_block(self, stacked, n_labels, k) -> List[float]:
-        """One ``[K, ...]``-stacked block through the K-step graph; the
-        per-step float losses, read back once."""
+    def _train_block(self, stacked, n_labels, k):
+        """One ``[K, ...]``-stacked block through the K-step graph: the
+        per-step float losses (read back once), and the block's ``[K,
+        ...]`` outputs and labels, which the metrics read step by step."""
         if self._optimizer is None or self._loss is None:
             raise RuntimeError("call prepare(optimizer, loss) before fit")
         self.network.train()
@@ -366,19 +432,21 @@ class Model:
             from ..jit.step_capture import jit_step
             self._multi_step = jit_step(self._eager_step_fn(), k_steps=k,
                                         generators=self._generators())
-        loss, _ = self._multi_step(tuple(ins), tuple(lbs))
-        return [float(v) for v in loss.float().cpu().numpy()]
+        loss, outputs = self._multi_step(tuple(ins), tuple(lbs))
+        return ([float(v) for v in loss.float().cpu().numpy()],
+                _to_list(outputs), lbs)
 
     # -- eval / predict ----------------------------------------------------------
     def _run_eval(self, eval_loader, cbks, n_labels):
         cbks.on_eval_begin()
+        for m in self._metrics:
+            m.reset()
         logs = {}
         loss_sum, loss_n = 0.0, 0
         for step, batch in enumerate(eval_loader):
             cbks.on_eval_batch_begin(step)
             ins, lbs = self._split_batch(batch, n_labels)
-            res = self.eval_batch(ins, lbs)
-            logs = {"loss": res} if not isinstance(res, list) else {}
+            logs = self._update_logs(self.eval_batch(ins, lbs))
             if "loss" in logs:
                 loss_sum += logs["loss"]
                 loss_n += 1
@@ -394,7 +462,7 @@ class Model:
                                    False)
         cbks = cbks_mod.config_callbacks(
             callbacks, model=self, log_freq=log_freq, verbose=verbose,
-            metrics=["loss"], mode="eval",
+            metrics=self._metric_names(), mode="eval",
             steps=len(loader) if hasattr(loader, "__len__") else None)
         return self._run_eval(loader, cbks, len(self._labels))
 

@@ -10,7 +10,9 @@ come across too: the rotary ``cos_cached``/``sin_cached``, BatchNorm's
 ``qweight`` and float32 ``weight_scale`` (quantize the port skeleton
 first with ``nn.quant.quantize_for_inference``). It loads any reference
 ``Layer`` into its port counterpart (``nn.Linear``, ``nn.Conv2D``, ...,
-``nn.Sequential`` of them), and the stacked Llama
+``nn.Sequential`` of them), every model of the vision zoo
+(``vision.models``: the ResNets, VGG, the MobileNets, ..., YOLOv3, with
+their BatchNorm statistics), and the stacked Llama
 (``use_scan_layers=True``: ``llama.layer_stack.stacked_{j}``).
 
 The optimizer's state comes across too: ``from_jax_optimizer_state(

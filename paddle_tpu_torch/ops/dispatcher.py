@@ -394,11 +394,116 @@ SCHEMA.update({
     "scatter_nd": (("index", _R), ("updates", _R), ("shape", ())),
 })
 
+# -- the vision tranche: ``ops.yaml:544-576`` and ``:656`` (``extra_nn.py``),
+# ``:660-668`` and ``:542`` (``detection.py``), ``:718-719`` (``vision_io.py``)
+_FMT = lambda f: (("data_format", f),)  # noqa: E731
+_INTERP = _X + (("size", None), ("scale_factor", None),
+                ("align_corners", False))
+_POOLND = _X + (("kernel_size", ()), ("strides", ()))
+_POOL_REST = (("pooling_type", "max"), ("ceil_mode", False),
+              ("exclusive", True), ("adaptive", False),
+              ("global_pooling", False))
+_WITH_INDEX = (("global_pooling", False), ("adaptive", False))
+_UNPOOL = (("x", _R), ("indices", _R), ("kernel_size", ()), ("strides", ()))
+_ROI = (("x", _R), ("boxes", _R), ("boxes_num", None),
+        ("pooled_height", 1), ("pooled_width", 1))
+_NMS_OUT = (("score_threshold", 0.0), ("nms_top_k", -1), ("keep_top_k", -1))
+_BN = _X + (("mean", _R), ("variance", _R), ("scale", None), ("bias", None),
+            ("is_test", False), ("momentum", 0.9), ("epsilon", 1e-05),
+            ("data_format", "NCHW"), ("use_global_stats", False))
+SCHEMA.update({
+    "grid_sample": _X + (("grid", _R), ("mode", "bilinear"),
+                         ("padding_mode", "zeros"), ("align_corners", True)),
+    "affine_grid": (("theta", _R), ("output_shape", ()),
+                    ("align_corners", True)),
+    "pixel_unshuffle": _X + (("downscale_factor", 1),) + _FMT("NCHW"),
+    "channel_shuffle": _X + (("groups", 1),) + _FMT("NCHW"),
+    "temporal_shift": _X + (("seg_num", 1), ("shift_ratio", 0.25)) +
+    _FMT("NCHW"),
+    "maxout": _X + (("groups", 1), ("axis", 1)),
+    "pad3d": _X + (("paddings", ()), ("mode", "constant"), ("value", 0.0)) +
+    _FMT("NCDHW"),
+    "pool2d": _POOLND + (("paddings", (0, 0)),) + _POOL_REST + _FMT("NCHW"),
+    "pool3d": _POOLND + (("paddings", (0, 0, 0)),) + _POOL_REST +
+    _FMT("NCDHW"),
+    "max_pool2d_with_index": _POOLND + (("paddings", (0, 0)),) + _WITH_INDEX,
+    "max_pool3d_with_index": _POOLND + (("paddings", (0, 0, 0)),) +
+    _WITH_INDEX,
+    "unpool": _UNPOOL + (("paddings", (0, 0)), ("output_size", ())),
+    "unpool3d": _UNPOOL + (("paddings", (0, 0, 0)), ("output_size", ())),
+    "fold": _X + (("output_sizes", ()), ("kernel_sizes", ()),
+                  ("strides", (1, 1)), ("paddings", (0, 0)),
+                  ("dilations", (1, 1))),
+    "fractional_max_pool2d": _X + (("output_size", ()), ("kernel_size", None),
+                                   ("random_u", 0.5), ("return_mask", False)),
+    "conv3d": _X + (("weight", _R), ("stride", (1, 1, 1)),
+                    ("padding", (0, 0, 0)), ("dilation", (1, 1, 1)),
+                    ("groups", 1)) + _FMT("NCDHW"),
+    "conv3d_transpose": _X + (("weight", _R), ("stride", (1, 1, 1)),
+                              ("padding", (0, 0, 0)),
+                              ("output_padding", (0, 0, 0)),
+                              ("dilation", (1, 1, 1)), ("groups", 1)) +
+    _FMT("NCDHW"),
+    "bilinear_interp": _INTERP + _FMT("NCHW"),
+    "nearest_interp": _INTERP + _FMT("NCHW"),
+    "bicubic_interp": _INTERP + _FMT("NCHW"),
+    "linear_interp": _INTERP + _FMT("NCW"),
+    "trilinear_interp": _INTERP + _FMT("NCDHW"),
+    "spectral_norm": (("weight", _R), ("u", _R), ("v", _R), ("dim", 0),
+                      ("power_iters", 1), ("eps", 1e-12)),
+    "segment_pool": _X + (("segment_ids", _R), ("pooltype", "SUM")),
+    "overlap_add": _X + (("hop_length", 1), ("axis", -1)),
+    "box_coder": (("prior_box", _R), ("prior_box_var", None),
+                  ("target_box", None), ("code_type", "encode_center_size"),
+                  ("box_normalized", True), ("axis", 0)),
+    "roi_align": _ROI + (("spatial_scale", 1.0), ("sampling_ratio", -1),
+                         ("aligned", True)),
+    "roi_pool": _ROI + (("spatial_scale", 1.0),),
+    "prior_box": (("input", _R), ("image", _R), ("min_sizes", ()),
+                  ("max_sizes", ()), ("aspect_ratios", (1.0,)),
+                  ("variances", (0.1, 0.1, 0.2, 0.2)), ("flip", False),
+                  ("clip", False), ("steps", (0.0, 0.0)), ("offset", 0.5),
+                  ("min_max_aspect_ratios_order", False)),
+    "batch_norm": _BN,
+    "yolo_box": _X + (("img_size", _R), ("anchors", ()), ("class_num", 1),
+                      ("conf_thresh", 0.01), ("downsample_ratio", 32),
+                      ("clip_bbox", True), ("scale_x_y", 1.0),
+                      ("iou_aware", False), ("iou_aware_factor", 0.5)),
+    "yolo_loss": _X + (("gt_box", _R), ("gt_label", _R), ("gt_score", None),
+                       ("anchors", ()), ("anchor_mask", ()), ("class_num", 1),
+                       ("ignore_thresh", 0.7), ("downsample_ratio", 32),
+                       ("use_label_smooth", True), ("scale_x_y", 1.0)),
+    "deformable_conv": _X + (("offset", _R), ("filter", _R), ("mask", None),
+                             ("strides", (1, 1)), ("paddings", (0, 0)),
+                             ("dilations", (1, 1)), ("deformable_groups", 1),
+                             ("groups", 1), ("im2col_step", 64)),
+    "psroi_pool": _ROI + (("output_channels", 1), ("spatial_scale", 1.0)),
+    "multiclass_nms3": (("bboxes", _R), ("scores", _R), ("rois_num", None)) +
+    _NMS_OUT + (("nms_threshold", 0.3), ("normalized", True),
+                ("nms_eta", 1.0), ("background_label", 0)),
+    "matrix_nms": (("bboxes", _R), ("scores", _R)) + _NMS_OUT + (
+        ("post_threshold", 0.0), ("use_gaussian", False),
+        ("gaussian_sigma", 2.0), ("background_label", 0),
+        ("normalized", True)),
+    "generate_proposals": (
+        ("scores", _R), ("bbox_deltas", _R), ("im_shape", _R),
+        ("anchors", _R), ("variances", _R), ("pre_nms_top_n", 6000),
+        ("post_nms_top_n", 1000), ("nms_thresh", 0.5), ("min_size", 0.1),
+        ("eta", 1.0), ("pixel_offset", True)),
+    "distribute_fpn_proposals": (
+        ("fpn_rois", _R), ("rois_num", None), ("min_level", 2),
+        ("max_level", 5), ("refer_level", 4), ("refer_scale", 224),
+        ("pixel_offset", True)),
+    "nms": (("boxes", _R), ("scores", None), ("iou_threshold", 0.3)),
+    "read_file": (("filename", ""),),
+    "decode_jpeg": _X + (("mode", "unchanged"),),
+})
+
 # ops whose first argument is not a tensor: no Tensor method
 NOT_TENSOR_FIRST = frozenset({
     "full", "zeros", "ones", "empty", "arange", "linspace", "eye",
     "tril_indices", "uniform", "gaussian", "rand", "randn", "randint",
-    "randperm", "truncated_gaussian_random"})
+    "randperm", "truncated_gaussian_random", "read_file"})
 
 # the inplace family (``ops.yaml:628-657``, ``:728-808``): name -> base op
 INPLACE = {
@@ -548,9 +653,10 @@ def _make_op(name: str) -> Callable:
 def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
-        from .kernels import (creation, manipulation, math,  # noqa: F401
-                              math_ext, moe, nn, quant, random, rnn,
-                              serving, tensor_api_ext)  # (register)
+        from .kernels import (creation, detection,  # noqa: F401
+                              extra_nn, manipulation, math, math_ext, moe,
+                              nn, quant, random, rnn, serving,
+                              tensor_api_ext, vision_io)  # (register)
         for name in SCHEMA:
             if name not in KERNELS:
                 raise RuntimeError(f"op '{name}': no kernel registered")

@@ -4,7 +4,11 @@ context type ids, each span inside its row's context), the CRNN batch
 (labels of 1-25 symbols, none the blank, zero-padded), and the FLOPs a
 token of BERT-base (6 N + 12 layers hidden seq, N the non-embedding
 parameters: 2.55 TFLOP a step at 12 x 384), counted on meta parameters.
-Importing the script needs no card."""
+The vision phases' inputs and checks: the CIFAR-10-format file the fit
+reads (``vision.datasets.Cifar10`` reads it back), YOLOv3's gts (1-50 an
+image, zero rows after), MFU's reckoning, the fused-route counters and
+the run checks that must reject a broken run. Importing the script needs
+no card."""
 
 import importlib.util
 from pathlib import Path
@@ -122,3 +126,64 @@ def test_eager_surface_wgan_gp_and_loop_on_the_cpu(smoke):
         assert len(run["step_s"]) == 1 and run["losses"][2] < run["losses"][0]
     finally:
         paddle.set_device(None)
+
+
+def test_vision_cifar_file_reads_back(smoke, tmp_path):
+    from paddle_tpu_torch.vision import datasets
+    path = smoke.write_cifar10(str(tmp_path / "c.tar.gz"), 3, 80, 16)
+    train = datasets.Cifar10(path, mode="train")
+    test = datasets.Cifar10(path, mode="test")
+    assert len(train) == 80 and len(test) == 16
+    img, label = train[5]
+    assert img.shape == (32, 32, 3) and img.dtype == np.uint8
+    assert 0 <= int(label) < 10
+    again = smoke.write_cifar10(str(tmp_path / "d.tar.gz"), 3, 80, 16)
+    assert np.array_equal(datasets.Cifar10(again)[5][0], img)
+
+
+def test_yolo_batch_gts(smoke):
+    x, box, lab, score = smoke.yolo_batch(torch, 0, "cpu")
+    assert x.shape == (smoke.YOLO_B, 3, smoke.YOLO_SIZE, smoke.YOLO_SIZE)
+    live = box[..., 2] > 0
+    n = live.sum(1)
+    assert int(n.min()) >= 1 and int(n.max()) <= smoke.YOLO_GTS
+    for i in range(smoke.YOLO_B):       # live rows first, then zero rows
+        k = int(n[i])
+        assert bool(live[i, :k].all()) and not bool(box[i, k:].any())
+    assert bool((box[live][:, :2] > 0).all() and (box[live] < 1).all())
+    assert int(lab.max()) < smoke.YOLO_CLASSES and bool((score == 1).all())
+
+
+def test_vision_mfu_and_fused_route(smoke):
+    run = {"images_per_s": 1000.0}
+    mfu = smoke.vision_mfu(run, smoke.R50_MACS, 64, smoke.F32_FLOPS_PER_S)
+    assert mfu == pytest.approx(1000 * 24.6e9 / 67e12)
+    before = {"updates": 3, "fallbacks": 1, "buckets": 1}
+    ok = smoke.fused_route(before, {"updates": 15, "fallbacks": 1,
+                                    "buckets": 1}, 12)
+    assert ok["every_step_fused"] and ok["updates"] == 12
+    assert not smoke.fused_route(before, {"updates": 14, "fallbacks": 2,
+                                          "buckets": 1}, 12)[
+        "every_step_fused"]
+
+
+def test_check_vision_runs_rejects_broken_runs(smoke):
+    good = {"losses": [3.0, 2.0, 1.0], "fused_optimizer_launches": 3,
+            "fused_route": {"every_step_fused": True}}
+    runs = {"captured": good, "eager": dict(good)}
+    smoke.check_vision_runs("t", runs, falling=("captured",))
+    for bad, match in (
+            ({"eager": dict(good, losses=[3.0, 2.0, 1.0000001])}, "differ"),
+            ({"eager": dict(good, losses=[3.0, float("nan"), 1.0])},
+             "finite"),
+            ({"captured": dict(good, fused_route={
+                "every_step_fused": False})}, "fused"),
+            ({"captured": dict(good, fused_optimizer_launches=0)},
+             "fused")):
+        with pytest.raises(AssertionError, match=match):
+            smoke.check_vision_runs("t", {**runs, **bad})
+    rising = dict(good, losses=[1.0, 2.0, 3.0])
+    with pytest.raises(AssertionError, match="falling"):
+        smoke.check_vision_runs("t", {"captured": rising,
+                                      "eager": dict(rising)},
+                                falling=("captured",))

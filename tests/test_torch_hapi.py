@@ -12,8 +12,10 @@ entropy, Adam lr 0.05), same weights, same data, same numpy seeds.
 - ``fit`` in K-step blocks (``FLAGS_multi_step`` 4, a K-misaligned epoch)
   equals single-step ``fit`` bit for bit (losses and weights);
 - ``evaluate``, ``predict`` and ``save``/``load`` round trips, and the
-  rules of the port: ``metrics=`` and ``resilience_dir=`` raise naming
-  their ROADMAP items.
+  rules of the port: ``resilience_dir=`` raises naming its ROADMAP item,
+  and ``metrics=`` takes ``paddle.metric`` metrics only (TypeError, as
+  the reference's); fit with ``metrics=Accuracy()`` is in
+  ``test_torch_metric.py``.
 """
 
 import numpy as np
@@ -204,7 +206,7 @@ def test_evaluate_predict_save_load(tmp_path):
 
 def test_unported_options_raise_with_their_item():
     _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="paddle.metric.Metric"):
         tm.prepare(tm._optimizer, torch.nn.CrossEntropyLoss(),
                    metrics=[object()])
     x, y = _data(8)

@@ -48,8 +48,13 @@ def test_scan_sees_the_whole_port():
             "step_capture.py", "multi_step.py", "model.py",
             "callbacks.py", "recompute.py", "stack.py", "layer_base.py",
             "layers_common.py", "initializer.py", "loss.py",
-            "functional.py"} <= names
-    for pkg in ("sparse", "io", "hapi", "distributed", "nn"):
+            "functional.py", "extra_nn.py", "detection.py", "vision_io.py",
+            "datasets.py", "transforms.py", "resnet.py", "yolov3.py",
+            "mobilenet.py", "googlenet.py", "densenet.py",
+            "shufflenetv2.py", "squeezenet.py", "vgg.py", "alexnet.py",
+            "lenet.py"} <= names
+    for pkg in ("sparse", "io", "hapi", "distributed", "nn", "metric",
+                "vision", "vision/models", "vision/transforms"):
         assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
@@ -61,7 +66,12 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.ops.kernels.bcsr_spmm, paddle_tpu_torch.io, "
             "paddle_tpu_torch.hapi, paddle_tpu_torch.jit.multi_step, "
             "paddle_tpu_torch.jit.step_capture, paddle_tpu_torch.nn, "
-            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.distributed; "
+            "paddle_tpu_torch.nn.functional, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.vision.transforms, paddle_tpu_torch.metric, "
+            "paddle_tpu_torch.ops.kernels.detection, "
+            "paddle_tpu_torch.ops.kernels.extra_nn, "
+            "paddle_tpu_torch.ops.kernels.vision_io; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
