@@ -3,7 +3,9 @@
 kernels, hold each against its plain PyTorch version, run packed (varlen)
 attention forward and backward through the op registry, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
-continuous-batching engine and ``generate(cache_type="paged")``, serve it
+continuous-batching engine, the gang-scheduled engine and ``generate()``
+over the paged and the contiguous caches, with its ``observability``
+series and spans, serve it
 again quantized to int4 weights through the int4 GEMM kernel, multiply
 block-pruned Llama-3-8B MLP weights through ``sparse.bcsr_matmul``, train
 Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW and then
@@ -121,10 +123,26 @@ Phases (any failure raises and the script exits non-zero):
    requests run through the eager engine step (``FLAGS_step_capture=0``),
    which must give the same tokens; captured against eager: tokens/s,
    step p50/p99, TTFT, TPOT, peak memory, capture time and pool bytes.
-   Last, more runs (bf16 and int8 pools captured, bf16 eager) each
-   profile one prefill step and three decode steps with torch.profiler
-   (device time by kernel and by part, the busy share of wall); their
-   launches are not counted;
+   The captured bf16 run's ``serving.*`` series (``observability``)
+   must equal its own tallies (admitted, finished, generated and
+   prefilled tokens, steps, 16 TTFT observations), with one
+   ``serving.step`` span a step; the same serve with ``FLAGS_metrics=0``
+   and ``FLAGS_tracing=0`` records nothing, and the step time it saves is
+   the host cost of metrics and tracing (``serving_metrics``). Then
+   ``GangScheduledEngine`` serves the 16 requests (64 new tokens, a bf16
+   pool; then 4 of them, 16 new, over an int8 pool): batch-1 prefills
+   through the ragged kernel, one gang-decode launch per layer and step,
+   its tokens held to the ragged engine's, a token differing only at a
+   logit margin under ``FLIP_MARGIN_MAX`` (the rest of that request then
+   not compared), every 8th step's last-layer gang-decode call held to
+   the plain versions (``serve_gang``); ``generate()`` over the
+   contiguous ``KVCache`` (4 prompts cut to 1024 tokens, 16 new) against
+   the paged one under the same rule, and one masked, left-padded
+   prefill through ``KVCache`` against the rows alone
+   (``generate_contiguous``). Last, more runs (bf16 and int8 pools
+   captured, bf16 eager) each profile one prefill step and three decode
+   steps with torch.profiler (device time by kernel and by part, the
+   busy share of wall); their launches are not counted;
 4b. int4 serving, after the serving model is freed: the same model from
    the same seed, its bf16 logits of one prompt, then
    ``quantize_for_inference(model, "weight_only_int4")`` on the card
@@ -948,19 +966,30 @@ def profile_steps(torch, eng, n, outs):
     return prof
 
 
-def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
+def serve(torch, model, prompts, new_tokens, profile=False,
+          before_step=None, **engine_kw):
     """Run the engine over ``prompts`` (the last one arrives after four
     steps, once the first one's shared prefix is in the prefix cache).
     Returns (outputs by rid, metrics). With ``profile``, two windows run
     under the profiler (their steps stay out of the step percentiles, but
     the run's wall time and TTFT include them: profile in a run of its
-    own)."""
+    own). ``before_step(i)`` runs before step ``i``, off its clock."""
     from paddle_tpu_torch.jit import capture_counters
     from paddle_tpu_torch.models import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import tracing
     eng = ContinuousBatchingEngine(
         model, max_batch=16, block_size=64, token_budget=512,
         prefill_chunk=256, kv_pool_bytes=8 << 30, temperature=0.0,
         **engine_kw)
+    # the run's own tally of the tokens the engine wrote into the pool
+    written, write_slots = [0], eng._write_slots
+
+    def tally(i, pos0, n):
+        written[0] += n
+        return write_slots(i, pos0, n)
+    eng._write_slots = tally
+    series0 = serving_series()
+    tracing.clear()
     fallbacks0 = capture_counters["fallbacks"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -988,11 +1017,14 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
             profiles[window] = profile_steps(
                 torch, eng, 1 if window == "prefill" else 3, outs)
             continue
+        if before_step is not None:
+            before_step(eng.steps)
         ts = time.perf_counter()
         for req in eng.step():
             outs[req.rid] = list(req.out_tokens)
         step_s.append(time.perf_counter() - ts)
     wall = time.perf_counter() - t0
+    chrome = tracing.to_chrome()["traceEvents"]
     reqs = [eng.results[r] for r in sorted(eng.results)]
     ttft = [r.t_first - r.t_arrive for r in reqs]
     tpot = [(r.t_done - r.t_first) / (len(r.out_tokens) - 1) for r in reqs
@@ -1003,13 +1035,26 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
              wall_s=wall, tokens_per_s=gen / wall, steps=eng.steps,
              step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
              step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+             step_ms_mean=1e3 * float(np.mean(step_s)), step_s=step_s,
              ttft_ms_p50=1e3 * float(np.percentile(ttft, 50)),
              ttft_ms_p99=1e3 * float(np.percentile(ttft, 99)),
              tpot_ms_p50=1e3 * float(np.percentile(tpot, 50)),
              tpot_ms_p99=1e3 * float(np.percentile(tpot, 99)),
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              num_blocks=eng.cache.k[0].shape[0],
-             kv_dtype=eng.cache.kv_dtype, stats=dict(eng.stats),
+             kv_dtype=eng.cache.kv_dtype,
+             metrics=series_delta(series0, serving_series()),
+             tallies=dict(
+                 admitted=sum(r.admit_order >= 0 for r in reqs),
+                 finished=sum(r.done for r in reqs),
+                 generated_tokens=gen, pool_writes=written[0],
+                 # spec off: every decode write is one emitted token but
+                 # the request's first (sampled off its prefill)
+                 prefill_tokens=written[0] - (gen - len(reqs))),
+             spans=dict(
+                 serving_step=sum(e["name"] == "serving.step"
+                                  for e in chrome),
+                 recorded=len(chrome)),
              profile=profiles,
              capture=dict(eng.capture_stats, fallbacks=capture_counters[
                  "fallbacks"] - fallbacks0))
@@ -1021,9 +1066,42 @@ def serve(torch, model, prompts, new_tokens, profile=False, **engine_kw):
             raise AssertionError(f"request {rid}: token out of vocabulary")
     if len(outs) != len(prompts):
         raise AssertionError(f"{len(outs)} of {len(prompts)} finished")
+    del eng._write_slots          # the tally's cycle would keep the pool
     del eng
     torch.cuda.empty_cache()
     return outs, m
+
+
+def serving_series() -> dict:
+    """Every ``serving.*`` instrument of the port's registry: a counter's
+    or gauge's value, a histogram's count (``name.count``) and its p50 /
+    p99 upper bounds."""
+    from paddle_tpu_torch import observability
+    out = {}
+    for key, snap in observability.snapshot().items():
+        if not key.startswith("serving."):
+            continue
+        if snap["type"] == "histogram":
+            h = observability.registry().get(key)
+            out[key + ".count"] = snap["count"]
+            out[key + ".p50"] = h.quantile(0.5)
+            out[key + ".p99"] = h.quantile(0.99)
+        else:
+            out[key] = snap["value"]
+    return out
+
+
+def series_delta(before: dict, after: dict) -> dict:
+    """Counters and histogram counts as increments, the rest as read."""
+    from paddle_tpu_torch import observability
+    reg = observability.registry()
+    out = {}
+    for k, v in after.items():
+        m = reg.get(k.rsplit(".", 1)[0] if k.endswith(
+            (".count", ".p50", ".p99")) else k)
+        inc = k.endswith(".count") or getattr(m, "kind", "") == "counter"
+        out[k] = v - before.get(k, 0) if inc else v
+    return out
 
 
 def eager_serve(torch, model, prompts, new_tokens, **kw):
@@ -1092,7 +1170,7 @@ def logits_check(torch, model, prompt):
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
     class PlainCache(PagedKVCache):
-        def attend(self, layer, q, pos=None):
+        def attend(self, layer, q, pos=None, attn_mask=None):
             tables, lens, cu = self._dev_meta
             b, s, h, d = q.shape
             return rpa.ragged_paged_attention_plain(
@@ -1166,11 +1244,12 @@ GEN_NEW_TOKENS = 16     # generate()'s new tokens: 15 decode steps
 
 
 @contextlib.contextmanager
-def decode_capture(torch, layers):
+def decode_capture(torch, layers, every: int = 1):
     """Records the gang-decode calls of the last layer (every ``layers``-th
-    call) on the path that runs inside: each call's inputs and the
-    kernel's output, cloned, to be held against the plain versions after
-    the run. The kernel's launch and count are the path's own."""
+    call; of those, every ``every``-th from the first) on the path that
+    runs inside: each call's inputs and the kernel's output, cloned, to be
+    held against the plain versions after the run. The kernel's launch
+    and count are the path's own."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     launch, calls, n = pa.paged_attention, [], itertools.count(1)
 
@@ -1179,7 +1258,8 @@ def decode_capture(torch, layers):
 
     def record(*args, **kw):
         out = launch(*args, **kw)
-        if next(n) % layers == 0:
+        i = next(n)
+        if i % layers == 0 and (i // layers - 1) % every == 0:
             calls.append(([clone(a) for a in args],
                           {k: clone(v) for k, v in kw.items()}, out.clone()))
         return out
@@ -1259,6 +1339,433 @@ def plain_attention_generate(torch, model, ids, out, kv):
     return res
 
 
+# -- the gang-scheduled engine, the contiguous cache and the serving
+# series, on phase_main's model --------------------------------------------
+
+GANG_INT8_REQUESTS, GANG_INT8_NEW = 4, 16    # the int8-pool gang run
+SERVING_OVERHEAD_PAIRS = 2   # (off, on) serves timing metrics and tracing
+GANG_DECODE_EVERY = 8     # last-layer gang-decode calls kept: every 8th step
+CONTIG_LEN, CONTIG_PAD = 1024, 256           # generate_contiguous's batch
+
+
+def flip_check(torch, model, prompts, got, want, kv):
+    """Each request's tokens ``got[r]`` against ``want[r]`` (lists): at the
+    first divergent position, the margin between the two tokens read off
+    the prefill path's logits of the shared prefix (``prompt_logits``).
+    A margin over ``FLIP_MARGIN_MAX`` fails: the flip would not be
+    rounding. The rest of a request after its flip is not compared."""
+    flips, compared = [], 0
+    for r, (a, b) in enumerate(zip(got, want)):
+        n = min(len(a), len(b))
+        j = next((i for i in range(n) if a[i] != b[i]), None)
+        compared += n if j is None else j + 1
+        if j is None:
+            continue
+        ctx = np.concatenate([prompts[r], np.asarray(a[:j], np.int32)])
+        logits = prompt_logits(torch, model, ctx, kv)
+        flips.append(dict(
+            request=r, position=j, got=int(a[j]), want=int(b[j]),
+            margin=abs(float(logits[a[j]] - logits[b[j]])),
+            top1_is_either=int(logits.argmax()) in (a[j], b[j])))
+    worst = max((f["margin"] for f in flips), default=0.0)
+    if worst > FLIP_MARGIN_MAX:
+        raise AssertionError(f"a token flips at logit margin {worst} "
+                             f"(> {FLIP_MARGIN_MAX}): {flips}")
+    return dict(requests=len(got), flips=len(flips),
+                compared_tokens=compared, worst_margin=worst, detail=flips)
+
+
+@contextlib.contextmanager
+def tap_decode_logits(eng, rids):
+    """Records, on the engine's path that runs inside, the last-position
+    logits of the requests ``rids`` at every decode step (the sampler's
+    input with one row a slot), with the count of tokens each had
+    generated then: (request, count, float32 row). The sampling is the
+    engine's own."""
+    from paddle_tpu_torch.ops.kernels import serving as S
+    sample, taps = S.sample_logits, []
+
+    def record(logits, *args, **kw):
+        if logits.shape[0] == eng.max_batch:
+            for r in rids:
+                req = eng.results[r]
+                if req.slot is not None:
+                    taps.append((r, len(req.out_tokens),
+                                 logits[req.slot].float().clone()))
+        return sample(logits, *args, **kw)
+    S.sample_logits = record
+    try:
+        yield taps
+    finally:
+        S.sample_logits = sample
+
+
+def decode_logits_check(torch, model, prompts, outs, taps, kv):
+    """Each decode step's logits row of the gang engine (``taps``) against
+    the prefill path's last-position logits over the same context (the
+    prompt and the tokens generated before it, ``prompt_logits``) at
+    ``LOGITS_ATOL`` / ``LOGITS_MIN_COS``, and the token the engine sampled
+    against the row's argmax: every later step's slot, position and
+    context at full width, past any flip against the ragged run. Also
+    the prefill path's top-2 logit gap and how far the gang path moves
+    that pair's difference: a step whose gap is under the drift is one
+    where two paths may pick different tokens."""
+    errs, coss, gaps, drifts, argmax_equal = [], [], [], [], 0
+    for r, j, got in taps:
+        ctx = np.concatenate([prompts[r], np.asarray(outs[r][:j], np.int32)])
+        want = prompt_logits(torch, model, ctx, kv)
+        err, cos = float((got - want).abs().max()), cosine(torch, got, want)
+        if not bool(torch.isfinite(got).all()) or err > LOGITS_ATOL \
+                or cos < LOGITS_MIN_COS:
+            raise AssertionError(
+                f"gang decode step of request {r} at token {j}: logits "
+                f"max abs err {err} (atol {LOGITS_ATOL}), cosine {cos} "
+                f"against the prefill path over the same context")
+        if int(got.argmax()) != outs[r][j]:
+            raise AssertionError(f"request {r} token {j}: sampled "
+                                 f"{outs[r][j]}, its logits' argmax is "
+                                 f"{int(got.argmax())}")
+        t1, t2 = (int(t) for t in want.topk(2).indices)
+        gaps.append(float(want[t1] - want[t2]))
+        drifts.append(abs(float(got[t1] - got[t2]) - gaps[-1]))
+        errs.append(err)
+        coss.append(cos)
+        argmax_equal += int(got.argmax()) == t1
+    if not taps:
+        raise AssertionError("no gang decode step recorded")
+    gaps, drift_p50 = np.asarray(gaps), float(np.median(drifts))
+    return dict(
+        requests=sorted({r for r, _, _ in taps}), steps=len(taps),
+        contexts=[int(min(len(prompts[r]) + j for r, j, _ in taps)),
+                  int(max(len(prompts[r]) + j for r, j, _ in taps))],
+        max_abs_err=max(errs), min_cosine=min(coss),
+        argmax_equal=argmax_equal,
+        top2_gap_p50=float(np.median(gaps)), pair_drift_p50=drift_p50,
+        pair_drift_max=float(max(drifts)),
+        share_gap_below_drift_p50=float(np.mean(gaps < drift_p50)),
+        share_gap_below_2_drift_p50=float(np.mean(gaps < 2 * drift_p50)))
+
+
+def serve_gang(torch, model, prompts, new_tokens, kv="bf16", profile=False,
+               watch=(), before_step=None):
+    """All ``prompts`` through ``GangScheduledEngine`` (16 rows, blocks of
+    64, greedy) over a ``kv`` pool sized to the requests' worst case plus
+    the trash block. Returns (tokens in prompt order, metrics, the
+    recorded last-layer gang-decode calls, the decode-step logits of the
+    requests ``watch``). The metrics hold each step's host seconds.
+    ``before_step(i)`` runs before step ``i``, off its clock. With
+    ``profile``, the last 3 steps (every row decoding) run under the
+    profiler and stay out of the step percentiles: run it last, the
+    profiler slows what follows."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import GangScheduledEngine
+    from paddle_tpu_torch.ops import kernels
+    cfg = model.config
+    blocks = sum(-(-(len(p) + new_tokens) // 64) for p in prompts) + 1
+    flags.set_flags({"kv_cache_dtype": kv})
+    try:
+        eng = GangScheduledEngine(model, max_batch=16, num_blocks=blocks,
+                                  block_size=64, temperature=0.0)
+    finally:
+        flags.set_flags({"kv_cache_dtype": "auto"})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    step_s, decode_s = [], []
+    with decode_capture(torch, cfg.num_hidden_layers,
+                        every=GANG_DECODE_EVERY) as calls, \
+            tap_decode_logits(eng, [rids[r] for r in watch]) as taps:
+        while eng.pending or eng.num_active:
+            if profile and eng.steps == new_tokens - 4:
+                m_prof = profile_call(torch, lambda: [eng.step()
+                                                      for _ in range(3)], 3)
+                if "all_kernels" in m_prof:
+                    m_prof["by_part_ms"] = categorize(
+                        m_prof.pop("all_kernels"), m_prof["device_busy_ms"])
+                continue
+            if before_step is not None:
+                before_step(eng.steps)
+            pre = eng.prefills
+            ts = time.perf_counter()
+            eng.step()             # ends reading the sampled tokens back
+            step_s.append(time.perf_counter() - ts)
+            if eng.prefills == pre:
+                decode_s.append(step_s[-1])
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    outs = [list(eng.results[r].out_tokens) for r in rids]
+    gen = sum(len(o) for o in outs)
+    if any(len(o) != new_tokens for o in outs) or min(map(min, outs)) < 0 \
+            or max(map(max, outs)) >= cfg.vocab_size:
+        raise AssertionError("serve_gang: a request's tokens are short or "
+                             "out of vocabulary")
+    # one gang-decode call per layer and step; one ragged prefill call per
+    # layer and admission
+    want = dict(paged_attention=cfg.num_hidden_layers * eng.steps,
+                ragged_paged_attention=cfg.num_hidden_layers * eng.prefills)
+    got = {k: launches[k] for k in want}
+    if got != want and not profile:
+        raise AssertionError(f"serve_gang({kv}): launches {got}, want "
+                             f"{want}")
+    m = dict(requests=len(prompts), new_tokens=new_tokens, kv_dtype=kv,
+             generated_tokens=gen, wall_s=wall, tokens_per_s=gen / wall,
+             steps=eng.steps, prefills=eng.prefills,
+             preemptions=eng.preempt_count, num_blocks=blocks,
+             step_ms_p50=1e3 * float(np.percentile(step_s, 50)),
+             step_ms_p99=1e3 * float(np.percentile(step_s, 99)),
+             decode_step_ms_p50=1e3 * float(np.percentile(decode_s, 50)),
+             decode_step_ms_p99=1e3 * float(np.percentile(decode_s, 99)),
+             decode_steps=len(decode_s), step_s=step_s,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches={k: v for k, v in launches.items() if v},
+             paged_attention_per_step=launches["paged_attention"]
+             / eng.steps,
+             ragged_per_prefill=launches["ragged_paged_attention"]
+             / eng.prefills)
+    if profile:
+        m["profile_decode"] = m_prof
+    del eng
+    torch.cuda.empty_cache()
+    return outs, m, calls, taps
+
+
+def phase_serve_gang(torch, model, prompts, outs_bf16, outs_int8):
+    """``serve_gang``: the 16 requests with 64 new tokens over a bf16 pool,
+    and 4 of them with 16 over an int8 pool (the plain versions made to
+    raise on the card while they run), each held to the ragged engine's
+    tokens of the same run (``flip_check``) and their sampled last-layer
+    gang-decode calls to the plain versions; over the bf16 pool, every
+    decode step's logits of the shortest and the longest request to the
+    prefill path's (``decode_logits_check``)."""
+    res = {}
+    by_len = sorted(range(len(prompts)), key=lambda r: len(prompts[r]))
+    for kv, n, new, ref, watch in (
+            ("bf16", len(prompts), 64, outs_bf16, (by_len[0], by_len[-1])),
+            ("int8", GANG_INT8_REQUESTS, GANG_INT8_NEW, outs_int8, ())):
+        ps = prompts[:n]
+        with no_plain_on_card():
+            outs, m, calls, taps = serve_gang(torch, model, ps, new, kv,
+                                              watch=watch)
+        del m["step_s"]
+        m["vs_ragged"] = flip_check(torch, model, ps, outs,
+                                    [ref[r][:new] for r in range(n)], kv)
+        m["decode_calls"] = check_decode_calls(torch, f"serve_gang({kv})",
+                                               calls)
+        if watch:
+            m["decode_logits"] = decode_logits_check(torch, model, ps, outs,
+                                                     taps, kv)
+        del calls, taps
+        torch.cuda.empty_cache()
+        res[kv] = m
+        log(f"serve_gang[{kv}]: {json.dumps(m)}")
+    return res
+
+
+def recorder_cost(torch, model, prompts):
+    """The host time that the flight recorder (on by default) adds to an
+    engine step. Each run turns the recorder on for every other step
+    (``before_step``) and reads the median over its pairs of (a step with
+    it on - the step before it, off), which shares its load and nearly
+    its work; of two runs, one has it on for the odd steps and one for
+    the even ones, so half their sum is the cost and half their
+    difference what the steps' parity alone gives. For the gang engine's
+    decode step (16 rows of up to 512-token prompts, 64 new tokens; the
+    prefill step left out) and the eager ragged engine's step (the 16
+    requests, 64 new tokens); with the ops the recorder took an on step,
+    and the µs each."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.observability import flight_recorder
+    rec, short = flight_recorder.recorder(), [p[:512] for p in prompts]
+
+    def run(serve_fn, parity):
+        seen = []
+
+        def alternate(i):
+            seen.append(rec.total_recorded)
+            flags.set_flags({"flight_recorder": i % 2 == parity})
+        try:
+            with no_plain_on_card():
+                st = serve_fn(alternate)["step_s"]
+        finally:
+            flags.set_flags({"flight_recorder": True})
+        ops = np.diff(seen)
+        if len(st) != len(seen) or ops[1 - parity::2].any() \
+                or not ops[parity::2].all():
+            raise AssertionError(f"flight recorder: {len(st)} steps timed, "
+                                 f"{len(seen)} toggled, ops a step {ops}")
+        on = range(4 - parity, len(st), 2)
+        return dict(on_steps="odd" if parity else "even",
+                    host_us_added=1e6 * float(np.median(
+                        [st[i] - st[i - 1] for i in on])),
+                    pairs=len(on), ops_per_step=float(np.median(
+                        ops[parity::2])),
+                    step_ms_p50_on=1e3 * float(np.median(
+                        [st[i] for i in on])),
+                    step_ms_p50_off=1e3 * float(np.median(
+                        [st[i - 1] for i in on])))
+    out = {}
+    for name, fn in (
+            ("gang_decode_step", lambda cb: serve_gang(
+                torch, model, short, 64, before_step=cb)[1]),
+            ("eager_ragged_step", lambda cb: eager_serve(
+                torch, model, prompts, 64, before_step=cb)[1])):
+        odd, even = run(fn, 1), run(fn, 0)
+        us = (odd["host_us_added"] + even["host_us_added"]) / 2
+        out[name] = dict(runs=[odd, even], host_us_per_step_added=us,
+                         parity_us=(odd["host_us_added"]
+                                    - even["host_us_added"]) / 2,
+                         ops_per_step=odd["ops_per_step"],
+                         us_per_op=us / odd["ops_per_step"])
+    log(f"flight_recorder_cost: {json.dumps(out)}")
+    return out
+
+
+def phase_generate_contiguous(torch, model, prompts):
+    """``generate(cache_type="contiguous")`` on 4 of the prompts cut to
+    ``CONTIG_LEN`` tokens, 16 new, against ``generate(cache_type="paged")``
+    on the same batch (``flip_check``); then one masked prefill through
+    ``KVCache``: a full row and a row left-padded by ``CONTIG_PAD`` (an
+    additive mask, -1e9 at the pads), each row's last-position logits
+    against the same row run alone, unpadded (``LOGITS_ATOL`` /
+    ``LOGITS_MIN_COS``)."""
+    from paddle_tpu_torch.models import KVCache
+    from paddle_tpu_torch.ops import kernels
+    cfg = model.config
+    kvh, d = cfg.num_key_value_heads, cfg.hidden_size // cfg.num_attention_heads
+    rows = [p[:CONTIG_LEN] for p in prompts if len(p) >= CONTIG_LEN][:4]
+    if len(rows) < 4:
+        raise AssertionError(f"only {len(rows)} prompts of >= {CONTIG_LEN} "
+                             f"tokens")
+    ids = torch.from_numpy(np.stack(rows)).cuda()
+    res = {}
+    for cache_type in ("contiguous", "paged"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_NEW_TOKENS,
+                             temperature=0.0, cache_type=cache_type,
+                             block_size=64)
+        torch.cuda.synchronize()
+        res[cache_type] = dict(
+            out=out, wall_s=time.perf_counter() - t0,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k: v for k, v in kernels.launch_counts().items()
+                      if v})
+    c = res["contiguous"]
+    if tuple(c["out"].shape) != (4, CONTIG_LEN + GEN_NEW_TOKENS):
+        raise AssertionError(f"generate(contiguous): {tuple(c['out'].shape)}")
+    if c["launches"]:
+        raise AssertionError(f"generate(contiguous) launched the paged "
+                             f"kernels: {c['launches']}")
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    m = dict(batch=4, prompt=CONTIG_LEN, new_tokens=GEN_NEW_TOKENS,
+             kvcache_bytes=cfg.num_hidden_layers * 2 * 4
+             * (CONTIG_LEN + GEN_NEW_TOKENS) * kvh * d * item,
+             vs_paged=flip_check(
+                 torch, model, rows,
+                 c["out"][:, CONTIG_LEN:].tolist(),
+                 res["paged"]["out"][:, CONTIG_LEN:].tolist(), "bf16"))
+    for k in ("contiguous", "paged"):
+        m[k] = {x: res[k][x] for x in ("wall_s", "peak_mem_gib", "launches")}
+    del res
+    # one masked prefill: row 0 whole, row 1 left-padded
+    pad = CONTIG_PAD
+    padded = np.stack([rows[0], np.concatenate(
+        [np.zeros(pad, np.int32), rows[1][:CONTIG_LEN - pad]])])
+    mask = torch.zeros((2, 1, CONTIG_LEN, CONTIG_LEN), dtype=torch.float32,
+                       device="cuda")
+    mask[1, :, :, :pad] = -1e9
+    cache = KVCache(cfg.num_hidden_layers, 2, CONTIG_LEN, kvh, d,
+                    dtype=cfg.dtype, device="cuda")
+    got = model(torch.from_numpy(padded).cuda(), attn_mask=mask, cache=cache,
+                start_pos=0)[:, -1].float()
+    m["masked_prefill"] = dict(pad=pad, cache_bytes=cache.nbytes())
+    del cache
+    for r, alone in enumerate((rows[0], rows[1][:CONTIG_LEN - pad])):
+        c1 = KVCache(cfg.num_hidden_layers, 1, len(alone), kvh, d,
+                     dtype=cfg.dtype, device="cuda")
+        want = model(torch.from_numpy(alone[None]).cuda(), cache=c1,
+                     start_pos=0)[0, -1].float()
+        del c1
+        err, cos = float((got[r] - want).abs().max()), cosine(torch, got[r],
+                                                              want)
+        if not bool(torch.isfinite(got[r]).all()) or err > LOGITS_ATOL \
+                or cos < LOGITS_MIN_COS:
+            raise AssertionError(
+                f"masked prefill row {r}: max abs err {err} (atol "
+                f"{LOGITS_ATOL}), cosine {cos} against the row alone")
+        m["masked_prefill"][f"row{r}"] = dict(
+            max_abs_err=err, cosine=cos,
+            argmax_equal=bool(got[r].argmax() == want.argmax()))
+    # without the mask the padded row attends its pads: it must move
+    cache = KVCache(cfg.num_hidden_layers, 2, CONTIG_LEN, kvh, d,
+                    dtype=cfg.dtype, device="cuda")
+    nomask = model(torch.from_numpy(padded).cuda(), cache=cache,
+                   start_pos=0)[1, -1].float()
+    m["masked_prefill"]["row1_unmasked_max_abs_diff"] = float(
+        (nomask - got[1]).abs().max())
+    del cache
+    torch.cuda.empty_cache()
+    log(f"generate_contiguous: {json.dumps(m)}")
+    return m
+
+
+def paired_step_us(on, off):
+    """The median over step indices of (``on``'s step - ``off``'s step), in
+    µs: two serves of the same requests run the same schedule, so step i
+    does the same work in both."""
+    return 1e6 * float(np.median(np.asarray(on["step_s"])
+                                 - np.asarray(off["step_s"])))
+
+
+def check_serving_metrics(torch, m, m_off, pairs_on_off=()):
+    """The captured bf16 run's registry series against its own tallies,
+    its TTFT count and percentiles, one ``serving.step`` span a step, and
+    the host time a step that metrics and tracing add: over each (on,
+    off) pair of serves in ``pairs_on_off`` (off: ``FLAGS_metrics=0`` and
+    ``FLAGS_tracing=0``), the median paired step difference. ``m_off`` is
+    an off run, which must record nothing."""
+    s, t = m["metrics"], m["tallies"]
+    pairs = {"serving.admitted": t["admitted"],
+             "serving.finished": t["finished"],
+             "serving.generated_tokens": t["generated_tokens"],
+             "serving.prefill_tokens": t["prefill_tokens"],
+             "serving.ttft_seconds.count": m["requests"],
+             "serving.steps": m["steps"]}
+    bad = {k: (s.get(k), v) for k, v in pairs.items() if s.get(k) != v}
+    if bad:
+        raise AssertionError(f"serving series against the run's tallies "
+                             f"(registry, tally): {bad}")
+    if m["spans"]["serving_step"] != m["steps"]:
+        raise AssertionError(f"{m['spans']} serving.step spans over "
+                             f"{m['steps']} steps")
+    if any(v for k, v in m_off["metrics"].items()
+           if k.endswith(".count") or k in pairs) or \
+            m_off["spans"]["recorded"]:
+        raise AssertionError(f"FLAGS_metrics=0 / FLAGS_tracing=0 still "
+                             f"recorded: {m_off['metrics']} "
+                             f"{m_off['spans']}")
+    return dict(
+        matched=pairs, spans=m["spans"],
+        ttft_s_p50=s["serving.ttft_seconds.p50"],
+        ttft_s_p99=s["serving.ttft_seconds.p99"],
+        tpot_s_p50=s["serving.tpot_seconds.p50"],
+        tpot_s_p99=s["serving.tpot_seconds.p99"],
+        queue_wait_s_p50=s["serving.queue_wait_seconds.p50"],
+        steps_on_off=[(a["steps"], b["steps"]) for a, b in pairs_on_off],
+        step_ms_p50_on_off=[(a["step_ms_p50"], b["step_ms_p50"])
+                            for a, b in pairs_on_off],
+        step_ms_mean_on_off=[(a["step_ms_mean"], b["step_ms_mean"])
+                             for a, b in pairs_on_off],
+        host_us_per_step_added=[paired_step_us(a, b)
+                                for a, b in pairs_on_off
+                                if a["steps"] == b["steps"]],
+        tokens_identical_off=m_off["tokens_identical"])
+
+
 def phase_main(torch, seed, report):
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -1301,7 +1808,7 @@ def phase_main(torch, seed, report):
                                  f"{main['bf16']['peak_mem_gib']} GiB is "
                                  f"over slice 1's {SERVE_PEAK_GIB} GiB x "
                                  f"1.05 + the graph pool's {pool_gib} GiB")
-        if main["bf16"]["stats"]["prefix_hit_blocks"] <= 0:
+        if main["bf16"]["metrics"]["serving.prefix_cache.hit_blocks"] <= 0:
             raise AssertionError("the shared-prefix request did not hit the "
                                  "prefix cache")
         outs_int8, main["int8"] = counted_serve(kv_dtype="int8")
@@ -1353,6 +1860,32 @@ def phase_main(torch, seed, report):
             vs_eager[k] = check_capture(f"serve[{k}]", main[k], outs, me, oe)
             log(f"serve[{k}] captured vs eager: {json.dumps(vs_eager[k])}")
     main["capture_vs_eager"] = vs_eager
+    # the captured bf16 run's serving series and spans, against the same
+    # serve with metrics and tracing off
+    pairs = []
+    for _ in range(SERVING_OVERHEAD_PAIRS):
+        run = {}
+        for on in (False, True):
+            flags.set_flags({"metrics": on, "tracing": on})
+            try:
+                with no_plain_on_card():
+                    outs_x, run[on] = serve(torch, model, prompts, 64)
+            finally:
+                flags.set_flags({"metrics": True, "tracing": True})
+            run[on]["tokens_identical"] = outs_x == outs_bf16
+        pairs.append((run[True], run[False]))
+    m_off = pairs[0][1]
+    main["serving_metrics"] = check_serving_metrics(torch, main["bf16"],
+                                                    m_off, pairs)
+    log(f"serving_metrics: {json.dumps(main['serving_metrics'])}")
+    # the gang-scheduled engine and the contiguous cache, each path's
+    # kernel counts reset just before it and read just after
+    main["serve_gang"] = phase_serve_gang(torch, model, prompts, outs_bf16,
+                                          outs_int8)
+    main["flight_recorder_cost"] = recorder_cost(torch, model, prompts)
+    with no_plain_on_card():
+        main["generate_contiguous"] = phase_generate_contiguous(
+            torch, model, prompts)
     # generate()'s own gang-decode calls against the plain versions, and
     # its tokens against a generate() through the plain attention
     for kv, (out, calls) in gens.items():
@@ -1380,7 +1913,7 @@ def phase_main(torch, seed, report):
             f"TPOT p50 {m['tpot_ms_p50']:.1f} ms p99 {m['tpot_ms_p99']:.1f} "
             f"ms, peak {m['peak_mem_gib']:.2f} GiB, {m['num_blocks']} "
             f"blocks, launches {m['launches']} ({m['launches_per_step']} "
-            f"per step), stats {m['stats']}")
+            f"per step), serving series {m['metrics']}")
     log(f"generate(paged): {main['generate']}; int8 pool: "
         f"{main['generate_int8']}")
     log(f"launches on the main path: {counts}")
@@ -1403,6 +1936,11 @@ def phase_main(torch, seed, report):
     main["profile_bf16_eager"] = m["profile"]
     for window, prof in m["profile"].items():
         log(f"profile[bf16 eager/{window}]: {json.dumps(prof)}")
+    # the gang engine's decode step: 16 rows of up to 512-token prompts
+    _, m, _, _ = serve_gang(torch, model, [p[:512] for p in prompts], 16,
+                            profile=True)
+    main["profile_gang_decode"] = m["profile_decode"]
+    log(f"profile[gang decode]: {json.dumps(m['profile_decode'])}")
     report["main"] = main
     return main, outs_bf16
 
@@ -6487,6 +7025,10 @@ def main(argv=None) -> int:
             e["vs_plain_resnet18_momentum"] = \
                 vision["cifar"]["runs"]["eager"]["optimizer_vs_plain"]
             e["momentum_resnet50"] = vision["resnet50"]["momentum_kernel"]
+        if name in SERVING_KERNELS:
+            e["launches_serve_gang"] = {
+                kv: main_res["serve_gang"][kv]["launches"].get(name, 0)
+                for kv in ("bf16", "int8")}
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
             e["launches_eager_surface"] = eager_surface["launches"][name]

@@ -12,8 +12,12 @@ and the rng-state functions, and every op of the registry at the top level
 and returns plain tensors for plain inputs.
 
 It serves Llama through the ragged continuous-batching engine
-(``models.ContinuousBatchingEngine``) and ``generate(cache_type="paged")``,
-also with int4 weight-only linears (``nn.quant.quantize_for_inference``);
+(``models.ContinuousBatchingEngine``), the gang-scheduled engine
+(``models.GangScheduledEngine``) and ``generate()`` over the contiguous
+``models.KVCache`` or the paged pool, also with int4 weight-only linears
+(``nn.quant.quantize_for_inference``), and reports through
+``observability`` (the metrics registry, spans, the flight recorder and
+the /metrics endpoint);
 trains Llama and the DeepSeekMoE family (``models.LlamaForCausalLM``,
 ``models.MoEForCausalLM``) through ``jit.TrainStep`` or Paddle's eager
 loop with the fused AdamW optimizer (selective or full recompute, list or
@@ -64,7 +68,7 @@ from .tensor_api import _attach_tensor_methods  # noqa: E402
 _attach_tensor_methods()
 
 from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
-               models, nn, optimizer, sparse, vision)
+               models, nn, observability, optimizer, sparse, vision)
 from .jit import jit_step  # noqa: E402
 from .nn import LazyGuard, ParamAttr  # noqa: E402
 from .nn.layer_base import Parameter  # noqa: E402
@@ -92,6 +96,7 @@ __all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
            "no_grad", "enable_grad", "is_grad_enabled", "set_grad_enabled",
            "autograd", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "Place",
            "iinfo", "finfo", "get_rng_state", "set_rng_state",
+           "observability",
            "get_cuda_rng_state", "set_cuda_rng_state", "default_generator",
            *_dispatcher.SCHEMA, *_dispatcher.INPLACE, *_TENSOR_API]
 __version__ = "0.1.0"

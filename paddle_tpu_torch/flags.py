@@ -1,15 +1,17 @@
 """Runtime flags of the ported paths.
 
 Counterpart of the JAX package's flag registry, cut to the flags the
-serving and training slices read. Same names, defaults and meanings;
-``FLAGS_<name>`` in the environment overrides a default, and
-:func:`set_flags` changes a value at run time.
+serving, training and observability slices read. Same names, defaults and
+meanings; ``FLAGS_<name>`` in the environment overrides a default,
+:func:`set_flags` changes a value at run time, and :func:`on_set`
+registers a callback that sees each new value (the rings of
+``observability/`` resize through it).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 _KV_CACHE_DTYPES = ("auto", "bf16", "bfloat16", "int8")
 
@@ -70,6 +72,21 @@ def _bool(value: Any) -> bool:
 #   stacks (``DataLoader.fill_ring``); epoch tails and unsupported edges
 #   run single-step capture. 0 (default) = off; ``jit_step(fn,
 #   k_steps=K)`` ignores it.
+# metrics: the process-wide metrics registry (observability/metrics.py):
+#   counters, gauges and histograms on the serving path; False makes
+#   every increment one flag read.
+# flight_recorder, flight_recorder_size, flight_recorder_path: the
+#   bounded ring of the last N op dispatches at the op choke point
+#   (observability/flight_recorder.py), dumped to the path (stderr when
+#   empty) on an uncaught exception.
+# tracing, tracing_ring_size, tracing_path: request and step spans over a
+#   bounded ring (observability/tracing.py), exported as Chrome-trace
+#   JSON; False makes every span one flag read.
+# telemetry_port: the /metrics /healthz /statusz /trace endpoint
+#   (observability/exporter.py): -1 off, 0 a free port, > 0 that port.
+# perf_attribution: the executable ledger of the reference's
+#   observability/perf.py, not ported yet: True raises where it would
+#   record (ROADMAP.md, A9).
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
@@ -79,7 +96,22 @@ _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "check_nan_inf": (False, _bool),
     "step_capture": (True, _bool),
     "multi_step": (0, int),
+    "metrics": (True, _bool),
+    "flight_recorder": (True, _bool),
+    "flight_recorder_size": (256, int),
+    "flight_recorder_path": ("", str),
+    "tracing": (True, _bool),
+    "tracing_ring_size": (4096, int),
+    "tracing_path": ("", str),
+    "telemetry_port": (-1, int),
+    "perf_attribution": (False, _bool),
 }
+
+# flags that route no kernel: a captured step's key leaves them out
+OBSERVABILITY_FLAGS = frozenset({
+    "metrics", "flight_recorder", "flight_recorder_size",
+    "flight_recorder_path", "tracing", "tracing_ring_size", "tracing_path",
+    "telemetry_port", "perf_attribution"})
 
 _VALUES: Dict[str, Any] = {
     n: parse(os.environ.get("FLAGS_" + n, d))
@@ -89,6 +121,8 @@ _VALUES: Dict[str, Any] = {
 # bumped by every set_flags: capture keys fold it in, so a flag change
 # re-probes instead of replaying a graph recorded under the old routes
 version = 0
+
+_ON_SET: Dict[str, List[Callable[[Any], None]]] = {}
 
 
 def _name(name: str) -> str:
@@ -110,9 +144,16 @@ def get_flags(names) -> Dict[str, Any]:
     return {"FLAGS_" + _name(n): _VALUES[_name(n)] for n in names}
 
 
+def on_set(name: str, fn: Callable[[Any], None]) -> None:
+    """Call ``fn(new_value)`` after every :func:`set_flags` of ``name``."""
+    _ON_SET.setdefault(_name(name), []).append(fn)
+
+
 def set_flags(flags: Dict[str, Any]) -> None:
     global version
     for k, v in flags.items():
         k = _name(k)
         _VALUES[k] = _FLAGS[k][1](v)
+        for fn in _ON_SET.get(k, ()):
+            fn(_VALUES[k])
     version += 1

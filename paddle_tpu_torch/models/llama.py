@@ -8,8 +8,9 @@ layout: ``x @ W``). Parameters are trainable, as in the reference.
 Two forwards, both unsharded:
 
 - with a cache (serving): each layer writes its K/V into the cache and
-  attends through it (the paged kernels). It runs under ``no_grad``, so
-  it never builds an autograd graph;
+  attends through it (the paged kernels, or the contiguous cache's
+  composite), passing ``attn_mask`` on as the reference does (:186). It
+  runs under ``no_grad``, so it never builds an autograd graph;
 - without one (training, :189-201, :280-303): rope at ``position_ids`` (or
   ``arange(s)``), then causal attention through the ``flash_attention``
   routing (the flash kernels on the card), or the composite when
@@ -157,7 +158,7 @@ class LlamaAttention(nn.Module):
             q, k = K.rope(q, k, cos, sin,
                           _position_ids(start_pos, b, s, x.device))
             cache.update(layer_idx, k, v, start_pos)
-            out = cache.attend(layer_idx, q, start_pos)
+            out = cache.attend(layer_idx, q, start_pos, attn_mask)
         else:
             if position_ids is None:
                 position_ids = _position_ids(0, b, s, x.device)

@@ -1,8 +1,10 @@
-"""Continuous batching over the paged KV cache: the ragged serving loop.
+"""Continuous batching over the paged KV cache: the ragged serving loop,
+and the gang-scheduled engine it replaced.
 
 Counterpart of ``paddle_tpu/models/serving.py``: ``QueueFull``,
-``Request``, ``PrefixCache`` (:198), ``_RaggedView`` (:298) and
-``ContinuousBatchingEngine`` (:324), with the same behaviour:
+``Request``, ``PrefixCache`` (:198), ``_SlotView`` (:271), ``_RaggedView``
+(:298), ``ContinuousBatchingEngine`` (:324) and ``GangScheduledEngine``
+(:1009), with the same behaviour:
 
 - **One ragged step.** Every scheduler step packs a fixed ``token_budget``
   of tokens (one per decoding row plus fixed-size prefill chunks of the
@@ -40,10 +42,23 @@ Counterpart of ``paddle_tpu/models/serving.py``: ``QueueFull``,
   capture failure raises. On the CPU the step runs eagerly and counts as
   a replay of its first step's stand-in capture.
 
-Metrics, tracing and the perf ledger of the reference wait for a later
-slice; the engine keeps plain integer counters on itself
-(``steps``, ``preempt_count``, ``stats``, ``capture_stats``).
-``GangScheduledEngine`` waits too.
+- **Operability.** Scheduler state (queue depth, active rows, prefill
+  backlog, free blocks, prefix-cache hits and evictions, preemptions,
+  speculation) publishes through ``observability.registry()`` under the
+  reference's ``serving.*`` names (:81-141), with tenant-labelled
+  children of the admission counters; TTFT, TPOT and queue wait land in
+  histograms; each request's queue, prefill and decode phases and each
+  step are spans (``observability.tracing``). All of it is taken on the
+  host around the step (a captured step's replay included), never
+  inside the graph. The reference's perf ledger (``FLAGS_perf_attribution``)
+  is not ported: that flag raises (ROADMAP.md, A9).
+- **The gang-scheduled engine** (``GangScheduledEngine``): batch-1
+  prefill of an admitted request into its slot (the ragged kernel over
+  the slot's blocks), then one gang-decode step of every row
+  (``paged_attention``, one call a layer); inactive rows write to a
+  reserved trash block; LIFO preemption with recompute on resume. It
+  runs eagerly, as the reference's does (its prefill shapes vary). It is
+  the baseline and the equivalence reference of the ragged engine.
 """
 
 from __future__ import annotations
@@ -53,18 +68,20 @@ import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import flags as _flags
+from ..observability import metrics as _metrics_mod
+from ..observability import tracing as _tracing
 from ..ops.kernels import serving as S
 from .generation import PagedKVCache, kv_pool_blocks
 from .speculative import NGramProposer
 
-__all__ = ["Request", "ContinuousBatchingEngine", "PrefixCache",
-           "QueueFull"]
+__all__ = ["Request", "ContinuousBatchingEngine", "GangScheduledEngine",
+           "PrefixCache", "QueueFull"]
 
 
 class QueueFull(RuntimeError):
@@ -72,12 +89,97 @@ class QueueFull(RuntimeError):
     explicitly instead of buffering without bound.
 
     ``retry_after_hint`` (seconds, None before any request was admitted)
-    is the median observed queue wait."""
+    is the median observed queue wait, read off the
+    ``serving.queue_wait_seconds`` histogram."""
 
     def __init__(self, msg: str,
                  retry_after_hint: Optional[float] = None):
         super().__init__(msg)
         self.retry_after_hint = retry_after_hint
+
+
+_M = _metrics_mod.registry()
+_M_STEPS = _M.counter(
+    "serving.steps", "ragged scheduler steps executed")
+_M_STEP_TOKENS = _M.counter(
+    "serving.step_tokens", "packed tokens processed (prefill + decode)")
+_M_GEN_TOKENS = _M.counter(
+    "serving.generated_tokens", "tokens sampled and emitted to requests")
+_M_PREFILL_TOKENS = _M.counter(
+    "serving.prefill_tokens", "prompt tokens prefilled (chunked)")
+_M_ADMITTED = _M.counter(
+    "serving.admitted", "requests admitted to a row slot")
+_M_FINISHED = _M.counter(
+    "serving.finished", "requests completed (eos / max_new_tokens)")
+_M_PREEMPTIONS = _M.counter(
+    "serving.preemptions", "LIFO preemptions (head-of-line starvation)")
+_M_QUEUE = _M.gauge(
+    "serving.queue_depth", "requests waiting for admission")
+_M_ACTIVE = _M.gauge(
+    "serving.active_rows", "row slots occupied by live requests")
+_M_BACKLOG = _M.gauge(
+    "serving.prefill_backlog_tokens",
+    "prompt tokens admitted but not yet prefilled")
+_M_FREE = _M.gauge(
+    "serving.free_blocks", "allocatable pool blocks (free + evictable)")
+_M_PC_HIT = _M.counter(
+    "serving.prefix_cache.hit_blocks", "prompt blocks served from cache")
+_M_PC_MISS = _M.counter(
+    "serving.prefix_cache.miss_blocks", "full prompt blocks recomputed")
+_M_PC_SHARED = _M.counter(
+    "serving.prefix_cache.shared_tokens",
+    "prompt tokens whose KV was shared instead of recomputed")
+_M_PC_EVICT = _M.counter(
+    "serving.prefix_cache.evictions",
+    "cached blocks reclaimed by the allocator")
+_M_COW = _M.counter(
+    "serving.cow_copies", "copy-on-write block copies before a shared write")
+_M_TTFT = _M.histogram(
+    "serving.ttft_seconds", "request arrival -> first emitted token")
+_M_TPOT = _M.histogram(
+    "serving.tpot_seconds", "mean inter-token time after the first token")
+_M_QWAIT = _M.histogram(
+    "serving.queue_wait_seconds", "request arrival -> row-slot admission")
+_M_REJECTED = _M.counter(
+    "serving.rejected", "requests rejected at intake (queue full)")
+_M_KV_BPT = _M.gauge(
+    "serving.kv.bytes_per_token",
+    "HBM bytes one token's K+V occupies across all layers (int8 pool "
+    "includes its f32 scale bytes) — the decode bandwidth denominator")
+_M_KV_DEQ = _M.counter(
+    "serving.kv.dequant_blocks",
+    "pool blocks dequantized inside attention tile loads (int8 pool)")
+_M_SPEC_PROP = _M.counter(
+    "serving.spec.proposed", "draft tokens packed into verify rows")
+_M_SPEC_ACC = _M.counter(
+    "serving.spec.accepted", "draft tokens accepted by exact-match verify")
+_M_SPEC_REJ = _M.counter(
+    "serving.spec.rejected", "draft tokens rejected at verify")
+_M_SPEC_ROWS = _M.counter(
+    "serving.spec.verify_rows", "decode rows that carried draft tokens")
+
+# per-tenant children of the admission counters, cached so the hot path
+# pays one dict hit instead of the registry lock. Tenant cardinality is
+# the caller's contract: billing/SLO attribution labels, not a request id
+_TENANT_COUNTERS: Dict[Tuple[str, str], Any] = {}
+
+
+def _inc_tenant(name: str, tenant: Optional[str]) -> None:
+    if tenant is None:
+        return
+    key = (name, tenant)
+    c = _TENANT_COUNTERS.get(key)
+    if c is None:
+        c = _M.counter(name, labels={"tenant": tenant})
+        _TENANT_COUNTERS[key] = c
+    c.inc()
+
+
+def _no_perf_attribution() -> None:
+    if _flags.get_flag("perf_attribution"):
+        raise NotImplementedError(
+            "FLAGS_perf_attribution: the executable ledger "
+            "(observability/perf.py) is not ported yet (ROADMAP.md, A9)")
 
 
 @dataclass
@@ -99,7 +201,21 @@ class Request:
     t_arrive: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
+    n_replayed: int = 0                # tokens emitted by a previous process
+    tenant: Optional[str] = None       # labels the admission counters
     _registered_upto: int = 0          # prompt blocks published to the cache
+    # -- tracing: the ambient trace context at intake plus perf_counter_ns
+    # edge stamps, so the engine records the request's queue, prefill and
+    # decode phases as RETROACTIVE spans
+    trace_id: int = 0
+    span_parent: int = 0
+    t_arrive_ns: int = 0
+    t_admit_ns: int = 0
+    t_first_ns: int = 0
+
+
+def _req_trace(req: "Request"):
+    return (req.trace_id, req.span_parent) if req.trace_id else None
 
 
 class PrefixCache:
@@ -173,6 +289,46 @@ class PrefixCache:
         return block
 
 
+class _SlotView:
+    """Batch-1 cache facade targeting ONE slot of the shared pool (the
+    gang engine's prefill): the model's prefill pass runs unchanged, its
+    writes land in the slot's block table, and it attends through the
+    ragged kernel over the slot's blocks (one ragged row). The engine
+    passes no mask, so a mask raises."""
+
+    def __init__(self, cache: PagedKVCache, slot: int):
+        self._c = cache
+        self._slot = slot
+        self._meta = None
+
+    def update(self, layer: int, k_new, v_new, pos):
+        c, slot, n = self._c, self._slot, k_new.shape[1]
+        if layer == 0:
+            p0 = int(pos)
+            dev = c.device
+            self._slots = torch.from_numpy(
+                c.alloc_slots(slot, p0, n)).to(dev)
+            self._meta = (
+                torch.from_numpy(c.block_tables[slot:slot + 1]).to(dev),
+                torch.tensor([p0 + n], dtype=torch.int32, device=dev),
+                torch.tensor([0, n], dtype=torch.int32, device=dev))
+        c.write(layer, k_new, v_new, self._slots)
+        return c.k[layer], c.v[layer]
+
+    def attend(self, layer: int, q: torch.Tensor, pos=None,
+               attn_mask=None) -> torch.Tensor:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "the gang engine's slot prefill has no attn_mask input: "
+                "the slot's context length bounds what it attends to")
+        b, s, h, d = q.shape
+        tables, lens, cu = self._meta
+        out = S.ragged_paged_attention(
+            q.reshape(s, h, d), self._c.k[layer], self._c.v[layer], tables,
+            lens, cu, **self._c.scale_kwargs(layer))
+        return out.reshape(b, s, h, d)
+
+
 class _RaggedView:
     """Cache facade for ONE ragged step: per-token write slots were
     precomputed by the scheduler, and attention is the single
@@ -189,7 +345,12 @@ class _RaggedView:
     def update(self, layer: int, k_new, v_new, pos):
         return self._c.write(layer, k_new, v_new, self._slots)
 
-    def attend(self, layer: int, q: torch.Tensor, pos=None) -> torch.Tensor:
+    def attend(self, layer: int, q: torch.Tensor, pos=None,
+               attn_mask=None) -> torch.Tensor:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "the ragged step has no attn_mask input: context_lens and "
+                "cu_q_lens bound what each packed token attends to")
         b, s, h, d = q.shape
         out = S.ragged_paged_attention(
             q.reshape(s, h, d), self._c.k[layer], self._c.v[layer],
@@ -256,6 +417,7 @@ class ContinuousBatchingEngine:
                  on_finish=None, kv_dtype: Optional[str] = None,
                  speculative_k: Optional[int] = None,
                  kv_pool_bytes: Optional[int] = None):
+        _no_perf_attribution()
         cfg = model.config
         self.model = model
         self.device = model.device
@@ -281,6 +443,7 @@ class ContinuousBatchingEngine:
             block_size=block_size, num_kv_heads=cfg.num_key_value_heads,
             head_dim=head_dim, max_blocks_per_seq=mb, dtype=cfg.dtype,
             kv_dtype=kv_dtype, device=self.device)
+        _M_KV_BPT.set(self.cache.kv_bytes_per_token())
         # speculative decoding: K draft tokens per decode row, verified as
         # one q_len=K+1 ragged row out of the leftover token budget.
         # Acceptance is EXACT-MATCH against the row's keyed sample at each
@@ -319,13 +482,6 @@ class ContinuousBatchingEngine:
         # but admits nothing new
         self.admission_paused = False
         self.finish_cv = threading.Condition()
-        self._queue_waits: List[float] = []
-        # plain counters in place of the reference's metrics registry
-        self.stats = dict.fromkeys(
-            ("step_tokens", "generated_tokens", "prefill_tokens", "admitted",
-             "finished", "rejected", "prefix_hit_blocks",
-             "prefix_miss_blocks", "prefix_evictions", "cow_copies",
-             "spec_proposed", "spec_accepted", "spec_verify_rows"), 0)
         # the step graph: static buffers, one graph per key (see module
         # docstring)
         self._buf = _StepBuffers(self.token_budget, max_batch,
@@ -338,21 +494,46 @@ class ContinuousBatchingEngine:
                                   capture_s=0.0, pool_bytes=0)
 
     # -- request intake ------------------------------------------------------
-    def add_request(self, prompt, max_new_tokens: int = 32) -> int:
+    def add_request(self, prompt, max_new_tokens: int = 32, *,
+                    rid: Optional[int] = None,
+                    out_tokens: Optional[List[int]] = None,
+                    tenant: Optional[str] = None) -> int:
         """Queue a request; returns its rid (which keys its sampling
-        stream). Raises ``QueueFull`` at ``max_queue`` pending."""
-        if (self.max_queue is not None
-                and len(self.pending) >= self.max_queue):
-            self.stats["rejected"] += 1
-            waits = self._queue_waits
-            raise QueueFull(
-                f"admission queue is full ({len(self.pending)}/"
-                f"{self.max_queue} pending): shed load or retry later",
-                retry_after_hint=(float(np.median(waits))
-                                  if waits else None))
-        rid = self._next_rid
+        stream). Raises ``QueueFull`` at ``max_queue`` pending NEW
+        requests. ``rid`` / ``out_tokens`` re-admit a request a previous
+        process journaled: it keeps its ORIGINAL rid (its sampling stream
+        folds it) and resumes from its committed tokens like a preempted
+        row (recompute on resume), observing no TTFT or TPOT. ``tenant``
+        also counts the admission or rejection on a tenant-labelled child
+        of the serving counters."""
+        if rid is None:
+            # the queue bound governs NEW traffic only: a replayed request
+            # was already acknowledged by a previous process
+            if (self.max_queue is not None
+                    and len(self.pending) >= self.max_queue):
+                _M_REJECTED.inc()
+                _inc_tenant("serving.rejected", tenant)
+                raise QueueFull(
+                    f"admission queue is full ({len(self.pending)}/"
+                    f"{self.max_queue} pending): shed load or retry later",
+                    retry_after_hint=_M_QWAIT.quantile(0.5))
+            rid = self._next_rid
+        elif rid in self.results:
+            raise ValueError(f"rid {rid} already journaled to this engine")
+        self._next_rid = max(self._next_rid, rid + 1)
         req = Request(rid, np.asarray(prompt, np.int32).reshape(-1),
-                      max_new_tokens)
+                      max_new_tokens, tenant=tenant)
+        if out_tokens:
+            if len(out_tokens) >= max_new_tokens:
+                raise ValueError(
+                    f"resumed request {rid} already has {len(out_tokens)} "
+                    f"of max_new_tokens={max_new_tokens} tokens: nothing "
+                    f"left to generate (load it from the journal instead)")
+            req.out_tokens = [int(t) for t in out_tokens]
+            # replayed tokens were emitted by a previous process: this one
+            # must not observe their TTFT or TPOT
+            req.t_first = time.time()
+            req.n_replayed = len(req.out_tokens)
         if len(req.prompt) == 0:
             raise ValueError("empty prompt: there is no token to prefill, "
                              "so no logits exist to sample from")
@@ -363,6 +544,10 @@ class ContinuousBatchingEngine:
                 f"pool has {self._total_blocks} and a sequence may hold at "
                 f"most max_blocks_per_seq={mb}: it could never be admitted")
         req.t_arrive = time.time()
+        req.t_arrive_ns = _tracing.now_ns()
+        tc = _tracing.current()
+        if tc is not None:
+            req.trace_id, req.span_parent = tc
         # sha256 chain digests, NOT builtin hash(): a collision would
         # silently serve another request's KV blocks
         h = b""
@@ -373,7 +558,6 @@ class ContinuousBatchingEngine:
             ).digest()
             req.block_hashes.append(h)
         req.key_data = np.asarray(S.request_key(self.seed, rid), np.int64)
-        self._next_rid += 1
         self.pending.append(req)
         self.results[rid] = req
         return rid
@@ -400,7 +584,7 @@ class ContinuousBatchingEngine:
         blk = self._pc.evict_one()
         if blk is None:
             raise RuntimeError("PagedKVCache: block pool exhausted")
-        self.stats["prefix_evictions"] += 1
+        _M_PC_EVICT.inc()
         return blk
 
     def _ensure_writable(self, i: int, blk_idx: int) -> None:
@@ -421,7 +605,7 @@ class ContinuousBatchingEngine:
                 pool[layer][fresh].copy_(pool[layer][blk])
         self.cache.block_tables[i, blk_idx] = fresh
         self._pc.release_block(blk)
-        self.stats["cow_copies"] += 1
+        _M_COW.inc()
 
     def _write_slots(self, i: int, pos0: int, n: int) -> np.ndarray:
         if n > 0 and pos0 % self.block_size:
@@ -458,7 +642,13 @@ class ContinuousBatchingEngine:
             self.pending.popleft()
             self._head_waited = 0
             if req.admit_order == -1:
-                self._queue_waits.append(time.time() - req.t_arrive)
+                # first admission only: a re-admission's arrival-to-now
+                # span includes its decode residency, which is no wait
+                _M_QWAIT.observe(time.time() - req.t_arrive)
+                req.t_admit_ns = _tracing.now_ns()
+                _tracing.record_span(
+                    "serving.queue", req.t_arrive_ns, req.t_admit_ns,
+                    trace=_req_trace(req), attrs={"rid": req.rid})
             req.slot = i
             req.admit_order = self._admit_seq
             self._admit_seq += 1
@@ -472,10 +662,13 @@ class ContinuousBatchingEngine:
             self.cache._allocated[i] = n_use
             req.ctx = n_use * self.block_size
             self.cache.context_lens[i] = req.ctx
-            self.stats["admitted"] += 1
-            self.stats["prefix_hit_blocks"] += n_use
-            self.stats["prefix_miss_blocks"] += max(
-                0, len(req.prompt) // self.block_size - n_use)
+            _M_ADMITTED.inc()
+            _inc_tenant("serving.admitted", req.tenant)
+            if n_use:
+                _M_PC_HIT.inc(n_use)
+                _M_PC_SHARED.inc(n_use * self.block_size)
+            _M_PC_MISS.inc(max(0, len(req.prompt) // self.block_size
+                               - n_use))
 
     # -- lifecycle -----------------------------------------------------------
     @property
@@ -508,6 +701,10 @@ class ContinuousBatchingEngine:
         victim.full_seq = None      # rebuilt at re-admission
         victim.preemptions += 1
         self.preempt_count += 1
+        _M_PREEMPTIONS.inc()
+        _tracing.instant("serving.preempt", trace=_req_trace(victim),
+                         attrs={"rid": victim.rid,
+                                "preemptions": victim.preemptions})
         self.pending.insert(1, victim)
 
     def _register_blocks(self, req: Request, i: int, new_ctx: int):
@@ -524,18 +721,40 @@ class ContinuousBatchingEngine:
     def _append_token(self, req: Request, i: int, tok: int, now: float,
                       finished: List[Request]):
         req.out_tokens.append(tok)
-        self.stats["generated_tokens"] += 1
+        _M_GEN_TOKENS.inc()
         if req.t_first is None:
             req.t_first = now
+            _M_TTFT.observe(now - req.t_arrive)
+            req.t_first_ns = _tracing.now_ns()
+            # slot admission -> first token: with serving.queue before it
+            # and serving.step beside it, TTFT decomposes on one timeline
+            _tracing.record_span(
+                "serving.prefill",
+                req.t_admit_ns or req.t_arrive_ns, req.t_first_ns,
+                trace=_req_trace(req), attrs={"rid": req.rid})
+            _tracing.instant("serving.first_token", trace=_req_trace(req),
+                             attrs={"rid": req.rid})
         self.tok[i] = tok
         if (len(req.out_tokens) >= req.max_new_tokens
                 or (self.eos is not None and tok == self.eos)):
             req.done = True
             req.t_done = now
+            # a resumed row skips TPOT as it skips TTFT: part of its count
+            # was emitted by another process
+            if len(req.out_tokens) > 1 and req.n_replayed == 0:
+                _M_TPOT.observe((now - req.t_first)
+                                / (len(req.out_tokens) - 1))
             self._release_slot(i)
             req.slot = None
             req.full_seq = None
-            self.stats["finished"] += 1
+            _M_FINISHED.inc()
+            _tracing.record_span(
+                "serving.decode",
+                req.t_first_ns or req.t_admit_ns or req.t_arrive_ns,
+                _tracing.now_ns(), trace=_req_trace(req),
+                attrs={"rid": req.rid, "tokens": len(req.out_tokens)})
+            _tracing.instant("serving.finish", trace=_req_trace(req),
+                             attrs={"rid": req.rid})
             finished.append(req)
 
     # -- the ragged step -----------------------------------------------------
@@ -543,6 +762,7 @@ class ContinuousBatchingEngine:
     def step(self) -> List[Request]:
         """Admit, then run ONE ragged mixed prefill+decode batch. Returns
         the requests that finished during this step."""
+        _no_perf_attribution()
         self._admit()
         if self.pending and self.preempt_after is not None \
                 and not self.admission_paused:
@@ -551,10 +771,15 @@ class ContinuousBatchingEngine:
                 self._preempt_lifo()
                 self._head_waited = 0
                 self._admit()
+        _M_QUEUE.set(len(self.pending))
+        _M_ACTIVE.set(self.num_active)
+        _M_BACKLOG.set(sum(r.target - r.ctx for r in self.slots
+                           if r is not None and r.ctx < r.target))
+        _M_FREE.set(self._free_effective())
         if self.num_active == 0:
             return []
 
-        B, R = self.token_budget, self.max_batch
+        B, R, bs = self.token_budget, self.max_batch, self.block_size
         # fixed-size prefill chunks, round-robin by admission order, into
         # the budget left after every decoding row's token
         decode_rows = [i for i, r in enumerate(self.slots)
@@ -664,6 +889,7 @@ class ContinuousBatchingEngine:
         hb["sample_idx"][:] = sample_idx
         hb["keys"][:] = keys
         hb["stream_pos"][:] = stream_pos
+        t0_ns = _tracing.now_ns()
         self._buf.upload()
         if _flags.get_flag("step_capture"):
             nxt = self._graph_step()
@@ -672,7 +898,19 @@ class ContinuousBatchingEngine:
             nxt = self._forward()
         sampled = nxt.cpu().numpy().reshape(-1)
         self.steps += 1
-        self.stats["step_tokens"] += t
+        _M_STEPS.inc()
+        _M_STEP_TOKENS.inc(t)
+        # retroactive, untraced (one step serves many requests): the
+        # upload through the host read of the sampled tokens
+        _tracing.record_span(
+            "serving.step", t0_ns, _tracing.now_ns(),
+            attrs={"tokens": t, "decode_rows": len(decode_rows),
+                   "prefill_rows": len(prefill_rows)})
+        if self.cache.quantized:
+            # every attended block is dequantized in the tile loads
+            _M_KV_DEQ.inc(sum((int(lens[i]) + bs - 1) // bs
+                              for i, _, _ in post)
+                          * self.cache.num_layers)
         now = time.time()
         finished: List[Request] = []
         for i, is_decode, n in post:
@@ -688,9 +926,10 @@ class ContinuousBatchingEngine:
                 while a < nd and int(sampled[base + a]) == int(d[a]):
                     a += 1
                 if nd:
-                    self.stats["spec_proposed"] += nd
-                    self.stats["spec_accepted"] += a
-                    self.stats["spec_verify_rows"] += 1
+                    _M_SPEC_PROP.inc(nd)
+                    _M_SPEC_ACC.inc(a)
+                    _M_SPEC_REJ.inc(nd - a)
+                    _M_SPEC_ROWS.inc()
                 # rejected-draft KV rows are garbage: context_lens hides
                 # them and the next step overwrites those slots
                 req.ctx += 1 + a
@@ -703,7 +942,10 @@ class ContinuousBatchingEngine:
             else:
                 req.ctx += n
                 self.cache.context_lens[i] = req.ctx
-                self.stats["prefill_tokens"] += n
+                _M_PREFILL_TOKENS.inc(n)
+                _tracing.instant(
+                    "serving.prefill_chunk", trace=_req_trace(req),
+                    attrs={"rid": req.rid, "tokens": n, "ctx": req.ctx})
                 self._register_blocks(req, i, req.ctx)
                 if req.ctx == req.target:
                     if req.out_tokens:  # resumed: next input pre-sampled
@@ -734,8 +976,10 @@ class ContinuousBatchingEngine:
                                      **self.sampling)
 
     def _graph_key(self) -> tuple:
-        routes = tuple(sorted((k, v) for k, v in _flags._VALUES.items()
-                              if k not in ("step_capture", "multi_step")))
+        routes = tuple(sorted(
+            (k, v) for k, v in _flags._VALUES.items()
+            if k not in ("step_capture", "multi_step")
+            and k not in _flags.OBSERVABILITY_FLAGS))
         return (self.token_budget, self.max_batch, self.spec_k + 1,
                 self.cache.kv_dtype, tuple(sorted(self.sampling.items())),
                 routes)
@@ -811,3 +1055,213 @@ class ContinuousBatchingEngine:
         for rid, req in self.results.items():
             out.setdefault(rid, req.out_tokens)
         return out
+
+
+class GangScheduledEngine:
+    """The PREVIOUS execution model, kept as the baseline and the
+    equivalence reference of the ragged engine: an admitted request
+    prefills alone at batch 1 into its slot (``_SlotView``), and every
+    decode step gang-schedules the whole batch, one token a row, through
+    the gang-decode kernel (``paged_attention``, one call a layer) over
+    the shared pool. Eager: the prefill shapes vary with each prompt, as
+    in the reference, which compiles no step either.
+
+    Rows without a request write their token to a reserved trash block
+    and attend over nothing. Admission reserves a request's worst case
+    (prompt + max_new_tokens) in blocks; a head of the queue that waited
+    ``preempt_after`` steps preempts the LIFO victim, which re-prefills
+    its prompt and generated tokens when readmitted. The pool lives on the
+    model's device."""
+
+    def __init__(self, model, max_batch: int, num_blocks: int,
+                 block_size: int = 64,
+                 max_blocks_per_seq: Optional[int] = None,
+                 eos_token_id: Optional[int] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, preempt_after: Optional[int] = None):
+        _no_perf_attribution()
+        cfg = model.config
+        self.model = model
+        self.device = model.device
+        self.eos = eos_token_id
+        self.sampling = dict(temperature=temperature, top_k=top_k,
+                             top_p=top_p)
+        mb = max_blocks_per_seq or (
+            -(-cfg.max_position_embeddings // block_size))
+        self.cache = PagedKVCache(
+            cfg.num_hidden_layers, max_batch, num_blocks=num_blocks,
+            block_size=block_size, num_kv_heads=cfg.num_key_value_heads,
+            head_dim=cfg.hidden_size // cfg.num_attention_heads,
+            max_blocks_per_seq=mb, dtype=cfg.dtype,
+            kv_dtype=str(_flags.get_flag("kv_cache_dtype")),
+            device=self.device)
+        if int(_flags.get_flag("speculative_k")) > 0:
+            # the gang decode is strictly one token a row; speculation
+            # exists only in the ragged engine
+            S.record_fallback("spec", "spec_gang_engine",
+                              "gang-scheduled engine ignores speculative_k")
+        self.block_size = block_size
+        self.max_batch = max_batch
+        # one reserved block absorbs the writes of inactive rows
+        self._trash_slot = self.cache._free.pop() * block_size
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.pending: deque[Request] = deque()
+        self.results: Dict[int, Request] = {}
+        self.tok = np.zeros((max_batch, 1), np.int32)
+        self.pos = np.zeros((max_batch,), np.int32)
+        self._next_rid = 0
+        self._admit_seq = 0
+        self.steps = 0
+        self.prefills = 0
+        self.preempt_after = preempt_after
+        self._head_waited = 0
+        self.preempt_count = 0
+
+    # -- request intake ------------------------------------------------------
+    def add_request(self, prompt, max_new_tokens: int = 32) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, np.asarray(prompt, np.int32).reshape(-1),
+                      max_new_tokens)
+        total_pool = (len(self.cache._free)
+                      + int(self.cache._allocated.sum()))
+        if self._blocks_needed(req) > total_pool:
+            raise ValueError(
+                f"request needs {self._blocks_needed(req)} blocks but the "
+                f"pool only has {total_pool}: it could never be admitted")
+        self.pending.append(req)
+        self.results[rid] = req
+        return rid
+
+    def _blocks_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens)
+                 // self.block_size)
+
+    def _outstanding_reservation(self) -> int:
+        return sum(self._blocks_needed(r)
+                   - int(self.cache._allocated[r.slot])
+                   for r in self.slots if r is not None)
+
+    @torch.no_grad()
+    def _admit(self):
+        for i in range(self.max_batch):
+            if not self.pending:
+                return
+            if self.slots[i] is not None:
+                continue
+            req = self.pending[0]
+            if (self._blocks_needed(req)
+                    > len(self.cache._free)
+                    - self._outstanding_reservation()):
+                return                 # reservation: wait for reclaims
+            self.pending.popleft()
+            self._head_waited = 0
+            req.slot = i
+            req.admit_order = self._admit_seq
+            self._admit_seq += 1
+            self.slots[i] = req
+            # a preempted request resumes by re-prefilling its prompt and
+            # what it generated (recompute on resume)
+            full = (np.concatenate([req.prompt,
+                                    np.asarray(req.out_tokens[:-1],
+                                               np.int32)])
+                    if req.out_tokens else req.prompt)
+            ids = torch.from_numpy(full.reshape(1, -1)).to(self.device)
+            logits = self.model(ids, cache=_SlotView(self.cache, i),
+                                start_pos=0)
+            self.prefills += 1
+            if req.out_tokens:
+                # resumed: the next input token was sampled already
+                self.tok[i, 0] = req.out_tokens[-1]
+            else:
+                nxt = S.sample_logits(logits[:, -1, :], **self.sampling)
+                first = int(nxt.reshape(-1)[0])
+                req.out_tokens.append(first)
+                self.tok[i, 0] = first
+            self.cache.context_lens[i] = len(full)
+            self.pos[i] = len(full)
+            self._finish_if_done(req)
+
+    def _finish_if_done(self, req: Request) -> bool:
+        if (len(req.out_tokens) >= req.max_new_tokens
+                or (self.eos is not None and req.out_tokens
+                    and req.out_tokens[-1] == self.eos)):
+            req.done = True
+            self._release_slot(req.slot)
+            return True
+        return False
+
+    def _release_slot(self, i: int):
+        self.cache.release(i)
+        self.slots[i] = None
+        self.pos[i] = 0
+        self.tok[i, 0] = 0
+
+    # -- the gang-scheduled loop ---------------------------------------------
+    @property
+    def num_active(self) -> int:
+        return sum(1 for r in self.slots if r is not None)
+
+    def _preempt_lifo(self):
+        victim = max((r for r in self.slots if r is not None),
+                     key=lambda r: r.admit_order, default=None)
+        if victim is None:
+            return
+        self._release_slot(victim.slot)
+        victim.slot = None
+        victim.preemptions += 1
+        self.preempt_count += 1
+        self.pending.insert(1, victim)  # right behind the starved head
+
+    @torch.no_grad()
+    def step(self) -> List[Request]:
+        """Admit, then one decode step for every active slot. Returns the
+        requests that finished during this step."""
+        _no_perf_attribution()
+        self._admit()
+        if self.pending and self.preempt_after is not None:
+            self._head_waited += 1
+            if self._head_waited > self.preempt_after:
+                self._preempt_lifo()
+                self._head_waited = 0
+                self._admit()
+        if self.num_active == 0:
+            return []
+        # per-row write slots: active rows append at pos; inactive rows
+        # overwrite the reserved trash block
+        slot_vec = np.full((self.max_batch,), self._trash_slot, np.int64)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            p = int(self.pos[i])
+            blk = self.cache._ensure_block(i, p)
+            slot_vec[i] = blk * self.block_size + p % self.block_size
+            self.cache.context_lens[i] = p + 1  # visible to the attend
+        dev = self.device
+        self.cache.set_decode_override(torch.from_numpy(slot_vec).to(dev))
+        try:
+            logits = self.model(
+                torch.from_numpy(self.tok).to(dev), cache=self.cache,
+                start_pos=torch.from_numpy(self.pos).to(dev))
+            nxt = S.sample_logits(logits[:, -1, :], **self.sampling)
+        finally:
+            self.cache.set_decode_override(None)
+        self.steps += 1
+        sampled = nxt.cpu().numpy().reshape(-1)
+        finished = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tok = int(sampled[i])
+            req.out_tokens.append(tok)
+            self.pos[i] += 1
+            self.tok[i, 0] = tok
+            if self._finish_if_done(req):
+                finished.append(req)
+        return finished
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drive until every request (queued + active) completes."""
+        while self.pending or self.num_active:
+            self.step()
+        return {rid: r.out_tokens for rid, r in self.results.items()}

@@ -8,7 +8,7 @@ its arguments to that schema, drops a stray ``name=`` keyword as the
 reference's op functions do (here through ``call_op`` too, whose op name
 is positional-only), and calls its kernel with every argument by name.
 The ops take and return ``torch.Tensor``s: no Tensor class, no jit
-cache, no legacy-name table (``op_compat``), no metrics.
+cache, no legacy-name table (``op_compat``), no dispatch counter.
 
 The op choke point: every op of the registry, every op of
 ``ops/kernels/nn.py`` and the Llama path's tied-logits ``matmul`` and loss
@@ -17,8 +17,11 @@ the reference's ``_dispatch`` (:379-519) cut to its hooks: the AMP cast of
 the floating inputs (``set_amp_hook``, :285), the span hook around the op
 (``set_op_span_hook``, :363), the NaN/Inf check of the outputs under
 ``FLAGS_check_nan_inf`` (:514-519) and the tensor-stats hook on the
-outputs (``set_tensor_stats_hook``, :368). With no hook set and the flag
-off, an op pays one test of four module globals. The port's raw tensor
+outputs (``set_tensor_stats_hook``, :368), and the flight recorder's entry
+before the op runs (``observability/flight_recorder.py``, under
+``FLAGS_flight_recorder``, where the reference's ``_dispatch_impl``
+records, :484-489). With no hook set and both flags off, an op pays one
+test of five module globals. The port's raw tensor
 arithmetic (residual adds, reshapes, slices) does not pass through it,
 where the reference dispatches every Tensor method.
 
@@ -40,6 +43,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from .. import flags as _flags
+from ..observability import flight_recorder as _flight_mod
 
 REQUIRED = inspect.Parameter.empty
 
@@ -499,6 +503,22 @@ SCHEMA.update({
     "decode_jpeg": _X + (("mode", "unchanged"),),
 })
 
+# -- the serving slice: ``ops.yaml:429-432``, ``:435-436`` (``serving.py``)
+# and ``:619`` (``extra_misc.py``)
+_SAMPLE = (("temperature", 1.0), ("top_k", 0), ("top_p", 1.0))
+SCHEMA.update({
+    "cache_write": (("cache", _R), ("new", _R), ("pos", _R)),
+    "cache_attention": (("q", _R), ("k_cache", _R), ("v_cache", _R),
+                        ("pos", _R), ("attn_mask", None), ("scale", None)),
+    "paged_cache_write": (("pool", _R), ("new", _R), ("slot_ids", _R)),
+    "paged_cache_write_q": (("pool", _R), ("scale_pool", _R), ("new", _R),
+                            ("slot_ids", _R)),
+    "sample_logits": (("logits", _R),) + _SAMPLE,
+    "sample_logits_keyed": (("logits", _R), ("key_data", _R),
+                            ("stream_pos", _R)) + _SAMPLE,
+    "top_p_sampling": _X + (("ps", _R), ("threshold", None)),
+})
+
 # ops whose first argument is not a tensor: no Tensor method
 NOT_TENSOR_FIRST = frozenset({
     "full", "zeros", "ones", "empty", "arange", "linspace", "eye",
@@ -558,6 +578,7 @@ _OP_SPAN_HOOK = None
 # tensor-stats hook: (op name, (output tensors...)) -> None
 _TENSOR_STATS_HOOK = None
 _FLAG_VALUES = _flags._VALUES
+_FLIGHT = _flight_mod.recorder()      # resized in place by its flag
 
 
 def set_amp_hook(fn) -> None:
@@ -603,16 +624,37 @@ def _run_hooked(name: str, fn: Callable, args, kwargs):
     return res
 
 
+def _args_info(args, kwargs) -> tuple:
+    """The tensor inputs' (shape, dtype) pairs, as the tensors hold them
+    (the dump formats them)."""
+    T = torch.Tensor
+    return tuple((a.shape, a.dtype) for a in (*args, *kwargs.values())
+                 if isinstance(a, T))
+
+
 def hooked(name: str, fn: Callable) -> Callable:
-    """``fn`` as the op ``name`` at the choke point: the AMP cast, the
-    span, the NaN/Inf check and the tensor-stats hook around it."""
+    """``fn`` as the op ``name`` at the choke point: the flight
+    recorder's entry, then the AMP cast, the span, the NaN/Inf check and
+    the tensor-stats hook around it. The entry holds the op and the
+    kernel function's name; an op that raises adds its inputs' shapes
+    and dtypes to it (reading them on every dispatch added ~10% to an
+    eager engine step on an H100's host)."""
+    key = fn.__qualname__
+
     @functools.wraps(fn)
     def op(*args, **kwargs):
-        if _AMP_HOOK is None and _OP_SPAN_HOOK is None \
-                and _TENSOR_STATS_HOOK is None \
-                and not _FLAG_VALUES["check_nan_inf"]:
-            return fn(*args, **kwargs)
-        return _run_hooked(name, fn, args, kwargs)
+        seq = (_FLIGHT.record(name, None, key)
+               if _FLAG_VALUES["flight_recorder"] else None)
+        try:
+            if _AMP_HOOK is None and _OP_SPAN_HOOK is None \
+                    and _TENSOR_STATS_HOOK is None \
+                    and not _FLAG_VALUES["check_nan_inf"]:
+                return fn(*args, **kwargs)
+            return _run_hooked(name, fn, args, kwargs)
+        except Exception:
+            if seq is not None:
+                _FLIGHT.set_args_info(seq, _args_info(args, kwargs))
+            raise
     return op
 
 
@@ -654,9 +696,10 @@ def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
         from .kernels import (creation, detection,  # noqa: F401
-                              extra_nn, manipulation, math, math_ext, moe,
-                              nn, quant, random, rnn, serving,
-                              tensor_api_ext, vision_io)  # (register)
+                              extra_misc, extra_nn, manipulation, math,
+                              math_ext, moe, nn, quant, random, rnn,
+                              serving, tensor_api_ext,
+                              vision_io)  # (register)
         for name in SCHEMA:
             if name not in KERNELS:
                 raise RuntimeError(f"op '{name}': no kernel registered")

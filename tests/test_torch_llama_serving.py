@@ -29,6 +29,7 @@ from paddle_tpu.models.serving import ContinuousBatchingEngine as JEngine
 from paddle_tpu_torch.models import (ContinuousBatchingEngine, LlamaConfig,
                                      LlamaForCausalLM, from_jax_state_dict)
 from paddle_tpu_torch.models.generation import PagedKVCache
+from paddle_tpu_torch.observability import registry
 
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=160,
            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -125,9 +126,11 @@ def test_speculative_equals_plain_decode(models, temperature):
     # repetitive prompts give the n-gram proposer drafts to verify
     prompts = [[3, 4, 5, 6] * 4, [9, 8, 7] * 5 + [1], _prompts(3, [11])[0]]
     base, _ = _port_run(tm, prompts, 12, temperature=temperature, seed=5)
+    proposed = registry().get("serving.spec.proposed")
+    before = proposed.value
     spec, eng = _port_run(tm, prompts, 12, temperature=temperature, seed=5,
                           speculative_k=3, token_budget=24)
-    assert eng.stats["spec_proposed"] > 0
+    assert proposed.value > before
     assert spec == base
 
 
@@ -140,11 +143,13 @@ def test_prefix_cache_changes_only_the_work(models):
         eng = ContinuousBatchingEngine(tm, max_batch=2, num_blocks=32,
                                        block_size=16, temperature=0.0,
                                        enable_prefix_cache=enable)
+        hit = registry().get("serving.prefix_cache.hit_blocks")
+        before = hit.value
         a = eng.add_request(prompts[0], max_new_tokens=5)
         eng.run()
         b = eng.add_request(prompts[1], max_new_tokens=5)
         res = eng.run()
-        return [res[a], res[b]], eng.stats["prefix_hit_blocks"]
+        return [res[a], res[b]], hit.value - before
 
     on, hits = run(True)
     off, no_hits = run(False)

@@ -52,9 +52,11 @@ def test_scan_sees_the_whole_port():
             "datasets.py", "transforms.py", "resnet.py", "yolov3.py",
             "mobilenet.py", "googlenet.py", "densenet.py",
             "shufflenetv2.py", "squeezenet.py", "vgg.py", "alexnet.py",
-            "lenet.py"} <= names
+            "lenet.py", "metrics.py", "tracing.py", "flight_recorder.py",
+            "exporter.py", "extra_misc.py", "generation.py"} <= names
     for pkg in ("sparse", "io", "hapi", "distributed", "nn", "metric",
-                "vision", "vision/models", "vision/transforms"):
+                "vision", "vision/models", "vision/transforms",
+                "observability"):
         assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
@@ -71,7 +73,10 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.vision.transforms, paddle_tpu_torch.metric, "
             "paddle_tpu_torch.ops.kernels.detection, "
             "paddle_tpu_torch.ops.kernels.extra_nn, "
-            "paddle_tpu_torch.ops.kernels.vision_io; "
+            "paddle_tpu_torch.ops.kernels.vision_io, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.observability.exporter, "
+            "paddle_tpu_torch.ops.kernels.extra_misc; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")

@@ -31,6 +31,7 @@ from paddle_tpu.models import LlamaConfig as JConfig
 from paddle_tpu.models import LlamaForCausalLM as JModel
 from paddle_tpu.models.serving import ContinuousBatchingEngine as JEngine
 from paddle_tpu_torch import flags as tflags
+from paddle_tpu_torch.observability import registry
 from paddle_tpu_torch.models import (ContinuousBatchingEngine, LlamaConfig,
                                      LlamaForCausalLM, from_jax_state_dict)
 
@@ -109,13 +110,15 @@ def test_captured_engine_matches_reference_engine(models, name):
     sc = SCENARIOS[name]
     prompts = _prompts(1, sc["lens"], sc.get("repeat", False))
     want = _ref(jm, prompts, sc["n_new"], dict(sc["kw"]))
+    verify_rows = registry().get("serving.spec.verify_rows")
+    before = verify_rows.value
     got, eng = _port(tm, prompts, sc["n_new"], dict(sc["kw"]))
     assert got == want
     c = eng.capture_stats
     assert (c["captures"], c["replays"], c["eager_steps"]) == \
         (1, eng.steps - 1, 0)
     if name == "speculative":
-        assert eng.stats["spec_verify_rows"] > 0
+        assert verify_rows.value > before
     if name == "preemption":
         assert eng.preempt_count > 0
     tflags.set_flags({"step_capture": False})
