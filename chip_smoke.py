@@ -21,7 +21,9 @@ widths, on the op table, ``nn.transformer``, ``nn.rnn`` and the CTC loss,
 and ``paddle.vision``'s ResNet-18 (CIFAR-10, also through ``Model.fit``
 over ``vision.datasets.Cifar10``), ResNet-50 and YOLOv3-DarkNet53 train
 at their published widths, with every vision registry op and zoo model
-held to the CPU. Its dataset classes sit at module level and its run
+held to the CPU; an audio front end (ESC-50), the decompositions at
+Llama-3-8B's shapes, message passing and sampling at ogbn-arxiv's scale
+and CRF decoding run on the card against the CPU. Its dataset classes sit at module level and its run
 under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
 import this script.
 
@@ -309,6 +311,34 @@ Phases (any failure raises and the script exits non-zero):
    batch 2, card against CPU within ZOO_REL; every vision phase prints
    images/s, step p50/p99, peak GiB, MFU, every loss, the fused
    optimizer's route and launches and a profiled step's kernels;
+5m. the audio, linalg, graph, text and registry phases (no TPU kernel on
+   their paths: each checks that none of the fourteen launched):
+   ``audio_frontend`` (PANNs CNN14's front end as PaddleSpeech's ESC-50
+   example sets it: 32 kHz, n_fft 1024, hop 320, Hann, 64 mels over
+   50-14000 Hz; 64 seeded 5-second clips through ``LogMelSpectrogram``
+   and ``MFCC(n_mfcc=40)`` card vs CPU in dB where the power exceeds
+   1e3 amin; ``istft(stft(x))`` against x; 50 ESC-50-format WAVs (5 s,
+   44.1 kHz, 16-bit, one a class) written through ``audio.save`` and
+   read back through ``ESC50(mode="train", split=1)`` and a DataLoader
+   of 16, each clip's features held to the clip alone; clips/s, ms a
+   batch); ``linalg`` (float32: ``svd`` and ``qr`` of a 4096 x 14336
+   matrix, a Llama-3-8B MLP gradient's shape as GaLore projects it;
+   ``eigh`` / ``eigvalsh`` of its 4096 x 4096 Gram, a Shampoo
+   preconditioner; ``solve``, ``cholesky_solve``, ``lstsq`` at 4096 with
+   64 right-hand sides; ``det``, ``slogdet``, ``pinv``, ``matrix_rank``,
+   ``lu`` + ``lu_unpack`` over 64 matrices of 256 x 256; each held by its
+   invariants and to float64 numpy within LINALG_LIMITS, timed);
+   ``graph`` (a seeded graph at ogbn-arxiv's scale, 169,343 nodes,
+   1,166,243 edges, 128-d float32: ``send_u_recv`` SUM / MEAN / MAX,
+   ``send_ue_recv`` MUL with edge weights and ``send_uv``, forward and
+   backward card vs CPU; GraphSAGE's two-hop sampling, fanouts 25 and
+   10 from 1024 seeds, with ``reindex_graph``, held by support and
+   exactly); ``text_viterbi`` (64 x 128 tokens, 57 tags, lengths 1-128,
+   both BOS/EOS modes: scores card vs CPU within 1e-4, paths equal where
+   the decision margin exceeds it; eager and ``jit_step`` ms);
+   ``registry_tranche`` (every other entry of the 98 linalg, fft, signal,
+   math, graph and Viterbi entries card vs CPU at a size its users run,
+   one backward where the reference has one);
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -6716,50 +6746,107 @@ VISION_HOST_OPS = {"segment_pool", "roi_pool", "prior_box", "psroi_pool",
                    "distribute_fpn_proposals", "nms", "read_file"}
 
 
-def vision_op_check(torch, name, op, args, kw, rel):
-    """The op on the card and on the CPU from the same numpy inputs: the
-    largest difference over the output's largest value (integer outputs
-    must be equal), and the card's ms."""
-    from paddle_tpu_torch.core.device import set_device
-    from paddle_tpu_torch.ops.dispatcher import call_op
+def card_vs_cpu(torch, label, fn, args, seed=0, grad=False):
+    """``fn(*args)`` on the card and on the CPU (the port's default device
+    set to it) from the same inputs: numpy arrays and tensors, alone or in
+    lists, are made tensors on each device (the floating and complex ones
+    leaves where ``grad``), anything else is passed as it is. Where
+    ``grad``, one backward under the same seeded cotangent (complex for a
+    complex output) through the floating and complex outputs. Returns
+    ``(out_err, grad_err, card_args, card_outs)``: the largest difference
+    over the largest value, of the outputs and of the inputs' gradients (a
+    NaN on one side only counts inf); integer outputs must be equal."""
+    def tensor(a, dev):
+        t = torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) \
+            else a.detach().clone()
+        t = t.to(dev)
+        if grad and (t.is_floating_point() or t.is_complex()):
+            t.requires_grad_(True)
+        return t
+
+    def convert(a, dev):
+        if isinstance(a, (np.ndarray, torch.Tensor)):
+            return tensor(a, dev)
+        if isinstance(a, list) and a and all(
+                isinstance(v, (np.ndarray, torch.Tensor)) for v in a):
+            return [tensor(v, dev) for v in a]
+        return a
 
     def run(dev):
-        ts = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
-              else a for a in args]
-        out = call_op(op, *ts, **kw)
-        return ts, list(out) if isinstance(out, (list, tuple)) else [out]
-    card_in, card = run("cuda")
-    set_device("cpu")
-    try:
-        _, cpu = run("cpu")
-    finally:
-        set_device(None)
-    if len(card) != len(cpu):
-        raise AssertionError(f"vision_ops {name}: {len(card)} outputs on "
-                             f"the card, {len(cpu)} on the CPU")
-    worst = 0.0
-    for a, b in zip(card, cpu):
-        a = a.detach().cpu()
-        if a.shape != b.shape:
-            raise AssertionError(f"vision_ops {name}: shapes {a.shape} vs "
-                                 f"{b.shape}")
-        if not b.is_floating_point():
-            if not torch.equal(a, b):
-                raise AssertionError(f"vision_ops {name}: integer outputs "
-                                     f"differ card vs CPU")
-            continue
-        if b.numel():
-            scale = max(float(b.abs().max()), 1e-30)
-            worst = max(worst, float((a - b).abs().max()) / scale)
-    if name in VISION_HOST_OPS:
+        ins = [convert(a, dev) for a in args]
+        out = fn(*ins)
+        out = list(out) if isinstance(out, (list, tuple)) else [out]
+        grads = []
+        if grad:
+            crng = np.random.RandomState(seed)
+            loss = 0
+            for o in out:
+                if not o.requires_grad:
+                    continue
+                c = np.asarray(crng.randn(*o.shape))
+                if o.is_complex():
+                    c = c + 1j * crng.randn(*o.shape)
+                term = (o * torch.from_numpy(c.astype(
+                    np.complex64 if o.is_complex() else np.float32)).to(
+                        dev)).sum()
+                loss = loss + (term.real if term.is_complex() else term)
+            leaves = [t for a in ins for t in (a if isinstance(a, list)
+                                               else [a])
+                      if isinstance(t, torch.Tensor) and t.requires_grad]
+            if leaves and torch.is_tensor(loss):
+                grads = list(torch.autograd.grad(loss, leaves))
+        return ins, [o.detach() for o in out], grads
+    card_in, card, card_g = run(CARD)
+    _, cpu, cpu_g = on_cpu_too(torch, lambda: run("cpu"))
+    if len(card) != len(cpu) or len(card_g) != len(cpu_g):
+        raise AssertionError(f"{label}: {len(card)} outputs and "
+                             f"{len(card_g)} gradients on the card, "
+                             f"{len(cpu)} and {len(cpu_g)} on the CPU")
+
+    def worst(pairs):
+        w = 0.0
+        for a, b in pairs:
+            a = a.cpu()
+            if a.shape != b.shape:
+                raise AssertionError(f"{label}: shapes {tuple(a.shape)} vs "
+                                     f"{tuple(b.shape)}")
+            if not (b.is_floating_point() or b.is_complex()):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: integer outputs differ "
+                                         f"card vs CPU")
+                continue
+            if b.numel():
+                scale = max(float(b.abs().nan_to_num(0).max()), 1e-30)
+                w = max(w, float((a - b).abs().nan_to_num(0).max()) / scale)
+                if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                    w = float("inf")
+        return w
+    return (worst(zip(card, cpu)), worst(zip(card_g, cpu_g)), card_in,
+            card)
+
+
+def op_check(torch, label, name, op, args, kw, rel, seed=0, grad=False,
+             host=False):
+    """The registry op ``op`` card vs CPU (``card_vs_cpu``; ``rel_err`` the
+    worse of the outputs' and the gradients' errors) and the card's ms:
+    one call on the host clock where the op computes on the host or reads
+    sizes there (``host``), else ``time_ms``'s median."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    out_err, grad_err, card_in, card = card_vs_cpu(
+        torch, f"{label} {name}", lambda *a: call_op(op, *a, **kw), args,
+        seed, grad)
+
+    def call():
+        return call_op(op, *card_in, **kw)
+    if host:
         t0 = time.perf_counter()
-        call_op(op, *card_in, **kw)
+        call()
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
     else:
-        ms = time_ms(torch, lambda: call_op(op, *card_in, **kw), iters=5)
-    return dict(op=op, rel_err=worst, limit=rel, ms=ms,
-                shape=list(card[0].shape) if card else [])
+        ms = time_ms(torch, call, iters=5)
+    return dict(op=op, rel_err=max(out_err, grad_err), limit=rel, ms=ms,
+                backward=grad, shape=list(card[0].shape) if card else [])
 
 
 def zoo_vs_cpu(torch, seed, name, kw):
@@ -6802,8 +6889,9 @@ def phase_vision_ops(torch, seed, report):
     res = {"ops": {}, "zoo": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (op, args, kw, rel) in vision_op_cases(rng, tmp):
-            res["ops"][name] = vision_op_check(torch, name, op, args, kw,
-                                               rel)
+            res["ops"][name] = op_check(torch, "vision_ops", name, op,
+                                        args, kw, rel,
+                                        host=name in VISION_HOST_OPS)
             free_card(torch)
     log(f"vision_ops: {json.dumps(res['ops'])}")
     for name, kw in ZOO:
@@ -6819,11 +6907,868 @@ def phase_vision_ops(torch, seed, report):
     from paddle_tpu_torch.ops import dispatcher
     from paddle_tpu_torch.ops.kernels import detection, extra_nn, vision_io
     mods = {extra_nn.__name__, detection.__name__, vision_io.__name__}
+    # decode_jpeg needs PIL; viterbi_decode runs in phase text_viterbi
     entries = {n for n, k in dispatcher.KERNELS.items()
-               if k.__module__ in mods} - {"decode_jpeg"}
+               if k.__module__ in mods} - {"decode_jpeg", "viterbi_decode"}
     missed = entries - {v["op"] for v in res["ops"].values()}
     if missed:
         raise AssertionError(f"vision_ops: entries not run: {missed}")
+    return res
+
+
+# -- audio, linalg, graph, Viterbi and the registry tranche -------------------
+
+CARD = "cuda"      # the device these phases run on (a CPU rehearsal reads
+                   # "cpu")
+
+
+def timed_once(torch, fn):
+    """``(fn(), ms)``: the first call's result (it also warms the library's
+    handles and workspaces), then one more call between CUDA events (for
+    calls of seconds, where ``time_ms``'s repeats cost too much)."""
+    out = fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def kernel_launch_delta(kernels, before) -> dict:
+    """Launches of the fourteen kernels since ``before`` (the audio, linalg,
+    graph, Viterbi and registry-tranche phases fail on any: no TPU kernel
+    is on their path)."""
+    return {k: n - before.get(k, 0)
+            for k, n in kernels.launch_counts().items() if n != before.get(k, 0)}
+
+
+def on_cpu_too(torch, fn):
+    """``fn()`` with the port's default device set to the CPU (layers and
+    creation ops made there), then back to the one set before."""
+    from paddle_tpu_torch.core.device import get_device, set_device
+    prev = get_device()
+    set_device("cpu")
+    try:
+        return fn()
+    finally:
+        set_device(prev)
+
+
+def rel_max(torch, got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+# PANNs CNN14's front end as PaddleSpeech's ESC-50 example configures it
+AUDIO_SR = 32000
+AUDIO_MEL = dict(n_fft=1024, hop_length=320, win_length=1024, window="hann",
+                 n_mels=64, f_min=50.0, f_max=14000.0)
+AUDIO_B, AUDIO_SECONDS = 64, 5
+AUDIO_N_MFCC = 40
+AUDIO_AMIN = 1e-10
+AUDIO_DB_ATOL = 1e-3     # dB, card vs CPU, where power > 1e3 * amin
+AUDIO_MFCC_REL = 1e-4    # of the largest |coefficient|, card vs CPU
+ISTFT_REL = 1e-5         # istft(stft(x)) against x, of max |x|
+ESC50_SR, ESC50_SECONDS, ESC50_CLASSES, ESC50_BATCH = 44100, 5, 50, 16
+
+
+def audio_clips(rng, b, n, sr):
+    """``b`` seeded clips of ``n`` samples: two tones and noise each."""
+    t = np.arange(n, dtype=np.float64) / sr
+    f = rng.uniform(80, 4000, (b, 2, 1))
+    x = 0.3 * np.sin(2 * np.pi * f[:, 0] * t) + \
+        0.2 * np.sin(2 * np.pi * f[:, 1] * t) + 0.05 * rng.randn(b, n)
+    return x.astype(np.float32)
+
+
+def write_esc50(root, rng):
+    """50 ESC-50-format clips (5 s, 44.1 kHz, 16-bit mono WAV, one a class,
+    fold 1 + class % 5) and ``meta/esc50.csv``, through ``audio.save``."""
+    import csv
+    from paddle_tpu_torch import audio
+    os.makedirs(os.path.join(root, "meta"))
+    os.makedirs(os.path.join(root, "audio"))
+    rows = [["filename", "fold", "target", "category", "esc10", "src_file",
+             "take"]]
+    clips = audio_clips(rng, ESC50_CLASSES, ESC50_SR * ESC50_SECONDS,
+                        ESC50_SR)
+    for c in range(ESC50_CLASSES):
+        fold = 1 + c % 5
+        name = f"{fold}-{100000 + c}-A-{c}.wav"
+        audio.save(os.path.join(root, "audio", name), clips[c:c + 1],
+                   ESC50_SR)
+        rows.append([name, str(fold), str(c), f"class{c}", "False",
+                     str(100000 + c), "A"])
+    with open(os.path.join(root, "meta", "esc50.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+
+
+def db_err(torch, got, want) -> float:
+    """The largest dB difference where the power exceeds 1e3 * amin."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    big = want > 10 * math.log10(1e3 * AUDIO_AMIN)
+    return float((got - want).abs()[big].max())
+
+
+def phase_audio_frontend(torch, seed, report):
+    """The audio path: a batch of seeded clips through ``LogMelSpectrogram``
+    and ``MFCC`` on the card against the CPU, ``istft(stft(x))`` on the
+    card, then ESC-50-format files through ``audio.datasets.ESC50`` and a
+    DataLoader on the card, each clip held to the same clip run alone."""
+    import tempfile
+    from paddle_tpu_torch import audio, io, signal
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.ops import kernels
+    set_device(CARD)
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 20)
+    res = {"config": dict(sr=AUDIO_SR, batch=AUDIO_B, seconds=AUDIO_SECONDS,
+                          n_mfcc=AUDIO_N_MFCC, **AUDIO_MEL)}
+    x = audio_clips(rng, AUDIO_B, AUDIO_SR * AUDIO_SECONDS, AUDIO_SR)
+    xd = torch.from_numpy(x).to(CARD)
+
+    def layers():
+        return (audio.LogMelSpectrogram(sr=AUDIO_SR, amin=AUDIO_AMIN,
+                                        **AUDIO_MEL),
+                audio.MFCC(sr=AUDIO_SR, n_mfcc=AUDIO_N_MFCC, **AUDIO_MEL))
+    logmel, mfcc = layers()
+    with torch.no_grad():
+        lm, mf = logmel(xd), mfcc(xd)
+        torch.cuda.synchronize()
+        res["logmel_ms"] = time_ms(torch, lambda: logmel(xd), iters=5)
+        res["mfcc_ms"] = time_ms(torch, lambda: mfcc(xd), iters=5)
+        c_logmel, c_mfcc = on_cpu_too(torch, layers)
+        xc = torch.from_numpy(x)
+        t0 = time.perf_counter()
+        c_lm = c_logmel(xc)
+        res["logmel_cpu_ms"] = 1e3 * (time.perf_counter() - t0)
+        c_mf = c_mfcc(xc)
+    res["logmel_shape"] = list(lm.shape)
+    res["mfcc_shape"] = list(mf.shape)
+    res["logmel_db_err"] = db_err(torch, lm, c_lm)
+    res["mfcc_rel_err"] = rel_max(torch, mf, c_mf)
+    res["clips_per_s"] = AUDIO_B / (res["logmel_ms"] / 1e3)
+    win = audio.functional.get_window("hann", AUDIO_MEL["n_fft"])
+    spec = signal.stft(xd, AUDIO_MEL["n_fft"], AUDIO_MEL["hop_length"],
+                       window=win)
+    back = signal.istft(spec, AUDIO_MEL["n_fft"], AUDIO_MEL["hop_length"],
+                        window=win, length=xd.shape[-1])
+    res["istft_rel_err"] = rel_max(torch, back, xd)
+    res["stft_ms"] = time_ms(torch, lambda: signal.stft(
+        xd, AUDIO_MEL["n_fft"], AUDIO_MEL["hop_length"], window=win),
+        iters=5)
+    res["istft_ms"] = time_ms(torch, lambda: signal.istft(
+        spec, AUDIO_MEL["n_fft"], AUDIO_MEL["hop_length"], window=win),
+        iters=5)
+    del spec, back, lm, mf, c_lm, c_mf, xd
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ESC-50-master")
+        write_esc50(root, rng)
+        ds = audio.datasets.ESC50(mode="train", split=1,
+                                  feat_type="logmelspectrogram",
+                                  data_dir=root, amin=AUDIO_AMIN,
+                                  **AUDIO_MEL)
+        loader = io.DataLoader(ds, batch_size=ESC50_BATCH, shuffle=False,
+                               num_workers=0, places=CARD)
+        alone = audio.LogMelSpectrogram(sr=ESC50_SR, amin=AUDIO_AMIN,
+                                        **AUDIO_MEL)
+        worst, n = 0.0, 0
+        for feats, labels in loader:
+            for f, lbl in zip(feats, labels):
+                wave, sr = audio.load(ds.files[n])
+                with torch.no_grad():
+                    want = alone(wave.to(CARD))[0]
+                worst = max(worst, db_err(torch, f, want))
+                if int(lbl) != ds.labels[n] or sr != ESC50_SR:
+                    raise AssertionError(f"audio_frontend: ESC50 clip {n} "
+                                         f"label or sample rate wrong")
+                n += 1
+        # a second pass, timed whole: file reads, features, collation and
+        # the copies to the card (the loader's thread prefetches)
+        t0 = time.perf_counter()
+        batches = 0
+        for feats, _ in loader:
+            batches += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["esc50"] = dict(clips=n, batches=batches,
+                            feature_shape=list(feats.shape[1:]),
+                            device=str(feats.device), epoch_s=wall,
+                            ms_per_batch=1e3 * wall / batches,
+                            clips_per_s=n / wall, db_err_vs_alone=worst)
+    res["kernel_launches"] = kernel_launch_delta(kernels, before)
+    set_device(None)
+    log(f"audio_frontend: {json.dumps(res)}")
+    report["audio_frontend"] = res
+    bad = []
+    if not res["logmel_db_err"] <= AUDIO_DB_ATOL:
+        bad.append("logmel card vs CPU")
+    if not res["mfcc_rel_err"] <= AUDIO_MFCC_REL:
+        bad.append("mfcc card vs CPU")
+    if not res["istft_rel_err"] <= ISTFT_REL:
+        bad.append("istft(stft(x))")
+    if not res["esc50"]["db_err_vs_alone"] <= AUDIO_DB_ATOL:
+        bad.append("ESC50 batches vs clips alone")
+    if res["esc50"]["clips"] != 40 or not res["esc50"]["device"].startswith(
+            CARD):
+        bad.append("ESC50 split 1 (train) must give 40 clips on the card")
+    if res["kernel_launches"]:
+        bad.append(f"kernel_launches {res['kernel_launches']}")
+    if bad:
+        raise AssertionError(f"audio_frontend: beyond the limits: {bad}")
+    return res
+
+
+# the decompositions at the shapes their users run (float32)
+LINALG_MLP = (4096, 14336)      # a Llama-3-8B MLP gradient (GaLore)
+LINALG_SQ, LINALG_RHS = 4096, 64
+LINALG_BATCH = (64, 256)
+# float32: a backward-stable decomposition of an n x n' matrix moves its
+# values and vectors by ~n eps (4096 x 1.2e-7 = 4.9e-4) of the largest;
+# a product's residual by ~sqrt(n') eps (7e-6); cuSOLVER gesvd on an H100
+# (700 W): residual 1.4e-5, orthogonality 1.0e-4, sigma^2 1.8e-4
+LINALG_LIMITS = {            # each against float64 numpy of the same input
+    "svd_values": 5e-4, "svd_reconstruction": 5e-5, "orthogonality": 5e-4,
+    "qr_reconstruction": 1e-5, "eigh_values": 1e-4,
+    "eigh_reconstruction": 1e-5, "solve": 1e-4, "det": 1e-3,
+    "slogdet": 1e-3, "pinv": 1e-3, "lu_reconstruction": 1e-5}
+
+
+def f64_rel(torch, a, b) -> float:
+    """``|a - b| / |b|`` (Frobenius over the whole batch), in float64 on
+    the card."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def orth_err(torch, q) -> float:
+    q = q.double()
+    eye = torch.eye(q.shape[-1], dtype=torch.float64, device=q.device)
+    return float((q.mT @ q - eye).abs().max())
+
+
+def phase_linalg(torch, seed, report):
+    """``svd`` and ``qr`` of a Llama-3-8B MLP gradient's shape, ``eigh`` /
+    ``eigvalsh`` of its Shampoo preconditioner (the 4096 x 4096 Gram
+    matrix), ``solve`` / ``cholesky_solve`` / ``lstsq`` at 4096 with 64
+    right-hand sides, and ``det``, ``slogdet``, ``pinv``, ``matrix_rank``,
+    ``lu`` + ``lu_unpack`` over a batch of 64 matrices of 256 x 256, each
+    held to its invariants and to float64 numpy, each timed."""
+    from paddle_tpu_torch import linalg
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 21)
+    m, n = LINALG_MLP
+    g_np = (rng.randn(m, n) / math.sqrt(n)).astype(np.float32)
+    g = torch.from_numpy(g_np).to(CARD)
+    errs, ms = {}, {}
+    # the Gram matrix in float64 numpy: the reference for the singular
+    # values (sigma^2) and the preconditioner's eigenvalues
+    g64 = g_np.astype(np.float64)
+    gram64 = g64 @ g64.T
+    w64 = np.linalg.eigvalsh(gram64)
+    (u, s, vh), ms["svd"] = timed_once(torch, lambda: linalg.svd(g))
+    errs["svd_values"] = float(np.abs(np.sort(s.double().cpu().numpy() ** 2)
+                                      - w64).max() / w64.max())
+    errs["svd_reconstruction"] = f64_rel(torch, (u * s) @ vh, g)
+    errs["svd_orthogonality"] = max(orth_err(torch, u), orth_err(torch,
+                                                                 vh.mT))
+    del u, s, vh
+    (q, r), ms["qr"] = timed_once(torch, lambda: linalg.qr(g))
+    errs["qr_reconstruction"] = f64_rel(torch, q @ r, g)
+    errs["qr_orthogonality"] = orth_err(torch, q)
+    errs["qr_lower_part"] = float(torch.tril(r, -1).abs().max())
+    del q, r
+    a = (g @ g.T).contiguous()                     # the preconditioner
+    (w, v), ms["eigh"] = timed_once(torch, lambda: linalg.eigh(a))
+    errs["eigh_values"] = float(np.abs(w.double().cpu().numpy() - w64).max()
+                                / w64.max())
+    errs["eigh_reconstruction"] = f64_rel(torch, (v * w) @ v.T, a)
+    errs["eigh_orthogonality"] = orth_err(torch, v)
+    wv, ms["eigvalsh"] = timed_once(torch, lambda: linalg.eigvalsh(a))
+    errs["eigvalsh_vs_eigh"] = float((wv - w).abs().max() / w.abs().max())
+    del v, w, g
+    b_np = rng.randn(LINALG_SQ, LINALG_RHS).astype(np.float32)
+    a64 = a.double().cpu().numpy()
+    x64 = np.linalg.solve(a64, b_np.astype(np.float64))
+    b = torch.from_numpy(b_np).to(CARD)
+    chol = torch.linalg.cholesky(a)
+    x64_t = torch.from_numpy(x64)
+    sol = {"solve": lambda: linalg.solve(a, b),
+           "cholesky_solve": lambda: linalg.cholesky_solve(b, chol),
+           "lstsq": lambda: linalg.lstsq(a, b)[0]}
+    for name, fn in sol.items():
+        out, ms[name] = timed_once(torch, fn)
+        errs[name] = f64_rel(torch, out.cpu(), x64_t)
+    del a, b, chol
+    bn, k = LINALG_BATCH
+    mats_np = (np.eye(k) + 0.5 * rng.randn(bn, k, k) / math.sqrt(k)).astype(
+        np.float32)
+    mats = torch.from_numpy(mats_np).to(CARD)
+    m64 = mats_np.astype(np.float64)
+    sign64, logdet64 = np.linalg.slogdet(m64)
+    det64 = sign64 * np.exp(logdet64)
+    det = linalg.det(mats).double().cpu().numpy()
+    errs["det"] = float((np.abs(det - det64) / np.abs(det64)).max())
+    sign, logdet = linalg.slogdet(mats)
+    errs["slogdet"] = float(np.abs(logdet.double().cpu().numpy()
+                                   - logdet64).max())
+    errs["slogdet_sign_mismatches"] = int(
+        (sign.cpu().numpy() != sign64).sum())
+    pinv64 = np.linalg.pinv(m64)
+    errs["pinv"] = float(np.abs(linalg.pinv(mats).double().cpu().numpy()
+                                - pinv64).max() / np.abs(pinv64).max())
+    # matrix_rank over matrices of rank k - 8 - 8 * (i % 4): orthonormal
+    # factors around singular values in [1, 2], so every rank is clear
+    ranks = np.asarray([k - 8 - 8 * (i % 4) for i in range(bn)])
+
+    def low_rank(rr):
+        qa, _ = np.linalg.qr(rng.randn(k, rr))
+        qb, _ = np.linalg.qr(rng.randn(k, rr))
+        return ((qa * rng.uniform(1, 2, rr)) @ qb.T).astype(np.float32)
+    low_np = np.stack([low_rank(rr) for rr in ranks])
+    low = torch.from_numpy(low_np).to(CARD)
+    got_rank = linalg.matrix_rank(low).cpu().numpy()
+    # float64 singular values of the same float32 data, cut at the op's
+    # float32 tolerance (the data's rounding lifts the zero ones to ~1e-7)
+    s64 = np.linalg.svd(low_np.astype(np.float64), compute_uv=False)
+    rank64 = (s64 > s64.max(-1, keepdims=True) * k *
+              np.finfo(np.float32).eps).sum(-1)
+    errs["matrix_rank_mismatches"] = int((got_rank != rank64).sum() +
+                                         (got_rank != ranks).sum())
+    lu, piv = linalg.lu(mats)
+    p, l, uu = call_op("lu_unpack", lu, piv)
+    errs["lu_reconstruction"] = f64_rel(torch, p @ l @ uu, mats)
+    errs["lu_pivots_1_based"] = int(piv.min()) >= 1 and piv.dtype == \
+        torch.int32
+    ms.update(det=time_ms(torch, lambda: linalg.det(mats)),
+              slogdet=time_ms(torch, lambda: linalg.slogdet(mats)),
+              pinv=timed_once(torch, lambda: linalg.pinv(mats))[1],
+              matrix_rank=timed_once(torch,
+                                     lambda: linalg.matrix_rank(low))[1],
+              lu=time_ms(torch, lambda: linalg.lu(mats)),
+              lu_unpack=time_ms(torch, lambda: call_op("lu_unpack", lu,
+                                                       piv)))
+    res = {"shapes": dict(mlp=list(LINALG_MLP), square=LINALG_SQ,
+                          rhs=LINALG_RHS, batch=list(LINALG_BATCH)),
+           "errors": errs, "limits": LINALG_LIMITS, "ms": ms,
+           "kernel_launches": kernel_launch_delta(kernels, before)}
+    log(f"linalg: {json.dumps(res)}")
+    report["linalg"] = res
+    limits = dict(LINALG_LIMITS, svd_orthogonality=LINALG_LIMITS[
+        "orthogonality"], qr_orthogonality=LINALG_LIMITS["orthogonality"],
+        eigh_orthogonality=LINALG_LIMITS["orthogonality"],
+        eigvalsh_vs_eigh=LINALG_LIMITS["eigh_values"],
+        qr_lower_part=0.0, cholesky_solve=LINALG_LIMITS["solve"],
+        lstsq=LINALG_LIMITS["solve"])
+    bad = {k: v for k, v in errs.items() if k in limits
+           and not v <= limits[k]}
+    if errs["slogdet_sign_mismatches"] or errs["matrix_rank_mismatches"] \
+            or not errs["lu_pivots_1_based"]:
+        bad["counts"] = {k: errs[k] for k in (
+            "slogdet_sign_mismatches", "matrix_rank_mismatches",
+            "lu_pivots_1_based")}
+    if res["kernel_launches"]:
+        bad["kernel_launches"] = res["kernel_launches"]
+    if bad:
+        raise AssertionError(f"linalg: beyond the limits: {bad}")
+    return res
+
+
+# ogbn-arxiv's published scale (OGB node-property leaderboard)
+GRAPH_N, GRAPH_E, GRAPH_D = 169343, 1166243, 128
+GRAPH_SEEDS, GRAPH_FANOUTS = 1024, (25, 10)     # GraphSAGE's fanouts
+GRAPH_REL = 1e-5        # float32 sums, card vs CPU, of the largest value
+
+
+def graph_edges(rng):
+    """A seeded directed graph of ogbn-arxiv's size: sources uniform,
+    destinations heavy-tailed as a citation graph's in-degrees are (node
+    ``N u^3`` for ``u`` uniform: a few thousand in-edges at the head, most
+    nodes a handful)."""
+    src = rng.randint(0, GRAPH_N, GRAPH_E).astype(np.int64)
+    dst = (GRAPH_N * rng.rand(GRAPH_E) ** 3).astype(np.int64).clip(
+        0, GRAPH_N - 1)
+    return src, dst
+
+
+def graph_csc(src, dst):
+    """The CSC of the graph: ``(order, colptr)``, ``src[order]`` the
+    in-neighbours of each node in turn."""
+    order = np.argsort(dst, kind="stable")
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(
+        dst, minlength=GRAPH_N))]).astype(np.int64)
+    return order, colptr
+
+
+def phase_graph(torch, seed, report):
+    """Message passing over a seeded graph of ogbn-arxiv's size (169,343
+    nodes, 1,166,243 edges, 128-d float32 features): ``send_u_recv`` under
+    SUM, MEAN and MAX, ``send_ue_recv`` under MUL with per-edge weights and
+    ``send_uv``, forward and backward, card against CPU; then GraphSAGE's
+    two-hop sampling (fanouts 25 and 10 from 1024 seeds) with
+    ``reindex_graph``, held by support and exactly."""
+    from paddle_tpu_torch import geometric
+    from paddle_tpu_torch.ops import kernels
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 22)
+    src_np, dst_np = graph_edges(rng)
+    x = torch.from_numpy(rng.randn(GRAPH_N, GRAPH_D).astype(np.float32))
+    w = torch.from_numpy(rng.rand(GRAPH_E).astype(np.float32))
+    src, dst = torch.from_numpy(src_np), torch.from_numpy(dst_np)
+    res = {"nodes": GRAPH_N, "edges": GRAPH_E, "dim": GRAPH_D,
+           "max_in_degree": int(np.bincount(dst_np).max()), "ops": {}}
+    cases = {
+        "send_u_recv_sum": (lambda a, s, d: geometric.send_u_recv(
+            a, s, d, "sum", GRAPH_N), (x, src, dst)),
+        "send_u_recv_mean": (lambda a, s, d: geometric.send_u_recv(
+            a, s, d, "mean", GRAPH_N), (x, src, dst)),
+        "send_u_recv_max": (lambda a, s, d: geometric.send_u_recv(
+            a, s, d, "max", GRAPH_N), (x, src, dst)),
+        "send_ue_recv_mul": (lambda a, e, s, d: geometric.send_ue_recv(
+            a, e, s, d, "mul", "sum", GRAPH_N), (x, w, src, dst)),
+        "send_uv_add": (lambda a, b, s, d: geometric.send_uv(
+            a, b, s, d, "add"), (x, x.flip(0), src, dst)),
+    }
+    for i, (name, (fn, ins)) in enumerate(cases.items()):
+        t0 = time.perf_counter()
+        out_err, grad_err, _, _ = card_vs_cpu(torch, f"graph {name}", fn,
+                                              ins, seed + i, grad=True)
+        t_check = time.perf_counter() - t0
+        card_ins = [t.to(CARD) for t in ins]
+        fwd = time_ms(torch, lambda: fn(*card_ins), iters=5)
+        leaf = card_ins[0].clone().requires_grad_(True)
+        out = fn(leaf, *card_ins[1:])
+        ct = torch.ones_like(out)
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            out, leaf, ct, retain_graph=True), iters=5)
+        res["ops"][name] = dict(rel_err=out_err, grad_rel_err=grad_err,
+                                limit=GRAPH_REL, fwd_ms=fwd, bwd_ms=bwd,
+                                check_s=t_check)
+        del out, leaf, card_ins
+        free_card(torch)
+    # GraphSAGE sampling over the CSC of the same graph
+    order, colptr_np = graph_csc(src_np, dst_np)
+    row = torch.from_numpy(src_np[order]).to(CARD)
+    colptr = torch.from_numpy(colptr_np).to(CARD)
+    eids = torch.from_numpy(order.astype(np.int64)).to(CARD)
+    edge_keys = np.unique(dst_np * GRAPH_N + src_np)
+    nodes = torch.from_numpy(rng.choice(GRAPH_N, GRAPH_SEEDS,
+                                        replace=False).astype(np.int64)).to(
+        CARD)
+    hops, t_sample, t_reindex = [], 0.0, 0.0
+    for k in GRAPH_FANOUTS:
+        t0 = time.perf_counter()
+        nb, cnt, e = geometric.sample_neighbors(row, colptr, nodes, k,
+                                                eids=eids, return_eids=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        src_l, dst_l, out_nodes = geometric.reindex_graph(nodes, nb, cnt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t_sample += t1 - t0
+        t_reindex += t2 - t1
+        nd, nb_h, cnt_h = (nodes.cpu().numpy(), nb.cpu().numpy(),
+                           cnt.cpu().numpy())
+        owner = np.repeat(nd, cnt_h)
+        deg = colptr_np[nd + 1] - colptr_np[nd]
+        e_h = e.cpu().numpy()
+        on = out_nodes.cpu().numpy()
+        hop = dict(
+            fanout=k, nodes=len(nd), sampled=len(nb_h),
+            not_in_neighbour=int((~np.isin(owner * GRAPH_N + nb_h,
+                                           edge_keys)).sum()),
+            count_errors=int((cnt_h != np.minimum(deg, k)).sum()),
+            repeated_edges=int(len(e_h) - len(np.unique(e_h))),
+            edge_id_errors=int((src_np[e_h] != nb_h).sum() +
+                               (dst_np[e_h] != owner).sum()),
+            reindex_errors=int((on[src_l.cpu().numpy()] != nb_h).sum() +
+                               (dst_l.cpu().numpy() != np.repeat(
+                                   np.arange(len(nd)), cnt_h)).sum() +
+                               (on[:len(nd)] != nd).sum()),
+            out_nodes=len(on), on_card=str(nb.device).startswith(CARD))
+        hops.append(hop)
+        nodes = out_nodes
+    res["sampling"] = dict(hops=hops, sample_ms=1e3 * t_sample,
+                           reindex_ms=1e3 * t_reindex)
+    res["kernel_launches"] = kernel_launch_delta(kernels, before)
+    log(f"graph: {json.dumps(res)}")
+    report["graph"] = res
+    bad = {k: v for k, v in res["ops"].items()
+           if not (v["rel_err"] <= GRAPH_REL and v["grad_rel_err"] <=
+                   GRAPH_REL)}
+    for h in hops:
+        if any(h[k] for k in ("not_in_neighbour", "count_errors",
+                              "repeated_edges", "edge_id_errors",
+                              "reindex_errors")) or not h["on_card"]:
+            bad[f"hop_{h['fanout']}"] = h
+    if res["kernel_launches"]:
+        bad["kernel_launches"] = res["kernel_launches"]
+    if bad:
+        raise AssertionError(f"graph: beyond the limits: {bad}")
+    return res
+
+
+# PaddleNLP's lexical-analysis example: 57 tags
+VITERBI_B, VITERBI_S, VITERBI_TAGS = 64, 128, 57
+VITERBI_TOL = 1e-4
+
+
+def viterbi_margins(pot, trans, lens, bos_eos):
+    """float64 numpy Viterbi: the best scores and, per row, the smallest
+    margin between the best and the runner-up choice along the best path
+    (the final tag and every back-pointer): a path with every margin over
+    the tolerance is decided by the data, not by rounding."""
+    b, s, n = pot.shape
+    alpha = pot[:, 0] + (trans[n - 2][None] if bos_eos else 0)
+    bps, gaps = [], []
+    for t in range(1, s):
+        sc = alpha[:, :, None] + trans[None]                # [b, i, j]
+        top = np.sort(sc, axis=1)
+        best = sc.argmax(1)
+        live = (t < lens)[:, None]
+        gaps.append(np.where(live, top[:, -1] - top[:, -2], np.inf))
+        alpha = np.where(live, top[:, -1] + pot[:, t], alpha)
+        bps.append(np.where(live, best, np.arange(n)[None]))
+    if bos_eos:
+        alpha = alpha + trans[:, n - 1][None]
+    fin = np.sort(alpha, 1)
+    margin = fin[:, -1] - fin[:, -2]
+    tag = alpha.argmax(1)
+    for bp, gap in zip(bps[::-1], gaps[::-1]):
+        margin = np.minimum(margin, gap[np.arange(b), tag])
+        tag = bp[np.arange(b), tag]
+    return alpha.max(1), margin
+
+
+def phase_text_viterbi(torch, seed, report):
+    """CRF Viterbi decoding at PaddleNLP's lexical-analysis shape (batch 64
+    x 128 tokens, 57 tags, lengths 1-128 from the seed) in both
+    ``include_bos_eos_tag`` modes: scores card vs CPU within 1e-4, paths
+    equal wherever the decision margin exceeds it; timed eager and under
+    ``jit_step`` (one CUDA graph a call)."""
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.jit import jit_step
+    from paddle_tpu_torch.ops import kernels
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 23)
+    pot_np = rng.randn(VITERBI_B, VITERBI_S, VITERBI_TAGS).astype(np.float32)
+    trans_np = rng.randn(VITERBI_TAGS, VITERBI_TAGS).astype(np.float32)
+    lens_np = rng.randint(1, VITERBI_S + 1, VITERBI_B).astype(np.int64)
+    pot, trans, lens = (torch.from_numpy(a).to(CARD)
+                        for a in (pot_np, trans_np, lens_np))
+    res = {"shape": [VITERBI_B, VITERBI_S, VITERBI_TAGS],
+           "lengths": [int(lens_np.min()), int(lens_np.max())]}
+    bad = {}
+    for bos_eos in (True, False):
+        key = "bos_eos" if bos_eos else "plain"
+        s, p = text.viterbi_decode(pot, trans, lens, bos_eos)
+        cs, cp = text.viterbi_decode(*(torch.from_numpy(a) for a in (
+            pot_np, trans_np, lens_np)), bos_eos)
+        best64, margin = viterbi_margins(pot_np.astype(np.float64),
+                                         trans_np.astype(np.float64),
+                                         lens_np, bos_eos)
+        decided = margin > VITERBI_TOL
+        differ = (p.cpu() != cp).any(dim=1).numpy()
+        step = jit_step(lambda a, b, c, _m=bos_eos: text.viterbi_decode(
+            a, b, c, _m))
+        outs = [step(pot, trans, lens) for _ in range(3)]
+        r = dict(score_err=float((s.cpu() - cs).abs().max()),
+                 score_err_f64=float(np.abs(s.cpu().double().numpy()
+                                            - best64).max()),
+                 decided_rows=int(decided.sum()),
+                 path_mismatches_decided=int((differ & decided).sum()),
+                 path_mismatches_undecided=int((differ & ~decided).sum()),
+                 captured_equal=bool(all(torch.equal(o[1], p) and
+                                         torch.equal(o[0], s)
+                                         for o in outs)),
+                 eager_ms=time_ms(torch, lambda: text.viterbi_decode(
+                     pot, trans, lens, bos_eos), iters=5),
+                 jit_step_ms=time_ms(torch, lambda: step(pot, trans, lens),
+                                     iters=5))
+        res[key] = r
+        if not (r["score_err"] <= VITERBI_TOL and
+                r["path_mismatches_decided"] == 0 and r["captured_equal"]):
+            bad[key] = r
+    res["kernel_launches"] = kernel_launch_delta(kernels, before)
+    log(f"text_viterbi: {json.dumps(res)}")
+    report["text_viterbi"] = res
+    if res["kernel_launches"]:
+        bad["kernel_launches"] = res["kernel_launches"]
+    if bad:
+        raise AssertionError(f"text_viterbi: beyond the limits: {bad}")
+    return res
+
+
+# the registry tranche's sizes: rows x width of the elementwise, norm and
+# loss entries; the audio path's frames (clips x frames x n_fft); images;
+# 3-D volumes; square matrices; embeddings (queries, keys, dim) for cdist;
+# a matrix chain for multi_dot
+TRANCHE = dict(b=64, w=4096, clips=16, frames=501, n_fft=1024, img=224,
+               cube=64, sq=512, mat=256, emb=(1024, 1024, 64),
+               chain=(2048, 512))
+
+
+def registry_tranche_cases(rng):
+    """Every entry of the 98 (linalg, fft, signal, the math tranches, graph,
+    ``viterbi_decode``) that the phases above do not run, at a
+    size its users run (``TRANCHE``): ``(name, (op, args, kwargs, rel))``
+    with numpy args, ``rel`` the limit of the largest difference card vs
+    CPU over the output's largest value."""
+    T = TRANCHE
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)  # noqa
+    z = lambda *s: (rng.randn(*s) + 1j * rng.randn(*s)).astype(  # noqa
+        np.complex64)
+    i = lambda lo, hi, *s: rng.randint(lo, hi, s).astype(np.int64)  # noqa
+    F32, DEC = 1e-5, 1e-4
+    b, w, n_sq, n_mat = T["b"], T["w"], T["sq"], T["mat"]
+    sq = f(n_sq, n_sq) / math.sqrt(n_sq) + 2 * np.eye(n_sq, dtype=np.float32)
+    frames = f(T["clips"], T["frames"], T["n_fft"])
+    bins = T["n_fft"] // 2 + 1
+    spec = z(T["clips"], T["frames"], bins)
+    img, cube = T["img"], T["cube"]
+    # linalg
+    yield "cond", ("cond", [sq], {}, DEC)
+    yield "cov", ("cov", [f(128, w)], {}, DEC)
+    yield "corrcoef", ("corrcoef", [f(128, w)], {}, DEC)
+    m1, m2 = T["chain"]
+    yield "multi_dot", ("multi_dot", [[f(m1, m2), f(m2, m1), f(m1, 64)]],
+                        {}, DEC)
+    raw = np.linalg.qr(f(4 * n_mat, n_mat).astype(np.float64), mode="raw")
+    yield "householder_product", ("householder_product", [
+        np.ascontiguousarray(raw[0].T).astype(np.float32),
+        raw[1].astype(np.float32)], {}, DEC)
+    yield "matrix_norm", ("matrix_norm", [f(16, n_mat, n_mat)],
+                          dict(p="nuc"), DEC)
+    yield "matrix_power", ("matrix_power", [sq], dict(n=5), DEC)
+    yield "eig", ("eig", [f(n_mat, n_mat)], {}, 0.0)
+    yield "eigvals", ("eigvals", [f(n_mat, n_mat)], {}, 0.0)
+    # fft and friends over the audio path's frames, images and volumes
+    yield "fft", ("fft", [frames], {}, F32)
+    yield "ifft", ("ifft", [spec], {}, F32)
+    yield "rfft", ("rfft", [frames], {}, F32)
+    # random half spectra: their DC and Nyquist bins' imaginary parts are
+    # dropped as the reference drops them (``linalg_fft.hermitian_half``)
+    yield "irfft", ("irfft", [spec], dict(n=T["n_fft"]), F32)
+    yield "hfft", ("hfft", [spec], dict(n=T["n_fft"]), F32)
+    yield "ihfft", ("ihfft", [frames], {}, F32)
+    ib = T["clips"]                  # images a batch
+    yield "fft2", ("fft2", [f(ib, 3, img, img)], {}, F32)
+    yield "ifft2", ("ifft2", [z(ib, 3, img, img)], {}, F32)
+    yield "rfft2", ("rfft2", [f(ib, 3, img, img)], {}, F32)
+    yield "irfft2", ("irfft2", [z(ib, 3, img, img // 2 + 1)], {}, F32)
+    yield "fftn", ("fftn", [f(16, cube, cube, cube)], dict(axes=[1, 2, 3]),
+                   F32)
+    yield "ifftn", ("ifftn", [z(16, cube, cube, cube)],
+                    dict(axes=[1, 2, 3]), F32)
+    yield "fftshift", ("fftshift", [spec], dict(axes=[-1]), 0.0)
+    yield "ifftshift", ("ifftshift", [spec], dict(axes=[-1]), 0.0)
+    yield "fftfreq", ("fftfreq", [], dict(n=T["n_fft"], d=1 / 32000), F32)
+    yield "rfftfreq", ("rfftfreq", [], dict(n=T["n_fft"], d=1 / 32000), F32)
+    yield "fft_c2c", ("fft_c2c", [spec], {}, F32)
+    yield "fft_r2c", ("fft_r2c", [frames], {}, F32)
+    yield "fft_c2r", ("fft_c2r", [spec], dict(last_dim_size=T["n_fft"]),
+                      F32)
+    yield "frame", ("frame", [f(T["clips"], 320 * T["frames"])], dict(
+        frame_length=T["n_fft"], hop_length=320), 0.0)
+    # the extended tranche
+    yield "nanquantile", ("nanquantile", [np.where(u(0, 1, b, w) < 0.1,
+                                                   np.nan, f(b, w))],
+                          dict(q=[0.1, 0.5, 0.9], axis=1), F32)
+    yield "vander", ("vander", [u(-1, 1, w)], dict(n=16), F32)
+    yield "trapezoid", ("trapezoid", [f(b, w)], dict(dx=0.01), F32)
+    yield "polar", ("polar", [u(0, 2, b, w), f(b, w)], {}, F32)
+    q, k, d = T["emb"]
+    yield "cdist", ("cdist", [f(q, d), f(k, d)], {}, DEC)
+    yield "crop", ("crop", [f(8, 3, 2 * img, 2 * img)], dict(
+        shape=[8, 3, img, img], offsets=[0, 0, 16, 32]), 0.0)
+    yield "block_diag", ("block_diag", [[f(128, 128) for _ in range(8)]],
+                         {}, 0.0)
+    yield "broadcast_tensors", ("broadcast_tensors", [[f(b, 1, 128),
+                                                       f(1, 256, 128)]], {},
+                                0.0)
+    pair = [f(w, 64), f(w, 64)]
+    for name in ("column_stack", "hstack", "vstack", "dstack", "row_stack"):
+        yield name, (name, [pair], {}, 0.0)
+    yield "atleast_1d", ("atleast_1d", [np.array(1.5, np.float32)], {}, 0.0)
+    yield "atleast_2d", ("atleast_2d", [f(w)], {}, 0.0)
+    yield "atleast_3d", ("atleast_3d", [f(n_sq, n_sq)], {}, 0.0)
+    yield "diag_embed", ("diag_embed", [f(b, n_mat)], dict(offset=1), 0.0)
+    yield "gather_tree", ("gather_tree", [i(0, 32000, 64, b // 2, 4),
+                                          i(0, 4, 64, b // 2, 4)], {}, 0.0)
+    # the round-2 math tranche
+    x = f(b, w)
+    yield "stanh", ("stanh", [x], {}, F32)
+    yield "tanh_shrink", ("tanh_shrink", [x], {}, F32)
+    yield "logspace", ("logspace", [], dict(start=-3, stop=3, num=w), F32)
+    yield "complex", ("complex", [x, f(b, w)], {}, 0.0)
+    yield "dist", ("dist", [x, f(b, w)], dict(p=3.0), DEC)
+    yield "p_norm", ("p_norm", [x], dict(porder=3.0, axis=1), DEC)
+    yield "frobenius_norm", ("frobenius_norm", [f(b, 64, 64)],
+                             dict(axis=[1, 2]), DEC)
+    yield "squared_l2_norm", ("squared_l2_norm", [x], {}, DEC)
+    yield "clip_by_norm", ("clip_by_norm", [x], dict(max_norm=1.0), DEC)
+    yield "add_n", ("add_n", [[x, f(b, w), f(b, w)]], {}, F32)
+    yield "mean_all", ("mean_all", [x], {}, DEC)
+    yield "label_smooth", ("label_smooth", [np.eye(1000, dtype=np.float32)[
+        i(0, 1000, 256)]], dict(epsilon=0.1), F32)
+    yield "huber_loss", ("huber_loss", [x, f(b, w)], {}, F32)
+    yield "bce_loss", ("bce_loss", [u(0.01, 0.99, b, w), u(0, 1, b, w)], {},
+                       F32)
+    yield "kldiv_loss", ("kldiv_loss", [x, u(0.01, 1, b, w)],
+                         dict(reduction="batchmean"), DEC)
+    yield "log_loss", ("log_loss", [u(0.01, 0.99, w, 1), u(0, 1, w, 1)], {},
+                       F32)
+    yield "sigmoid_cross_entropy_with_logits", (
+        "sigmoid_cross_entropy_with_logits",
+        [x, (u(0, 1, b, w) > 0.5).astype(np.float32)], {}, F32)
+    yield "accuracy", ("accuracy", [f(256, 1000), i(0, 1000, 256, 1)],
+                       dict(k=5), 0.0)
+    yield "is_empty", ("is_empty", [x], {}, 0.0)
+    yield "fill_", ("fill_", [x.copy()], dict(value=0.5), 0.0)
+    yield "assign_value", ("assign_value", [], dict(
+        shape=[64, 64], dtype="float32", values=f(4096).tolist()), 0.0)
+    runs = np.repeat(i(0, 50, w), i(1, 4, w))
+    yield "unique_consecutive", ("unique_consecutive", [runs], dict(
+        return_inverse=True, return_counts=True), 0.0)
+    yield "repeat_interleave_with_tensor_index", (
+        "repeat_interleave_with_tensor_index", [f(w, 64), i(0, 4, w)], {},
+        0.0)
+    yield "shard_index", ("shard_index", [i(0, 32000, w, 1)], dict(
+        index_num=32000, nshards=8, shard_id=3), 0.0)
+    yield "edit_distance", ("edit_distance", [i(0, 50, b, 32),
+                                              i(0, 50, b, 32)], {}, 0.0)
+    yield "view_dtype", ("view_dtype", [x], dict(dtype="int32"), 0.0)
+    yield "set_value", ("set_value", [f(b, w), f(b // 2, w // 2)], dict(
+        starts=[0, 0], ends=[b, w], steps=[2, 2], axes=[0, 1]), 0.0)
+    yield "einsum", ("einsum", [[f(b, 128, 64), f(b, 64, 128)]],
+                     dict(equation="bij,bjk->bik"), DEC)
+    # the weighted sampler (the uniform one runs in the graph phase)
+    yield "weighted_sample_neighbors", None
+
+
+# entries the reference differentiates (ops.yaml: no ``backward: none``)
+TRANCHE_GRAD = {
+    "cond": False, "multi_dot": True, "matrix_norm": True,
+    "householder_product": True,
+    "matrix_power": True, "fft": True, "ifft": True, "rfft": True,
+    "irfft": True, "hfft": True, "ihfft": True, "fft2": True, "ifft2": True,
+    "rfft2": True, "irfft2": True, "fftn": True, "ifftn": True,
+    "cdist": True, "block_diag": True, "column_stack": True, "hstack": True,
+    "vstack": True, "dstack": True, "row_stack": True, "diag_embed": True,
+    "stanh": True, "tanh_shrink": True, "dist": True, "p_norm": True,
+    "frobenius_norm": True, "squared_l2_norm": True, "clip_by_norm": True,
+    "add_n": True, "mean_all": True, "label_smooth": True,
+    "huber_loss": True, "bce_loss": True, "kldiv_loss": True,
+    "log_loss": True, "sigmoid_cross_entropy_with_logits": True,
+    "set_value": True, "einsum": True}
+# entries that compute on the host or read sizes there: timed once
+TRANCHE_HOST_OPS = {"eig", "eigvals", "unique_consecutive",
+                    "repeat_interleave_with_tensor_index", "edit_distance",
+                    "weighted_sample_neighbors"}
+
+
+def weighted_sampler_check(torch, seed):
+    """``weighted_sample_neighbors`` over ogbn-arxiv's graph for 1024 nodes,
+    25 each: by support, by count, by weight (a node's heaviest edges
+    drawn more often)."""
+    from paddle_tpu_torch import geometric
+    rng = np.random.RandomState(seed + 24)
+    src_np, dst_np = graph_edges(rng)
+    order, colptr_np = graph_csc(src_np, dst_np)
+    wt = rng.rand(GRAPH_E).astype(np.float32) + 1e-3
+    nodes_np = rng.choice(GRAPH_N, GRAPH_SEEDS, replace=False)
+    args = [torch.from_numpy(a).to(CARD) for a in (
+        src_np[order], colptr_np, wt[order], nodes_np.astype(np.int64),
+        order.astype(np.int64))]
+    t0 = time.perf_counter()
+    nb, cnt, e = geometric.weighted_sample_neighbors(
+        *args[:4], sample_size=25, eids=args[4], return_eids=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    e_h, cnt_h = e.cpu().numpy(), cnt.cpu().numpy()
+    owner = np.repeat(nodes_np, cnt_h)
+    deg = colptr_np[nodes_np + 1] - colptr_np[nodes_np]
+    errs = int((src_np[e_h] != nb.cpu().numpy()).sum() +
+               (dst_np[e_h] != owner).sum() +
+               (cnt_h != np.minimum(deg, 25)).sum() +
+               (len(e_h) - len(np.unique(e_h))))
+    # where a node has more than 25 in-edges, the drawn ones weigh more
+    # than its average edge
+    full = deg > 25
+    mean_drawn = float(wt[e_h][np.repeat(full, cnt_h)].mean()) \
+        if full.any() else 0.5
+    return dict(op="weighted_sample_neighbors", rel_err=float(errs),
+                limit=0.0, ms=ms, backward=False, shape=[len(e_h)],
+                drawn_weight_mean=mean_drawn,
+                on_card=str(nb.device).startswith(CARD))
+
+
+# the extended tranche's entries in ops/kernels/math_ext.py
+SLICE_MATH_EXT = {"nanquantile", "vander", "trapezoid", "polar", "cdist",
+                  "crop", "block_diag", "broadcast_tensors", "column_stack",
+                  "hstack", "vstack", "dstack", "row_stack", "atleast_1d",
+                  "atleast_2d", "atleast_3d", "diag_embed", "gather_tree"}
+
+
+def phase_registry_tranche(torch, seed, report):
+    """Every other entry of the 98 on the card at a size its users
+    run, held to the CPU run on the same inputs, with one backward where
+    the reference differentiates the entry, and the card's ms."""
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.ops import dispatcher, kernels
+    from paddle_tpu_torch.ops.kernels import (extra_math, graph, linalg_fft,
+                                              math_ext)
+    set_device(CARD)
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 25)
+    res = {}
+    for k, (name, case) in enumerate(registry_tranche_cases(rng)):
+        t0 = time.perf_counter()
+        if case is None:
+            res[name] = weighted_sampler_check(torch, seed)
+        else:
+            op, args, kw, rel = case
+            res[name] = op_check(torch, "registry_tranche", name, op, args,
+                                 kw, rel, seed + k,
+                                 grad=TRANCHE_GRAD.get(op, False),
+                                 host=name in TRANCHE_HOST_OPS)
+        res[name]["wall_s"] = time.perf_counter() - t0
+        free_card(torch)
+    set_device(None)
+    log(f"registry_tranche: {json.dumps(res)}")
+    launched = kernel_launch_delta(kernels, before)
+    report["registry_tranche"] = dict(ops=res, kernel_launches=launched)
+    bad = {k: v for k, v in res.items() if not v["rel_err"] <= v["limit"]}
+    w = res["weighted_sample_neighbors"]
+    if not (w["on_card"] and w["drawn_weight_mean"] > 0.5):
+        bad["weighted_sample_neighbors"] = w
+    if launched:
+        bad["kernel_launches"] = launched
+    if bad:
+        raise AssertionError(f"registry_tranche: card vs CPU beyond the "
+                             f"limits: {bad}")
+    # the 98 entries (97 names): run here or in the four phases before
+    elsewhere = {"stft", "istft", "svd", "qr", "eigh", "eigvalsh", "solve",
+                 "cholesky_solve", "lstsq", "det", "slogdet", "pinv",
+                 "matrix_rank", "lu", "lu_unpack", "send_u_recv",
+                 "send_ue_recv", "send_uv", "graph_sample_neighbors",
+                 "reindex_graph", "viterbi_decode"}
+    mods = {linalg_fft.__name__, extra_math.__name__, graph.__name__}
+    entries = {n for n, k in dispatcher.KERNELS.items() if k.__module__ in
+               mods} | SLICE_MATH_EXT | {"matrix_rank", "lu_unpack",
+                                         "fft_c2c", "fft_r2c", "fft_c2r",
+                                         "viterbi_decode"}
+    missed = entries - elsewhere - {v["op"] for v in res.values()}
+    if missed or len(entries) != 97:
+        raise AssertionError(f"registry_tranche: entries not run: {missed} "
+                             f"({len(entries)} of 97 names)")
     return res
 
 
@@ -6908,6 +7853,16 @@ def main(argv=None) -> int:
     vision["yolov3"] = phase_vision_yolov3(torch, args.seed, report)
     free_card(torch)
     phase_vision_ops(torch, args.seed, report)
+    free_card(torch)
+    phase_audio_frontend(torch, args.seed, report)
+    free_card(torch)
+    phase_linalg(torch, args.seed, report)
+    free_card(torch)
+    phase_graph(torch, args.seed, report)
+    free_card(torch)
+    phase_text_viterbi(torch, args.seed, report)
+    free_card(torch)
+    phase_registry_tranche(torch, args.seed, report)
     free_card(torch)
     moe = phase_moe_train(torch, args.seed, report)
     torch.cuda.empty_cache()          # the MoE model is gone

@@ -26,7 +26,11 @@ stacked layers, a worker-process ``io.DataLoader`` under
 the Paddle way from ``nn.Layer`` and the common layers, initializers and
 losses; trains the vision zoo (``vision.models``: ResNet, YOLOv3-DarkNet53
 and the rest) over ``vision.datasets`` and ``vision.transforms`` with
-``metric.Accuracy``. The TPU kernels of those paths are CUDA C++ kernels for Hopper
+``metric.Accuracy``; and has the reference's ``linalg``, ``fft``,
+``signal``, ``audio`` (the feature layers, the wave backend, ESC-50 and
+TESS), ``text`` (CRF Viterbi decoding, the text datasets) and
+``geometric`` (message passing, neighbour sampling) namespaces, the fft
+and signal functions in their namespaces only. The TPU kernels of those paths are CUDA C++ kernels for Hopper
 (``csrc/``), built at first use. Entry points run on the CUDA card unless
 the caller passes ``device=`` / ``set_device("cpu")`` or CPU tensors; they
 never fall back to the CPU quietly. The models, criteria, layers,
@@ -69,6 +73,8 @@ _attach_tensor_methods()
 
 from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
                models, nn, observability, optimizer, sparse, vision)
+from . import fft, geometric, linalg, signal, text  # noqa: E402
+from . import audio  # noqa: E402
 from .jit import jit_step  # noqa: E402
 from .nn import LazyGuard, ParamAttr  # noqa: E402
 from .nn.layer_base import Parameter  # noqa: E402
@@ -98,5 +104,8 @@ __all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
            "iinfo", "finfo", "get_rng_state", "set_rng_state",
            "observability",
            "get_cuda_rng_state", "set_cuda_rng_state", "default_generator",
-           *_dispatcher.SCHEMA, *_dispatcher.INPLACE, *_TENSOR_API]
+           "fft", "signal", "linalg", "audio", "text", "geometric",
+           *(n for n in _dispatcher.SCHEMA
+             if n not in _dispatcher.NAMESPACED),
+           *_dispatcher.INPLACE, *_TENSOR_API]
 __version__ = "0.1.0"

@@ -519,11 +519,146 @@ SCHEMA.update({
     "top_p_sampling": _X + (("ps", _R), ("threshold", None)),
 })
 
+# -- the linalg, fft and signal entries (``ops.yaml:372-417``, ``:622-626``),
+# the rest of the extended tranche (``:438-494``), the round-2 math tranche
+# (``:496-543``), the graph ops (``:680-685``) and ``viterbi_decode``
+# (``:658``)
+_UPLO = _X + (("UPLO", "L"),)
+_FFT = _X + (("n", None), ("axis", -1), ("norm", "backward"))
+_FFT2 = _X + (("s", None), ("axes", (-2, -1)), ("norm", "backward"))
+_FFTN = _X + (("s", None), ("axes", None), ("norm", "backward"))
+_FREQ = (("n", 1), ("d", 1.0), ("dtype", None))
+_XS = (("xs", _R),)
+_FFT_K = _X + (("axes", (-1,)), ("normalization", "backward"))
+_INPUT_LABEL = (("input", _R), ("label", _R))
+_SRC_DST = (("src_index", _R), ("dst_index", _R))
+SCHEMA.update({
+    # linalg decompositions
+    "svd": _X + (("full_matrices", False),),
+    "qr": _X + (("mode", "reduced"),),
+    "eigh": _UPLO, "eigvalsh": _UPLO, "eig": _X, "eigvals": _X, "lu": _X,
+    "det": _X, "slogdet": _X,
+    "pinv": _X + (("rcond", 1e-15), ("hermitian", False)),
+    "matrix_power": _X + (("n", 1),),
+    "matrix_rank": _X + (("tol", None), ("hermitian", False)),
+    "solve": _XY,
+    "lstsq": _XY + (("rcond", None), ("driver", None)),
+    "cholesky_solve": _XY + (("upper", False),),
+    "cond": _X + (("p", None),),
+    "cov": _X + (("rowvar", True), ("ddof", True), ("fweights", None),
+                 ("aweights", None)),
+    "corrcoef": _X + (("rowvar", True),),
+    "multi_dot": _XS,
+    "householder_product": _X + (("tau", _R),),
+    "matrix_norm": _X + (("p", "fro"), ("axis", (-2, -1)),
+                         ("keepdim", False)),
+    "lu_unpack": _XY + (("unpack_ludata", True), ("unpack_pivots", True)),
+    "fft_c2c": _FFT_K + (("forward", True),),
+    "fft_r2c": _FFT_K + (("forward", True), ("onesided", True)),
+    "fft_c2r": _FFT_K + (("forward", False), ("last_dim_size", 0)),
+    # fft
+    **{name: _FFT for name in ("fft", "ifft", "rfft", "irfft", "hfft",
+                               "ihfft")},
+    **{name: _FFT2 for name in ("fft2", "ifft2", "rfft2", "irfft2")},
+    "fftn": _FFTN, "ifftn": _FFTN,
+    "fftshift": _X + (("axes", None),), "ifftshift": _X + (("axes", None),),
+    "fftfreq": _FREQ, "rfftfreq": _FREQ,
+    # signal
+    "frame": _X + (("frame_length", 512), ("hop_length", 128), ("axis", -1)),
+    "stft": _X + (("n_fft", 512), ("hop_length", None), ("win_length", None),
+                  ("window", None), ("center", True), ("pad_mode", "reflect"),
+                  ("normalized", False), ("onesided", True)),
+    "istft": _X + (("n_fft", 512), ("hop_length", None),
+                   ("win_length", None), ("window", None), ("center", True),
+                   ("normalized", False), ("onesided", True),
+                   ("length", None), ("return_complex", False)),
+    # the rest of the extended tranche
+    "nanquantile": _X + (("q", 0.5), ("axis", None), ("keepdim", False),
+                         ("interpolation", "linear")),
+    "vander": _X + (("n", None), ("increasing", False)),
+    "trapezoid": (("y", _R), ("x", None), ("dx", 1.0), ("axis", -1)),
+    "polar": (("abs", _R), ("angle", _R)),
+    "cdist": _XY + (("p", 2.0),),
+    "crop": _X + (("shape", ()), ("offsets", None)),
+    "block_diag": _XS, "broadcast_tensors": _XS, "column_stack": _XS,
+    "hstack": _XS, "vstack": _XS, "dstack": _XS, "row_stack": _XS,
+    "atleast_1d": _X, "atleast_2d": _X, "atleast_3d": _X,
+    "diag_embed": _X + (("offset", 0), ("dim1", -2), ("dim2", -1)),
+    "gather_tree": (("ids", _R), ("parents", _R)),
+    # the round-2 math tranche
+    "stanh": _X + (("scale_a", 0.67), ("scale_b", 1.7159)),
+    "tanh_shrink": _X,
+    "logspace": (("start", _R), ("stop", _R), ("num", _R), ("base", 10.0),
+                 ("dtype", None)),
+    "complex": (("real", _R), ("imag", _R)),
+    "dist": _XY + (("p", 2.0),),
+    "p_norm": _X + (("porder", 2.0), ("axis", -1), ("epsilon", 1e-12),
+                    ("keepdim", False), ("asvector", False)),
+    "frobenius_norm": _X + (("axis", None), ("keepdim", False)),
+    "squared_l2_norm": _X,
+    "clip_by_norm": _X + (("max_norm", 1.0),),
+    "add_n": (("inputs", _R),),
+    "mean_all": _X,
+    "label_smooth": (("label", _R), ("prior_dist", None), ("epsilon", 0.1)),
+    "huber_loss": _INPUT_LABEL + (("delta", 1.0),),
+    "bce_loss": _INPUT_LABEL,
+    "kldiv_loss": _X + (("label", _R), ("reduction", "mean"),
+                        ("log_target", False)),
+    "log_loss": _INPUT_LABEL + (("epsilon", 0.0001),),
+    "sigmoid_cross_entropy_with_logits": _X + (
+        ("label", _R), ("pos_weight", None), ("normalize", False),
+        ("ignore_index", -100)),
+    "accuracy": _X + (("label", _R), ("k", 1)),
+    "is_empty": _X,
+    "fill_": _X + (("value", 0.0),),
+    "assign_value": (("shape", ()), ("dtype", "float32"), ("values", ())),
+    "unique_consecutive": _X + (("return_inverse", False),
+                                ("return_counts", False), ("axis", None),
+                                ("dtype", "int64")),
+    "repeat_interleave_with_tensor_index": _X + (("repeats", _R),
+                                                 ("axis", 0)),
+    "shard_index": (("input", _R), ("index_num", _R), ("nshards", _R),
+                    ("shard_id", _R), ("ignore_value", -1)),
+    "edit_distance": (("hyps", _R), ("refs", _R), ("hypslength", None),
+                      ("refslength", None), ("normalized", True)),
+    "view_dtype": _X + (("dtype", _R),),
+    "set_value": _X + (("value", None), ("starts", ()), ("ends", ()),
+                       ("steps", ()), ("axes", ()), ("shape", ())),
+    "einsum": (("operands", _R), ("equation", "")),
+    # graph learning
+    "send_u_recv": _X + _SRC_DST + (("reduce_op", "SUM"), ("out_size", 0)),
+    "send_ue_recv": _XY + _SRC_DST + (("message_op", "ADD"),
+                                      ("reduce_op", "SUM"), ("out_size", 0)),
+    "send_uv": _XY + _SRC_DST + (("message_op", "ADD"),),
+    "graph_sample_neighbors": (
+        ("row", _R), ("colptr", _R), ("x", _R), ("eids", None),
+        ("perm_buffer", None), ("sample_size", -1), ("return_eids", False),
+        ("flag_perm_buffer", False)),
+    "weighted_sample_neighbors": (
+        ("row", _R), ("colptr", _R), ("edge_weight", _R),
+        ("input_nodes", _R), ("eids", None), ("sample_size", -1),
+        ("return_eids", False)),
+    "reindex_graph": _X + (("neighbors", _R), ("count", _R),
+                           ("hashtable_value", None),
+                           ("hashtable_index", None)),
+    "viterbi_decode": (("potentials", _R), ("transition", _R),
+                       ("lengths", None), ("include_bos_eos_tag", True)),
+})
+
 # ops whose first argument is not a tensor: no Tensor method
 NOT_TENSOR_FIRST = frozenset({
     "full", "zeros", "ones", "empty", "arange", "linspace", "eye",
     "tril_indices", "uniform", "gaussian", "rand", "randn", "randint",
-    "randperm", "truncated_gaussian_random", "read_file"})
+    "randperm", "truncated_gaussian_random", "read_file", "logspace",
+    "fftfreq", "rfftfreq", "assign_value"})
+
+# ops that live only in their namespace (``paddle_tpu_torch.fft`` /
+# ``.signal``), never at the top level, where ``fft`` is the module (the
+# reference maps them to None, ``paddle_tpu/__init__.py:39-49``)
+NAMESPACED = frozenset({
+    "fft", "ifft", "rfft", "irfft", "hfft", "ihfft", "fft2", "ifft2",
+    "rfft2", "irfft2", "fftn", "ifftn", "fftshift", "ifftshift", "fftfreq",
+    "rfftfreq", "frame", "stft", "istft"})
 
 # the inplace family (``ops.yaml:628-657``, ``:728-808``): name -> base op
 INPLACE = {
@@ -696,10 +831,10 @@ def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
         from .kernels import (creation, detection,  # noqa: F401
-                              extra_misc, extra_nn, manipulation, math,
-                              math_ext, moe, nn, quant, random, rnn,
-                              serving, tensor_api_ext,
-                              vision_io)  # (register)
+                              extra_math, extra_misc, extra_nn, graph,
+                              linalg_fft, manipulation, math, math_ext, moe,
+                              nn, quant, random, rnn, serving,
+                              tensor_api_ext, vision_io)  # (register)
         for name in SCHEMA:
             if name not in KERNELS:
                 raise RuntimeError(f"op '{name}': no kernel registered")
@@ -726,6 +861,21 @@ def call_op(name: str, /, *args, **kwargs):
 # family and the dunders (the reference's ``build_ops`` :704-800, :886) ----
 
 _PUBLIC: Dict[str, Callable] = {}
+
+
+def boundary_op(name: str, /) -> Callable:
+    """The op ``name`` under the boundary rule: ``Tensor`` arguments give
+    ``Tensor`` results, plain tensors plain ones (``core.tensor.
+    paddle_call``), also for an op that computes on the host."""
+    from ..core.tensor import paddle_call
+    op = get_op(name)
+
+    def fn(*args, **kwargs):
+        return paddle_call(op, args, kwargs)
+    fn.__name__ = fn.__qualname__ = name
+    fn.__doc__ = op.__doc__
+    fn.__signature__ = op.__signature__
+    return fn
 
 
 def public_op(name: str, /) -> Callable:
@@ -838,8 +988,8 @@ _DUNDERS = {
 
 def build_surface() -> Dict[str, Callable]:
     """Attach the op surface to ``core.tensor.Tensor`` and return the
-    top-level functions (every op, on the Paddle surface, and every
-    inplace op): each tensor-first op is a method (Paddle's meaning wins
+    top-level functions (every op but the :data:`NAMESPACED` ones, on the
+    Paddle surface, and every inplace op): each tensor-first op is a method (Paddle's meaning wins
     over torch's inherited method, but for ``core.tensor.TORCH_OWNED``
     and the names ``Tensor`` defines itself), each inplace op is a method
     and a function, and the arithmetic and comparison dunders run the
@@ -858,6 +1008,8 @@ def build_surface() -> Dict[str, Callable]:
         setattr(Tensor, name, fn)
     for dunder, (name, reflect) in _DUNDERS.items():
         setattr(Tensor, dunder, _binop(name, reflect))
+    for name in NAMESPACED:
+        del funcs[name]
     Tensor.__neg__ = _unop("neg")
     Tensor.__abs__ = _unop("abs")
     Tensor.__invert__ = _unop("logical_not")

@@ -809,3 +809,12 @@ def _batch_norm(x, mean, variance, scale=None, bias=None, is_test=False,
     m = float(momentum)
     return (out, mean * m + bmean * (1 - m), variance * m + bvar * (1 - m),
             bmean, bvar)
+
+
+@register_kernel("viterbi_decode")
+def _viterbi_decode(potentials, transition, lengths=None,
+                    include_bos_eos_tag=True):
+    """CRF Viterbi decoding: ``text.viterbi_decode``, as the reference's
+    op delegates to its ``text`` module."""
+    from ...text import _viterbi
+    return _viterbi(potentials, transition, lengths, include_bos_eos_tag)

@@ -13,6 +13,12 @@ the last value when ``value`` runs short, ``take(mode='raise')`` checks
 its indices on the host. Index outputs are int64 (the reference: int32).
 ``gammainc`` / ``gammaincc`` have no gradient with respect to ``x``
 (torch has none).
+
+Also the rest of the extended tranche (``ops.yaml:438-494``): ``nanquantile``,
+``vander``, ``trapezoid``, ``polar``, ``cdist`` (the reference's
+broadcast difference, not ``torch.cdist``'s matmul form), ``crop``, the
+stacks, ``block_diag``, ``broadcast_tensors``, ``atleast_{1,2,3}d``,
+``diag_embed`` and ``gather_tree`` (the beam backtrace, a loop over time).
 """
 
 from __future__ import annotations
@@ -45,11 +51,40 @@ def _to_last(x, axis):
 
 # -- statistics ---------------------------------------------------------------
 
+def _nearest(fn, flat, qt, skip_nan):
+    """JAX's ``nearest`` through ``fn`` (``torch.quantile`` or
+    ``torch.nanquantile``): at the position ``q (n - 1)`` over the ``n``
+    values (those that are not NaN, with ``skip_nan``), a fraction of 0.5
+    or less rounds down (torch's own ``nearest`` rounds half to even)."""
+    lo = fn(flat, qt, dim=-1, interpolation="lower")
+    hi = fn(flat, qt, dim=-1, interpolation="higher")
+    n = (~torch.isnan(flat)).sum(-1).to(flat.dtype) if skip_nan else \
+        torch.full(flat.shape[:-1], flat.shape[-1], dtype=flat.dtype,
+                   device=flat.device)
+    pos = qt.reshape(qt.shape + (1,) * (flat.dim() - 1)) * (n - 1)
+    return torch.where(pos - torch.floor(pos) <= 0.5, lo, hi)
+
+
+
 @register_kernel("quantile")
 def _quantile(x, q=0.5, axis=None, keepdim=False, interpolation="linear"):
     flat, keep = _to_last(x, axis)
     qt = torch.as_tensor(q, dtype=x.dtype, device=x.device)
-    out = torch.quantile(flat, qt, dim=-1, interpolation=interpolation)
+    out = _nearest(torch.quantile, flat, qt, False) \
+        if interpolation == "nearest" else \
+        torch.quantile(flat, qt, dim=-1, interpolation=interpolation)
+    if keepdim:
+        out = out.reshape(tuple(qt.shape) + tuple(keep))
+    return out
+
+
+@register_kernel("nanquantile")
+def _nanquantile(x, q=0.5, axis=None, keepdim=False, interpolation="linear"):
+    flat, keep = _to_last(x, axis)
+    qt = torch.as_tensor(q, dtype=x.dtype, device=x.device)
+    out = _nearest(torch.nanquantile, flat, qt, True) \
+        if interpolation == "nearest" else \
+        torch.nanquantile(flat, qt, dim=-1, interpolation=interpolation)
     if keepdim:
         out = out.reshape(tuple(qt.shape) + tuple(keep))
     return out
@@ -439,3 +474,126 @@ def _fill_diagonal(x, value=0.0, offset=0, wrap=False):
             out[..., am + start, am] = value
             start += cols_n + 1
     return out
+
+
+# -- the rest of the extended tranche ------------------------------------------
+
+@register_kernel("vander")
+def _vander(x, n=None, increasing=False):
+    return torch.vander(x, N=None if n is None else int(n),
+                        increasing=bool(increasing))
+
+
+@register_kernel("trapezoid")
+def _trapezoid(y, x=None, dx=1.0, axis=-1):
+    if x is not None:
+        return torch.trapezoid(y, x=x, dim=int(axis))
+    return torch.trapezoid(y, dx=float(dx), dim=int(axis))
+
+
+@register_kernel("polar")
+def _polar(abs, angle):
+    return torch.polar(abs, angle)
+
+
+@register_kernel("cdist")
+def _cdist(x, y, p=2.0):
+    diff = x[..., :, None, :] - y[..., None, :, :]
+    if float(p) == 2.0:
+        return (diff * diff).sum(-1).clamp(min=0.0).sqrt()
+    return (diff.abs() ** float(p)).sum(-1) ** (1.0 / float(p))
+
+
+@register_kernel("crop")
+def _crop(x, shape=(), offsets=None):
+    offs = [int(o) for o in offsets] if offsets is not None else \
+        [0] * x.dim()
+    idx = tuple(slice(o, None if int(s) == -1 else o + int(s))
+                for o, s in zip(offs, shape))
+    return x[idx]
+
+
+def _list(xs):
+    return [xs] if isinstance(xs, torch.Tensor) else list(xs)
+
+
+@register_kernel("block_diag")
+def _block_diag(xs):
+    return torch.block_diag(*_list(xs))
+
+
+@register_kernel("broadcast_tensors")
+def _broadcast_tensors(xs):
+    return tuple(torch.broadcast_tensors(*_list(xs)))
+
+
+@register_kernel("column_stack")
+def _column_stack(xs):
+    return torch.column_stack(_list(xs))
+
+
+@register_kernel("hstack")
+def _hstack(xs):
+    return torch.hstack(_list(xs))
+
+
+@register_kernel("vstack")
+def _vstack(xs):
+    return torch.vstack(_list(xs))
+
+
+@register_kernel("row_stack")
+def _row_stack(xs):
+    return torch.vstack(_list(xs))
+
+
+@register_kernel("dstack")
+def _dstack(xs):
+    return torch.dstack(_list(xs))
+
+
+@register_kernel("atleast_1d")
+def _atleast_1d(x):
+    return torch.atleast_1d(x)
+
+
+@register_kernel("atleast_2d")
+def _atleast_2d(x):
+    return torch.atleast_2d(x)
+
+
+@register_kernel("atleast_3d")
+def _atleast_3d(x):
+    return torch.atleast_3d(x)
+
+
+@register_kernel("diag_embed")
+def _diag_embed(x, offset=0, dim1=-2, dim2=-1):
+    """The last dim of ``x`` on the ``offset`` diagonal of two new dims,
+    which land at ``dim1`` (rows) and ``dim2`` (columns) of the output."""
+    n, off = x.shape[-1], int(offset)
+    size = n + abs(off)
+    out = x.new_zeros(x.shape[:-1] + (size, size))
+    ar = torch.arange(n, device=x.device)
+    out[..., ar + max(-off, 0), ar + max(off, 0)] = x
+    nd = out.dim()
+    d1, d2 = int(dim1) % nd, int(dim2) % nd
+    if (d1, d2) != (nd - 2, nd - 1):
+        out = out.movedim((nd - 2, nd - 1), (d1, d2))
+    return out
+
+
+@register_kernel("gather_tree")
+def _gather_tree(ids, parents):
+    """Beam-search backtrace: ids / parents ``[T, B, beam]`` -> the full
+    sequences re-threaded through the parent pointers (at step t the beam
+    emits ``ids[t][beams]``, then descends through ``parents[t][beams]``)."""
+    T = ids.shape[0]
+    beams = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1:]).to(parents.dtype)
+    toks = [None] * T
+    for t in range(T - 1, -1, -1):
+        idx = beams.long()
+        toks[t] = torch.gather(ids[t], -1, idx)
+        beams = torch.gather(parents[t], -1, idx)
+    return torch.stack(toks)

@@ -4,6 +4,15 @@ for an op the reference differentiates (``backward: auto``), the VJP of
 every floating input under a random cotangent, as ``tests/op_test.py``
 ``check_output`` / ``check_grad`` do for the reference alone.
 
+Complex gradients: a complex output gets a complex cotangent ``ct``
+(real and imaginary parts drawn from the seed). The reference's loss is
+``sum(out * ct)`` (complex), whose VJP at 1 is JAX's ``vjp(ct)``; the
+port's is ``Re(sum(out * ct))``, real, as torch's autograd needs. For a
+real input both give the same gradient. For a complex input JAX's VJP is
+the conjugate of torch's ``.grad`` (JAX transposes the bilinear pairing,
+torch returns the conjugate Wirtinger derivative), so the port's gradient
+is conjugated before the comparison.
+
 Inputs: numpy arrays become tensors (a list of arrays a list of
 tensors: ``concat``, ``meshgrid``, ``einsum_impl``); anything else passes
 as it is. Outputs are compared by value: the port's integer outputs are
@@ -22,7 +31,37 @@ from paddle_tpu_torch.ops import dispatcher as tdisp
 
 
 def _floating(a) -> bool:
-    return isinstance(a, np.ndarray) and np.issubdtype(a.dtype, np.floating)
+    """A differentiable input: floating or complex."""
+    return isinstance(a, np.ndarray) and (
+        np.issubdtype(a.dtype, np.floating)
+        or np.issubdtype(a.dtype, np.complexfloating))
+
+
+def _cotangent(rng, shape, dtype):
+    """A cotangent for an output of ``dtype``: complex for a complex
+    output, else real; None for an integer or bool output."""
+    if np.issubdtype(dtype, np.complexfloating):
+        return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(
+            np.complex64)
+    if np.issubdtype(dtype, np.floating):
+        return np.asarray(rng.randn(*shape), np.float32)
+    return None
+
+
+def _port_loss(p, ct):
+    """The port's real loss for one output: ``Re(sum(p * ct))``."""
+    prod = (p * torch.from_numpy(ct)).sum()
+    return prod.real if prod.is_complex() else prod
+
+
+def _port_grad(t) -> np.ndarray:
+    """The port's gradient of ``t`` in JAX's convention (conjugated for a
+    complex input)."""
+    g = t.grad
+    if g is None:
+        return np.zeros(t.shape, np.complex64 if t.is_complex()
+                        else np.float32)
+    return (g.conj() if g.is_complex() else g).resolve_conj().numpy()
 
 
 def _arrays(v):
@@ -56,7 +95,7 @@ def _ref_np(t) -> np.ndarray:
 
 def _port_np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
-        t = t.detach()
+        t = t.detach().resolve_conj()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(t)
 
@@ -123,13 +162,13 @@ def check_fn(name, args, kwargs, ref_fn, *, atol, rtol=1e-6, grad=True,
     assert_values(_port_np(p_out), np.asarray(want), atol, rtol, name)
     if not floats:
         return p_out
-    ct = np.asarray(np.random.RandomState(seed + 1000).randn(
-        *np.shape(want)), np.float32)
-    (p_out * torch.from_numpy(ct)).sum().backward()
+    ct = _cotangent(np.random.RandomState(seed + 1000), np.shape(want),
+                    np.asarray(want).dtype)
+    _port_loss(p_out, ct).backward()
     grads = vjp(jnp.asarray(ct))
     ports = [t for t in p_ins if t.requires_grad]
     for i, (g, t) in enumerate(zip(grads, ports)):
-        assert_values(t.grad.numpy(), np.asarray(g), atol, rtol,
+        assert_values(_port_grad(t), np.asarray(g), atol, rtol,
                       f"{name} grad of input {i}")
     return p_out
 
@@ -162,11 +201,11 @@ def check_op(name, args, kwargs=None, *, atol, rtol=1e-6, grad=None,
     r_loss, p_loss = None, None
     for r, p in zip(r_leaves, p_leaves):
         want = _ref_np(r)
-        if not np.issubdtype(want.dtype, np.floating):
+        ct = _cotangent(rng, want.shape, want.dtype)
+        if ct is None:
             continue
-        ct = np.asarray(rng.randn(*want.shape), np.float32)
         rl = (r * Tensor(ct)).sum()
-        pl = (p * torch.from_numpy(ct)).sum()
+        pl = _port_loss(p, ct)
         r_loss = rl if r_loss is None else r_loss + rl
         p_loss = pl if p_loss is None else p_loss + pl
     if r_loss is None:
@@ -178,9 +217,8 @@ def check_op(name, args, kwargs=None, *, atol, rtol=1e-6, grad=None,
     for i, (rt, pt) in enumerate(zip(r_ins, p_ins)):
         if not pt.requires_grad:
             continue
-        want = np.zeros(pt.shape, np.float32) if rt.grad is None \
+        got = _port_grad(pt)
+        want = np.zeros(pt.shape, got.dtype) if rt.grad is None \
             else _ref_np(rt.grad)
-        got = np.zeros(pt.shape, np.float32) if pt.grad is None \
-            else pt.grad.numpy()
         assert_values(got, want, ga, rtol, f"{name} grad of input {i}")
     return p_out

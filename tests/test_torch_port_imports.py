@@ -53,10 +53,12 @@ def test_scan_sees_the_whole_port():
             "mobilenet.py", "googlenet.py", "densenet.py",
             "shufflenetv2.py", "squeezenet.py", "vgg.py", "alexnet.py",
             "lenet.py", "metrics.py", "tracing.py", "flight_recorder.py",
-            "exporter.py", "extra_misc.py", "generation.py"} <= names
+            "exporter.py", "extra_misc.py", "generation.py",
+            "linalg_fft.py", "extra_math.py", "graph.py", "linalg.py",
+            "fft.py", "signal.py", "features.py", "backends.py"} <= names
     for pkg in ("sparse", "io", "hapi", "distributed", "nn", "metric",
                 "vision", "vision/models", "vision/transforms",
-                "observability"):
+                "observability", "audio", "text", "geometric"):
         assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
@@ -76,7 +78,14 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.ops.kernels.vision_io, "
             "paddle_tpu_torch.observability, "
             "paddle_tpu_torch.observability.exporter, "
-            "paddle_tpu_torch.ops.kernels.extra_misc; "
+            "paddle_tpu_torch.ops.kernels.extra_misc, "
+            "paddle_tpu_torch.ops.kernels.linalg_fft, "
+            "paddle_tpu_torch.ops.kernels.extra_math, "
+            "paddle_tpu_torch.ops.kernels.graph, paddle_tpu_torch.linalg, "
+            "paddle_tpu_torch.fft, paddle_tpu_torch.signal, "
+            "paddle_tpu_torch.audio, paddle_tpu_torch.audio.datasets, "
+            "paddle_tpu_torch.text, paddle_tpu_torch.text.datasets, "
+            "paddle_tpu_torch.geometric; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")

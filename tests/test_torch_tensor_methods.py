@@ -84,7 +84,8 @@ SKIP_METHOD_CHECK = {
     "bernoulli", "poisson", "shuffle", "shuffle_batch", "standard_gamma",
     "multinomial", "normal_like", "uniform_like", "exponential",
     "cauchy_like", "geometric_like", "rrelu", "dropout", "pca_lowrank",
-    "gumbel_softmax"}      # random: the same draw would need a reseed
+    "gumbel_softmax",      # random: the same draw would need a reseed
+    "set_value"}           # Tensor's own (Paddle's: assign a value)
 
 
 def _input(name):
@@ -103,8 +104,11 @@ def _input(name):
 def test_method_form_equals_function_form(name):
     P.set_device("cpu")
     x = P.to_tensor(_input(name))
+    # the fft and signal ops' function form lives in their namespaces
+    fn = tdisp.public_op(name) if name in tdisp.NAMESPACED else \
+        getattr(P, name)
     try:
-        want = getattr(P, name)(x)
+        want = fn(x)
     except Exception as e:                    # the op refuses this input:
         with pytest.raises(type(e)):          # so must the method
             getattr(x, name)()
@@ -143,6 +147,9 @@ CASES = {
     "quantile_all": ("quantile", [X34], dict(q=0.4), TOL),
     "quantile_keepdim": ("quantile", [X34], dict(
         q=0.5, axis=0, keepdim=True, interpolation="nearest"), TOL),
+    # positions at .5 (q (n - 1) = 0.5, 1.5): JAX rounds them down
+    "quantile_nearest_half": ("quantile", [X34], dict(
+        q=[0.25, 0.75], axis=0, interpolation="nearest"), TOL),
     "kthvalue": ("kthvalue", [X34], dict(k=2, axis=1), TOL),
     "kthvalue_ties": ("kthvalue", [np.float32([[1, 3, 1, 2], [2, 2, 5,
                                                               2]])],

@@ -302,10 +302,11 @@ def test_op_matches_reference(case):
 
 
 def test_every_vision_op_has_a_case():
-    """Every op the port's ``extra_nn.py`` registers has a case here."""
+    """Every op the port's ``extra_nn.py`` registers has a case here
+    (``viterbi_decode`` has its cases in ``test_torch_text.py``)."""
     from paddle_tpu_torch.ops.kernels import extra_nn
     owned = {n for n, k in tdisp.KERNELS.items()
-             if k.__module__ == extra_nn.__name__}
+             if k.__module__ == extra_nn.__name__} - {"viterbi_decode"}
     assert len(owned) == 30
     assert owned - {v[0] for v in CASES.values()} == set()
 
