@@ -292,8 +292,9 @@ Phases (any failure raises and the script exits non-zero):
    1000 classes, 224 x 224, b 64, Momentum 0.9, lr 0.1, L2 1e-4: float32
    captured and eager, 2 + 10 steps each, bit for bit; O2 bf16 captured,
    finite and falling; MFU over 3 x 2 x 4.1 G multiply-adds an image; the
-   fused Momentum kernel over ResNet-50's parameters bit for bit its
-   plain version, timed beside its bound and ``torch._fused_sgd_``;
+   fused Momentum kernel over ResNet-50's parameters, fresh tensors and
+   the run's own padded bucket, bit for bit its plain version, timed
+   beside its bound and ``torch._fused_sgd_``;
 5k. ``vision_yolov3`` (PaddleDetection ``yolov3_darknet53_270e_coco``):
    ``yolov3_darknet53(num_classes=80)`` at 608 x 608, b 8, 1-50 gt boxes
    an image from the seed, Momentum 0.9, lr 0.001, L2 5e-4: 2 + 5 steps
@@ -352,6 +353,11 @@ Phases (any failure raises and the script exits non-zero):
 Every kernel time is the median of CUDA-event windows around one call,
 the L2 flushed before each and the card held busy while the host
 enqueues the call, so host time never counts as device time.
+
+Every phase runs through ``main``'s ``checked``: its seconds go to the
+report, and it fails when the fused optimizer built a chunk-table row
+whose pointers are not aligned to the kernel's vector accesses
+(``fused_optimizer.unaligned_rows``): a training path has none.
 
 Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
@@ -421,25 +427,36 @@ def card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-# device cycles (~0.2 ms) that the card spins before each timed call, so
-# the wrapper's host work (tens of us a call: the gang-decode lines print
-# theirs) is enqueued before the start event runs and the events bracket
-# device work only
+# device cycles (~0.2 ms) that the card spins at least before each timed
+# call, so the wrapper's host work is enqueued before the start event runs
+# and the events bracket device work only; a call whose host work takes
+# longer (the fused optimizer's checks over ResNet-50's 161 tensors)
+# spins 4e9 cycles a second of its warm-up call's host time, twice that
+# time at ~2 GHz, at most ~2 ms (a call that waits on the card itself
+# gains nothing from a longer hold)
 HOLD_CYCLES = 400_000
+HOLD_MAX_CYCLES = 4_000_000
+HOLDS = []        # every timed run's hold, cycles (the script's cost)
 
 
 def time_ms(torch, fn, iters: int = 10, flush=None) -> float:
     """Median CUDA-event time of ``fn()``; ``flush()`` (outside the timed
     window) evicts the L2 before each run, as a cold pool read would. The
-    card is held busy while the host enqueues the call, so a slow host
-    adds no idle gap to the window."""
+    card is held busy while the host enqueues the call (longer than the
+    warm-up call's host time), so a slow host adds no idle gap to the
+    window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    hold = min(HOLD_MAX_CYCLES, max(HOLD_CYCLES, int(
+        4e9 * (time.perf_counter() - t0))))
     torch.cuda.synchronize()
     times = []
+    HOLDS.extend([hold] * iters)
     for _ in range(iters):
         if flush is not None:
             flush()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -2904,6 +2921,16 @@ def fused_bucket_tensors(torch, g, dev="cuda"):
     return masters, grads, states, lows
 
 
+def fused_plan_facts(torch, name, cfg, cdtype, gdtype, rows):
+    """The kernel's launch geometry for a bucket of ``rows`` chunk-table
+    rows: blocks a row (``split_plan``) and resident blocks an SM."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+    return dict(rows=rows, split=fo.split_plan(rows, _build.sm_count(
+        torch.device("cuda"))), blocks_per_sm=fo.blocks_per_sm(
+            name, cfg, cdtype, gdtype))
+
+
 def fused_vs_plain(torch, kind, cfg, bucket, lr, wd, step):
     """``fused_bucket_kernel`` on ``bucket = (targets, grads, states,
     lows)``, in place, against ``fused_bucket_plain`` on copies, bit for
@@ -3028,17 +3055,21 @@ def phase_fused_optimizer(torch, seed, report, flush):
         A[0], g32, [s["m"] for s in A[2]], [s["v"] for s in A[2]], [],
         steps_t, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
         eps=1e-8, amsgrad=False, maximize=False), flush=flush)
+    rows = fo.table_rows(A[0])[0]
     del g32, A
     nbytes = 28 * n
     b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS_PER_S)
     res = dict(max_abs_err=0.0, bitwise_equal=True, params=n, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms, bytes=nbytes, checked_steps=checked)
+               library_ms=lib_ms, bytes=nbytes, checked_steps=checked,
+               **fused_plan_facts(torch, "adam", cfg, "float32", "bfloat16",
+                                  rows))
     log(f"fused_optimizer[adamw, {n / 1e6:.0f}M bf16 params, f32 masters]: "
         f"bitwise equal to plain over {res['checked_steps']}; ms {ms:.3f} "
         f"plain_ms {plain_ms:.2f} library_ms {lib_ms:.3f} "
         f"(torch._fused_adamw_, f32 grads, no write-back) bound_ms "
-        f"{b_ms:.3f} ({b_by})")
+        f"{b_ms:.3f} ({b_by}); rows {res['rows']} split {res['split']} "
+        f"blocks/SM {res['blocks_per_sm']}")
     report["kernels"]["fused_optimizer"] = {"bfloat16": res}
     return res
 
@@ -3130,6 +3161,7 @@ def phase_lamb_optimizer(torch, seed, report, flush):
         A[0], g32, [s["m"] for s in A[2]], [s["v"] for s in A[2]], [],
         steps_t, lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
         eps=1e-6, amsgrad=False, maximize=False), flush=flush)
+    rows = fo.table_rows(A[0])[0]
     del g32, A, scratch
     torch.cuda.empty_cache()
     # bytes per parameter, each input read once and each output written
@@ -3145,6 +3177,9 @@ def phase_lamb_optimizer(torch, seed, report, flush):
         res[kern] = dict(max_abs_err=0.0, bitwise_equal=True, ms=ms[kern],
                          plain_ms=plain[kern], bound_ms=bounds[kern][0],
                          bound_by=bounds[kern][1], library_ms=lib)
+    res.update(geometry={name: fused_plan_facts(
+                   torch, name, LAMB_CFG, "float32", "bfloat16", rows)
+                   for name in ("lamb_moments", "lamb_apply")})
     res.update(params=n, ratios_ms=ms["ratios"],
                ratios_bound_ms=bounds["ratios"][0], step_ms=ms["step"],
                step_bound_ms=bounds["step"][0],
@@ -3158,7 +3193,8 @@ def phase_lamb_optimizer(torch, seed, report, flush):
         f"{plain['apply']:.2f}; bound moments {bounds['moments'][0]:.3f} "
         f"ratios {bounds['ratios'][0]:.3f} apply {bounds['apply'][0]:.3f} "
         f"step {bounds['step'][0]:.3f} (bytes); library_ms {lib_ms:.3f} "
-        f"(torch._fused_adamw_, the nearest elementwise call)")
+        f"(torch._fused_adamw_, the nearest elementwise call); geometry "
+        f"{json.dumps(res['geometry'])}")
     report["kernels"]["fused_optimizer_lamb"] = res
     return res
 
@@ -6272,53 +6308,79 @@ def cifar_fit(torch, seed):
     return res
 
 
-def momentum_on(torch, model):
-    """The fused Momentum kernel over ``model``'s float32 parameters (one
-    bucket, L2 1e-4), bit for bit against the plain version over three
-    steps, timed beside the plain version, its bound and
-    ``torch._fused_sgd_`` (momentum, weight decay) over the same tensors."""
+def momentum_on(torch, train):
+    """The fused Momentum kernel over ResNet-50's float32 parameters (one
+    bucket, L2 1e-4) twice: over fresh tensors, one allocation each
+    (``fresh``), and over the run's own bucket (``own``): the model's
+    parameters with the optimizer's velocity views into its padded flat
+    buffer, as :func:`run_buckets_vs_plain` takes them. Each bit for bit
+    against the plain version over three steps, timed beside the plain
+    version, its bound and ``torch._fused_sgd_`` (momentum, weight decay)
+    over the same tensors, with its chunk table's scalar rows (``main``
+    fails the phase on any)."""
     from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
     cfg = {"momentum": 0.9, "nesterov": False}
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
     g = torch.Generator(device="cuda").manual_seed(7)
-    ps = [p.detach().clone() for p in model.parameters()]
-    grads = [torch.randn(p.shape, generator=g, device="cuda") * 1e-3
-             for p in ps]
-    states = [{"velocity": torch.zeros_like(p)} for p in ps]
-    bucket = (ps, grads, states, [None] * len(ps))
-    checked = fused_vs_plain(torch, "momentum", cfg, bucket, 0.1, 1e-4, 1)
-    n = sum(p.numel() for p in ps)
+    opt = train.optimizer
+    own = [p.detach() for p in opt._parameter_list]
+    if any(m is not None for m in opt._masters) or any(
+            s is None for s in opt._states):
+        raise AssertionError("momentum_on: the run's optimizer keeps "
+                             "masters or lacks state")
+    n = sum(p.numel() for p in own)
     one = torch.ones((), device="cuda")
     sv = fo.pack_scalars(lr=one * 0.1, step=one * 2, inv=one, coeff=one,
                          found=one * 0, wd=one * 1e-4, inv_bc1=one,
                          inv_bc2=one)
-    plan = fo.plan_buckets("momentum", cfg, [
-        (tuple(p.shape), "float32", "float32", None, 1e-4) for p in ps])
-    b = plan.buckets[0]
-    ms = time_ms(torch, lambda: fo.fused_bucket_kernel(
-        "momentum", cfg, *bucket, sv, b), flush=flush)
-    plain_ms = time_ms(torch, lambda: fo.fused_bucket_plain(
-        "momentum", cfg, *bucket, sv), iters=3, flush=flush)
-    bufs = [s["velocity"] for s in states]
-    try:
-        lib_ms = time_ms(torch, lambda: torch._fused_sgd_(
-            ps, grads, bufs, weight_decay=1e-4, momentum=0.9, lr=0.1,
-            dampening=0.0, nesterov=False, maximize=False,
-            is_first_step=False), flush=flush)
-    except (AttributeError, RuntimeError, TypeError) as e:
-        lib_ms, why = None, f"{type(e).__name__}: {e}"
-    else:
-        why = None
     nbytes = 20 * n                 # p, g, v read; p, v written
     b_ms, b_by = bound(nbytes, 6 * n, F32_FLOPS_PER_S)
-    res = dict(params=n, buckets=len(plan.buckets), bitwise_equal=True,
-               checked_steps=checked, ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-               library="torch._fused_sgd_", bytes=nbytes)
-    if why:
-        res["library_not_measured"] = why
-    del ps, grads, states, bucket, bufs, scratch
+    layouts = {
+        "fresh": ([p.clone() for p in own],
+                  [{"velocity": torch.zeros_like(p)} for p in own]),
+        "own": (own, opt._states)}
+    res = dict(params=n, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               library="torch._fused_sgd_",
+               **fused_plan_facts(torch, "momentum", cfg, "float32",
+                                  "float32", fo.table_rows(own)[0]))
+    for name, (ps, states) in layouts.items():
+        grads = [torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+                 for p in ps]
+        bucket = (ps, grads, states, [None] * len(ps))
+        before = fo.unaligned_rows
+        checked = fused_vs_plain(torch, "momentum", cfg, bucket, 0.1, 1e-4,
+                                 1)
+        plan = fo.plan_buckets("momentum", cfg, [
+            (tuple(p.shape), "float32", "float32", None, 1e-4) for p in ps])
+        b = plan.buckets[0]
+        ms = time_ms(torch, lambda: fo.fused_bucket_kernel(
+            "momentum", cfg, *bucket, sv, b), flush=flush)
+        plain_ms = time_ms(torch, lambda: fo.fused_bucket_plain(
+            "momentum", cfg, *bucket, sv), iters=3, flush=flush)
+        bufs = [s["velocity"] for s in states]
+        try:
+            lib_ms = time_ms(torch, lambda: torch._fused_sgd_(
+                ps, grads, bufs, weight_decay=1e-4, momentum=0.9, lr=0.1,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False), flush=flush)
+        except (AttributeError, RuntimeError, TypeError) as e:
+            lib_ms, why = None, f"{type(e).__name__}: {e}"
+        else:
+            why = None
+        row = dict(buckets=len(plan.buckets), bitwise_equal=True,
+                   checked_steps=checked, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_share=b_ms / ms,
+                   unaligned_rows=fo.unaligned_rows - before)
+        if why:
+            row["library_not_measured"] = why
+        res[name] = row
+        del grads, bucket, bufs
+    # the headline numbers: the run's own bucket, as training runs it
+    res.update({k: res["own"][k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bitwise_equal",
+                                           "checked_steps")})
+    del layouts, own, scratch
     return res
 
 
@@ -6400,7 +6462,7 @@ def phase_vision_resnet50(torch, seed, report):
                                     else F32_FLOPS_PER_S)
             runs[label] = run
             if label == "captured":
-                res["momentum_kernel"] = momentum_on(torch, train.model)
+                res["momentum_kernel"] = momentum_on(torch, train)
             del train
             free_card(torch)
             log(f"vision_resnet50 {label}: {json.dumps(run)}")
@@ -7817,56 +7879,75 @@ def main(argv=None) -> int:
             f"{row.get('spill_loads')} B spill loads, "
             f"{row['smem_bytes']} B shared memory")
 
-    kern = phase_kernels(torch, args.seed, report)
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+    report["unaligned_rows"], report["phase_s"] = {}, {}
+
+    def checked(tag, phase, *a):
+        """``phase(*a)``, timed, then the fused optimizer's scalar rows in
+        the chunk tables the phase built: a training path has none."""
+        before, t0 = fo.unaligned_rows, time.perf_counter()
+        out = phase(*a)
+        report["phase_s"][tag] = time.perf_counter() - t0
+        n = report["unaligned_rows"][tag] = fo.unaligned_rows - before
+        if n:
+            raise AssertionError(f"{tag}: {n} chunk-table rows of the fused "
+                                 f"optimizer are not aligned to its "
+                                 f"vector accesses")
+        return out
+
+    sd = (torch, args.seed, report)
+    kern = checked("kernels", phase_kernels, *sd)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = lambda: scratch.zero_()  # noqa: E731  (> 50 MB L2)
-    flash = phase_flash(torch, args.seed, report, flush)
-    varlen = phase_flash_varlen(torch, args.seed, report, flush)
-    fused = phase_fused_optimizer(torch, args.seed, report, flush)
-    lamb = phase_lamb_optimizer(torch, args.seed, report, flush)
-    gmm = phase_grouped_gemm(torch, args.seed, report, flush)
-    int4_gemm = phase_int4_gemm(torch, args.seed, report, flush)
-    bcsr = phase_bcsr(torch, args.seed, report, flush)
+    flash = checked("flash", phase_flash, *sd, flush)
+    varlen = checked("flash_varlen", phase_flash_varlen, *sd, flush)
+    fused = checked("fused_optimizer", phase_fused_optimizer, *sd, flush)
+    lamb = checked("lamb_optimizer", phase_lamb_optimizer, *sd, flush)
+    gmm = checked("grouped_gemm", phase_grouped_gemm, *sd, flush)
+    int4_gemm = checked("int4_gemm", phase_int4_gemm, *sd, flush)
+    bcsr = checked("bcsr", phase_bcsr, *sd, flush)
     del scratch
     torch.cuda.empty_cache()
-    main_res, outs_bf16 = phase_main(torch, args.seed, report)
+    main_res, outs_bf16 = checked("main", phase_main, *sd)
     torch.cuda.empty_cache()          # the serving model is gone
-    int4 = phase_int4_serve(torch, args.seed, report, outs_bf16)
-    train = phase_train(torch, args.seed, report)
+    int4 = checked("int4_serve", phase_int4_serve, *sd, outs_bf16)
+    train = checked("train", phase_train, *sd)
     torch.cuda.empty_cache()          # the Llama training model is gone
-    layers = phase_train_layers(torch, args.seed, report, train)
+    layers = checked("train_layers", phase_train_layers, *sd, train)
     free_card(torch)
-    eager_surface = phase_eager_surface(torch, args.seed, report)
-    train_amp = phase_train_amp(torch, args.seed, report)
-    edges = phase_capture(torch, args.seed, report)
+    eager_surface = checked("eager_surface", phase_eager_surface, *sd)
+    train_amp = checked("train_amp", phase_train_amp, *sd)
+    edges = checked("capture", phase_capture, *sd)
     free_card(torch)
-    phase_layer_net(torch, args.seed, report)
+    checked("layer_net", phase_layer_net, *sd)
     free_card(torch)
-    bert = phase_bert_squad(torch, args.seed, report)
+    bert = checked("bert_squad", phase_bert_squad, *sd)
     free_card(torch)
-    ocr = phase_ocr(torch, args.seed, report)
+    ocr = checked("ocr", phase_ocr, *sd)
     free_card(torch)
-    vision = {"cifar": phase_vision_cifar(torch, args.seed, report)}
+    vision = {"cifar": checked("vision_cifar", phase_vision_cifar, *sd)}
     free_card(torch)
-    vision["resnet50"] = phase_vision_resnet50(torch, args.seed, report)
+    vision["resnet50"] = checked("vision_resnet50", phase_vision_resnet50,
+                                 *sd)
     free_card(torch)
-    vision["yolov3"] = phase_vision_yolov3(torch, args.seed, report)
+    vision["yolov3"] = checked("vision_yolov3", phase_vision_yolov3, *sd)
     free_card(torch)
-    phase_vision_ops(torch, args.seed, report)
-    free_card(torch)
-    phase_audio_frontend(torch, args.seed, report)
-    free_card(torch)
-    phase_linalg(torch, args.seed, report)
-    free_card(torch)
-    phase_graph(torch, args.seed, report)
-    free_card(torch)
-    phase_text_viterbi(torch, args.seed, report)
-    free_card(torch)
-    phase_registry_tranche(torch, args.seed, report)
-    free_card(torch)
-    moe = phase_moe_train(torch, args.seed, report)
+    for tag, phase in (("vision_ops", phase_vision_ops),
+                       ("audio_frontend", phase_audio_frontend),
+                       ("linalg", phase_linalg), ("graph", phase_graph),
+                       ("text_viterbi", phase_text_viterbi),
+                       ("registry_tranche", phase_registry_tranche)):
+        checked(tag, phase, *sd)
+        free_card(torch)
+    moe = checked("moe_train", phase_moe_train, *sd)
     torch.cuda.empty_cache()          # the MoE model is gone
-    phase_routes(torch, args.seed, report)
+    checked("routes", phase_routes, *sd)
+    log(f"fused_optimizer unaligned_rows by phase: "
+        f"{json.dumps(report['unaligned_rows'])}")
+    report["holds"] = dict(runs=len(HOLDS), cycles=sum(HOLDS),
+                           at_least=sum(h == HOLD_CYCLES for h in HOLDS))
+    log(f"seconds by phase: {json.dumps(report['phase_s'])}; timed runs' "
+        f"holds: {json.dumps(report['holds'])}")
     report["capture"] = dict(
         serving={**main_res["capture_vs_eager"],
                  "int4": int4["capture_vs_eager"]},

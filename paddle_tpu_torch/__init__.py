@@ -74,7 +74,8 @@ _attach_tensor_methods()
 from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
                models, nn, observability, optimizer, sparse, vision)
 from . import fft, geometric, linalg, signal, text  # noqa: E402
-from . import audio  # noqa: E402
+from . import audio, framework  # noqa: E402
+from .framework import load, save  # noqa: E402
 from .jit import jit_step  # noqa: E402
 from .nn import LazyGuard, ParamAttr  # noqa: E402
 from .nn.layer_base import Parameter  # noqa: E402
@@ -105,6 +106,7 @@ __all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
            "observability",
            "get_cuda_rng_state", "set_cuda_rng_state", "default_generator",
            "fft", "signal", "linalg", "audio", "text", "geometric",
+           "framework", "save", "load",
            *(n for n in _dispatcher.SCHEMA
              if n not in _dispatcher.NAMESPACED),
            *_dispatcher.INPLACE, *_TENSOR_API]

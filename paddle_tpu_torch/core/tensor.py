@@ -383,9 +383,15 @@ class Tensor(torch.Tensor):
                     "grad is not supported; use paddle.where / scatter")
         v = unwrap(value) if isinstance(value, torch.Tensor) else \
             torch.as_tensor(np.asarray(value))
+        from ..ops.kernels.creation import has_reversed_slice, set_at
+        idx = unwrap(idx)
         with torch.no_grad():
             t = _plain(self)
-            t[unwrap(idx)] = v.to(device=t.device, dtype=t.dtype)
+            v = v.to(device=t.device, dtype=t.dtype)
+            if has_reversed_slice(idx):
+                t.copy_(set_at(t, idx, v))
+            else:
+                t[idx] = v
 
     def __iter__(self):
         for i in range(len(self)):

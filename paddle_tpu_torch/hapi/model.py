@@ -507,15 +507,24 @@ class Model:
 
     # -- save / load --------------------------------------------------------------
     def save(self, path, training=True):
+        """``path.pdparams`` (and ``path.pdopt`` with the optimizer's
+        state) in the reference's format (``framework.save``)."""
+        from ..framework import save as fsave
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
-        torch.save(self.network.state_dict(), path + ".pdparams")
+        fsave(self.network.state_dict(), path + ".pdparams")
         if training and self._optimizer is not None:
-            torch.save(self._optimizer.state_dict(), path + ".pdopt")
+            fsave(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
-        params = torch.load(path + ".pdparams", map_location=self._device())
+        """Files of :meth:`save`, of the reference's ``Model.save`` or of
+        upstream Paddle (``framework.load``), onto the model's device."""
+        from ..framework import load as fload
+        dev = self._device()
+        params = {k: torch.from_numpy(np.asarray(
+            v, np.float32) if v.dtype.name == "bfloat16" else v).to(dev)
+            for k, v in fload(path + ".pdparams", return_numpy=True).items()}
         if skip_mismatch:
             own = self.network.state_dict()
             params = {k: v for k, v in params.items()
@@ -524,8 +533,8 @@ class Model:
         opt_path = path + ".pdopt"
         if not reset_optimizer and self._optimizer is not None \
                 and os.path.exists(opt_path):
-            self._optimizer.set_state_dict(
-                torch.load(opt_path, map_location=self._device()))
+            self._optimizer.set_state_dict(fload(opt_path,
+                                                 return_numpy=True))
         return self
 
     def parameters(self, *args, **kwargs):

@@ -56,6 +56,20 @@ class LaunchCounter:
         self.count = 0
 
 
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (cached)."""
+    import torch
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

@@ -169,11 +169,18 @@ def _consumed(i) -> int:
     return 1
 
 
+def has_reversed_slice(index) -> bool:
+    """Whether ``index`` holds a slice with a negative step, which torch's
+    indexing refuses."""
+    index = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(i, slice) and (i.step or 1) < 0 for i in index)
+
+
 def _reverse_slices(x, index):
     """A slice with a negative step (which torch's indexing lacks) applied
     as an ``index_select`` of its positions, and replaced by ``:``."""
     items = list(index)
-    if not any(isinstance(i, slice) and (i.step or 1) < 0 for i in items):
+    if not has_reversed_slice(index):
         return x, index
     n_ell = x.dim() - sum(_consumed(i) for i in items if i is not Ellipsis)
     dim = 0
@@ -192,3 +199,24 @@ def _getitem(x, index=None):
     x, index = _reverse_slices(x, index if isinstance(index, tuple)
                                else (index,))
     return x[index]
+
+
+def set_at(x, index, value):
+    """``x`` with ``x[index] = value``, a new tensor whose grads reach
+    ``x`` outside the written places and ``value`` (the reference's
+    ``x.at[index].set(value)``). A slice with a negative step, which
+    torch's indexing refuses, is written through the flat positions that
+    :func:`_getitem` reads there."""
+    index = _index(index, x.device)
+    index = index if isinstance(index, tuple) else (index,)
+    if not has_reversed_slice(index):
+        out = x.clone()
+        out[index] = value
+        return out
+    pos = _getitem(torch.arange(x.numel(), device=x.device).view(x.shape),
+                   index)
+    while value.dim() > pos.dim() and value.shape[0] == 1:
+        value = value[0]
+    return x.reshape(-1).index_put(
+        (pos.reshape(-1),), value.expand(pos.shape).reshape(-1)
+    ).view(x.shape)

@@ -33,7 +33,7 @@ import torch
 
 from ...core.device import dtype_of, layer_device
 from ..dispatcher import get_op, inplace_apply, register_kernel
-from .creation import _scalar
+from .creation import _scalar, set_at
 from .manipulation import _not_captured
 from .math_ext import _list
 
@@ -308,9 +308,7 @@ def _set_value(x, value=None, starts=(), ends=(), steps=(), axes=(),
         idx[int(a)] = slice(int(s), int(e), int(st))
     val = torch.zeros((), dtype=x.dtype, device=x.device) if value is None \
         else torch.as_tensor(value, device=x.device).to(x.dtype)
-    out = x.clone()
-    out[tuple(idx)] = val
-    return out
+    return set_at(x, tuple(idx), val)
 
 
 @register_kernel("einsum")

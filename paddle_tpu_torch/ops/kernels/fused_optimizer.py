@@ -35,6 +35,17 @@ one addition is its scratch: one buffer per bucket in the compute dtype,
 kept with the plan (4 B per parameter over float32 masters), and one
 float32 ratio per parameter.
 
+How it fills the card (``csrc/fused_optimizer.cu`` has the design): each
+thread moves 4 elements an access and keeps two accesses of every stream
+in flight; the grid is (rows, ``split``), each chunk-table row cut into
+``split`` equal parts (:func:`split_plan`: enough blocks for
+``BLOCKS_PER_SM`` an SM, so a mid-sized bucket such as ResNet-50's 508
+rows fills the card, a large one keeps one block a row). A row whose
+pointers are not all aligned to one access runs element by element in the
+same kernel; :func:`chunk_rows` counts such rows in ``unaligned_rows``
+(the optimizer's state views start on ``STATE_ALIGN``-byte boundaries, so
+a training bucket has none).
+
 Bitwise contract: the kernel rounds each operation separately, in the
 order of :func:`rule` (:func:`lamb_moments`, :func:`lamb_apply`), so at
 float32 it equals the plain version (the same rule in torch ops) bit for
@@ -80,6 +91,12 @@ PASSES = {"sgd": (0, launches), "momentum": (1, launches),       # kernel
 DTYPES = ("float32", "bfloat16")               # compute and grad dtypes
 CHUNK = 1 << 16                                # elements per table row
 ROW = 8                                        # int64 words per table row
+VEC = 4                                        # elements a kernel access
+SWEEP = 256 * VEC                              # elements a block step
+BLOCKS_PER_SM = 32                             # the split plan's target
+# the optimizer's state and master views start on this many bytes, so
+# every row of a training bucket takes the kernel's vector path
+STATE_ALIGN = 64
 # Lamb's tr_div segments start on 512-byte boundaries, as a new tensor
 # does: torch's reductions pick their vector loads by alignment, so the
 # norm of a segment then equals the per-param route's norm bit for bit
@@ -319,10 +336,31 @@ def fused_bucket_plain(kind: str, cfg: Dict, targets, grads, states, lows,
 
 def _bind(lib) -> None:
     fn = lib.ptt_fused_optimizer
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.ptt_fused_optimizer_blocks_per_sm
+    occ.argtypes = [ctypes.c_int] * 4
+    occ.restype = ctypes.c_int
+
+
+def split_plan(rows: int, sms: int) -> int:
+    """Blocks per chunk-table row: enough for ``BLOCKS_PER_SM`` blocks
+    on each of ``sms`` SMs over ``rows`` rows, at most one per
+    ``SWEEP`` elements of a full row."""
+    want = -(-sms * BLOCKS_PER_SM // max(rows, 1))
+    return max(1, min(CHUNK // SWEEP, want))
+
+
+def blocks_per_sm(name: str, cfg: Dict, cdtype: str, gdtype: str) -> int:
+    """Resident blocks an SM holds for the kernel pass ``name`` at these
+    dtypes (the CUDA occupancy calculator, on the current device)."""
+    lib = _build.load("fused_optimizer", _bind)
+    flag = cfg.get("nesterov" if name == "momentum" else "decoupled", False)
+    return lib.ptt_fused_optimizer_blocks_per_sm(
+        PASSES[name][0], int(bool(flag)), _build.DTYPE_CODES[cdtype],
+        _build.DTYPE_CODES[gdtype])
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -378,13 +416,29 @@ def lamb_scratch(targets, bucket: Optional[Bucket] = None):
     return scratch
 
 
+# rows whose pointers are not all aligned to one kernel access (they run
+# element by element), counted over every chunk table built
+unaligned_rows = 0
+
+
+def misaligned(rows: np.ndarray, csize: int, gsize: int) -> np.ndarray:
+    """Per chunk-table row, whether a tensor address in it (param or
+    master, grad, bf16 write-back, states, ``tr_div``) is not aligned to
+    ``VEC`` elements of its dtype (``csize`` / ``gsize`` bytes for the
+    compute and grad dtypes): the kernel's scalar rows."""
+    size = np.array([csize, gsize, 2, csize, csize, csize], np.int64)
+    return ((rows[:, :6] % (VEC * size)) != 0).any(axis=1)
+
+
 def chunk_rows(kind, targets, grads, states, lows, scratch=None
                ) -> np.ndarray:
     """The kernel's chunk table on the host, int64 ``[n, ROW]``: per run of
     at most ``CHUNK`` elements of one parameter, the addresses of its
     param (or master), grad, bf16 write-back (0 if none), two state slots
     (0 if unused), Lamb's ``tr_div`` and the parameter's trust ratio (0
-    without ``scratch``), and its element count."""
+    without ``scratch``), and its element count. Adds the rows that
+    :func:`misaligned` finds to ``unaligned_rows``."""
+    global unaligned_rows
     keys = STATE_KEYS[kind]
     trs, ratios = scratch if scratch is not None \
         else ([None] * len(targets), None)
@@ -403,7 +457,12 @@ def chunk_rows(kind, targets, grads, states, lows, scratch=None
         rows.append(np.stack([at(p), at(g), at(low), at(slots[0]),
                               at(slots[1]), at(tr), ratio,
                               np.minimum(CHUNK, p.numel() - start)], axis=1))
-    return np.concatenate(rows) if rows else np.zeros((0, ROW), np.int64)
+    if not rows:
+        return np.zeros((0, ROW), np.int64)
+    rows = np.concatenate(rows)
+    unaligned_rows += int(misaligned(rows, targets[0].element_size(),
+                                     grads[0].element_size()).sum())
+    return rows
 
 
 def _chunk_table(bucket: Optional[Bucket], kind, targets, grads, states,
@@ -541,7 +600,8 @@ def launch_pass(name: str, kind: str, cfg: Dict, targets, grads, states,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ptt_fused_optimizer(
-            table.data_ptr(), nchunks, svec.data_ptr(), code,
+            table.data_ptr(), nchunks,
+            split_plan(nchunks, _build.sm_count(dev)), svec.data_ptr(), code,
             _build.DTYPE_CODES[_dtype_name(targets[0])],
             _build.DTYPE_CODES[_dtype_name(grads[0])],
             int(bool(cfg.get("decoupled", False))),

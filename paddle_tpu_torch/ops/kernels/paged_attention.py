@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._build import sm_count
 from .ragged_paged_attention import (ROWS_PER_TILE, _dtype_name,
                                      check_pools, check_tensors,
                                      ragged_paged_attention_plain)
@@ -175,18 +176,6 @@ def _bind(lib) -> None:
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-
-
-_sm_counts = {}
-
-
-def sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens, k_scale,

@@ -71,6 +71,7 @@ it (an accumulation window's); other grads it frees, as eagerly.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -297,7 +298,10 @@ class Optimizer:
     def _create_state(self, idxs: List[int]) -> None:
         """Masters and state of the parameters that have none yet: one
         flat buffer per (device, compute dtype) and slot, per-parameter
-        views into it, filled with the slot's initial value."""
+        views into it, filled with the slot's initial value. Each view
+        starts on a ``fok.STATE_ALIGN``-byte boundary, so the fused
+        kernel reads and writes every row of a bucket in whole vector
+        accesses."""
         todo = [i for i in idxs if self._states[i] is None]
         if not todo:
             return
@@ -312,14 +316,13 @@ class Optimizer:
 
         def views(ids, dtype, device, fill=0.0, lead=()):
             n_lead = math.prod(lead)
-            flat = torch.full((n_lead * sum(params[i].numel() for i in ids),),
-                              fill, dtype=dtype, device=device)
-            out, off = [], 0
-            for i in ids:
-                n = n_lead * params[i].numel()
-                out.append(flat[off:off + n].view(*lead, *params[i].shape))
-                off += n
-            return out
+            step = fok.STATE_ALIGN // dtype.itemsize
+            sizes = [n_lead * params[i].numel() for i in ids]
+            offs = list(itertools.accumulate(
+                (-(-n // step) * step for n in sizes), initial=0))
+            flat = torch.full((offs[-1],), fill, dtype=dtype, device=device)
+            return [flat[o:o + n].view(*lead, *params[i].shape)
+                    for i, o, n in zip(ids, offs, sizes)]
 
         for (dev, cdt), ids in groups.items():
             masters = [i for i in ids if params[i].dtype != cdt]

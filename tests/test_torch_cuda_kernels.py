@@ -659,49 +659,93 @@ def test_varlen_op_raises_for_cuda_cases_the_kernels_lack(dev, d, dtype):
 
 FUSED_RULES = {
     "sgd": ("sgd", {}),
-    "momentum": ("momentum", {"momentum": 0.9, "nesterov": True}),
+    "momentum": ("momentum", {"momentum": 0.9, "nesterov": False}),
+    "nesterov": ("momentum", {"momentum": 0.9, "nesterov": True}),
     "adam": ("adam", {"b1": 0.9, "b2": 0.999, "eps": 1e-8,
                       "decoupled": False}),
     "adamw": ("adam", {"b1": 0.9, "b2": 0.95, "eps": 1e-8,
                        "decoupled": True}),
+    "lamb": ("lamb", {"b1": 0.9, "b2": 0.999, "eps": 1e-6}),
 }
+# (compute dtype, grad dtype, bf16 write-back from a float32 master)
+FUSED_DTYPES = {"f32": (torch.float32, torch.float32, False),
+                "f32_bf16grad": (torch.float32, torch.bfloat16, False),
+                "bf16": (torch.bfloat16, torch.bfloat16, False),
+                "bf16_f32grad": (torch.bfloat16, torch.float32, False),
+                "bf16_master": (torch.float32, torch.bfloat16, True)}
+# element counts: not multiples of 4 or 8, around a block's sweep (1024
+# elements) and a split part, at and around a chunk-table row (64Ki),
+# several rows
+FUSED_SIZES = [1, 3, 5, 7, 1023, 1025, 4097, 24_001, fo.CHUNK - 1, fo.CHUNK,
+               fo.CHUNK + 5, 3 * fo.CHUNK + 3]
+# where masters and moments sit: their own allocations under the split
+# plan or a forced split of 3 (part edges inside rows); views at 1, 2, 3
+# elements into a flat buffer, which take the kernel's scalar path
+FUSED_PLACES = {"aligned": (0, None), "split3": (0, 3), "offset1": (1, None),
+                "offset2": (2, None), "offset3": (3, None)}
 
 
-@pytest.mark.parametrize("layout", ["f32", "bf16_master"])
+def _placed(x, shift):
+    """A copy of ``x`` ``shift`` elements into a flat buffer of its own."""
+    flat = torch.zeros(x.numel() + shift + 8, dtype=x.dtype, device=x.device)
+    view = flat[shift:shift + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _fused_bucket(dev, g, kind, cdt, gdt, master, shift):
+    def placed(x):
+        return _placed(x, shift)
+
+    ts, gs, ss, lows = [], [], [], []
+    for n in FUSED_SIZES:
+        w = torch.randn(n, generator=g, device=dev) * 0.1
+        low = w.bfloat16() if master else None
+        ts.append(placed(low.float() if master else w.to(cdt)))
+        gs.append((torch.randn(n, generator=g, device=dev) * 64).to(gdt))
+        ss.append({key: placed((torch.rand(n, generator=g, device=dev)
+                                * 0.1).to(cdt))
+                   for key in fo.STATE_KEYS[kind]})
+        lows.append(low)
+    if kind == "lamb":
+        ts[-2].zero_()                # a zero parameter: trust ratio 1
+    return ts, gs, ss, lows
+
+
+@pytest.mark.parametrize("place", sorted(FUSED_PLACES))
+@pytest.mark.parametrize("dtypes", sorted(FUSED_DTYPES))
 @pytest.mark.parametrize("found", [0.0, 1.0])
 @pytest.mark.parametrize("rule", sorted(FUSED_RULES))
-def test_fused_optimizer_kernel_bitwise(dev, rule, found, layout):
+def test_fused_optimizer_kernel_bitwise(dev, rule, found, dtypes, place,
+                                        monkeypatch):
     kind, cfg = FUSED_RULES[rule]
-    g = torch.Generator(device=dev).manual_seed(len(rule))
-    shapes = [(300, 70), (fo.CHUNK + 5,), (3,)]
-
-    def bucket():
-        master = layout == "bf16_master"
-        ts, gs, ss, lows = [], [], [], []
-        for shp in shapes:
-            w = torch.randn(shp, generator=g, device=dev) * 0.1
-            low = w.bfloat16() if master else None
-            ts.append(low.float() if master else w)
-            gs.append((torch.randn(shp, generator=g, device=dev)
-                       * 64).to(torch.bfloat16 if master else torch.float32))
-            ss.append({key: torch.rand(shp, generator=g, device=dev) * 0.1
-                       for key in fo.STATE_KEYS[kind]})
-            lows.append(low)
-        return ts, gs, ss, lows
-
-    a = bucket()
-    b = [[t.clone() for t in a[0]], [t.clone() for t in a[1]],
-         [{k: t.clone() for k, t in s.items()} for s in a[2]],
+    cdt, gdt, master = FUSED_DTYPES[dtypes]
+    shift, split = FUSED_PLACES[place]
+    if split is not None:
+        monkeypatch.setattr(fo, "split_plan", lambda rows, sms: split)
+    g = torch.Generator(device=dev).manual_seed(len(rule) + 7 * shift)
+    a = _fused_bucket(dev, g, kind, cdt, gdt, master, shift)
+    # the plain version's copies sit where the kernel's inputs sit: torch's
+    # reductions (Lamb's norms) pick their loads by alignment
+    b = [[_placed(t, shift) for t in a[0]], [t.clone() for t in a[1]],
+         [{k: _placed(t, shift) for k, t in s.items()} for s in a[2]],
          [None if t is None else t.clone() for t in a[3]]]
+    orig = [t.clone() for t in a[0]]
     one = torch.ones((), device=dev)
+    bc1, bc2 = fo.bias_inv(0.9, 0.999, one * 3)
     svec = fo.pack_scalars(lr=one * 1e-3, step=one * 3, inv=one / 64,
                            coeff=one * 0.75, found=one * found,
-                           wd=one * 0.01, inv_bc1=one * 3.69,
-                           inv_bc2=one * 1.0003)
-    before = fo.launches.count
+                           wd=one * 0.01, inv_bc1=bc1, inv_bc2=bc2)
+    counters = (fo.launches, fo.launches_lamb_moments, fo.launches_lamb_apply)
+    before = [c.count for c in counters]
+    unaligned = fo.unaligned_rows
     fo.fused_bucket_kernel(kind, cfg, *a, svec)
     torch.cuda.synchronize()
-    assert fo.launches.count == before + 1
+    passes = (0, 1, 1) if kind == "lamb" else (1, 0, 0)
+    assert [c.count - n for c, n in zip(counters, before)] == list(passes)
+    # every row of each pass's table (no bucket: one table a pass)
+    rows = sum(-(-n // fo.CHUNK) for n in FUSED_SIZES) * sum(passes)
+    assert fo.unaligned_rows - unaligned == (rows if shift else 0)
     fo.fused_bucket_plain(kind, cfg, *b, svec)
     for x, y in zip(a[0] + a[3], b[0] + b[3]):
         if x is not None:
@@ -709,6 +753,9 @@ def test_fused_optimizer_kernel_bitwise(dev, rule, found, layout):
     for sx, sy in zip(a[2], b[2]):
         for key in sx:
             assert torch.equal(sx[key], sy[key])
+    # found = 1 keeps every param bitwise; a plain step moves some
+    moved = [not torch.equal(x, y) for x, y in zip(a[0], orig)]
+    assert not any(moved) if found else any(moved)
 
 
 def test_fused_optimizer_found_keeps_inputs_bitwise(dev):

@@ -353,3 +353,124 @@ def test_chunk_table_covers_every_element_once():
     assert rows[3, 2] == 0 and (rows[:, 4] == 0).all()
     assert (rows[:, 5:7] == 0).all()
     assert rows[3, 3] == states[1]["velocity"].data_ptr()
+
+
+# -- the kernel's host side: split plan, alignment, padded state views -------
+
+@pytest.mark.parametrize("rows,sms,want", [
+    (508, 132, 9),        # ResNet-50's bucket: 9 blocks a row fill the card
+    (11340, 132, 1),      # AdamW over 743 M params: one block a row
+    (42700, 132, 1),      # the 8-layer Llama bucket
+    (1, 132, 64),         # capped at one block a sweep of a full row
+    (0, 132, 64),
+    (4224, 132, 1),
+    (4225, 132, 1),
+    (2112, 132, 2),
+])
+def test_split_plan(rows, sms, want):
+    s = tfok.split_plan(rows, sms)
+    assert s == want
+    # BLOCKS_PER_SM blocks an SM, unless one a row does or the cap binds
+    assert rows * s >= sms * tfok.BLOCKS_PER_SM or s == tfok.CHUNK // \
+        tfok.SWEEP
+
+
+def _views_at(n, dtype, shift):
+    """A tensor of ``n`` elements ``shift`` elements into a flat buffer
+    (torch's allocations start on 64-byte boundaries)."""
+    flat = torch.zeros(n + shift + 16, dtype=dtype)
+    assert flat.data_ptr() % 64 == 0
+    return flat[shift:shift + n]
+
+
+@pytest.mark.parametrize("dtype,shift,unaligned", [
+    (torch.float32, 0, False), (torch.float32, 1, True),
+    (torch.float32, 2, True), (torch.float32, 3, True),
+    (torch.float32, 4, False), (torch.bfloat16, 2, True),
+    (torch.bfloat16, 4, False), (torch.bfloat16, 3, True)])
+def test_unaligned_rows_counts_misaligned_state_views(dtype, shift,
+                                                      unaligned):
+    # two parameters, the first of two rows; only the state views move
+    sizes = [tfok.CHUNK + 9, 255]
+    ts = [torch.zeros(n, dtype=dtype) for n in sizes]
+    gs = [torch.zeros(n, dtype=dtype) for n in sizes]
+    states = [{"m": _views_at(n, dtype, shift),
+               "v": _views_at(n, dtype, 0)} for n in sizes]
+    before = tfok.unaligned_rows
+    rows = tfok.chunk_rows("adam", ts, gs, states, [None, None])
+    assert len(rows) == 3
+    assert tfok.unaligned_rows - before == (3 if unaligned else 0)
+    mask = tfok.misaligned(rows, ts[0].element_size(), gs[0].element_size())
+    assert mask.tolist() == [unaligned] * 3
+
+
+def test_unaligned_rows_checks_each_stream_by_its_dtype():
+    # a bf16 grad and write-back at 4-element offsets are aligned (8
+    # bytes an access), a float32 master at 2 elements is not
+    n = 300
+    master = _views_at(n, torch.float32, 0)
+    grad = _views_at(n, torch.bfloat16, 4)
+    low = _views_at(n, torch.bfloat16, 4)
+    st = {"velocity": _views_at(n, torch.float32, 0)}
+    rows = tfok.chunk_rows("momentum", [master], [grad], [st], [low])
+    assert not tfok.misaligned(rows, 4, 2).any()
+    st = {"velocity": _views_at(n, torch.float32, 2)}
+    rows = tfok.chunk_rows("momentum", [master], [grad], [st], [low])
+    assert tfok.misaligned(rows, 4, 2).all()
+    grad = _views_at(n, torch.bfloat16, 1)
+    rows = tfok.chunk_rows("sgd", [master], [grad], [{}], [low])
+    assert tfok.misaligned(rows, 4, 2).all()
+
+
+# odd sizes (YOLOv3's 255-channel head bias, a 3-element bias) put the
+# views after them at unaligned offsets unless padded
+ODD_SHAPES = [(255,), (3,), (7, 9), (64,), (5,)]
+
+
+@pytest.mark.parametrize("name,bf16", [("momentum", False), ("adamw", False),
+                                       ("adamw", True), ("lamb", True)])
+def test_state_views_are_padded_and_aligned(name, bf16):
+    rng = np.random.RandomState(3)
+    init = [(rng.randn(*s) * 0.1).astype(np.float32) for s in ODD_SHAPES]
+    dt = torch.bfloat16 if bf16 else torch.float32
+    params = [torch.nn.Parameter(torch.from_numpy(x).to(dt)) for x in init]
+    cls = {"momentum": TO.Momentum, "adamw": TO.AdamW, "lamb": TO.Lamb}[name]
+    opt = cls(learning_rate=0.01, parameters=params,
+              **({"multi_precision": True} if bf16 else {}))
+    for p in params:
+        p.grad = torch.from_numpy(rng.randn(*p.shape).astype(
+            np.float32)).to(dt)
+    opt.step()
+    views = [m for m in opt._masters if m is not None] + [
+        t for s in opt._states for t in s.values()]
+    assert views and all(v.data_ptr() % tfok.STATE_ALIGN == 0 for v in views)
+    # one flat buffer a slot (and one for the masters), views in order
+    for key in opt._states[0]:
+        ts = [s[key] for s in opt._states]
+        assert len({t.untyped_storage().data_ptr() for t in ts}) == 1
+        offs = [t.storage_offset() for t in ts]
+        assert offs == sorted(offs)
+        assert all(tuple(t.shape) == tuple(p.shape)
+                   for t, p in zip(ts, params))
+    # the bucket's chunk table has no scalar row
+    targets = [m if m is not None else p.detach()
+               for m, p in zip(opt._masters, params)]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    lows = [p.detach() if m is not None else None
+            for m, p in zip(opt._masters, params)]
+    kind = {"momentum": "momentum", "adamw": "adam", "lamb": "lamb"}[name]
+    rows = tfok.chunk_rows(kind, targets, grads, opt._states, lows)
+    assert not tfok.misaligned(rows, targets[0].element_size(),
+                               grads[0].element_size()).any()
+    # state_dict: one copy a parameter in its own shape, round trip exact
+    sd = opt.state_dict()
+    assert [tuple(s[k].shape) for s in sd["states"] for k in s] == \
+        [tuple(p.shape) for p in params for _ in opt._states[0]]
+    opt2 = cls(learning_rate=0.01, parameters=params,
+               **({"multi_precision": True} if bf16 else {}))
+    opt2.set_state_dict(sd)
+    for a, b in zip(opt._states, opt2._states):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+            assert b[k].data_ptr() % tfok.STATE_ALIGN == 0

@@ -170,6 +170,16 @@ def _cases():
                            axes=[0, 1]), EW)
     c["set_value_scalar"] = ("set_value", [normal(4, 5)], dict(
         starts=[1], ends=[3], steps=[1], axes=[0]), EW)
+    # C12: slices with a negative step write as the reference's .at[].set
+    c["set_value_negative_step"] = (
+        "set_value", [normal(6, 5), normal(2, 5, seed=1)],
+        dict(starts=[5], ends=[1], steps=[-2], axes=[0]), EW)
+    c["set_value_negative_from_end"] = (
+        "set_value", [normal(6, 5), normal(3, 5, seed=1)],
+        dict(starts=[-1], ends=[-7], steps=[-2], axes=[0]), EW)
+    c["set_value_negative_mixed"] = (
+        "set_value", [normal(6, 5), normal(1, 2, seed=1)],
+        dict(starts=[4, 0], ends=[0, 5], steps=[-3, 3], axes=[0, 1]), EW)
     c["einsum"] = ("einsum", [[normal(2, 3), normal(3, 4, seed=1)]],
                    dict(equation="ij,jk->ik"), EW)
     c["einsum_trace"] = ("einsum", [[normal(3, 3)]], dict(equation="ii->"),
@@ -193,6 +203,17 @@ def test_fill_inplace_writes_its_input():
     r = RTensor(normal(3, 4))
     rdisp.call_op("fill_", r, 2.5)
     np.testing.assert_array_equal(x.numpy(), r.numpy())
+
+
+def test_set_value_negative_step_at_the_top_level():
+    """C12 through ``paddle_tpu_torch.set_value``: the reference's rows."""
+    import paddle_tpu_torch as tp
+    x, v = normal(6, 5), normal(3, 5, seed=1)
+    kw = dict(starts=[-1], ends=[-7], steps=[-2], axes=[0])
+    want = rdisp.call_op("set_value", RTensor(x), RTensor(v), **kw).numpy()
+    got = tp.set_value(tp.to_tensor(x), tp.to_tensor(v), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(want)[[5, 3, 1]], v)
 
 
 def test_every_entry_has_a_case():

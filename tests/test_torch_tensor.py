@@ -152,6 +152,43 @@ def test_setitem_matches_reference_and_guards_nonleaf():
             y[0] = 1.0
 
 
+# C12: slices with a negative step, alone and beside other index forms
+NEGATIVE_STEP_WRITES = {
+    "rows_by_minus_two": ((6, 2), lambda Q: (slice(None, None, -2),),
+                          lambda Q: Q.zeros([3, 2])),
+    "int_then_reversed": ((3, 10), lambda Q: (1, slice(None, None, -2)),
+                          lambda Q: Q.to_tensor(np.arange(5, dtype=np.float32)
+                                                + 100)),
+    "from_the_end": ((6, 5), lambda Q: (slice(-1, -7, -2),),
+                     lambda Q: Q.to_tensor(np.arange(15, dtype=np.float32)
+                                           .reshape(3, 5))),
+    "both_axes_scalar": ((4, 5), lambda Q: (slice(None, None, -1),
+                                            slice(3, 0, -2)),
+                         lambda Q: 9.0),
+    "ellipsis_and_broadcast": ((2, 3, 4), lambda Q: (Ellipsis,
+                                                     slice(2, None, -1)),
+                               lambda Q: Q.to_tensor(np.float32([1, 2, 3]))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEGATIVE_STEP_WRITES))
+def test_setitem_negative_step_matches_reference(case):
+    shape, index, value = NEGATIVE_STEP_WRITES[case]
+
+    def fn(Q):
+        x = Q.to_tensor(np.arange(np.prod(shape), dtype=np.float32)
+                        .reshape(shape))
+        x[index(Q)] = value(Q)
+        return x
+    assert_both(fn)
+
+
+def test_setitem_negative_step_keeps_the_nonleaf_guard():
+    y = P.to_tensor([1.0, 2.0, 3.0], stop_gradient=False) * 2.0
+    with pytest.raises(RuntimeError, match="non-leaf"):
+        y[::-2] = 0.0
+
+
 OPERANDS = {
     "f32": lambda Q: Q.to_tensor(np.float32([[1.5, -2.0], [3.0, 0.5]])),
     "i32": lambda Q: Q.to_tensor(np.int32([[3, -2], [5, 7]])),
