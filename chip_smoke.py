@@ -23,7 +23,9 @@ over ``vision.datasets.Cifar10``), ResNet-50 and YOLOv3-DarkNet53 train
 at their published widths, with every vision registry op and zoo model
 held to the CPU; an audio front end (ESC-50), the decompositions at
 Llama-3-8B's shapes, message passing and sampling at ogbn-arxiv's scale
-and CRF decoding run on the card against the CPU. Its dataset classes sit at module level and its run
+and CRF decoding run on the card against the CPU; the registry's last
+single-device entries run card vs CPU, and ResNet-50 trains
+quantization-aware. Its dataset classes sit at module level and its run
 under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
 import this script.
 
@@ -339,7 +341,17 @@ Phases (any failure raises and the script exits non-zero):
    the decision margin exceeds it; eager and ``jit_step`` ms);
    ``registry_tranche`` (every other entry of the 98 linalg, fft, signal,
    math, graph and Viterbi entries card vs CPU at a size its users run,
-   one backward where the reference has one);
+   one backward where the reference has one); ``registry_tranche3`` (the
+   46 last single-device entries: the compat tranche, the op forms of
+   the optimizers, amp, the local ``c_*`` and fused ops,
+   ``memory_efficient_attention``, ``fake_quantize`` and
+   ``llm_int8_linear``, card vs CPU at TRANCHE3's sizes, each card ms at
+   the full size); ``quant_qat`` (quantization-aware training of
+   ``resnet50()`` at 224 x 224, b 64, eager, beside the plain model's
+   eager step: images/s, step p50/p99, peak, losses, one fused Momentum
+   launch a step, a profiled step by part; each quantized layer and the
+   first loss card vs CPU; PTQ's int8 weights and logits card vs CPU; an
+   observer refusing a captured step);
 7. last, after every timed phase (a profiler session slows the launches
    that follow it): the kernels the card ran, by the profiler's names and
    with their device ms a call, for the ragged op at the smoke mix (bf16,
@@ -363,8 +375,8 @@ Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
 ``train_amp`` and ``train_layers`` launches, the fused optimizer's its
-``bert_squad``, ``ocr`` and vision launches and its Momentum time over
-ResNet-50's parameters), then as the last line ``{"ok": true, "device":
+``bert_squad``, ``ocr``, vision and ``quant_qat`` launches and its
+Momentum time over ResNet-50's parameters), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -7834,6 +7846,764 @@ def phase_registry_tranche(torch, seed, report):
     return res
 
 
+# -- the registry's last single-device entries and QAT ------------------------
+
+# the shapes the entries' users run (PERF.md section 4 names each source);
+# ``check`` rows / tokens: where the CPU's half of a card-vs-CPU check
+# would take seconds, the card's full-size call is timed and the check runs
+# both devices on the leading rows
+TRANCHE3 = dict(
+    tokens=4096, check_tokens=256, check_rows=8,
+    hidden=4096, inter=14336,                     # Llama-3-8B
+    heads=32, kv_heads=8, head_dim=128, seq=2048, attn_b=2, check_heads=4,
+    classes=85742, face_b=128,                   # ArcFace over MS1MV2
+    vocab=128256, ids=(2, 2048),                  # Llama-3-8B's table
+    experts=64, topk=6,                           # DeepSeek-MoE's gate
+    opt=(4096, 14336), opt_check_rows=256,        # one Llama MLP weight
+    int8_m=512, int8_check_m=128, outlier_share=0.001,
+    lrn=(64, 96, 55, 55),                         # AlexNet's first LRN
+    shuffle=(64, 116, 28, 28),                    # ShuffleNetV2 stage 2
+    row_conv=(32, 500, 1024, 20),                 # DeepSpeech2 lookahead
+    bert=(32 * 128, 768, 3072),                   # BERT-base FFN tokens
+    hsig=(4096, 10000, 256),                      # word2vec batch, vocab
+    deconv=(8, 128, 56, 56, 4),                   # depthwise upsampling
+    act=(64, 256, 56, 56))                        # a ResNet-50 activation
+TRANCHE3_F32, TRANCHE3_BF16 = 1e-5, 1e-2     # largest diff / largest value
+TRANCHE3_MIXED = 1e-3   # bf16 params with float32 masters (bf16 rounding)
+
+
+def tranche3_opt_cases(torch, rng):
+    """The eleven optimizer op forms at one Llama MLP weight, float32 and
+    bf16 with a float32 master: ``(name, op, time_args, check_args, kw,
+    rel)``; the check runs the op on the weight's first rows."""
+    T = TRANCHE3
+    rows, cols = T["opt"]
+    cr = T["opt_check_rows"]
+    g = torch.Generator(device=CARD).manual_seed(int(rng.randint(1 << 30)))
+
+    def card(scale=1.0, lo=None):
+        t = torch.randn(rows, cols, generator=g, device=CARD) * scale
+        return t.abs() if lo is not None else t
+    P, G = card(), card(1e-3)
+    M1, M2 = card(1e-3), card(1e-3, lo=0) ** 2
+    lr = torch.full((1,), 1e-3, device=CARD)
+    pows = [torch.full((1,), 0.9 ** 3, device=CARD),
+            torch.full((1,), 0.999 ** 3, device=CARD)]
+    n = torch.full((1,), 3.0, device=CARD)
+    prev = torch.where(card() > 0, G, -G)
+    rlr = card(1e-3, lo=0) + 1e-4
+    rules = {
+        "sgd_op": ([P, lr, G], {}, 3),
+        "momentum_op": ([P, G, M1, lr], dict(
+            regularization_method="l2_decay", regularization_coeff=1e-4), 4),
+        "adam_op": ([P, G, lr, M1, M2, *pows], {}, 7),
+        "adamw_op": ([P, G, lr, M1, M2, *pows], dict(coeff=0.01), 7),
+        "adagrad_op": ([P, G, M2, lr], {}, 4),
+        "adadelta_op": ([P, G, M2, M2 * 0.5, lr], {}, 5),
+        "adamax_op": ([P, G, lr, M1, M1.abs(), pows[0]], {}, 6),
+        "rmsprop_op": ([P, M2, G, M1, lr], dict(momentum=0.9), 6),
+        "lamb_op": ([P, G, lr, M1, M2, *pows], dict(weight_decay=0.01), 7),
+        "asgd_op": ([P, G, lr, M1, G * 0.5, n], {}, 6),
+        "rprop_op": ([P, G, prev, rlr], {}, 4)}
+
+    def check(args):
+        return [a[:cr].cpu() if torch.is_tensor(a) and a.dim() == 2
+                else a.cpu() if torch.is_tensor(a) else a for a in args]
+    for op, (args, kw, master_at) in rules.items():
+        yield f"{op}_float32", op, args, check(args), kw, TRANCHE3_F32
+        mixed = [P.to(torch.bfloat16)] + list(args[1:])
+        mixed += [None] * (master_at - len(mixed))
+        mixed.insert(master_at, P)
+        yield (f"{op}_bf16_master", op, mixed, check(mixed),
+               dict(kw, multi_precision=True), TRANCHE3_MIXED)
+
+
+def registry_tranche3_cases(torch, rng):
+    """The other entries: ``(name, op, time_args, check_args or None (the
+    same), kw, rel)``. The full-size inputs are drawn on the card; a check
+    on fewer rows takes the leading rows (of the batch, tokens or heads)
+    of the same tensors to the CPU."""
+    T = TRANCHE3
+    g = torch.Generator(device=CARD).manual_seed(int(rng.randint(1 << 30)))
+
+    def f(*s, scale=1.0, dtype=torch.float32):
+        return torch.randn(*s, generator=g, device=CARD, dtype=dtype) * scale
+
+    def u(lo, hi, *s):
+        return torch.rand(*s, generator=g, device=CARD) * (hi - lo) + lo
+
+    def i(lo, hi, *s):
+        return torch.randint(lo, hi, s, generator=g, device=CARD)
+
+    def bf(*s, scale=1.0):
+        return f(*s, scale=scale, dtype=torch.bfloat16)
+
+    def head(n, *ts):
+        """The first ``n`` rows of each tensor (lists too) on the CPU;
+        other arguments as they are."""
+        def one(t):
+            if isinstance(t, list):
+                return [one(v) for v in t]
+            return t[:n].cpu() if torch.is_tensor(t) else t
+        return [one(t) for t in ts]
+
+    def cpu(*ts):
+        return [t.cpu() if torch.is_tensor(t) else t for t in ts]
+    F32, BF = TRANCHE3_F32, TRANCHE3_BF16
+    tok, ct, cr = T["tokens"], T["check_tokens"], T["check_rows"]
+    h, inter = T["hidden"], T["inter"]
+    # the compat tranche
+    x = f(*T["lrn"])
+    yield ("lrn", "lrn", [x], head(cr, x), dict(n=5, k=2.0, alpha=1e-4,
+                                                beta=0.75), F32)
+    xs, idx = [f(tok, 1024) for _ in range(4)], i(0, 4, tok, 1)
+    yield ("multiplex", "multiplex", [xs, idx], head(ct, xs, idx), {}, 0.0)
+    yield ("fill_diagonal_tensor", "fill_diagonal_tensor",
+           [f(32, 512, 512), f(32, 512)], None, dict(dim1=1, dim2=2), 0.0)
+    a, b = f(tok, h), f(tok, h)
+    yield "grad_add", "grad_add", [a, b], head(ct, a, b), {}, F32
+    nt, d_in, d_ff = T["bert"]
+    x, w, bias = f(32, 128, d_in), f(d_in, d_ff, scale=0.03), f(d_ff)
+    yield ("fc", "fc", [x, w, bias], head(cr, x) + cpu(w, bias),
+           dict(in_num_col_dims=2, activation_type="relu"), F32)
+    yield ("identity_loss", "identity_loss", [f(64, 1000)], None, {}, F32)
+    x = f(*T["shuffle"])
+    yield ("shuffle_channel", "shuffle_channel", [x], head(cr, x),
+           dict(group=2), 0.0)
+    x = f(tok, 1024, scale=30.0)
+    yield "soft_relu", "soft_relu", [x], head(ct, x), {}, F32
+    xs = [f(tok, 512) for _ in range(4)]
+    yield ("partial_sum", "partial_sum", [xs], head(ct, xs),
+           dict(start_index=128, length=256), F32)
+    yield ("bilinear", "bilinear", [f(1024, 128), f(1024, 128),
+                                    f(64, 128, 128, scale=0.01), f(64)],
+           None, {}, 1e-4)
+    yield ("sequence_mask_op", "sequence_mask_op", [i(1, 2049, tok)], None,
+           {}, 0.0)
+    yield ("number_count", "number_count",
+           [i(0, T["experts"], tok, T["topk"])], None,
+           dict(upper_range=T["experts"]), 0.0)
+    yield "seed_op", "seed_op", [], None, dict(seed=1234), 0.0
+    yield ("full_batch_size_like", "full_batch_size_like", [f(tok, 2)],
+           None, dict(shape=[1, 1024], value=0.5), 0.0)
+    b, t, d, k = T["row_conv"]
+    x, fil = f(b, t, d), f(k, d, scale=0.1)
+    yield ("row_conv", "row_conv", [x, fil], head(cr, x) + cpu(fil), {},
+           F32)
+    a, b = f(tok, h), f(tok, h)
+    yield ("fused_elemwise_add_activation", "fused_elemwise_add_activation",
+           [a, b], head(ct, a, b), {}, F32)
+    cos = u(-1, 1, T["face_b"], T["classes"])
+    lab = i(0, T["classes"], T["face_b"])
+    yield ("margin_cross_entropy", "margin_cross_entropy", [cos, lab],
+           None, dict(margin1=1.0, margin2=0.5, margin3=0.0, scale=64.0),
+           1e-4)
+    hb, ncls, hd = T["hsig"]
+    yield ("hsigmoid_loss", "hsigmoid_loss",
+           [f(hb, hd), i(0, ncls, hb), f(ncls - 1, hd, scale=0.05),
+            f(ncls - 1, 1, scale=0.05)], None, dict(num_classes=ncls), 1e-4)
+    x = f(tok, h)
+    yield "share_data", "share_data", [x], head(ct, x), {}, 0.0
+    db, dc, dh, dw, dk = T["deconv"]
+    x, w, bias = f(db, dc, dh, dw), f(dc, 1, dk, dk, scale=0.1), f(dc)
+    yield ("depthwise_conv2d_transpose", "depthwise_conv2d_transpose",
+           [x, w, bias], head(2, x) + cpu(w, bias),
+           dict(stride=[2, 2], padding=[1, 1]), 1e-4)
+    # amp, the c_* ops
+    xs = [f(tok, h, scale=1024.0) for _ in range(4)]
+    bad = [v.clone() for v in xs]
+    bad[2][7, 9] = float("inf")
+    scale = torch.tensor([1024.0], device=CARD)
+    yield ("check_finite_and_unscale_op", "check_finite_and_unscale_op",
+           [bad, scale], head(ct, bad) + cpu(scale), {}, F32)
+    state = [torch.tensor(True, device=CARD),
+             torch.tensor([65536.0], device=CARD),
+             torch.tensor([7], dtype=torch.int32, device=CARD),
+             torch.tensor([1], dtype=torch.int32, device=CARD)]
+    yield ("update_loss_scaling_op", "update_loss_scaling_op",
+           [xs] + state, head(ct, xs) + cpu(*state), {}, 0.0)
+    x = f(tok, h)
+    yield "c_identity", "c_identity", [x], head(ct, x), {}, 0.0
+    yield "c_concat", "c_concat", [x], head(ct, x), dict(nranks=2), 0.0
+    half = T["vocab"] // 2
+    yield ("c_embedding", "c_embedding",
+           [bf(half, h, scale=0.02), i(0, T["vocab"], *T["ids"])], None,
+           dict(start_index=half), BF)
+    # the fused ops at Llama-3-8B's widths, bf16
+    s, nh, ch = T["seq"], T["heads"], T["check_heads"]
+    sc = bf(T["attn_b"], nh, s, s, scale=4.0)
+    mask = torch.where(u(0, 1, T["attn_b"], 1, s, s) > 0.1, 0.0, -1e4).to(
+        torch.bfloat16)
+    yield ("fused_softmax_mask", "fused_softmax_mask", [sc, mask],
+           cpu(sc[:1, :ch], mask[:1]), {}, BF)
+    yield ("fused_softmax_mask_upper_triangle",
+           "fused_softmax_mask_upper_triangle", [sc], cpu(sc[:1, :ch]), {},
+           BF)
+    x, w, bias = bf(tok, h), bf(h, inter, scale=0.02), bf(inter, scale=0.02)
+    yield ("fused_gemm_epilogue", "fused_gemm_epilogue", [x, w, bias],
+           head(ct, x) + cpu(w, bias), dict(activation="gelu"), BF)
+    act = bf(tok, inter)
+    yield ("fused_bias_act", "fused_bias_act", [act, bias],
+           head(ct, act) + cpu(bias), dict(act_method="gelu"), BF)
+    dout = bf(tok, inter, scale=0.01)
+    dw0, db0 = f(h, inter, scale=1e-3), f(inter, scale=1e-3)
+    yield ("fused_linear_param_grad_add", "fused_linear_param_grad_add",
+           [x, dout, dw0, db0], head(ct, x, dout) + cpu(dw0, db0), {}, 1e-4)
+    kvh, hdim = T["kv_heads"], T["head_dim"]
+    q = bf(T["attn_b"], s, nh, hdim)
+    k, v = (bf(T["attn_b"], s, kvh, hdim) for _ in "kv")
+    yield ("memory_efficient_attention", "memory_efficient_attention",
+           [q, k, v], cpu(q[:1, :, :ch], k[:1, :, :ch * kvh // nh],
+                          v[:1, :, :ch * kvh // nh]), dict(is_causal=True),
+           BF)
+    # quantization
+    a = f(*T["act"])
+    amax = (a.abs().max() * 0.8).reshape(())
+    yield ("fake_quantize", "fake_quantize", [a, amax],
+           head(2, a) + cpu(amax), {}, F32)
+    m, cm = T["int8_m"], T["int8_check_m"]
+    xq = f(m, h)
+    cols = torch.from_numpy(rng.choice(h, max(1, int(h * T[
+        "outlier_share"])), replace=False)).to(CARD)
+    xq[:, cols] = 6.5 + u(0, 1, m, len(cols))
+    xq = xq.to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (h, inter), generator=g, device=CARD,
+                       dtype=torch.int8)
+    sq = u(1e-4, 1.1e-3, inter)
+    yield ("llm_int8_linear", "llm_int8_linear", [xq, wq, None, sq],
+           head(cm, xq) + cpu(wq, None, sq), {}, BF)
+
+
+# the entries the reference differentiates (``ops.yaml``: no ``backward:
+# none``)
+TRANCHE3_GRAD = {
+    "lrn", "fill_diagonal_tensor", "grad_add", "fc", "identity_loss",
+    "shuffle_channel", "soft_relu", "partial_sum", "bilinear", "row_conv",
+    "fused_elemwise_add_activation", "margin_cross_entropy",
+    "hsigmoid_loss", "depthwise_conv2d_transpose", "c_identity", "c_concat",
+    "c_embedding", "fused_softmax_mask", "fused_softmax_mask_upper_triangle",
+    "fused_gemm_epilogue", "fused_bias_act", "memory_efficient_attention",
+    "fake_quantize"}
+TRANCHE3_HOST_OPS = {"sequence_mask_op", "seed_op"}
+TRANCHE3_PLANTED_INF = {"check_finite_and_unscale_op"}   # an inf input
+
+
+def tranche3_check(torch, k, seed, name, op, time_args, check_args, kw,
+                   rel):
+    """``op_check`` on ``check_args`` (card vs CPU, one backward where the
+    reference has one); where the check ran on fewer rows, the card's ms
+    of the full-size call instead, its outputs finite."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    res = op_check(torch, "registry_tranche3", name, op,
+                   time_args if check_args is None else check_args, kw,
+                   rel, seed + k, grad=op in TRANCHE3_GRAD,
+                   host=op in TRANCHE3_HOST_OPS)
+    if check_args is None:
+        return res
+    card_in = [a.to(CARD) if torch.is_tensor(a) else a for a in time_args]
+    out = call_op(op, *card_in, **kw)
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    finite = op in TRANCHE3_PLANTED_INF or all(
+        bool(torch.isfinite(o.float()).all()) for o in outs
+        if torch.is_tensor(o) and o.is_floating_point())
+    res.update(check_shape=res["shape"], shape=list(outs[0].shape),
+               check_ms=res["ms"], finite=finite,
+               ms=time_ms(torch, lambda: call_op(op, *card_in, **kw),
+                          iters=5))
+    if not finite:
+        res["rel_err"] = float("inf")
+    return res
+
+
+def lars_over_resnet50(torch, seed):
+    """``lars_momentum_op`` over ResNet-50's 161 parameter tensors (the
+    zoo's shapes, float32): each tensor's update card vs CPU, and the
+    card's ms for the 161 calls of one step."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    from paddle_tpu_torch.vision import models
+    shapes = on_cpu_too(torch, lambda: [
+        tuple(p.shape) for p in models.resnet50().parameters()])
+    rng = np.random.RandomState(seed + 31)
+    lr = np.array([0.1], np.float32)
+    sets = [[rng.randn(*s).astype(np.float32) * 0.05,
+             rng.randn(*s).astype(np.float32) * 1e-3,
+             rng.randn(*s).astype(np.float32) * 1e-3, lr] for s in shapes]
+    kw = dict(mu=0.9, lars_coeff=0.001, lars_weight_decay=5e-4)
+    worst = 0.0
+    for args in sets:
+        err, _, _, _ = card_vs_cpu(
+            torch, "lars_momentum_op",
+            lambda *a: call_op("lars_momentum_op", *a, **kw), args)
+        worst = max(worst, err)
+    card = [[torch.from_numpy(a).to(CARD) for a in s] for s in sets]
+
+    def step():
+        for a in card:
+            call_op("lars_momentum_op", *a, **kw)
+    return dict(op="lars_momentum_op", rel_err=worst,
+                limit=TRANCHE3_F32, ms=time_ms(torch, step, iters=3),
+                backward=False, shape=[len(shapes)],
+                elements=int(sum(int(np.prod(s)) for s in shapes)))
+
+
+def khop_sampler_check(torch, seed):
+    """``graph_khop_sampler`` over ogbn-arxiv's graph from 1024 seeds at
+    GraphSAGE's fanouts 25 / 10: the card's run against the CPU's from the
+    same host draws (the port's seed set before each), exactly; every
+    edge a graph edge between its local ids, the seeds first."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    rng = np.random.RandomState(seed + 32)
+    src_np, dst_np = graph_edges(rng)
+    order, colptr_np = graph_csc(src_np, dst_np)
+    nodes = rng.choice(GRAPH_N, GRAPH_SEEDS, replace=False).astype(np.int64)
+    args = [src_np[order], colptr_np, nodes, order.astype(np.int64)]
+    kw = dict(sample_sizes=list(GRAPH_FANOUTS), return_eids=True)
+
+    def run(dev):
+        paddle_tpu_torch.seed(seed)
+        ts = [torch.from_numpy(a).to(dev) for a in args]
+        return call_op("graph_khop_sampler", *ts, **kw)
+    t0 = time.perf_counter()
+    card = run(CARD)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    cpu = run("cpu")
+    errs = sum(int(not torch.equal(a.cpu(), b)) for a, b in zip(card, cpu))
+    src, dst, out_nodes, reindex, eids = (t.cpu().numpy() for t in card)
+    errs += int((src_np[eids] != out_nodes[src]).sum() +
+                (dst_np[eids] != out_nodes[dst]).sum() +
+                (out_nodes[:len(nodes)] != nodes).sum() +
+                (reindex != np.arange(len(nodes))).sum())
+    return dict(op="graph_khop_sampler", rel_err=float(errs), limit=0.0,
+                ms=ms, backward=False, shape=[len(src)],
+                nodes=len(out_nodes), on_card=card[0].is_cuda)
+
+
+def dropout_attention_check(torch, seed):
+    """``memory_efficient_attention`` with dropout 0.1 at Llama-3-8B's
+    attention width, b 2 x 2048, causal: the same draws under the same
+    seed (bit for bit), other draws than dropout 0's output, finite; ms."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    T = TRANCHE3
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    s, b = T["seq"], T["attn_b"]
+    q = torch.randn(b, s, T["heads"], T["head_dim"], generator=g,
+                    device=CARD, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, s, T["kv_heads"], T["head_dim"], generator=g,
+                        device=CARD, dtype=torch.bfloat16) for _ in "kv")
+
+    def run():
+        return call_op("memory_efficient_attention", q, k, v,
+                       dropout_p=0.1, is_causal=True)
+    paddle_tpu_torch.seed(seed)
+    a = run()
+    paddle_tpu_torch.seed(seed)
+    same = torch.equal(a, run())
+    plain = call_op("memory_efficient_attention", q, k, v, is_causal=True)
+    ok = same and not torch.equal(a, plain) and bool(
+        torch.isfinite(a.float()).all())
+    return dict(op="memory_efficient_attention", rel_err=0.0 if ok
+                else float("inf"), limit=0.0, backward=False,
+                shape=list(a.shape), dropout=0.1, repeat_equal=same,
+                ms=time_ms(torch, run, iters=5))
+
+
+def int8_product_check(torch, seed):
+    """``llm_int8_linear``'s int8 product at ``gate_proj``'s shape (m 512,
+    k 4096, n 14336) on the card: its ``torch._int_mm`` route against the
+    float64 product of the same int8 codes (exact: every partial sum is an
+    integer below 2**53), element for element, and the ms of each."""
+    from paddle_tpu_torch.ops.kernels.quant import _int8_product
+    T = TRANCHE3
+    g = torch.Generator(device=CARD).manual_seed(seed + 33)
+    xq = torch.randint(-127, 128, (T["int8_m"], T["hidden"]), generator=g,
+                       device=CARD, dtype=torch.int8)
+    w = torch.randint(-127, 128, (T["hidden"], T["inter"]), generator=g,
+                      device=CARD, dtype=torch.int8)
+    got = _int8_product(xq, w)
+    want = torch.matmul(xq.double(), w.double())
+    mism = int((got.double() != want).sum())
+    return dict(op="llm_int8_linear", rel_err=float(mism), limit=0.0,
+                backward=False, shape=list(got.shape),
+                dtype=str(got.dtype).replace("torch.", ""),
+                ms=time_ms(torch, lambda: _int8_product(xq, w)),
+                float64_ms=time_ms(torch, lambda: torch.matmul(
+                    xq.double(), w.double()), iters=3),
+                max_abs=float(want.abs().max()))
+
+
+def tranche3_entries():
+    """The 46 entries of this tranche, by the modules that hold them."""
+    from paddle_tpu_torch.ops import dispatcher
+    from paddle_tpu_torch.ops.kernels import compat_tranche
+    misc = {"sgd_op", "momentum_op", "adam_op", "adamw_op", "adagrad_op",
+            "adadelta_op", "adamax_op", "rmsprop_op", "lamb_op", "asgd_op",
+            "rprop_op", "check_finite_and_unscale_op",
+            "update_loss_scaling_op", "c_identity", "c_concat",
+            "c_embedding", "fused_softmax_mask",
+            "fused_softmax_mask_upper_triangle", "fused_gemm_epilogue",
+            "fused_bias_act", "fused_linear_param_grad_add",
+            "memory_efficient_attention"}
+    return {n for n, k in dispatcher.KERNELS.items()
+            if k.__module__ == compat_tranche.__name__} | misc | {
+        "fake_quantize", "llm_int8_linear"}
+
+
+def phase_registry_tranche3(torch, seed, report):
+    """Every entry of the compat tranche, the single-device op forms of
+    ``ops.yaml:577-620`` and the two quantization ops on the card at a size
+    its users run (TRANCHE3), held to the CPU on the same inputs, one
+    backward where the reference differentiates the entry, and the card's
+    ms; none may launch a kernel of the fourteen."""
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.ops import kernels
+    set_device(CARD)
+    before = kernels.launch_counts()
+    rng = np.random.RandomState(seed + 30)
+    res = {}
+    try:
+        cases = itertools.chain(tranche3_opt_cases(torch, rng),
+                                registry_tranche3_cases(torch, rng))
+        for k, (name, op, targs, cargs, kw, rel) in enumerate(cases):
+            t0 = time.perf_counter()
+            res[name] = tranche3_check(torch, k, seed, name, op, targs,
+                                       cargs, kw, rel)
+            res[name]["wall_s"] = time.perf_counter() - t0
+            free_card(torch)
+        for name, fn in (("lars_momentum_op", lars_over_resnet50),
+                         ("llm_int8_product", int8_product_check),
+                         ("graph_khop_sampler", khop_sampler_check),
+                         ("memory_efficient_attention_dropout",
+                          dropout_attention_check)):
+            t0 = time.perf_counter()
+            res[name] = fn(torch, seed)
+            res[name]["wall_s"] = time.perf_counter() - t0
+            free_card(torch)
+    finally:
+        set_device(None)
+    log(f"registry_tranche3: {json.dumps(res)}")
+    launched = kernel_launch_delta(kernels, before)
+    report["registry_tranche3"] = dict(ops=res, kernel_launches=launched)
+    bad = {k: v for k, v in res.items() if not v["rel_err"] <= v["limit"]}
+    if launched:
+        bad["kernel_launches"] = launched
+    if bad:
+        raise AssertionError(f"registry_tranche3: card vs CPU beyond the "
+                             f"limits: {bad}")
+    entries = tranche3_entries()
+    missed = entries - {v["op"] for v in res.values()}
+    if missed or len(entries) != 46:
+        raise AssertionError(f"registry_tranche3: entries not run: {missed} "
+                             f"({len(entries)} of 46)")
+    return dict(ops=res, kernel_launches=launched)
+
+
+# QAT of ResNet-50: phase vision_resnet50's recipe with the reference's
+# default QuantConfig; PTQ calibration batches; card-vs-CPU limits
+QAT_STEPS = 12                  # 2 warm-up + 10 timed, eager
+QAT_PLAIN_STEPS = 4             # the plain model's eager yardstick
+QAT_CPU_ROWS = 4                # images of the card-vs-CPU checks
+QAT_PTQ_BATCHES = 4
+QAT_LAYER_REL = 1e-4            # a layer's output, same input and state
+QAT_SCALE_REL = 1e-6            # an observer's scale after that layer
+QAT_FIRST_LOSS_REL = 0.05       # end to end, 2.3x the worst of seeds 0-7
+                                # (0.40-2.18%, tools/qat_ab.py; PERF.md)
+QAT_PTQ_REL = 1e-4              # converted net's logits, card vs CPU
+
+
+def qat_build(torch, seed):
+    """``resnet_build`` (resnet50, 1000 classes, Momentum 0.9, lr 0.1, L2
+    1e-4) with every Conv2D and the Linear swapped for its QAT wrapper
+    under the default ``QuantConfig``: the optimizer keeps the same
+    parameters, now under ``<name>.inner``."""
+    from paddle_tpu_torch import quantization
+    model, loss, opt = resnet_build(torch, seed, 50, 1000, 0.1, 1e-4)
+    return quantization.QAT().quantize(model), loss, opt
+
+
+def qat_layers(model):
+    from paddle_tpu_torch import quantization as q
+    return [m for m in model.modules()
+            if isinstance(m, (q.QuantedConv2D, q.QuantedLinear))]
+
+
+def _obs_state(obs):
+    v = getattr(obs, "_max", getattr(obs, "_ema", None))
+    return None if v is None else v.detach().cpu()
+
+
+def _set_obs_state(obs, v):
+    setattr(obs, "_max" if hasattr(obs, "_max") else "_ema", v)
+
+
+def qat_vs_cpu(torch, seed, x, y):
+    """The QAT model's first forward (train mode) on QAT_CPU_ROWS images
+    on the card, each quantized layer held to the CPU's copy of it on the
+    card's input and observer state (teacher-forced: output and the new
+    scales), and the first loss end to end, card vs CPU."""
+    from paddle_tpu_torch.core.device import set_device
+    card, loss_fn, _ = qat_build(torch, seed)
+    set_device("cpu")
+    try:
+        cpu, cpu_loss_fn, _ = qat_build(torch, seed)
+    finally:
+        set_device(None)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    seen = []
+
+    def pre(mod, args):
+        seen.append([mod, args[0].detach().cpu(),
+                     _obs_state(mod.weight_quanter),
+                     _obs_state(mod.act_quanter)])
+
+    def post(mod, args, out):
+        seen[-1].append(out.detach().cpu())
+    layers_card = qat_layers(card)
+    hooks = [h for m in layers_card for h in (
+        m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    rows = QAT_CPU_ROWS
+    with torch.no_grad():
+        card_loss = float(loss_fn(card(x[:rows]), y[:rows]))
+        for h in hooks:
+            h.remove()
+        cpu_loss = float(cpu_loss_fn(cpu(x[:rows].cpu()), y[:rows].cpu()))
+        twin = dict(zip(map(id, layers_card), qat_layers(cpu)))
+        out_err = scale_err = 0.0
+        for mod, inp, w_state, a_state, out in seen:
+            c = twin[id(mod)]
+            _set_obs_state(c.weight_quanter, w_state)
+            _set_obs_state(c.act_quanter, a_state)
+            want = c(inp)
+            out_err = max(out_err, rel_max(torch, out, want))
+            for a, b in ((mod.weight_quanter, c.weight_quanter),
+                         (mod.act_quanter, c.act_quanter)):
+                scale_err = max(scale_err, rel_max(torch, a.scale(),
+                                                   b.scale()))
+    del card, cpu
+    free_card(torch)
+    return dict(rows=rows, layers=len(seen), layer_out_rel=out_err,
+                layer_scale_rel=scale_err, card_loss=card_loss,
+                cpu_loss=cpu_loss,
+                first_loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss))
+
+
+def ptq_vs_cpu(torch, seed, rng):
+    """PTQ of resnet50 from the seed: calibration on QAT_PTQ_BATCHES
+    batches of R50_B images on the card, ``convert``; the int8 weights and
+    dequantization scales against a CPU copy converted from the same
+    weights, and the converted net's eval logits on QAT_CPU_ROWS images,
+    card vs CPU; the card's ms for the calibration and a predict batch."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import quantization as q
+    from paddle_tpu_torch.core.device import set_device
+    from paddle_tpu_torch.vision import models
+
+    def build():
+        paddle_tpu_torch.seed(seed)
+        return models.resnet50().eval()
+    card = q.PTQ().quantize(build())
+    set_device("cpu")
+    try:
+        cpu = q.PTQ().quantize(build())
+    finally:
+        set_device(None)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batches = [torch.from_numpy(rng.rand(R50_B, 3, R50_SIZE, R50_SIZE)
+                                .astype(np.float32)).cuda()
+               for _ in range(QAT_PTQ_BATCHES)]
+    ptq = q.PTQ()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for xb in batches:
+            card(xb)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        ptq.convert(card)
+        ptq.convert(cpu)
+        pairs = list(zip(qat_layers(card), qat_layers(cpu)))
+        mism = sum(int((a.int8_weight.cpu() != b.int8_weight).sum())
+                   for a, b in pairs)
+        scale_err = max(abs(a.dequant_scale - b.dequant_scale)
+                        / b.dequant_scale for a, b in pairs)
+        xb = batches[0]
+        got = card(xb[:QAT_CPU_ROWS])
+        want = cpu(xb[:QAT_CPU_ROWS].cpu())
+        predict_ms = time_ms(torch, lambda: card(xb), iters=3)
+    res = dict(layers=len(pairs), int8_mismatches=mism,
+               dequant_scale_rel=scale_err,
+               logits_rel=rel_max(torch, got, want), calib_batches=len(
+                   batches), calib_s=calib_s, predict_ms_b64=predict_ms)
+    del card, cpu, batches
+    free_card(torch)
+    return res
+
+
+def observer_capture_check(torch, seed, x, y):
+    """A QAT model's ``TrainStep`` with step capture on: its first call
+    probes the step, where the first observer raises the reference's
+    error; nothing is captured."""
+    from paddle_tpu_torch import flags, quantization
+    from paddle_tpu_torch.jit import TrainStep
+    model, loss_fn, opt = qat_build(torch, seed)
+    flags.set_flags({"step_capture": True})
+    step = TrainStep(model, loss_fn, opt)
+    try:
+        step((x[:2],), (y[:2],))
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        msg = None
+    graphs = len(step.graphs()) if hasattr(step, "graphs") else 0
+    del step, model, opt
+    free_card(torch)
+    return dict(raised=msg == quantization.OBSERVER_TRACED_MESSAGE,
+                message=msg, graphs=graphs)
+
+
+QAT_PARTS = (("optimizer", ("bucket_kernel",)),
+             ("convolution", ("conv", "implicit", "xmma", "cudnn", "sm90",
+                              "sm80", "gemm", "cutlass", "winograd",
+                              "dgrad", "wgrad", "fprop")),
+             ("abs-max reductions", ("MaxNanFunctor", "MaxOps",
+                                     "MinNanFunctor", "MinOps")),
+             ("other reductions", ("reduce_kernel",)))
+
+
+def qat_step_parts(prof):
+    """A profiled step's device ms by part: the fused optimizer, the
+    convolutions (cuDNN / cuBLAS), the observers' abs-max reductions, the
+    other reductions (BatchNorm's statistics and their gradients, the
+    loss), and the elementwise work (fake quantization's divide / round /
+    clamp / multiply and its gradient mask, BatchNorm's normalization,
+    ReLU, the adds); with each part's three largest kernels."""
+    kernels = prof.get("all_kernels") or {}
+    parts = {name: 0.0 for name, _ in QAT_PARTS}
+    parts["elementwise"] = 0.0
+    top = {name: [] for name in parts}
+    for k, ms in kernels.items():
+        part = next((name for name, keys in QAT_PARTS
+                     if any(s in k for s in keys)), "elementwise")
+        parts[part] += ms
+        top[part].append((ms, k[:80]))
+    return dict(ms=parts, top={k: [n for _, n in sorted(v)[::-1][:3]]
+                               for k, v in top.items()})
+
+
+def qat_host_syncs(torch, train, x, y):
+    """One more forward and backward of the trained QAT model under
+    ``torch.cuda.set_sync_debug_mode("error")``: the fake quantization,
+    the observers and the layers read nothing of the card on the host.
+    Returns None, or what raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train.loss_fn(train.model(x), y).backward()
+    except RuntimeError as e:
+        return str(e)[:400]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
+def profiled_eager_step(torch, train, x, y):
+    """One more step of ``train`` with step capture off, profiled."""
+    from paddle_tpu_torch import flags
+    flags.set_flags({"step_capture": False})
+    try:
+        return profile_call(torch, lambda: train((x,), (y,)), 1)
+    finally:
+        flags.set_flags({"step_capture": True})
+
+
+def phase_quant_qat(torch, seed, report):
+    """Quantization-aware training of resnet50() at 224 x 224, b 64, on the
+    card, eagerly (observers refuse capture): vision_resnet50's recipe
+    with the default QuantConfig (activations EMAObserver, weights
+    AbsmaxObserver, 8 bits) over 53 Conv2D and one Linear; 12 steps,
+    images/s, step p50/p99, peak, losses, the fused Momentum launches (1
+    a step), a profiled step by part, a forward and backward with no host
+    sync, its quantized layers card vs CPU;
+    then PTQ (calibrate, convert, card vs CPU) and the observer's refusal
+    inside a captured step."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.RandomState(seed + 40)
+        x = torch.from_numpy(rng.randn(R50_B, 3, R50_SIZE, R50_SIZE)
+                             .astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, R50_B)).cuda()
+        from paddle_tpu_torch.optimizer import fused_counters
+        # the plain model's eager step, the yardstick of the QAT step
+        base, train = train_run(
+            torch, lambda: resnet_build(torch, seed, 50, 1000, 0.1, 1e-4),
+            (x,), (y,), QAT_PLAIN_STEPS, "images", R50_B, capture=False)
+        base["step_parts_ms"] = qat_step_parts(profiled_eager_step(
+            torch, train, x, y))
+        del train
+        free_card(torch)
+        before = dict(fused_counters)
+        run, train = train_run(torch, lambda: qat_build(torch, seed), (x,),
+                               (y,), QAT_STEPS, "images", R50_B,
+                               capture=False)
+        run["fused_route"] = fused_route(before, fused_counters, QAT_STEPS)
+        run["step_profile"] = profiled_eager_step(torch, train, x, y)
+        run["host_sync"] = qat_host_syncs(torch, train, x, y)
+        layers = qat_layers(train.model)
+        run["quantized_layers"] = dict(
+            conv2d=sum(type(m).__name__ == "QuantedConv2D" for m in layers),
+            linear=sum(type(m).__name__ == "QuantedLinear" for m in layers))
+        run["step_parts_ms"] = qat_step_parts(run["step_profile"])
+        run["step_profile"] = {k: run["step_profile"].get(k) for k in (
+            "device_busy_ms", "wall_ms", "busy_share_of_wall", "launches",
+            "top", "not_measured")}
+        run["mfu"] = vision_mfu(run, R50_MACS, R50_B, F32_FLOPS_PER_S)
+        del train, layers
+        free_card(torch)
+        log(f"quant_qat: {json.dumps(run)}")
+        res = dict(model="resnet50", batch=R50_B, steps=QAT_STEPS,
+                   config="QuantConfig() (EMAObserver / AbsmaxObserver, 8 "
+                          "bits)", run=run, plain_eager={
+                       k: base[k] for k in ("images_per_s", "step_ms_p50",
+                                            "losses", "step_parts_ms")})
+        res["cpu_check"] = qat_vs_cpu(torch, seed, x, y)
+        res["ptq"] = ptq_vs_cpu(torch, seed, rng)
+        res["capture"] = observer_capture_check(torch, seed, x, y)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"quant_qat checks: {json.dumps({k: res[k] for k in ('cpu_check', 'ptq', 'capture')})}")
+    report["quant_qat"] = res
+    ls = run["losses"]
+    c, p = res["cpu_check"], res["ptq"]
+    bad = []
+    if not all(np.isfinite(ls)) or len(ls) != QAT_STEPS or not all(
+            np.isfinite(res["plain_eager"]["losses"])):
+        bad.append(f"losses {ls}, plain {res['plain_eager']['losses']}")
+    if run["fused_optimizer_launches"] != QAT_STEPS or not \
+            run["fused_route"]["every_step_fused"]:
+        bad.append(f"fused Momentum launches "
+                   f"{run['fused_optimizer_launches']} in {QAT_STEPS} steps, "
+                   f"route {run['fused_route']}")
+    if run["host_sync"] is not None:
+        bad.append(f"a QAT forward / backward synced: {run['host_sync']}")
+    if run["quantized_layers"] != dict(conv2d=53, linear=1):
+        bad.append(f"quantized layers {run['quantized_layers']}")
+    if not (c["layer_out_rel"] <= QAT_LAYER_REL
+            and c["layer_scale_rel"] <= QAT_SCALE_REL
+            and c["first_loss_rel"] <= QAT_FIRST_LOSS_REL
+            and c["layers"] == 54):
+        bad.append(f"card vs CPU {c}")
+    if not (p["int8_mismatches"] == 0 and p["dequant_scale_rel"] <= 1e-6
+            and p["logits_rel"] <= QAT_PTQ_REL and p["layers"] == 54):
+        bad.append(f"PTQ card vs CPU {p}")
+    if not res["capture"]["raised"]:
+        bad.append(f"observer under capture {res['capture']}")
+    if bad:
+        raise AssertionError(f"quant_qat: {'; '.join(bad)}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7936,9 +8706,12 @@ def main(argv=None) -> int:
                        ("audio_frontend", phase_audio_frontend),
                        ("linalg", phase_linalg), ("graph", phase_graph),
                        ("text_viterbi", phase_text_viterbi),
-                       ("registry_tranche", phase_registry_tranche)):
+                       ("registry_tranche", phase_registry_tranche),
+                       ("registry_tranche3", phase_registry_tranche3)):
         checked(tag, phase, *sd)
         free_card(torch)
+    qat = checked("quant_qat", phase_quant_qat, *sd)
+    free_card(torch)
     moe = checked("moe_train", phase_moe_train, *sd)
     torch.cuda.empty_cache()          # the MoE model is gone
     checked("routes", phase_routes, *sd)
@@ -8061,6 +8834,7 @@ def main(argv=None) -> int:
             e["vs_plain_resnet18_momentum"] = \
                 vision["cifar"]["runs"]["eager"]["optimizer_vs_plain"]
             e["momentum_resnet50"] = vision["resnet50"]["momentum_kernel"]
+            e["launches_quant_qat"] = qat["run"]["fused_optimizer_launches"]
         if name in SERVING_KERNELS:
             e["launches_serve_gang"] = {
                 kv: main_res["serve_gang"][kv]["launches"].get(name, 0)

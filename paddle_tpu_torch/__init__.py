@@ -30,7 +30,10 @@ and the rest) over ``vision.datasets`` and ``vision.transforms`` with
 ``signal``, ``audio`` (the feature layers, the wave backend, ESC-50 and
 TESS), ``text`` (CRF Viterbi decoding, the text datasets) and
 ``geometric`` (message passing, neighbour sampling) namespaces, the fft
-and signal functions in their namespaces only. The TPU kernels of those paths are CUDA C++ kernels for Hopper
+and signal functions in their namespaces only; ``quantization`` trains a
+model with fake-quantized weights and activations (QAT) or calibrates and
+converts it to int8 weights (PTQ); ``Model``, ``summary``, ``callbacks``,
+``flops`` and ``device`` are the reference's top-level names. The TPU kernels of those paths are CUDA C++ kernels for Hopper
 (``csrc/``), built at first use. Entry points run on the CUDA card unless
 the caller passes ``device=`` / ``set_device("cpu")`` or CPU tensors; they
 never fall back to the CPU quietly. The models, criteria, layers,
@@ -74,8 +77,10 @@ _attach_tensor_methods()
 from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
                models, nn, observability, optimizer, sparse, vision)
 from . import fft, geometric, linalg, signal, text  # noqa: E402
-from . import audio, framework  # noqa: E402
+from . import audio, framework, quantization  # noqa: E402
+from .core import device  # noqa: E402,F401  (paddle.device)
 from .framework import load, save  # noqa: E402
+from .hapi import Model, callbacks, flops, summary  # noqa: E402
 from .jit import jit_step  # noqa: E402
 from .nn import LazyGuard, ParamAttr  # noqa: E402
 from .nn.layer_base import Parameter  # noqa: E402
@@ -106,7 +111,8 @@ __all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
            "observability",
            "get_cuda_rng_state", "set_cuda_rng_state", "default_generator",
            "fft", "signal", "linalg", "audio", "text", "geometric",
-           "framework", "save", "load",
+           "framework", "save", "load", "device", "quantization", "Model",
+           "summary", "callbacks", "flops",
            *(n for n in _dispatcher.SCHEMA
              if n not in _dispatcher.NAMESPACED),
            *_dispatcher.INPLACE, *_TENSOR_API]

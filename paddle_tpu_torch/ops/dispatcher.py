@@ -645,12 +645,135 @@ SCHEMA.update({
                        ("lengths", None), ("include_bos_eos_tag", True)),
 })
 
+# -- the registry's last single-device entries: the op forms of
+# ``ops.yaml:577-620`` (``extra_misc.py``: the optimizer updates, amp, the
+# local ``c_*`` ops, the fused ops), the compat tranche (``:689-715``,
+# ``compat_tranche.py``), ``fake_quantize`` (``:420``) and
+# ``llm_int8_linear`` (``:674``, ``quant.py``)
+_PG = (("param", _R), ("grad", _R))
+_MP = (("multi_precision", False),)
+_ADAM = _PG + (("learning_rate", _R), ("moment1", _R), ("moment2", _R),
+               ("beta1_pow", _R), ("beta2_pow", _R), ("master_param", None))
+_TRANSPOSE_CONV = (("stride", (1, 1)), ("padding", (0, 0)),
+                   ("output_padding", (0, 0)), ("dilation", (1, 1)),
+                   ("groups", 1), ("data_format", "NCHW"))
+SCHEMA.update({
+    # functional optimizer updates
+    "sgd_op": (("param", _R), ("learning_rate", _R), ("grad", _R),
+               ("master_param", None)) + _MP,
+    "momentum_op": _PG + (("velocity", _R), ("learning_rate", _R),
+                          ("master_param", None), ("mu", 0.9),
+                          ("use_nesterov", False),
+                          ("regularization_method", ""),
+                          ("regularization_coeff", 0.0)) + _MP + (
+        ("rescale_grad", 1.0),),
+    "adam_op": _ADAM + (("skip_update", None), ("beta1", 0.9),
+                        ("beta2", 0.999), ("epsilon", 1e-08),
+                        ("lazy_mode", False)) + _MP,
+    "adamw_op": _ADAM + (("skip_update", None), ("beta1", 0.9),
+                         ("beta2", 0.999), ("epsilon", 1e-08),
+                         ("lr_ratio", 1.0), ("coeff", 0.01),
+                         ("with_decay", True)) + _MP,
+    "adagrad_op": _PG + (("moment", _R), ("learning_rate", _R),
+                         ("master_param", None), ("epsilon", 1e-06)) + _MP,
+    "adadelta_op": _PG + (("avg_squared_grad", _R),
+                          ("avg_squared_update", _R),
+                          ("learning_rate", None), ("master_param", None),
+                          ("rho", 0.95), ("epsilon", 1e-06)) + _MP,
+    "adamax_op": _PG + (("learning_rate", _R), ("moment", _R),
+                        ("inf_norm", _R), ("beta1_pow", _R),
+                        ("master_param", None), ("beta1", 0.9),
+                        ("beta2", 0.999), ("epsilon", 1e-08)) + _MP,
+    "rmsprop_op": (("param", _R), ("mean_square", _R), ("grad", _R),
+                   ("moment", _R), ("learning_rate", _R),
+                   ("mean_grad", None), ("master_param", None),
+                   ("epsilon", 1e-10), ("decay", 0.9), ("momentum", 0.0),
+                   ("centered", False)) + _MP,
+    "lamb_op": _ADAM + (("weight_decay", 0.01), ("beta1", 0.9),
+                        ("beta2", 0.999), ("epsilon", 1e-06),
+                        ("always_adapt", False)) + _MP,
+    "asgd_op": _PG + (("learning_rate", _R), ("d", _R), ("y", _R),
+                      ("n", _R), ("master_param", None)) + _MP,
+    "rprop_op": _PG + (("prev", _R), ("learning_rate", _R),
+                       ("master_param", None),
+                       ("learning_rate_range", (1e-06, 50.0)),
+                       ("etas", (0.5, 1.2))) + _MP,
+    # amp
+    "check_finite_and_unscale_op": (("xs", _R), ("scale", _R)),
+    "update_loss_scaling_op": (
+        ("xs", _R), ("found_infinite", _R), ("prev_loss_scaling", _R),
+        ("in_good_steps", _R), ("in_bad_steps", _R),
+        ("incr_every_n_steps", 1000), ("decr_every_n_nan_or_inf", 2),
+        ("incr_ratio", 2.0), ("decr_ratio", 0.5), ("stop_update", False)),
+    # the c_* ops in their local forms
+    "c_identity": _X + (("ring_id", 0), ("use_calc_stream", True),
+                        ("use_model_parallel", True)),
+    "c_concat": _X + (("rank", 0), ("nranks", 1), ("ring_id", 0)),
+    "c_embedding": (("table", _R), ("ids", _R), ("start_index", 0),
+                    ("vocab_size", -1)),
+    # fused ops
+    "fused_softmax_mask": _X + (("mask", _R),),
+    "fused_softmax_mask_upper_triangle": _X,
+    "fused_gemm_epilogue": _XY + (("bias", _R), ("trans_x", False),
+                                  ("trans_y", False),
+                                  ("activation", "none")),
+    "fused_bias_act": _X + (("bias", None), ("act_method", "gelu")),
+    "fused_linear_param_grad_add": _X + (
+        ("dout", _R), ("dweight", None), ("dbias", None),
+        ("multi_precision", True), ("has_bias", True)),
+    "memory_efficient_attention": (
+        ("query", _R), ("key", _R), ("value", _R), ("attn_mask", None),
+        ("dropout_p", 0.0), ("scale", None), ("is_causal", False)),
+    # the compat tranche
+    "lrn": _X + (("n", 5), ("k", 1.0), ("alpha", 0.0001), ("beta", 0.75),
+                 ("data_format", "NCHW")),
+    "multiplex": (("inputs", _R), ("index", _R)),
+    "fill_diagonal_tensor": _XY + (("offset", 0), ("dim1", 0), ("dim2", 1)),
+    "grad_add": _XY,
+    "fc": (("input", _R), ("w", _R), ("bias", None), ("in_num_col_dims", 1),
+           ("activation_type", "")),
+    "identity_loss": _X + (("reduction", 1),),
+    "shuffle_channel": _X + (("group", 1),),
+    "soft_relu": _X + (("threshold", 40.0),),
+    "partial_sum": (("xs", _R), ("start_index", 0), ("length", -1)),
+    "bilinear": _XY + (("weight", _R), ("bias", None)),
+    "sequence_mask_op": _X + (("max_len", 0), ("out_dtype", "int64")),
+    "number_count": (("numbers", _R), ("upper_range", 1)),
+    "seed_op": (("seed", 0), ("deterministic", False), ("force_cpu", False)),
+    "full_batch_size_like": (("input", _R), ("shape", ()), ("value", 0.0),
+                             ("dtype", None), ("input_dim_idx", 0),
+                             ("output_dim_idx", 0)),
+    "row_conv": _X + (("filter", _R),),
+    "fused_elemwise_add_activation": _XY + (("functor_list", ("relu",)),),
+    "margin_cross_entropy": (
+        ("logits", _R), ("label", _R), ("return_softmax", False),
+        ("ring_id", 0), ("rank", 0), ("nranks", 1), ("margin1", 1.0),
+        ("margin2", 0.5), ("margin3", 0.0), ("scale", 64.0)),
+    "hsigmoid_loss": _X + (("label", _R), ("w", _R), ("bias", None),
+                           ("path", None), ("code", None),
+                           ("num_classes", 2), ("is_sparse", False)),
+    "graph_khop_sampler": (("row", _R), ("colptr", _R), ("x", _R),
+                           ("eids", None), ("sample_sizes", ()),
+                           ("return_eids", False)),
+    "lars_momentum_op": _PG + (("velocity", _R), ("learning_rate", _R),
+                               ("mu", 0.9), ("lars_coeff", 0.001),
+                               ("lars_weight_decay", 0.0005),
+                               ("epsilon", 0.0), ("rescale_grad", 1.0)),
+    "share_data": _X,
+    "depthwise_conv2d_transpose": _X + (("weight", _R), ("bias", None)) +
+    _TRANSPOSE_CONV,
+    # quantization
+    "fake_quantize": _X + (("scale", _R), ("bit_length", 8)),
+    "llm_int8_linear": _X + (("weight", _R), ("bias", None),
+                             ("weight_scale", None), ("threshold", 6.0)),
+})
+
 # ops whose first argument is not a tensor: no Tensor method
 NOT_TENSOR_FIRST = frozenset({
     "full", "zeros", "ones", "empty", "arange", "linspace", "eye",
     "tril_indices", "uniform", "gaussian", "rand", "randn", "randint",
     "randperm", "truncated_gaussian_random", "read_file", "logspace",
-    "fftfreq", "rfftfreq", "assign_value"})
+    "fftfreq", "rfftfreq", "assign_value", "seed_op"})
 
 # ops that live only in their namespace (``paddle_tpu_torch.fft`` /
 # ``.signal``), never at the top level, where ``fft`` is the module (the
@@ -830,10 +953,10 @@ def _make_op(name: str) -> Callable:
 def build_ops() -> Dict[str, Callable]:
     """Every op of the table, built once over its registered kernel."""
     if not _OP_FNS:
-        from .kernels import (creation, detection,  # noqa: F401
-                              extra_math, extra_misc, extra_nn, graph,
-                              linalg_fft, manipulation, math, math_ext, moe,
-                              nn, quant, random, rnn, serving,
+        from .kernels import (compat_tranche, creation,  # noqa: F401
+                              detection, extra_math, extra_misc, extra_nn,
+                              graph, linalg_fft, manipulation, math,
+                              math_ext, moe, nn, quant, random, rnn, serving,
                               tensor_api_ext, vision_io)  # (register)
         for name in SCHEMA:
             if name not in KERNELS:

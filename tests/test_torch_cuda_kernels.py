@@ -78,7 +78,12 @@ steps and n tiles, k and n that are not multiples of 8 (the WMMA route),
 float32 and bfloat16 x, with a bias and a 3-D x through
 ``weight_only_linear``, and with ``FLAGS_use_pallas_kernels`` off (the
 plain version, launching nothing); each route gives the same bytes on
-two launches.
+two launches. The quantization ops (``fake_quantize`` forward and
+backward, ``quantization.quant_linear`` at numeric scales,
+``llm_int8_linear`` with outliers, on both sides of ``torch._int_mm``'s
+shape rules) read nothing of the card on the host: they run under
+``torch.cuda.set_sync_debug_mode("error")``, and a CUDA graph captured
+over them replays their eager results bit for bit.
 """
 
 import numpy as np
@@ -1227,3 +1232,53 @@ def test_int4_gemm_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="is on"):
         wog.int4_matmul_kernel(x, q.cpu(), s)
     assert wog.launches.count == before
+
+
+def _quant_ops(dev):
+    """A closure over seeded inputs running the quantization ops."""
+    from paddle_tpu_torch import quantization as qz
+    from paddle_tpu_torch.ops.kernels import quant
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+    x = rand(64, 256).requires_grad_()
+    scale = x.detach().abs().amax()
+    xl, wl, bl = rand(32, 256), rand(256, 128) * 0.1, rand(128)
+    xi = rand(2, 16, 256)
+    xi[..., 5] *= 40.0                      # an outlier column
+    wi = torch.randint(-127, 128, (256, 128), generator=g,
+                       dtype=torch.int8).to(dev)
+    si = (rand(128).abs() + 0.1) / 127
+
+    def run():
+        y = quant.fake_quantize(x, scale, 8)
+        (gx,) = torch.autograd.grad((y * y).sum(), x)
+        return (y.detach(), gx,
+                qz.quant_linear(xl, wl, bl, 3.0, 0.25, 8),
+                quant.llm_int8_linear(xi, wi, None, si, 6.0),   # _int_mm
+                quant.llm_int8_linear(xi[:, :5], wi, bl, si, 6.0))
+    return run
+
+
+def test_quantization_ops_never_sync_and_capture(dev):
+    run = _quant_ops(dev)
+    run()                                   # cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)

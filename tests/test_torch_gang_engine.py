@@ -29,24 +29,11 @@ from paddle_tpu_torch.models import (ContinuousBatchingEngine,
                                      LlamaForCausalLM, from_jax_state_dict)
 from paddle_tpu_torch.observability import flight_recorder, registry
 
+from _torch_ref_state import reference_executables_dropped  # noqa: F401
+
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=160,
            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
            max_position_embeddings=128)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _fresh_reference_executables():
-    """Drop the reference's in-process per-op executables before this
-    file runs: they are keyed on shapes and dtypes, and one that an
-    earlier file in the same worker built over the 8-device mesh
-    (``tests/test_exec_store.py``'s warm starts) refuses this file's
-    single-device arrays ("expected 8 shards")."""
-    import jax
-    from paddle_tpu.ops import dispatcher as rdisp
-    rdisp._get_exec.cache_clear()
-    for schema in rdisp.OPS.values():
-        schema.__dict__.pop("_fast_ex", None)
-    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,8 @@ from paddle_tpu_torch.models import (ContinuousBatchingEngine, LlamaConfig,
 from paddle_tpu_torch.models.generation import PagedKVCache
 from paddle_tpu_torch.observability import registry
 
+from _torch_ref_state import reference_executables_dropped  # noqa: F401
+
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=160,
            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
            max_position_embeddings=128)

@@ -13,6 +13,8 @@ median, the captured step publishes the same series as the eager one,
 and ``FLAGS_metrics=0`` leaves every series as it was.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -28,6 +30,10 @@ from paddle_tpu_torch.models import (ContinuousBatchingEngine, LlamaConfig,
                                      LlamaForCausalLM, QueueFull,
                                      from_jax_state_dict)
 from paddle_tpu_torch.observability import metrics as tmetrics
+
+import _torch_ref_state
+from _torch_ref_state import (  # noqa: F401  (an autouse fixture)
+    plant_loaded_executables, reference_executables_dropped)
 
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=160,
            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -82,6 +88,13 @@ def _delta(before, after, registry):
     kinds = {k: s["type"] for k, s in registry.snapshot().items()}
     return {k: (v if kinds[k] == "gauge" else v - before.get(k, 0))
             for k, v in after.items()}
+
+
+def _moved(before, after):
+    """The series whose reading changed between the two readings (a new
+    one from 0): what the engines run between them moved, whatever other
+    series the process-wide registry holds."""
+    return {k for k, v in after.items() if (v or 0) != (before.get(k) or 0)}
 
 
 HEAD = _prompts(9, [40])[0]
@@ -162,13 +175,16 @@ def test_tenants_and_rejections_equal_reference(models):
             eng.add_request(prompts[2], 3, tenant="acme")
         hint = e.value.retry_after_hint
         eng.run()
-        res[cls] = (_delta(before, _serving(reg), reg),
-                    [r.out_tokens for r in eng.results.values()])
+        after = _serving(reg)
+        res[cls] = (_delta(before, after, reg), {
+            k for k in _moved(before, after) if "{" in k},
+            [r.out_tokens for r in eng.results.values()])
         if cls is ContinuousBatchingEngine:
             assert hint == p50
-    (jd, jt), (td, tt) = res[JEngine], res[ContinuousBatchingEngine]
+    (jd, kids, jt), (td, tkids, tt) = res[JEngine], \
+        res[ContinuousBatchingEngine]
     assert [[int(x) for x in r] for r in jt] == tt
-    kids = {k for k, v in jd.items() if "{" in k and v}
+    assert tkids == kids
     assert kids == {'serving.admitted{tenant="acme"}',
                     'serving.admitted{tenant="zeta"}',
                     'serving.rejected{tenant="acme"}'}
@@ -177,6 +193,29 @@ def test_tenants_and_rejections_equal_reference(models):
         'serving.admitted{tenant="zeta"}': 1,
         'serving.rejected{tenant="acme"}': 1}
     assert td["serving.rejected"] == jd["serving.rejected"] == 1
+
+
+def test_survives_gauges_another_replica_left(models):
+    """The order that failed in a whole run: ``tests/test_perf_attribution.py``
+    merges a worker's ``serving.*`` delta into the reference's registry
+    under ``replica="repT"`` (``merge_delta``), which leaves labelled gauges
+    (free blocks, active rows) at non-zero values for the rest of the
+    process. Planted here the same way: the tenants test counts only the
+    labelled series its own engines moved."""
+    jm, _ = models
+    reg = jmetrics.registry()
+    _drive(JEngine, jm, SCENARIOS["plain"])     # gauges with values
+    reg.merge_delta(reg.delta_update({}, ("serving.",)),
+                    labels={"replica": "planted"})
+    planted = [k for k, v in _serving(reg).items()
+               if 'replica="planted"' in k and v]
+    assert 'serving.free_blocks{replica="planted"}' in planted
+    try:
+        test_tenants_and_rejections_equal_reference(models)
+    finally:
+        for k in list(reg._metrics):
+            if 'replica="planted"' in k:
+                del reg._metrics[k]
 
 
 def test_retry_after_hint_is_the_queue_wait_median(models):
@@ -275,3 +314,26 @@ def test_port_registers_only_frozen_names():
     framework = {n for n in names if not n.startswith(("my.", "test."))}
     assert framework - tmetrics.METRIC_NAMES == set()
     assert tmetrics.METRIC_NAMES == jmetrics.METRIC_NAMES
+
+
+def test_survives_executables_a_warm_start_left(models, tmp_path):
+    """The order that failed: a file that warm-starts the reference from
+    a disk store (``tests/test_exec_store.py``) and then this file in one
+    worker. The state is planted here (the preemption scenario's
+    executables loaded from disk) and shown to break the reference's
+    engine; the function the start-up fixture runs makes the scenario
+    equal again; and every file that runs the reference's tiny Llama
+    carries that fixture, so removing it from one fails here."""
+    jm, _ = models
+    sc = SCENARIOS["preemption"]
+    planted = plant_loaded_executables(str(tmp_path),
+                                       lambda: _drive(JEngine, jm, sc))
+    assert "8 shards" in str(planted)
+    with pytest.raises(Exception, match="8 shards"):
+        _drive(JEngine, jm, sc)
+    _torch_ref_state.drop_reference_executables()
+    test_serving_series_equal_reference(models, "preemption")
+    missing = [name for name in _torch_ref_state.FILES if getattr(
+        importlib.import_module(name), "reference_executables_dropped",
+        None) is not _torch_ref_state.reference_executables_dropped]
+    assert missing == []

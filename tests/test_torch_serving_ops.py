@@ -205,11 +205,14 @@ def test_every_serving_op_has_a_case():
     has a case here (``paged_attention`` and ``ragged_paged_attention``
     have theirs in ``test_torch_paged_attention.py`` /
     ``test_torch_ragged_attention.py``; the linalg and fft extras of
-    ``extra_misc.py`` theirs in ``test_torch_linalg_fft.py``)."""
+    ``extra_misc.py`` theirs in ``test_torch_linalg_fft.py``; its
+    single-device op forms theirs in ``test_torch_misc_ops.py``)."""
     from paddle_tpu_torch.ops.kernels import extra_misc, serving
+    from test_torch_misc_ops import CASES as OP_FORMS
     owned = {n for n, k in tdisp.KERNELS.items()
              if k.__module__ in (serving.__name__, extra_misc.__name__)} - {
-        "matrix_rank", "lu_unpack", "fft_c2c", "fft_r2c", "fft_c2r"}
+        "matrix_rank", "lu_unpack", "fft_c2c", "fft_r2c", "fft_c2r"} - {
+        v[0] for v in OP_FORMS.values()}
     covered = {v[0] for v in CASES.values()} | {
         "sample_logits", "sample_logits_keyed", "top_p_sampling",
         "paged_attention", "ragged_paged_attention"}
