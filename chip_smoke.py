@@ -5,7 +5,9 @@ attention forward and backward through the op registry, serve Llama-3-8B
 (full width and depth, random weights from a seed) through the ragged
 continuous-batching engine, the gang-scheduled engine and ``generate()``
 over the paged and the contiguous caches, with its ``observability``
-series and spans, serve it
+series and spans, through a journaled resilient engine that is killed,
+replayed, drained and warm-started and through a two-replica fleet with
+failover (thread and subprocess replicas), serve it
 again quantized to int4 weights through the int4 GEMM kernel, multiply
 block-pruned Llama-3-8B MLP weights through ``sparse.bcsr_matmul``, train
 Llama-3-8B's width (8 layers) through ``TrainStep`` with AdamW and then
@@ -147,6 +149,49 @@ Phases (any failure raises and the script exits non-zero):
    captured, bf16 eager) each profile one prefill step and three decode
    steps with torch.profiler (device time by kernel and by part, the
    busy share of wall); their launches are not counted;
+4c. ``serve_resilient``, over phase 4's model: the 16 requests in 4
+   prefix families (a prompt takes the first block of one of the first
+   four; the shared-prefix pair stays together), 64 new tokens at
+   temperature 0.8, engine seed 23, the serving kernels' plain versions
+   made to raise on the card. (1) Uninterrupted: through
+   ``ResilientServingEngine(journal_flush_every=4)`` on a fresh root, then
+   through the plain ``ContinuousBatchingEngine``: the tokens byte for
+   byte, the ragged launches a step and the host syncs of three steps
+   (torch's sync debug mode) equal, one capture and replays each;
+   tokens/s of both, the journal's flushes and ``serving.journal_fsync``
+   p50/p99. (2) Kill and replay: on a second root, served until two
+   requests have finished and every other one has a committed watermark,
+   then dropped without a drain (its pools freed) and relaunched on the
+   root: every output byte for byte (1)'s; replayed requests and tokens,
+   finished ones recovered from the log, seconds from construction to
+   the first step (its capture inside). (3) Drain and warm start, over a
+   bf16 and an int8 pool: the first prompt served, ``drain()`` (a
+   committed journal and warm-cache generation; bytes and seconds), a
+   relaunch with ``warm_start=True`` whose preloaded blocks equal the
+   generation's bit for bit (codes and scales), the 512-token-prefix
+   request's prefix hit and TTFT against a cold engine's (both after
+   ``warmup()``). (4) A step held on the card for 3 s past a 1 s
+   ``step_timeout_s``: one committed ``serving.hang`` bundle whose stack
+   classes name ``device_call``;
+4d. ``serve_fleet``: two ``ThreadReplicaHandle`` replicas sharing the
+   model, each with its own 8 GiB pool and step graph, under a
+   ``ReplicaRouter``: the 16 requests (their gids the rids of 4c), each
+   family on one replica, a replica ``kill()``ed once one of its requests
+   has 8 tokens: every request delivered once and byte for byte 4c's, one
+   ``fleet.failover`` bundle carrying a victim's trace id, each replica's
+   capture stats; a fresh fleet through ``rolling_drain()`` with 8 more
+   requests submitted during and after it: nothing dropped, the 16 byte
+   for byte; a burst of 64 requests (256-304 tokens, 16 new) against
+   replicas of 4 rows and ``max_queue=4``: shed with
+   ``FleetShed.retry_after_s`` > 0, the counts and the TTFT p99 of those
+   served. Then two ``SubprocessReplicaHandle`` replicas (``python -m
+   paddle_tpu_torch.serving.fleet.worker``) building Llama-3-8B's width
+   at 4 layers on the card from the seed (``fleet_replica_model``), the
+   16 requests, one replica SIGKILLed after its acks: the survivor
+   finishes every request byte for byte as the same 4-layer model does in
+   this process; spawn-to-READY seconds and the failover time (the
+   death seen to the survivor's first journaled token of a handed
+   request);
 4b. int4 serving, after the serving model is freed: the same model from
    the same seed, its bf16 logits of one prompt, then
    ``quantize_for_inference(model, "weight_only_int4")`` on the card
@@ -376,7 +421,8 @@ captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
 ``train_amp`` and ``train_layers`` launches, the fused optimizer's its
 ``bert_squad``, ``ocr``, vision and ``quant_qat`` launches and its
-Momentum time over ResNet-50's parameters), then as the last line ``{"ok": true, "device":
+Momentum time over ResNet-50's parameters; the serving kernels' their
+``serve_resilient`` and ``serve_fleet`` launches), then as the last line ``{"ok": true, "device":
 {...}}``. Exits
 non-zero, printing no result, when no CUDA device is present or the
 package is missing. A longer report goes to ``--report`` (default
@@ -2001,7 +2047,701 @@ def phase_main(torch, seed, report):
     main["profile_gang_decode"] = m["profile_decode"]
     log(f"profile[gang decode]: {json.dumps(m['profile_decode'])}")
     report["main"] = main
-    return main, outs_bf16
+    return main, outs_bf16, model
+
+
+# -- phases 4c-4d: serving resilience and the fleet ------------------------------
+
+RESILIENT_T = 0.8          # serve_resilient's and serve_fleet's temperature
+RESILIENT_SEED = 23        # their engine seed: every replica's
+RESILIENT_FLUSH = 4        # journal_flush_every of the uninterrupted run
+RESILIENT_NEW = 64         # new tokens a request, as phase 4's
+SERVE_KW = dict(max_batch=16, block_size=64, token_budget=512,
+                prefill_chunk=256, kv_pool_bytes=8 << 30)
+FAMILIES = 4               # prompt families (a shared first block each)
+SYNC_FROM, SYNC_STEPS = 5, 3   # steps whose host syncs are counted: after
+#                                the late arrival, past the first replays
+HANG_TIMEOUT_S = 1.0       # the held step's watchdog
+HANG_HOLD_S = 3.0          # how long the held step keeps the card busy
+FLEET_BURST = 64           # the overload burst's requests
+FLEET_BURST_QUEUE = 4      # each replica's admission bound in the burst
+FLEET_BURST_BATCH = 4      # and its rows: a submit waits out the step in
+#                            flight, so 16-row replicas would drain one
+#                            request a step as fast as it arrives
+FLEET_BURST_NEW = 16
+FLEET_SUB_LAYERS = 4       # the subprocess replicas' depth (full width)
+FLEET_SUB_POOL = 4 << 30   # their KV pools
+FLEET_FACTORY = "chip_smoke:fleet_replica_model"
+FLEET_SEED_ENV = "CHIP_SMOKE_FLEET_SEED"
+
+
+def family_requests(cfg, seed: int):
+    """:func:`make_requests`' 16 prompts in FAMILIES prefix families:
+    prompt i takes the first block (64 tokens) of prompt ``i % FAMILIES``;
+    the last one, which shares 512 tokens with the first, stays in the
+    first one's family."""
+    prompts = make_requests(cfg, seed)
+    bs = SERVE_KW["block_size"]
+    for i, p in enumerate(prompts):
+        f = 0 if i == len(prompts) - 1 else i % FAMILIES
+        if f != i:
+            p[:bs] = prompts[f][:bs]
+    return prompts
+
+
+def family_of(prompt) -> bytes:
+    return bytes(np.asarray(prompt[:SERVE_KW["block_size"]],
+                            np.int32).tobytes())
+
+
+def fleet_replica_model():
+    """A subprocess replica's model (``FLEET_FACTORY``): Llama-3-8B's
+    width at FLEET_SUB_LAYERS layers, bf16, on the card, from the seed in
+    ``$CHIP_SMOKE_FLEET_SEED``: every replica and the parent's
+    uninterrupted run hold the same weights."""
+    import torch
+    return fleet_model(torch, int(os.environ.get(FLEET_SEED_ENV, "0")),
+                       CARD)
+
+
+def fleet_model(torch, seed: int, device):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = FLEET_SUB_LAYERS
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return LlamaForCausalLM(cfg, device=device, generator=gen)
+
+
+def host_syncs(torch, step):
+    """The host syncs of ``step()`` (torch's sync debug mode's warnings):
+    the file:line of each."""
+    import warnings
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's one-time "prototype feature" notice is no sync
+    return sorted(f"{os.path.basename(x.filename)}:{x.lineno}" for x in w
+                  if "called a synchronizing" in str(x.message))
+
+
+def drive(eng, prompts, new_tokens, late=True, step_s=None, syncs=None):
+    """Serve ``prompts`` as :func:`serve` does (the last one arrives after
+    four steps) through ``eng`` (an engine or a resilient engine); the
+    outputs by rid. ``step_s`` collects each step's seconds; ``syncs``,
+    a (torch, list) pair, the host syncs of SYNC_STEPS steps from
+    SYNC_FROM on."""
+    inner = getattr(eng, "engine", eng)
+    outs = {}
+    last = prompts[-1] if late else None
+    for p in (prompts[:-1] if late else prompts):
+        eng.add_request(p, max_new_tokens=new_tokens)
+    while inner.pending or inner.num_active or last is not None:
+        if last is not None and (inner.steps >= 4 or not (
+                inner.pending or inner.num_active)):
+            eng.add_request(last, max_new_tokens=new_tokens)
+            last = None
+        if syncs is not None and \
+                SYNC_FROM <= inner.steps < SYNC_FROM + SYNC_STEPS:
+            syncs[1].append(host_syncs(syncs[0], lambda: outs.update(
+                {r.rid: list(r.out_tokens) for r in eng.step()})))
+            continue
+        ts = time.perf_counter()
+        for r in eng.step():
+            outs[r.rid] = list(r.out_tokens)
+        if step_s is not None:
+            step_s.append(time.perf_counter() - ts)
+    return outs
+
+
+def span_ms(name: str):
+    """Durations (ms) of the tracing ring's ``name`` spans."""
+    from paddle_tpu_torch.observability import tracing
+    return [e["dur"] / 1e3 for e in tracing.to_chrome()["traceEvents"]
+            if e["name"] == name and "dur" in e]
+
+
+def pctl(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def check_tokens(label, outs, want):
+    """``outs`` byte for byte ``want`` (every rid of ``want``)."""
+    bad = sorted(r for r in want if outs.get(r) != want[r])
+    if bad:
+        r = bad[0]
+        got = outs.get(r) or []
+        at = next((i for i, (a, b) in enumerate(zip(got, want[r]))
+                   if a != b), min(len(got), len(want[r])))
+        raise AssertionError(f"{label}: requests {bad} differ from the "
+                             f"uninterrupted run (rid {r} from token {at})")
+
+
+def check_graph(label, eng):
+    """The engine captured its step once and replayed it: no eager step."""
+    st = getattr(eng, "engine", eng).capture_stats
+    if st["captures"] != 1 or st["eager_steps"] or st["replays"] < 1:
+        raise AssertionError(f"{label}: capture stats {st}: want one "
+                             f"capture, replays and no eager step")
+    return dict(st)
+
+
+def counter_value(name: str) -> float:
+    return instrument(name).value
+
+
+def instrument(name: str):
+    """The port's registry instrument ``name``."""
+    from paddle_tpu_torch import observability
+    return observability.registry().get(name)
+
+
+def sleep_cycles(torch, seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles that hold the card ``seconds``
+    (the rate timed once with CUDA events)."""
+    n = 10 ** 8
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(n)
+    b.record()
+    b.synchronize()
+    return int(n * seconds * 1e3 / a.elapsed_time(b))
+
+
+def ttft_after_warmup(torch, eng, prompt, new_tokens=4):
+    """TTFT (s) of ``prompt`` on an engine that has paid its capture
+    (``warmup``); the tokens."""
+    eng.warmup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = eng.add_request(prompt, max_new_tokens=new_tokens)
+    req = eng.engine.results[rid]
+    ttft = None
+    while eng.has_work:
+        eng.step()
+        if ttft is None and req.out_tokens:
+            ttft = time.perf_counter() - t0
+    return ttft, eng.outputs[rid]
+
+
+def warm_start_check(torch, model, prompts, root, kv):
+    """Serve the first prompt, drain (a journal commit and a warm-cache
+    generation), relaunch with ``warm_start``: the preload's blocks bit
+    for bit the generation's, then the 512-token-prefix request's TTFT
+    against a cold engine's."""
+    from paddle_tpu_torch.serving.resilience import (ResilientServingEngine,
+                                                     warm_cache)
+    kw = dict(SERVE_KW, temperature=RESILIENT_T, seed=RESILIENT_SEED,
+              kv_dtype=kv)
+    eng = ResilientServingEngine(model, os.path.join(root, kv), **kw)
+    eng.add_request(prompts[0], max_new_tokens=8)
+    eng.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.drain()
+    drain_s = time.perf_counter() - t0
+    marker = eng.journal.committed_marker()
+    gen = warm_cache.latest_committed(eng.warm_root)
+    if not (marker and marker.get("drained") and gen):
+        raise AssertionError(f"warm[{kv}]: drain committed journal "
+                             f"{marker} and generation {gen}")
+    snap_bytes = os.path.getsize(os.path.join(gen, "blocks.npz"))
+    eng.close()
+    del eng
+    free_card(torch)
+    t0 = time.perf_counter()
+    warm = ResilientServingEngine(model, os.path.join(root, kv),
+                                  warm_start=True, **kw)
+    torch.cuda.synchronize()
+    preload_s = time.perf_counter() - t0
+    if warm.warm_blocks <= 0:
+        raise AssertionError(f"warm[{kv}]: the relaunch preloaded nothing")
+    meta = json.load(open(os.path.join(gen, "meta.json")))
+    snap = np.load(os.path.join(gen, "blocks.npz"))
+    c = warm.engine.cache
+    ids = torch.as_tensor([warm.engine._pc._map[bytes.fromhex(d)]
+                           for d in meta["digests"]], device=CARD)
+    pools = [("k", c.k), ("v", c.v)]
+    if c.quantized:
+        pools += [("ks", c.k_scale), ("vs", c.v_scale)]
+    bad = [f"{tag}_{layer}" for tag, ps in pools
+           for layer in range(c.num_layers)
+           if warm_cache._host_bytes(ps[layer].index_select(0, ids))
+           .tobytes() != snap[f"{tag}_{layer}"].tobytes()]
+    if bad:
+        raise AssertionError(f"warm[{kv}]: preloaded blocks differ from "
+                             f"the generation in {bad[:4]}")
+    hit0 = counter_value("serving.prefix_cache.hit_blocks")
+    ttft_warm, toks = ttft_after_warmup(torch, warm, prompts[-1])
+    hits = counter_value("serving.prefix_cache.hit_blocks") - hit0
+    if hits <= 0:
+        raise AssertionError(f"warm[{kv}]: the shared-head request did not "
+                             f"hit the preloaded blocks")
+    warm_blocks = warm.warm_blocks
+    warm.close()
+    del warm
+    free_card(torch)
+    cold = ResilientServingEngine(model, os.path.join(root, kv + "-cold"),
+                                  **kw)
+    ttft_cold, _ = ttft_after_warmup(torch, cold, prompts[-1])
+    cold.close()
+    del cold
+    free_card(torch)
+    return dict(kv=kv, drain_s=drain_s, snapshot_bytes=snap_bytes,
+                snapshot_blocks=len(meta["digests"]), preload_s=preload_s,
+                warm_blocks=warm_blocks, prefix_hit_blocks=hits,
+                ttft_warm_ms=1e3 * ttft_warm, ttft_cold_ms=1e3 * ttft_cold,
+                bits_equal=True, tokens=len(toks))
+
+
+def hang_check(torch, model, root):
+    """A step held on the card past the watchdog's timeout: one committed
+    ``serving.hang`` bundle whose stacks name the held frame's class (the
+    host waiting on the card: ``device_call``)."""
+    from paddle_tpu_torch.models import serving as serving_mod
+    from paddle_tpu_torch.serving.resilience import (ResilientServingEngine,
+                                                     ServingAction)
+    from paddle_tpu_torch.utils.durability import read_committed_marker
+    eng = ResilientServingEngine(model, root, step_timeout_s=HANG_TIMEOUT_S,
+                                 **dict(SERVE_KW, temperature=RESILIENT_T,
+                                        seed=RESILIENT_SEED))
+    eng.warmup()                         # the capture: NOT_READY, exempt
+    eng.add_request([1, 2, 3, 4], max_new_tokens=4)
+    real = serving_mod._host_read
+    cycles = sleep_cycles(torch, HANG_HOLD_S)
+
+    def held(t):
+        torch.cuda._sleep(cycles)        # the card busy before the read
+        return real(t)
+    serving_mod._host_read = held
+    t0 = time.perf_counter()
+    try:
+        eng.step()
+    finally:
+        serving_mod._host_read = real
+    held_s = time.perf_counter() - t0
+    action = eng.poll()
+    eng.close()
+    inc = os.path.join(root, "incidents")
+    bundles = [os.path.join(inc, d) for d in sorted(os.listdir(inc))
+               if d.startswith("incident-")] if os.path.isdir(inc) else []
+    if action != ServingAction.RESTART or len(bundles) != 1:
+        raise AssertionError(f"hang: poll {action}, {len(bundles)} bundles "
+                             f"after a {held_s:.2f} s step")
+    md = read_committed_marker(bundles[0])
+    hdr = json.load(open(os.path.join(bundles[0], "incident.json")))
+    if md.get("kind") != "serving.hang" or \
+            hdr["stack_classes"].get("device_call", 0) < 1:
+        raise AssertionError(f"hang: bundle {md} with stack classes "
+                             f"{hdr['stack_classes']}: want serving.hang "
+                             f"naming device_call")
+    del eng
+    free_card(torch)
+    return dict(held_s=held_s, stalled_s=hdr["attrs"]["stalled_s"],
+                stack_classes=hdr["stack_classes"],
+                files=sorted(os.listdir(bundles[0])))
+
+
+def phase_serve_resilient(torch, seed, report, model):
+    """Phase 4c (see the module docstring)."""
+    import tempfile
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.resilience import ResilientServingEngine
+    prompts = family_requests(model.config, seed)
+    kw = dict(SERVE_KW, temperature=RESILIENT_T, seed=RESILIENT_SEED)
+    res = {}
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="serve_resilient-") as tmp, \
+            no_plain_on_card():
+        # 1. uninterrupted: the resilient engine, then the plain one
+        runs = {}
+        for name in ("resilient", "plain"):
+            before = kernels.launch_counts()["ragged_paged_attention"]
+            flush0 = counter_value("serving.resilience.journal_flushes")
+            tracing.clear()
+            eng = (ResilientServingEngine(
+                model, os.path.join(tmp, "run1"),
+                journal_flush_every=RESILIENT_FLUSH, **kw)
+                if name == "resilient" else
+                ContinuousBatchingEngine(model, **kw))
+            step_s, syncs = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = drive(eng, prompts, RESILIENT_NEW, step_s=step_s,
+                         syncs=(torch, syncs))
+            wall = time.perf_counter() - t0
+            inner = getattr(eng, "engine", eng)
+            gen = sum(len(v) for v in outs.values())
+            runs[name] = dict(
+                outs=outs, tokens_per_s=gen / wall, wall_s=wall,
+                steps=inner.steps, step_ms_p50=1e3 * pctl(step_s, 50),
+                ragged_per_step=(kernels.launch_counts()[
+                    "ragged_paged_attention"] - before) / inner.steps,
+                host_syncs=syncs, capture=check_graph(name, eng))
+            if name == "resilient":
+                fs = span_ms("serving.journal_fsync")
+                runs[name].update(
+                    journal_flushes=counter_value(
+                        "serving.resilience.journal_flushes") - flush0,
+                    fsync_ms_p50=pctl(fs, 50), fsync_ms_p99=pctl(fs, 99),
+                    fsync_spans=len(fs))
+                eng.close()
+            del eng, inner
+            free_card(torch)
+        want = runs["plain"]["outs"]
+        check_tokens("serve_resilient[uninterrupted]",
+                     runs["resilient"]["outs"], want)
+        if len(want) != len(prompts) or any(
+                len(t) != RESILIENT_NEW or min(t) < 0 or
+                max(t) >= model.config.vocab_size for t in want.values()):
+            raise AssertionError("serve_resilient: an output is short or "
+                                 "out of vocabulary")
+        for k in ("ragged_per_step", "host_syncs"):
+            if runs["resilient"][k] != runs["plain"][k]:
+                raise AssertionError(
+                    f"serve_resilient: {k} {runs['resilient'][k]} against "
+                    f"the plain engine's {runs['plain'][k]}")
+        res["uninterrupted"] = {n: {k: v for k, v in r.items()
+                                    if k != "outs"} for n, r in runs.items()}
+        # 2. kill and replay
+        root2 = os.path.join(tmp, "run2")
+        eng = ResilientServingEngine(model, root2,
+                                     journal_flush_every=RESILIENT_FLUSH,
+                                     **kw)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=RESILIENT_NEW)
+        while not (len(eng.outputs) >= 2 and eng.journal.pending_records == 0
+                   and all(w > 0 for w in eng._watermark.values())):
+            eng.step()
+        at_kill = dict(steps=eng.engine.steps, finished=len(eng.outputs),
+                       watermarks=sorted(eng._watermark.values()))
+        del eng                 # no drain, no close: its pools go back
+        free_card(torch)
+        tok0 = counter_value("serving.resilience.replayed_tokens")
+        t0 = time.perf_counter()
+        eng = ResilientServingEngine(model, root2, **kw)
+        built = time.perf_counter() - t0
+        eng.step()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        while eng.has_work:
+            eng.step()
+        check_tokens("serve_resilient[replay]", eng.outputs, want)
+        res["replay"] = dict(
+            at_kill=at_kill, replayed_requests=eng.replayed_requests,
+            replayed_tokens=counter_value(
+                "serving.resilience.replayed_tokens") - tok0,
+            recovered_finished=eng.recovered_finished,
+            construction_s=built, to_first_step_s=first,
+            capture_s=eng.engine.capture_stats["capture_s"],
+            steps=eng.engine.steps, capture=check_graph("replay", eng))
+        eng.close()
+        del eng
+        free_card(torch)
+        # 3. drain and warm start, over a bf16 and an int8 pool
+        res["warm"] = {kv: warm_start_check(torch, model, prompts,
+                                            os.path.join(tmp, "warm"), kv)
+                       for kv in ("bf16", "int8")}
+        # 4. a held step
+        res["hang"] = hang_check(torch, model, os.path.join(tmp, "hang"))
+    res["launches"] = kernels.launch_counts()
+    if res["launches"]["ragged_paged_attention"] <= 0:
+        raise AssertionError("serve_resilient: no ragged launch")
+    report["serve_resilient"] = res
+    log(f"serve_resilient: {json.dumps(res)}")
+    return res, want
+
+
+def fleet_run(torch, model, root, max_queue=None, **engine_kw):
+    """A started router over two thread replicas of ``model`` (each its
+    own KV pool and step graph) and their handles."""
+    from paddle_tpu_torch.serving.fleet import (ReplicaRouter,
+                                                ThreadReplicaHandle)
+    kw = dict(SERVE_KW, temperature=RESILIENT_T, seed=RESILIENT_SEED,
+              journal_flush_every=1)
+    kw.update(engine_kw)
+    reps = [ThreadReplicaHandle(f"t{i}", lambda: model,
+                                os.path.join(root, f"t{i}"),
+                                max_queue=max_queue, **kw)
+            for i in range(2)]
+    router = ReplicaRouter(reps, block_size=SERVE_KW["block_size"],
+                           submit_deadline_s=60.0)
+    router.start()
+    router.wait_ready(timeout_s=300.0)
+    return router, reps
+
+
+def poll_until_done(router, timeout_s=300.0):
+    """Poll until nothing is outstanding or parked; every delivered gid,
+    in order (a gid delivered twice shows twice)."""
+    delivered = []
+    deadline = time.monotonic() + timeout_s
+    while router._outstanding or router._parked:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: {len(router._outstanding)} "
+                                 f"outstanding after {timeout_s} s")
+        delivered += [f.gid for f in router.poll()]
+        time.sleep(0.002)
+    return delivered
+
+
+def close_fleet(torch, router, reps):
+    router.close()
+    for r in reps:
+        r.eng = None
+    free_card(torch)
+
+
+def thread_fleet(torch, model, prompts, want, tmp):
+    """Two thread replicas sharing the model: the 16 requests with a
+    replica killed mid-stream, then a rolling drain with submits
+    arriving, then the overload burst."""
+    from paddle_tpu_torch.serving.fleet import FleetShed
+    from paddle_tpu_torch.utils.durability import read_committed_marker
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    # the 16 requests, a replica killed mid-stream
+    router, reps = fleet_run(torch, model, os.path.join(tmp, "kill"))
+    out["pool_bytes"] = [sum(t.numel() * t.element_size()
+                             for t in r.eng.engine.cache.k + r.eng.engine
+                             .cache.v) for r in reps]
+    t0 = time.perf_counter()
+    gids = [router.submit(p, max_new_tokens=RESILIENT_NEW)
+            for p in prompts]
+    placed = {g: router._outstanding[g].replica for g in gids}
+    fams = {}
+    for g, p in zip(gids, prompts):
+        fams.setdefault(family_of(p), set()).add(placed[g])
+    if any(len(v) != 1 for v in fams.values()):
+        raise AssertionError(f"fleet: a family spans replicas: {fams}")
+    victim = placed[gids[-1]]
+    traces = {f"{o.trace[0]:016x}" for o in router._outstanding.values()
+              if o.replica == victim and o.trace is not None}
+    vrep = next(r for r in reps if r.name == victim)
+    mine = [g for g in gids if placed[g] == victim]
+
+    def mid_stream():
+        res = vrep.eng.engine.results
+        return any(len(getattr(res.get(g), "out_tokens", ())) >= 8
+                   for g in mine)
+    delivered = []
+    while not mid_stream():
+        delivered += [f.gid for f in router.poll()]
+        time.sleep(0.002)
+    captures = {r.name: dict(r.eng.engine.capture_stats) for r in reps}
+    vrep.kill()
+    delivered += poll_until_done(router)
+    wall = time.perf_counter() - t0
+    if sorted(delivered) != sorted(set(delivered)) or \
+            router.dropped_requests:
+        raise AssertionError(f"fleet: delivered {sorted(delivered)}, "
+                             f"dropped {router.dropped_requests}")
+    check_tokens("serve_fleet[threads, kill]", router.outputs, want)
+    for name, st in captures.items():
+        if st["captures"] != 1 or st["eager_steps"] or st["replays"] < 1:
+            raise AssertionError(f"fleet: replica {name} capture {st}")
+    inc = os.path.join(tmp, "kill", "incidents")    # beside the replicas
+    bundles = [os.path.join(inc, d) for d in os.listdir(inc)
+               if d.startswith("incident-")] if os.path.isdir(inc) else []
+    kinds = [read_committed_marker(b)["kind"] for b in bundles]
+    hdrs = [json.load(open(os.path.join(b, "incident.json")))
+            for b in bundles]
+    if kinds != ["fleet.failover"] or not traces & set(
+            hdrs[0]["attrs"]["victim_traces"]):
+        raise AssertionError(f"fleet: failover bundles {kinds}, victims' "
+                             f"traces {traces}")
+    out["kill"] = dict(victim=victim, rerouted=router.rerouted_requests,
+                       delivered=len(delivered), wall_s=wall,
+                       tokens_per_s=sum(len(v) for v in
+                                        router.outputs.values()) / wall,
+                       families={r: sum(1 for v in fams.values()
+                                        if v == {r})
+                                 for r in ("t0", "t1")},
+                       capture=captures,
+                       bundle_victims=hdrs[0]["attrs"]["victims"])
+    close_fleet(torch, router, reps)
+    # a rolling drain with submits arriving
+    router, reps = fleet_run(torch, model, os.path.join(tmp, "roll"))
+    for p in prompts:
+        router.submit(p, max_new_tokens=RESILIENT_NEW)
+    drains = {}
+    for r in reps:
+        def timed(r=r, drain=r.drain):
+            gens = os.path.join(r.root, "warmcache")
+            dt = drain()
+            drains[r.name] = dict(drain_s=dt, snapshot_bytes=sum(
+                os.path.getsize(os.path.join(d, f))
+                for d, _, fs in os.walk(gens) for f in fs))
+            return dt
+        r.drain = timed
+    late = []
+    real = reps[0].restart
+
+    def restart_then_submit(*a, **k):
+        real(*a, **k)
+        late.extend(router.submit(p, max_new_tokens=FLEET_BURST_NEW)
+                    for p in prompts[:4])
+    reps[0].restart = restart_then_submit
+    t0 = time.perf_counter()
+    router.rolling_drain(ready_timeout_s=300.0)
+    late += [router.submit(p, max_new_tokens=FLEET_BURST_NEW)
+             for p in prompts[4:8]]
+    delivered = poll_until_done(router)
+    if router.dropped_requests or len(router.outputs) != len(prompts) + 8 \
+            or len(late) != 8:
+        raise AssertionError(f"fleet: rolling drain dropped "
+                             f"{router.dropped_requests}, delivered "
+                             f"{len(router.outputs)}")
+    check_tokens("serve_fleet[threads, rolling drain]", router.outputs,
+                 want)
+    out["rolling_drain"] = dict(wall_s=time.perf_counter() - t0,
+                                drains=drains,
+                                drained=[r._incarnation for r in reps],
+                                late_submits=len(late), dropped=0,
+                                rerouted=router.rerouted_requests)
+    close_fleet(torch, router, reps)
+    # the overload burst
+    router, reps = fleet_run(torch, model, os.path.join(tmp, "burst"),
+                             max_queue=FLEET_BURST_QUEUE,
+                             max_batch=FLEET_BURST_BATCH)
+    burst = [prompts[i % len(prompts)][:256 + 16 * (i // len(prompts))]
+             for i in range(FLEET_BURST)]
+    served, shed, after = [], 0, []
+    for p in burst:
+        try:
+            served.append(router.submit(p, max_new_tokens=FLEET_BURST_NEW,
+                                        deadline_s=0.0))
+        except FleetShed as e:
+            shed += 1
+            after.append(e.retry_after_s)
+    poll_until_done(router)
+    ttft = [router.finished_meta[g].ttft_s for g in served
+            if router.finished_meta[g].ttft_s is not None]
+    if not shed or not served or min(after) <= 0 or \
+            router.dropped_requests:
+        raise AssertionError(f"fleet: burst shed {shed}, served "
+                             f"{len(served)}, retry_after {after[:3]}")
+    out["burst"] = dict(requests=FLEET_BURST, served=len(served), shed=shed,
+                        retry_after_s_min=min(after),
+                        retry_after_s_max=max(after),
+                        ttft_ms_p99=1e3 * pctl(ttft, 99),
+                        ttft_ms_p50=1e3 * pctl(ttft, 50))
+    close_fleet(torch, router, reps)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def subprocess_fleet(torch, seed, prompts, tmp):
+    """Two subprocess replicas at FLEET_SUB_LAYERS layers, one SIGKILLed
+    after its first acks: the survivor finishes every request byte for
+    byte as the same model in this process does."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+    from paddle_tpu_torch.serving.fleet import (ReplicaRouter,
+                                                ReplicaState,
+                                                SubprocessReplicaHandle)
+    from paddle_tpu_torch.serving.resilience import RequestJournal
+    kw = dict(SERVE_KW, temperature=RESILIENT_T, seed=RESILIENT_SEED,
+              kv_pool_bytes=FLEET_SUB_POOL)
+    model = fleet_model(torch, seed, CARD)
+    ref = ContinuousBatchingEngine(model, **kw)
+    for i, p in enumerate(prompts):
+        ref.add_request(p, max_new_tokens=RESILIENT_NEW, rid=i)
+    ref.run()
+    want = {i: list(ref.results[i].out_tokens) for i in range(len(prompts))}
+    del ref, model
+    free_card(torch)
+    env = dict(os.environ, **{FLEET_SEED_ENV: str(seed)})
+    config = {"factory": FLEET_FACTORY,
+              "engine": {**kw, "journal_flush_every": 1},
+              "max_queue": None, "hb_interval_s": 0.1}
+    reps = [SubprocessReplicaHandle(f"p{i}", os.path.join(tmp, f"p{i}"),
+                                    dict(config), ack_timeout_s=120.0,
+                                    spawn_env=env)
+            for i in range(2)]
+    router = ReplicaRouter(reps, block_size=SERVE_KW["block_size"],
+                           heartbeat_timeout_s=30.0,
+                           submit_deadline_s=120.0)
+    ready = {}
+    try:
+        t0 = time.monotonic()
+        router.start()
+        while len(ready) < 2:
+            router.poll()
+            for n, h in router._health.items():
+                if h.state == ReplicaState.READY and n not in ready:
+                    ready[n] = time.monotonic() - t0
+                if h.state == ReplicaState.DEAD:
+                    raise AssertionError(f"fleet: replica {n} died starting")
+            if time.monotonic() - t0 > 300.0:
+                raise AssertionError("fleet: subprocess replicas not READY")
+            time.sleep(0.01)
+        gids = [router.submit(p, max_new_tokens=RESILIENT_NEW)
+            for p in prompts]
+        victim = router._outstanding[gids[-1]].replica
+        survivor = next(r for r in reps if r.name != victim)
+        vrep = next(r for r in reps if r.name == victim)
+        hist = instrument("fleet.handoff_seconds")
+        h0 = (hist.sum, hist.count)
+        vrep.kill()                                     # SIGKILL
+        delivered = []
+        while router._health[victim].state != ReplicaState.DEAD:
+            t_dead = time.monotonic()      # the poll that sees the death
+            delivered += [f.gid for f in router.poll()]
+        # the watermarks the dead journal handed over, and the survivor's
+        # own journal: its first token for one of them is the failover's end
+        dead = RequestJournal(os.path.join(vrep.root, "journal")).load()
+        handed = {g: len(dead.requests[g].tokens) if g in dead.requests
+                  else 0 for g, o in router._outstanding.items()
+                  if o.handoffs}
+        journal = RequestJournal(os.path.join(survivor.root, "journal"))
+        t_first = None
+        while router._outstanding or router._parked:
+            delivered += [f.gid for f in router.poll()]
+            if t_first is None:
+                st = journal.load()
+                if any(g in delivered or (g in st.requests and len(
+                        st.requests[g].tokens) > w)
+                       for g, w in handed.items()):
+                    t_first = time.monotonic()
+            time.sleep(0.005)
+        if router.dropped_requests or not handed or \
+                sorted(delivered) != sorted(set(delivered)):
+            raise AssertionError(f"fleet: subprocess delivered "
+                                 f"{sorted(delivered)}, handed {handed}, "
+                                 f"dropped {router.dropped_requests}")
+        check_tokens("serve_fleet[subprocesses]", router.outputs, want)
+        return dict(layers=FLEET_SUB_LAYERS, spawn_to_ready_s=ready,
+                    victim=victim, handed=handed,
+                    rerouted=router.rerouted_requests,
+                    failover_s=t_first - t_dead,
+                    handoff_s=(hist.sum - h0[0]) / max(1, hist.count - h0[1]))
+    finally:
+        router.close()
+
+
+def phase_serve_fleet(torch, seed, report, model, want):
+    """Phase 4d (see the module docstring)."""
+    import tempfile
+    from paddle_tpu_torch.ops import kernels
+    prompts = family_requests(model.config, seed)
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="serve_fleet-") as tmp, \
+            no_plain_on_card():
+        res = {"threads": thread_fleet(torch, model, prompts, want, tmp)}
+        res["subprocesses"] = subprocess_fleet(torch, seed, prompts,
+                                               os.path.join(tmp, "sub"))
+    res["launches"] = kernels.launch_counts()
+    if res["launches"]["ragged_paged_attention"] <= 0:
+        raise AssertionError("serve_fleet: no ragged launch")
+    report["serve_fleet"] = res
+    log(f"serve_fleet: {json.dumps(res)}")
+    return res
 
 
 # -- phase 3b: int4 weight-only serving ------------------------------------------
@@ -8678,8 +9418,12 @@ def main(argv=None) -> int:
     bcsr = checked("bcsr", phase_bcsr, *sd, flush)
     del scratch
     torch.cuda.empty_cache()
-    main_res, outs_bf16 = checked("main", phase_main, *sd)
-    torch.cuda.empty_cache()          # the serving model is gone
+    main_res, outs_bf16, model = checked("main", phase_main, *sd)
+    resilient, want = checked("serve_resilient", phase_serve_resilient, *sd,
+                              model)
+    fleet = checked("serve_fleet", phase_serve_fleet, *sd, model, want)
+    del model, want
+    free_card(torch)                  # the serving model is gone
     int4 = checked("int4_serve", phase_int4_serve, *sd, outs_bf16)
     train = checked("train", phase_train, *sd)
     torch.cuda.empty_cache()          # the Llama training model is gone
@@ -8839,6 +9583,8 @@ def main(argv=None) -> int:
             e["launches_serve_gang"] = {
                 kv: main_res["serve_gang"][kv]["launches"].get(name, 0)
                 for kv in ("bf16", "int8")}
+            e["launches_serve_resilient"] = resilient["launches"][name]
+            e["launches_serve_fleet"] = fleet["launches"][name]
         if name in launched_amp:
             e["launches_train_amp"] = launched_amp[name]
             e["launches_eager_surface"] = eager_surface["launches"][name]

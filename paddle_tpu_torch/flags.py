@@ -82,11 +82,23 @@ def _bool(value: Any) -> bool:
 # tracing, tracing_ring_size, tracing_path: request and step spans over a
 #   bounded ring (observability/tracing.py), exported as Chrome-trace
 #   JSON; False makes every span one flag read.
-# telemetry_port: the /metrics /healthz /statusz /trace endpoint
+# telemetry_port: the /metrics /healthz /statusz /trace /debugz endpoint
 #   (observability/exporter.py): -1 off, 0 a free port, > 0 that port.
 # perf_attribution: the executable ledger of the reference's
-#   observability/perf.py, not ported yet: True raises where it would
-#   record (ROADMAP.md, A9).
+#   observability/perf.py (and /perfz), not ported yet: True raises where
+#   it would record (ROADMAP.md, A9).
+# incident_recorder: the incident forensics plane
+#   (observability/incident.py): on a terminal transition (a serving step
+#   hang, a fleet failover, an uncaught exception, /debugz?record=1) ONE
+#   committed incident-<step>-<uid>/ bundle (classified host stacks, the
+#   trace ring, the flight-recorder tail, a metrics snapshot, the flags)
+#   under the attached root; False makes every trigger one flag read.
+# incident_dir: an explicit bundle root; empty = the root the serving
+#   engine or the router attached (their own <root>/incidents).
+# incident_keep: committed bundles beyond the newest K are pruned after
+#   each commit.
+# incident_rate_limit_s: least seconds between two bundles of one kind;
+#   0 = unlimited.
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
@@ -105,13 +117,18 @@ _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "tracing_path": ("", str),
     "telemetry_port": (-1, int),
     "perf_attribution": (False, _bool),
+    "incident_recorder": (True, _bool),
+    "incident_dir": ("", str),
+    "incident_keep": (8, int),
+    "incident_rate_limit_s": (30.0, float),
 }
 
 # flags that route no kernel: a captured step's key leaves them out
 OBSERVABILITY_FLAGS = frozenset({
     "metrics", "flight_recorder", "flight_recorder_size",
     "flight_recorder_path", "tracing", "tracing_ring_size", "tracing_path",
-    "telemetry_port", "perf_attribution"})
+    "telemetry_port", "perf_attribution", "incident_recorder",
+    "incident_dir", "incident_keep", "incident_rate_limit_s"})
 
 _VALUES: Dict[str, Any] = {
     n: parse(os.environ.get("FLAGS_" + n, d))

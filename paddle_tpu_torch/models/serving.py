@@ -175,6 +175,18 @@ def _inc_tenant(name: str, tenant: Optional[str]) -> None:
     c.inc()
 
 
+def _host_read(t: torch.Tensor) -> np.ndarray:
+    """A step's one host sync, the sampled tokens' read: a frame of its
+    own, so a host stack parked in it reads as a device call
+    (``observability/debug.py``)."""
+    return t.cpu().numpy().reshape(-1)
+
+
+# held by an engine step while it captures or replays its graph (see
+# ContinuousBatchingEngine._graph_step)
+_GRAPH_LOCK = threading.RLock()
+
+
 def _no_perf_attribution() -> None:
     if _flags.get_flag("perf_attribution"):
         raise NotImplementedError(
@@ -416,7 +428,8 @@ class ContinuousBatchingEngine:
                  max_queue: Optional[int] = None,
                  on_finish=None, kv_dtype: Optional[str] = None,
                  speculative_k: Optional[int] = None,
-                 kv_pool_bytes: Optional[int] = None):
+                 kv_pool_bytes: Optional[int] = None,
+                 resume_by_decode: bool = False):
         _no_perf_attribution()
         cfg = model.config
         self.model = model
@@ -461,6 +474,16 @@ class ContinuousBatchingEngine:
                 f"token_budget={self.token_budget} < max_batch={max_batch}:"
                 f" decode rows alone would not fit one step")
         self.enable_prefix_cache = enable_prefix_cache
+        # how a resumed row (journal replay, preemption) rebuilds the KV of
+        # its committed tokens: False prefills them with the prompt (the
+        # reference's recompute); True prefills the prompt only and feeds
+        # them back one a step as decode rows, discarding the samples.
+        # The card's ragged kernel takes decode rows through its split
+        # pass and longer rows through its tile pass, whose float sums
+        # differ, so only the decode route rebuilds the bytes the
+        # uninterrupted run wrote, and only then do the resumed row's
+        # later tokens equal that run's at any temperature
+        self.resume_by_decode = bool(resume_by_decode)
         # one reserved block absorbs the writes of step-padding tokens
         self._trash_slot = self.cache._free.pop() * block_size
         self._total_blocks = num_blocks - 1
@@ -625,7 +648,8 @@ class ContinuousBatchingEngine:
             full = (np.concatenate([req.prompt,
                                     np.asarray(req.out_tokens[:-1],
                                                np.int32)])
-                    if req.out_tokens else req.prompt)
+                    if req.out_tokens and not self.resume_by_decode
+                    else req.prompt)
             target = len(full)
             hits = (self._pc.lookup(req.block_hashes)
                     if self.enable_prefix_cache else [])
@@ -757,6 +781,12 @@ class ContinuousBatchingEngine:
                              attrs={"rid": req.rid})
             finished.append(req)
 
+    def _refeeding(self, req: Request) -> bool:
+        """A decode row whose input this step is a committed token other
+        than the last (``resume_by_decode``): its KV is rebuilt, not
+        sampled on."""
+        return req.ctx - len(req.prompt) < len(req.out_tokens) - 1
+
     # -- the ragged step -----------------------------------------------------
     @torch.no_grad()
     def step(self) -> List[Request]:
@@ -811,6 +841,8 @@ class ContinuousBatchingEngine:
         if self.spec_k and left > 0:
             for i in decode_rows:
                 req = self.slots[i]
+                if self._refeeding(req):
+                    continue
                 cap = min(self.spec_k,
                           req.max_new_tokens - len(req.out_tokens) - 1,
                           left)
@@ -896,7 +928,7 @@ class ContinuousBatchingEngine:
         else:
             self.capture_stats["eager_steps"] += 1
             nxt = self._forward()
-        sampled = nxt.cpu().numpy().reshape(-1)
+        sampled = _host_read(nxt)
         self.steps += 1
         _M_STEPS.inc()
         _M_STEP_TOKENS.inc(t)
@@ -915,7 +947,13 @@ class ContinuousBatchingEngine:
         finished: List[Request] = []
         for i, is_decode, n in post:
             req = self.slots[i]
-            if is_decode:
+            if is_decode and self._refeeding(req):
+                # a committed token fed back: its sample is discarded and
+                # the next committed token is the row's next input
+                req.ctx += 1
+                self.cache.context_lens[i] = req.ctx
+                self.tok[i] = req.out_tokens[req.ctx - len(req.prompt)]
+            elif is_decode:
                 # exact-match verify: draft j is accepted iff it equals
                 # the keyed sample at its stream position; the first
                 # mismatch invalidates everything after it
@@ -949,7 +987,9 @@ class ContinuousBatchingEngine:
                 self._register_blocks(req, i, req.ctx)
                 if req.ctx == req.target:
                     if req.out_tokens:  # resumed: next input pre-sampled
-                        self.tok[i] = req.out_tokens[-1]
+                        # (by decode: the first committed token, fed back)
+                        self.tok[i] = req.out_tokens[
+                            0 if self.resume_by_decode else -1]
                     else:
                         self._append_token(req, i, int(sampled[i * L]),
                                            now, finished)
@@ -987,12 +1027,19 @@ class ContinuousBatchingEngine:
     def _graph_step(self) -> torch.Tensor:
         from ..jit import step_capture as sc
         key = self._graph_key()
-        ent = self._graphs.get(key)
-        if ent is None:
-            return self._capture_step(key)
-        out = ent.replay(self._forward)
-        self.capture_stats["replays"] += 1
-        sc.capture_counters["replays"] += 1
+        # engines of one process stepping on threads of their own (the
+        # fleet's thread replicas): a capture rolls the launch counters
+        # back to where they stood before it and records its own advance,
+        # so no other engine may capture or replay (which adds its
+        # capture's launches) meanwhile. A replay only enqueues the graph:
+        # the lock is held for the host's enqueue, not the card's work
+        with _GRAPH_LOCK:
+            ent = self._graphs.get(key)
+            if ent is None:
+                return self._capture_step(key)
+            out = ent.replay(self._forward)
+            self.capture_stats["replays"] += 1
+            sc.capture_counters["replays"] += 1
         return out
 
     def _capture_step(self, key) -> torch.Tensor:
@@ -1247,7 +1294,7 @@ class GangScheduledEngine:
         finally:
             self.cache.set_decode_override(None)
         self.steps += 1
-        sampled = nxt.cpu().numpy().reshape(-1)
+        sampled = _host_read(nxt)
         finished = []
         for i, req in enumerate(self.slots):
             if req is None:

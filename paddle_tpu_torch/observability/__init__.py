@@ -16,13 +16,26 @@ Counterpart of ``paddle_tpu/observability/`` (its ``metrics``,
   through contextvars, recorded into a bounded ring and exported as
   Chrome-trace JSON (:func:`dump_trace`), gated by ``FLAGS_tracing``;
 * a **live ops endpoint** (:mod:`.exporter`): a stdlib-HTTP thread
-  serving ``/metrics``, ``/healthz``, ``/statusz`` and ``/trace``, gated by
-  ``FLAGS_telemetry_port`` (-1 off, 0 a free port).
+  serving ``/metrics``, ``/healthz`` (fleet or engine readiness),
+  ``/statusz``, ``/trace`` and ``/debugz``, gated by
+  ``FLAGS_telemetry_port`` (-1 off, 0 a free port). On a fleet router one
+  scrape shows every replica: subprocess workers piggyback registry
+  deltas on their heartbeats and the router merges them under a
+  ``replica="<name>"`` label;
+* the **incident forensics plane** (:mod:`.debug` + :mod:`.incident`):
+  on-demand all-thread host stack capture classified against the frames
+  the framework owns (data wait / graph capture or nvcc build / device
+  call / collective / journal fsync / lock), and an
+  :class:`IncidentRecorder` that assembles ONE committed
+  ``incident-<step>-<uid>/`` bundle (stacks, trace ring, flight tail,
+  metrics, flags) at every terminal transition -- a serving step hang, a
+  fleet failover, an uncaught exception -- gated by
+  ``FLAGS_incident_recorder`` with kinds frozen in
+  :data:`incident.INCIDENT_KINDS`.
 
 The reference's ``perf.py`` (the executable ledger behind
-``FLAGS_perf_attribution`` and ``/perfz``), ``debug.py`` and
-``incident.py`` (``/debugz`` and the incident bundles) are not ported yet
-(ROADMAP.md, A9).
+``FLAGS_perf_attribution`` and ``/perfz``) is not ported yet (ROADMAP.md,
+A9).
 
 Typical use::
 
@@ -35,14 +48,28 @@ Typical use::
 
 from __future__ import annotations
 
-from . import flight_recorder, metrics, tracing  # noqa: F401
-from . import exporter  # noqa: F401  (after its siblings: it uses all three)
+from . import debug, flight_recorder, metrics, tracing  # noqa: F401
+from . import incident  # noqa: F401  (uses debug + the three above)
+from . import exporter  # noqa: F401  (after its siblings: it uses them all)
 from .exporter import (  # noqa: F401
     TelemetryServer,
     attach_engine as attach_telemetry_engine,
     attach_fleet as attach_telemetry_fleet,
     serve as serve_telemetry,
     shutdown as shutdown_telemetry,
+)
+from .debug import (  # noqa: F401
+    STACK_CLASSES,
+    capture_stacks,
+    classify_frames,
+    format_stacks,
+)
+from .incident import (  # noqa: F401
+    INCIDENT_KINDS,
+    IncidentRecorder,
+    attach_root as attach_incident_root,
+    recent_incidents,
+    record_incident,
 )
 from .flight_recorder import (  # noqa: F401
     FlightRecorder,
@@ -98,4 +125,7 @@ __all__ = [
     "instant", "event", "dump_trace", "current_trace_id",
     "exporter", "TelemetryServer", "serve_telemetry", "shutdown_telemetry",
     "attach_telemetry_fleet", "attach_telemetry_engine",
+    "debug", "STACK_CLASSES", "capture_stacks", "classify_frames",
+    "format_stacks", "incident", "INCIDENT_KINDS", "IncidentRecorder",
+    "record_incident", "recent_incidents", "attach_incident_root",
 ]

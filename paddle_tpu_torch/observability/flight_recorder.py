@@ -243,6 +243,11 @@ def _excepthook(exc_type, exc_value, exc_tb) -> None:
             _tracing._crash_dump()
         except Exception:
             pass  # same contract: the traceback outranks the span dump
+        try:
+            from . import incident as _incident
+            _incident._crash_incident(exc_type, exc_value)
+        except Exception:
+            pass  # bundling is best-effort; the traceback still prints
     (_prev_excepthook or sys.__excepthook__)(exc_type, exc_value, exc_tb)
 
 

@@ -23,9 +23,18 @@ and merge (``csrc/paged_split.cuh``, the split plan of
 tokens through a tile pass of 64 query rows (TQ tokens x G heads) that
 runs its products on the tensor cores (``wgmma``) for bf16 q, fed by
 ``cp.async`` through the block table, and on the CUDA cores for float32
-q; a tile with a long causal range is cut into pieces of a few 64-position
+q; a tile with a long causal range is cut into pieces of P 64-position
 steps (``tile_schedule``). Three launches a call: the split pass, the
 tile pass, one merge for both.
+
+A row's result is a function of the row alone, never of the other rows
+of the step: the split plan is static, and so is P (``piece_steps``, from
+the launch geometry; it once grew with the step's total tile work, so a
+prefill chunk summed its context in other pieces, and gave other bits,
+beside other rows). The serving engine's outputs at temperature > 0 then
+do not depend on which requests share its steps: a replica of a fleet, a
+replayed journal or a resumed row reproduces the uninterrupted run's
+tokens byte for byte.
 
 Beside the kernels: ``ragged_paged_attention_plain``, the same function in
 plain PyTorch, row by row (each row gathers its ``ceil(ctx/BS)`` blocks
@@ -70,9 +79,20 @@ def num_tiles(T: int, R: int, tq: int) -> int:
     return R + -(-T // tq)
 
 
-MIN_PIECE = 4           # steps a tile piece takes at least (passed to csrc)
+MIN_PIECE = 4           # steps a tile piece takes at least
 TILE_ITEMS_PER_SM = 4   # extra work items of the tile pass, per SM
 TILE_POSITIONS = 64     # csrc kTileRows: K/V positions of a tile step
+
+
+def piece_steps(T: int, R: int, tq: int, MB: int, BS: int,
+                extra: int) -> int:
+    """P, the 64-position steps of a tile piece, from static quantities:
+    the least P for which every mix of the token budget fits the grid
+    (each of the ``NT`` tiles walks at most ``ceil(MB * BS / 64)`` steps,
+    so ``sum(ceil(s / P)) <= NT + W / P <= NT + E``), and at least
+    ``MIN_PIECE``. The kernel takes ``max(P, ceil(W / E))``, which is P."""
+    smax = -(-MB * BS // TILE_POSITIONS)
+    return max(MIN_PIECE, -(-num_tiles(T, R, tq) * smax // extra))
 
 
 def launch_geometry(T: int, H: int, KV: int, R: int, MB: int, BS: int,
@@ -82,7 +102,7 @@ def launch_geometry(T: int, H: int, KV: int, R: int, MB: int, BS: int,
     ``splits``, ``gt``: ``paged_attention.split_plan`` with R rows, the
     gang decode's), its grid ``split_grid``; the tile pass's ``tq`` tokens
     a tile, ``tiles`` (NT) and ``extra`` (E) work items, its grid
-    ``tile_grid``."""
+    ``tile_grid`` and its piece length ``piece`` (:func:`piece_steps`)."""
     pa = _paged()
     G = H // KV
     gt = pa.head_tile(G)
@@ -92,7 +112,8 @@ def launch_geometry(T: int, H: int, KV: int, R: int, MB: int, BS: int,
     nt, extra = num_tiles(T, R, tq), extra_items(KV, sms)
     return dict(sp=sp, splits=splits, gt=gt, split_grid=(KV * groups, R,
                                                          splits),
-                tq=tq, tiles=nt, extra=extra, tile_grid=(nt + extra, KV))
+                tq=tq, tiles=nt, extra=extra, tile_grid=(nt + extra, KV),
+                piece=piece_steps(T, R, tq, MB, BS, extra))
 
 
 def extra_items(num_kv_heads: int, sms: int) -> int:
@@ -108,14 +129,16 @@ def tile_schedule(cu, ctx, T: int, tq: int, mb: int, bs: int,
     work items in order, each ``(row, tile, piece, pieces)``. Rows of two
     or more tokens own ``ceil(q_len / tq)`` tiles; tile j attends
     positions below :func:`tile_end`, in steps of 64; a tile of s steps
-    is ``max(1, ceil(s / P))`` pieces, ``P = max(MIN_PIECE, ceil(W /
-    extra))``, W the steps of all tiles. Work item ``len(items) + i`` of
-    the grid zeroes tokens ``cu[R] + i * tq`` up to ``tq`` on."""
+    is ``max(1, ceil(s / P))`` pieces, ``P = max(piece_steps(...),
+    ceil(W / extra))`` (the first: W never exceeds it), W the steps of
+    all tiles. Work item ``len(items) + i`` of the grid zeroes tokens
+    ``cu[R] + i * tq`` up to ``tq`` on."""
     tiles = [(r, j) for r in range(len(cu) - 1) if cu[r + 1] - cu[r] >= 2
              for j in range(-(-(cu[r + 1] - cu[r]) // tq))]
     steps = [-(-tile_end(cu, ctx, T, tq, mb, bs, r, j) // TILE_POSITIONS)
              for r, j in tiles]
-    P = max(MIN_PIECE, -(-sum(steps) // extra))
+    P = max(piece_steps(T, len(cu) - 1, tq, mb, bs, extra),
+            -(-sum(steps) // extra))
     items = []
     for (r, j), s in zip(tiles, steps):
         n = max(1, -(-s // P))
@@ -412,7 +435,7 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             v_scale.data_ptr() if v_scale is not None else None,
             block_tables.data_ptr(), context_lens.data_ptr(),
             cu_q_lens.data_ptr(), part.data_ptr(), out.data_ptr(),
-            T, H, KV, D, NB, BS, R, MB, nt, geo["tq"], extra, MIN_PIECE,
+            T, H, KV, D, NB, BS, R, MB, nt, geo["tq"], extra, geo["piece"],
             geo["sp"],
             splits, geo["gt"], float(scale), codes[_dtype_name(q)],
             codes[_dtype_name(k_pool)], stream)
@@ -455,6 +478,7 @@ def attention_flops(context_lens, cu_q_lens, num_heads: int,
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_paged_attention_split_plain", "launches", "tile_tokens",
-           "num_tiles", "extra_items", "launch_geometry", "tile_schedule",
+           "num_tiles", "extra_items", "piece_steps", "launch_geometry",
+           "tile_schedule",
            "call_schedule", "tile_end", "kv_bytes_read", "attention_flops",
            "check_tensors", "check_pools"]

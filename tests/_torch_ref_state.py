@@ -23,8 +23,8 @@ import pytest
 
 FILES = ("test_torch_gang_engine", "test_torch_generation_contiguous",
          "test_torch_llama_serving", "test_torch_serving_capture",
-         "test_torch_serving_metrics", "test_torch_tracing",
-         "test_torch_weight_only_serving")
+         "test_torch_serving_metrics", "test_torch_serving_resilience",
+         "test_torch_tracing", "test_torch_weight_only_serving")
 
 
 def drop_reference_executables():

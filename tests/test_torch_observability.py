@@ -14,10 +14,11 @@ and ops endpoint against the JAX package's ``paddle_tpu.observability``.
 - The ops endpoint on 127.0.0.1, port 0: ``/metrics`` is the registry's
   Prometheus text, ``/healthz`` 200 (503 for an engine whose phase is
   not ready), ``/statusz`` names torch's version, ``/trace`` is the
-  tracing ring's Chrome JSON, ``/perfz`` and ``/debugz`` answer 501
-  naming ROADMAP.md's A9, an unknown path 404; ``attach_fleet`` raises
-  naming A7; ``attach_engine`` under ``FLAGS_telemetry_port=0`` starts
-  the process-wide server.
+  tracing ring's Chrome JSON, ``/perfz`` answers 501 naming ROADMAP.md's
+  A9, ``/debugz`` lists the classified stacks, an unknown path 404;
+  ``attach_fleet`` turns ``/healthz`` to the fleet (more in
+  ``tests/test_torch_incident.py``); ``attach_engine`` under
+  ``FLAGS_telemetry_port=0`` starts the process-wide server.
 """
 
 import io
@@ -233,9 +234,10 @@ def test_exporter_endpoints():
         code, body = _get(port, "/trace")
         names = [e["name"] for e in json.loads(body)["traceEvents"]]
         assert code == 200 and "serving.admit" in names
-        for path in ("/perfz", "/debugz"):
-            code, body = _get(port, path)
-            assert code == 501 and "A9" in body
+        code, body = _get(port, "/perfz")
+        assert code == 501 and "A9" in body
+        code, body = _get(port, "/debugz")
+        assert code == 200 and "threads:" in body
         assert _get(port, "/nope")[0] == 404
         eng = _Engine("draining")
         srv.attach_engine(eng)
@@ -245,8 +247,12 @@ def test_exporter_endpoints():
         assert _get(port, "/healthz")[0] == 200
         assert "engine: _Engine phase=ready steps=3" in _get(port,
                                                               "/statusz")[1]
-        with pytest.raises(NotImplementedError, match="A7"):
-            srv.attach_fleet(object())
+        fleet = type("Fleet", (), {})()
+        fleet._health = {"r0": type("H", (), {"state": "dead"})()}
+        fleet._replicas = {}
+        srv.attach_fleet(fleet)
+        code, body = _get(port, "/healthz")
+        assert code == 503 and json.loads(body)["replicas"] == {"r0": "dead"}
     finally:
         srv.shutdown()
     assert not srv.running and srv.port is None

@@ -55,10 +55,15 @@ def test_scan_sees_the_whole_port():
             "lenet.py", "metrics.py", "tracing.py", "flight_recorder.py",
             "exporter.py", "extra_misc.py", "generation.py",
             "linalg_fft.py", "extra_math.py", "graph.py", "linalg.py",
-            "fft.py", "signal.py", "features.py", "backends.py"} <= names
+            "fft.py", "signal.py", "features.py", "backends.py",
+            "durability.py", "debug.py", "incident.py", "elastic.py",
+            "journal.py", "warm_cache.py", "engine.py", "health.py",
+            "replica.py", "router.py", "worker.py"} <= names
     for pkg in ("sparse", "io", "hapi", "distributed", "nn", "metric",
                 "vision", "vision/models", "vision/transforms",
-                "observability", "audio", "text", "geometric"):
+                "observability", "audio", "text", "geometric", "utils",
+                "serving", "serving/resilience", "serving/fleet",
+                "distributed/fleet"):
         assert ROOT / "paddle_tpu_torch" / pkg / "__init__.py" in FILES
 
 
@@ -85,7 +90,13 @@ def test_import_loads_neither_jax_nor_reference():
             "paddle_tpu_torch.fft, paddle_tpu_torch.signal, "
             "paddle_tpu_torch.audio, paddle_tpu_torch.audio.datasets, "
             "paddle_tpu_torch.text, paddle_tpu_torch.text.datasets, "
-            "paddle_tpu_torch.geometric; "
+            "paddle_tpu_torch.geometric, paddle_tpu_torch.utils, "
+            "paddle_tpu_torch.utils.durability, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.serving.resilience, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.serving.fleet.worker, "
+            "paddle_tpu_torch.distributed.fleet, "
+            "paddle_tpu_torch.observability.incident; "
             "paddle_tpu_torch.ops.dispatcher.build_ops(); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")

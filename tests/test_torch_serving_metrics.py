@@ -141,7 +141,10 @@ def test_serving_series_equal_reference(models, name):
     assert got == want
     jd = _delta(j0, _serving(jr), jr)
     td = _delta(t0, _serving(tr), tr)
-    assert {k for k in td if "{" not in k} == ENGINE_SERIES <= set(jd)
+    # the resilient engine's ``serving.resilience.*`` series register when
+    # ``paddle_tpu_torch.serving`` is imported (another file of this worker)
+    assert {k for k in td if "{" not in k and not k.startswith(
+        "serving.resilience.")} == ENGINE_SERIES <= set(jd)
     assert {k: td[k] for k in ENGINE_SERIES} == \
         {k: jd[k] for k in ENGINE_SERIES}
     # the scenario moved what it is about
