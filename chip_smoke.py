@@ -27,9 +27,11 @@ held to the CPU; an audio front end (ESC-50), the decompositions at
 Llama-3-8B's shapes, message passing and sampling at ogbn-arxiv's scale
 and CRF decoding run on the card against the CPU; the registry's last
 single-device entries run card vs CPU, and ResNet-50 trains
-quantization-aware. Its dataset classes sit at module level and its run
-under ``if __name__ == "__main__"``: the DataLoader's forkserver workers
-import this script.
+quantization-aware; Llama-3-8B's width trains by one NCCL rank and by
+four gloo ranks at dp 2 x mp 2 through the launcher. Its dataset classes
+sit at module level and its run under ``if __name__ == "__main__"``: the
+DataLoader's forkserver workers import this script, and the launcher
+starts it as one rank of ``train_hybrid`` (``--hybrid-rank RUN DIR``).
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -268,6 +270,27 @@ Phases (any failure raises and the script exits non-zero):
    SCAN_LOSS_ATOL), flash forward launches per step twice phase 5's, dq,
    dk/dv and the fused optimizer's equal to phase 5's; tokens/s, step
    p50/p99, peak memory and the graph's pool bytes beside phase 5's;
+5d2. ``train_hybrid``, after phase 5d: Llama-3-8B's widths at
+   HYBRID_LAYERS (2) layers, bf16, 1.49 B params, global batch 2 x 2048
+   LCG ids, AdamW (lr 1e-4, wd 0.01) + ``ClipGradByGlobalNorm(1.0)``, 2 +
+   4 eager steps through ``fleet.init`` / ``distributed_model`` /
+   ``distributed_optimizer``, started by ``python -m
+   paddle_tpu_torch.distributed.launch`` twice: R1, one rank over NCCL
+   (dp 1 x mp 1), and R4, four ranks all on ``cuda:0`` over gloo (dp 2 x
+   mp 2: NCCL refuses two ranks on one card, and the machine has one),
+   each rank's weights cut by ``shard_state_dict`` from the seed's full
+   model. Held: R4's first loss within 2e-3 relative of R1's (every loss
+   printed beside R1's), the dp replicas' weights and masters bit for bit
+   (checksums over the store), ``tp_attention.sharded`` > 0 and
+   ``.fallback`` 0 on every rank, flash fwd / dq / dk/dv 2 a step each and
+   the fused AdamW its buckets a step per rank (counts reset just before
+   the loop), the ``c_*`` entries and the staged calls (``reduce``,
+   ``scatter``, ``all_to_all``, P2P) on card tensors against what a rank
+   computes itself, ``SyncBatchNorm2D`` over dp (2 x 32 x 64 x 56²,
+   float32) against one ``BatchNorm2D`` over both within 1e-5; printed:
+   tokens/s, step p50/p99, each rank's peak, collective calls and staged
+   bytes a step, the backend and device count, gloo's time for the dp
+   all-reduce and the mp all-gather alone;
 5e. the layer surface, after phase 5c: a network built only from the
    ported layers (Conv2D, BatchNorm2D, ReLU, MaxPool2D, Flatten, Dropout
    with its own CUDA generator, Linear with a bias) trained with
@@ -419,7 +442,8 @@ whose pointers are not aligned to the kernel's vector accesses
 Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
-``train_amp`` and ``train_layers`` launches, the fused optimizer's its
+``train_amp``, ``train_layers`` and ``train_hybrid`` launches (per
+rank), the fused optimizer's its
 ``bert_squad``, ``ocr``, vision and ``quant_qat`` launches and its
 Momentum time over ResNet-50's parameters; the serving kernels' their
 ``serve_resilient`` and ``serve_fleet`` launches), then as the last line ``{"ok": true, "device":
@@ -4560,9 +4584,9 @@ def plain_flash(fa):
         fa.flash_fwd, fa.flash_bwd = saved
 
 
-def lcg_ids(torch, b, s, vocab):
+def lcg_ids(torch, b, s, vocab, device="cuda"):
     """LCG-scrambled token ids, as bench.py makes them (uint32 wrap)."""
-    i = torch.arange(b * s, dtype=torch.int64, device="cuda")
+    i = torch.arange(b * s, dtype=torch.int64, device=device)
     return (((i * 1103515245 + 12345) & 0xFFFFFFFF) % vocab).reshape(b, s)
 
 
@@ -5741,6 +5765,419 @@ def phase_train_layers(torch, seed, report, base):
     report["train_layers"] = res
     if errors:
         raise AssertionError("train_layers: " + "; ".join(errors))
+    return res
+
+
+# -- phase train_hybrid: tensor and data parallelism over ranks -----------
+
+HYBRID_LAYERS = 2          # Llama-3-8B's width; 4 ranks' shards fit one card
+HYBRID_B, HYBRID_S = 2, 2048      # the global batch
+HYBRID_WARMUP, HYBRID_STEPS = 2, 4
+HYBRID_FIRST_LOSS_REL = 2e-3      # R4's first loss against R1's
+HYBRID_BN = (32, 64, 56, 56)      # a dp rank's SyncBatchNorm2D batch, f32
+HYBRID_BN_REL = 1e-5
+HYBRID_C_REL = 1e-6               # c_allreduce_sum / _prod, float32
+HYBRID_TIMEOUT_S = 600            # a launch, start-up included
+# R1: one rank over NCCL; R4: four ranks on card 0 over gloo (NCCL refuses
+# two ranks on one card, and the machine has one), dp 2 x mp 2
+HYBRID_RUNS = {
+    "r1": dict(nproc=1, devices="0", backend="nccl", dp=1, mp=1),
+    "r4": dict(nproc=4, devices="0,0,0,0", backend="gloo", dp=2, mp=2)}
+
+
+def hybrid_c_ops(torch, dev, rank, world):
+    """The five ``c_*`` registry entries on card tensors, against what
+    this rank computes from every rank's input itself."""
+    from paddle_tpu_torch.ops.dispatcher import call_op
+
+    def x_of(r):
+        return (torch.arange(6, dtype=torch.float32, device=dev)
+                .reshape(2, 3) * 0.25 + r + 1)
+    xs = torch.stack([x_of(r) for r in range(world)])
+    want = {"c_allreduce_sum": xs.sum(0), "c_allreduce_max": xs.amax(0),
+            "c_allreduce_min": xs.amin(0), "c_allreduce_prod": xs.prod(0),
+            "c_broadcast": x_of(world - 2)}
+    out = {}
+    for name, w in want.items():
+        kw = {"root": world - 2} if name == "c_broadcast" else {}
+        got = call_op(name, x_of(rank), **kw)
+        if not got.is_cuda:
+            raise AssertionError(f"{name} left the card")
+        err = float(((got - w).abs() / w.abs()).max())
+        exact = name in ("c_allreduce_max", "c_allreduce_min", "c_broadcast")
+        if err > (0.0 if exact else HYBRID_C_REL):
+            raise AssertionError(f"{name}: relative error {err}")
+        out[name] = err
+    return out
+
+
+def hybrid_staged_ops(torch, dev, rank, world):
+    """The calls gloo takes no CUDA tensor for (``reduce``, ``scatter``,
+    ``all_to_all``, ``batch_isend_irecv``) on card tensors: staged through
+    host memory by ``distributed.collective``, held exactly to what this
+    rank computes itself; returns the bytes staged."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.observability import metrics
+    staged = metrics.registry().get("distributed.host_staged_bytes")
+    b0 = staged.value
+
+    def x_of(r):
+        return torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    got = {}
+    t = x_of(rank)
+    C.reduce(t, dst=1)
+    got["reduce"] = (t, sum(x_of(r) for r in range(world)) if rank == 1
+                     else x_of(rank))
+    t = torch.empty(4, device=dev)
+    C.scatter(t, [x_of(r) for r in range(world)] if rank == 0 else None,
+              src=0)
+    got["scatter"] = (t, x_of(rank))
+    outs = C.all_to_all([], [x_of(rank) + j for j in range(world)])
+    got["all_to_all"] = (torch.stack(outs), torch.stack(
+        [x_of(i) + rank for i in range(world)]))
+    t = torch.empty(4, device=dev)
+    for w in C.batch_isend_irecv([
+            C.P2POp(C.isend, x_of(rank), (rank + 1) % world),
+            C.P2POp(C.irecv, t, (rank - 1) % world)]):
+        w.wait()
+    got["p2p"] = (t, x_of((rank - 1) % world))
+    for name, (a, b) in got.items():
+        if not a.is_cuda or not torch.equal(a, b):
+            raise AssertionError(f"staged {name} on rank {rank}: {a} vs {b}")
+    n = staged.value - b0
+    if n <= 0:
+        raise AssertionError("the staged calls counted no host bytes")
+    return n
+
+
+def hybrid_comm_probe(torch, dev, hcg, model, cfg, rows):
+    """gloo's time for a step's two largest transfers, each alone: one
+    all-reduce over dp of as many bytes as the rank's grads, and the
+    all-gather over mp of its logits (ms, the card synced around)."""
+    from paddle_tpu_torch.distributed import collective as C
+    out = {}
+    n = sum(p.numel() for p in model.parameters())
+    mp = hcg.get_model_parallel_group()
+    for name, group, shape in (
+            ("dp_all_reduce_ms", hcg.get_data_parallel_group(), (n,)),
+            ("mp_all_gather_ms", mp,
+             (rows, HYBRID_S, cfg.vocab_size // mp.nranks))):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if name.startswith("dp"):
+            C.all_reduce(t, group=group)
+        else:
+            C.all_gather([], t, group=group)
+        torch.cuda.synchronize(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0)
+        out[name.replace("_ms", "_mb")] = t.numel() * 2 / 2 ** 20
+        del t
+    return out
+
+
+def hybrid_sync_bn(torch, dev, hcg, seed):
+    """``SyncBatchNorm2D`` over the dp group against one ``BatchNorm2D``
+    over the concatenated batch: output, input grad, running stats; the
+    ``sync_batch_norm`` registry entry against the layer."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    dp = hcg.get_data_parallel_group()
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    b, c, h, w = HYBRID_BN
+    x = torch.randn((b * dp.nranks, c, h, w), generator=g, device=dev)
+    ct = torch.randn(x.shape, generator=g, device=dev)
+    rows = slice(dp.rank * b, (dp.rank + 1) * b)
+    res = {}
+    for kind in ("sync", "plain"):
+        bn = tnn.BatchNorm2D(c)
+        if kind == "sync":
+            bn = tnn.SyncBatchNorm.convert_sync_batchnorm(bn)
+        xi = (x[rows] if kind == "sync" else x).clone().requires_grad_(True)
+        y = bn(xi)
+        (y * (ct[rows] if kind == "sync" else ct)).sum().backward()
+        res[kind] = dict(y=y.detach(), dx=xi.grad, mean=bn._mean.clone(),
+                         var=bn._variance.clone())
+    s, p = res["sync"], res["plain"]
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    entry = call_op("sync_batch_norm", x[rows], zeros, ones, ones, zeros)
+    if not torch.equal(entry[0], s["y"]):
+        raise AssertionError("the sync_batch_norm entry differs from the "
+                             "SyncBatchNorm2D layer")
+    s["entry_mean"] = entry[3]
+    p["entry_mean"] = p["mean"] / (1 - 0.9)      # the batch's, unfolded
+    errs = {k: rel_err(torch, s[k], p[k][rows] if k in ("y", "dx")
+                       else p[k]) for k in s}
+    if max(errs.values()) > HYBRID_BN_REL:
+        raise AssertionError(f"SyncBatchNorm2D vs BatchNorm2D: {errs}")
+    return errs
+
+
+def hybrid_rank(name, out_dir):
+    """One rank of a train_hybrid run (``--hybrid-rank RUN DIR``, started
+    by the launcher): Llama-3-8B's width at ``layers`` depth through
+    ``fleet.init`` / ``distributed_model`` / ``distributed_optimizer``,
+    the weights of one seeded full model (cut by ``shard_state_dict``
+    under mp > 1), the eager loop, then the dp replicas' weights compared
+    over the store; writes ``DIR/rank<r>.json``."""
+    import hashlib
+
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion,
+                                         from_jax_state_dict,
+                                         shard_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import tp_attention
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    with open(os.path.join(out_dir, "config.json")) as f:
+        run = json.load(f)
+    t0 = time.perf_counter()
+    pe = C.init_parallel_env(backend=run["backend"])
+    dev, r = pe.device, C.get_rank()
+    if dev.type != "cuda":
+        raise AssertionError(f"rank {r} is on {dev}, not the card")
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=run["layers"])
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(run["seed"])
+    state = None
+    if run["mp"] > 1:      # the same full weights as R1, then this rank's cut
+        full = LlamaForCausalLM(cfg, device=dev, generator=seeded())
+        state = dict(full.state_dict())
+        del full
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": run["dp"], "mp_degree": run["mp"]}
+    hcg = fleet.init(is_collective=True, strategy=s, backend=run["backend"])
+    model = LlamaForCausalLM(cfg, device=dev, generator=seeded())
+    if state is not None:
+        from_jax_state_dict(model, shard_state_dict(model, state, hcg))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not all(p.is_cuda for p in model.parameters()):
+        raise AssertionError("a parameter is off the card")
+    dp = hcg.get_data_parallel_group()
+    rows = run["b"] // dp.nranks
+    ids = lcg_ids(torch, run["b"], run["s"], cfg.vocab_size,
+                  dev)[dp.rank * rows:(dp.rank + 1) * rows]
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    crit = LlamaPretrainingCriterion(cfg)
+    reg = metrics.registry()
+    calls = reg.get("distributed.collective_calls")
+    staged = reg.get("distributed.host_staged_bytes")
+    setup_s = time.perf_counter() - t0
+    tp0 = tp_attention.counters()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()        # the main path's run starts here
+    losses, step_s, n_calls, n_staged = [], [], 0, 0
+    for i in range(run["warmup"] + run["steps"]):
+        c0, b0 = calls.value, staged.value
+        ts = time.perf_counter()
+        loss = crit(net(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize(dev)
+        if i >= run["warmup"]:
+            step_s.append(time.perf_counter() - ts)
+            n_calls += calls.value - c0
+            n_staged += staged.value - b0
+        avg = loss.detach().float().reshape(1)
+        C.all_reduce(avg, op=C.ReduceOp.AVG, group=dp)
+        losses.append(float(avg))
+    launches = kernels.launch_counts()
+    tp1 = tp_attention.counters()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    buckets = optmod.fused_counters["buckets"]
+    # the dp replicas of this rank's shard: weights and masters, exchanged
+    fp = hashlib.sha256(json.dumps(bits_fingerprint(
+        torch, train_state(model, opt))).encode()).hexdigest()
+    store = C.get_store()
+    store.set(f"train_hybrid/fp/{r}", fp)
+    peers = {q: store.get(f"train_hybrid/fp/{q}").decode()
+             for q in dp.ranks}
+    res = dict(
+        rank=r, dp_rank=dp.rank, mp_rank=hcg.get_model_parallel_rank(),
+        backend=C.get_backend(), device=str(dev),
+        device_count=torch.cuda.device_count(), losses=losses,
+        step_ms=[1e3 * x for x in step_s],
+        step_ms_p50=1e3 * pctl(step_s, 50), step_ms_p99=1e3 * pctl(step_s, 99),
+        tokens_per_s=run["b"] * run["s"] / float(np.mean(step_s)),
+        peak_mem_gib=peak, setup_s=setup_s,
+        collective_calls_per_step=n_calls / run["steps"],
+        host_staged_bytes_per_step=n_staged / run["steps"],
+        launches=launches, buckets=buckets,
+        tp_attention={k: tp1[k] - tp0[k] for k in tp1},
+        fingerprint=fp, replicas_equal=len(set(peers.values())) == 1,
+        params=sum(p.numel() for p in model.parameters()))
+    if dp.nranks > 1:
+        res["comm_probe"] = hybrid_comm_probe(torch, dev, hcg, model, cfg,
+                                              rows)
+        res["c_ops"] = hybrid_c_ops(torch, dev, r, C.get_world_size())
+        res["staged_bytes"] = hybrid_staged_ops(torch, dev, r,
+                                                C.get_world_size())
+        res["sync_bn"] = hybrid_sync_bn(torch, dev, hcg, run["seed"])
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    C.barrier()
+    C.destroy_process_group()
+    return 0
+
+
+def launch_hybrid(name, run, seed, tmp):
+    """One train_hybrid run through the launcher; each rank's JSON."""
+    from paddle_tpu_torch.distributed.launch import kill_group
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(run, seed=seed, layers=HYBRID_LAYERS, b=HYBRID_B,
+                       s=HYBRID_S, warmup=HYBRID_WARMUP,
+                       steps=HYBRID_STEPS), f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(run["nproc"]), "--devices",
+           run["devices"], "--max_restart", "0", "--log_dir",
+           os.path.join(d, "log"), "--job_id", f"train_hybrid_{name}",
+           os.path.abspath(__file__), "--hybrid-rank", name, d]
+    t0 = time.perf_counter()
+    # a session of its own: the launcher and its ranks are one group
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=HYBRID_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()          # the launcher stops its ranks
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            out = ""
+        raise AssertionError(f"train_hybrid {name}: no end in "
+                             f"{HYBRID_TIMEOUT_S} s:\n{out[-6000:]}")
+    finally:
+        kill_group(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"train_hybrid {name}: the launch exited "
+                             f"{proc.returncode}:\n{out[-8000:]}")
+    ranks = []
+    for r in range(run["nproc"]):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return dict(ranks=ranks, seconds=time.perf_counter() - t0)
+
+
+def phase_train_hybrid(torch, seed, report):
+    """``train_hybrid``: Llama-3-8B's width (2 layers, bf16, 1.49 B params)
+    trained by one rank over NCCL (R1, dp 1 x mp 1) and by four ranks on
+    card 0 over gloo (R4, dp 2 x mp 2: each rank runs the flash kernels on
+    its 16 query and 4 kv heads and the fused AdamW over its shards),
+    both from the same seeded weights, through the launcher."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_hybrid_")
+    try:
+        runs = {name: launch_hybrid(name, run, seed, tmp)
+                for name, run in HYBRID_RUNS.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = HYBRID_WARMUP + HYBRID_STEPS
+    errors = []
+    r1, r4 = runs["r1"]["ranks"][0], runs["r4"]["ranks"]
+    for name, run in runs.items():
+        for q in run["ranks"]:
+            want = HYBRID_RUNS[name]
+            if q["backend"] != want["backend"]:
+                errors.append(f"{name} rank {q['rank']}: backend "
+                              f"{q['backend']}")
+            for k in ("flash_attention_fwd", "flash_attention_dq",
+                      "flash_attention_dkv"):
+                if q["launches"][k] != HYBRID_LAYERS * steps:
+                    errors.append(f"{name} rank {q['rank']}: {k} "
+                                  f"{q['launches'][k]} launches, want "
+                                  f"{HYBRID_LAYERS * steps}")
+            if q["launches"]["fused_optimizer"] != q["buckets"] * steps \
+                    or q["buckets"] < 1:
+                errors.append(f"{name} rank {q['rank']}: fused_optimizer "
+                              f"{q['launches']['fused_optimizer']} launches,"
+                              f" {q['buckets']} buckets a step")
+            if not q["replicas_equal"]:
+                errors.append(f"{name} rank {q['rank']}: its dp replicas' "
+                              f"weights differ")
+            if not all(np.isfinite(q["losses"])):
+                errors.append(f"{name} rank {q['rank']}: losses "
+                              f"{q['losses']}")
+    for q in r4:
+        if q["tp_attention"]["sharded"] <= 0 or \
+                q["tp_attention"]["fallback"] != 0:
+            errors.append(f"r4 rank {q['rank']}: tp_attention "
+                          f"{q['tp_attention']}")
+        if q["losses"] != r4[0]["losses"]:
+            errors.append(f"r4 rank {q['rank']}: losses {q['losses']} vs "
+                          f"rank 0's {r4[0]['losses']}")
+    rel = abs(r4[0]["losses"][0] - r1["losses"][0]) / abs(r1["losses"][0])
+    if rel > HYBRID_FIRST_LOSS_REL:
+        errors.append(f"R4's first loss {r4[0]['losses'][0]} vs R1's "
+                      f"{r1['losses'][0]}: {rel:.2e} relative")
+    fps = {(q["mp_rank"], q["fingerprint"]) for q in r4}
+    if len(fps) != 2:
+        errors.append(f"r4: the dp replicas' fingerprints {fps}")
+    res = {"card": card_line(), "first_loss_rel": rel,
+           "phase_s": time.perf_counter() - t0}
+    for name, run in runs.items():
+        q0 = run["ranks"][0]
+        res[name] = dict(
+            seconds=run["seconds"], backend=q0["backend"],
+            device_count=q0["device_count"], losses=q0["losses"],
+            tokens_per_s=q0["tokens_per_s"], step_ms_p50=q0["step_ms_p50"],
+            step_ms_p99=q0["step_ms_p99"],
+            peak_mem_gib=[q["peak_mem_gib"] for q in run["ranks"]],
+            params_per_rank=[q["params"] for q in run["ranks"]],
+            collective_calls_per_step=q0["collective_calls_per_step"],
+            host_staged_bytes_per_step=[q["host_staged_bytes_per_step"]
+                                        for q in run["ranks"]],
+            launches=[{k: q["launches"][k] for k in TRAINING_KERNELS}
+                      for q in run["ranks"]],
+            buckets=[q["buckets"] for q in run["ranks"]],
+            tp_attention=[q["tp_attention"] for q in run["ranks"]],
+            setup_s=[q["setup_s"] for q in run["ranks"]])
+        log(f"train_hybrid {name}: {q0['backend']} x {len(run['ranks'])} "
+            f"(device_count {q0['device_count']}), "
+            f"{q0['tokens_per_s']:.1f} tokens/s, step p50 "
+            f"{q0['step_ms_p50']:.1f} ms p99 {q0['step_ms_p99']:.1f} ms, "
+            f"peak {[round(x, 2) for x in res[name]['peak_mem_gib']]} GiB, "
+            f"{q0['collective_calls_per_step']:.0f} collective calls and "
+            f"{res[name]['host_staged_bytes_per_step']} host-staged bytes "
+            f"a step, launches {res[name]['launches'][0]}, "
+            f"{run['seconds']:.1f} s with start-up")
+    res["r4"]["c_ops"] = [q["c_ops"] for q in r4]
+    res["r4"]["sync_bn"] = [q["sync_bn"] for q in r4]
+    res["r4"]["staged_bytes"] = [q["staged_bytes"] for q in r4]
+    res["r4"]["comm_probe"] = [q["comm_probe"] for q in r4]
+    log(f"train_hybrid losses R1 {r1['losses']} R4 {r4[0]['losses']} "
+        f"(first {rel:.2e} relative); c_* {res['r4']['c_ops'][0]}; "
+        f"SyncBatchNorm2D {res['r4']['sync_bn'][0]}; staged calls "
+        f"{res['r4']['staged_bytes']} host bytes a rank; gloo alone "
+        f"{res['r4']['comm_probe'][0]}; "
+        f"{res['phase_s']:.1f} s; {res['card']}")
+    report["train_hybrid"] = res
+    if errors:
+        raise AssertionError("train_hybrid: " + "; ".join(errors))
     return res
 
 
@@ -7721,9 +8158,11 @@ def phase_vision_ops(torch, seed, report):
     from paddle_tpu_torch.ops import dispatcher
     from paddle_tpu_torch.ops.kernels import detection, extra_nn, vision_io
     mods = {extra_nn.__name__, detection.__name__, vision_io.__name__}
-    # decode_jpeg needs PIL; viterbi_decode runs in phase text_viterbi
+    # decode_jpeg needs PIL; viterbi_decode runs in phase text_viterbi,
+    # sync_batch_norm (it needs the dp ranks) in phase train_hybrid
     entries = {n for n, k in dispatcher.KERNELS.items()
-               if k.__module__ in mods} - {"decode_jpeg", "viterbi_decode"}
+               if k.__module__ in mods} - {"decode_jpeg", "viterbi_decode",
+                                           "sync_batch_norm"}
     missed = entries - {v["op"] for v in res["ops"].values()}
     if missed:
         raise AssertionError(f"vision_ops: entries not run: {missed}")
@@ -9350,6 +9789,9 @@ def main(argv=None) -> int:
     ap.add_argument("--report",
                     default=os.path.join("chiprun_out",
                                          "chip_smoke_report.json"))
+    ap.add_argument("--hybrid-rank", nargs=2, metavar=("RUN", "DIR"),
+                    help="run one rank of phase train_hybrid (the launcher "
+                         "starts these)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -9363,6 +9805,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the paddle_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    if args.hybrid_rank:
+        return hybrid_rank(*args.hybrid_rank)
     t_start = time.perf_counter()
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -9429,6 +9873,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()          # the Llama training model is gone
     layers = checked("train_layers", phase_train_layers, *sd, train)
     free_card(torch)
+    hybrid = checked("train_hybrid", phase_train_hybrid, *sd)
     eager_surface = checked("eager_surface", phase_eager_surface, *sd)
     train_amp = checked("train_amp", phase_train_amp, *sd)
     edges = checked("capture", phase_capture, *sd)
@@ -9590,6 +10035,10 @@ def main(argv=None) -> int:
             e["launches_eager_surface"] = eager_surface["launches"][name]
             e["launches_train_layers"] = {
                 b: layers[b]["launches"][name] for b in LAYER_BUILDS}
+        if name in TRAINING_KERNELS:
+            e["launches_train_hybrid"] = {
+                run: [q[name] for q in hybrid[run]["launches"]]
+                for run in HYBRID_RUNS}
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
                       "padded_flash_ms", "library_bsr_ms",

@@ -77,8 +77,9 @@ _attach_tensor_methods()
 from . import (amp, distributed, hapi, io, jit, metric,  # noqa: E402
                models, nn, observability, optimizer, sparse, vision)
 from . import fft, geometric, linalg, signal, text  # noqa: E402
-from . import audio, framework, quantization  # noqa: E402
+from . import audio, framework, native, quantization  # noqa: E402
 from .core import device  # noqa: E402,F401  (paddle.device)
+from .distributed import DataParallel  # noqa: E402
 from .framework import load, save  # noqa: E402
 from .hapi import Model, callbacks, flops, summary  # noqa: E402
 from .jit import jit_step  # noqa: E402
@@ -112,7 +113,7 @@ __all__ = ["flags", "get_device", "resolve_device", "seed", "set_device",
            "get_cuda_rng_state", "set_cuda_rng_state", "default_generator",
            "fft", "signal", "linalg", "audio", "text", "geometric",
            "framework", "save", "load", "device", "quantization", "Model",
-           "summary", "callbacks", "flops",
+           "summary", "callbacks", "flops", "DataParallel", "native",
            *(n for n in _dispatcher.SCHEMA
              if n not in _dispatcher.NAMESPACED),
            *_dispatcher.INPLACE, *_TENSOR_API]

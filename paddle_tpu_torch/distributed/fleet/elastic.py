@@ -4,8 +4,8 @@ Counterpart of ``PreemptionHandler`` in
 ``paddle_tpu/distributed/fleet/elastic.py`` (:244-307), which the serving
 engine's ``install_signal=True`` wires to its drain. The reference's
 handler also broadcasts the notice through an ``ElasticManager`` over the
-job's TCPStore; that manager (and the store) are not ported yet
-(ROADMAP.md, A8), so a manager other than None raises.
+job's TCPStore; the store is ported (``native.TCPStore``), the manager
+not yet (ROADMAP.md, A8(e)), so a manager other than None raises.
 
 The signal handler itself only sets a flag (a signal handler must not
 take locks or do I/O); :meth:`PreemptionHandler.process` runs the
@@ -35,7 +35,7 @@ class PreemptionHandler:
         if manager is not None:
             raise NotImplementedError(
                 "PreemptionHandler(manager): the elastic manager and its "
-                "TCPStore broadcast are not ported yet (ROADMAP.md, A8); "
+                "TCPStore broadcast are not ported yet (ROADMAP.md, A8(e)); "
                 "pass None")
         self.manager = manager
         self.on_notice = on_notice

@@ -99,6 +99,9 @@ def _bool(value: Any) -> bool:
 #   each commit.
 # incident_rate_limit_s: least seconds between two bundles of one kind;
 #   0 = unlimited.
+# comm_timeout_s: the collective watchdog's timeout (distributed/
+#   watchdog.py): an eager collective that outlives it fires the
+#   watchdog's handlers and publishes the failure through the store.
 _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "kv_cache_dtype": ("auto", _choice("kv_cache_dtype", _KV_CACHE_DTYPES)),
     "speculative_k": (0, int),
@@ -121,6 +124,7 @@ _FLAGS: Dict[str, Tuple[Any, Callable[[Any], Any]]] = {
     "incident_dir": ("", str),
     "incident_keep": (8, int),
     "incident_rate_limit_s": (30.0, float),
+    "comm_timeout_s": (600.0, float),
 }
 
 # flags that route no kernel: a captured step's key leaves them out
@@ -128,7 +132,8 @@ OBSERVABILITY_FLAGS = frozenset({
     "metrics", "flight_recorder", "flight_recorder_size",
     "flight_recorder_path", "tracing", "tracing_ring_size", "tracing_path",
     "telemetry_port", "perf_attribution", "incident_recorder",
-    "incident_dir", "incident_keep", "incident_rate_limit_s"})
+    "incident_dir", "incident_keep", "incident_rate_limit_s",
+    "comm_timeout_s"})
 
 _VALUES: Dict[str, Any] = {
     n: parse(os.environ.get("FLAGS_" + n, d))

@@ -6,7 +6,7 @@ Counterpart of ``paddle_tpu/hapi/callbacks.py``: ``Callback``,
 stack ``Model.fit`` builds by default: a ``ProgBarLogger`` when verbose,
 an epoch ``LRScheduler``, and a ``ModelCheckpoint`` when ``save_dir`` is
 given), the same code over the port's optimizer. ``ResilientCheckpoint``
-waits for ``distributed/resilience`` (ROADMAP A8).
+waits for ``distributed/resilience`` (ROADMAP A8(e)).
 """
 
 from __future__ import annotations

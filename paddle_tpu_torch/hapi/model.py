@@ -22,7 +22,7 @@ outputs (a captured step's too, and each step of a K-step block) go
 through ``compute`` and ``update``, and the logs carry ``accumulate()``
 under the metric's names; each epoch and each evaluation resets them.
 Not ported: ``fit(resilience_dir=)`` needs ``distributed/resilience``
-(ROADMAP A8) and raises. Data that is not a DataLoader is wrapped in one on
+(ROADMAP A8(e)) and raises. Data that is not a DataLoader is wrapped in one on
 the network's device.
 """
 
@@ -290,7 +290,7 @@ class Model:
         if resilience_dir:
             raise NotImplementedError(
                 "Model.fit(resilience_dir=...): distributed/resilience is "
-                "not ported yet (ROADMAP A8)")
+                "not ported yet (ROADMAP A8(e))")
         loader = self._make_loader(train_data, batch_size, shuffle,
                                    num_workers, drop_last)
         eval_loader = self._make_loader(eval_data, batch_size, False,

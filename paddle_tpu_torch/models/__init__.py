@@ -1,7 +1,7 @@
 from .bert import (BertConfig, BertForQuestionAnswering,
                    BertForSequenceClassification, BertModel)
 from .convert import (from_jax_optimizer_state, from_jax_state_dict,
-                      named_grads, named_optimizer_state)
+                      named_grads, named_optimizer_state, shard_state_dict)
 from .generation import (GenerationMixin, KVCache, PagedKVCache,
                          kv_pool_blocks)
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
@@ -16,7 +16,7 @@ __all__ = ["BertConfig", "BertForQuestionAnswering",
            "BertForSequenceClassification", "BertModel", "CRNN",
            "CTCHeadLoss", "ContinuousBatchingEngine", "DBLoss", "DBNet",
            "GangScheduledEngine", "GenerationMixin", "KVCache",
-           "LlamaConfig",
+           "LlamaConfig", "shard_state_dict",
            "LlamaForCausalLM", "LlamaPretrainingCriterion", "MoEConfig",
            "MoEDecoderLayer", "MoEForCausalLM", "MoEMLP", "MoEModel",
            "MoEPretrainingCriterion", "NGramProposer",

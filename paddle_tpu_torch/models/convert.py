@@ -22,6 +22,10 @@ names in its optimizer's order) into a port optimizer by parameter name:
 the step count, the float32 masters, every state slot (ASGD's gradient
 ring ``ys`` ``[batch_num, *shape]`` too) and the scheduler's state.
 
+Under tensor parallelism ``shard_state_dict(model, state)`` cuts a full
+state (numpy arrays or tensors) into this rank's shards, which
+``from_jax_state_dict`` (tensors too) then loads.
+
 The other way, for holding training to the reference name for name:
 ``named_grads(model)`` and ``named_optimizer_state(model, optimizer)``
 give the port's grads, and its optimizer's float32 masters and state
@@ -53,6 +57,9 @@ def from_jax_state_dict(model: torch.nn.Module,
                        f"unexpected {unexpected[:5]}")
     with torch.no_grad():
         for name, target in own.items():
+            if isinstance(state[name], torch.Tensor):
+                _copy_tensor(name, target, state[name])
+                continue
             arr = np.asarray(state[name])
             if tuple(arr.shape) != tuple(target.shape):
                 raise ValueError(f"shape mismatch for {name!r}: "
@@ -63,6 +70,50 @@ def from_jax_state_dict(model: torch.nn.Module,
                                  f"vs {target.dtype}")
             target.copy_(_tensor(arr).to(target.device))
     return model
+
+
+def _copy_tensor(name: str, target: torch.Tensor, src: torch.Tensor):
+    if tuple(src.shape) != tuple(target.shape) or src.dtype != target.dtype:
+        raise ValueError(f"mismatch for {name!r}: {tuple(src.shape)} "
+                         f"{src.dtype} vs {tuple(target.shape)} "
+                         f"{target.dtype}")
+    target.copy_(src)
+
+
+def shard_state_dict(model: torch.nn.Module, state: Dict,
+                     hcg=None) -> Dict:
+    """This rank's shards of a full ``state`` (numpy arrays, the
+    reference's ``state_dict()``, or tensors) for ``model``, built under
+    tensor parallelism: a ``ColumnParallelLinear``'s weight is cut on
+    ``out`` (dim 1) and its bias on dim 0, a ``RowParallelLinear``'s
+    weight on ``in`` (dim 0; its bias stays whole), a
+    ``VocabParallelEmbedding``'s table on rows; everything else is
+    whole. Rank r of the model-parallel group (``hcg``, default fleet's)
+    gets the r-th of equal parts. ``from_jax_state_dict(model, shards)``
+    loads the result."""
+    from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+    from ..distributed.topology import get_hybrid_communicate_group
+    hcg = hcg or get_hybrid_communicate_group()
+    r, n = hcg.get_model_parallel_rank(), \
+        hcg.get_model_parallel_world_size()
+    dims = {}
+    for mname, m in model.named_modules():
+        pre = f"{mname}." if mname else ""
+        if isinstance(m, ColumnParallelLinear):
+            dims[pre + "weight"], dims[pre + "bias"] = 1, 0
+        elif isinstance(m, (RowParallelLinear, VocabParallelEmbedding)):
+            dims[pre + "weight"] = 0
+    out = {}
+    for name, v in state.items():
+        d = dims.get(name)
+        if d is None:
+            out[name] = v
+            continue
+        per = v.shape[d] // n
+        out[name] = v[(slice(None),) * d + (slice(r * per, (r + 1) * per),)]
+    return out
 
 
 def _tensor(arr) -> torch.Tensor:

@@ -5,7 +5,20 @@ parameter layouts, so a JAX ``state_dict()`` maps onto this one name for
 name (``models/convert.py``). Linear weights stay ``[in, out]`` (Paddle's
 layout: ``x @ W``). Parameters are trainable, as in the reference.
 
-Two forwards, both unsharded:
+Under tensor parallelism (``fleet.init`` with ``mp_degree > 1``) the
+model is built cut, where the reference switches (:68-100, :244-250,
+:311-315): q/k/v and gate/up are ``ColumnParallelLinear``s, o_proj and
+down ``RowParallelLinear``s, the embedding ``VocabParallelEmbedding``,
+``lm_head`` column-parallel with ``gather_output=True`` (the criterion
+is unchanged), and each rank's attention runs the flash kernels on its
+own heads (``ops/kernels/tp_attention.py``). Where the head counts do not
+cut over the ranks, q/k/v stay whole and every rank runs the flash
+kernels on all the heads, recorded as the reference's fallback (the
+reference takes its composite there; ROADMAP.md §C). Load cut
+weights with ``models.convert.shard_state_dict``. The cache forward
+raises under tensor parallelism (ROADMAP.md A8(f)).
+
+Two forwards:
 
 - with a cache (serving): each layer writes its K/V into the cache and
   attends through it (the paged kernels, or the contiguous cache's
@@ -38,13 +51,38 @@ from ..nn.initializer import ParamInit
 from ..nn.layers_common import Embedding, Linear
 from ..nn.stack import LayerStack
 from ..ops.kernels import nn as K
+from ..ops.kernels import tp_attention as _tpa
 from .generation import GenerationMixin
 
 
-def _linear(in_features: int, out_features: int, init: ParamInit) -> Linear:
-    """A bias-free ``Linear`` drawn from the model's ``ParamInit``."""
+def _linear(in_features: int, out_features: int, init: ParamInit,
+            col: Optional[bool] = None, gather_output: bool = False,
+            input_is_parallel: bool = True):
+    """A bias-free linear drawn from the model's ``ParamInit``: under
+    tensor parallelism (``_tp_degree() > 1``) a ``ColumnParallelLinear``
+    (``col=True``) or a ``RowParallelLinear`` (``col=False``), where the
+    reference switches (:91-101); a ``Linear`` otherwise, or with
+    ``col=None``."""
+    if col is not None and _tp_degree() > 1:
+        from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                                   RowParallelLinear)
+        if col:
+            return ColumnParallelLinear(in_features, out_features,
+                                        weight_attr=init.attr(),
+                                        has_bias=False,
+                                        gather_output=gather_output)
+        return RowParallelLinear(in_features, out_features,
+                                 weight_attr=init.attr(), has_bias=False,
+                                 input_is_parallel=input_is_parallel)
     return Linear(in_features, out_features, weight_attr=init.attr(),
                   bias_attr=False)
+
+
+def _tp_degree() -> int:
+    """The model-parallel degree of fleet's topology (1 without one)."""
+    from ..distributed.topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    return 1 if hcg is None else hcg.get_model_parallel_world_size()
 
 
 def _embedding(num: int, dim: int, init: ParamInit) -> Embedding:
@@ -140,21 +178,36 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
-        h = config.hidden_size
-        self.q_proj = _linear(h, self.num_heads * self.head_dim, init)
-        self.k_proj = _linear(h, self.num_kv_heads * self.head_dim, init)
-        self.v_proj = _linear(h, self.num_kv_heads * self.head_dim, init)
-        self.o_proj = _linear(self.num_heads * self.head_dim, h, init)
+        h, d = config.hidden_size, self.head_dim
+        tp = _tp_degree()
+        self.tp_reason = None if tp == 1 else \
+            _tpa.tp_reason(tp, self.num_heads, self.num_kv_heads)
+        # under TP the projections cut the heads over the ranks; where
+        # the head counts do not cut, q/k/v stay whole on every rank
+        # (head-replicated) and o_proj takes this rank's slice
+        col = None if self.tp_reason is not None else True
+        self.q_proj = _linear(h, self.num_heads * d, init, col)
+        self.k_proj = _linear(h, self.num_kv_heads * d, init, col)
+        self.v_proj = _linear(h, self.num_kv_heads * d, init, col)
+        self.o_proj = _linear(self.num_heads * d, h, init, col=False,
+                              input_is_parallel=self.tp_reason is None)
+        cut = tp if self.tp_reason is None else 1
+        self.local_heads = self.num_heads // cut
+        self.local_kv_heads = self.num_kv_heads // cut
         self.rotary = rotary
 
     def forward(self, x, attn_mask=None, position_ids=None, cache=None,
                 start_pos=None, layer_idx: int = 0):
         b, s, _ = x.shape
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        hq, hk, d = self.local_heads, self.local_kv_heads, self.head_dim
+        q = self.q_proj(x).reshape(b, s, hq, d)
+        k = self.k_proj(x).reshape(b, s, hk, d)
+        v = self.v_proj(x).reshape(b, s, hk, d)
         cos, sin = self.rotary()
         if cache is not None:
+            if _tp_degree() > 1:
+                raise NotImplementedError(
+                    "serving under tensor parallelism is ROADMAP.md A8(f)")
             q, k = K.rope(q, k, cos, sin,
                           _position_ids(start_pos, b, s, x.device))
             cache.update(layer_idx, k, v, start_pos)
@@ -165,8 +218,16 @@ class LlamaAttention(nn.Module):
             q, k = K.rope(q, k, cos, sin, position_ids)
             attend = K.flash_attention if self.config.use_flash_attention \
                 else K.scaled_dot_product_attention
-            out = attend(q, k, v, attn_mask=attn_mask, is_causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+            if self.tp_reason is None:
+                out = attend(q, k, v, attn_mask=attn_mask, is_causal=True)
+            else:
+                # recorded as the reference's composite fallback; the
+                # kernels still run, on every head
+                _tpa.record_fallback("flash", *self.tp_reason)
+                with _tpa.head_replicated():
+                    out = attend(q, k, v, attn_mask=attn_mask,
+                                 is_causal=True)
+        return self.o_proj(out.reshape(b, s, hq * d))
 
 
 class LlamaMLP(nn.Module):
@@ -175,9 +236,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, m, init)
-        self.up_proj = _linear(h, m, init)
-        self.down_proj = _linear(m, h, init)
+        self.gate_proj = _linear(h, m, init, col=True)
+        self.up_proj = _linear(h, m, init, col=True)
+        self.down_proj = _linear(m, h, init, col=False)
 
     def forward(self, x):
         return self.down_proj(K.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -215,8 +276,14 @@ class LlamaModel(PaddleCall, nn.Module):
     def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         self.config = config
-        self.embed_tokens = _embedding(config.vocab_size,
-                                       config.hidden_size, init)
+        if _tp_degree() > 1:
+            from ..distributed.fleet.mp_layers import VocabParallelEmbedding
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size,
+                weight_attr=init.attr())
+        else:
+            self.embed_tokens = _embedding(config.vocab_size,
+                                           config.hidden_size, init)
         rotary = LlamaRotaryEmbedding(
             config.hidden_size // config.num_attention_heads,
             config.max_position_embeddings, config.rope_theta, init.device)
@@ -272,7 +339,7 @@ class LlamaForCausalLM(PaddleCall, nn.Module, GenerationMixin):
         self.lm_head = None
         if not config.tie_word_embeddings:
             self.lm_head = _linear(config.hidden_size, config.vocab_size,
-                                   init)
+                                   init, col=True, gather_output=True)
 
     @property
     def device(self) -> torch.device:
@@ -288,7 +355,13 @@ class LlamaForCausalLM(PaddleCall, nn.Module, GenerationMixin):
 
     def _logits(self, hidden):
         if self.lm_head is None:  # tied: logits = h @ E^T
-            return K.matmul(hidden, self.llama.embed_tokens.weight.T)
+            emb = self.llama.embed_tokens
+            if _tp_degree() > 1:   # this rank's vocab rows, then gathered
+                from ..distributed.fleet import mp_layers as mp
+                return mp.gather_from_mp(K.matmul(
+                    mp.copy_to_mp(hidden, emb.group), emb.weight.T),
+                    emb.group)
+            return K.matmul(hidden, emb.weight.T)
         return self.lm_head(hidden)
 
 

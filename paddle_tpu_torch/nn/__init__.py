@@ -1,8 +1,8 @@
 """``paddle.nn``: ``Layer``, the common layers, the initializers, the
 losses, ``functional``, the grad clips, the transformer encoder, the
 recurrent layers, the MoE layers, ``LayerStack`` and ``quant``
-(counterpart of ``paddle_tpu/nn/__init__.py``; ``SyncBatchNorm`` is
-ROADMAP A8)."""
+(counterpart of ``paddle_tpu/nn/__init__.py``; ``SyncBatchNorm``
+reduces its statistics over the data-parallel ranks)."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -18,7 +18,7 @@ from .layers_common import (  # noqa: F401
     Hardswish, Identity, InstanceNorm2D, LayerList, LayerNorm, LeakyReLU,
     Linear, LogSigmoid, LogSoftmax, MaxPool2D, Mish, Pad2D, ParameterList,
     PixelShuffle, PReLU, ReLU, ReLU6, RMSNorm, Sequential, Sigmoid, SiLU,
-    Softmax, Softplus, Softsign, Swish, Tanh, Upsample)
+    Softmax, Softplus, Softsign, Swish, SyncBatchNorm, Tanh, Upsample)
 from .layers_common import __all__ as _LAYERS
 from .loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss,
                    L1Loss, MSELoss, NLLLoss, SmoothL1Loss)

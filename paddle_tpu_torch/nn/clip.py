@@ -10,7 +10,10 @@ syncs with the host.
 ``min(clip / max(sqrt(sum |g|^2), 1e-12), 1)`` in float32. The optimizer's
 fused route folds it into its kernel instead of rewriting the grads, and
 the per-parameter route multiplies by the same coefficient, so the two
-agree bit for bit.
+agree bit for bit. Both ask the clip object for it
+(``ClipGradByGlobalNorm.coeff(grads, params)``), so a model-parallel clip
+(``distributed.fleet.HybridParallelClipGrad``) can sum the squared norms
+over its ranks.
 """
 
 from __future__ import annotations
@@ -31,7 +34,13 @@ def global_norm_coeff(grads: Iterable[torch.Tensor], clip_norm: float
                       ) -> torch.Tensor:
     """The global-norm clip coefficient, a float32 device scalar. ``grads``
     may be a generator (one temporary at a time)."""
-    gnorm = torch.sqrt(sum_of_squares(grads))
+    return norm_coeff(sum_of_squares(grads), clip_norm)
+
+
+def norm_coeff(sq: torch.Tensor, clip_norm: float) -> torch.Tensor:
+    """``min(clip / max(sqrt(sq), 1e-12), 1)`` of a float32 device
+    scalar ``sq``, the sum of the squared grads."""
+    gnorm = torch.sqrt(sq)
     clip = torch.full((), clip_norm, dtype=torch.float32, device=gnorm.device)
     return torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
@@ -80,13 +89,22 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def coeff(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        return global_norm_coeff(grads, self.clip_norm)
+    def sum_of_squares(self, grads: Iterable[torch.Tensor],
+                       params: Optional[Sequence[torch.Tensor]] = None
+                       ) -> torch.Tensor:
+        """``sum |g|^2`` over ``grads`` (the grads of ``params``, which a
+        model-parallel clip reads)."""
+        return sum_of_squares(grads)
+
+    def coeff(self, grads: Iterable[torch.Tensor],
+              params: Optional[Sequence[torch.Tensor]] = None
+              ) -> torch.Tensor:
+        return norm_coeff(self.sum_of_squares(grads, params), self.clip_norm)
 
     def __call__(self, params_grads: PairList) -> PairList:
-        grads = [g for _, g in params_grads if g is not None]
-        if not grads:
+        pairs = [(p, g) for p, g in params_grads if g is not None]
+        if not pairs:
             return params_grads
-        c = self.coeff(grads)
+        c = self.coeff([g for _, g in pairs], [p for p, _ in pairs])
         return [(p, g if g is None else g * c.to(g.dtype))
                 for p, g in params_grads]

@@ -228,11 +228,14 @@ class _BatchNormBase(Layer):
         self.register_buffer("_variance", torch.ones(num_features,
                                                      device=dev))
 
+    def _batch_stats(self, x):
+        return K.batch_norm_train(x, self.weight, self.bias,
+                                  epsilon=self.epsilon,
+                                  data_format=self.data_format)
+
     def forward(self, x):
         if self.training and not self.use_global_stats:
-            out, mean, var = K.batch_norm_train(
-                x, self.weight, self.bias, epsilon=self.epsilon,
-                data_format=self.data_format)
+            out, mean, var = self._batch_stats(x)
             m = self.momentum
             with torch.no_grad():
                 self._mean.copy_(self._mean * m + mean.float() * (1 - m))
@@ -254,6 +257,33 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """BatchNorm whose training statistics cover the batch of every rank
+    of the data-parallel group (``ops/kernels/extra_nn.py:
+    sync_batch_norm_train``: the per-rank sums, squares and counts
+    all-reduced, with the matching backward), so it equals one BatchNorm
+    over the concatenated batch, as the reference's single controller
+    computes it (``paddle_tpu/nn/layers_common.py:212-220``). In one
+    process it is BatchNorm."""
+
+    def _batch_stats(self, x):
+        from ..ops.kernels.extra_nn import sync_batch_norm_train
+        return sync_batch_norm_train(x, self.weight, self.bias,
+                                     self.epsilon, self.data_format)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every BatchNorm1D/2D/3D below it (itself too)
+        turned into a SyncBatchNorm, in place: the same parameters and
+        running statistics."""
+        if isinstance(layer, _BatchNormBase):
+            layer.__class__ = cls      # the same state, synced statistics
+            return layer
+        for name, child in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(child))
+        return layer
 
 
 class GroupNorm(Layer):
@@ -584,4 +614,4 @@ __all__ = [
     "LogSoftmax", "MaxPool2D", "Mish", "PReLU", "Pad2D", "Parameter",
     "ParameterList", "PixelShuffle", "RMSNorm", "ReLU", "ReLU6", "SELU",
     "Sequential", "SiLU", "Sigmoid", "Softmax", "Softplus", "Softsign",
-    "Swish", "Tanh", "Upsample"]
+    "Swish", "SyncBatchNorm", "Tanh", "Upsample"]

@@ -3,7 +3,7 @@
 Counterpart of ``paddle_tpu/nn/stack.py:71-176``: each parameter of the
 block is ONE ``[num_layers, *block_shape]`` parameter, named
 ``stacked_{j}`` in the template's ``parameters()`` order, the layout the
-reference's pipeline parallelism shards (ROADMAP A8) and its stacked
+reference's pipeline parallelism shards (ROADMAP A8(c)) and its stacked
 checkpoints use (``llama.layer_stack.stacked_{j}``). Where the reference
 runs the block under ``lax.scan``, the port runs it once per layer with
 ``torch.func.functional_call`` over per-layer views.

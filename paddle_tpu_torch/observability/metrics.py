@@ -42,8 +42,14 @@ _V = _flags._VALUES
 # framework itself registers (ops teams scrape these). USER code may
 # register any name it likes; this set governs framework sources only
 # (tests/test_torch_observability.py checks the port's registrations
-# against it). Adding a metric = adding it here first.
-METRIC_NAMES = frozenset({
+# against it). Adding a metric = adding it here first: the reference's
+# names, plus PORT_METRIC_NAMES, the port's own (each with no reference
+# counterpart).
+PORT_METRIC_NAMES = frozenset({
+    # distributed/collective.py: CUDA bytes a gloo call staged via the host
+    "distributed.host_staged_bytes",
+})
+METRIC_NAMES = PORT_METRIC_NAMES | frozenset({
     # ops/dispatcher.py
     "dispatch.count", "dispatch.bind_fast", "dispatch.bind_slow",
     "dispatch.exec_cache.hits", "dispatch.exec_cache.misses",

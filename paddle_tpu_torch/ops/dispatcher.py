@@ -469,6 +469,7 @@ SCHEMA.update({
                   ("clip", False), ("steps", (0.0, 0.0)), ("offset", 0.5),
                   ("min_max_aspect_ratios_order", False)),
     "batch_norm": _BN,
+    "sync_batch_norm": _BN,
     "yolo_box": _X + (("img_size", _R), ("anchors", ()), ("class_num", 1),
                       ("conf_thresh", 0.01), ("downsample_ratio", 32),
                       ("clip_bbox", True), ("scale_x_y", 1.0),
@@ -709,6 +710,11 @@ SCHEMA.update({
     "c_identity": _X + (("ring_id", 0), ("use_calc_stream", True),
                         ("use_model_parallel", True)),
     "c_concat": _X + (("rank", 0), ("nranks", 1), ("ring_id", 0)),
+    "c_allreduce_sum": _X + (("ring_id", 0), ("use_calc_stream", True)),
+    "c_allreduce_max": _X + (("ring_id", 0), ("use_calc_stream", True)),
+    "c_allreduce_min": _X + (("ring_id", 0), ("use_calc_stream", True)),
+    "c_allreduce_prod": _X + (("ring_id", 0), ("use_calc_stream", True)),
+    "c_broadcast": _X + (("root", 0), ("ring_id", 0)),
     "c_embedding": (("table", _R), ("ids", _R), ("start_index", 0),
                     ("vocab_size", -1)),
     # fused ops

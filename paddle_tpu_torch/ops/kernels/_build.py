@@ -14,6 +14,7 @@ module, and a build needs ``nvcc``, which a CPU-only machine lacks.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,14 +98,29 @@ def _lib_path(src: Path, digest: str) -> Path:
 
 def build_all() -> float:
     """Compile every source whose library is missing; returns the seconds
-    spent. Raises with nvcc's output if a compile fails."""
+    spent. Raises with nvcc's output if a compile fails. Processes that
+    start together (the ranks of a job) build once: the first takes the
+    build directory's file lock and compiles, the others wait on it and
+    find the libraries built."""
     digest = _digest()
-    todo = [s for s in _sources() if not _lib_path(s, digest).exists()]
-    if not todo:
+    if all(_lib_path(s, digest).exists() for s in _sources()):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     t0 = time.perf_counter()
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _compile(digest)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return time.perf_counter() - t0
+
+
+def _compile(digest: str) -> None:
+    todo = [s for s in _sources() if not _lib_path(s, digest).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
     procs = []
     for src in todo:
         out = _lib_path(src, digest)
@@ -125,7 +141,6 @@ def build_all() -> float:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {s.name} ---\n{txt}" for s, txt in failed))
-    return time.perf_counter() - t0
 
 
 def load(stem: str, bind=None) -> ctypes.CDLL:

@@ -23,6 +23,9 @@ accepted and unused, as in the reference), amp's
 ``check_finite_and_unscale_op`` and ``update_loss_scaling_op`` (the
 counters and the zeroing of ``xs`` on the card, never read on the host),
 the local forms of ``c_identity``, ``c_concat`` and ``c_embedding``, the
+collective ``c_allreduce_sum`` / ``_max`` / ``_min`` / ``_prod`` and
+``c_broadcast`` (:327-363: the eager collectives of
+``distributed.collective`` on a copy of ``x``, over the job's group), the
 fused ops (``gelu`` is the tanh form, JAX's default) and
 ``memory_efficient_attention``, the composite attention
 (``nn.py:_sdpa``; dropout from ``generator=``, the port's generator by
@@ -354,6 +357,40 @@ def update_loss_scaling_op(xs, found_infinite, prev_loss_scaling,
 @register_kernel("c_identity")
 def c_identity(x, ring_id=0, use_calc_stream=True, use_model_parallel=True):
     return x
+
+
+def _collective(x, fn, **kw):
+    """The eager collective on a copy of ``x`` over the job's default
+    group (``ring_id`` 0): every rank calls the op, as in Paddle."""
+    from ...distributed import collective
+    out = x.clone()
+    getattr(collective, fn)(out, **kw)
+    return out
+
+
+@register_kernel("c_allreduce_sum")
+def c_allreduce_sum(x, ring_id=0, use_calc_stream=True):
+    return _collective(x, "all_reduce", op="sum")
+
+
+@register_kernel("c_allreduce_max")
+def c_allreduce_max(x, ring_id=0, use_calc_stream=True):
+    return _collective(x, "all_reduce", op="max")
+
+
+@register_kernel("c_allreduce_min")
+def c_allreduce_min(x, ring_id=0, use_calc_stream=True):
+    return _collective(x, "all_reduce", op="min")
+
+
+@register_kernel("c_allreduce_prod")
+def c_allreduce_prod(x, ring_id=0, use_calc_stream=True):
+    return _collective(x, "all_reduce", op="prod")
+
+
+@register_kernel("c_broadcast")
+def c_broadcast(x, root=0, ring_id=0):
+    return _collective(x, "broadcast", src=root)
 
 
 @register_kernel("c_concat")

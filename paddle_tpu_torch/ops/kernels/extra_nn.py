@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from ..dispatcher import register_kernel
 from .manipulation import _not_captured
-from .nn import _batch_norm_infer, _batch_norm_train, _same_pads
+from .nn import (_affine, _batch_norm_infer, _batch_norm_train, _bcast,
+                 _same_pads)
 
 
 def _ints(v, n=None):
@@ -793,6 +794,18 @@ def _prior_box(input, image, min_sizes=(), max_sizes=(), aspect_ratios=(1.0,),
             torch.from_numpy(var).to(input.device))
 
 
+def _unified_bn(train, x, mean, variance, scale, bias, is_test, momentum,
+                epsilon, data_format, use_global_stats):
+    if is_test or use_global_stats:
+        out = _batch_norm_infer(x, mean, variance, scale, bias, epsilon,
+                                data_format)
+        return out, mean, variance, mean, variance
+    out, bmean, bvar = train(x, scale, bias, epsilon, data_format)
+    m = float(momentum)
+    return (out, mean * m + bmean * (1 - m), variance * m + bvar * (1 - m),
+            bmean, bvar)
+
+
 @register_kernel("batch_norm")
 def _batch_norm(x, mean, variance, scale=None, bias=None, is_test=False,
                 momentum=0.9, epsilon=1e-05, data_format="NCHW",
@@ -801,14 +814,99 @@ def _batch_norm(x, mean, variance, scale=None, bias=None, is_test=False,
     saved_mean, saved_variance)``; in training the running statistics
     fold the batch's by ``momentum`` (Paddle's: ``running * m + batch *
     (1 - m)``)."""
-    if is_test or use_global_stats:
-        out = _batch_norm_infer(x, mean, variance, scale, bias, epsilon,
-                                data_format)
-        return out, mean, variance, mean, variance
-    out, bmean, bvar = _batch_norm_train(x, scale, bias, epsilon, data_format)
-    m = float(momentum)
-    return (out, mean * m + bmean * (1 - m), variance * m + bvar * (1 - m),
-            bmean, bvar)
+    return _unified_bn(_batch_norm_train, x, mean, variance, scale, bias,
+                       is_test, momentum, epsilon, data_format,
+                       use_global_stats)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the batch of every rank of ``group``: the
+    per-channel sums and counts all-reduced (then the centred squares, so
+    the variance is two-pass), float32 throughout. The backward
+    all-reduces ``sum(dy)`` and ``sum(dy * xhat)`` for the input's grad;
+    the weight's and bias's grads stay this rank's (``DataParallel``
+    reduces them with the rest)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, epsilon, data_format, group):
+        from ...distributed import collective as C
+        shape = _bcast(x, data_format)
+        ch = 1 if shape[1] == -1 else x.dim() - 1
+        dims = tuple(d for d in range(x.dim()) if d != ch)
+        xf = x.float()
+        cnt = torch.full((1,), x.numel() // x.shape[ch], dtype=torch.float32,
+                         device=x.device)
+        s = torch.cat([xf.sum(dim=dims), cnt])
+        C.all_reduce(s, group=group)
+        n = s[-1]
+        mean = s[:-1] / n
+        centred = xf - mean.reshape(shape)
+        q = centred.square().sum(dim=dims)
+        C.all_reduce(q, group=group)
+        var = q / n
+        rstd = torch.rsqrt(var + epsilon)
+        xhat = centred * rstd.reshape(shape)
+        out = _affine(xhat, None if weight is None else weight.float(),
+                      None if bias is None else bias.float(), shape)
+        ctx.save_for_backward(xhat, rstd, weight, n)
+        ctx.meta = (shape, dims, group, bias is not None)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from ...distributed import collective as C
+        xhat, rstd, weight, n = ctx.saved_tensors
+        shape, dims, group, has_bias = ctx.meta
+        dyf = dy.float()
+        sdy = dyf.sum(dim=dims)
+        sdyx = (dyf * xhat).sum(dim=dims)
+        dw = sdyx.to(weight.dtype) if weight is not None else None
+        db = sdy.clone() if has_bias else None
+        both = torch.cat([sdy, sdyx])
+        C.all_reduce(both, group=group)
+        g_dy, g_dyx = both.chunk(2)
+        scale = rstd if weight is None else rstd * weight.float()
+        dx = scale.reshape(shape) * (dyf - (g_dy / n).reshape(shape)
+                                     - xhat * (g_dyx / n).reshape(shape))
+        if db is not None:
+            db = db.to(weight.dtype if weight is not None else dy.dtype)
+        return dx.to(dy.dtype), dw, db, None, None, None
+
+
+def sync_group():
+    """The group a SyncBatchNorm reduces over: the hybrid topology's dp
+    group, else every rank of the job, else None (one process)."""
+    from ...distributed import collective as C
+    from ...distributed.topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None:
+        return hcg.get_data_parallel_group()
+    return C._group(None) if C.is_initialized() else None
+
+
+def sync_batch_norm_train(x, weight=None, bias=None, epsilon=1e-05,
+                          data_format="NCHW", group=None):
+    """``(out, batch mean, batch variance)`` over the batch of every rank
+    of ``group`` (default :func:`sync_group`), the variance biased; one
+    process's batch_norm_train where the group is a single rank."""
+    group = group if group is not None else sync_group()
+    if group is None or group.nranks == 1:
+        return _batch_norm_train(x, weight, bias, epsilon, data_format)
+    return _SyncBatchNorm.apply(x, weight, bias, float(epsilon), data_format,
+                                group)
+
+
+@register_kernel("sync_batch_norm")
+def _sync_batch_norm(x, mean, variance, scale=None, bias=None, is_test=False,
+                     momentum=0.9, epsilon=1e-05, data_format="NCHW",
+                     use_global_stats=False):
+    """``batch_norm`` with the batch statistics of every rank of the data
+    parallel group (:func:`sync_batch_norm_train`): the reference's
+    single controller sees the global batch, which is what this
+    computes from the ranks' shares."""
+    return _unified_bn(sync_batch_norm_train, x, mean, variance, scale,
+                       bias, is_test, momentum, epsilon, data_format,
+                       use_global_stats)
 
 
 @register_kernel("viterbi_decode")

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..dispatcher import hooked, register_kernel
 from . import flash_attention as _fa
 from . import flash_varlen as _fv
+from . import tp_attention as _tpa
 from .math import _matmul, _mean
 
 
@@ -183,9 +184,13 @@ def _flash_attention(query, key, value, attn_mask=None,
     goes to ``flash_attention.flash_attention`` (the kernels for a CUDA
     tensor, which raise on a head_dim or dtype they lack; the plain
     version for a CPU one); everything else, causal ``sq > sk``
-    included, goes to the composite."""
+    included, goes to the composite. Under tensor parallelism (fleet's
+    mp > 1) q/k/v hold this rank's heads: the same path, counted in
+    ``tp_attention.sharded`` (the reference's ``:736-755``)."""
     if attn_mask is None and dropout_p == 0.0 and _fa.supported(
             query.shape, key.shape, is_causal):
+        if _tpa.current_tp_context() is not None:
+            _tpa.count_sharded()
         return _fa.flash_attention(query, key, value, causal=is_causal,
                                    scale=scale)
     return _sdpa(query, key, value, attn_mask, dropout_p, is_causal, scale,
@@ -200,9 +205,12 @@ def _flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
     op: ``scale`` 0.0 or None means ``head_dim ** -0.5``, ``max_seqlen_*``
     are accepted and unused, ``cu_seqlens_*`` are cast to int32; then
     ``flash_varlen.flash_attn_unpadded`` (the kernels for a CUDA tensor,
-    the plain version for a CPU one). The reference's tensor-parallel
-    branch (heads sharded over an ambient mesh) is not ported."""
+    the plain version for a CPU one). Under tensor parallelism the heads
+    are this rank's: the same path, counted in ``tp_attention.sharded``
+    (the reference's ``:770-786``)."""
     scale = None if scale in (0.0, None) else scale
+    if _tpa.current_tp_context() is not None:
+        _tpa.count_sharded()
     return _fv.flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
                                    scale=scale, causal=causal)
 

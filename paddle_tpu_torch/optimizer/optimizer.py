@@ -78,8 +78,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 from .. import flags as _flags
-from ..nn.clip import (ClipGradBase, ClipGradByGlobalNorm, global_norm_coeff,
-                       sum_of_squares)
+from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm, sum_of_squares
 from ..ops.kernels import fused_optimizer as fok
 from .lr import LRScheduler
 
@@ -444,8 +443,8 @@ class Optimizer:
         if plan is not None:
             coeff = None
             if fold_clip:   # the clip's own coefficient, not its rewrite
-                coeff = global_norm_coeff(conditioned(grads, inv),
-                                          self._grad_clip.clip_norm)
+                coeff = self._grad_clip.coeff(conditioned(grads, inv),
+                                              params)
             if sentinel:
                 found, gnorm = sentinel_reduce(conditioned(grads, inv, coeff))
             found, gnorm = _merge_found(found, gnorm, ext)

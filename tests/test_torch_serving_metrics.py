@@ -309,14 +309,17 @@ def test_captured_and_eager_steps_publish_alike(models):
 def test_port_registers_only_frozen_names():
     """Every name the port's framework code registers is in the frozen
     taxonomy (``metrics.METRIC_NAMES``), as the reference requires of its
-    own sources."""
+    own sources; the taxonomy is the reference's plus the port's own
+    names (``PORT_METRIC_NAMES``, none of them the reference's)."""
     import paddle_tpu_torch.models.serving  # noqa: F401  (registers)
     import paddle_tpu_torch.observability.exporter  # noqa: F401
     names = {m.name for m in (tmetrics.registry().get(k) for k in
                               tmetrics.registry().names())}
     framework = {n for n in names if not n.startswith(("my.", "test."))}
     assert framework - tmetrics.METRIC_NAMES == set()
-    assert tmetrics.METRIC_NAMES == jmetrics.METRIC_NAMES
+    assert tmetrics.METRIC_NAMES - tmetrics.PORT_METRIC_NAMES == \
+        jmetrics.METRIC_NAMES
+    assert not tmetrics.PORT_METRIC_NAMES & jmetrics.METRIC_NAMES
 
 
 def test_survives_executables_a_warm_start_left(models, tmp_path):

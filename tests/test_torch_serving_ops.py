@@ -206,12 +206,16 @@ def test_every_serving_op_has_a_case():
     have theirs in ``test_torch_paged_attention.py`` /
     ``test_torch_ragged_attention.py``; the linalg and fft extras of
     ``extra_misc.py`` theirs in ``test_torch_linalg_fft.py``; its
-    single-device op forms theirs in ``test_torch_misc_ops.py``)."""
+    single-device op forms theirs in ``test_torch_misc_ops.py``; its
+    collective ``c_allreduce_*`` / ``c_broadcast``, which need the ranks
+    of a job, theirs in ``test_torch_collective.py``)."""
     from paddle_tpu_torch.ops.kernels import extra_misc, serving
     from test_torch_misc_ops import CASES as OP_FORMS
     owned = {n for n, k in tdisp.KERNELS.items()
              if k.__module__ in (serving.__name__, extra_misc.__name__)} - {
-        "matrix_rank", "lu_unpack", "fft_c2c", "fft_r2c", "fft_c2r"} - {
+        "matrix_rank", "lu_unpack", "fft_c2c", "fft_r2c", "fft_c2r",
+        "c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+        "c_allreduce_prod", "c_broadcast"} - {
         v[0] for v in OP_FORMS.values()}
     covered = {v[0] for v in CASES.values()} | {
         "sample_logits", "sample_logits_keyed", "top_p_sampling",
