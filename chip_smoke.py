@@ -28,10 +28,14 @@ Llama-3-8B's shapes, message passing and sampling at ogbn-arxiv's scale
 and CRF decoding run on the card against the CPU; the registry's last
 single-device entries run card vs CPU, and ResNet-50 trains
 quantization-aware; Llama-3-8B's width trains by one NCCL rank and by
-four gloo ranks at dp 2 x mp 2 through the launcher. Its dataset classes
-sit at module level and its run under ``if __name__ == "__main__"``: the
-DataLoader's forkserver workers import this script, and the launcher
-starts it as one rank of ``train_hybrid`` (``--hybrid-rank RUN DIR``).
+four gloo ranks at dp 2 x mp 2 through the launcher, then over 8192
+tokens at sep 2 x mp 2 (ring attention), DeepSeek-MoE-16B's 64 experts
+over four ranks (expert parallelism) and Llama-3-8B's width over four
+pipeline stages (1F1B). Its dataset classes sit at module level and its
+run under ``if __name__ == "__main__"``: the DataLoader's forkserver
+workers import this script, and the launcher starts it as one rank of
+``train_hybrid`` (``--hybrid-rank RUN DIR``) or of a later parallel phase
+(``--parallel-rank PHASE RUN DIR``).
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -291,6 +295,40 @@ Phases (any failure raises and the script exits non-zero):
    tokens/s, step p50/p99, each rank's peak, collective calls and staged
    bytes a step, the backend and device count, gloo's time for the dp
    all-reduce and the mp all-gather alone;
+5d3. ``train_sep``, ``train_ep``, ``train_pp``, after phase 5d2, each
+   through the launcher (gloo ranks on ``cuda:0``), with AdamW (lr 1e-4,
+   wd 0.01) + ``ClipGradByGlobalNorm(1.0)``, 1 + 2 eager steps, the
+   launch counts reset before the loop and every plain version of the
+   training kernels counted where a CUDA tensor reaches it (none may):
+   ``train_sep``: Llama-3-8B's widths at SEP_LAYERS (2) layers over one
+   8192-token LCG sequence; R1 one NCCL rank, R4 four ranks at sep 2 x
+   mp 2 (``SegmentParallel``, ring attention over 4096 tokens a rank on
+   its 16 / 4 heads). Held: R4's first loss within SEP_FIRST_LOSS_REL of
+   R1's; flash fwd / dq / dk/dv (sep rank + 1) x 2 layers a step (the
+   causal skip); one layer's ring output and q/k/v grads, gathered,
+   against the flash kernel over the whole sequence (SEP_RING_REL,
+   SEP_RING_GRAD_REL). ``train_ep``: DeepSeek-MoE-16B's widths at
+   EP_LAYERS (3: one dense, 2 MoE) at dp 4 with ``expert_axis="dp"`` (16
+   of the 64 experts a rank), 1 x 2048 tokens a rank; held against the
+   main process running the four shards one after another through the
+   local path: the first loss (EP_FIRST_LOSS_REL), each shard's dropped
+   choices per MoE layer, expert 0's grads (EP_GRAD_REL); grouped GEMM 6
+   launches a MoE layer a step. ``train_pp``: Llama-3-8B's widths at 4
+   layers at pp 4 (``PipelineParallel``, one decoder layer a stage, the
+   embedding on stage 0, norm and head on stage 3), 1F1B over 8
+   microbatches of 1 x 2048; held against the main process accumulating
+   the same 8 micro steps: the first loss (PP_FIRST_LOSS_REL) and the
+   masters sampled after one step; the 1F1B table's bubble printed beside
+   each stage's time blocked in receives. In every phase each parameter's
+   grad norm before the first update is held against the reference's
+   (R1's, the shards', the micro steps'; SEP_ / EP_ / PP_GRAD_NORM_REL),
+   the experts' over the rank's slice, and the same check on the grads
+   doubled must fail (a planted scale fault). Printed per phase: tokens/s,
+   step p50/p99, each rank's peak, launches, collective calls and
+   host-staged bytes a step, the reckoned ring / all-to-all / P2P bytes,
+   and from one more step under ``torch.profiler`` on every rank the
+   shares of its wall time in which the card ran the rank's kernels, a
+   gloo / NCCL operation alone was in flight, and neither;
 5e. the layer surface, after phase 5c: a network built only from the
    ported layers (Conv2D, BatchNorm2D, ReLU, MaxPool2D, Flatten, Dropout
    with its own CUDA generator, Linear with a bias) trained with
@@ -442,8 +480,9 @@ whose pointers are not aligned to the kernel's vector accesses
 Output: findings on earlier lines (a ``capture:`` line sums up every
 captured-against-eager result), then the ``kernels`` JSON line
 (fourteen kernels; the training kernels' entries add their
-``train_amp``, ``train_layers`` and ``train_hybrid`` launches (per
-rank), the fused optimizer's its
+``train_amp``, ``train_layers``, ``train_hybrid``, ``train_sep``,
+``train_ep`` and ``train_pp`` launches (per rank; the grouped GEMM's
+its ``train_ep`` ones), the fused optimizer's its
 ``bert_squad``, ``ocr``, vision and ``quant_qat`` launches and its
 Momentum time over ResNet-50's parameters; the serving kernels' their
 ``serve_resilient`` and ``serve_fleet`` launches), then as the last line ``{"ok": true, "device":
@@ -1902,8 +1941,8 @@ def phase_main(torch, seed, report):
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: Llama-3-8B geometry, {cfg.num_hidden_layers} layers, "
@@ -2798,8 +2837,8 @@ def phase_int4_serve(torch, seed, report, outs_bf16):
     from paddle_tpu_torch.ops import kernels
 
     cfg = LlamaConfig.llama3_8b()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
     prompts = make_requests(cfg, seed)
     probe = prompts[1][:300]
     logits_bf16 = prompt_logits(torch, model, probe)
@@ -4762,8 +4801,8 @@ def phase_train(torch, seed, report):
                              "bitwise check has no baseline")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
     crit = LlamaPretrainingCriterion(cfg)
     n_params = sum(p.numel() for p in model.parameters())
     n_matmul = n_params - model.llama.embed_tokens.weight.numel()
@@ -5532,8 +5571,8 @@ def fit_run(torch, cfg, seed, data, k, capture=True, workers=0):
 
     flags.set_flags({"multi_step": k, "step_capture": capture})
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
     opt = AdamW(learning_rate=lr.StepDecay(1e-4, step_size=1, gamma=0.5),
                 weight_decay=0.01,
                 parameters=model.parameters(),
@@ -6178,6 +6217,1011 @@ def phase_train_hybrid(torch, seed, report):
     report["train_hybrid"] = res
     if errors:
         raise AssertionError("train_hybrid: " + "; ".join(errors))
+    return res
+
+
+# -- phases train_sep, train_ep, train_pp: sequence, expert and pipeline ------
+# parallelism over ranks. Each launches its ranks through the launcher
+# (``chip_smoke.py --parallel-rank PHASE RUN DIR``), gloo ranks sharing
+# card 0 (one card; NCCL refuses two ranks on one card), and holds what
+# they compute against one rank, or the main process, doing the same work
+# without the parallelism.
+
+PARALLEL_TIMEOUT_S = 600          # a launch, start-up included
+
+# train_sep: Llama-3-8B's widths, 2 layers, one 8192-token sequence (its
+# context), AdamW + clip 1.0; R4 at sep 2 x mp 2 holds 4096 tokens and its
+# 16 / 4 heads a rank
+SEP_LAYERS, SEP_S = 2, 8192
+SEP_WARMUP, SEP_STEPS = 1, 2
+SEP_FIRST_LOSS_REL = 2e-3         # R4's first loss against R1's
+# one layer's ring (bf16, the blocks' outputs merged in float32) against
+# the flash kernel over the whole sequence, of max |reference|: the output
+# carries one bf16 rounding more than the reference's; the grads add the
+# float32 sums of bf16 block grads
+SEP_RING_REL, SEP_RING_GRAD_REL = 1e-2, 2e-2
+# each parameter's grad norm before the first update, R4's (the mp shards'
+# squares summed) against R1's: bf16 grads reduced in another order (the
+# ring's blocks, the mp shards' products). A scale fault (a doubled or
+# dropped average) moves a norm by 50% or more
+SEP_GRAD_NORM_REL = 2e-2
+SEP_RUNS = {
+    "r1": dict(nproc=1, devices="0", backend="nccl", sep=1, mp=1),
+    "r4": dict(nproc=4, devices="0,0,0,0", backend="gloo", sep=2, mp=2)}
+
+# train_ep: DeepSeek-MoE-16B's widths, 3 layers (one dense, 2 MoE: ~1.7 B
+# params, ~0.85 B a rank with 16 of the 64 experts), dp 4 x 2048 tokens
+EP_LAYERS, EP_B, EP_S = 3, 4, 2048
+EP_WARMUP, EP_STEPS = 1, 2
+EP_FIRST_LOSS_REL = 2e-3          # R4's mean first loss vs the shards'
+# expert 0's grads (the first MoE layer's): R4 sums the four shards' rows
+# in one product and scales by 1/4, the main process accumulates four
+# backwards' bf16 grads
+EP_GRAD_REL = 3e-2
+# each parameter's grad norm (the rank's slice of the experts) before the
+# first update against the main process's
+EP_GRAD_NORM_REL = 3e-2
+# dropped choices: the first MoE layer sees bit-equal inputs (equal); the
+# second's inputs pass the combine's atomics, whose order moves last bits
+EP_DROP_SHARE = 5e-3              # of a shard's token x top_k choices
+EP_RUNS = {"r4": dict(nproc=4, devices="0,0,0,0", backend="gloo", dp=4)}
+
+# train_pp: Llama-3-8B's widths, 4 layers, pp 4 (one decoder layer a stage;
+# the embedding on stage 0, norm and head on stage 3), 1F1B over 8
+# microbatches of 1 x 2048
+PP_LAYERS, PP_STAGES, PP_MICRO, PP_S = 4, 4, 8, 2048
+PP_WARMUP, PP_STEPS = 1, 2
+PP_FIRST_LOSS_REL = 2e-3
+# after one AdamW step (lr 1e-4) from equal masters every element moves by
+# lr * (sign(g) + wd * p): only a grad whose sign flips between the two
+# runs' rounding moves it elsewhere (by 2 lr)
+PP_MASTER_ATOL = 5e-5
+PP_MASTER_FLIP_SHARE = 1e-3       # of the sampled elements
+PP_SAMPLES = 4096                 # sampled elements a parameter
+# each stage's grad norms before the first update against the accumulated
+# micro steps' (the update above cannot see a grad's scale)
+PP_GRAD_NORM_REL = 2e-2
+PP_RUNS = {"r4": dict(nproc=4, devices="0,0,0,0", backend="gloo",
+                      pp=PP_STAGES)}
+
+
+@contextlib.contextmanager
+def counting_plain(counts):
+    """Count, by name, the calls of the training kernels' plain versions
+    that get a CUDA tensor (the main path launches the kernels)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    slots = [(fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"),
+             (gg, "gmm_plain"), (fo, "fused_bucket_plain")]
+    saved = [getattr(m, n) for m, n in slots]
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            ts = [a for a in args if hasattr(a, "is_cuda")] + [
+                t for a in args if isinstance(a, (list, tuple))
+                for t in a if hasattr(t, "is_cuda")]
+            if any(t.is_cuda for t in ts):
+                counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+    for (m, n), fn in zip(slots, saved):
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(slots, saved):
+            setattr(m, n, fn)
+
+
+def rank_start(out_dir):
+    """A parallel rank's config, process group and card."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    with open(os.path.join(out_dir, "config.json")) as f:
+        run = json.load(f)
+    pe = C.init_parallel_env(backend=run["backend"])
+    dev = pe.device
+    if dev.type != "cuda":
+        raise AssertionError(f"rank {C.get_rank()} is on {dev}, not the "
+                             f"card")
+    return run, dev, torch.Generator(device=dev)
+
+
+def grad_squares(torch, model, mp=None):
+    """Per parameter name, the sum of squares of its grad (float32); over
+    ``mp``, a cut parameter's (``is_distributed``) summed over the ranks
+    (one all-reduce), so that it is the whole parameter's."""
+    from paddle_tpu_torch.distributed import collective as C
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.grad is not None]
+    sq = torch.stack([p.grad.float().pow(2).sum() for _, p in named])
+    if mp is not None and mp.nranks > 1:
+        # the mp layers' flag (torch's ``is_distributed`` is a method)
+        cut = torch.tensor([getattr(p, "is_distributed", False) is True
+                            for _, p in named], device=sq.device)
+        summed = torch.where(cut, sq, torch.zeros_like(sq))
+        C.all_reduce(summed, group=mp)
+        sq = torch.where(cut, summed, sq)
+    return dict(zip([n for n, _ in named], sq.tolist()))
+
+
+def grad_norm_check(got, want, limit, tag, errors):
+    """Each parameter's grad norm (from sums of squares) of ``got``
+    against ``want``, relative: the worst, and the worst with ``got``'s
+    grads doubled, a planted scale fault that the limit must see. Returns
+    (worst, its name, planted worst)."""
+    if set(got) != set(want):
+        errors.append(f"{tag}: grads of {sorted(set(got) ^ set(want))} on "
+                      f"one side only")
+    worst, name, planted = 0.0, None, float("inf")
+    for n in set(got) & set(want):
+        w = float(np.sqrt(want[n]))
+        a = float(np.sqrt(got[n]))
+        rel = abs(a - w) / max(w, 1e-30)
+        if rel > worst or name is None:
+            worst, name = rel, n
+        planted = min(planted, abs(2 * a - w) / max(w, 1e-30))
+    if worst > limit:
+        errors.append(f"{tag}: grad norm of {name} {worst:.3e} relative, "
+                      f"limit {limit}")
+    if not planted > limit:
+        errors.append(f"{tag}: grads doubled stay within {limit} "
+                      f"({planted:.3e}): the check cannot see a scale")
+    return worst, name, planted
+
+
+def profiled_step(torch, dev, step, i):
+    """One more step (``step(i)``, after the timed ones) under
+    ``torch.profiler``, the ranks lined up by a barrier first (a
+    profiler's start-up takes each process its own time): within the
+    step's span, the time the card ran this process's work (the union of
+    its kernels' and copies' spans), the time a collective was in flight
+    (the union of the gloo / NCCL operations' host spans, every thread: a
+    posted receive's span runs until its data came), and the shares of
+    the step's wall time in which the card ran the rank's work, a
+    collective alone was in flight (the card idle for this rank), and
+    neither (the host's own). Ranks that share a card take it in time
+    slices, so a rank's kernel spans can hold other ranks' slices."""
+    from paddle_tpu_torch.distributed import collective as C
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        C.barrier()
+        with record_function("chip_smoke.profiled_step"):
+            step(i)
+            torch.cuda.synchronize(dev)
+    events = prof.events()
+    win = next(e.time_range for e in events
+               if e.name == "chip_smoke.profiled_step")
+    card, comm = [], []
+    for e in events:
+        a, b = max(e.time_range.start, win.start), min(e.time_range.end,
+                                                       win.end)
+        if b <= a:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            # a range's annotation on the card's timeline spans its first
+            # kernel to its last: not work
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name == "chip_smoke.profiled_step"):
+                card.append((a, b))
+        elif e.name.startswith(("gloo:", "nccl:")):
+            comm.append((a, b))
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out, sum(b - a for a, b in out) / 1e3
+    card_u, card_ms = union(card)
+    comm_u, comm_ms = union(comm)
+    _, both_ms = union([tuple(x) for x in card_u + comm_u])
+    wall_ms = (win.end - win.start) / 1e3
+    return dict(wall_ms=wall_ms, card_ms=card_ms, comm_ms=comm_ms,
+                card_share=card_ms / wall_ms, comm_share=comm_ms / wall_ms,
+                comm_only_share=(both_ms - card_ms) / wall_ms,
+                host_share=1 - both_ms / wall_ms,
+                card_events=len(card), comm_events=len(comm))
+
+
+def rank_loop(torch, dev, run, step, plain):
+    """``step(i) -> loss`` over warm-up and timed steps with the launch
+    counts reset first: losses, step times, the counters' per-step deltas
+    and the launches."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import kernels
+    reg = metrics.registry()
+    calls = reg.get("distributed.collective_calls")
+    staged = reg.get("distributed.host_staged_bytes")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()        # the main path's run starts here
+    losses, step_s, n_calls, n_staged = [], [], 0, 0
+    with counting_plain(plain):
+        for i in range(run["warmup"] + run["steps"]):
+            c0, b0 = calls.value, staged.value
+            ts = time.perf_counter()
+            loss = step(i)
+            torch.cuda.synchronize(dev)
+            if i >= run["warmup"]:
+                step_s.append(time.perf_counter() - ts)
+                n_calls += calls.value - c0
+                n_staged += staged.value - b0
+            losses.append(float(loss))
+    out = dict(
+        losses=losses, step_ms=[1e3 * x for x in step_s],
+        step_ms_p50=1e3 * pctl(step_s, 50), step_ms_p99=1e3 * pctl(step_s, 99),
+        collective_calls_per_step=n_calls / run["steps"],
+        host_staged_bytes_per_step=n_staged / run["steps"],
+        launches=dict(kernels.launch_counts()),
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        plain_on_card=dict(plain), mean_step_s=float(np.mean(step_s)))
+    # where a step's time goes, from one more step (the counts are read)
+    out["profile"] = profiled_step(torch, dev, step,
+                                   run["warmup"] + run["steps"])
+    return out
+
+
+def rank_finish(out_dir, res):
+    from paddle_tpu_torch.distributed import collective as C
+    res["rank"], res["backend"] = C.get_rank(), C.get_backend()
+    with open(os.path.join(out_dir, f"rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+    C.barrier()
+    C.destroy_process_group()
+    return 0
+
+
+def full_state(build, gen, seed):
+    """The state of one seeded full model, on the card."""
+    full = build(gen.manual_seed(seed))
+    state = dict(full.state_dict())
+    del full
+    return state
+
+
+def sep_config():
+    from paddle_tpu_torch.models import LlamaConfig
+    return dataclasses.replace(LlamaConfig.llama3_8b(),
+                               num_hidden_layers=SEP_LAYERS)
+
+
+def sep_ring_check(torch, dev, hcg, seed):
+    """One layer's ring on this rank's 4096 tokens and 16 / 4 heads, its
+    output and q/k/v grads gathered on every rank and held, on rank 0,
+    against the flash kernel over the whole 8192 tokens and 32 / 8 heads
+    (max abs error over max |reference|)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.ops.dispatcher import call_op
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = sep_config()
+    hq, hk = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // hq
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    q, ct = (torch.randn((1, SEP_S, hq, d), generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, SEP_S, hk, d), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    sep, mp = hcg.get_sep_parallel_group(), hcg.get_model_parallel_group()
+    sl = SEP_S // sep.nranks
+
+    def local(t):
+        h = t.shape[2] // mp.nranks
+        return t[:, sep.rank * sl:(sep.rank + 1) * sl,
+                 mp.rank * h:(mp.rank + 1) * h].contiguous()
+    ql, kl, vl = (local(t).requires_grad_(True) for t in (q, k, v))
+    out = call_op("ring_attention", ql, kl, vl, is_causal=True)
+    out.backward(local(ct))
+    parts = {}
+    for name, t in (("out", out.detach()), ("dq", ql.grad), ("dk", kl.grad),
+                    ("dv", vl.grad)):
+        parts[name] = C.all_gather([], t.contiguous())
+    if C.get_rank() != 0:
+        return None
+    qf, kf, vf = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = fa.flash_attention(qf, kf, vf, causal=True)
+    ref.backward(ct)
+    want = {"out": ref.detach(), "dq": qf.grad, "dk": kf.grad, "dv": vf.grad}
+    errs = {}
+    for name, got in parts.items():
+        # rank = sep * mp_degree + mp: seq chunks of head slices
+        rows = [torch.cat([got[s * mp.nranks + m] for m in range(mp.nranks)],
+                          dim=2) for s in range(sep.nranks)]
+        errs[name] = rel_err(torch, torch.cat(rows, dim=1), want[name])
+    return errs
+
+
+def sep_rank(name, out_dir):
+    """One rank of a train_sep run: Llama-3-8B's width at 2 layers over
+    8192 LCG tokens through ``fleet.init(sep_degree=, mp_degree=)`` /
+    ``distributed_model`` (``SegmentParallel`` at sep > 1) /
+    ``distributed_optimizer``, from one seeded full model (cut under mp >
+    1); each parameter's grad before the first update (its sum of squares,
+    the mp shards' summed); then, at sep > 1, one layer's ring held
+    against flash over the whole sequence."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion,
+                                         from_jax_state_dict,
+                                         shard_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    run, dev, gen = rank_start(out_dir)
+    cfg = sep_config()
+    state = None
+    if run["mp"] > 1:
+        state = full_state(lambda g: LlamaForCausalLM(
+            cfg, device=dev, generator=g), gen, run["seed"])
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"sep_degree": run["sep"], "mp_degree": run["mp"]}
+    hcg = fleet.init(is_collective=True, strategy=s, backend=run["backend"])
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=gen.manual_seed(run["seed"]))
+    if state is not None:
+        from_jax_state_dict(model, shard_state_dict(model, state, hcg))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    crit = LlamaPretrainingCriterion(cfg)
+    ids = lcg_ids(torch, 1, SEP_S, cfg.vocab_size, dev)
+    setup_s = time.perf_counter() - t0
+
+    mp = hcg.get_model_parallel_group()
+    first = {}
+
+    def step(i):
+        loss = crit(net(ids), ids)
+        loss.backward()
+        if i == 0:
+            first["grad_sq"] = grad_squares(torch, model, mp)
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    plain = {}
+    res = rank_loop(torch, dev, run, step, plain)
+    res.update(first, setup_s=setup_s, sep_rank=hcg.get_sep_parallel_rank(),
+               mp_rank=hcg.get_model_parallel_rank(),
+               wrapper=type(net).__name__,
+               params=sum(p.numel() for p in model.parameters()),
+               tokens_per_s=SEP_S / res["mean_step_s"])
+    if run["sep"] > 1:
+        res["ring_check"] = sep_ring_check(torch, dev, hcg, run["seed"])
+    return rank_finish(out_dir, res)
+
+
+def ep_config():
+    return dataclasses.replace(moe_config(), num_hidden_layers=EP_LAYERS,
+                               expert_axis="dp")
+
+
+def ep_expert0_grads(model, layer=1):
+    """Expert 0's three weight grads of MoE layer ``layer`` (float32, on
+    the host)."""
+    e = model.model.layers[layer].mlp.moe.experts
+    return [w.grad[0].float().cpu() for w in (e.gate_weight, e.up_weight,
+                                              e.down_weight)]
+
+
+def ep_rank(name, out_dir):
+    """One rank of train_ep: DeepSeek-MoE-16B's width at 3 layers, dp 4
+    with ``expert_axis="dp"`` (the rank builds its 16 of the 64 experts,
+    cut from one seeded full model by ``shard_state_dict``), 1 x 2048 LCG
+    tokens a rank through ``distributed_model`` (``DataParallel``, which
+    leaves the experts' grads to the all-to-alls and scales them) and
+    ``distributed_optimizer`` (the clip sums the experts' squares over
+    dp). The first step's dropped choices per MoE layer, every grad's sum
+    of squares before the first update, and rank 0's expert 0 grads of the
+    first MoE layer go to the main process."""
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (MoEForCausalLM,
+                                         MoEPretrainingCriterion,
+                                         from_jax_state_dict,
+                                         shard_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import moe as mo
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    run, dev, gen = rank_start(out_dir)
+    cfg = ep_config()
+    state = full_state(lambda g: MoEForCausalLM(
+        cfg, device=dev, generator=g), gen, run["seed"])
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": run["dp"]}
+    hcg = fleet.init(is_collective=True, strategy=s, backend=run["backend"])
+    model = MoEForCausalLM(cfg, device=dev,
+                           generator=gen.manual_seed(run["seed"]))
+    from_jax_state_dict(model, shard_state_dict(model, state, hcg))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    crit = MoEPretrainingCriterion(cfg, model)
+    dp = hcg.get_data_parallel_group()
+    ids = lcg_ids(torch, EP_B, EP_S, cfg.vocab_size, dev)[
+        dp.rank:dp.rank + 1]
+    setup_s = time.perf_counter() - t0
+    routes, first = [], {}
+
+    def step(i):
+        with record_routing(mo, routes) if i == 0 else \
+                contextlib.nullcontext():
+            loss = crit(net(ids), ids)
+        loss.backward()
+        if i == 0:
+            first["grad_sq"] = grad_squares(torch, model)
+        if i == 0 and dp.rank == 0:
+            first["grads"] = ep_expert0_grads(model)
+        opt.step()
+        opt.clear_grad()
+        avg = loss.detach().float().reshape(1)
+        C.all_reduce(avg, op=C.ReduceOp.AVG, group=dp)
+        return avg
+    plain = {}
+    res = rank_loop(torch, dev, run, step, plain)
+    e = model.model.layers[1].mlp.moe.experts
+    res.update(setup_s=setup_s, dp_rank=dp.rank,
+               grad_sq=first["grad_sq"],
+               experts=[n for n, p in model.named_parameters()
+                        if getattr(p, "is_expert", False)],
+               local_experts=int(e.gate_weight.shape[0]),
+               clip=type(opt._grad_clip).__name__,
+               wrapper=type(net).__name__,
+               params=sum(p.numel() for p in model.parameters()),
+               tokens_per_s=EP_B * EP_S / res["mean_step_s"],
+               routing=routing_stats(routes, EP_S, cfg.num_experts_per_tok))
+    if "grads" in first:
+        torch.save(first["grads"], os.path.join(out_dir, "expert0.pt"))
+    return rank_finish(out_dir, res)
+
+
+def pp_config(**kw):
+    from paddle_tpu_torch.models import LlamaConfig
+    return dataclasses.replace(LlamaConfig.llama3_8b(),
+                               num_hidden_layers=PP_LAYERS, **kw)
+
+
+def master_samples(torch, model, opt, rows=None):
+    """Per parameter name, ``PP_SAMPLES`` evenly spaced elements of its
+    float32 master (of the stacked rows ``rows[name]`` where given)."""
+    masters = dict(zip([id(p) for p in opt._parameter_list], opt._masters))
+    out = {}
+    for n, p in model.named_parameters():
+        m = masters.get(id(p))
+        m = (p if m is None else m).detach()
+        if rows and n in rows:
+            m = m[torch.as_tensor(rows[n], device=m.device)]
+        flat = m.float().reshape(-1)
+        idx = torch.arange(PP_SAMPLES, device=flat.device) \
+            * (flat.numel() - 1) // (PP_SAMPLES - 1)     # int64: exact
+        out[n] = flat[idx].cpu()
+    return out
+
+
+def pp_rank(name, out_dir):
+    """One rank of train_pp: Llama-3-8B's width at 4 layers built under
+    ``fleet.init(pp_degree=4)`` (the rank builds its stage: one decoder
+    layer, the embedding on stage 0, norm and head on stage 3; the weights
+    cut from one seeded full model), ``distributed_model`` ->
+    ``PipelineParallel``, 1F1B over 8 microbatches of 1 x 2048 through
+    ``train_batch``; its grads' sums of squares before the first update
+    and its masters' samples after it go to the main process."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         from_jax_state_dict,
+                                         shard_state_dict)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    run, dev, gen = rank_start(out_dir)
+    state = full_state(lambda g: LlamaForCausalLM(
+        pp_config(use_scan_layers=True), device=dev, generator=g), gen,
+        run["seed"])
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": run["pp"]}
+    s.pipeline_configs = {"accumulate_steps": PP_MICRO,
+                          "schedule_mode": "1F1B", "virtual_pp_degree": 1}
+    hcg = fleet.init(is_collective=True, strategy=s, backend=run["backend"])
+    model = LlamaForCausalLM(pp_config(), device=dev,
+                             generator=gen.manual_seed(run["seed"]))
+    from_jax_state_dict(model, shard_state_dict(model, state, hcg))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    ids = lcg_ids(torch, PP_MICRO, PP_S, model.config.vocab_size, dev)
+    setup_s = time.perf_counter() - t0
+    stats, first = [], {}
+    update = opt.step
+
+    def step_after_grads():          # train_batch's step: the grads first
+        if not first:
+            first["grad_sq"] = grad_squares(torch, model)
+        update()
+    opt.step = step_after_grads
+
+    def step(i):
+        loss = net.train_batch((ids, ids), opt)
+        if i == 0:
+            torch.save(master_samples(torch, model, opt),
+                       os.path.join(out_dir, f"masters{hcg.get_stage_id()}"
+                                    f".pt"))
+        stats.append(dict(net.stats))
+        return loss.detach()
+    plain = {}
+    res = rank_loop(torch, dev, run, step, plain)
+    timed = stats[run["warmup"]:run["warmup"] + run["steps"]]
+    res.update(first, setup_s=setup_s, stage=hcg.get_stage_id(),
+               wrapper=type(net).__name__, clip=type(opt._grad_clip).__name__,
+               rows=model.pipeline_rows,
+               names=sorted(n for n, _ in model.named_parameters()),
+               params=sum(p.numel() for p in model.parameters()),
+               tokens_per_s=PP_MICRO * PP_S / res["mean_step_s"],
+               recv_wait_share=float(np.mean([x["recv_wait_s"] / x["step_s"]
+                                              for x in timed])),
+               recv_wait_ms=[1e3 * x["recv_wait_s"] for x in timed])
+    return rank_finish(out_dir, res)
+
+
+PARALLEL_RANKS = {"train_sep": sep_rank, "train_ep": ep_rank,
+                  "train_pp": pp_rank}
+
+
+def launch_parallel(phase, name, run, cfg, tmp):
+    """One run of a parallel phase through the launcher (a session of its
+    own, stopped on a timeout); each rank's JSON."""
+    from paddle_tpu_torch.distributed.launch import kill_group
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(run, **cfg), f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(run["nproc"]), "--devices",
+           run["devices"], "--max_restart", "0", "--log_dir",
+           os.path.join(d, "log"), "--job_id", f"{phase}_{name}",
+           os.path.abspath(__file__), "--parallel-rank", phase, name, d]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()          # the launcher stops its ranks
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            out = ""
+        raise AssertionError(f"{phase} {name}: no end in "
+                             f"{PARALLEL_TIMEOUT_S} s:\n{out[-6000:]}")
+    finally:
+        kill_group(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase} {name}: the launch exited "
+                             f"{proc.returncode}:\n{out[-8000:]}")
+    ranks = []
+    for r in range(run["nproc"]):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return dict(ranks=ranks, seconds=time.perf_counter() - t0, dir=d)
+
+
+def parallel_checks(phase, run, errors, want):
+    """Every rank: its backend, nonzero launches of the kernels the phase
+    names (``want``: name -> the count each rank must show, or None for
+    any nonzero), no plain version on the card, finite losses."""
+    for q in run["ranks"]:
+        tag = f"{phase} rank {q['rank']}"
+        for k, n in want(q).items():
+            got = q["launches"][k]
+            if (n is None and got <= 0) or (n is not None and got != n):
+                errors.append(f"{tag}: {k} {got} launches, want "
+                              f"{n if n is not None else '> 0'}")
+        if q["plain_on_card"]:
+            errors.append(f"{tag}: plain versions on the card "
+                          f"{q['plain_on_card']}")
+        if not all(np.isfinite(q["losses"])):
+            errors.append(f"{tag}: losses {q['losses']}")
+
+
+def parallel_summary(run, extra=()):
+    q0 = run["ranks"][0]
+    out = dict(seconds=run["seconds"], backend=q0["backend"],
+               losses=q0["losses"], tokens_per_s=q0["tokens_per_s"],
+               step_ms_p50=q0["step_ms_p50"], step_ms_p99=q0["step_ms_p99"],
+               peak_mem_gib=[q["peak_mem_gib"] for q in run["ranks"]],
+               params_per_rank=[q["params"] for q in run["ranks"]],
+               collective_calls_per_step=[q["collective_calls_per_step"]
+                                          for q in run["ranks"]],
+               host_staged_bytes_per_step=[q["host_staged_bytes_per_step"]
+                                           for q in run["ranks"]],
+               launches=[{k: q["launches"][k] for k in TRAINING_KERNELS
+                          + ("grouped_gemm",)} for q in run["ranks"]],
+               plain_on_card=[q["plain_on_card"] for q in run["ranks"]],
+               setup_s=[q["setup_s"] for q in run["ranks"]],
+               profile=[q["profile"] for q in run["ranks"]])
+    for k in extra:
+        out[k] = [q.get(k) for q in run["ranks"]]
+    return out
+
+
+def parallel_line(phase, name, s):
+    log(f"{phase} {name}: {s['backend']} x {len(s['peak_mem_gib'])}, "
+        f"{s['tokens_per_s']:.1f} tokens/s, step p50 {s['step_ms_p50']:.1f} "
+        f"ms p99 {s['step_ms_p99']:.1f} ms, peak "
+        f"{[round(x, 2) for x in s['peak_mem_gib']]} GiB a rank, "
+        f"{s['collective_calls_per_step']} collective calls and "
+        f"{s['host_staged_bytes_per_step']} host-staged bytes a step a rank,"
+        f" launches {s['launches']}, plain on the card "
+        f"{s['plain_on_card']}, {s['seconds']:.1f} s with start-up")
+    log(f"{phase} {name} where one profiled step goes, per rank (wall ms; "
+        f"shares of it: the card running the rank's work, a gloo / NCCL "
+        f"operation alone in flight, neither; a collective in flight at "
+        f"all): " + "; ".join(
+            f"{p['wall_ms']:.1f} ms: card {p['card_share']:.4f}, "
+            f"collective alone {p['comm_only_share']:.4f}, host "
+            f"{p['host_share']:.4f}; in flight {p['comm_share']:.4f} "
+            f"({p['card_events']} card and {p['comm_events']} collective "
+            f"spans)" for p in s["profile"]))
+
+
+def sep_ring_bytes(cfg, sep, mp, layers):
+    """The ring's bytes a rank sends a step (reckoned): each layer's
+    forward moves K and V (bf16) P - 1 times; its backward K and V P - 1
+    times and the float32 dK / dV accumulators P times."""
+    hk = cfg.num_key_value_heads // mp
+    d = cfg.hidden_size // cfg.num_attention_heads
+    kv = SEP_S // sep * hk * d           # elements of one K or V shard
+    per_layer = 2 * kv * 2 * (sep - 1) * 2 + 2 * kv * 4 * sep
+    return layers * per_layer
+
+
+def phase_train_sep(torch, seed, report):
+    """``train_sep``: Llama-3-8B's width (2 layers, bf16) over one
+    8192-token sequence, trained by one NCCL rank (R1) and by four gloo
+    ranks on card 0 at sep 2 x mp 2 (R4: ring attention over 4096 tokens
+    a rank on its 16 / 4 heads), from the same seeded weights."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_sep_")
+    cfg = dict(seed=seed, layers=SEP_LAYERS, warmup=SEP_WARMUP,
+               steps=SEP_STEPS)
+    try:
+        runs = {n: launch_parallel("train_sep", n, r, cfg, tmp)
+                for n, r in SEP_RUNS.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = SEP_WARMUP + SEP_STEPS
+    errors = []
+    for name, run in runs.items():
+        def want(q):
+            # the causal skip: sep rank s runs s + 1 blocks a layer
+            n = (q["sep_rank"] + 1) * SEP_LAYERS * steps
+            return {"flash_attention_fwd": n, "flash_attention_dq": n,
+                    "flash_attention_dkv": n, "fused_optimizer": None}
+        parallel_checks(f"train_sep {name}", run, errors, want)
+    r1, r4 = runs["r1"]["ranks"][0], runs["r4"]["ranks"]
+    rel = abs(r4[0]["losses"][0] - r1["losses"][0]) / abs(r1["losses"][0])
+    if rel > SEP_FIRST_LOSS_REL:
+        errors.append(f"R4's first loss {r4[0]['losses'][0]} vs R1's "
+                      f"{r1['losses'][0]}: {rel:.2e} relative")
+    for q in r4:
+        if q["losses"] != r4[0]["losses"]:
+            errors.append(f"r4 rank {q['rank']}: losses {q['losses']} vs "
+                          f"rank 0's {r4[0]['losses']}")
+        if q["wrapper"] != "SegmentParallel":
+            errors.append(f"r4 rank {q['rank']}: wrapped in {q['wrapper']}")
+    ring = r4[0]["ring_check"]
+    if ring["out"] > SEP_RING_REL or max(
+            ring[k] for k in ("dq", "dk", "dv")) > SEP_RING_GRAD_REL:
+        errors.append(f"one layer's ring vs flash over the sequence: {ring}")
+    # the model's backward under sep x mp (the loss's all-reduce over sep,
+    # the dp x sep mean) against R1's, each parameter's norm
+    grad_norm = {q["rank"]: grad_norm_check(
+        q["grad_sq"], r1["grad_sq"], SEP_GRAD_NORM_REL,
+        f"r4 rank {q['rank']}'s grads vs R1's", errors) for q in r4}
+    res = {"card": card_line(), "first_loss_rel": rel, "ring_check": ring,
+           "grad_norm_rel": grad_norm,
+           "ring_bytes_per_step": sep_ring_bytes(
+               sep_config(), 2, 2, SEP_LAYERS),
+           "phase_s": time.perf_counter() - t0}
+    for name, run in runs.items():
+        res[name] = parallel_summary(run, ("sep_rank", "mp_rank"))
+        parallel_line("train_sep", name, res[name])
+    log(f"train_sep losses R1 {r1['losses']} R4 {r4[0]['losses']} (first "
+        f"{rel:.2e} relative, limit {SEP_FIRST_LOSS_REL}); ring vs flash "
+        f"over {SEP_S} tokens {ring} (limits {SEP_RING_REL} / "
+        f"{SEP_RING_GRAD_REL}); each R4 rank's grad norms before the first "
+        f"update vs R1's, worst relative (name, doubled) "
+        f"{grad_norm} (limit {SEP_GRAD_NORM_REL}); the ring sends "
+        f"{res['ring_bytes_per_step']} B a step a rank (reckoned); "
+        f"{res['phase_s']:.1f} s; {res['card']}")
+    report["train_sep"] = res
+    if errors:
+        raise AssertionError("train_sep: " + "; ".join(errors))
+    return res
+
+
+def ep_reference(torch, seed):
+    """The main process, no topology: the full model (every expert, the
+    local path) on the four shards one after another, each backward of
+    its loss / 4: the mean first loss, each shard's dropped choices per
+    MoE layer, expert 0's grads of the first MoE layer, every grad's sum
+    of squares (an expert weight's per expert)."""
+    from paddle_tpu_torch.models import (MoEForCausalLM,
+                                         MoEPretrainingCriterion)
+    from paddle_tpu_torch.ops.kernels import moe as mo
+    cfg = ep_config()
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = MoEForCausalLM(cfg, device=CARD, generator=gen)
+    crit = MoEPretrainingCriterion(cfg, model)
+    ids = lcg_ids(torch, EP_B, EP_S, cfg.vocab_size, CARD)
+    losses, drops = [], []
+    for r in range(EP_B):
+        routes = []
+        with record_routing(mo, routes):
+            loss = crit(model(ids[r:r + 1]), ids[r:r + 1])
+        (loss / EP_B).backward()
+        losses.append(float(loss.detach()))
+        drops.append([x["dropped"] for x in routing_stats(
+            routes, EP_S, cfg.num_experts_per_tok)])
+    grads = ep_expert0_grads(model)
+    sq = {}          # an expert weight's per expert, the others' whole
+    for n, p in model.named_parameters():
+        g = p.grad.float().pow(2)
+        sq[n] = g.reshape(g.shape[0], -1).sum(1).tolist() \
+            if ".experts." in n else float(g.sum())
+    del model, crit
+    return float(np.mean(losses)), drops, grads, sq
+
+
+def phase_train_ep(torch, seed, report):
+    """``train_ep``: DeepSeek-MoE-16B's width (3 layers: one dense, 2 MoE
+    of 64 experts) trained by four gloo ranks on card 0 at dp 4 with
+    ``expert_axis="dp"`` (16 experts a rank, the tokens exchanged by
+    all-to-alls), held against the main process running the same four
+    shards one after another through the local path."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_ep_")
+    cfg = dict(seed=seed, warmup=EP_WARMUP, steps=EP_STEPS)
+    try:
+        run = launch_parallel("train_ep", "r4", EP_RUNS["r4"], cfg, tmp)
+        grads4 = torch.load(os.path.join(run["dir"], "expert0.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch)
+    ref_loss, ref_drops, ref_grads, ref_sq = ep_reference(torch, seed)
+    free_card(torch)
+    steps = EP_WARMUP + EP_STEPS
+    errors = []
+    moe_layers = EP_LAYERS - ep_config().first_k_dense_replace
+
+    def want(q):
+        n = EP_LAYERS * steps
+        return {"flash_attention_fwd": n, "flash_attention_dq": n,
+                "flash_attention_dkv": n, "fused_optimizer": None,
+                # gate, up, down forward and their dx, a MoE layer a step
+                "grouped_gemm": 6 * moe_layers * steps}
+    parallel_checks("train_ep r4", run, errors, want)
+    ranks = run["ranks"]
+    loss4 = ranks[0]["losses"][0]
+    rel = abs(loss4 - ref_loss) / abs(ref_loss)
+    if rel > EP_FIRST_LOSS_REL:
+        errors.append(f"R4's first loss {loss4} vs the shards' mean "
+                      f"{ref_loss}: {rel:.2e} relative")
+    drops4 = [[x["dropped"] for x in q["routing"]] for q in
+              sorted(ranks, key=lambda q: q["dp_rank"])]
+    choices = EP_S * ep_config().num_experts_per_tok
+    for r, (a, b) in enumerate(zip(drops4, ref_drops)):
+        if a[0] != b[0] or any(abs(x - y) > EP_DROP_SHARE * choices
+                               for x, y in zip(a[1:], b[1:])):
+            errors.append(f"shard {r}: dropped choices per MoE layer {a} "
+                          f"vs {b}")
+    grad_rel = [rel_err(torch, a, b) for a, b in zip(grads4, ref_grads)]
+    if max(grad_rel) > EP_GRAD_REL:
+        errors.append(f"expert 0's grads (gate, up, down) {grad_rel}")
+    # every grad's norm on every rank, the experts' over the rank's slice:
+    # the 1/dp pre-hook on the experts and the replicas' mean
+    grad_norm = {}
+    for q in ranks:
+        r, El = q["dp_rank"], q["local_experts"]
+        want_sq = {n: (float(sum(v[r * El:(r + 1) * El]))
+                       if n in q["experts"] else v)
+                   for n, v in ref_sq.items()}
+        if any(isinstance(v, list) for v in want_sq.values()):
+            errors.append(f"rank {q['rank']}: expert weights not marked "
+                          f"is_expert")
+            continue
+        grad_norm[q["rank"]] = grad_norm_check(
+            q["grad_sq"], want_sq, EP_GRAD_NORM_REL,
+            f"rank {q['rank']}'s grads vs the shards'", errors)
+    for q in ranks:
+        if q["local_experts"] != 16 or q["clip"] != "HybridParallelClipGrad":
+            errors.append(f"rank {q['rank']}: {q['local_experts']} experts, "
+                          f"clip {q['clip']}")
+    from paddle_tpu_torch.ops.kernels.moe import moe_capacity
+    cfgm = ep_config()
+    C_ = moe_capacity(EP_S, cfgm.num_experts_per_tok, cfgm.num_experts,
+                      cfgm.capacity_factor)
+    a2a = 4 * moe_layers * cfgm.num_experts * C_ * cfgm.hidden_size * 2
+    res = {"card": card_line(), "first_loss": loss4, "ref_first_loss":
+           ref_loss, "first_loss_rel": rel, "drops": drops4,
+           "ref_drops": ref_drops, "expert0_grad_rel": grad_rel,
+           "grad_norm_rel": grad_norm,
+           "all_to_all_bytes_per_step": a2a,
+           "phase_s": time.perf_counter() - t0,
+           "r4": parallel_summary(run, ("dp_rank", "local_experts"))}
+    parallel_line("train_ep", "r4", res["r4"])
+    log(f"train_ep: first loss R4 {loss4} vs the four shards one after "
+        f"another {ref_loss} ({rel:.2e} relative, limit "
+        f"{EP_FIRST_LOSS_REL}); dropped choices per shard and MoE layer "
+        f"{drops4} vs {ref_drops}; expert 0's grads {grad_rel} (limit "
+        f"{EP_GRAD_REL}); each rank's grad norms before the first update, "
+        f"worst relative (name, doubled) {grad_norm} (limit "
+        f"{EP_GRAD_NORM_REL}); all-to-alls {a2a} B a step a rank (reckoned: 4 "
+        f"a MoE layer of [{cfgm.num_experts}, {C_}, {cfgm.hidden_size}] "
+        f"bf16); {res['phase_s']:.1f} s; "
+        f"{res['card']}")
+    report["train_ep"] = res
+    if errors:
+        raise AssertionError("train_ep: " + "; ".join(errors))
+    return res
+
+
+def pp_reference(torch, seed):
+    """The main process, no topology: the same 4-layer model (stacked
+    layers) and batch, one AdamW step over the 8 microbatches'
+    accumulated grads (each backward of its loss / 8): the mean loss, the
+    masters' samples after the step and the grads' sums of squares before
+    it (each stage's rows of the stacked layers)."""
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = pp_config(use_scan_layers=True)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    crit = LlamaPretrainingCriterion(cfg)
+    ids = lcg_ids(torch, PP_MICRO, PP_S, cfg.vocab_size, CARD)
+    losses = []
+    for m in range(PP_MICRO):
+        loss = crit(model(ids[m:m + 1]), ids[m:m + 1])
+        (loss / PP_MICRO).backward()
+        losses.append(float(loss.detach()))
+    sq = {d: {} for d in range(PP_STAGES)}    # each stage's part
+    for n, p in model.named_parameters():
+        g = p.grad.float().pow(2)
+        for d in range(PP_STAGES):
+            sq[d][n] = float(g[d].sum() if n.startswith(
+                "llama.layer_stack.") else g.sum())
+    opt.step()
+    out = float(np.mean(losses))
+    samples = {}
+    for d in range(PP_STAGES):
+        rows = {n: [d] for n, _ in model.named_parameters()
+                if n.startswith("llama.layer_stack.")}
+        samples[d] = master_samples(torch, model, opt, rows)
+    del model, opt
+    return out, samples, sq
+
+
+def phase_train_pp(torch, seed, report):
+    """``train_pp``: Llama-3-8B's width at 4 layers trained by four gloo
+    ranks on card 0 at pp 4 (1F1B over 8 microbatches of 1 x 2048), held
+    against the main process accumulating the same 8 micro steps."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed.pp_schedules import build_fb_schedule
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_pp_")
+    cfg = dict(seed=seed, warmup=PP_WARMUP, steps=PP_STEPS)
+    try:
+        run = launch_parallel("train_pp", "r4", PP_RUNS["r4"], cfg, tmp)
+        masters4 = {q["stage"]: torch.load(os.path.join(
+            run["dir"], f"masters{q['stage']}.pt")) for q in run["ranks"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_card(torch)
+    ref_loss, ref_masters, ref_sq = pp_reference(torch, seed)
+    free_card(torch)
+    steps = PP_WARMUP + PP_STEPS
+    errors = []
+
+    def want(q):
+        n = PP_MICRO * steps     # one decoder layer a stage
+        return {"flash_attention_fwd": n, "flash_attention_dq": n,
+                "flash_attention_dkv": n, "fused_optimizer": None}
+    parallel_checks("train_pp r4", run, errors, want)
+    ranks = run["ranks"]
+    loss4 = ranks[0]["losses"][0]
+    rel = abs(loss4 - ref_loss) / abs(ref_loss)
+    if rel > PP_FIRST_LOSS_REL:
+        errors.append(f"R4's first loss {loss4} vs the accumulated micro "
+                      f"steps' {ref_loss}: {rel:.2e} relative")
+    flips, total, worst = 0, 0, 0.0
+    for stage, got in masters4.items():
+        for n, a in got.items():
+            b = ref_masters[stage][n]
+            diff = (a - b).abs()
+            flips += int((diff > PP_MASTER_ATOL).sum())
+            total += diff.numel()
+            worst = max(worst, float(diff.max()))
+    if flips > PP_MASTER_FLIP_SHARE * total:
+        errors.append(f"masters after one step: {flips} of {total} sampled "
+                      f"elements beyond {PP_MASTER_ATOL}")
+    # the grads' scale, which the first update does not show: each stage's
+    # norms against the accumulated micro steps'
+    grad_norm, held = {}, set()
+    for q in ranks:
+        want_sq = {n: v for n, v in ref_sq[q["stage"]].items()
+                   if n in q["grad_sq"]}
+        held |= set(want_sq)
+        grad_norm[q["stage"]] = grad_norm_check(
+            q["grad_sq"], want_sq, PP_GRAD_NORM_REL,
+            f"stage {q['stage']}'s grads vs the micro steps'", errors)
+    if held != set(ref_sq[0]):
+        errors.append(f"grads of {sorted(set(ref_sq[0]) - held)} on no "
+                      f"stage")
+    for q in ranks:
+        if q["losses"] != ranks[0]["losses"] or q["wrapper"] !=                 "PipelineParallel" or q["clip"] != "HybridParallelClipGrad":
+            errors.append(f"rank {q['rank']}: losses {q['losses']}, "
+                          f"{q['wrapper']}, {q['clip']}")
+    bubble = build_fb_schedule(PP_STAGES, PP_MICRO, "1F1B")["bubble"]
+    res = {"card": card_line(), "first_loss": loss4,
+           "ref_first_loss": ref_loss, "first_loss_rel": rel,
+           "master_flips": flips, "master_samples": total,
+           "master_max_abs_diff": worst, "schedule_bubble": bubble,
+           "grad_norm_rel": grad_norm,
+           "p2p_bytes_per_step": 2 * PP_MICRO * PP_S
+           * pp_config().hidden_size * 2,
+           "phase_s": time.perf_counter() - t0,
+           "r4": parallel_summary(run, ("stage", "recv_wait_share",
+                                        "recv_wait_ms"))}
+    parallel_line("train_pp", "r4", res["r4"])
+    log(f"train_pp: first loss R4 {loss4} vs 8 accumulated micro steps "
+        f"{ref_loss} ({rel:.2e} relative, limit {PP_FIRST_LOSS_REL}); "
+        f"masters after one step: {flips} of {total} sampled elements "
+        f"beyond {PP_MASTER_ATOL} (max {worst:.3g}); each stage's grad "
+        f"norms before the update, worst relative (name, doubled) "
+        f"{grad_norm} (limit {PP_GRAD_NORM_REL}); the 1F1B table's "
+        f"bubble {bubble:.4f} beside each stage's time blocked in receives "
+        f"{[round(x, 4) for x in res['r4']['recv_wait_share']]} of its "
+        f"step; activations and grads {res['p2p_bytes_per_step']} B a step "
+        f"a stage boundary (reckoned); {res['phase_s']:.1f} s; "
+        f"{res['card']}")
+    report["train_pp"] = res
+    if errors:
+        raise AssertionError("train_pp: " + "; ".join(errors))
     return res
 
 
@@ -7202,8 +8246,8 @@ def phase_eager_surface(torch, seed, report):
                            EAGER_STEPS)
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device=CARD, generator=gen)
     crit = LlamaPretrainingCriterion(cfg)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(),
@@ -9792,6 +10836,10 @@ def main(argv=None) -> int:
     ap.add_argument("--hybrid-rank", nargs=2, metavar=("RUN", "DIR"),
                     help="run one rank of phase train_hybrid (the launcher "
                          "starts these)")
+    ap.add_argument("--parallel-rank", nargs=3,
+                    metavar=("PHASE", "RUN", "DIR"),
+                    help="run one rank of phase train_sep, train_ep or "
+                         "train_pp (the launcher starts these)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -9807,6 +10855,9 @@ def main(argv=None) -> int:
         return 2
     if args.hybrid_rank:
         return hybrid_rank(*args.hybrid_rank)
+    if args.parallel_rank:
+        phase, name, out_dir = args.parallel_rank
+        return PARALLEL_RANKS[phase](name, out_dir)
     t_start = time.perf_counter()
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -9874,6 +10925,10 @@ def main(argv=None) -> int:
     layers = checked("train_layers", phase_train_layers, *sd, train)
     free_card(torch)
     hybrid = checked("train_hybrid", phase_train_hybrid, *sd)
+    parallel = {tag: checked(tag, phase, *sd) for tag, phase in (
+        ("train_sep", phase_train_sep), ("train_ep", phase_train_ep),
+        ("train_pp", phase_train_pp))}
+    free_card(torch)
     eager_surface = checked("eager_surface", phase_eager_surface, *sd)
     train_amp = checked("train_amp", phase_train_amp, *sd)
     edges = checked("capture", phase_capture, *sd)
@@ -10039,6 +11094,14 @@ def main(argv=None) -> int:
             e["launches_train_hybrid"] = {
                 run: [q[name] for q in hybrid[run]["launches"]]
                 for run in HYBRID_RUNS}
+        if name in TRAINING_KERNELS + ("grouped_gemm",):
+            # each rank's launches in the sequence-, expert- and
+            # pipeline-parallel runs
+            for tag, res in parallel.items():
+                e[f"launches_{tag}"] = {
+                    run: [q[name] for q in res[run]["launches"]]
+                    for run in res if isinstance(res[run], dict)
+                    and "launches" in res[run]}
         e.update({k: head[k] for k in keys})
         for extra in ("library_bf16_weight_ms", "planted_fault_max_abs_err",
                       "padded_flash_ms", "library_bsr_ms",

@@ -5,16 +5,21 @@ Counterpart of ``paddle_tpu/distributed/``'s first part: the collectives
 (:mod:`.watchdog`), ``ProcessMesh`` and the placements, the hybrid
 topology (:mod:`.topology`), ``fleet`` with the tensor-parallel layers,
 ``DataParallel`` (:mod:`.parallel`), ``spawn``, the launcher
-(``python -m paddle_tpu_torch.distributed.launch``) and activation
-recomputation (:mod:`.recompute`). Sequence parallelism and ring
-attention, expert parallelism, the pipeline, ZeRO, the resharded
-checkpoints, resilience, the elastic manager and the semi-auto API
-(``shard_tensor`` / ``reshard``) are ROADMAP.md A8's remaining items
-(a)-(g).
+(``python -m paddle_tpu_torch.distributed.launch``), activation
+recomputation (:mod:`.recompute`), and since the second part sequence
+parallelism (``fleet.sequence_parallel_utils``, ``SegmentParallel`` and
+``ops/kernels/ring_attention.py``), expert parallelism (``moe_ffn``'s
+``expert_axis``) and the pipeline (:mod:`.pp_schedules`,
+:mod:`.pipeline`, ``fleet.pp_layers``, ``PipelineParallel``). ZeRO, the
+resharded checkpoints, resilience, the elastic manager and the semi-auto
+API (``shard_tensor`` / ``reshard``) and the pipeline under sequence
+parallelism are ROADMAP.md A8's remaining items (d)-(h).
 """
 
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
+from . import pipeline  # noqa: F401
+from . import pp_schedules  # noqa: F401
 from . import watchdog  # noqa: F401
 from .collective import (P2POp, ParallelEnv, ReduceOp, Group, all_gather,
                          all_gather_object, all_reduce, all_to_all, barrier,
@@ -25,6 +30,7 @@ from .collective import (P2POp, ParallelEnv, ReduceOp, Group, all_gather,
                          scatter_object_list, send)
 from .parallel import DataParallel
 from .placements import Partial, Placement, Replicate, Shard
+from .pp_schedules import build_fb_schedule, schedule_report
 from .process_mesh import ProcessMesh, create_mesh, get_mesh, set_mesh
 from .recompute import dots_saveable, recompute, recompute_sequential
 from .spawn import spawn
@@ -34,6 +40,7 @@ from .watchdog import comm_watchdog
 
 __all__ = [
     "AXIS_ORDER", "CommunicateTopology", "DataParallel", "Group",
+    "build_fb_schedule", "pipeline", "pp_schedules", "schedule_report",
     "HybridCommunicateGroup", "P2POp", "ParallelEnv", "Partial",
     "Placement", "ProcessMesh", "ReduceOp", "Replicate", "Shard",
     "all_gather", "all_gather_object", "all_reduce", "all_to_all",

@@ -10,7 +10,10 @@ group itself, as upstream Paddle's ``mp_ops`` do. Four autograd
 functions carry them:
 
 - ``copy_to_mp``: identity forward, all-reduce of the grad backward;
-- ``reduce_from_mp``: all-reduce forward, identity backward;
+- ``reduce_from_mp``: all-reduce forward, identity backward (``all_reduce``
+  is the same function over any group and reduction, with or without an
+  all-reduce of the grad backward: the sequence-parallel loss and the
+  expert-parallel load-balance loss take it too);
 - ``gather_from_mp``: all-gather of the last dim forward, the rank's
   slice of the grad backward;
 - ``scatter_to_mp``: the rank's slice of the last dim forward, all-gather
@@ -61,9 +64,10 @@ def tp_attention_context() -> Optional[Tuple[C.Group, int]]:
         hcg.get_model_parallel_world_size()
 
 
-def _all_reduce(x: torch.Tensor, group: C.Group) -> torch.Tensor:
-    out = x.contiguous().clone()
-    C.all_reduce(out, group=group)
+def _all_reduce(x: torch.Tensor, group: C.Group,
+                op: str = C.ReduceOp.SUM) -> torch.Tensor:
+    out = x.detach().contiguous().clone()
+    C.all_reduce(out.view(-1), op=op, group=group)
     return out
 
 
@@ -88,14 +92,20 @@ class _CopyToMP(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
-class _ReduceFromMP(torch.autograd.Function):
+class _AllReduce(torch.autograd.Function):
+    """All-reduce ``op`` forward. Backward the grad as it is, or with
+    ``sum_grads`` its sum over the group: where every rank's objective is
+    the reduced value, each rank's part gets every rank's grad."""
+
     @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
+    def forward(ctx, x, group, op, sum_grads):
+        ctx.group, ctx.sum_grads = group, sum_grads
+        return _all_reduce(x, group, op)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        g = _all_reduce(g, ctx.group) if ctx.sum_grads else g
+        return g, None, None, None
 
 
 class _GatherFromMP(torch.autograd.Function):
@@ -125,7 +135,13 @@ def copy_to_mp(x, group):
 
 
 def reduce_from_mp(x, group):
-    return _ReduceFromMP.apply(x, group)
+    return _AllReduce.apply(x, group, C.ReduceOp.SUM, False)
+
+
+def all_reduce(x: torch.Tensor, group: C.Group, op: str = C.ReduceOp.SUM,
+               sum_grads: bool = False) -> torch.Tensor:
+    """``x`` all-reduced over ``group``, differentiable (``_AllReduce``)."""
+    return _AllReduce.apply(x, group, op, sum_grads)
 
 
 def gather_from_mp(x, group):

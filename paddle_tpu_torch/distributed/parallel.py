@@ -22,7 +22,16 @@ one process per rank, so it has the reducer of upstream Paddle's
 
 The hooks sit on the grad accumulators, not on the parameters, so the
 fused optimizer (which refuses parameters with tensor hooks) keeps its
-route. ``no_sync()`` turns the reducer off for an accumulation window.
+route. ``no_sync()`` turns the reducer off for an accumulation window;
+``sync_grads()`` reduces the window's grads at its end where no synced
+backward closes it.
+
+A parameter marked ``no_sync`` (an expert of an expert-parallel
+``MoELayer``, which holds only its rank's experts) is not all-reduced: its
+grad is already the sum of every replica's loss's grad (the all-to-alls'
+backward brought them). A pre-hook on its grad accumulator divides each
+contribution by the group's size, so it is the mean's grad, as the
+reduced grads are, in accumulation windows too.
 """
 
 from __future__ import annotations
@@ -70,15 +79,27 @@ class DataParallel(Layer):
                 else C._group(None)
         self.group = group
         self.find_unused_parameters = find_unused_parameters
-        self._params = [p for p in layers.parameters() if p.requires_grad]
+        trainable = [p for p in layers.parameters() if p.requires_grad]
+        self._params = [p for p in trainable
+                        if not getattr(p, "no_sync", False)]
+        self._local = [p for p in trainable if getattr(p, "no_sync", False)]
         self._enabled = group.nranks > 1
         self._nodes = []
         if not self._enabled:
             return
         src = group.ranks[0]
         with torch.no_grad():
-            for t in list(layers.parameters()) + list(layers.buffers()):
+            for t in [p for p in layers.parameters()
+                      if not getattr(p, "no_sync", False)] \
+                    + list(layers.buffers()):
                 C.broadcast(t.data, src=src, group=group)
+        scale = 1.0 / group.nranks
+        for p in self._local:
+            node = torch.autograd.graph.get_gradient_edge(p).node
+            node.register_prehook(
+                lambda go: tuple(None if g is None else g * scale
+                                 for g in go))
+            self._nodes.append(node)
         self.buckets = _buckets(self._params, comm_buffer_size,
                                 last_comm_buffer_size)
         self._bucket_of = {i: b for b, idx in enumerate(self.buckets)
@@ -134,6 +155,13 @@ class DataParallel(Layer):
                     off += g.numel()
         finally:
             self._reset()
+
+    def sync_grads(self) -> None:
+        """All-reduce and average every bucket now: the end of an
+        accumulation window whose backwards all ran under ``no_sync()``
+        (the pipeline's microbatches)."""
+        if self.group.nranks > 1:
+            self._finish()
 
     @contextlib.contextmanager
     def no_sync(self):

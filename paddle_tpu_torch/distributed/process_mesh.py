@@ -83,6 +83,26 @@ class ProcessMesh:
             self._groups[dim_name] = made
         return self._groups[dim_name]
 
+    def fused_groups(self, dim_names: Sequence[str], axis: str
+                     ) -> Dict[int, object]:
+        """``{rank: Group}`` over several dims taken together: one group
+        for each position of the other dims, named ``axis``, built once
+        (collectively, as :meth:`groups`)."""
+        key = "+".join(dim_names)
+        if key not in self._groups:
+            from .collective import Group, is_initialized, new_group
+            axes = [self._names.index(n) for n in dim_names]
+            moved = np.moveaxis(self._ids, axes, list(range(-len(axes), 0)))
+            n = int(np.prod([self.shape[a] for a in axes]))
+            made = {}
+            for row in moved.reshape(-1, n):
+                ranks = [int(r) for r in row]
+                g = new_group(ranks, axis=axis) if is_initialized() \
+                    else Group(axis, len(ranks), ranks)
+                made.update(dict.fromkeys(ranks, g))
+            self._groups[key] = made
+        return self._groups[key]
+
     def __eq__(self, other):
         return (isinstance(other, ProcessMesh) and self.shape == other.shape
                 and self._names == other._names

@@ -93,6 +93,11 @@ class HybridCommunicateGroup:
         self._groups: Dict[str, Group] = {
             name: self._mesh.groups(_SHORT[name])[self._rank]
             for name in AXIS_ORDER}
+        # every rank builds the same groups in the same order (new_group
+        # is collective), so the fused group exists only where sep > 1
+        self._groups["dp_sep"] = self._groups["data"] \
+            if self._degrees["sep"] == 1 else \
+            self._mesh.fused_groups(("dp", "sep"), "dp_sep")[self._rank]
 
     @property
     def mesh(self) -> ProcessMesh:
@@ -142,6 +147,21 @@ class HybridCommunicateGroup:
     def get_sep_parallel_group(self) -> Group:
         return self._groups["sep"]
 
+    def get_dp_sep_parallel_group(self) -> Group:
+        """The ranks of this rank's dp and sep slices together (the dp
+        group where sep is 1)."""
+        return self._groups["dp_sep"]
+
+    def get_p2p_prev_rank(self) -> int:
+        """The global rank of the previous pipeline stage (a ring)."""
+        g = self._groups["pipe"]
+        return g.ranks[(g.ranks.index(self._rank) - 1) % g.nranks]
+
+    def get_p2p_next_rank(self) -> int:
+        """The global rank of the next pipeline stage (a ring)."""
+        g = self._groups["pipe"]
+        return g.ranks[(g.ranks.index(self._rank) + 1) % g.nranks]
+
     # -- this rank ------------------------------------------------------------
     def get_global_rank(self) -> int:
         return self._rank
@@ -151,6 +171,14 @@ class HybridCommunicateGroup:
 
     def get_data_parallel_rank(self) -> int:
         return self._coord["data"]
+
+    def get_sep_parallel_rank(self) -> int:
+        return self._coord["sep"]
+
+    def get_stage_id(self) -> int:
+        """This rank's pipeline stage."""
+        return self._coord["pipe"]
+
 
 
 _hcg: Optional[HybridCommunicateGroup] = None

@@ -89,8 +89,11 @@ def shard_state_dict(model: torch.nn.Module, state: Dict,
     weight on ``in`` (dim 0; its bias stays whole), a
     ``VocabParallelEmbedding``'s table on rows; everything else is
     whole. Rank r of the model-parallel group (``hcg``, default fleet's)
-    gets the r-th of equal parts. ``from_jax_state_dict(model, shards)``
-    loads the result."""
+    gets the r-th of equal parts. The experts of a ``MoELayer`` built
+    expert-parallel are cut on dim 0 over its expert group; under the
+    pipeline (a model with ``pipeline_rows``) only this stage's entries
+    are kept, stacked layers cut to this stage's rows.
+    ``from_jax_state_dict(model, shards)`` loads the result."""
     from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
                                                RowParallelLinear,
                                                VocabParallelEmbedding)
@@ -105,15 +108,39 @@ def shard_state_dict(model: torch.nn.Module, state: Dict,
             dims[pre + "weight"], dims[pre + "bias"] = 1, 0
         elif isinstance(m, (RowParallelLinear, VocabParallelEmbedding)):
             dims[pre + "weight"] = 0
+    from ..nn.moe import ExpertFFN
+    # (dim, rank, parts) of every cut parameter
+    cuts = {k: (d, r, n) for k, d in dims.items()}
+    for mname, m in model.named_modules():
+        pre = f"{mname}." if mname else ""
+        if isinstance(m, ExpertFFN) and m.expert_group is not None:
+            g = m.expert_group
+            for w in ("gate_weight", "up_weight", "down_weight"):
+                cuts[pre + w] = (0, g.rank, g.nranks)
+    stage_rows = getattr(model, "pipeline_rows", None)
+    own = set(model.state_dict()) if stage_rows is not None else None
     out = {}
     for name, v in state.items():
-        d = dims.get(name)
-        if d is None:
+        if own is not None and name not in own:
+            continue                    # another pipeline stage's
+        if stage_rows is not None and name in stage_rows:
+            v = _take_rows(v, stage_rows[name])
+        cut = cuts.get(name)
+        if cut is None:
             out[name] = v
             continue
-        per = v.shape[d] // n
-        out[name] = v[(slice(None),) * d + (slice(r * per, (r + 1) * per),)]
+        d, rank, parts = cut
+        per = v.shape[d] // parts
+        out[name] = v[(slice(None),) * d
+                      + (slice(rank * per, (rank + 1) * per),)]
     return out
+
+
+def _take_rows(v, rows):
+    """Rows ``rows`` of the stacked ``v`` (numpy or torch)."""
+    if isinstance(v, torch.Tensor):
+        return v[torch.as_tensor(rows, dtype=torch.long)]
+    return np.asarray(v)[np.asarray(rows)]
 
 
 def _tensor(arr) -> torch.Tensor:

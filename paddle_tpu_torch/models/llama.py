@@ -18,6 +18,27 @@ reference takes its composite there; ROADMAP.md §C). Load cut
 weights with ``models.convert.shard_state_dict``. The cache forward
 raises under tensor parallelism (ROADMAP.md A8(f)).
 
+Under sequence parallelism (fleet's ``sep_degree > 1``, the reference's
+:192-195) each sep rank holds a contiguous chunk of the sequence
+(``fleet.distributed_model``'s ``SegmentParallel`` cuts the inputs):
+rope runs at the global positions (``sep_rank * s/sep + i``), attention
+is ``ring_attention`` over the sep group, and the criterion's shift
+crosses the shards: a rank's last position takes the next rank's first
+label, the last rank drops its last position, and the mean runs over all
+``b * (s - 1)`` positions (an all-reduce over sep of the sum; each rank's
+grad is its own positions', which the dp x sep mean of the grads makes
+the whole mean's).
+
+Under the pipeline (``pp_degree > 1``, the reference's :252-290) each
+stage builds only its part: its rows of the ``LayerStack`` (``S * v``
+chunks of equal rows, chunk c on stage ``c % S``), the embedding on stage
+0, the norm and the head on the last stage, where the reference keeps
+them outside the pipeline, replicated (ROADMAP.md §C).
+``fleet.distributed_model`` wraps it in ``PipelineParallel``, whose
+``train_batch`` runs ``pipeline_forward`` / ``pipeline_loss`` by the
+schedule; ``forward`` itself raises there. ``pipeline_rows`` tells
+``shard_state_dict`` the stage's rows.
+
 Two forwards:
 
 - with a cache (serving): each layer writes its K/V into the cache and
@@ -78,11 +99,36 @@ def _linear(in_features: int, out_features: int, init: ParamInit,
                   bias_attr=False)
 
 
+def _hcg():
+    from ..distributed.topology import get_hybrid_communicate_group
+    return get_hybrid_communicate_group()
+
+
 def _tp_degree() -> int:
     """The model-parallel degree of fleet's topology (1 without one)."""
-    from ..distributed.topology import get_hybrid_communicate_group
-    hcg = get_hybrid_communicate_group()
+    hcg = _hcg()
     return 1 if hcg is None else hcg.get_model_parallel_world_size()
+
+
+def _sep_group():
+    """The sep group under sequence parallelism, else None."""
+    hcg = _hcg()
+    if hcg is None or hcg.get_sep_parallel_world_size() <= 1:
+        return None
+    return hcg.get_sep_parallel_group()
+
+
+def _pipe_layout():
+    """``(stages, this stage, virtual stages a stage)``; (1, 0, 1) off the
+    pipeline."""
+    hcg = _hcg()
+    if hcg is None or hcg.get_pipe_parallel_world_size() <= 1:
+        return 1, 0, 1
+    from ..distributed.fleet import get_strategy
+    st = get_strategy()
+    v = 1 if st is None else int(
+        st.pipeline_configs.get("virtual_pp_degree", 1) or 1)
+    return hcg.get_pipe_parallel_world_size(), hcg.get_stage_id(), v
 
 
 def _embedding(num: int, dim: int, init: ParamInit) -> Embedding:
@@ -213,12 +259,24 @@ class LlamaAttention(nn.Module):
             cache.update(layer_idx, k, v, start_pos)
             out = cache.attend(layer_idx, q, start_pos, attn_mask)
         else:
-            if position_ids is None:
-                position_ids = _position_ids(0, b, s, x.device)
+            sep = _sep_group()
+            if position_ids is None:      # global positions under sep
+                start = 0 if sep is None else sep.rank * s
+                position_ids = _position_ids(start, b, s, x.device)
             q, k = K.rope(q, k, cos, sin, position_ids)
             attend = K.flash_attention if self.config.use_flash_attention \
                 else K.scaled_dot_product_attention
-            if self.tp_reason is None:
+            if sep is not None:
+                # the reference's ring_attention op (:192-195): the local
+                # heads, or every head under the head-replicated fallback
+                ring = lambda: K.ring_attention(  # noqa: E731
+                    q, k, v, is_causal=True)
+                if self.tp_reason is None:
+                    out = ring()
+                else:
+                    with _tpa.head_replicated():
+                        out = ring()
+            elif self.tp_reason is None:
                 out = attend(q, k, v, attn_mask=attn_mask, is_causal=True)
             else:
                 # recorded as the reference's composite fallback; the
@@ -276,18 +334,30 @@ class LlamaModel(PaddleCall, nn.Module):
     def __init__(self, config: LlamaConfig, init: ParamInit):
         super().__init__()
         self.config = config
-        if _tp_degree() > 1:
-            from ..distributed.fleet.mp_layers import VocabParallelEmbedding
-            self.embed_tokens = VocabParallelEmbedding(
-                config.vocab_size, config.hidden_size,
-                weight_attr=init.attr())
-        else:
-            self.embed_tokens = _embedding(config.vocab_size,
-                                           config.hidden_size, init)
+        S, stage, v = _pipe_layout()
+        self.embed_tokens = None
+        if stage == 0:
+            if _tp_degree() > 1:
+                from ..distributed.fleet.mp_layers import \
+                    VocabParallelEmbedding
+                self.embed_tokens = VocabParallelEmbedding(
+                    config.vocab_size, config.hidden_size,
+                    weight_attr=init.attr())
+            else:
+                self.embed_tokens = _embedding(config.vocab_size,
+                                               config.hidden_size, init)
         rotary = LlamaRotaryEmbedding(
             config.hidden_size // config.num_attention_heads,
             config.max_position_embeddings, config.rope_theta, init.device)
-        if config.use_scan_layers:
+        if S > 1:
+            L = config.num_hidden_layers
+            if L % (S * v):
+                raise ValueError(f"{L} layers do not cut into {S} stages x "
+                                 f"{v} virtual stages")
+            self.layer_stack = LayerStack(
+                lambda: LlamaDecoderLayer(config, rotary, init), L // S,
+                remat=config.recompute)
+        elif config.use_scan_layers:
             self.layer_stack = LayerStack(
                 lambda: LlamaDecoderLayer(config, rotary, init),
                 config.num_hidden_layers, remat=config.recompute)
@@ -295,8 +365,10 @@ class LlamaModel(PaddleCall, nn.Module):
             self.layers = nn.ModuleList(
                 [LlamaDecoderLayer(config, rotary, init)
                  for _ in range(config.num_hidden_layers)])
-        self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
-                                 init)
+        self.norm = None
+        if stage == S - 1:
+            self.norm = LlamaRMSNorm(config.hidden_size,
+                                     config.rms_norm_eps, init)
 
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 cache=None, start_pos=None):
@@ -335,18 +407,63 @@ class LlamaForCausalLM(PaddleCall, nn.Module, GenerationMixin):
         super().__init__()
         init = ParamInit.make(device, config.dtype, generator)
         self.config = config
+        S, stage, v = _pipe_layout()
+        if S > 1 and config.tie_word_embeddings:
+            raise NotImplementedError("tied embeddings under the pipeline "
+                                      "(a SharedLayerDesc in a "
+                                      "PipelineLayer)")
         self.llama = LlamaModel(config, init)
         self.lm_head = None
-        if not config.tie_word_embeddings:
+        if not config.tie_word_embeddings and stage == S - 1:
             self.lm_head = _linear(config.hidden_size, config.vocab_size,
                                    init, col=True, gather_output=True)
+        self._pipe = (S, stage, v)
 
     @property
     def device(self) -> torch.device:
-        return self.llama.embed_tokens.weight.device
+        return next(self.parameters()).device
+
+    # -- the pipeline's stage (pp > 1) ----------------------------------------
+    def pipeline_chunks(self) -> int:
+        return self._pipe[2]
+
+    @property
+    def pipeline_rows(self):
+        """``{stacked parameter name: the full stack's rows this stage
+        holds}`` under the pipeline, else None."""
+        S, stage, v = self._pipe
+        if S == 1:
+            return None
+        nl = self.config.num_hidden_layers // (S * v)
+        rows = [(j * S + stage) * nl + i for j in range(v)
+                for i in range(nl)]
+        return {f"llama.layer_stack.{n}": rows for n, _ in
+                self.llama.layer_stack.named_parameters()}
+
+    def pipeline_forward(self, x, chunk: int):
+        """Local chunk ``chunk`` of this stage: ids -> embedding first on
+        global chunk 0, the chunk's decoder rows, norm and head -> logits
+        after the last."""
+        S, stage, v = self._pipe
+        c = chunk * S + stage
+        nl = self.config.num_hidden_layers // (S * v)
+        if c == 0:
+            x = self.llama.embed_tokens(x)
+        x = self.llama.layer_stack.run(x, chunk * nl, (chunk + 1) * nl,
+                                       None, None)
+        if c == S * v - 1:
+            x = self._logits(self.llama.norm(x))
+        return x
+
+    def pipeline_loss(self, logits, labels):
+        return LlamaPretrainingCriterion(self.config)(logits, labels)
 
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 cache=None, start_pos=None):
+        if self._pipe[0] > 1:
+            raise RuntimeError("under the pipeline the model runs through "
+                               "fleet.distributed_model(model).train_batch "
+                               "/ .eval_batch")
         if cache is not None:   # serving: never an autograd graph
             with torch.no_grad():
                 return self._logits(self.llama(
@@ -368,10 +485,33 @@ class LlamaForCausalLM(PaddleCall, nn.Module, GenerationMixin):
 class LlamaPretrainingCriterion(PaddleCall, nn.Module):
     """Shifted next-token cross entropy: ``fused_softmax_ce(logits[:, :-1],
     labels[:, 1:]).mean()``, the mean over all positions (label -100
-    counts as 0), as the reference takes it."""
+    counts as 0), as the reference takes it. Under sequence parallelism
+    the logits are this sep rank's chunk and ``labels`` its chunk or the
+    whole sequence; the shift crosses the shards (module docstring)."""
 
     def __init__(self, config: Optional[LlamaConfig] = None):
         super().__init__()
 
     def forward(self, logits, labels):
-        return K.mean(K.fused_softmax_ce(logits[:, :-1, :], labels[:, 1:]))
+        sep = _sep_group()
+        if sep is None:
+            return K.mean(K.fused_softmax_ce(logits[:, :-1, :],
+                                             labels[:, 1:]))
+        b, sl = logits.shape[:2]
+        n, r = sep.nranks, sep.rank
+        if labels.shape[1] == sl * n:           # the whole sequence
+            nxt = labels[:, r * sl + 1:(r + 1) * sl + 1]
+        elif labels.shape[1] == sl:             # this rank's chunk
+            from ..distributed import collective as C
+            heads = C.all_gather([], labels[:, :1].contiguous(), group=sep)
+            nxt = labels[:, 1:] if r == n - 1 else \
+                torch.cat([labels[:, 1:], heads[r + 1]], dim=1)
+        else:
+            raise ValueError(f"labels of length {labels.shape[1]} for "
+                             f"logits of {sl} positions over {n} sep ranks")
+        mine = logits if r < n - 1 else logits[:, :-1, :]
+        total = K.fused_softmax_ce(mine, nxt).float().sum()
+        from ..distributed.fleet import mp_layers as mp
+        # every rank's objective is the sum: its part gets every grad
+        return mp.all_reduce(total, sep, sum_grads=True) \
+            / float(b * (sl * n - 1))

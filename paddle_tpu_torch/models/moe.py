@@ -27,6 +27,7 @@ from ..core.device import DeviceLike
 from ..core.tensor import PaddleCall
 from ..nn.initializer import ParamInit
 from ..nn.moe import MoELayer
+from ..ops.kernels import moe as M
 from ..ops.kernels import nn as K
 from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, LlamaRMSNorm,
                     LlamaRotaryEmbedding, _embedding, _linear)
@@ -41,7 +42,7 @@ class MoEConfig(LlamaConfig):
     first_k_dense_replace: int = 1      # dense MLP in the first k layers
     capacity_factor: float = 1.25
     aux_loss_alpha: float = 0.01
-    expert_axis: str = "dp"             # unused: EP is not ported
+    expert_axis: str = "dp"             # the axis the experts are cut over
 
     @staticmethod
     def tiny_moe(**kw) -> "MoEConfig":
@@ -65,7 +66,7 @@ class MoEMLP(nn.Module):
         self.moe = MoELayer(config.hidden_size, m, config.num_experts,
                             top_k=config.num_experts_per_tok,
                             capacity_factor=config.capacity_factor,
-                            init=init)
+                            init=init, expert_axis=config.expert_axis)
         self.shared = None
         if config.num_shared_experts > 0:
             self.shared = LlamaMLP(LlamaConfig(
@@ -127,8 +128,12 @@ class MoEModel(PaddleCall, nn.Module):
             if isinstance(layer.mlp, MoEMLP):
                 layer.mlp.moe.aux_loss = None
         x = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            x = layer(x, attn_mask, position_ids)
+        # the expert-parallel layers' token counts, checked once
+        with M.ep_tokens_checked(self.config.expert_axis,
+                                 self.config.num_experts, input_ids.numel(),
+                                 input_ids.device):
+            for layer in self.layers:
+                x = layer(x, attn_mask, position_ids)
         return self.norm(x)
 
     def collect_aux_loss(self) -> Optional[torch.Tensor]:

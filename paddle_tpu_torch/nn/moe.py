@@ -7,8 +7,18 @@ Counterpart of ``paddle_tpu/nn/moe.py``: ``TopKGate`` (:41), ``ExpertFFN``
 routing, the grouped-GEMM kernel on the card, scatter-add combine) and
 keeps the load-balance loss of its last forward on ``aux_loss``.
 ``TopKGate.forward`` is the reference's dense one-hot formulation, kept for
-API parity; no layer calls it. Expert parallelism (sharding the expert
-weights over a mesh axis) is not ported: every expert runs locally.
+API parity; no layer calls it.
+
+Expert parallelism (``MoELayer._shard_experts``, the reference's :147-160):
+under fleet's topology, where ``expert_axis`` has a degree n > 1 that
+divides E, the layer is built holding only its rank's ``E/n`` experts
+(``experts.expert_group``; ``models.shard_state_dict`` cuts loaded
+weights the same way) and ``moe_ffn`` exchanges tokens with the other
+ranks. Each expert parameter is marked ``is_expert`` and ``no_sync`` with
+its ``expert_group``: ``DataParallel`` does not all-reduce its grad (it is
+already the sum over the ranks whose tokens reached it) but divides it by
+the group's size, as the mean's gradient; the hybrid global-norm clip sums
+its squares over the expert group.
 """
 
 from __future__ import annotations
@@ -79,13 +89,22 @@ class ExpertFFN(nn.Module):
     ragged product per projection, not a loop over experts)."""
 
     def __init__(self, num_experts: int, hidden_size: int,
-                 intermediate_size: int, init: Optional[ParamInit] = None):
+                 intermediate_size: int, init: Optional[ParamInit] = None,
+                 expert_group=None):
         super().__init__()
         init = init or ParamInit.make()
-        E, h, m = num_experts, hidden_size, intermediate_size
+        self.num_experts = num_experts
+        self.expert_group = expert_group
+        E = num_experts if expert_group is None \
+            else num_experts // expert_group.nranks
+        h, m = hidden_size, intermediate_size
         self.gate_weight = init.normal(E, h, m)
         self.up_weight = init.normal(E, h, m)
         self.down_weight = init.normal(E, m, h)
+        if expert_group is not None:
+            for p in self.parameters():
+                p.is_expert = p.no_sync = True
+                p.expert_group = expert_group
 
     def forward(self, x: torch.Tensor,
                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -103,20 +122,33 @@ class MoELayer(nn.Module):
     def __init__(self, hidden_size: int, intermediate_size: int,
                  num_experts: int, top_k: int = 2,
                  capacity_factor: float = 1.25,
-                 init: Optional[ParamInit] = None):
+                 init: Optional[ParamInit] = None,
+                 expert_axis: str = "dp"):
         super().__init__()
         init = init or ParamInit.make()
         self.gate = TopKGate(hidden_size, num_experts, top_k,
                              capacity_factor, init)
+        self.expert_axis = expert_axis
         self.experts = ExpertFFN(num_experts, hidden_size, intermediate_size,
-                                 init)
+                                 init, self._shard_experts(expert_axis,
+                                                           num_experts))
         self.aux_loss = None
+
+    @staticmethod
+    def _shard_experts(axis: str, E: int):
+        """The group the experts are cut over, or None (no topology, a
+        degree of 1, or E not dividing: every expert stays here)."""
+        group = M._expert_group(axis)
+        if group is None or E % group.nranks:
+            return None
+        return group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, h = x.shape
         out, aux = M.moe_ffn(
             x.reshape(b * s, h), self.gate.weight, self.experts.gate_weight,
             self.experts.up_weight, self.experts.down_weight,
-            top_k=self.gate.top_k, capacity_factor=self.gate.capacity_factor)
+            top_k=self.gate.top_k, capacity_factor=self.gate.capacity_factor,
+            expert_axis=self.expert_axis)
         self.aux_loss = aux
         return out.to(x.dtype).reshape(b, s, h)

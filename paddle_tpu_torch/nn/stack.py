@@ -3,10 +3,11 @@
 Counterpart of ``paddle_tpu/nn/stack.py:71-176``: each parameter of the
 block is ONE ``[num_layers, *block_shape]`` parameter, named
 ``stacked_{j}`` in the template's ``parameters()`` order, the layout the
-reference's pipeline parallelism shards (ROADMAP A8(c)) and its stacked
-checkpoints use (``llama.layer_stack.stacked_{j}``). Where the reference
-runs the block under ``lax.scan``, the port runs it once per layer with
-``torch.func.functional_call`` over per-layer views.
+reference's pipeline parallelism shards and its stacked checkpoints use
+(``llama.layer_stack.stacked_{j}``); under the port's pipeline a stage
+holds its rows and runs each chunk's with :meth:`LayerStack.run`. Where
+the reference runs the block under ``lax.scan``, the port runs it once
+per layer with ``torch.func.functional_call`` over per-layer views.
 
 - Layer i's weights are drawn in the order the list model draws layer
   i's (``block_fn()`` is called once per layer, each block copied into
@@ -103,11 +104,16 @@ class LayerStack(Layer):
         return functional_call(self.template, params, (x,) + shared)
 
     def forward(self, x, *shared):
+        return self.run(x, 0, self.num_layers, *shared)
+
+    def run(self, x, start: int, stop: int, *shared):
+        """Blocks ``start .. stop - 1`` in turn (a pipeline stage's chunk
+        of its rows)."""
         views = [p.unbind(0) for p in self.stacked_params()]
         remat = self.remat and self.training and torch.is_grad_enabled()
         policy = dots_saveable if self.remat == "selective" else None
         gens = module_generators(self.template)
-        for i in range(self.num_layers):
+        for i in range(start, stop):
             params = {n: v[i] for n, v in zip(self._names, views)}
             if remat:
                 x = recompute(self.apply_block, params, x, *shared,

@@ -48,6 +48,11 @@ _V = _flags._VALUES
 PORT_METRIC_NAMES = frozenset({
     # distributed/collective.py: CUDA bytes a gloo call staged via the host
     "distributed.host_staged_bytes",
+    # ops/kernels/ring_attention.py: ring calls whose heads it refused
+    "ring_attention.unsupported",
+    # ops/kernels/moe.py: moe_ffn calls run expert-parallel, or locally
+    # under an expert axis
+    "moe.ep_calls", "moe.ep_fallback",
 })
 METRIC_NAMES = PORT_METRIC_NAMES | frozenset({
     # ops/dispatcher.py

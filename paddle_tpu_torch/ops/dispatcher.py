@@ -30,8 +30,7 @@ as they are: the attention, CE, GEMM and quantization ops, the Llama
 path's ``linear``, ``embedding``, ``rms_norm``, ``swiglu`` and ``rope``,
 and every op the layers of ``nn/layers_common.py`` and ``nn/loss.py``
 reach (convolutions, norms, dropout, activations, pools, resizes, the
-losses). Left out until its function takes the reference's arguments:
-``moe_ffn`` (``expert_axis``).
+losses), and the parallel ``ring_attention`` and ``moe_ffn``.
 """
 
 from __future__ import annotations
@@ -62,6 +61,14 @@ SCHEMA: Dict[str, Tuple[Tuple[str, Any], ...]] = {
         ("causal", False)),
     "flash_attention": _ATTN,
     "scaled_dot_product_attention": _ATTN,
+    "ring_attention": (("query", REQUIRED), ("key", REQUIRED),
+                       ("value", REQUIRED), ("is_causal", False),
+                       ("scale", None)),
+    "moe_ffn": (
+        ("x", REQUIRED), ("gate_weight", REQUIRED), ("gate_proj", REQUIRED),
+        ("up_proj", REQUIRED), ("down_proj", REQUIRED), ("top_k", 2),
+        ("capacity_factor", 1.25), ("expert_axis", "dp"),
+        ("use_pallas", None)),
     "fused_softmax_ce": (("logits", REQUIRED), ("labels", REQUIRED)),
     "grouped_gemm": (
         ("x", REQUIRED), ("w", REQUIRED), ("counts", None),

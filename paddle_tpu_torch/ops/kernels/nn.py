@@ -280,6 +280,36 @@ def _fused_softmax_ce(logits: torch.Tensor, labels: torch.Tensor
     return _FusedSoftmaxCE.apply(logits, labels)
 
 
+@register_kernel("ring_attention")
+def _ring_attention(query, key, value, is_causal: bool = False,
+                    scale: Optional[float] = None):
+    """Sequence-parallel attention, as the reference's ``ring_attention``
+    op (``paddle_tpu/ops/kernels/nn.py:660-675``): with fleet's sep degree
+    above 1, q/k/v are this rank's sequence shard and
+    ``ring_attention.ring_attention`` runs over the sep group; otherwise
+    the composite. Under tensor parallelism the heads are this rank's
+    (counted in ``tp_attention.sharded``); inside
+    ``tp_attention.head_replicated()`` they are every head, recorded as
+    the reference's ``ring_head_replicated`` (:203-210)."""
+    from ...distributed.topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is None or hcg.get_sep_parallel_world_size() <= 1:
+        return _sdpa(query, key, value, is_causal=is_causal, scale=scale)
+    from . import ring_attention as _ra
+    tp = hcg.get_model_parallel_world_size()
+    if tp > 1:
+        if _tpa.current_tp_context() is not None:
+            _tpa.count_sharded()
+        else:
+            _tpa.record_fallback(
+                "ring", "ring_head_replicated",
+                f"heads {query.shape[2]}/{key.shape[2]} not divisible by "
+                f"tp degree {tp} (head-replicated ring instead)")
+    return _ra.ring_attention(query, key, value,
+                              hcg.get_sep_parallel_group(),
+                              causal=is_causal, scale=scale)
+
+
 # the ops, by the reference's op names (``matmul`` and ``mean`` are the
 # registry's, of ``math.py``: the Llama path's tied logits and loss)
 swiglu = hooked("swiglu", _swiglu)
@@ -291,6 +321,7 @@ rms_norm = hooked("rms_norm", _rms_norm)
 rope = hooked("rope", _rope)
 scaled_dot_product_attention = hooked("scaled_dot_product_attention", _sdpa)
 flash_attention = hooked("flash_attention", _flash_attention)
+ring_attention = hooked("ring_attention", _ring_attention)
 flash_attn_unpadded = hooked("flash_attn_unpadded", _flash_attn_unpadded)
 fused_softmax_ce = hooked("fused_softmax_ce", _fused_softmax_ce)
 

@@ -57,7 +57,7 @@ def test_unknown_op_raises_key_error():
     with pytest.raises(KeyError, match="no_such_op"):
         tdisp.call_op("no_such_op", 1)
     with pytest.raises(KeyError):
-        tdisp.get_op("moe_ffn")         # not in the port's table yet
+        tdisp.get_op("no_such_op_either")
 
 
 def test_unknown_keyword_raises_type_error():

@@ -481,3 +481,23 @@ def test_indivisible_heads_record_the_reference_taxonomy(run, tag, key):
         assert mine["counters"]["fallback"] > 0
         assert mine["counters"]["sharded"] == 0
         assert abs(mine["loss"] - rloss) < ATOL + RTOL * abs(rloss)
+
+
+def test_hybrid_clip_counts_a_replicated_parameter_once(monkeypatch):
+    """torch's ``Parameter`` has a method ``is_distributed``, truthy on
+    every parameter: only the flag the mp layers set marks one cut over
+    mp. Over a stand-in mp group of two ranks whose all-reduce doubles
+    (the other rank's shard as large), the replicated parameter's squares
+    count once and the cut one's twice."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.mp_layers import _distributed
+    whole = torch.nn.Parameter(torch.zeros(3))
+    cut = _distributed(torch.nn.Parameter(torch.zeros(2)))
+    monkeypatch.setattr(C, "all_reduce",
+                        lambda t, op="sum", group=None: t.mul_(2))
+    clip = fleet.HybridParallelClipGrad(1.0, C.Group("model", 2, [0, 1]))
+    total = clip.sum_of_squares(
+        [torch.tensor([1.0, 2.0, 2.0]), torch.tensor([3.0, 4.0])],
+        [whole, cut])
+    assert float(total) == 9.0 + 2 * 25.0

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module under ``paddle_tpu_torch/``,
-not ``chip_smoke.py``, no script under ``tools/`` and not the card-only
-kernel tests (which run where there is no JAX) imports ``jax`` or
+not ``chip_smoke.py``, no script under ``tools/``, not the card-only
+kernel tests (which run where there is no JAX) and not the ranks of the
+parallelism tests' launches (``tests/_torch_*_worker.py``) imports ``jax`` or
 ``paddle_tpu`` (an AST scan of every import statement, top level or
 inside a function), and importing the port loads neither."""
 
@@ -14,7 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py")),
-    ROOT / "tests" / "test_torch_cuda_kernels.py"]
+    ROOT / "tests" / "test_torch_cuda_kernels.py",
+    *sorted((ROOT / "tests").glob("_torch_*_worker.py"))]
 BANNED = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -58,7 +60,12 @@ def test_scan_sees_the_whole_port():
             "fft.py", "signal.py", "features.py", "backends.py",
             "durability.py", "debug.py", "incident.py", "elastic.py",
             "journal.py", "warm_cache.py", "engine.py", "health.py",
-            "replica.py", "router.py", "worker.py"} <= names
+            "replica.py", "router.py", "worker.py", "ring_attention.py",
+            "sequence_parallel_utils.py", "pp_layers.py",
+            "meta_parallel.py", "pipeline.py", "pp_schedules.py",
+            "_torch_sequence_parallel_worker.py",
+            "_torch_expert_parallel_worker.py",
+            "_torch_pipeline_worker.py"} <= names
     for pkg in ("sparse", "io", "hapi", "distributed", "nn", "metric",
                 "vision", "vision/models", "vision/transforms",
                 "observability", "audio", "text", "geometric", "utils",

@@ -25,16 +25,15 @@ from paddle_tpu_torch.vision import models as tmodels
 
 FLOPS_BAND = (0.55, 1.05)      # reference / port, measured 0.588 and 1.010
 
-# the names the port still lacks: A8's expert-parallel and ring entries and
-# the reference's TPU, JAX and static-graph plumbing (``utils`` came with
-# the commit protocol of serving resilience; the collectives,
-# ``DataParallel``, ``sync_batch_norm`` and ``native`` with the first part
-# of distributed)
+# the names the port still lacks: the reference's TPU, JAX and
+# static-graph plumbing (``utils`` came with the commit protocol of serving
+# resilience; the collectives, ``DataParallel``, ``sync_batch_norm`` and
+# ``native`` with the first part of distributed; ``ring_attention`` and
+# ``moe_ffn`` with sequence and expert parallelism)
 STILL_MISSING = {
     "TPUPlace", "create_parameter", "dataset", "disable_static",
     "distribution", "enable_static", "hub", "incubate", "inference",
-    "is_compiled_with_tpu", "jax_compat", "moe_ffn", "onnx", "profiler",
-    "ring_attention", "static"}
+    "is_compiled_with_tpu", "jax_compat", "onnx", "profiler", "static"}
 
 
 @pytest.fixture(autouse=True)
